@@ -1,0 +1,468 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch + CUDA port (``distkeras_tpu_torch``).
+
+Run on a machine with one NVIDIA H100 (Hopper, sm_90a), the CUDA toolkit and
+PyTorch built for CUDA:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result:
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build both kernels from ``distkeras_tpu_torch/csrc`` (one ``nvcc`` per
+   source, started together);
+3. K1 ``q_matmul`` against its plain version at every Dense shape of the
+   served 400M config, decode (M=8) and prefill (M=1024) rows, with kernel,
+   plain and library (``torch.matmul`` over a pre-dequantized bf16 weight)
+   times and the card's bound;
+4. K2 flash-attention forward against its plain version at prefill shapes
+   (B=4 and the served B=1 lengths; H=16, Hkv=1, D=128, bf16, causal) and
+   at small window / key-mask / f32 cases, with kernel, plain and library
+   (``scaled_dot_product_attention``) times and the bound;
+5. serve the 400M MQA decoder (vocab 16384, dim 2048, 16 heads, 1 KV head,
+   depth 8, RoPE, flash prefill, bf16; random weights from seed 0) through
+   ``GenerationServer`` to 4 concurrent ``GenerationClient``s (prompts of
+   128/77/208/333 tokens, 32 greedy new tokens each);
+6. quantize it (``quantize_lm``) and serve again;
+7. read the kernels' launch counters, reset just before phase 5: both must
+   have launched on the served path; then hold every served stream to a
+   full forward, tie-aware (each emitted token the argmax of its context up
+   to one ulp of the unrounded bf16 logits: see ``tie_aware_check``);
+8. print the ``kernels`` JSON line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
+
+The library calls are yardsticks only; the port never calls them.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+PEAK_BYTES = 3.35e12        # H100 SXM HBM3, bytes/s
+PEAK_BF16 = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_F32 = 67e12            # H100 SXM f32 FLOP/s outside the tensor cores
+
+DEVICE = "cuda"
+VOCAB, MAXLEN, DIM, HEADS, KV_HEADS, DEPTH = 16384, 1024, 2048, 16, 1, 8
+PROMPTS = (128, 77, 208, 333)
+NEW_TOKENS = 32
+BLOCK = 16
+# Dense shapes (K, N) of the config: qkv, attn_out, mlp_up, mlp_down, head
+DENSE = ((2048, 2304), (2048, 2048), (2048, 8192), (8192, 2048),
+         (2048, 16384))
+PER_STEP = {(2048, 2304): DEPTH, (2048, 2048): DEPTH, (2048, 8192): DEPTH,
+            (8192, 2048): DEPTH, (2048, 16384): 1}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak rate for their type."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes_ms=t_bytes, ops_ms=t_ops)
+
+
+def _events(torch, run, n: int) -> float:
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        run()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def eager_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    """Time per call issued from Python one after another (CUDA events):
+    the device time, or the host's time per call where the host is the
+    slower of the two."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    return _events(torch, fn, iters) / iters
+
+
+def cuda_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time per call: ``iters`` calls captured in one CUDA graph and
+    replayed ``replays`` times (CUDA events), so the Python wrappers' host
+    time between launches is not in the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _events(torch, graph.replay, replays) / (iters * replays)
+    del graph
+    return ms
+
+
+def rotating(items):
+    """A callable stepping through ``items`` — weights rotated so each
+    timed launch reads them cold from HBM, as a decode step does."""
+    state = {"i": 0}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % len(items)
+        return items[state["i"]]
+
+    return nxt
+
+
+def check_q_matmul(torch, quant):
+    """Phase 3: K1 against its plain version, with times and bounds."""
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    rows, max_err = [], 0.0
+    for (k, n) in DENSE:
+        w = torch.randn((n, k), generator=gen, device=DEVICE) * 0.02
+        qt = quant.quantize(w, axis=1)
+        nrot = max(1, min(48, math.ceil(200e6 / qt.q.numel())))
+        qs = [quant.QTensor(qt.q.clone(), qt.scale.clone())
+              for _ in range(nrot)]
+        deq = [quant.dequantize(q_, axis=1, dtype=torch.bfloat16)
+               for q_ in qs]
+        cases = [(m, torch.bfloat16) for m in (8, 1024)]
+        if (k, n) == DENSE[0]:   # ragged decode rows, and the f32 kernel
+            cases += [(13, torch.bfloat16), (8, torch.float32),
+                      (1024, torch.float32)]
+        for m, dt in cases:
+            x = torch.randn((m, k), generator=gen, device=DEVICE).to(dt)
+            got = quant.q_matmul(x, qt).float()
+            ref = quant._q_matmul_plain(x, qt.q, qt.scale, dt).float()
+            torch.cuda.synchronize()
+            rtol = 1e-2 if dt == torch.bfloat16 else 1e-5
+            atol = 1e-3 * ref.abs().max().item() if dt == torch.bfloat16 \
+                else 1e-5 * ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            ok = torch.allclose(got, ref, rtol=rtol, atol=atol)
+            if not (ok and torch.isfinite(got).all()):
+                raise AssertionError(
+                    f"q_matmul M={m} K={k} N={n} {dt}: max |kernel - plain| "
+                    f"= {err} beyond rtol={rtol}, atol={atol}")
+            max_err = max(max_err, err)
+            nq, nd = rotating(qs), rotating(deq)
+            kernel_ms = cuda_ms(torch, lambda: quant.q_matmul(x, nq()))
+            call_ms = eager_ms(torch, lambda: quant.q_matmul(x, nq()))
+            plain_ms = cuda_ms(torch, lambda: quant._q_matmul_plain(
+                x, *nq(), dt), iters=10)
+            library_ms = (cuda_ms(torch, lambda: torch.matmul(x, nd().t()))
+                          if dt == torch.bfloat16 else None)
+            esz = 2 if dt == torch.bfloat16 else 4
+            nbytes = m * k * esz + k * n + n * 4 + m * n * esz
+            row = dict(M=m, K=k, N=n, dtype=str(dt).split(".")[-1],
+                       max_abs_err=err, kernel_ms=kernel_ms,
+                       eager_ms=call_ms, plain_ms=plain_ms,
+                       library_ms=library_ms,
+                       **bound(nbytes, 2.0 * m * n * k,
+                               PEAK_BF16 if esz == 2 else PEAK_F32))
+            rows.append(row)
+            log("q_matmul " + json.dumps(row))
+        del qs, deq
+    # ragged edges: M, K, N that no tile divides, K that rules out 16-byte
+    # copies; each kernel (f32 tile, bf16 decode, bf16 prefill) masks them
+    for m, k, n in ((40, 200, 300), (50, 77, 130), (3, 77, 130),
+                    (12, 200, 300)):
+        qt = quant.quantize(torch.randn((n, k), generator=gen,
+                                        device=DEVICE), axis=1)
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device=DEVICE).to(dt)
+            got = quant.q_matmul(x, qt).float()
+            ref = quant._q_matmul_plain(x, qt.q, qt.scale, dt).float()
+            rtol = 1e-2 if dt == torch.bfloat16 else 1e-5
+            atol = (1e-3 if dt == torch.bfloat16 else 1e-5) \
+                * ref.abs().max().item()
+            if not torch.allclose(got, ref, rtol=rtol, atol=atol):
+                raise AssertionError(
+                    f"q_matmul edge M={m} K={k} N={n} {dt}: max |kernel - "
+                    f"plain| = {(got - ref).abs().max().item()}")
+        log(f"q_matmul edge M={m} K={k} N={n}: ok")
+    return rows, max_err
+
+
+def check_flash(torch, fa):
+    """Phase 4: K2 against its plain version, with times and bounds."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows, max_err = [], 0.0
+    cases = [
+        # (B, L, H, Hkv, D, dtype, causal, window, masked)
+        (4, 128, 16, 1, 128, torch.bfloat16, True, None, False),
+        (4, 208, 16, 1, 128, torch.bfloat16, True, None, False),
+        (1, 80, 16, 1, 128, torch.bfloat16, True, None, False),
+        (1, 128, 16, 1, 128, torch.bfloat16, True, None, False),
+        (1, 208, 16, 1, 128, torch.bfloat16, True, None, False),
+        (1, 336, 16, 1, 128, torch.bfloat16, True, None, False),
+        (2, 100, 4, 2, 64, torch.bfloat16, False, 24, True),
+        (2, 150, 4, 1, 128, torch.bfloat16, True, 40, True),
+        (2, 100, 4, 2, 64, torch.float32, True, 24, True),
+    ]
+    for B, L, H, Hkv, D, dt, causal, window, masked in cases:
+        q = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
+        k = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
+        v = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
+        km = None
+        if masked:
+            km = torch.zeros((B, L), device=DEVICE)
+            km[0, : L - L // 3] = 1.0      # row 1 fully masked → output 0
+        kw = dict(scale=D ** -0.5, causal=causal, window=window)
+        o, lse = fa._fa_forward(q, k, v, km, **kw)
+        ro, rlse = fa._fa_forward_plain(q, k, v, km, **kw)
+        torch.cuda.synchronize()
+        o_atol = 2e-2 if dt == torch.bfloat16 else 1e-4
+        err = (o.float() - ro.float()).abs().max().item()
+        lse_err = (lse - rlse).abs().max().item()
+        if not (err <= o_atol and lse_err <= 1e-3
+                and torch.isfinite(o.float()).all()):
+            raise AssertionError(
+                f"flash B={B} L={L} H={H}/{Hkv} D={D} {dt} causal={causal} "
+                f"window={window} mask={masked}: |O - plain| = {err} "
+                f"(atol {o_atol}), |lse - plain| = {lse_err} (atol 1e-3)")
+        if masked and o[1].abs().max().item() != 0.0:
+            raise AssertionError("flash: fully masked rows must give 0")
+        max_err = max(max_err, err)
+        kernel_ms = cuda_ms(torch, lambda: fa._fa_forward(q, k, v, km, **kw))
+        call_ms = eager_ms(torch, lambda: fa._fa_forward(q, k, v, km, **kw))
+        plain_ms = cuda_ms(torch, lambda: fa._fa_forward_plain(
+            q, k, v, km, **kw), iters=10)
+        library_ms = None
+        if window is None and not masked:
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) \
+                .contiguous()
+            vt = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2) \
+                .contiguous()
+            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal))
+        # (query, key) pairs this run's band and key mask leave to compute
+        qp = torch.arange(L, device=DEVICE)[:, None]
+        kp = torch.arange(L, device=DEVICE)[None, :]
+        band = fa.band_predicate(qp, kp, causal, fa._canonical_window(
+            window, L))
+        valid = torch.ones((B, L, L), dtype=torch.bool, device=DEVICE)
+        if band is not None:
+            valid &= band[None]
+        if km is not None:
+            valid &= km.bool()[:, None, :]
+        pairs = int(valid.sum().item())
+        esz = 2 if dt == torch.bfloat16 else 4
+        nbytes = (2 * B * L * H * D + 2 * B * L * Hkv * D) * esz \
+            + B * H * L * 4
+        row = dict(B=B, L=L, H=H, Hkv=Hkv, D=D, dtype=str(dt).split(".")[-1],
+                   causal=causal, window=window, key_mask=masked,
+                   max_abs_err=err, lse_err=lse_err, kernel_ms=kernel_ms,
+                   eager_ms=call_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   **bound(nbytes, 4.0 * pairs * H * D,
+                           PEAK_BF16 if esz == 2 else PEAK_F32))
+        rows.append(row)
+        log("flash_attention " + json.dumps(row))
+    return rows, max_err
+
+
+def serve(torch, model, label):
+    """Phases 5/6: the served path — server, 4 concurrent clients."""
+    from distkeras_tpu_torch.serving import (
+        GenerationClient,
+        GenerationEngine,
+        GenerationServer,
+    )
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, VOCAB, (lp,)).astype(np.int32)
+               for lp in PROMPTS]
+    engine = GenerationEngine(model, max_batch=8, block_size=BLOCK,
+                              device=DEVICE)
+    server = GenerationServer(engine, poll_interval=0.01)
+    server.start()
+    results, errors = {}, []
+
+    def client(i):
+        try:
+            c = GenerationClient("127.0.0.1", server.port)
+            try:
+                results[i] = c.generate(prompts[i],
+                                        max_new_tokens=NEW_TOKENS)
+            finally:
+                c.close()
+        except Exception as e:  # re-raised below, after the server stops
+            errors.append((i, repr(e)))
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        stats = server.stats()
+    finally:
+        server.stop()
+    if errors or len(results) != len(prompts):
+        raise AssertionError(f"{label}: clients failed: {errors}")
+    for i, toks in results.items():
+        if toks.shape != (NEW_TOKENS,) or toks.min() < 0 \
+                or toks.max() >= VOCAB:
+            raise AssertionError(f"{label}: bad stream {i}: {toks}")
+    if stats["completed"] != len(prompts) or stats["blocks_in_use"] != 0:
+        raise AssertionError(f"{label}: engine stats {stats}")
+    n_tok = NEW_TOKENS * len(prompts)
+    log(f"serve {label}: " + json.dumps(dict(
+        wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+        steps=stats["steps"], prefills=stats["prefills"],
+        mean_batch_occupancy=stats["mean_batch_occupancy"],
+        latency=stats["latency"])))
+    return prompts, results, wall
+
+
+def tie_aware_check(torch, model, prompts, results, label):
+    """Every emitted token is the argmax of its context up to one bf16 ulp,
+    judged by one full forward over prompt + generated tokens.
+
+    A random-init bf16 model ties logits, and the served path (paged decode:
+    bf16 attention scores, the decode matmul kernel) and the full forward
+    (flash attention in f32, the prefill matmul kernel) round differently,
+    so the streams are legitimate greedy decodes that need not match
+    bitwise. The logits both paths compare are themselves bf16 (the head's
+    output), each rounded by up to half an ulp: a gap of one ulp between the
+    unrounded logits reads as up to two ulps between the rounded ones, so
+    that is the bound. An emission bug gaps by whole units."""
+    worst, off_argmax = 0.0, 0
+    for i, p in enumerate(prompts):
+        toks = results[i]
+        seq = torch.from_numpy(np.concatenate([p, toks[:-1]]).astype(
+            np.int64)).to(DEVICE)[None]
+        lg = model(seq)[0, len(p) - 1:].float()
+        emitted = torch.from_numpy(toks.astype(np.int64)).to(DEVICE)
+        mx = lg.max(dim=-1).values
+        got = lg.gather(1, emitted[:, None])[:, 0]
+        # bf16 ulp at the row max: 2^(exponent - 7)
+        ulp = torch.exp2(torch.floor(torch.log2(
+            mx.abs().clamp(min=2.0 ** -120))) - 7)
+        gap = (mx - got) / ulp
+        if not torch.isfinite(lg).all() or bool((gap > 2.0).any()):
+            raise AssertionError(
+                f"{label}: stream {i} emits a token beyond one bf16 ulp of "
+                f"the full-forward argmax: max gap {gap.max().item()} ulp")
+        worst = max(worst, gap.max().item())
+        off_argmax += int((gap > 0).sum().item())
+    log(f"tie-aware check {label}: ok (worst gap {worst:.3f} ulp of the "
+        f"rounded logits, {off_argmax} of {NEW_TOKENS * len(prompts)} "
+        f"tokens not the exact argmax)")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    from distkeras_tpu_torch.models import quantize_lm, transformer_lm
+    from distkeras_tpu_torch.ops import _build
+    from distkeras_tpu_torch.ops import flash_attention as fa
+    from distkeras_tpu_torch.ops import quant
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is f32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    log(f"build: {json.dumps(secs)} total {time.perf_counter() - t0:.2f}s")
+
+    with torch.inference_mode():
+        qrows, q_err = check_q_matmul(torch, quant)
+        frows, f_err = check_flash(torch, fa)
+
+    model = transformer_lm(
+        vocab=VOCAB, maxlen=MAXLEN, dim=DIM, heads=HEADS, depth=DEPTH,
+        kv_heads=KV_HEADS, pos_embedding="rope", attn_impl="flash",
+        dtype=torch.bfloat16, device=DEVICE, seed=0)
+    qmodel = quantize_lm(model)
+    torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        quant.q_matmul.launches = 0
+        fa._fa_forward.launches = 0
+        prompts, res16, _ = serve(torch, model, "bf16")
+        _, res8, _ = serve(torch, qmodel, "int8")
+        launches = {"q_matmul": quant.q_matmul.launches,
+                    "flash_attention": fa._fa_forward.launches}
+        log(f"launches on the served path: {json.dumps(launches)}")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel never launched on the served "
+                                 f"path: {launches}")
+
+        tie_aware_check(torch, model, prompts, res16, "bf16")
+        tie_aware_check(torch, qmodel, prompts, res8, "int8")
+
+    def total(rows, pick, key):
+        vals = [r[key] * w for r, w in pick(rows)]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    def decode_step(rows):    # one decode step's q_matmul calls at M=8
+        return [(r, PER_STEP[(r["K"], r["N"])]) for r in rows
+                if r["M"] == 8 and r["dtype"] == "bfloat16"]
+
+    def served_prefill(rows):  # one layer's prefill attention, 4 prompts
+        return [(r, 1) for r in rows if r["B"] == 1]
+
+    kernels = []
+    for name, src, replaces, rows, pick, err in (
+            ("q_matmul", "distkeras_tpu_torch/csrc/quant.cu",
+             "distkeras_tpu/ops/quant.py:93", qrows, decode_step, q_err),
+            ("flash_attention", "distkeras_tpu_torch/csrc/flash_attention.cu",
+             "distkeras_tpu/ops/flash_attention.py:146", frows,
+             served_prefill, f_err)):
+        by_bytes = sum(r["bound_ms"] * w for r, w in pick(rows)
+                       if r["bound_by"] == "bytes")
+        bound_ms = total(rows, pick, "bound_ms")
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=launches[name], max_abs_err=err,
+            ms=total(rows, pick, "kernel_ms"),
+            plain_ms=total(rows, pick, "plain_ms"),
+            bound_ms=bound_ms,
+            bound_by="bytes" if by_bytes >= 0.5 * bound_ms else "operations",
+            library_ms=total(rows, pick, "library_ms"),
+            checked=True,
+            shapes=rows))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

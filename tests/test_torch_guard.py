@@ -1,0 +1,68 @@
+"""Guards of the port's boundaries: distkeras_tpu_torch imports no JAX and
+nothing of the JAX package, and its entry points run on the card unless
+the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from distkeras_tpu_torch.models import transformer_lm
+from distkeras_tpu_torch.ops.flash_attention import flash_attention
+from distkeras_tpu_torch.ops.quant import q_matmul, quantize
+from distkeras_tpu_torch.serving import GenerationEngine
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import distkeras_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "distkeras_tpu", "distkeras"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 12, out.stdout          # every module was imported
+    assert bad == "[]", f"forbidden modules imported: {bad}"
+
+
+def test_entry_points_default_to_cuda():
+    """Without device= the port asks for the card; on a machine without
+    one it raises instead of quietly running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer_lm(vocab=32, maxlen=32, dim=16, heads=2, depth=1)
+    model = transformer_lm(vocab=32, maxlen=32, dim=16, heads=2, depth=1,
+                           device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GenerationEngine(model)
+    eng = GenerationEngine(model, device="cpu")
+    assert eng.cache.k_pools[0].device.type == "cpu"
+
+
+def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
+    qt = quantize(torch.ones(4, 8), axis=1)
+    x = torch.ones(2, 8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        q_matmul(x, qt)
+    q = torch.ones(1, 4, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        flash_attention(q, q, q)
+    np.testing.assert_array_equal(q_matmul(torch.ones(2, 8), qt).numpy(),
+                                  np.full((2, 4), 8.0, np.float32))
