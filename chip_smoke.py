@@ -9,8 +9,8 @@ PyTorch built for CUDA:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both kernels from ``distkeras_tpu_torch/csrc`` (one ``nvcc`` per
-   source, started together);
+2. build all four kernel sources from ``distkeras_tpu_torch/csrc`` (one
+   ``nvcc`` per source, started together);
 3. K1 ``q_matmul`` against its plain version at every Dense shape of the
    served 400M config, decode (M=8) and prefill (M=1024) rows, with kernel,
    plain and library (``torch.matmul`` over a pre-dequantized bf16 weight)
@@ -19,17 +19,38 @@ Phases, in order; any failure exits non-zero and prints no result:
    (B=4 and the served B=1 lengths; H=16, Hkv=1, D=128, bf16, causal) and
    at small window / key-mask / f32 cases, with kernel, plain and library
    (``scaled_dot_product_attention``) times and the bound;
-5. serve the 400M MQA decoder (vocab 16384, dim 2048, 16 heads, 1 KV head,
+5. K5 fused Adam against its plain version over the 8-worker stack of the
+   IMDB LSTM's leaves (21.5 M f32 elements), bf16 gradients and misaligned
+   leaves, with kernel, plain and library (``torch.optim.Adam(fused=True)``
+   over the same tensors) times and the bound;
+6. K6 and K7, the LSTM scan forward and backward, against their plain
+   versions at the training shapes (G=8 workers, B=64, T=200, H=128, bf16)
+   and small ragged f32 / bf16 cases, with kernel, plain and library
+   (cuDNN's ``nn.LSTM`` at the same T, G·B and H, forward and backward;
+   its forget-bias convention differs, so it is timed, not compared)
+   times and the bounds;
+7. one DynSGD window at full width through the kernels and the same window
+   through their plain versions on the card: the centers must agree within
+   the stated bf16 tolerance (see ``compare_window``);
+8. serve the 400M MQA decoder (vocab 16384, dim 2048, 16 heads, 1 KV head,
    depth 8, RoPE, flash prefill, bf16; random weights from seed 0) through
    ``GenerationServer`` to 4 concurrent ``GenerationClient``s (prompts of
-   128/77/208/333 tokens, 32 greedy new tokens each);
-6. quantize it (``quantize_lm``) and serve again;
-7. read the kernels' launch counters, reset just before phase 5: both must
-   have launched on the served path; then hold every served stream to a
-   full forward, tie-aware (each emitted token the argmax of its context up
-   to one ulp of the unrounded bf16 logits: see ``tie_aware_check``);
-8. print the ``kernels`` JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+   128/77/208/333 tokens, 32 greedy new tokens each), then quantize it
+   (``quantize_lm``) and serve again; K1 and K2's launch counters, reset
+   just before, must show both launched; every served stream is held to a
+   full forward, tie-aware (see ``tie_aware_check``);
+9. train: ``DynSGD(lstm_classifier(), worker_optimizer="fused_adam",
+   features_col=["features", "mask"], num_workers=8, batch_size=64,
+   communication_window=4)`` — BASELINE config 5 at its published width
+   (vocab 20000, maxlen 200, embed 128, hidden 128, bf16 compute, f32
+   params, lr 1e-3), random init from seed 0 — for two epochs of 6 windows
+   on the synthetic IMDB stand-in; K5, K6 and K7's launch counters, reset
+   just before, must show all three launched; the loss must fall, and the
+   trained center's eval logits must match the plain-torch reference scan;
+   then LeNet under ADAG (BASELINE config 2) on synthetic MNIST, 8
+   workers, to test accuracy > 0.95;
+10. print the ``kernels`` JSON line, then the result line
+    ``{"ok": true, "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
 """
@@ -59,6 +80,10 @@ DENSE = ((2048, 2304), (2048, 2048), (2048, 8192), (8192, 2048),
          (2048, 16384))
 PER_STEP = {(2048, 2304): DEPTH, (2048, 2048): DEPTH, (2048, 8192): DEPTH,
             (8192, 2048): DEPTH, (2048, 16384): 1}
+# BASELINE config 5 at its published width: IMDB LSTM under DynSGD
+IMDB_VOCAB, IMDB_T, IMDB_E, IMDB_H = 20000, 200, 128, 128
+IMDB_W, IMDB_BATCH, IMDB_WINDOW, IMDB_LR = 8, 64, 4, 1e-3
+IMDB_WINDOWS = 6          # windows per epoch of the training phase
 
 
 def log(msg: str) -> None:
@@ -372,6 +397,299 @@ def tie_aware_check(torch, model, prompts, results, label):
         f"tokens not the exact argmax)")
 
 
+def _err(got, ref):
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def imdb_leaf_shapes():
+    """The stacked [W, …] leaves of the IMDB LSTM at its published width:
+    the tree fused Adam sees once per optimizer step."""
+    return [(IMDB_W,) + s for s in (
+        (IMDB_VOCAB, IMDB_E), (4 * IMDB_H, IMDB_E), (4 * IMDB_H,),
+        (IMDB_H, 4 * IMDB_H), (2, IMDB_H), (2,))]
+
+
+def check_adam(torch, pk):
+    """K5 against its plain version at the slice's shapes (f32, one step
+    of the 8-worker stack), plus bf16 gradients and misaligned leaves.
+    Kernel and plain do the same f32 operations in the same order with
+    IEEE sqrt and division: they must agree exactly (tolerance 0)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+
+    def tree(shapes, scale, dtype=torch.float32):
+        return [(torch.randn(s, generator=gen, device=DEVICE) * scale)
+                .to(dtype) for s in shapes]
+
+    shapes = imdb_leaf_shapes()
+    gs, ms = tree(shapes, 1e-2), tree(shapes, 1e-3)
+    vs = [v.abs() for v in tree(shapes, 1e-4)]
+    cases = [("imdb f32", gs, ms, vs)]
+    small = [(3, 1001), (7,), (2, 513)]
+    cases.append(("bf16 grads", tree(small, 1e-2, torch.bfloat16),
+                  tree(small, 1e-3), [v.abs() for v in tree(small, 1e-4)]))
+    odd = [g.reshape(-1)[1:] for g in tree(small, 1e-2)]   # 4-byte aligned
+    cases.append(("misaligned", odd, [torch.zeros_like(g) for g in odd],
+                  [torch.zeros_like(g) for g in odd]))
+    max_err = 0.0
+    for label, g_, m_, v_ in cases:
+        got = pk.fused_adam_step(g_, m_, v_, 3, IMDB_LR)
+        ref = pk.fused_adam_step(g_, m_, v_, 3, IMDB_LR, impl="plain")
+        torch.cuda.synchronize()
+        err = max(_err(a, b) for outs in zip(got, ref) for a, b in zip(*outs))
+        if err != 0.0 or not all(torch.isfinite(u).all() for u in got[2]):
+            raise AssertionError(f"fused_adam {label}: max |kernel - plain| "
+                                 f"= {err}, expected 0")
+        max_err = max(max_err, err)
+        log(f"fused_adam {label}: ok")
+    k = pk._coefficients(3, IMDB_LR, 0.9, 0.999, 1e-8)
+    outs = ([torch.empty_like(m) for m in ms], [torch.empty_like(v)
+                                               for v in vs],
+            [torch.empty_like(g) for g in gs])
+    table = pk._adam_table(gs, ms, vs, *outs)
+    kernel_ms = cuda_ms(torch, lambda: pk._adam_launch(table, k))
+    call_ms = eager_ms(torch, lambda: pk.fused_adam_step(gs, ms, vs, 3,
+                                                         IMDB_LR))
+    plain_ms = cuda_ms(torch, lambda: pk.fused_adam_step(
+        gs, ms, vs, 3, IMDB_LR, impl="plain"), iters=5)
+    params = [torch.zeros_like(g, requires_grad=True) for g in gs]
+    for p, g in zip(params, gs):
+        p.grad = g.clone()
+    lib_opt = torch.optim.Adam(params, lr=IMDB_LR, fused=True)
+    library_ms = eager_ms(torch, lib_opt.step)
+    n = sum(g.numel() for g in gs)
+    row = dict(elements=n, leaves=len(gs), max_abs_err=max_err,
+               kernel_ms=kernel_ms, eager_ms=call_ms, plain_ms=plain_ms,
+               library_ms=library_ms,
+               **bound(24.0 * n, 12.0 * n, PEAK_F32))
+    log("fused_adam " + json.dumps(row))
+    del lib_opt, params
+    return [row], max_err
+
+
+def check_lstm(torch, rec):
+    """K6 and K7 against their plain versions at the slice's shape (bf16,
+    G=8 workers, B=64, T=200, H=128) and at small ragged cases (B=20 is
+    not a multiple of the 16-row tile). Tolerance: bf16 kernel and plain
+    round the same f32 values to bf16 each step, and a one-ulp flip of h
+    feeds the next steps, so outputs agree to 2^-6 of the plain output's
+    largest magnitude (two bf16 ulps); f32 to 1e-5 of it (summation
+    order only)."""
+    import torch.nn as nn
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    cases = [(IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H, torch.bfloat16),
+             (2, 20, 7, 32, torch.float32), (2, 20, 7, 32, torch.bfloat16)]
+    fwd_rows, bwd_rows, max_err = [], [], 0.0
+    for G, B, T, H, dt in cases:
+        gx = (torch.randn((G, B, T, 4 * H), generator=gen, device=DEVICE)
+              * 0.5).to(dt)
+        wh = torch.randn((G, H, 4 * H), generator=gen, device=DEVICE) \
+            / H ** 0.5
+        dhs = torch.randn((G, B, T, H), generator=gen, device=DEVICE).to(dt)
+        hs, cs = rec.lstm_forward(gx, wh, True)
+        hp, cp = rec.lstm_forward(gx, wh, True, impl="plain")
+        dgx, dwh = rec.lstm_backward(gx, wh, hs, cs, dhs)
+        dgp, dwp = rec.lstm_backward(gx, wh, hp, cp, dhs, impl="plain")
+        torch.cuda.synchronize()
+        rel = 2.0 ** -6 if dt == torch.bfloat16 else 1e-5
+        errs = {}
+        for name, got, ref in (("hs", hs, hp), ("cs", cs, cp),
+                               ("dgx", dgx, dgp), ("dwh", dwh, dwp)):
+            errs[name] = _err(got, ref)
+            scale = ref.float().abs().max().item()
+            if not (errs[name] <= rel * scale
+                    and torch.isfinite(got.float()).all()):
+                raise AssertionError(
+                    f"lstm G={G} B={B} T={T} H={H} {dt} {name}: max |kernel"
+                    f" - plain| = {errs[name]} beyond {rel} x {scale}")
+        max_err = max(max_err, errs["hs"], errs["dgx"])
+        label = f"G={G} B={B} T={T} H={H} {str(dt).split('.')[-1]}"
+        log(f"lstm {label}: ok " + json.dumps(errs))
+        if (G, B, T, H) != (IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H):
+            continue
+        esz = 2 if dt == torch.bfloat16 else 4
+        seq, gates, wbytes = G * B * T * H, G * B * T * 4 * H, G * H * 4 * H
+        mac = 2.0 * G * B * T * H * 4 * H
+        lstm_lib = nn.LSTM(H, H, batch_first=True, device=DEVICE, dtype=dt)
+        lstm_lib.flatten_parameters()
+        x = torch.randn((G * B, T, H), generator=gen, device=DEVICE).to(dt)
+        with torch.no_grad():
+            lib_fwd = eager_ms(torch, lambda: lstm_lib(x), iters=10)
+        xr = x.clone().requires_grad_()
+        out = lstm_lib(xr)[0]
+        dout = torch.randn_like(out)
+        lib_bwd = eager_ms(torch, lambda: torch.autograd.grad(
+            out, [xr, *lstm_lib.parameters()], dout, retain_graph=True),
+            iters=10)
+        fwd_rows.append(dict(
+            G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1],
+            max_abs_err=max(errs["hs"], errs["cs"]),
+            kernel_ms=cuda_ms(torch, lambda: rec.lstm_forward(gx, wh, True),
+                              iters=5),
+            eager_ms=eager_ms(torch, lambda: rec.lstm_forward(gx, wh, True),
+                              iters=5),
+            plain_ms=cuda_ms(torch, lambda: rec.lstm_forward(
+                gx, wh, True, impl="plain"), iters=1, replays=2),
+            library_ms=lib_fwd,
+            **bound(gates * esz + wbytes * 4 + 2 * seq * esz, mac,
+                    PEAK_BF16)))
+        log("lstm_forward " + json.dumps(fwd_rows[-1]))
+        bwd_rows.append(dict(
+            G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1],
+            max_abs_err=max(errs["dgx"], errs["dwh"]),
+            kernel_ms=cuda_ms(torch, lambda: rec.lstm_backward(
+                gx, wh, hs, cs, dhs), iters=5),
+            eager_ms=eager_ms(torch, lambda: rec.lstm_backward(
+                gx, wh, hs, cs, dhs), iters=5),
+            plain_ms=cuda_ms(torch, lambda: rec.lstm_backward(
+                gx, wh, hs, cs, dhs, impl="plain"), iters=1, replays=2),
+            library_ms=lib_bwd,
+            **bound(2 * gates * esz + 3 * seq * esz + wbytes * 4
+                    + wbytes * 4, 3.0 * mac, PEAK_BF16)))
+        log("lstm_backward " + json.dumps(bwd_rows[-1]))
+        del lstm_lib, x, xr, out, dout
+    return fwd_rows, bwd_rows, max_err
+
+
+def imdb_data():
+    from distkeras_tpu_torch.datasets import imdb
+
+    n = IMDB_W * IMDB_WINDOW * IMDB_BATCH * IMDB_WINDOWS
+    return imdb(n_train=n, n_test=64, vocab=IMDB_VOCAB, maxlen=IMDB_T)
+
+
+def compare_window(torch, train):
+    """One DynSGD window at full width through the kernels and, from the
+    same init on the same superbatch, through their plain versions on the
+    card. bf16 forward and backward round at different places in the two,
+    so gradients differ by bf16 noise. Adam's first steps move an element
+    by at most ~lr (1.01 lr over four steps at b1=0.9, b2=0.999) whatever
+    its gradient's size, and a noise-level gradient may take either sign:
+    a worker's element can part by 2 lr per step, and the DynSGD fold sums
+    the W workers' displacements with weights 1/(i+1). So centers agree
+    to 2.02 lr · window · sum 1/(i+1); the mean loss to 1e-2."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.ops.pallas_kernels import fused_adam
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.parallel import DynSGDMerge, LocalSGDEngine
+    from distkeras_tpu_torch.trainers import _make_loss_step
+
+    batch = next(train.superbatches(IMDB_W, IMDB_BATCH, IMDB_WINDOW,
+                                    ["features", "mask", "label"]))
+    loss_fn = get_loss("sparse_softmax_cross_entropy")
+    out = {}
+    for impl in ("kernel", "plain"):
+        spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                               embed_dim=IMDB_E, hidden_dim=IMDB_H,
+                               scan_impl=impl)
+        engine = LocalSGDEngine(
+            spec, _make_loss_step(spec, loss_fn, 2),
+            fused_adam(IMDB_LR, impl=impl), DynSGDMerge(), device=DEVICE,
+            num_workers=IMDB_W, window=IMDB_WINDOW, batch_size=IMDB_BATCH)
+        params, nt = spec.init(0)
+        state, loss = engine.run_window(engine.init_state(params, nt), batch)
+        out[impl] = (state.center, loss.item())
+    (ck, lk), (cp, lp) = out["kernel"], out["plain"]
+    diff = max(_err(ck[k], cp[k]) for k in ck)
+    mean = max((ck[k] - cp[k]).abs().mean().item() for k in ck)
+    limit = 2.02 * IMDB_LR * IMDB_WINDOW * sum(
+        1.0 / (i + 1) for i in range(IMDB_W))
+    if not (diff <= limit and abs(lk - lp) <= 1e-2
+            and all(torch.isfinite(v).all() for v in ck.values())):
+        raise AssertionError(
+            f"DynSGD window kernel vs plain: max |center diff| {diff} "
+            f"(limit {limit}), loss {lk} vs {lp}")
+    log("window kernels vs plain: " + json.dumps(dict(
+        max_center_diff=diff, max_mean_center_diff=mean, limit=limit,
+        loss_kernel=lk, loss_plain=lp)))
+    return diff
+
+
+def train_dynsgd(torch, train, test):
+    """The slice's main path: DynSGD on the full-width IMDB LSTM with
+    fused Adam (BASELINE config 5), two epochs of IMDB_WINDOWS windows on
+    the synthetic IMDB stand-in, random init from seed 0. Returns the
+    phase's record; the caller reads the launch counters around it."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T, embed_dim=IMDB_E,
+                           hidden_dim=IMDB_H)
+    t = DynSGD(spec, loss="sparse_softmax_cross_entropy",
+               worker_optimizer="fused_adam", learning_rate=IMDB_LR,
+               features_col=["features", "mask"], num_workers=IMDB_W,
+               batch_size=IMDB_BATCH, communication_window=IMDB_WINDOW,
+               num_epoch=2, log_metrics=True, device=DEVICE)
+    t0 = time.perf_counter()
+    center = t.train(train)
+    wall = time.perf_counter() - t0
+    losses = t.history.losses()
+    if len(losses) != 2 * IMDB_WINDOWS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"DynSGD: bad loss history {losses}")
+    if not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        raise AssertionError(f"DynSGD: the loss did not fall: {losses}")
+    # the trained center through the eval path (no autograd: the forward
+    # kernel without saved cell states) against the plain-torch reference
+    toks = torch.from_numpy(test["features"][:64]).to(DEVICE)
+    mask = torch.from_numpy(test["mask"][:64]).to(DEVICE)
+    params = {k: v.to(DEVICE) for k, v in center.items()}
+    ref_spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                               embed_dim=IMDB_E, hidden_dim=IMDB_H,
+                               scan_impl="reference")
+    with torch.no_grad():
+        got, _ = spec.apply(params, {}, (toks, mask), False)
+        ref, _ = ref_spec.apply(params, {}, (toks, mask), False)
+    eval_err = _err(got, ref)
+    if got.shape != (64, 2) or not torch.isfinite(got).all() \
+            or eval_err > 0.05 * max(1.0, ref.abs().max().item()):
+        raise AssertionError(f"DynSGD eval: logits off the reference by "
+                             f"{eval_err}")
+    acc = float((got.argmax(-1).cpu().numpy() == test["label"][:64]).mean())
+    epochs = [m for m in t.metrics_ if "samples_per_sec" in m]
+    rec = dict(wall_s=wall, windows=len(losses),
+               rows_per_window=IMDB_W * IMDB_WINDOW * IMDB_BATCH,
+               loss_first=losses[0], loss_last=losses[-1],
+               eval_logit_err_vs_reference=eval_err, eval_accuracy_64=acc,
+               epochs=[dict(epoch=m["epoch"],
+                            samples_per_sec=m["samples_per_sec"],
+                            window_ms=1e3 * m["wall_time"] / IMDB_WINDOWS)
+                       for m in epochs])
+    log("train DynSGD imdb_lstm: " + json.dumps(rec))
+    return rec
+
+
+def train_adag_lenet(torch):
+    """The flagship beside the main path: LeNet under ADAG (BASELINE
+    config 2) on the synthetic MNIST stand-in, 8 stacked workers, held to
+    the JAX package's own accuracy gate for it (test accuracy > 0.95, the
+    verify recipe's)."""
+    from distkeras_tpu_torch.datasets import mnist
+    from distkeras_tpu_torch.models import lenet
+    from distkeras_tpu_torch.ops.metrics import accuracy
+    from distkeras_tpu_torch.trainers import ADAG
+
+    train, test = mnist(n_train=32768, n_test=1024)
+    spec = lenet()
+    t = ADAG(spec, loss="sparse_softmax_cross_entropy",
+             worker_optimizer="adam", learning_rate=1e-3, num_workers=8,
+             batch_size=128, communication_window=4, num_epoch=2,
+             device=DEVICE)
+    t0 = time.perf_counter()
+    center = t.train(train, shuffle=True)
+    wall = time.perf_counter() - t0
+    params = {k: v.to(DEVICE) for k, v in center.items()}
+    with torch.no_grad():
+        out, _ = spec.apply(params, {}, torch.from_numpy(
+            test["features"]).to(DEVICE), False)
+    acc = accuracy(torch.from_numpy(test["label"]).to(DEVICE), out).item()
+    losses = t.history.losses()
+    log("train ADAG lenet: " + json.dumps(dict(
+        wall_s=wall, windows=len(losses), loss_first=losses[0],
+        loss_last=losses[-1], test_accuracy=acc)))
+    if not acc > 0.95:
+        raise AssertionError(f"ADAG lenet: test accuracy {acc} <= 0.95")
+
+
 def main() -> int:
     import torch
 
@@ -382,7 +700,9 @@ def main() -> int:
     from distkeras_tpu_torch.models import quantize_lm, transformer_lm
     from distkeras_tpu_torch.ops import _build
     from distkeras_tpu_torch.ops import flash_attention as fa
+    from distkeras_tpu_torch.ops import pallas_kernels as pk
     from distkeras_tpu_torch.ops import quant
+    from distkeras_tpu_torch.ops import recurrent as rec
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is f32
     torch.backends.cudnn.allow_tf32 = False
@@ -403,6 +723,10 @@ def main() -> int:
     with torch.inference_mode():
         qrows, q_err = check_q_matmul(torch, quant)
         frows, f_err = check_flash(torch, fa)
+        arows, a_err = check_adam(torch, pk)
+    fwd_rows, bwd_rows, l_err = check_lstm(torch, rec)
+    train, test = imdb_data()
+    compare_window(torch, train)
 
     model = transformer_lm(
         vocab=VOCAB, maxlen=MAXLEN, dim=DIM, heads=HEADS, depth=DEPTH,
@@ -425,6 +749,22 @@ def main() -> int:
 
         tie_aware_check(torch, model, prompts, res16, "bf16")
         tie_aware_check(torch, qmodel, prompts, res8, "int8")
+    del model, qmodel
+    torch.cuda.empty_cache()
+
+    pk.fused_adam_step.launches = 0
+    rec.lstm_forward.launches = 0
+    rec.lstm_backward.launches = 0
+    train_dynsgd(torch, train, test)
+    trained = {"fused_adam": pk.fused_adam_step.launches,
+               "lstm_forward": rec.lstm_forward.launches,
+               "lstm_backward": rec.lstm_backward.launches}
+    log(f"launches on the training path: {json.dumps(trained)}")
+    if min(trained.values()) < 1:
+        raise AssertionError(f"a kernel never launched on the training "
+                             f"path: {trained}")
+    launches.update(trained)
+    train_adag_lenet(torch)
 
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
@@ -437,13 +777,25 @@ def main() -> int:
     def served_prefill(rows):  # one layer's prefill attention, 4 prompts
         return [(r, 1) for r in rows if r["B"] == 1]
 
+    def one_launch(rows):      # one launch at the training path's shapes
+        return [(r, 1) for r in rows]
+
     kernels = []
     for name, src, replaces, rows, pick, err in (
             ("q_matmul", "distkeras_tpu_torch/csrc/quant.cu",
              "distkeras_tpu/ops/quant.py:93", qrows, decode_step, q_err),
             ("flash_attention", "distkeras_tpu_torch/csrc/flash_attention.cu",
              "distkeras_tpu/ops/flash_attention.py:146", frows,
-             served_prefill, f_err)):
+             served_prefill, f_err),
+            ("fused_adam", "distkeras_tpu_torch/csrc/adam.cu",
+             "distkeras_tpu/ops/pallas_kernels.py:36", arows, one_launch,
+             a_err),
+            ("lstm_forward", "distkeras_tpu_torch/csrc/lstm.cu",
+             "distkeras_tpu/ops/recurrent.py:75", fwd_rows, one_launch,
+             max(r["max_abs_err"] for r in fwd_rows)),
+            ("lstm_backward", "distkeras_tpu_torch/csrc/lstm.cu",
+             "distkeras_tpu/ops/recurrent.py:109", bwd_rows, one_launch,
+             max(r["max_abs_err"] for r in bwd_rows))):
         by_bytes = sum(r["bound_ms"] * w for r, w in pick(rows)
                        if r["bound_by"] == "bytes")
         bound_ms = total(rows, pick, "bound_ms")

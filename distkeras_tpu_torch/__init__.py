@@ -10,6 +10,12 @@ on the card unless the caller passes ``device="cpu"``.
 Ported so far: the serving path — :mod:`~distkeras_tpu_torch.models.lm`,
 :mod:`~distkeras_tpu_torch.serving`, the int8 ``q_matmul`` and the
 flash-attention forward kernels (``ops``), the framing
-(:mod:`~distkeras_tpu_torch.networking`) and the weight bridge
+(:mod:`~distkeras_tpu_torch.networking`) — and the training path on the
+collective backend — :mod:`~distkeras_tpu_torch.model`, the BASELINE zoo
+(``models``), losses, metrics, :mod:`~distkeras_tpu_torch.optim`, the
+merge rules and window engine (:mod:`~distkeras_tpu_torch.parallel`),
+:mod:`~distkeras_tpu_torch.data`, :mod:`~distkeras_tpu_torch.datasets`,
+the six trainers (:mod:`~distkeras_tpu_torch.trainers`), and the fused
+Adam and LSTM-scan kernels — with the weight bridge
 (:mod:`~distkeras_tpu_torch.convert`).
 """

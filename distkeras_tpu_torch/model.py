@@ -1,0 +1,68 @@
+"""ModelSpec — the functional model contract the training engine consumes.
+
+Port of ``distkeras_tpu/model.py``. The engine stacks every worker's
+parameters on a leading ``W`` axis and runs the model under
+``torch.func.vmap``, so the model must be a pure function of explicit
+state:
+
+- ``init(seed) -> (params, state)``: trainable params and non-trainable
+  state, each a dict ``{state_dict name: tensor}`` on the CPU (the engine
+  places them); ``state`` is ``{}`` for the stateless zoo;
+- ``apply(params, state, x, training) -> (outputs, new_state)``: pure, and
+  traceable by ``torch.func`` transforms.
+
+:func:`from_module` wraps an ``nn.Module`` through
+``torch.func.functional_call``: the module is a stateless template whose
+own tensors are never read once params are supplied. A tuple ``x`` unpacks
+into several inputs (the LSTM takes ``(tokens, mask)``).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Callable
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    init: Callable[[int], tuple[dict, dict]]
+    apply: Callable[[dict, dict, Any, bool], tuple[Any, dict]]
+    name: str = "model"
+    #: the template ``nn.Module`` when built by :func:`from_module`; the
+    #: weight bridge (``convert``) reads its layer types and shapes
+    module: Any = None
+
+    def init_np(self, seed: int = 0) -> tuple[dict, dict]:
+        """Host-side init returning numpy dicts."""
+        params, state = self.init(seed)
+        to_np = lambda d: {k: v.detach().cpu().numpy() for k, v in d.items()}
+        return to_np(params), to_np(state)
+
+
+def from_module(module: nn.Module, *, name: str | None = None) -> ModelSpec:
+    """Wrap an ``nn.Module`` whose ``reset_parameters(generator)`` draws
+    its initial weights. ``init(seed)`` draws them on the CPU from a
+    ``torch.Generator`` seeded with ``seed``; buffers are the state."""
+    template = module
+
+    def init(seed):
+        fresh = copy.deepcopy(template).to("cpu")
+        gen = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            fresh.reset_parameters(gen)
+        params = {k: v.detach() for k, v in fresh.named_parameters()}
+        state = {k: v.detach() for k, v in fresh.named_buffers()}
+        return params, state
+
+    def apply(params, state, x, training):
+        inputs = x if isinstance(x, tuple) else (x,)
+        out = torch.func.functional_call(template, {**params, **state},
+                                         inputs)
+        return out, state
+
+    return ModelSpec(init=init, apply=apply,
+                     name=name or type(module).__name__, module=module)

@@ -1,9 +1,17 @@
-"""The port's model zoo: so far the decoder-only LM the serving tier runs."""
+"""The port's model zoo: the decoder-only LM the serving tier runs, and the
+BASELINE training models — :func:`mlp` (configs 1 and 4), :func:`lenet`
+(config 2), :func:`vgg_small` (config 3) and :func:`lstm_classifier`
+(config 5)."""
 
+from distkeras_tpu_torch.models.cnn import LeNet, VGGSmall, lenet, vgg_small
 from distkeras_tpu_torch.models.lm import (
     TransformerLM,
     quantize_lm,
     transformer_lm,
 )
+from distkeras_tpu_torch.models.lstm import LSTMClassifier, lstm_classifier
+from distkeras_tpu_torch.models.mlp import MLP, mlp
 
-__all__ = ["TransformerLM", "transformer_lm", "quantize_lm"]
+__all__ = ["TransformerLM", "transformer_lm", "quantize_lm",
+           "MLP", "mlp", "LeNet", "lenet", "VGGSmall", "vgg_small",
+           "LSTMClassifier", "lstm_classifier"]

@@ -1,7 +1,13 @@
-"""Small helpers shared across the port."""
+"""Small helpers shared across the port: device resolution, nested-dict
+tree maps, and the training history and timer the trainers keep."""
 
 from __future__ import annotations
 
+import json
+import time
+from collections.abc import Mapping
+
+import numpy as np
 import torch
 
 
@@ -16,3 +22,72 @@ def resolve_device(device) -> torch.device:
             f"device='cpu' to run on the CPU"
         )
     return dev
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested mappings (tensors or arrays), keyed
+    alike in ``tree`` and every tree of ``rest``; returns plain dicts."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested mappings, in key order."""
+    if isinstance(tree, Mapping):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def json_default(o):
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    raise TypeError(f"not JSON serializable: {type(o)}")
+
+
+class History:
+    """Append-only per-run training history (loss per window)."""
+
+    def __init__(self):
+        self.records: list[dict] = []
+
+    def append(self, **record):
+        self.records.append(record)
+
+    def losses(self) -> list[float]:
+        return [r["loss"] for r in self.records if "loss" in r]
+
+    def to_json(self) -> str:
+        return json.dumps(self.records, default=json_default)
+
+    def __len__(self):
+        return len(self.records)
+
+    def __iter__(self):
+        return iter(self.records)
+
+
+class Timer:
+    """Wall-clock bookkeeping for ``record_training_start/end`` and
+    ``get_training_time``."""
+
+    def __init__(self):
+        self.start_time = None
+        self.end_time = None
+
+    def start(self):
+        self.start_time = time.time()
+
+    def stop(self):
+        self.end_time = time.time()
+
+    def elapsed(self) -> float:
+        if self.start_time is None:
+            return 0.0
+        end = self.end_time if self.end_time is not None else time.time()
+        return end - self.start_time

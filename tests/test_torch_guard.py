@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
-from distkeras_tpu_torch.models import transformer_lm
+from distkeras_tpu_torch import trainers
+from distkeras_tpu_torch.models import lstm_classifier, transformer_lm
 from distkeras_tpu_torch.ops.flash_attention import flash_attention
+from distkeras_tpu_torch.ops.pallas_kernels import fused_adam_step
 from distkeras_tpu_torch.ops.quant import q_matmul, quantize
+from distkeras_tpu_torch.ops.recurrent import lstm_backward, lstm_forward
+from distkeras_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distkeras_tpu_torch.serving import GenerationEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,7 +41,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 12, out.stdout          # every module was imported
+    assert int(n) >= 25, out.stdout          # every module was imported
     assert bad == "[]", f"forbidden modules imported: {bad}"
 
 
@@ -56,6 +60,28 @@ def test_entry_points_default_to_cuda():
     assert eng.cache.k_pools[0].device.type == "cpu"
 
 
+@pytest.mark.parametrize("cls", ["SingleTrainer", "ADAG", "DOWNPOUR",
+                                 "AEASGD", "EAMSGD", "DynSGD"])
+def test_trainers_default_to_cuda(cls):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    spec = lstm_classifier(vocab=50, embed_dim=8, hidden_dim=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(trainers, cls)(spec)
+    assert getattr(trainers, cls)(spec, device="cpu").device.type == "cpu"
+
+
+def test_engine_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    spec = lstm_classifier(vocab=50, embed_dim=8, hidden_dim=16)
+    args = (spec, lambda p, n, b: (0.0, n), trainers.resolve_optimizer(
+        "sgd", 0.1), trainers.ADAGMerge())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalSGDEngine(*args)
+    assert LocalSGDEngine(*args, device="cpu").device.type == "cpu"
+
+
 def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
     qt = quantize(torch.ones(4, 8), axis=1)
     x = torch.ones(2, 8, device="meta")
@@ -66,3 +92,12 @@ def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
         flash_attention(q, q, q)
     np.testing.assert_array_equal(q_matmul(torch.ones(2, 8), qt).numpy(),
                                   np.full((2, 4), 8.0, np.float32))
+    g = torch.ones(1, 2, 3, 64, device="meta")
+    wh = torch.ones(1, 16, 64, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        lstm_forward(g, wh, True)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        lstm_backward(g, wh, g[..., :16], g[..., :16], g[..., :16])
+    m = torch.ones(8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fused_adam_step([m], [m], [m], 1, 1e-3)
