@@ -9,7 +9,7 @@ PyTorch built for CUDA:
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build all four kernel sources from ``distkeras_tpu_torch/csrc`` (one
+2. build all five kernel sources from ``distkeras_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together);
 3. K1 ``q_matmul`` against its plain version at every Dense shape of the
    served 400M config, decode (M=8) and prefill (M=1024) rows, with kernel,
@@ -29,27 +29,50 @@ Phases, in order; any failure exits non-zero and prints no result:
    (cuDNN's ``nn.LSTM`` at the same T, G·B and H, forward and backward;
    its forget-bias convention differs, so it is timed, not compared)
    times and the bounds;
-7. one DynSGD window at full width through the kernels and the same window
+7. K3 and K4, the flash-attention backward (dq, dk/dv), against their
+   plain version at the LM's and the classifier's training shapes and at
+   small GQA / window / ragged / f32 / fully-masked cases (see
+   ``check_flash_bwd``), with kernel, plain, K2-forward and library
+   (SDPA's backward) times and the bounds; then the flash Function under
+   ``torch.func.vmap(grad)`` at W=2, through the kernels and the plain
+   versions (one launch of K2, K3 and K4 for the step);
+8. one DynSGD window at full width through the kernels and the same window
    through their plain versions on the card: the centers must agree within
    the stated bf16 tolerance (see ``compare_window``);
-8. serve the 400M MQA decoder (vocab 16384, dim 2048, 16 heads, 1 KV head,
+9. serve the 400M MQA decoder (vocab 16384, dim 2048, 16 heads, 1 KV head,
    depth 8, RoPE, flash prefill, bf16; random weights from seed 0) through
    ``GenerationServer`` to 4 concurrent ``GenerationClient``s (prompts of
    128/77/208/333 tokens, 32 greedy new tokens each), then quantize it
    (``quantize_lm``) and serve again; K1 and K2's launch counters, reset
    just before, must show both launched; every served stream is held to a
    full forward, tie-aware (see ``tie_aware_check``);
-9. train: ``DynSGD(lstm_classifier(), worker_optimizer="fused_adam",
-   features_col=["features", "mask"], num_workers=8, batch_size=64,
-   communication_window=4)`` — BASELINE config 5 at its published width
-   (vocab 20000, maxlen 200, embed 128, hidden 128, bf16 compute, f32
-   params, lr 1e-3), random init from seed 0 — for two epochs of 6 windows
-   on the synthetic IMDB stand-in; K5, K6 and K7's launch counters, reset
-   just before, must show all three launched; the loss must fall, and the
-   trained center's eval logits must match the plain-torch reference scan;
-   then LeNet under ADAG (BASELINE config 2) on synthetic MNIST, 8
-   workers, to test accuracy > 0.95;
-10. print the ``kernels`` JSON line, then the result line
+10. train: ``DynSGD(lstm_classifier(), worker_optimizer="fused_adam",
+    features_col=["features", "mask"], num_workers=8, batch_size=64,
+    communication_window=4)`` — BASELINE config 5 at its published width
+    (vocab 20000, maxlen 200, embed 128, hidden 128, bf16 compute, f32
+    params, lr 1e-3), random init from seed 0 — for two epochs of 6 windows
+    on the synthetic IMDB stand-in; K5, K6 and K7's launch counters, reset
+    just before, must show all three launched; the loss must fall, and the
+    trained center's eval logits must match the plain-torch reference scan;
+    then LeNet under ADAG (BASELINE config 2) on synthetic MNIST, 8
+    workers, to test accuracy > 0.95;
+11. one ADAG window of the config-9 LM at full width and depth 2 through
+    K2–K5 and through their plain versions: centers within the stated bf16
+    bound (see ``compare_lm_window``);
+12. train config 9 (``bench.py:518-586``): ``transformer_lm_spec(vocab
+    16384, maxlen 2048, dim 1024, heads 8, depth 8, RoPE, bf16 compute,
+    f32 params, attn_impl="flash", fused_ce=True, ce_chunk=512)`` under
+    ``ADAG(worker_optimizer="fused_adam", learning_rate=1e-4,
+    num_workers=2, batch_size=8, communication_window=2)`` for two epochs
+    of 3 windows on a learnable synthetic stream (``lm_tokens``), random
+    init from seed 0; K2, K3, K4 and K5's launch counters, reset just
+    before, must all show launches, and the last window's loss must be
+    below the first's; then config 6's encoder classifier
+    (``transformer_classifier(vocab 8192, maxlen 2048, dim 512, heads 8,
+    depth 8, attn_impl="flash")``) under ``DOWNPOUR(worker_optimizer="sgd",
+    learning_rate=1e-3, num_workers=2, batch_size=8)`` for 3 windows on
+    ragged rows; K2, K3 and K4 must have launched and the loss be finite;
+13. print the ``kernels`` JSON line, then the result line
     ``{"ok": true, "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
@@ -84,6 +107,17 @@ PER_STEP = {(2048, 2304): DEPTH, (2048, 2048): DEPTH, (2048, 8192): DEPTH,
 IMDB_VOCAB, IMDB_T, IMDB_E, IMDB_H = 20000, 200, 128, 128
 IMDB_W, IMDB_BATCH, IMDB_WINDOW, IMDB_LR = 8, 64, 4, 1e-3
 IMDB_WINDOWS = 6          # windows per epoch of the training phase
+# config 9 (bench.py:518-586): the causal LM training composition, under
+# ADAG with W=2 stacked workers of batch 8 (B'=16 folded into the kernels)
+LM_VOCAB, LM_L, LM_DIM, LM_HEADS, LM_DEPTH = 16384, 2048, 1024, 8, 8
+LM_W, LM_BATCH, LM_WINDOW, LM_WINDOWS = 2, 8, 2, 3
+LM_LR, LM_CHUNK = 1e-4, 512
+LM_CMP_DEPTH = 2          # kernels-vs-plain window: plain attention holds
+#                           [B', H, L, L] f32 scores per layer
+# config 6 (bench.py:370-386): the encoder classifier under DOWNPOUR
+CLS_VOCAB, CLS_L, CLS_DIM, CLS_HEADS, CLS_DEPTH = 8192, 2048, 512, 8, 8
+CLS_W, CLS_BATCH, CLS_WINDOW, CLS_WINDOWS, CLS_LR = 2, 8, 5, 3, 1e-3
+LOSS = "sparse_softmax_cross_entropy"
 
 
 def log(msg: str) -> None:
@@ -278,17 +312,7 @@ def check_flash(torch, fa):
                 .contiguous()
             library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal))
-        # (query, key) pairs this run's band and key mask leave to compute
-        qp = torch.arange(L, device=DEVICE)[:, None]
-        kp = torch.arange(L, device=DEVICE)[None, :]
-        band = fa.band_predicate(qp, kp, causal, fa._canonical_window(
-            window, L))
-        valid = torch.ones((B, L, L), dtype=torch.bool, device=DEVICE)
-        if band is not None:
-            valid &= band[None]
-        if km is not None:
-            valid &= km.bool()[:, None, :]
-        pairs = int(valid.sum().item())
+        pairs = _pairs(torch, fa, B, L, causal, window, km)
         esz = 2 if dt == torch.bfloat16 else 4
         nbytes = (2 * B * L * H * D + 2 * B * L * Hkv * D) * esz \
             + B * H * L * 4
@@ -302,6 +326,347 @@ def check_flash(torch, fa):
         rows.append(row)
         log("flash_attention " + json.dumps(row))
     return rows, max_err
+
+
+def _pairs(torch, fa, B, L, causal, window, km):
+    """(batch, query, key) pairs this band and key mask leave to compute."""
+    qp = torch.arange(L, device=DEVICE)[:, None]
+    kp = torch.arange(L, device=DEVICE)[None, :]
+    band = fa.band_predicate(qp, kp, causal, fa._canonical_window(window, L))
+    valid = torch.ones((B, L, L), dtype=torch.bool, device=DEVICE)
+    if band is not None:
+        valid &= band[None]
+    if km is not None:
+        valid &= km.bool()[:, None, :]
+    return int(valid.sum().item())
+
+
+def _key_mask(torch, kind, B, L, gen):
+    """None; "half": row 0 attends a prefix, row 1 nothing (every query
+    of row 1 fully masked); "ragged": each row a prefix of its own
+    length, L/4 .. L."""
+    if kind is None:
+        return None
+    km = torch.zeros((B, L), device=DEVICE)
+    if kind == "half":
+        km[0, : L - L // 3] = 1.0
+        return km
+    lengths = torch.randint(L // 4, L + 1, (B,), generator=gen,
+                            device=DEVICE)
+    return (torch.arange(L, device=DEVICE)[None] < lengths[:, None]).float()
+
+
+def check_flash_bwd(torch, fa):
+    """K3 (dq) and K4 (dk/dv) against their plain version at the LM's
+    training shape (B'=16 = 2 workers x 8, L=2048, H=8, D=128, bf16,
+    causal), the classifier's (D=64, non-causal, ragged key mask) and
+    small cases (GQA 2 and 1, window with and without causal, ragged L,
+    f32, the bf16 FMA path at D=32, fully masked rows). Both sides read
+    the same q, k, v, dO and the kernel forward's O and lse. Tolerance:
+    the kernels round p and ds to bf16 as operands of their second
+    products (as FA2) where the plain version keeps f32, so bf16 outputs
+    agree to 2^-6 of the plain output's largest magnitude (two bf16
+    ulps); f32 to 1e-4 of it (summation order over up to L terms through
+    exp). Fully masked rows must give exact zeros. Kernel, plain, K2's
+    forward and the library (``scaled_dot_product_attention``'s backward,
+    which computes dq, dk and dv in one call, at the same shapes without
+    the key mask) are timed at the two training shapes."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    bf, f32 = torch.bfloat16, torch.float32
+    Bp = LM_W * LM_BATCH
+    cases = [
+        # (B, L, H, Hkv, D, dtype, causal, window, key mask, timed)
+        (Bp, LM_L, LM_HEADS, LM_HEADS, LM_DIM // LM_HEADS, bf, True, None,
+         None, True),
+        (Bp, CLS_L, CLS_HEADS, CLS_HEADS, CLS_DIM // CLS_HEADS, bf, False,
+         None, "ragged", True),
+        (2, 100, 4, 2, 64, bf, False, 24, "half", False),
+        (2, 150, 4, 1, 128, bf, True, 40, "half", False),
+        (2, 77, 4, 4, 128, bf, True, None, None, False),
+        (2, 130, 8, 2, 64, bf, False, None, "half", False),
+        (2, 77, 4, 2, 32, bf, True, None, "half", False),
+        (2, 100, 4, 2, 64, f32, True, 24, "half", False),
+        (2, 77, 4, 1, 128, f32, False, None, None, False),
+    ]
+    dq_rows, dkv_rows = [], []
+    dq_err = dkv_err = 0.0
+    for B, L, H, Hkv, D, dt, causal, window, mkind, timed in cases:
+        q = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
+        k = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
+        v = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
+        g = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
+        km = _key_mask(torch, mkind, B, L, gen)
+        kw = dict(scale=D ** -0.5, causal=causal, window=window)
+        out, lse = fa._fa_forward(q, k, v, km, **kw)
+        delta = fa._delta(out, g)
+        args = (q, k, v, km, lse, delta, g)
+        dq = fa._fa_bwd_dq(*args, **kw)
+        dk, dv = fa._fa_bwd_dkv(*args, **kw)
+        rq, rk, rv = fa._fa_bwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        rel = 2.0 ** -6 if dt == bf else 1e-4
+        label = (f"B={B} L={L} H={H}/{Hkv} D={D} {str(dt).split('.')[-1]} "
+                 f"causal={causal} window={window} mask={mkind}")
+        errs = {}
+        for name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
+                               ("dv", dv, rv)):
+            errs[name] = _err(got, ref)
+            scale = ref.float().abs().max().item()
+            if not (errs[name] <= rel * scale
+                    and torch.isfinite(got.float()).all()):
+                raise AssertionError(
+                    f"flash backward {label} {name}: max |kernel - plain| = "
+                    f"{errs[name]} beyond {rel} x {scale}")
+        if mkind == "half" and not all(
+                t[1].abs().max().item() == 0.0 for t in (dq, dk, dv)):
+            raise AssertionError(f"flash backward {label}: fully masked "
+                                 f"rows must give zero gradients")
+        log(f"flash backward {label}: ok " + json.dumps(errs))
+        dq_err = max(dq_err, errs["dq"])
+        dkv_err = max(dkv_err, errs["dk"], errs["dv"])
+        del rq, rk, rv
+        if not timed:
+            continue
+        pairs = _pairs(torch, fa, B, L, causal, window, km)
+        esz = 2 if dt == bf else 4
+        qb, kvb = B * L * H * D * esz, B * L * Hkv * D * esz
+        rowb = 2 * B * H * L * 4 + (0 if km is None else B * L * 4)
+        shape = dict(B=B, L=L, H=H, Hkv=Hkv, D=D,
+                     dtype=str(dt).split(".")[-1], causal=causal,
+                     window=window, key_mask=mkind)
+        # library: SDPA (flash backend) forward and its backward alone
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        gt = g.transpose(1, 2).contiguous()
+        with torch.enable_grad():
+            lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            lib_bwd = eager_ms(torch, lambda: torch.autograd.grad(
+                lo, (qt, kt, vt), gt, retain_graph=True), iters=10)
+        lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach(), is_causal=causal))
+        del lo, qt, kt, vt, gt
+        log("flash_attention training shape " + json.dumps(dict(
+            **shape, kernel_ms=cuda_ms(torch, lambda: fa._fa_forward(
+                q, k, v, km, **kw), iters=5),
+            library_ms=lib_fwd,
+            **bound(2 * qb + 2 * kvb + B * H * L * 4, 4.0 * pairs * H * D,
+                    PEAK_BF16 if esz == 2 else PEAK_F32))))
+        dq_rows.append(dict(
+            **shape, max_abs_err=errs["dq"],
+            kernel_ms=cuda_ms(torch, lambda: fa._fa_bwd_dq(*args, **kw),
+                              iters=5),
+            eager_ms=eager_ms(torch, lambda: fa._fa_bwd_dq(*args, **kw),
+                              iters=5),
+            plain_ms=cuda_ms(torch, lambda: fa._fa_bwd_plain(
+                *args, **kw, parts=("dq",)), iters=1, replays=2),
+            library_ms=lib_bwd,
+            **bound(3 * qb + 2 * kvb + rowb, 6.0 * pairs * H * D,
+                    PEAK_BF16 if esz == 2 else PEAK_F32)))
+        log("flash_attention_bwd_dq " + json.dumps(dq_rows[-1]))
+        dkv_rows.append(dict(
+            **shape, max_abs_err=max(errs["dk"], errs["dv"]),
+            kernel_ms=cuda_ms(torch, lambda: fa._fa_bwd_dkv(*args, **kw),
+                              iters=5),
+            eager_ms=eager_ms(torch, lambda: fa._fa_bwd_dkv(*args, **kw),
+                              iters=5),
+            plain_ms=cuda_ms(torch, lambda: fa._fa_bwd_plain(
+                *args, **kw, parts=("dkv",)), iters=1, replays=2),
+            library_ms=lib_bwd,
+            **bound(2 * qb + 4 * kvb + rowb, 8.0 * pairs * H * D,
+                    PEAK_BF16 if esz == 2 else PEAK_F32)))
+        log("flash_attention_bwd_dkv " + json.dumps(dkv_rows[-1]))
+    torch.cuda.empty_cache()
+    return dq_rows, dkv_rows, dq_err, dkv_err
+
+
+def check_flash_vmap(torch, fa):
+    """The flash Function under ``torch.func.vmap(grad)`` at W=2: the
+    gradients through K2–K4 equal those through the plain versions
+    (tolerance as in ``check_flash_bwd``), and each kernel launched once
+    for the step, not once per worker."""
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    W, B, L, H, Hkv, D = 2, 2, 130, 4, 2, 64
+    bf = torch.bfloat16
+    qs = torch.randn((W, B, L, H, D), generator=gen, device=DEVICE).to(bf)
+    ks = torch.randn((W, B, L, Hkv, D), generator=gen, device=DEVICE).to(bf)
+    vs = torch.randn((W, B, L, Hkv, D), generator=gen, device=DEVICE).to(bf)
+    masks = torch.ones((W, B, L), device=DEVICE)
+    masks[:, 1, 100:] = 0.0
+    probe = torch.randn((B, L, H, D), generator=gen, device=DEVICE)
+
+    def counts():
+        return (fa._fa_forward.launches, fa._fa_bwd_dq.launches,
+                fa._fa_bwd_dkv.launches)
+
+    grads, launched = {}, {}
+    for impl in ("kernel", "plain"):
+        def loss(q, k, v, m, impl=impl):
+            o = fa.flash_attention(q, k, v, causal=True, key_mask=m,
+                                   impl=impl)
+            return torch.sum(o.float() * probe)
+
+        before = counts()
+        grads[impl] = torch.func.vmap(torch.func.grad(
+            loss, argnums=(0, 1, 2)))(qs, ks, vs, masks)
+        torch.cuda.synchronize()
+        launched[impl] = [a - b for a, b in zip(counts(), before)]
+    if launched != {"kernel": [1, 1, 1], "plain": [0, 0, 0]}:
+        raise AssertionError(f"flash vmap(grad): launches {launched}, "
+                             f"expected one of K2, K3, K4 for the step")
+    errs = {}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads["kernel"],
+                              grads["plain"]):
+        errs[name] = _err(got, ref)
+        scale = ref.float().abs().max().item()
+        if not errs[name] <= 2.0 ** -6 * scale:
+            raise AssertionError(f"flash vmap(grad) {name}: max |kernel - "
+                                 f"plain| = {errs[name]} beyond 2^-6 x "
+                                 f"{scale}")
+    log("flash vmap(grad) W=2: ok " + json.dumps(dict(
+        errs, launches=launched["kernel"])))
+
+
+def lm_spec(torch, depth, attn_impl):
+    from distkeras_tpu_torch.models import transformer_lm_spec
+
+    return transformer_lm_spec(
+        vocab=LM_VOCAB, maxlen=LM_L, dim=LM_DIM, heads=LM_HEADS, depth=depth,
+        dtype=torch.bfloat16, attn_impl=attn_impl, pos_embedding="rope",
+        fused_ce=True, ce_chunk=LM_CHUNK)
+
+
+def lm_tokens(n, seed=0):
+    """A learnable stream: each row counts up by one mod V from a random
+    start (uniform tokens, as bench.py's, cannot show a falling loss)."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(0, LM_VOCAB, (n, 1))
+    return ((start + np.arange(LM_L + 1)[None]) % LM_VOCAB).astype(np.int32)
+
+
+def compare_lm_window(torch):
+    """One ADAG window of the config-9 LM at full width and depth
+    LM_CMP_DEPTH through K2–K5 and, from the same init on the same
+    superbatch, through their plain versions on the card. Bound as in
+    ``compare_window``: Adam moves an element by at most ~1.01 lr a step
+    whatever its gradient's size, a noise-level gradient may take either
+    sign, and ADAG's center is the mean of the W workers, so centers agree
+    to 2.02 lr · window; the mean loss to 1e-2."""
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.pallas_kernels import fused_adam
+    from distkeras_tpu_torch.parallel import ADAGMerge, LocalSGDEngine
+    from distkeras_tpu_torch.trainers import _make_loss_step
+
+    toks = lm_tokens(LM_W * LM_WINDOW * LM_BATCH, seed=1).reshape(
+        LM_W, LM_WINDOW, LM_BATCH, LM_L + 1)
+    batch = (toks[..., :-1], toks[..., 1:])
+    out = {}
+    for impl, attn in (("kernel", "flash"), ("plain", "plain")):
+        spec = lm_spec(torch, LM_CMP_DEPTH, attn)
+        engine = LocalSGDEngine(
+            spec, _make_loss_step(spec, get_loss(LOSS), 1, LOSS),
+            fused_adam(LM_LR, impl=impl), ADAGMerge(), device=DEVICE,
+            num_workers=LM_W, window=LM_WINDOW, batch_size=LM_BATCH)
+        params, nt = spec.init(0)
+        state, loss = engine.run_window(engine.init_state(params, nt), batch)
+        out[impl] = (engine.center_params(state), loss.item())
+        del engine, state
+        torch.cuda.empty_cache()
+    (ck, lk), (cp, lp) = out["kernel"], out["plain"]
+    diff = max(_err(ck[k], cp[k]) for k in ck)
+    mean = max((ck[k] - cp[k]).abs().mean().item() for k in ck)
+    limit = 2.02 * LM_LR * LM_WINDOW
+    if not (diff <= limit and abs(lk - lp) <= 1e-2
+            and all(torch.isfinite(v).all() for v in ck.values())):
+        raise AssertionError(
+            f"ADAG LM window kernel vs plain: max |center diff| {diff} "
+            f"(limit {limit}), loss {lk} vs {lp}")
+    log("LM window kernels vs plain: " + json.dumps(dict(
+        depth=LM_CMP_DEPTH, max_center_diff=diff, max_mean_center_diff=mean,
+        limit=limit, loss_kernel=lk, loss_plain=lp)))
+
+
+def train_lm(torch):
+    """The slice's main path: config 9 at full width and depth under
+    ADAG with fused Adam, the flash kernels and the fused cross-entropy,
+    two epochs of LM_WINDOWS windows, random init from seed 0. Returns
+    the phase's record; the caller reads the launch counters around it."""
+    from distkeras_tpu_torch.data import next_token_dataset
+    from distkeras_tpu_torch.trainers import ADAG
+
+    spec = lm_spec(torch, LM_DEPTH, "flash")
+    t = ADAG(spec, loss=LOSS, worker_optimizer="fused_adam",
+             learning_rate=LM_LR, num_workers=LM_W, batch_size=LM_BATCH,
+             communication_window=LM_WINDOW, num_epoch=2, log_metrics=True,
+             device=DEVICE)
+    ds = next_token_dataset(lm_tokens(
+        LM_W * LM_WINDOW * LM_BATCH * LM_WINDOWS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t.train(ds)
+    wall = time.perf_counter() - t0
+    losses = t.history.losses()
+    if len(losses) != 2 * LM_WINDOWS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"ADAG LM: bad loss history {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ADAG LM: the loss did not fall: {losses}")
+    tokens = LM_W * LM_WINDOW * LM_BATCH * LM_L
+    rec = dict(
+        wall_s=wall, windows=len(losses), tokens_per_window=tokens,
+        losses=losses, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        params=sum(v.numel() for v in t.trained_params_.values()),
+        epochs=[dict(epoch=m["epoch"],
+                     tokens_per_s=m["samples_per_sec"] * LM_L,
+                     window_ms=1e3 * m["wall_time"] / LM_WINDOWS)
+                for m in t.metrics_ if "samples_per_sec" in m])
+    log("train ADAG lm config 9: " + json.dumps(rec))
+    return rec
+
+
+def classifier_data(n, seed=0):
+    """Rows of ragged length (L/4 .. L, zero-padded, so the key mask is
+    real) labelled by whether most of their tokens lie in the lower half
+    of the vocabulary."""
+    from distkeras_tpu_torch.data import Dataset
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(CLS_L // 4, CLS_L + 1, n)
+    mask = (np.arange(CLS_L)[None] < lengths[:, None]).astype(np.float32)
+    toks = rng.integers(1, CLS_VOCAB, (n, CLS_L)) * mask.astype(np.int64)
+    low = np.sum((toks < CLS_VOCAB // 2) * mask, axis=1)
+    label = (2 * low > lengths).astype(np.int32)
+    return Dataset({"features": toks.astype(np.int32), "mask": mask,
+                    "label": label})
+
+
+def train_classifier(torch):
+    """Config 6's encoder classifier at full width (vocab 8192, L 2048,
+    dim 512, 8 heads, depth 8, bf16 compute, f32 params) through the flash
+    kernels (non-causal, key mask, D=64) under DOWNPOUR with SGD, for
+    CLS_WINDOWS windows on ragged rows."""
+    from distkeras_tpu_torch.models import transformer_classifier
+    from distkeras_tpu_torch.trainers import DOWNPOUR
+
+    spec = transformer_classifier(
+        vocab=CLS_VOCAB, maxlen=CLS_L, dim=CLS_DIM, heads=CLS_HEADS,
+        depth=CLS_DEPTH, dtype=torch.bfloat16, attn_impl="flash")
+    t = DOWNPOUR(spec, loss=LOSS, worker_optimizer="sgd",
+                 learning_rate=CLS_LR, features_col=["features", "mask"],
+                 num_workers=CLS_W, batch_size=CLS_BATCH,
+                 communication_window=CLS_WINDOW, num_epoch=1,
+                 log_metrics=True, device=DEVICE)
+    t0 = time.perf_counter()
+    t.train(classifier_data(CLS_W * CLS_WINDOW * CLS_BATCH * CLS_WINDOWS))
+    wall = time.perf_counter() - t0
+    losses = t.history.losses()
+    if len(losses) != CLS_WINDOWS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"DOWNPOUR classifier: bad losses {losses}")
+    m = t.metrics_[-1]
+    log("train DOWNPOUR classifier config 6: " + json.dumps(dict(
+        wall_s=wall, windows=len(losses), loss_first=losses[0],
+        loss_last=losses[-1], samples_per_sec=m["samples_per_sec"],
+        window_ms=1e3 * m["wall_time"] / CLS_WINDOWS)))
 
 
 def serve(torch, model, label):
@@ -725,6 +1090,10 @@ def main() -> int:
         frows, f_err = check_flash(torch, fa)
         arows, a_err = check_adam(torch, pk)
     fwd_rows, bwd_rows, l_err = check_lstm(torch, rec)
+    with torch.no_grad():
+        dq_rows, dkv_rows, dq_err, dkv_err = check_flash_bwd(torch, fa)
+    check_flash_vmap(torch, fa)
+    log(f"kernel checks done at {time.perf_counter() - t0:.1f}s")
     train, test = imdb_data()
     compare_window(torch, train)
 
@@ -765,6 +1134,38 @@ def main() -> int:
                              f"path: {trained}")
     launches.update(trained)
     train_adag_lenet(torch)
+    torch.cuda.empty_cache()
+    log(f"slice 1-2 paths done at {time.perf_counter() - t0:.1f}s")
+
+    compare_lm_window(torch)
+    counters = {"flash_attention": fa._fa_forward,
+                "flash_attention_bwd_dq": fa._fa_bwd_dq,
+                "flash_attention_bwd_dkv": fa._fa_bwd_dkv,
+                "fused_adam": pk.fused_adam_step}
+    for fn in counters.values():
+        fn.launches = 0
+    train_lm(torch)
+    lm_launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"launches on the LM training path: {json.dumps(lm_launches)}")
+    if min(lm_launches.values()) < 1:
+        raise AssertionError(f"a kernel never launched on the LM training "
+                             f"path: {lm_launches}")
+    launches.update({k: lm_launches[k] for k in (
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv")})
+    torch.cuda.empty_cache()
+
+    for fn in counters.values():
+        fn.launches = 0
+    train_classifier(torch)
+    cls_launches = {k: counters[k].launches for k in (
+        "flash_attention", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")}
+    log(f"launches on the classifier training path: "
+        f"{json.dumps(cls_launches)}")
+    if min(cls_launches.values()) < 1:
+        raise AssertionError(f"a kernel never launched on the classifier "
+                             f"training path: {cls_launches}")
+    log(f"training paths done at {time.perf_counter() - t0:.1f}s")
 
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
@@ -779,6 +1180,10 @@ def main() -> int:
 
     def one_launch(rows):      # one launch at the training path's shapes
         return [(r, 1) for r in rows]
+
+    def lm_shape(rows):        # one launch at config 9's training shape
+        return [(r, 1) for r in rows
+                if (r["L"], r["D"]) == (LM_L, LM_DIM // LM_HEADS)]
 
     kernels = []
     for name, src, replaces, rows, pick, err in (
@@ -795,7 +1200,15 @@ def main() -> int:
              max(r["max_abs_err"] for r in fwd_rows)),
             ("lstm_backward", "distkeras_tpu_torch/csrc/lstm.cu",
              "distkeras_tpu/ops/recurrent.py:109", bwd_rows, one_launch,
-             max(r["max_abs_err"] for r in bwd_rows))):
+             max(r["max_abs_err"] for r in bwd_rows)),
+            ("flash_attention_bwd_dq",
+             "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
+             "distkeras_tpu/ops/flash_attention.py:336", dq_rows, lm_shape,
+             dq_err),
+            ("flash_attention_bwd_dkv",
+             "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
+             "distkeras_tpu/ops/flash_attention.py:426", dkv_rows, lm_shape,
+             dkv_err)):
         by_bytes = sum(r["bound_ms"] * w for r, w in pick(rows)
                        if r["bound_by"] == "bytes")
         bound_ms = total(rows, pick, "bound_ms")

@@ -1,0 +1,764 @@
+// Flash-attention backward for Hopper (sm_90a): dq (K3) and dk/dv (K4) from
+// the forward's saved per-row log-sum-exp, never storing the [L, L] score or
+// probability matrices.
+//
+// Replaces distkeras_tpu/ops/flash_attention.py::_fa_bwd_dq_kernel (K3) and
+// ::_fa_bwd_dkv_kernel (K4), launched by _fa_backward. Same contract as the
+// forward (csrc/flash_attention.cu): causal masking, a sliding `window`
+// through band_predicate (query i sees key j iff j <= i when causal,
+// i - j < window, and j - i < window when bidirectional) with out-of-band
+// tiles skipped on both sides, an optional key_mask [B, L] (attend where
+// > 0.5), grouped-query attention (query head h reads K/V head
+// h / (H / Hkv)), masked scores at -1e9, any L (ragged tiles are masked at
+// the sequence end). Both kernels rebuild p = exp(s * scale - lse) and set
+// it to 0 off the valid set, so a fully masked row has zero gradients:
+//   dp = dO v^T,  ds = p (dp - delta),  dq = scale * ds k,
+//   dv = p^T dO,  dk = scale * ds^T q,
+// with delta = rowsum(dO * O) [B*H, L] computed by the caller in f32.
+//
+// Layout: q/dO/dq [B, L, H, D], k/v/dk/dv [B, L, Hkv, D] (float32 or
+// bfloat16), lse and delta [B*H, L] f32, key_mask [B, L] f32 or null. D <= 128.
+//
+// Grids. The TPU kernels walk the reduction axis on a sequential grid axis
+// with VMEM accumulators; here a loop inside each block does:
+//  * K3: one block per (b*h, q tile); it loops over the in-band k tiles
+//    (the _first_k_tile/_last_k_tile bounds) and keeps dq in f32 registers,
+//    written once.
+//  * K4: one block per (b*hkv, k tile); it loops over the group's q heads
+//    and, for each, over the in-band q tiles (_first_q_tile/_last_q_tile),
+//    so dk and dv are summed over the whole GQA group inside the block: no
+//    repeated K/V, no atomics, a deterministic result.
+//
+// What bounds them on an H100: at training shapes (L = 2048, D = 64 or 128)
+// each kernel does three (K3) or four (K4) L x L x D products per head, half
+// that causal, against a few reads of q/k/v/dO: operations, so the tensor
+// cores are the roof. Two kernels each, chosen by dtype and head dim:
+//  * *_mma_kernel (bfloat16, D = 64 or 128, 16-byte aligned inputs): the
+//    products on the tensor cores through mma.sync m16n8k16 with f32
+//    accumulation, FA2-style. Four warps own 16 rows each (query rows in K3,
+//    key rows in K4); S and dP stay in registers, p and ds are formed there
+//    and re-packed as bf16 A operands of the next product, so no score tile
+//    touches shared memory. Operands read as the "col" B fragment of a
+//    product whose contraction runs over rows (k in K3's ds k; q and dO in
+//    K4's p^T dO and ds^T q) are also stored transposed in shared memory, so
+//    each fragment is one 32-bit load; rows are padded 16 bytes so fragment
+//    loads hit 32 distinct banks. Loads are not pipelined (no cp.async/TMA
+//    ring) and the products are mma.sync, not wgmma: that is the next step.
+//  * fa_bwd_*_kernel (float32, or any other D <= 128): plain f32 FMAs over
+//    shared-memory tiles, one score tile entry per thread at a time.
+//
+// Plain C interface (bound with ctypes): each launcher returns the
+// cudaGetLastError() of its launch, 0 on success.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kDMax = 128;
+constexpr float kNeg = -1e9f;  // _NEG of the TPU kernels (masked scores)
+
+template <typename T> __device__ __forceinline__ float to_f32(T v);
+template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// band_predicate + key mask + sequence end, for one (query, key) position.
+__device__ __forceinline__ bool valid_at(int qp, int kp, int L, int causal, int window,
+                                         const float* km) {
+  if (qp >= L || kp >= L) return false;
+  if (causal && kp > qp) return false;
+  if (window > 0) {
+    if (qp - kp >= window) return false;
+    if (!causal && kp - qp >= window) return false;
+  }
+  if (km != nullptr && !(km[kp] > 0.5f)) return false;
+  return true;
+}
+
+// The k tiles (width bk) that q tile [q0, q0 + bq) can see
+// (_first_k_tile/_last_k_tile).
+__device__ __forceinline__ void k_band(int q0, int bq, int bk, int L, int causal, int window,
+                                       int& first, int& last) {
+  first = window > 0 ? max(0, q0 - window + 1) / bk : 0;
+  last = (L + bk - 1) / bk - 1;
+  if (causal) {
+    last = min(last, (q0 + bq - 1) / bk);
+  } else if (window > 0) {
+    last = min(last, (q0 + bq - 1 + window - 1) / bk);
+  }
+}
+
+// The q tiles (width bq) that can see k tile [k0, k0 + bk)
+// (_first_q_tile/_last_q_tile).
+__device__ __forceinline__ void q_band(int k0, int bk, int bq, int L, int causal, int window,
+                                       int& first, int& last) {
+  first = causal ? k0 / bq : (window > 0 ? max(0, k0 - window + 1) / bq : 0);
+  last = (L + bq - 1) / bq - 1;
+  if (window > 0) last = min(last, (k0 + bk - 1 + window - 1) / bq);
+}
+
+// -- f32 FMA kernels (float32, or bfloat16 at other head dims) --------------
+
+constexpr int kThreads = 256;
+constexpr int kLd = kDMax + 1;     // f32 tile row stride: conflict-free columns
+constexpr int kGQ = 16, kGK = 32;  // K3: q rows per block, keys per k tile
+constexpr int kGK4 = 16, kGQ4 = 32;  // K4: keys per block, q rows per q tile
+constexpr size_t kDqSmem =
+    sizeof(float) * (2 * kGQ * kLd + 2 * kGK * kLd + kGQ * (kGK + 1) + 2 * kGQ);
+constexpr size_t kDkvSmem =
+    sizeof(float) * (2 * kGK4 * kLd + 2 * kGQ4 * kLd + 2 * kGK4 * (kGQ4 + 1) + 2 * kGQ4);
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const float* __restrict__ key_mask,
+                 T* __restrict__ dq, int L, int H, int Hkv, int D, float scale, int causal,
+                 int window) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                   // [kGQ][kLd]
+  float* Gs = Qs + kGQ * kLd;         // [kGQ][kLd]: dO
+  float* Ks = Gs + kGQ * kLd;         // [kGK][kLd]
+  float* Vs = Ks + kGK * kLd;         // [kGK][kLd]
+  float* Ss = Vs + kGK * kLd;         // [kGQ][kGK + 1]: ds
+  float* Ls = Ss + kGQ * (kGK + 1);   // lse per row
+  float* Ds = Ls + kGQ;               // delta per row
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.y * kGQ;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const T* qb = q + (size_t)b * L * qs + (size_t)h * D;
+  const T* gb = dout + (size_t)b * L * qs + (size_t)h * D;
+  const T* kb = k + (size_t)b * L * ks + (size_t)hk * D;
+  const T* vb = v + (size_t)b * L * ks + (size_t)hk * D;
+  const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
+
+  for (int i = tid; i < kGQ * kDMax; i += kThreads) {
+    const int r = i / kDMax, d = i % kDMax, qp = q0 + r;
+    const bool in = qp < L && d < D;
+    Qs[r * kLd + d] = in ? to_f32(qb[(size_t)qp * qs + d]) : 0.f;
+    Gs[r * kLd + d] = in ? to_f32(gb[(size_t)qp * qs + d]) : 0.f;
+  }
+  if (tid < kGQ) {
+    const int qp = q0 + tid;
+    Ls[tid] = qp < L ? lse[(size_t)bh * L + qp] : 0.f;
+    Ds[tid] = qp < L ? delta[(size_t)bh * L + qp] : 0.f;
+  }
+
+  const int dcol = tid % kDMax, rbase = tid / kDMax;  // rows rbase + 2j
+  float acc[kGQ / 2];
+#pragma unroll
+  for (int j = 0; j < kGQ / 2; ++j) acc[j] = 0.f;
+
+  int first, last;
+  k_band(q0, kGQ, kGK, L, causal, window, first, last);
+  for (int kt = first; kt <= last; ++kt) {
+    const int k0 = kt * kGK;
+    __syncthreads();  // previous tile's Ks/Vs/Ss are consumed (and Qs/Gs stored)
+    for (int i = tid; i < kGK * kDMax; i += kThreads) {
+      const int r = i / kDMax, d = i % kDMax, kp = k0 + r;
+      const bool in = kp < L && d < D;
+      Ks[r * kLd + d] = in ? to_f32(kb[(size_t)kp * ks + d]) : 0.f;
+      Vs[r * kLd + d] = in ? to_f32(vb[(size_t)kp * ks + d]) : 0.f;
+    }
+    __syncthreads();
+    for (int e = tid; e < kGQ * kGK; e += kThreads) {
+      const int r = e / kGK, c = e % kGK;
+      float ds = 0.f;
+      if (valid_at(q0 + r, k0 + c, L, causal, window, km)) {
+        float s = 0.f, dp = 0.f;
+        for (int d = 0; d < D; ++d) {
+          s = fmaf(Qs[r * kLd + d], Ks[c * kLd + d], s);
+          dp = fmaf(Gs[r * kLd + d], Vs[c * kLd + d], dp);
+        }
+        ds = expf(s * scale - Ls[r]) * (dp - Ds[r]);
+      }
+      Ss[r * (kGK + 1) + c] = ds;
+    }
+    __syncthreads();
+    if (dcol < D) {
+#pragma unroll
+      for (int j = 0; j < kGQ / 2; ++j) {
+        const int r = rbase + 2 * j;
+        for (int c = 0; c < kGK; ++c)
+          acc[j] = fmaf(Ss[r * (kGK + 1) + c], Ks[c * kLd + dcol], acc[j]);
+      }
+    }
+  }
+
+  if (dcol < D) {
+#pragma unroll
+    for (int j = 0; j < kGQ / 2; ++j) {
+      const int qp = q0 + rbase + 2 * j;
+      if (qp < L)
+        dq[(size_t)b * L * qs + (size_t)qp * qs + (size_t)h * D + dcol] =
+            from_f32<T>(acc[j] * scale);
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ dout, const float* __restrict__ lse,
+                  const float* __restrict__ delta, const float* __restrict__ key_mask,
+                  T* __restrict__ dk, T* __restrict__ dv, int L, int H, int Hkv, int D,
+                  float scale, int causal, int window) {
+  extern __shared__ float smem[];
+  float* Ks = smem;                   // [kGK4][kLd]
+  float* Vs = Ks + kGK4 * kLd;        // [kGK4][kLd]
+  float* Qs = Vs + kGK4 * kLd;        // [kGQ4][kLd]
+  float* Gs = Qs + kGQ4 * kLd;        // [kGQ4][kLd]: dO
+  float* Ps = Gs + kGQ4 * kLd;        // [kGK4][kGQ4 + 1]: p^T
+  float* Ss = Ps + kGK4 * (kGQ4 + 1);  // [kGK4][kGQ4 + 1]: ds^T
+  float* Ls = Ss + kGK4 * (kGQ4 + 1);  // lse per q row
+  float* Ds = Ls + kGQ4;               // delta per q row
+
+  const int tid = threadIdx.x;
+  const int bk = blockIdx.x, b = bk / Hkv, hk = bk % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.y * kGK4;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const T* kb = k + (size_t)b * L * ks + (size_t)hk * D;
+  const T* vb = v + (size_t)b * L * ks + (size_t)hk * D;
+  const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
+
+  for (int i = tid; i < kGK4 * kDMax; i += kThreads) {
+    const int r = i / kDMax, d = i % kDMax, kp = k0 + r;
+    const bool in = kp < L && d < D;
+    Ks[r * kLd + d] = in ? to_f32(kb[(size_t)kp * ks + d]) : 0.f;
+    Vs[r * kLd + d] = in ? to_f32(vb[(size_t)kp * ks + d]) : 0.f;
+  }
+
+  const int dcol = tid % kDMax, cbase = tid / kDMax;  // keys cbase + 2j
+  float acc_k[kGK4 / 2], acc_v[kGK4 / 2];
+#pragma unroll
+  for (int j = 0; j < kGK4 / 2; ++j) acc_k[j] = acc_v[j] = 0.f;
+
+  int first, last;
+  q_band(k0, kGK4, kGQ4, L, causal, window, first, last);
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi, bh = b * H + h;
+    const T* qb = q + (size_t)b * L * qs + (size_t)h * D;
+    const T* gb = dout + (size_t)b * L * qs + (size_t)h * D;
+    for (int qt = first; qt <= last; ++qt) {
+      const int q0 = qt * kGQ4;
+      __syncthreads();  // previous q tile consumed (and Ks/Vs stored)
+      for (int i = tid; i < kGQ4 * kDMax; i += kThreads) {
+        const int r = i / kDMax, d = i % kDMax, qp = q0 + r;
+        const bool in = qp < L && d < D;
+        Qs[r * kLd + d] = in ? to_f32(qb[(size_t)qp * qs + d]) : 0.f;
+        Gs[r * kLd + d] = in ? to_f32(gb[(size_t)qp * qs + d]) : 0.f;
+      }
+      if (tid < kGQ4) {
+        const int qp = q0 + tid;
+        Ls[tid] = qp < L ? lse[(size_t)bh * L + qp] : 0.f;
+        Ds[tid] = qp < L ? delta[(size_t)bh * L + qp] : 0.f;
+      }
+      __syncthreads();
+      for (int e = tid; e < kGK4 * kGQ4; e += kThreads) {
+        const int c = e / kGQ4, r = e % kGQ4;
+        float p = 0.f, ds = 0.f;
+        if (valid_at(q0 + r, k0 + c, L, causal, window, km)) {
+          float s = 0.f, dp = 0.f;
+          for (int d = 0; d < D; ++d) {
+            s = fmaf(Qs[r * kLd + d], Ks[c * kLd + d], s);
+            dp = fmaf(Gs[r * kLd + d], Vs[c * kLd + d], dp);
+          }
+          p = expf(s * scale - Ls[r]);
+          ds = p * (dp - Ds[r]);
+        }
+        Ps[c * (kGQ4 + 1) + r] = p;
+        Ss[c * (kGQ4 + 1) + r] = ds;
+      }
+      __syncthreads();
+      if (dcol < D) {
+#pragma unroll
+        for (int j = 0; j < kGK4 / 2; ++j) {
+          const int c = cbase + 2 * j;
+          for (int r = 0; r < kGQ4; ++r) {
+            acc_v[j] = fmaf(Ps[c * (kGQ4 + 1) + r], Gs[r * kLd + dcol], acc_v[j]);
+            acc_k[j] = fmaf(Ss[c * (kGQ4 + 1) + r], Qs[r * kLd + dcol], acc_k[j]);
+          }
+        }
+      }
+    }
+  }
+
+  if (dcol < D) {
+#pragma unroll
+    for (int j = 0; j < kGK4 / 2; ++j) {
+      const int kp = k0 + cbase + 2 * j;
+      if (kp < L) {
+        const size_t off = (size_t)b * L * ks + (size_t)kp * ks + (size_t)hk * D + dcol;
+        dk[off] = from_f32<T>(acc_k[j] * scale);
+        dv[off] = from_f32<T>(acc_v[j]);
+      }
+    }
+  }
+}
+
+// -- bfloat16 on the tensor cores --------------------------------------------
+
+constexpr int kBQ = 64;   // K3: q rows per block (4 warps x 16)
+constexpr int kBK = 64;   // K3: keys per k tile; K4: keys per block (4 warps x 16)
+constexpr int kBQ4 = 32;  // K4: q rows per q tile
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += A B, m16n8k16: a0/a2 A row g at k {2t, 2t+1} / {2t+8, 2t+9}, a1/a3 row
+// g+8; b0/b1 B column g at the same k; c0,c1 row g and c2,c3 row g+8 at
+// columns 2t, 2t+1 (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                          uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Store 8 bf16 (one 16-byte word w) transposed: column r of rows c .. c+7.
+__device__ __forceinline__ void store_t8(__nv_bfloat16* t, int ld, int c, int r, uint4 w) {
+  const uint32_t vw[4] = {w.x, w.y, w.z, w.w};
+  unsigned short* t16 = reinterpret_cast<unsigned short*>(t);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) t16[(c + e) * ld + r] = (unsigned short)(vw[e / 2] >> (16 * (e % 2)));
+}
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * ((size_t)4 * kBQ * (D + 8) + (size_t)D * (kBK + 8));
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     const float* __restrict__ key_mask, __nv_bfloat16* __restrict__ dq, int L,
+                     int H, int Hkv, float scale, int causal, int window) {
+  constexpr int LD = D + 8, TLD = kBK + 8, C8 = D / 8;  // padded row strides
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBQ][LD]
+  __nv_bfloat16* Gs = Qs + kBQ * LD;                                // [kBQ][LD]: dO
+  __nv_bfloat16* Ks = Gs + kBQ * LD;                                // [kBK][LD]
+  __nv_bfloat16* Vs = Ks + kBK * LD;                                // [kBK][LD]
+  __nv_bfloat16* Kt = Vs + kBK * LD;                                // [D][TLD]: k^T
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = blockIdx.y * kBQ;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const __nv_bfloat16* qb = q + (size_t)b * L * qs + (size_t)h * D;
+  const __nv_bfloat16* gb = dout + (size_t)b * L * qs + (size_t)h * D;
+  const __nv_bfloat16* kb = k + (size_t)b * L * ks + (size_t)hk * D;
+  const __nv_bfloat16* vb = v + (size_t)b * L * ks + (size_t)hk * D;
+  const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  for (int i = tid; i < kBQ * C8; i += 128) {
+    const int r = i / C8, c = (i % C8) * 8, qp = q0 + r;
+    *reinterpret_cast<uint4*>(Qs + r * LD + c) =
+        qp < L ? *reinterpret_cast<const uint4*>(qb + (size_t)qp * qs + c) : zero;
+    *reinterpret_cast<uint4*>(Gs + r * LD + c) =
+        qp < L ? *reinterpret_cast<const uint4*>(gb + (size_t)qp * qs + c) : zero;
+  }
+
+  const int r0 = warp * 16;                       // this warp's rows in the tile
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;  // the thread's two rows
+  const float lse0 = row0 < L ? lse[(size_t)bh * L + row0] : 0.f;
+  const float lse1 = row1 < L ? lse[(size_t)bh * L + row1] : 0.f;
+  const float dl0 = row0 < L ? delta[(size_t)bh * L + row0] : 0.f;
+  const float dl1 = row1 < L ? delta[(size_t)bh * L + row1] : 0.f;
+  float acc[C8][4];
+#pragma unroll
+  for (int j = 0; j < C8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  int first, last;
+  k_band(q0, kBQ, kBK, L, causal, window, first, last);
+  for (int kt = first; kt <= last; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // previous tile's Ks/Vs/Kt are consumed (and Qs/Gs stored)
+    for (int i = tid; i < kBK * C8; i += 128) {
+      const int r = i % kBK, c = (i / kBK) * 8, kp = k0 + r;  // r fastest: Kt stores
+      const uint4 kw = kp < L ? *reinterpret_cast<const uint4*>(kb + (size_t)kp * ks + c) : zero;
+      *reinterpret_cast<uint4*>(Ks + r * LD + c) = kw;
+      *reinterpret_cast<uint4*>(Vs + r * LD + c) =
+          kp < L ? *reinterpret_cast<const uint4*>(vb + (size_t)kp * ks + c) : zero;
+      store_t8(Kt, TLD, c, r, kw);
+    }
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys as 8 n8 tiles each
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < D; kd += 16) {
+      const __nv_bfloat16* qa = Qs + (r0 + g) * LD + kd + 2 * t;
+      const __nv_bfloat16* ga = Gs + (r0 + g) * LD + kd + 2 * t;
+      const uint32_t a0 = lds32(qa), a1 = lds32(qa + 8 * LD);
+      const uint32_t a2 = lds32(qa + 8), a3 = lds32(qa + 8 * LD + 8);
+      const uint32_t g0 = lds32(ga), g1 = lds32(ga + 8 * LD);
+      const uint32_t g2 = lds32(ga + 8), g3 = lds32(ga + 8 * LD + 8);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const __nv_bfloat16* kk = Ks + (nt * 8 + g) * LD + kd + 2 * t;
+        mma_16816(s[nt], a0, a1, a2, a3, lds32(kk), lds32(kk + 8));
+        const __nv_bfloat16* vv = Vs + (nt * 8 + g) * LD + kd + 2 * t;
+        mma_16816(dp[nt], g0, g1, g2, g3, lds32(vv), lds32(vv + 8));
+      }
+    }
+
+    // ds = p (dp - delta), p rebuilt from lse; 0 off the valid set
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kp = k0 + nt * 8 + 2 * t + e;
+        s[nt][e] = valid_at(row0, kp, L, causal, window, km)
+                       ? expf(s[nt][e] * scale - lse0) * (dp[nt][e] - dl0)
+                       : 0.f;
+        s[nt][2 + e] = valid_at(row1, kp, L, causal, window, km)
+                           ? expf(s[nt][2 + e] * scale - lse1) * (dp[nt][2 + e] - dl1)
+                           : 0.f;
+      }
+    }
+
+    // dq += ds K: ds re-packed from the registers as the A operand
+#pragma unroll
+    for (int kq = 0; kq < kBK / 16; ++kq) {
+      const uint32_t a0 = pack_bf16x2(s[2 * kq][0], s[2 * kq][1]);
+      const uint32_t a1 = pack_bf16x2(s[2 * kq][2], s[2 * kq][3]);
+      const uint32_t a2 = pack_bf16x2(s[2 * kq + 1][0], s[2 * kq + 1][1]);
+      const uint32_t a3 = pack_bf16x2(s[2 * kq + 1][2], s[2 * kq + 1][3]);
+#pragma unroll
+      for (int j = 0; j < C8; ++j) {
+        const __nv_bfloat16* kk = Kt + (j * 8 + g) * TLD + kq * 16 + 2 * t;
+        mma_16816(acc[j], a0, a1, a2, a3, lds32(kk), lds32(kk + 8));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < C8; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (row0 < L)
+      *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)b * L * qs + (size_t)row0 * qs +
+                                         (size_t)h * D + d) =
+          __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
+    if (row1 < L)
+      *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)b * L * qs + (size_t)row1 * qs +
+                                         (size_t)h * D + d) =
+          __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * ((size_t)2 * kBK * (D + 8) + (size_t)2 * kBQ4 * (D + 8) +
+                                  (size_t)2 * D * (kBQ4 + 8)) +
+         sizeof(float) * 2 * kBQ4;
+}
+
+template <int D>
+__global__ void __launch_bounds__(128)
+fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, const float* __restrict__ key_mask,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int L,
+                      int H, int Hkv, float scale, int causal, int window) {
+  constexpr int LD = D + 8, TLD = kBQ4 + 8, C8 = D / 8, NT = kBQ4 / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBK][LD]
+  __nv_bfloat16* Vs = Ks + kBK * LD;                                // [kBK][LD]
+  __nv_bfloat16* Qs = Vs + kBK * LD;                                // [kBQ4][LD]
+  __nv_bfloat16* Gs = Qs + kBQ4 * LD;                               // [kBQ4][LD]: dO
+  __nv_bfloat16* Qt = Gs + kBQ4 * LD;                               // [D][TLD]: q^T
+  __nv_bfloat16* Gt = Qt + D * TLD;                                 // [D][TLD]: dO^T
+  float* Ls = reinterpret_cast<float*>(Gt + D * TLD);               // lse per q row
+  float* Ds = Ls + kBQ4;                                            // delta per q row
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = blockIdx.y * kBK;
+  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
+  const __nv_bfloat16* kb = k + (size_t)b * L * ks + (size_t)hk * D;
+  const __nv_bfloat16* vb = v + (size_t)b * L * ks + (size_t)hk * D;
+  const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  for (int i = tid; i < kBK * C8; i += 128) {
+    const int r = i / C8, c = (i % C8) * 8, kp = k0 + r;
+    *reinterpret_cast<uint4*>(Ks + r * LD + c) =
+        kp < L ? *reinterpret_cast<const uint4*>(kb + (size_t)kp * ks + c) : zero;
+    *reinterpret_cast<uint4*>(Vs + r * LD + c) =
+        kp < L ? *reinterpret_cast<const uint4*>(vb + (size_t)kp * ks + c) : zero;
+  }
+
+  const int r0 = warp * 16;                       // this warp's keys in the tile
+  const int key0 = k0 + r0 + g, key1 = key0 + 8;  // the thread's two keys
+  float dka[C8][4], dva[C8][4];
+#pragma unroll
+  for (int j = 0; j < C8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  int first, last;
+  q_band(k0, kBK, kBQ4, L, causal, window, first, last);
+  for (int gi = 0; gi < group; ++gi) {
+    const int h = hk * group + gi, bh = b * H + h;
+    const __nv_bfloat16* qb = q + (size_t)b * L * qs + (size_t)h * D;
+    const __nv_bfloat16* gb = dout + (size_t)b * L * qs + (size_t)h * D;
+    for (int qt = first; qt <= last; ++qt) {
+      const int q0 = qt * kBQ4;
+      __syncthreads();  // previous q tile consumed (and Ks/Vs stored)
+      for (int i = tid; i < kBQ4 * C8; i += 128) {
+        const int r = i % kBQ4, c = (i / kBQ4) * 8, qp = q0 + r;  // r fastest: ^T stores
+        const uint4 qw = qp < L ? *reinterpret_cast<const uint4*>(qb + (size_t)qp * qs + c) : zero;
+        const uint4 gw = qp < L ? *reinterpret_cast<const uint4*>(gb + (size_t)qp * qs + c) : zero;
+        *reinterpret_cast<uint4*>(Qs + r * LD + c) = qw;
+        *reinterpret_cast<uint4*>(Gs + r * LD + c) = gw;
+        store_t8(Qt, TLD, c, r, qw);
+        store_t8(Gt, TLD, c, r, gw);
+      }
+      if (tid < kBQ4) {
+        const int qp = q0 + tid;
+        Ls[tid] = qp < L ? lse[(size_t)bh * L + qp] : 0.f;
+        Ds[tid] = qp < L ? delta[(size_t)bh * L + qp] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries as 4 n8 tiles
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < D; kd += 16) {
+        const __nv_bfloat16* ka = Ks + (r0 + g) * LD + kd + 2 * t;
+        const __nv_bfloat16* va = Vs + (r0 + g) * LD + kd + 2 * t;
+        const uint32_t a0 = lds32(ka), a1 = lds32(ka + 8 * LD);
+        const uint32_t a2 = lds32(ka + 8), a3 = lds32(ka + 8 * LD + 8);
+        const uint32_t v0 = lds32(va), v1 = lds32(va + 8 * LD);
+        const uint32_t v2 = lds32(va + 8), v3 = lds32(va + 8 * LD + 8);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const __nv_bfloat16* qq = Qs + (nt * 8 + g) * LD + kd + 2 * t;
+          mma_16816(s[nt], a0, a1, a2, a3, lds32(qq), lds32(qq + 8));
+          const __nv_bfloat16* gg = Gs + (nt * 8 + g) * LD + kd + 2 * t;
+          mma_16816(dp[nt], v0, v1, v2, v3, lds32(gg), lds32(gg + 8));
+        }
+      }
+
+      // p^T into s, ds^T = p^T (dp^T - delta) into dp; 0 off the valid set
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = nt * 8 + 2 * t + e, qp = q0 + col;
+          const float lq = Ls[col], dq_ = Ds[col];
+          const float p0 = valid_at(qp, key0, L, causal, window, km)
+                               ? expf(s[nt][e] * scale - lq) : 0.f;
+          const float p1 = valid_at(qp, key1, L, causal, window, km)
+                               ? expf(s[nt][2 + e] * scale - lq) : 0.f;
+          s[nt][e] = p0;
+          s[nt][2 + e] = p1;
+          dp[nt][e] = p0 * (dp[nt][e] - dq_);
+          dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dq_);
+        }
+      }
+
+      // dv += p^T dO and dk += ds^T q: p^T, ds^T re-packed as A operands
+#pragma unroll
+      for (int kq = 0; kq < kBQ4 / 16; ++kq) {
+        const uint32_t p0 = pack_bf16x2(s[2 * kq][0], s[2 * kq][1]);
+        const uint32_t p1 = pack_bf16x2(s[2 * kq][2], s[2 * kq][3]);
+        const uint32_t p2 = pack_bf16x2(s[2 * kq + 1][0], s[2 * kq + 1][1]);
+        const uint32_t p3 = pack_bf16x2(s[2 * kq + 1][2], s[2 * kq + 1][3]);
+        const uint32_t d0 = pack_bf16x2(dp[2 * kq][0], dp[2 * kq][1]);
+        const uint32_t d1 = pack_bf16x2(dp[2 * kq][2], dp[2 * kq][3]);
+        const uint32_t d2 = pack_bf16x2(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
+        const uint32_t d3 = pack_bf16x2(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
+#pragma unroll
+        for (int j = 0; j < C8; ++j) {
+          const __nv_bfloat16* gt = Gt + (j * 8 + g) * TLD + kq * 16 + 2 * t;
+          mma_16816(dva[j], p0, p1, p2, p3, lds32(gt), lds32(gt + 8));
+          const __nv_bfloat16* qt_ = Qt + (j * 8 + g) * TLD + kq * 16 + 2 * t;
+          mma_16816(dka[j], d0, d1, d2, d3, lds32(qt_), lds32(qt_ + 8));
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < C8; ++j) {
+    const int d = j * 8 + 2 * t;
+    if (key0 < L) {
+      const size_t off = (size_t)b * L * ks + (size_t)key0 * ks + (size_t)hk * D + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+          __floats2bfloat162_rn(dka[j][0] * scale, dka[j][1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[j][0], dva[j][1]);
+    }
+    if (key1 < L) {
+      const size_t off = (size_t)b * L * ks + (size_t)key1 * ks + (size_t)hk * D + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
+          __floats2bfloat162_rn(dka[j][2] * scale, dka[j][3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[j][2], dva[j][3]);
+    }
+  }
+}
+
+// Raise a kernel's dynamic shared-memory cap once per process.
+template <typename K>
+cudaError_t configure(K kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done = true;
+  return e;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta, *key_mask;
+  int B, L, H, Hkv, D;
+  float scale;
+  int causal, window;
+  cudaStream_t s;
+};
+
+template <int D>
+int launch_dq_mma(const Args& a, void* dq) {
+  static bool done = false;
+  constexpr size_t bytes = dq_mma_smem_bytes<D>();
+  cudaError_t e = configure(fa_bwd_dq_mma_kernel<D>, bytes, done);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)(a.B * a.H), (unsigned)((a.L + kBQ - 1) / kBQ));
+  fa_bwd_dq_mma_kernel<D><<<grid, 128, bytes, a.s>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.key_mask), static_cast<__nv_bfloat16*>(dq), a.L, a.H, a.Hkv,
+      a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dq(const Args& a, void* dq) {
+  static bool done = false;
+  cudaError_t e = configure(fa_bwd_dq_kernel<T>, kDqSmem, done);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)(a.B * a.H), (unsigned)((a.L + kGQ - 1) / kGQ));
+  fa_bwd_dq_kernel<T><<<grid, kThreads, kDqSmem, a.s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.key_mask),
+      static_cast<T*>(dq), a.L, a.H, a.Hkv, a.D, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_mma(const Args& a, void* dk, void* dv) {
+  static bool done = false;
+  constexpr size_t bytes = dkv_mma_smem_bytes<D>();
+  cudaError_t e = configure(fa_bwd_dkv_mma_kernel<D>, bytes, done);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)(a.B * a.Hkv), (unsigned)((a.L + kBK - 1) / kBK));
+  fa_bwd_dkv_mma_kernel<D><<<grid, 128, bytes, a.s>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.key_mask), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.L, a.H, a.Hkv, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dkv(const Args& a, void* dk, void* dv) {
+  static bool done = false;
+  cudaError_t e = configure(fa_bwd_dkv_kernel<T>, kDkvSmem, done);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)(a.B * a.Hkv), (unsigned)((a.L + kGK4 - 1) / kGK4));
+  fa_bwd_dkv_kernel<T><<<grid, kThreads, kDkvSmem, a.s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const float*>(a.key_mask),
+      static_cast<T*>(dk), static_cast<T*>(dv), a.L, a.H, a.Hkv, a.D, a.scale, a.causal,
+      a.window);
+  return (int)cudaGetLastError();
+}
+
+bool valid_args(const Args& a) {
+  return a.B >= 1 && a.L >= 1 && a.H >= 1 && a.Hkv >= 1 && a.H % a.Hkv == 0 && a.D >= 1 &&
+         a.D <= kDMax;
+}
+
+// The tensor-core kernels take bfloat16 at D = 64 or 128 with 16-byte aligned
+// q/k/v/dO (every row then starts 16-byte aligned).
+bool use_mma(const Args& a, int dtype) {
+  return dtype == 1 && (a.D == 64 || a.D == 128) && aligned16(a.q) && aligned16(a.k) &&
+         aligned16(a.v) && aligned16(a.dout);
+}
+
+}  // namespace
+
+extern "C" int dk_flash_attention_bwd_max_head_dim() { return kDMax; }
+
+// dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
+extern "C" int dk_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                         const void* dout, const void* lse, const void* delta,
+                                         const void* key_mask, void* dq, int B, int L, int H,
+                                         int Hkv, int D, float scale, int causal, int window,
+                                         int dtype, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, key_mask, B, L, H, Hkv, D, scale, causal, window,
+               static_cast<cudaStream_t>(stream)};
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
+  if (use_mma(a, dtype)) return D == 128 ? launch_dq_mma<128>(a, dq) : launch_dq_mma<64>(a, dq);
+  if (dtype == 0) return launch_dq<float>(a, dq);
+  if (dtype == 1) return launch_dq<__nv_bfloat16>(a, dq);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int dk_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* lse, const void* delta,
+                                          const void* key_mask, void* dk, void* dv, int B, int L,
+                                          int H, int Hkv, int D, float scale, int causal,
+                                          int window, int dtype, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, key_mask, B, L, H, Hkv, D, scale, causal, window,
+               static_cast<cudaStream_t>(stream)};
+  if (!valid_args(a)) return (int)cudaErrorInvalidValue;
+  if (use_mma(a, dtype))
+    return D == 128 ? launch_dkv_mma<128>(a, dk, dv) : launch_dkv_mma<64>(a, dk, dv);
+  if (dtype == 0) return launch_dkv<float>(a, dk, dv);
+  if (dtype == 1) return launch_dkv<__nv_bfloat16>(a, dk, dv);
+  return (int)cudaErrorInvalidValue;
+}

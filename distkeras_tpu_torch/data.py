@@ -343,3 +343,11 @@ def padded_chunks(
                 for c in chunk
             ]
         yield chunk, real
+
+
+def next_token_dataset(tokens: np.ndarray) -> Dataset:
+    """``[N, L+1]`` token rows → Dataset with ``features`` ``[N, L]`` and the
+    next-token ``label`` ``[N, L]`` (inputs shifted left by one) — the
+    causal LM's training columns (``models.lm.transformer_lm_spec``)."""
+    tokens = np.asarray(tokens, np.int32)
+    return Dataset({"features": tokens[:, :-1], "label": tokens[:, 1:]})

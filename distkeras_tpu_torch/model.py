@@ -35,6 +35,13 @@ class ModelSpec:
     #: the template ``nn.Module`` when built by :func:`from_module`; the
     #: weight bridge (``convert``) reads its layer types and shapes
     module: Any = None
+    #: optional fused loss implementations, keyed by the trainer-facing loss
+    #: name: ``{name: fn(params, state, x, y, training, mask=None) -> (loss,
+    #: new_state)}``. A trainer built with ``loss=<name>`` calls the fused fn
+    #: instead of ``loss(y, apply(x))``: the model computes its own loss
+    #: without materialising its full output (the LM's chunked
+    #: cross-entropy never builds the ``[B, L, V]`` logits).
+    fused_losses: Any = None
 
     def init_np(self, seed: int = 0) -> tuple[dict, dict]:
         """Host-side init returning numpy dicts."""

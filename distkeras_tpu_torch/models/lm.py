@@ -1,10 +1,11 @@
-"""Decoder-only causal LM for serving, on PyTorch + CUDA.
+"""Decoder-only causal LM, for serving and training, on PyTorch + CUDA.
 
 Port of ``distkeras_tpu/models/lm.py``: the pre-norm causal transformer
 (:class:`TransformerLM`, :class:`DecoderBlock`), its int8 weight-only
-serving form (:class:`QDense`, :func:`quantize_lm`) and the block-paged
+serving form (:class:`QDense`, :func:`quantize_lm`), the block-paged
 entry points the serving engine drives (``prefill_raw``,
-``paged_extend_rows``, ``paged_decode_step``).
+``paged_extend_rows``, ``paged_decode_step``) and the training spec
+(:func:`transformer_lm_spec`, with the chunked fused cross-entropy).
 
 The numerics follow the JAX package's dtype discipline: the residual stream
 and every LayerNorm (epsilon 1e-6) run in f32, the Dense layers in the
@@ -16,23 +17,30 @@ dtype — and is plain torch, as it is plain einsum in the JAX package.
 Prefill attention goes through ``ops.flash_attention`` (the hand-written
 kernel on the card) and every ``QDense`` through ``ops.quant.q_matmul``.
 
-Weights live in the model dtype (the JAX package keeps f32 master params
-and casts per call; serving never trains). Load a JAX param tree with
+Weights live in ``param_dtype``. :func:`transformer_lm` builds the served
+module with weights in the model dtype (serving never trains);
+:func:`transformer_lm_spec` builds the training form, which keeps f32
+master params and casts them to the model dtype per call, as flax's
+``nn.Dense(dtype=...)`` and ``nn.Embed`` do. Load a JAX param tree with
 :func:`distkeras_tpu_torch.convert.params_from_jax`.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from distkeras_tpu_torch.model import ModelSpec, from_module
 from distkeras_tpu_torch.models.transformer import sincos_positions
 from distkeras_tpu_torch.ops.flash_attention import (
     attention,
     attention_reference,
 )
+from distkeras_tpu_torch.ops.fused_ce import chunked_softmax_cross_entropy
 from distkeras_tpu_torch.ops.quant import QTensor, q_matmul, quantize
 from distkeras_tpu_torch.utils import resolve_device
 
@@ -65,33 +73,39 @@ def apply_rope(x, angles):
 
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)`` counterpart: ``weight [out, in]`` and
-    ``bias`` in the model dtype."""
+    ``bias`` in ``param_dtype`` (the model dtype unless given), the product
+    in the model dtype."""
 
-    def __init__(self, in_features: int, features: int, dtype, device):
+    def __init__(self, in_features: int, features: int, dtype, device,
+                 param_dtype=None):
         super().__init__()
+        self.dtype = dtype
+        pdt = param_dtype or dtype
         self.weight = nn.Parameter(torch.empty(
-            (features, in_features), dtype=dtype, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=dtype,
+            (features, in_features), dtype=pdt, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, dtype=pdt,
                                              device=device))
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class QDense(nn.Module):
     """Dense over an int8 weight-only-quantized kernel: ``kernel_q``
     int8 ``[out, in]`` (the layout ``q_matmul``'s kernel streams),
-    per-output-channel ``scale`` f32, ``bias`` added in the activation
-    dtype."""
+    per-output-channel ``scale`` f32, ``bias`` kept in ``param_dtype`` (the
+    model dtype unless given) and added in the activation dtype."""
 
-    def __init__(self, in_features: int, features: int, dtype, device):
+    def __init__(self, in_features: int, features: int, dtype, device,
+                 param_dtype=None):
         super().__init__()
         self.register_buffer("kernel_q", torch.zeros(
             (features, in_features), dtype=torch.int8, device=device))
         self.register_buffer("scale", torch.ones(
             features, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=dtype,
-                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            features, dtype=param_dtype or dtype, device=device))
 
     def forward(self, x):
         out = q_matmul(x, QTensor(self.kernel_q, self.scale),
@@ -111,7 +125,8 @@ class DecoderBlock(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
                  dtype=torch.bfloat16, attn_impl: str = "reference",
                  attn_window: int | None = None, kv_heads: int | None = None,
-                 rope: bool = False, quant: bool = False, device="cuda"):
+                 rope: bool = False, quant: bool = False, device="cuda",
+                 param_dtype=None):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.dtype = dtype
@@ -121,13 +136,14 @@ class DecoderBlock(nn.Module):
         self.rope = rope
         self.dh = dim // heads
         dense = QDense if quant else Dense
+        kw = dict(dtype=dtype, device=device, param_dtype=param_dtype)
         self.ln_attn = _layer_norm(dim, device)
         # one fused projection, width (H + 2·Hkv)·Dh, split q | k | v
-        self.qkv = dense(dim, (heads + 2 * self.hkv) * self.dh, dtype, device)
-        self.attn_out = dense(dim, dim, dtype, device)
+        self.qkv = dense(dim, (heads + 2 * self.hkv) * self.dh, **kw)
+        self.attn_out = dense(dim, dim, **kw)
         self.ln_mlp = _layer_norm(dim, device)
-        self.mlp_up = dense(dim, mlp_ratio * dim, dtype, device)
-        self.mlp_down = dense(mlp_ratio * dim, dim, dtype, device)
+        self.mlp_up = dense(dim, mlp_ratio * dim, **kw)
+        self.mlp_down = dense(mlp_ratio * dim, dim, **kw)
 
     def _project_qkv(self, x):
         """→ q [B, L, H, Dh], k/v [B, L, Hkv, Dh]."""
@@ -216,7 +232,12 @@ class DecoderBlock(nn.Module):
 
 class TransformerLM(nn.Module):
     """Token sequence → next-token logits ``[B, L, vocab]`` (f32), with
-    the block-paged serving entry points."""
+    the block-paged serving entry points. ``param_dtype`` (default: the
+    model ``dtype``) is the dtype the Dense and embedding weights are kept
+    in; the product runs in ``dtype`` either way. ``attn_impl``:
+    "reference", "flash"/"auto" (the flash kernels on the card, their plain
+    versions on the CPU) or "plain" (the flash path over the plain versions
+    on any device)."""
 
     def __init__(self, vocab: int = 1024, maxlen: int = 256, dim: int = 128,
                  heads: int = 4, depth: int = 2, dtype=torch.bfloat16,
@@ -224,7 +245,7 @@ class TransformerLM(nn.Module):
                  attn_window: int | None = None,
                  kv_heads: int | None = None, pos_embedding: str = "sincos",
                  quant: bool = False, tie_embeddings: bool = False,
-                 device="cuda"):
+                 device="cuda", param_dtype=None):
         super().__init__()
         device = resolve_device(device)
         if kv_heads is not None and heads % kv_heads:
@@ -236,13 +257,14 @@ class TransformerLM(nn.Module):
         if pos_embedding == "rope" and (dim // heads) % 2:
             raise ValueError(f"RoPE needs an even head dim, got dim//heads = "
                              f"{dim // heads}")
-        if attn_impl not in ("reference", "flash", "auto"):
+        if attn_impl not in ("reference", "flash", "auto", "plain"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        param_dtype = param_dtype or dtype
         self.config = dict(
             vocab=vocab, maxlen=maxlen, dim=dim, heads=heads, depth=depth,
             dtype=dtype, attn_impl=attn_impl, attn_window=attn_window,
             kv_heads=kv_heads, pos_embedding=pos_embedding, quant=quant,
-            tie_embeddings=tie_embeddings,
+            tie_embeddings=tie_embeddings, param_dtype=param_dtype,
         )
         self.vocab, self.maxlen, self.dim = vocab, maxlen, dim
         self.heads, self.depth, self.dtype = heads, depth, dtype
@@ -251,18 +273,20 @@ class TransformerLM(nn.Module):
         self.pos_embedding = pos_embedding
         self.quant = quant
         self.tie_embeddings = tie_embeddings
-        self.embed = nn.Embedding(vocab, dim, dtype=dtype, device=device)
+        self.embed = nn.Embedding(vocab, dim, dtype=param_dtype,
+                                  device=device)
         self.blocks = nn.ModuleList([
             DecoderBlock(dim, heads, dtype=dtype, attn_impl=attn_impl,
                          attn_window=attn_window, kv_heads=kv_heads,
                          rope=pos_embedding == "rope", quant=quant,
-                         device=device)
+                         device=device, param_dtype=param_dtype)
             for _ in range(depth)
         ])
         self.ln_head = _layer_norm(dim, device)
         if not tie_embeddings:
             head = QDense if quant else Dense
-            self.lm_head = head(dim, vocab, dtype, device)
+            self.lm_head = head(dim, vocab, dtype, device,
+                                param_dtype=param_dtype)
         if pos_embedding == "rope":
             self.register_buffer("rope_table", torch.from_numpy(
                 rope_angles(maxlen, dim // heads)).to(device),
@@ -280,9 +304,20 @@ class TransformerLM(nn.Module):
             return None
         return torch.cos(angles), torch.sin(angles)
 
+    def reset_parameters(self, generator) -> None:
+        """flax's default initializers drawn from ``generator`` (what
+        ``ModelSpec.init`` calls on a fresh copy)."""
+        _init_flax_defaults(self, generator)
+
+    def _tokens(self, tokens):
+        """Embedding rows in the model dtype, widened to f32 (flax's
+        ``nn.Embed(dtype=...)`` then ``astype(f32)``)."""
+        return self.embed(tokens.to(torch.int64)).to(self.dtype) \
+            .to(torch.float32)
+
     def _embed_at(self, tokens, pos0: int = 0):
         """Embed ``tokens`` occupying positions ``pos0 .. pos0+L``."""
-        x = self.embed(tokens).to(torch.float32)
+        x = self._tokens(tokens)
         if self.pos_embedding == "rope":
             return x
         return x + self.pos_table[pos0:pos0 + tokens.shape[1]][None]
@@ -290,7 +325,7 @@ class TransformerLM(nn.Module):
     def _embed_rows(self, tokens, positions):
         """Embed ``tokens`` [B, T] where row ``b`` occupies positions
         ``positions[b] .. positions[b]+T-1``."""
-        x = self.embed(tokens).to(torch.float32)
+        x = self._tokens(tokens)
         if self.pos_embedding == "rope":
             return x
         T = tokens.shape[1]
@@ -302,14 +337,19 @@ class TransformerLM(nn.Module):
         matmul, f32 logits; tied mode contracts against the embedding."""
         h16 = h.to(self.dtype)
         if self.tie_embeddings:
-            return torch.matmul(h16, self.embed.weight.t()).to(torch.float32)
+            return torch.matmul(h16, self.embed.weight.to(self.dtype).t()) \
+                .to(torch.float32)
         return self.lm_head(h16).to(torch.float32)
 
     def _logits(self, x):
         return self._head(self.ln_head(x))
 
-    def forward(self, tokens, mask=None):
-        return self._head(self.hidden(tokens, mask))
+    def forward(self, tokens, mask=None, return_hidden: bool = False):
+        """Logits ``[B, L, vocab]``, or with ``return_hidden`` the hidden
+        states :meth:`hidden` gives (the fused loss's input, reachable
+        through ``torch.func.functional_call``)."""
+        h = self.hidden(tokens, mask)
+        return h if return_hidden else self._head(h)
 
     def hidden(self, tokens, mask=None):
         """Final post-``ln_head`` hidden states ``[B, L, dim]`` (f32)."""
@@ -411,6 +451,66 @@ def transformer_lm(vocab=1024, maxlen=256, dim=128, heads=4, depth=2,
     gen.manual_seed(int(seed))
     _init_flax_defaults(model, gen)
     return model.eval()
+
+
+def transformer_lm_spec(vocab=1024, maxlen=256, dim=128, heads=4, depth=2,
+                        dtype=torch.bfloat16, attn_impl="reference",
+                        attn_window=None, kv_heads=None,
+                        pos_embedding="sincos", fused_ce=False,
+                        ce_chunk=256, remat=False,
+                        tie_embeddings=False) -> ModelSpec:
+    """Causal-LM ``ModelSpec`` for the trainers: the counterpart of
+    ``distkeras_tpu.models.transformer_lm``, with its kwargs and defaults.
+    (The port's :func:`transformer_lm` returns the served module, so the
+    training spec has its own name.) f32 master params, compute in
+    ``dtype``. Train with ``loss="sparse_softmax_cross_entropy"`` on
+    ``features = tokens [B, L]`` and ``label = next tokens [B, L]``
+    (:func:`distkeras_tpu_torch.data.next_token_dataset`).
+    ``fused_ce=True`` adds a fused loss under that name: the chunked
+    cross-entropy of ``ops/fused_ce.py`` over the hidden states and the
+    head (``lm_head``, or the tied embedding), ``ce_chunk`` rows of logits
+    at a time, so the ``[B, L, vocab]`` logits never exist. The template
+    module lives on the CPU; the trainer places params and state on its
+    device."""
+    if remat:
+        raise NotImplementedError(
+            "remat=True is not ported yet: ROADMAP.md A10 (remat)")
+    module = TransformerLM(
+        vocab=vocab, maxlen=maxlen, dim=dim, heads=heads, depth=depth,
+        dtype=dtype, attn_impl=attn_impl, attn_window=attn_window,
+        kv_heads=kv_heads, pos_embedding=pos_embedding,
+        tie_embeddings=tie_embeddings, device="cpu",
+        param_dtype=torch.float32)
+    spec = from_module(module, name="transformer_lm")
+    if not fused_ce:
+        return spec
+    chunk = int(ce_chunk)
+
+    def fused(params, state, x, y, training, mask=None):
+        h = torch.func.functional_call(module, {**params, **state}, (x,),
+                                       {"return_hidden": True})
+        b_, l_, d_ = h.shape
+        token_mask = None
+        if mask is not None:
+            # per-row validity [B] covers every token of its row; [B, L]
+            # passes through
+            mask = torch.as_tensor(mask, dtype=torch.float32,
+                                   device=h.device)
+            token_mask = (mask.repeat_interleave(l_) if mask.dim() == 1
+                          else mask.reshape(b_ * l_))
+        if module.tie_embeddings:
+            # the head IS the embedding: contract against its transpose
+            kernel, bias = params["embed.weight"].to(module.dtype).t(), None
+        else:
+            kernel = params["lm_head.weight"].to(module.dtype).t()
+            bias = params["lm_head.bias"]
+        loss = chunked_softmax_cross_entropy(
+            h.to(module.dtype).reshape(b_ * l_, d_), y.reshape(b_ * l_),
+            kernel, bias, mask=token_mask, chunk=chunk)
+        return loss, state
+
+    return dataclasses.replace(
+        spec, fused_losses={"sparse_softmax_cross_entropy": fused})
 
 
 def quantize_lm(model: TransformerLM) -> TransformerLM:

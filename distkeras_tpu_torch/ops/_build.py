@@ -25,7 +25,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("quant", "flash_attention", "adam", "lstm")
+KERNELS = ("quant", "flash_attention", "flash_attention_bwd", "adam", "lstm")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -169,7 +169,9 @@ def fused_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     def update(grads, state, params=None):
         del params
         count = state["count"] + 1
-        gs = tree_leaves(grads)
+        # autograd may hand back strided views (a transposed head's
+        # gradient); the kernel walks contiguous leaves
+        gs = [g.contiguous() for g in tree_leaves(grads)]
         new_m, new_v, us = fused_adam_step(
             gs, tree_leaves(state["mu"]), tree_leaves(state["nu"]), count,
             lr, b1, b2, eps, impl=impl)

@@ -31,6 +31,8 @@ import ctypes
 import torch
 
 from distkeras_tpu_torch.ops import _build
+from distkeras_tpu_torch.utils import fold_vmapped as _fold
+from distkeras_tpu_torch.utils import unfold_vmapped as _unfold
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -193,17 +195,6 @@ def lstm_backward(gx, wh, hs, cs, dhs, impl: str = "kernel"):
 
 lstm_forward.launches = 0
 lstm_backward.launches = 0
-
-
-def _fold(x, bdim, size):
-    """Move a vmapped dim to the front (or broadcast an unbatched input to
-    ``size``) and fold it into the leading G axis."""
-    x = x.movedim(bdim, 0) if bdim is not None else x.expand(size, *x.shape)
-    return x.reshape(size * x.shape[1], *x.shape[2:])
-
-
-def _unfold(x, size):
-    return x.reshape(size, x.shape[0] // size, *x.shape[1:])
 
 
 class _ScanBackward(torch.autograd.Function):

@@ -134,8 +134,20 @@ def _as_cols(features_col) -> list[str]:
         else list(features_col)
 
 
-def _make_loss_step(spec: ModelSpec, loss_fn: Callable, n_feat: int):
-    """``loss_step(params, nt, batch)`` for a batch ``(*features, label)``."""
+def _make_loss_step(spec: ModelSpec, loss_fn: Callable, n_feat: int,
+                    loss_name=None):
+    """``loss_step(params, nt, batch)`` for a batch ``(*features, label)``.
+    When the spec carries a fused implementation of this loss name
+    (``ModelSpec.fused_losses``), the step calls it instead of
+    ``loss(y, apply(x))``."""
+    fused = (spec.fused_losses or {}).get(loss_name)
+    if fused is not None:
+        def fused_step(params, nt, batch):
+            feats, y = batch[:n_feat], batch[n_feat]
+            x = feats[0] if n_feat == 1 else tuple(feats)
+            return fused(params, nt, x, y, training=True)
+
+        return fused_step
 
     def loss_step(params, nt, batch):
         feats, y = batch[:n_feat], batch[n_feat]
@@ -292,8 +304,9 @@ class DistributedTrainer(Trainer):
                                  clipvalue=self.clipvalue)
 
     def _loss_step(self) -> Callable:
-        return _make_loss_step(self.spec, self.loss_fn,
-                               len(self.features_col))
+        return _make_loss_step(
+            self.spec, self.loss_fn, len(self.features_col),
+            self.loss if isinstance(self.loss, str) else None)
 
     def train(self, dataset, shuffle: bool = False):
         return self._train_collective(self._coerce_dataset(dataset), shuffle)

@@ -40,6 +40,21 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def fold_vmapped(x, bdim, size):
+    """Inside a ``torch.func.vmap`` rule: move the vmapped dim ``bdim`` of
+    ``x`` to the front (or broadcast an unbatched input, ``bdim`` None, to
+    ``size``) and fold it into the leading axis, so one kernel launch
+    serves every vmapped slice."""
+    x = x.movedim(bdim, 0) if bdim is not None else x.expand(size, *x.shape)
+    return x.reshape(size * x.shape[1], *x.shape[2:])
+
+
+def unfold_vmapped(x, size):
+    """The inverse of :func:`fold_vmapped` for an output: ``[size · n, …]``
+    → ``[size, n, …]``."""
+    return x.reshape(size, x.shape[0] // size, *x.shape[1:])
+
+
 def json_default(o):
     if isinstance(o, np.integer):
         return int(o)

@@ -11,8 +11,16 @@ import pytest
 import torch
 
 from distkeras_tpu_torch import trainers
-from distkeras_tpu_torch.models import lstm_classifier, transformer_lm
-from distkeras_tpu_torch.ops.flash_attention import flash_attention
+from distkeras_tpu_torch.models import (
+    lstm_classifier,
+    transformer_classifier,
+    transformer_lm,
+    transformer_lm_spec,
+)
+from distkeras_tpu_torch.ops.flash_attention import (
+    _fa_backward,
+    flash_attention,
+)
 from distkeras_tpu_torch.ops.pallas_kernels import fused_adam_step
 from distkeras_tpu_torch.ops.quant import q_matmul, quantize
 from distkeras_tpu_torch.ops.recurrent import lstm_backward, lstm_forward
@@ -71,6 +79,24 @@ def test_trainers_default_to_cuda(cls):
     assert getattr(trainers, cls)(spec, device="cpu").device.type == "cpu"
 
 
+@pytest.mark.parametrize("spec_fn", ["transformer_lm_spec",
+                                     "transformer_classifier"])
+def test_transformer_training_defaults_to_cuda(spec_fn):
+    """The transformer training entry points (their specs are device-free
+    descriptions, as in the JAX package) train on the card unless the
+    trainer is given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    make = {"transformer_lm_spec": lambda: transformer_lm_spec(
+                vocab=32, maxlen=16, dim=16, heads=2, depth=1,
+                fused_ce=True),
+            "transformer_classifier": lambda: transformer_classifier(
+                vocab=32, maxlen=16, dim=16, heads=2, depth=1)}[spec_fn]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainers.ADAG(make())
+    assert trainers.ADAG(make(), device="cpu").device.type == "cpu"
+
+
 def test_engine_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is satisfiable")
@@ -101,3 +127,6 @@ def test_kernel_wrappers_take_cpu_or_cuda_tensors_only():
     m = torch.ones(8, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fused_adam_step([m], [m], [m], 1, 1e-3)
+    lse = torch.ones(2, 4, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        _fa_backward(q, q, q, None, q, lse, q, scale=1.0, causal=True)
