@@ -10,15 +10,19 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build all five kernel sources from ``distkeras_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together);
+   ``nvcc`` per source, started together), then show that the kernels
+   redesigned on wgmma (K2's and K4's bf16 paths) issue ``HGMMA`` and
+   ``UTMALDG`` (TMA) instructions and spill nothing (``check_sass``);
 3. K1 ``q_matmul`` against its plain version at every Dense shape of the
    served 400M config, decode (M=8) and prefill (M=1024) rows, with kernel,
    plain and library (``torch.matmul`` over a pre-dequantized bf16 weight)
    times and the card's bound;
 4. K2 flash-attention forward against its plain version at prefill shapes
    (B=4 and the served B=1 lengths; H=16, Hkv=1, D=128, bf16, causal) and
-   at small window / key-mask / f32 cases, with kernel, plain and library
-   (``scaled_dot_product_attention``) times and the bound;
+   at small cases for its edge tiles (ragged L, windows, masked keys
+   inside whole tiles, GQA 2 and MQA, fully masked rows, f32), with
+   kernel, plain and library (``scaled_dot_product_attention``) times and
+   the bound;
 5. K5 fused Adam against its plain version over the 8-worker stack of the
    IMDB LSTM's leaves (21.5 M f32 elements), bf16 gradients and misaligned
    leaves, with kernel, plain and library (``torch.optim.Adam(fused=True)``
@@ -29,13 +33,16 @@ Phases, in order; any failure exits non-zero and prints no result:
    (cuDNN's ``nn.LSTM`` at the same T, G·B and H, forward and backward;
    its forget-bias convention differs, so it is timed, not compared)
    times and the bounds;
-7. K3 and K4, the flash-attention backward (dq, dk/dv), against their
-   plain version at the LM's and the classifier's training shapes and at
-   small GQA / window / ragged / f32 / fully-masked cases (see
-   ``check_flash_bwd``), with kernel, plain, K2-forward and library
-   (SDPA's backward) times and the bounds; then the flash Function under
-   ``torch.func.vmap(grad)`` at W=2, through the kernels and the plain
-   versions (one launch of K2, K3 and K4 for the step);
+7. K2, K3 and K4, the flash-attention forward and backward (dq, dk/dv),
+   against their plain versions at the LM's and the classifier's training
+   shapes and at small GQA / window / ragged / masked-key / f32 /
+   fully-masked cases (see ``check_flash_bwd``), with kernel, plain and
+   library (SDPA's forward and backward) times and the bounds; then the
+   flash Function under ``torch.func.vmap(grad)`` at W=2, through the
+   kernels and the plain versions (one launch of K2, K3 and K4 for the
+   step); then the fused cross-entropy in bf16 under ``vmap(grad)`` at the
+   LM's head width: f32 logits and no per-worker loop
+   (``check_fused_ce``);
 8. one DynSGD window at full width through the kernels and the same window
    through their plain versions on the card: the centers must agree within
    the stated bf16 tolerance (see ``compare_window``);
@@ -66,10 +73,11 @@ Phases, in order; any failure exits non-zero and prints no result:
     num_workers=2, batch_size=8, communication_window=2)`` for two epochs
     of 3 windows on a learnable synthetic stream (``lm_tokens``), random
     init from seed 0; K2, K3, K4 and K5's launch counters, reset just
-    before, must all show launches, and the last window's loss must be
-    below the first's; then config 6's encoder classifier
-    (``transformer_classifier(vocab 8192, maxlen 2048, dim 512, heads 8,
-    depth 8, attn_impl="flash")``) under ``DOWNPOUR(worker_optimizer="sgd",
+    before, must all show launches, no ``vmap`` may fall back to a loop
+    over workers, and the last window's loss must be below the first's;
+    then config 6's encoder classifier (``transformer_classifier(vocab
+    8192, maxlen 2048, dim 512, heads 8, depth 8, attn_impl="flash")``)
+    under ``DOWNPOUR(worker_optimizer="sgd",
     learning_rate=1e-3, num_workers=2, batch_size=8)`` for 3 windows on
     ragged rows; K2, K3 and K4 must have launched and the loss be finite;
 13. print the ``kernels`` JSON line, then the result line
@@ -96,6 +104,7 @@ PEAK_F32 = 67e12            # H100 SXM f32 FLOP/s outside the tensor cores
 DEVICE = "cuda"
 VOCAB, MAXLEN, DIM, HEADS, KV_HEADS, DEPTH = 16384, 1024, 2048, 16, 1, 8
 PROMPTS = (128, 77, 208, 333)
+SERVED_LENGTHS = (80, 128, 208, 336)   # the prompts padded to BLOCK
 NEW_TOKENS = 32
 BLOCK = 16
 # Dense shapes (K, N) of the config: qkv, attn_out, mlp_up, mlp_down, head
@@ -263,26 +272,33 @@ def check_flash(torch, fa):
 
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     rows, max_err = [], 0.0
+    bf = torch.bfloat16
     cases = [
-        # (B, L, H, Hkv, D, dtype, causal, window, masked)
-        (4, 128, 16, 1, 128, torch.bfloat16, True, None, False),
-        (4, 208, 16, 1, 128, torch.bfloat16, True, None, False),
-        (1, 80, 16, 1, 128, torch.bfloat16, True, None, False),
-        (1, 128, 16, 1, 128, torch.bfloat16, True, None, False),
-        (1, 208, 16, 1, 128, torch.bfloat16, True, None, False),
-        (1, 336, 16, 1, 128, torch.bfloat16, True, None, False),
-        (2, 100, 4, 2, 64, torch.bfloat16, False, 24, True),
-        (2, 150, 4, 1, 128, torch.bfloat16, True, 40, True),
-        (2, 100, 4, 2, 64, torch.float32, True, 24, True),
+        # (B, L, H, Hkv, D, dtype, causal, window, key mask; see _key_mask)
+        (4, 128, 16, 1, 128, bf, True, None, None),
+        (4, 208, 16, 1, 128, bf, True, None, None),
+        (1, 80, 16, 1, 128, bf, True, None, None),
+        (1, 128, 16, 1, 128, bf, True, None, None),
+        (1, 208, 16, 1, 128, bf, True, None, None),
+        (1, 336, 16, 1, 128, bf, True, None, None),
+        (2, 100, 4, 2, 64, bf, False, 24, "half"),
+        (2, 150, 4, 1, 128, bf, True, 40, "half"),
+        # the wgmma kernel's edge tiles: L not a multiple of its 128-row
+        # tiles, masked keys inside otherwise interior tiles, a window
+        # narrower than a warp's 16 rows, GQA 2 and MQA, fully masked rows
+        (2, 77, 4, 2, 64, bf, True, None, "holes"),
+        (2, 130, 8, 8, 128, bf, False, None, "holes"),
+        (2, 333, 4, 1, 128, bf, False, 5, "half"),
+        (2, 333, 8, 2, 64, bf, True, None, "half"),
+        (1, 512, 4, 4, 128, bf, False, None, "holes"),
+        (2, 100, 4, 2, 64, torch.float32, True, 24, "half"),
     ]
-    for B, L, H, Hkv, D, dt, causal, window, masked in cases:
+    for B, L, H, Hkv, D, dt, causal, window, mkind in cases:
         q = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
         k = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
         v = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
-        km = None
-        if masked:
-            km = torch.zeros((B, L), device=DEVICE)
-            km[0, : L - L // 3] = 1.0      # row 1 fully masked → output 0
+        km = _key_mask(torch, mkind, B, L, gen)
+        masked = km is not None
         kw = dict(scale=D ** -0.5, causal=causal, window=window)
         o, lse = fa._fa_forward(q, k, v, km, **kw)
         ro, rlse = fa._fa_forward_plain(q, k, v, km, **kw)
@@ -294,9 +310,9 @@ def check_flash(torch, fa):
                 and torch.isfinite(o.float()).all()):
             raise AssertionError(
                 f"flash B={B} L={L} H={H}/{Hkv} D={D} {dt} causal={causal} "
-                f"window={window} mask={masked}: |O - plain| = {err} "
+                f"window={window} mask={mkind}: |O - plain| = {err} "
                 f"(atol {o_atol}), |lse - plain| = {lse_err} (atol 1e-3)")
-        if masked and o[1].abs().max().item() != 0.0:
+        if mkind == "half" and o[1].abs().max().item() != 0.0:
             raise AssertionError("flash: fully masked rows must give 0")
         max_err = max(max_err, err)
         kernel_ms = cuda_ms(torch, lambda: fa._fa_forward(q, k, v, km, **kw))
@@ -317,7 +333,7 @@ def check_flash(torch, fa):
         nbytes = (2 * B * L * H * D + 2 * B * L * Hkv * D) * esz \
             + B * H * L * 4
         row = dict(B=B, L=L, H=H, Hkv=Hkv, D=D, dtype=str(dt).split(".")[-1],
-                   causal=causal, window=window, key_mask=masked,
+                   causal=causal, window=window, key_mask=mkind,
                    max_abs_err=err, lse_err=lse_err, kernel_ms=kernel_ms,
                    eager_ms=call_ms, plain_ms=plain_ms,
                    library_ms=library_ms,
@@ -344,33 +360,40 @@ def _pairs(torch, fa, B, L, causal, window, km):
 def _key_mask(torch, kind, B, L, gen):
     """None; "half": row 0 attends a prefix, row 1 nothing (every query
     of row 1 fully masked); "ragged": each row a prefix of its own
-    length, L/4 .. L."""
+    length, L/4 .. L; "holes": every key but one in 37 (offset by the
+    row), so masked keys fall inside tiles that are otherwise whole."""
     if kind is None:
         return None
     km = torch.zeros((B, L), device=DEVICE)
     if kind == "half":
         km[0, : L - L // 3] = 1.0
         return km
+    if kind == "holes":
+        pos = torch.arange(L, device=DEVICE)[None]
+        rows = torch.arange(B, device=DEVICE)[:, None]
+        return ((pos + 5 * rows) % 37 != 3).float()
     lengths = torch.randint(L // 4, L + 1, (B,), generator=gen,
                             device=DEVICE)
     return (torch.arange(L, device=DEVICE)[None] < lengths[:, None]).float()
 
 
 def check_flash_bwd(torch, fa):
-    """K3 (dq) and K4 (dk/dv) against their plain version at the LM's
-    training shape (B'=16 = 2 workers x 8, L=2048, H=8, D=128, bf16,
-    causal), the classifier's (D=64, non-causal, ragged key mask) and
-    small cases (GQA 2 and 1, window with and without causal, ragged L,
-    f32, the bf16 FMA path at D=32, fully masked rows). Both sides read
-    the same q, k, v, dO and the kernel forward's O and lse. Tolerance:
-    the kernels round p and ds to bf16 as operands of their second
-    products (as FA2) where the plain version keeps f32, so bf16 outputs
-    agree to 2^-6 of the plain output's largest magnitude (two bf16
-    ulps); f32 to 1e-4 of it (summation order over up to L terms through
-    exp). Fully masked rows must give exact zeros. Kernel, plain, K2's
-    forward and the library (``scaled_dot_product_attention``'s backward,
-    which computes dq, dk and dv in one call, at the same shapes without
-    the key mask) are timed at the two training shapes."""
+    """K2's forward, K3 (dq) and K4 (dk/dv) against their plain versions
+    at the LM's training shape (B'=16 = 2 workers x 8, L=2048, H=8, D=128,
+    bf16, causal), the classifier's (D=64, non-causal, ragged key mask)
+    and small cases (GQA 2 and 1, window with and without causal, a window
+    narrower than a warp's rows, ragged L, masked keys inside whole tiles,
+    f32, the bf16 FMA path at D=32, fully masked rows). The forward is
+    held to the tolerances of ``check_flash``; the backward kernels and
+    their plain version read the same q, k, v, dO and the kernel forward's
+    O and lse. Tolerance: the kernels round p and ds to bf16 as operands
+    of their second products (as FA2) where the plain version keeps f32,
+    so bf16 outputs agree to 2^-6 of the plain output's largest magnitude
+    (two bf16 ulps); f32 to 1e-4 of it (summation order over up to L terms
+    through exp). Fully masked rows must give exact zeros. Kernel, plain
+    and library (``scaled_dot_product_attention``'s forward, and its
+    backward, which computes dq, dk and dv in one call, at the same shapes
+    without the key mask) are timed at the two training shapes."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -387,10 +410,13 @@ def check_flash_bwd(torch, fa):
         (2, 77, 4, 4, 128, bf, True, None, None, False),
         (2, 130, 8, 2, 64, bf, False, None, "half", False),
         (2, 77, 4, 2, 32, bf, True, None, "half", False),
+        (2, 333, 4, 1, 128, bf, False, 5, "half", False),
+        (2, 333, 8, 2, 64, bf, True, None, "holes", False),
+        (1, 512, 4, 4, 128, bf, False, None, "holes", False),
         (2, 100, 4, 2, 64, f32, True, 24, "half", False),
         (2, 77, 4, 1, 128, f32, False, None, None, False),
     ]
-    dq_rows, dkv_rows = [], []
+    fwd_rows, dq_rows, dkv_rows = [], [], []
     dq_err = dkv_err = 0.0
     for B, L, H, Hkv, D, dt, causal, window, mkind, timed in cases:
         q = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
@@ -400,6 +426,21 @@ def check_flash_bwd(torch, fa):
         km = _key_mask(torch, mkind, B, L, gen)
         kw = dict(scale=D ** -0.5, causal=causal, window=window)
         out, lse = fa._fa_forward(q, k, v, km, **kw)
+        ro, rlse = fa._fa_forward_plain(q, k, v, km, **kw)
+        torch.cuda.synchronize()
+        label = (f"B={B} L={L} H={H}/{Hkv} D={D} {str(dt).split('.')[-1]} "
+                 f"causal={causal} window={window} mask={mkind}")
+        o_atol = 2e-2 if dt == bf else 1e-4
+        errs = {"o": _err(out, ro), "lse": _err(lse, rlse)}
+        if not (errs["o"] <= o_atol and errs["lse"] <= 1e-3
+                and torch.isfinite(out.float()).all()):
+            raise AssertionError(
+                f"flash forward {label}: |O - plain| = {errs['o']} (atol "
+                f"{o_atol}), |lse - plain| = {errs['lse']} (atol 1e-3)")
+        if mkind == "half" and out[1].abs().max().item() != 0.0:
+            raise AssertionError(f"flash forward {label}: fully masked rows "
+                                 f"must give 0")
+        del ro, rlse
         delta = fa._delta(out, g)
         args = (q, k, v, km, lse, delta, g)
         dq = fa._fa_bwd_dq(*args, **kw)
@@ -407,9 +448,6 @@ def check_flash_bwd(torch, fa):
         rq, rk, rv = fa._fa_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
         rel = 2.0 ** -6 if dt == bf else 1e-4
-        label = (f"B={B} L={L} H={H}/{Hkv} D={D} {str(dt).split('.')[-1]} "
-                 f"causal={causal} window={window} mask={mkind}")
-        errs = {}
         for name, got, ref in (("dq", dq, rq), ("dk", dk, rk),
                                ("dv", dv, rv)):
             errs[name] = _err(got, ref)
@@ -447,12 +485,18 @@ def check_flash_bwd(torch, fa):
         lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt.detach(), kt.detach(), vt.detach(), is_causal=causal))
         del lo, qt, kt, vt, gt
-        log("flash_attention training shape " + json.dumps(dict(
-            **shape, kernel_ms=cuda_ms(torch, lambda: fa._fa_forward(
+        fwd_rows.append(dict(
+            **shape, max_abs_err=errs["o"], lse_err=errs["lse"],
+            kernel_ms=cuda_ms(torch, lambda: fa._fa_forward(
                 q, k, v, km, **kw), iters=5),
+            eager_ms=eager_ms(torch, lambda: fa._fa_forward(
+                q, k, v, km, **kw), iters=5),
+            plain_ms=cuda_ms(torch, lambda: fa._fa_forward_plain(
+                q, k, v, km, **kw), iters=1, replays=2),
             library_ms=lib_fwd,
             **bound(2 * qb + 2 * kvb + B * H * L * 4, 4.0 * pairs * H * D,
-                    PEAK_BF16 if esz == 2 else PEAK_F32))))
+                    PEAK_BF16 if esz == 2 else PEAK_F32)))
+        log("flash_attention training shape " + json.dumps(fwd_rows[-1]))
         dq_rows.append(dict(
             **shape, max_abs_err=errs["dq"],
             kernel_ms=cuda_ms(torch, lambda: fa._fa_bwd_dq(*args, **kw),
@@ -478,7 +522,100 @@ def check_flash_bwd(torch, fa):
                     PEAK_BF16 if esz == 2 else PEAK_F32)))
         log("flash_attention_bwd_dkv " + json.dumps(dkv_rows[-1]))
     torch.cuda.empty_cache()
-    return dq_rows, dkv_rows, dq_err, dkv_err
+    return fwd_rows, dq_rows, dkv_rows, dq_err, dkv_err
+
+
+# the kernels redesigned on wgmma: kernels-line entry → (library, function)
+WGMMA_KERNELS = {
+    "flash_attention": ("flash_attention", "fa_fwd_wgmma_kernel"),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd",
+                                "fa_bwd_dkv_wgmma_kernel"),
+}
+
+
+def check_sass(_build):
+    """Each kernel redesigned on wgmma, at both head dims, issues ``HGMMA``
+    and ``UTMALDG`` (TMA) instructions in its SASS (``cuobjdump -sass`` of
+    the built library), spills nothing (``ptxas -v``), and ``setmaxnreg``
+    was not ignored. Registers are the launch count; the consumer
+    warpgroups raise theirs with ``setmaxnreg``."""
+    out = {}
+    for entry, (lib, fn) in WGMMA_KERNELS.items():
+        text = _build.build_log(lib)
+        if "setmaxnreg ignored" in text:
+            raise AssertionError(f"{lib}: ptxas ignored setmaxnreg:\n{text}")
+        report = _build.ptxas_report(text)
+        sass = _build.sass_counts(lib)
+        for d in (64, 128):
+            tag = f"{fn}ILi{d}E"
+            regs = [v for k, v in report.items() if tag in k]
+            ops = [v for k, v in sass.items() if tag in k]
+            if len(regs) != 1 or len(ops) != 1:
+                raise AssertionError(f"{fn}<{d}> not found once in the "
+                                     f"build of {lib}: {list(report)}")
+            row = dict(**regs[0], hgmma=ops[0]["HGMMA"],
+                       utmaldg=ops[0]["UTMALDG"])
+            if not (row["hgmma"] > 0 and row["utmaldg"] > 0
+                    and row.get("spill_stores", 0) == 0
+                    and row.get("spill_loads", 0) == 0):
+                raise AssertionError(f"{fn}<{d}>: {row}")
+            out.setdefault(entry, {})[f"D={d}"] = row
+        log(f"sass {entry} ({fn}): {json.dumps(out[entry])}")
+    return out
+
+
+def check_fused_ce(torch):
+    """The fused cross-entropy (``ops/fused_ce.py``) on the card in bf16 at
+    the LM's head (D=1024, V=16384, chunk 512), 2 workers of 1024 rows.
+    Each worker's loss equals the plain f32-logit reference (the same bf16
+    operands multiplied in f32) to 1e-5 relative, as the JAX op keeps its
+    logits f32 (summation order only; bf16 logits would move it ~1e-4).
+    ``vmap(grad)`` over the workers raises no vmap-fallback warning (a
+    per-worker loop) and matches a loop over workers: the loss to 1e-5
+    relative, dh and dkernel to 2^-7 of their largest magnitude (one bf16
+    ulp there: batched and single products may sum in another order, and
+    a last-bit f32 difference can flip a bf16 rounding)."""
+    import warnings
+
+    from distkeras_tpu_torch.ops.fused_ce import chunked_softmax_cross_entropy
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    W, N, D, V = 2, 1024, LM_DIM, LM_VOCAB
+    bf = torch.bfloat16
+    hs = torch.randn((W, N, D), generator=gen, device=DEVICE).to(bf)
+    ks = (torch.randn((W, D, V), generator=gen, device=DEVICE)
+          * D ** -0.5).to(bf)
+    ys = torch.randint(0, V, (W, N), generator=gen, device=DEVICE)
+
+    def loss(h, k, y):
+        return chunked_softmax_cross_entropy(h, y, k, chunk=LM_CHUNK)
+
+    grad = torch.func.grad_and_value(loss, argnums=(0, 1))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (dh, dk), vals = torch.func.vmap(grad)(hs, ks, ys)
+        torch.cuda.synchronize()
+    fallback = [str(w.message) for w in caught if "batching rule"
+                in str(w.message)]
+    if fallback:
+        raise AssertionError(f"fused CE under vmap(grad) fell back to a "
+                             f"per-worker loop: {fallback[:2]}")
+    errs = dict(loss=0.0, dh=0.0, dk=0.0)
+    for w in range(W):
+        ref = torch.nn.functional.cross_entropy(
+            hs[w].float() @ ks[w].float(), ys[w])
+        (rh, rk), rv = grad(hs[w], ks[w], ys[w])
+        for name, got, want, tol in (
+                ("loss", vals[w], ref, 1e-5 * ref.abs().item()),
+                ("loss", vals[w], rv, 1e-5 * rv.abs().item()),
+                ("dh", dh[w], rh, 2.0 ** -7 * rh.float().abs().max().item()),
+                ("dk", dk[w], rk, 2.0 ** -7 * rk.float().abs().max().item())):
+            e = _err(got, want)
+            errs[name] = max(errs[name], e)
+            if not e <= tol:
+                raise AssertionError(f"fused CE worker {w} {name}: |got - "
+                                     f"want| = {e} beyond {tol}")
+    log("fused_ce bf16 vmap(grad) W=2: ok " + json.dumps(errs))
 
 
 def check_flash_vmap(torch, fa):
@@ -592,6 +729,8 @@ def train_lm(torch):
     ADAG with fused Adam, the flash kernels and the fused cross-entropy,
     two epochs of LM_WINDOWS windows, random init from seed 0. Returns
     the phase's record; the caller reads the launch counters around it."""
+    import warnings
+
     from distkeras_tpu_torch.data import next_token_dataset
     from distkeras_tpu_torch.trainers import ADAG
 
@@ -604,8 +743,15 @@ def train_lm(torch):
         LM_W * LM_WINDOW * LM_BATCH * LM_WINDOWS))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    t.train(ds)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t.train(ds)
     wall = time.perf_counter() - t0
+    fallback = [str(w.message) for w in caught
+                if "batching rule" in str(w.message)]
+    if fallback:
+        raise AssertionError(f"ADAG LM: vmap fell back to a per-worker "
+                             f"loop: {fallback[:2]}")
     losses = t.history.losses()
     if len(losses) != 2 * LM_WINDOWS or not np.all(np.isfinite(losses)):
         raise AssertionError(f"ADAG LM: bad loss history {losses}")
@@ -1084,6 +1230,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = _build.build()
     log(f"build: {json.dumps(secs)} total {time.perf_counter() - t0:.2f}s")
+    sass = check_sass(_build)
 
     with torch.inference_mode():
         qrows, q_err = check_q_matmul(torch, quant)
@@ -1091,8 +1238,10 @@ def main() -> int:
         arows, a_err = check_adam(torch, pk)
     fwd_rows, bwd_rows, l_err = check_lstm(torch, rec)
     with torch.no_grad():
-        dq_rows, dkv_rows, dq_err, dkv_err = check_flash_bwd(torch, fa)
+        (fa_train_rows, dq_rows, dkv_rows, dq_err,
+         dkv_err) = check_flash_bwd(torch, fa)
     check_flash_vmap(torch, fa)
+    check_fused_ce(torch)
     log(f"kernel checks done at {time.perf_counter() - t0:.1f}s")
     train, test = imdb_data()
     compare_window(torch, train)
@@ -1176,7 +1325,8 @@ def main() -> int:
                 if r["M"] == 8 and r["dtype"] == "bfloat16"]
 
     def served_prefill(rows):  # one layer's prefill attention, 4 prompts
-        return [(r, 1) for r in rows if r["B"] == 1]
+        return [(r, 1) for r in rows if (r["B"], r["H"], r["Hkv"]) ==
+                (1, HEADS, KV_HEADS) and r["L"] in SERVED_LENGTHS]
 
     def one_launch(rows):      # one launch at the training path's shapes
         return [(r, 1) for r in rows]
@@ -1221,7 +1371,8 @@ def main() -> int:
             bound_by="bytes" if by_bytes >= 0.5 * bound_ms else "operations",
             library_ms=total(rows, pick, "library_ms"),
             checked=True,
-            shapes=rows))
+            shapes=rows,
+            **({"sass": sass[name]} if name in sass else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

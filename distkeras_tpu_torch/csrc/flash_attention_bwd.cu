@@ -27,23 +27,53 @@
 //  * K4: one block per (b*hkv, k tile); it loops over the group's q heads
 //    and, for each, over the in-band q tiles (_first_q_tile/_last_q_tile),
 //    so dk and dv are summed over the whole GQA group inside the block: no
-//    repeated K/V, no atomics, a deterministic result.
+//    repeated K/V, no atomics, a deterministic result. Under causal masking
+//    the first k tiles see the most q tiles, so the launch order starts the
+//    longest blocks first.
 //
 // What bounds them on an H100: at training shapes (L = 2048, D = 64 or 128)
 // each kernel does three (K3) or four (K4) L x L x D products per head, half
 // that causal, against a few reads of q/k/v/dO: operations, so the tensor
 // cores are the roof. Two kernels each, chosen by dtype and head dim:
-//  * *_mma_kernel (bfloat16, D = 64 or 128, 16-byte aligned inputs): the
-//    products on the tensor cores through mma.sync m16n8k16 with f32
-//    accumulation, FA2-style. Four warps own 16 rows each (query rows in K3,
-//    key rows in K4); S and dP stay in registers, p and ds are formed there
-//    and re-packed as bf16 A operands of the next product, so no score tile
-//    touches shared memory. Operands read as the "col" B fragment of a
-//    product whose contraction runs over rows (k in K3's ds k; q and dO in
-//    K4's p^T dO and ds^T q) are also stored transposed in shared memory, so
-//    each fragment is one 32-bit load; rows are padded 16 bytes so fragment
-//    loads hit 32 distinct banks. Loads are not pipelined (no cp.async/TMA
-//    ring) and the products are mma.sync, not wgmma: that is the next step.
+//  * fa_bwd_dkv_wgmma_kernel (K4: bfloat16, D = 64 or 128, 16-byte aligned
+//    inputs). 128 keys a block, 384 threads in three warpgroups, on a 1-D
+//    grid whose consecutive blocks are the k tiles of one head, so the
+//    blocks resident together share its q and dO through L2 (8-12% faster
+//    than the head index fastest at the training shapes, flash_ab.py on
+//    the H100). A block whose 128 keys are all masked (a padded tail)
+//    writes zeros and loads nothing.
+//    - Loads: one producer warp (warpgroup 2, down to 24 registers by
+//      setmaxnreg) brings the block's K and V once, then each (head, 64-row
+//      q tile)'s q and dO by TMA into a 2-stage ring (4-D tensor maps over
+//      (D, heads, L, B), 64-column boxes with the 128-byte swizzle, rows
+//      past L zero-filled), and writes the tile's lse (times log2 e; +inf
+//      past L, so p = 0 there) and delta, read from global memory once per
+//      tile; mbarriers signal a full and a free stage.
+//    - Products: two consumer warpgroups (up to 240 registers each) own 64
+//      keys each. S^T = K Q^T and dP^T = V dO^T are wgmma m64n64k16 with
+//      the K or V tile (loaded once) as A and the q or dO tile as B, all
+//      K-major. dV += P^T dO and dK += dS^T q are wgmma m64n64k16 (one per
+//      64-column half of D) with P^T and dS^T as register A operands,
+//      packed to bf16 from the accumulators, and dO and q read MN-major
+//      through wgmma's transpose flag: no transposed copy of q or dO
+//      exists. dK and dV (2 x 64 x D f32 per warpgroup) stay in registers.
+//    - p = exp2(s * scale * log2 e - lse * log2 e) is one FFMA and one
+//      ex2.approx; only an edge tile (the sequence end, a masked key of the
+//      warp's 16 keys, the diagonal or a window edge) evaluates the
+//      predicate per entry, with the key mask of the thread's two keys read
+//      once per block.
+//    ptxas (CUDA 12.9): 168 registers at launch (setmaxnreg moves them to
+//    the consumers), no spills; SASS: 32 HGMMA and 8 UTMALDG at D = 128,
+//    16 and 4 at D = 64 (chip_smoke.py's check_sass).
+//  * fa_bwd_dq_mma_kernel (K3: bfloat16, D = 64 or 128, 16-byte aligned
+//    inputs): the products on the tensor cores through mma.sync m16n8k16
+//    with f32 accumulation, FA2-style. Four warps own 16 query rows each;
+//    S and dP stay in registers, ds is formed there and re-packed as the
+//    bf16 A operand of dq += ds k, so no score tile touches shared memory.
+//    k, read as the "col" B fragment of that product, is also stored
+//    transposed in shared memory, so each fragment is one 32-bit load;
+//    rows are padded 16 bytes so fragment loads hit 32 distinct banks.
+//    Loads are not pipelined and the products are mma.sync, not wgmma.
 //  * fa_bwd_*_kernel (float32, or any other D <= 128): plain f32 FMAs over
 //    shared-memory tiles, one score tile entry per thread at a time.
 //
@@ -55,10 +85,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kDMax = 128;
-constexpr float kNeg = -1e9f;  // _NEG of the TPU kernels (masked scores)
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
 template <> __device__ __forceinline__ float to_f32<float>(float v) { return v; }
@@ -104,6 +135,16 @@ __device__ __forceinline__ void q_band(int k0, int bk, int bq, int L, int causal
   first = causal ? k0 / bq : (window > 0 ? max(0, k0 - window + 1) / bq : 0);
   last = (L + bq - 1) / bq - 1;
   if (window > 0) last = min(last, (k0 + bk - 1 + window - 1) / bq);
+}
+
+// band_predicate for one (query, key) pair.
+__device__ __forceinline__ bool in_band(int qp, int kp, int causal, int window) {
+  if (causal && kp > qp) return false;
+  if (window > 0) {
+    if (qp - kp >= window) return false;
+    if (!causal && kp - qp >= window) return false;
+  }
+  return true;
 }
 
 // -- f32 FMA kernels (float32, or bfloat16 at other head dims) --------------
@@ -312,8 +353,7 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 // -- bfloat16 on the tensor cores --------------------------------------------
 
 constexpr int kBQ = 64;   // K3: q rows per block (4 warps x 16)
-constexpr int kBK = 64;   // K3: keys per k tile; K4: keys per block (4 warps x 16)
-constexpr int kBQ4 = 32;  // K4: q rows per q tile
+constexpr int kBK = 64;   // K3: keys per k tile
 
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -477,162 +517,249 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// K4 on wgmma: a block owns 128 keys (two consumer warpgroups of 64) and
+// walks the group's q heads and in-band 64-row q tiles through a TMA ring.
+constexpr int kWBKV = 128;      // keys per block
+constexpr int kWBQ4 = 64;       // q rows per q tile
+constexpr int kStages = 2;      // depth of the q/dO ring
+constexpr int kWThreads = 384;  // warpgroups 0-1 consume, warpgroup 2 loads
+constexpr uint32_t kRow = 128;  // bytes of one swizzled tile row (64 bf16)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of the wgmma K4, offsets from a 1024-byte aligned base.
 template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((size_t)2 * kBK * (D + 8) + (size_t)2 * kBQ4 * (D + 8) +
-                                  (size_t)2 * D * (kBQ4 + 8)) +
-         sizeof(float) * 2 * kBQ4;
-}
+struct DkvSmem {
+  static constexpr int H2 = D / 64;                           // 64-column halves
+  static constexpr uint32_t kv_bytes = H2 * kWBKV * kRow;     // the K (or V) tile
+  static constexpr uint32_t q_bytes = H2 * kWBQ4 * kRow;      // one q (or dO) tile
+  static constexpr uint32_t v_off = kv_bytes;
+  static constexpr uint32_t q_off = 2 * kv_bytes;             // [kStages] q tiles
+  static constexpr uint32_t g_off = q_off + kStages * q_bytes;  // [kStages] dO tiles
+  static constexpr uint32_t lse_off = g_off + kStages * q_bytes;  // [kStages][kWBQ4] lse*log2e
+  static constexpr uint32_t delta_off = lse_off + kStages * kWBQ4 * 4;
+  static constexpr uint32_t bar_off = delta_off + kStages * kWBQ4 * 4;
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * kStages) + 1024;  // + alignment
+};
 
 template <int D>
-__global__ void __launch_bounds__(128)
-fa_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-                      const float* __restrict__ delta, const float* __restrict__ key_mask,
-                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int L,
-                      int H, int Hkv, float scale, int causal, int window) {
-  constexpr int LD = D + 8, TLD = kBQ4 + 8, C8 = D / 8, NT = kBQ4 / 8;
+__global__ void __launch_bounds__(kWThreads, 1)
+fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tg, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const float* __restrict__ key_mask,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int L,
+                        int H, int Hkv, float scale, int causal, int window) {
+  using S = DkvSmem<D>;
+  constexpr int H2 = S::H2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBK][LD]
-  __nv_bfloat16* Vs = Ks + kBK * LD;                                // [kBK][LD]
-  __nv_bfloat16* Qs = Vs + kBK * LD;                                // [kBQ4][LD]
-  __nv_bfloat16* Gs = Qs + kBQ4 * LD;                               // [kBQ4][LD]: dO
-  __nv_bfloat16* Qt = Gs + kBQ4 * LD;                               // [D][TLD]: q^T
-  __nv_bfloat16* Gt = Qt + D * TLD;                                 // [D][TLD]: dO^T
-  float* Ls = reinterpret_cast<float*>(Gt + D * TLD);               // lse per q row
-  float* Ds = Ls + kBQ4;                                            // delta per q row
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = base;
+  uint8_t* Vs = base + S::v_off;
+  float* lseS = reinterpret_cast<float*>(base + S::lse_off);
+  float* deltaS = reinterpret_cast<float*>(base + S::delta_off);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + S::bar_off);
+  uint64_t* full = kv_full + 1;        // q, dO tiles landed, lse and delta written
+  uint64_t* empty = full + kStages;    // both consumer warpgroups are done with the stage
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bkv = blockIdx.x, b = bkv / Hkv, hk = bkv % Hkv;
+  // One block per (b*hkv, k tile), the tiles of one head consecutive so
+  // that they run together and read its q/dO from L2; under causal masking
+  // the first k tiles have the longest bands.
+  const int nkt = (L + kWBKV - 1) / kWBKV;
+  const int bkv = (int)blockIdx.x / nkt, b = bkv / Hkv, hk = bkv % Hkv;
   const int group = H / Hkv;
-  const int k0 = blockIdx.y * kBK;
-  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
-  const __nv_bfloat16* kb = k + (size_t)b * L * ks + (size_t)hk * D;
-  const __nv_bfloat16* vb = v + (size_t)b * L * ks + (size_t)hk * D;
+  const int k0 = ((int)blockIdx.x % nkt) * kWBKV;
   const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int i = tid; i < kBK * C8; i += 128) {
-    const int r = i / C8, c = (i % C8) * 8, kp = k0 + r;
-    *reinterpret_cast<uint4*>(Ks + r * LD + c) =
-        kp < L ? *reinterpret_cast<const uint4*>(kb + (size_t)kp * ks + c) : zero;
-    *reinterpret_cast<uint4*>(Vs + r * LD + c) =
-        kp < L ? *reinterpret_cast<const uint4*>(vb + (size_t)kp * ks + c) : zero;
-  }
-
-  const int r0 = warp * 16;                       // this warp's keys in the tile
-  const int key0 = k0 + r0 + g, key1 = key0 + 8;  // the thread's two keys
-  float dka[C8][4], dva[C8][4];
-#pragma unroll
-  for (int j = 0; j < C8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
   int first, last;
-  q_band(k0, kBK, kBQ4, L, causal, window, first, last);
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi, bh = b * H + h;
-    const __nv_bfloat16* qb = q + (size_t)b * L * qs + (size_t)h * D;
-    const __nv_bfloat16* gb = dout + (size_t)b * L * qs + (size_t)h * D;
-    for (int qt = first; qt <= last; ++qt) {
-      const int q0 = qt * kBQ4;
-      __syncthreads();  // previous q tile consumed (and Ks/Vs stored)
-      for (int i = tid; i < kBQ4 * C8; i += 128) {
-        const int r = i % kBQ4, c = (i / kBQ4) * 8, qp = q0 + r;  // r fastest: ^T stores
-        const uint4 qw = qp < L ? *reinterpret_cast<const uint4*>(qb + (size_t)qp * qs + c) : zero;
-        const uint4 gw = qp < L ? *reinterpret_cast<const uint4*>(gb + (size_t)qp * qs + c) : zero;
-        *reinterpret_cast<uint4*>(Qs + r * LD + c) = qw;
-        *reinterpret_cast<uint4*>(Gs + r * LD + c) = gw;
-        store_t8(Qt, TLD, c, r, qw);
-        store_t8(Gt, TLD, c, r, gw);
-      }
-      if (tid < kBQ4) {
-        const int qp = q0 + tid;
-        Ls[tid] = qp < L ? lse[(size_t)bh * L + qp] : 0.f;
-        Ds[tid] = qp < L ? delta[(size_t)bh * L + qp] : 0.f;
-      }
-      __syncthreads();
+  q_band(k0, kWBKV, kWBQ4, L, causal, window, first, last);
+  const int nq = last - first + 1;
 
-      // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries as 4 n8 tiles
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < D; kd += 16) {
-        const __nv_bfloat16* ka = Ks + (r0 + g) * LD + kd + 2 * t;
-        const __nv_bfloat16* va = Vs + (r0 + g) * LD + kd + 2 * t;
-        const uint32_t a0 = lds32(ka), a1 = lds32(ka + 8 * LD);
-        const uint32_t a2 = lds32(ka + 8), a3 = lds32(ka + 8 * LD + 8);
-        const uint32_t v0 = lds32(va), v1 = lds32(va + 8 * LD);
-        const uint32_t v2 = lds32(va + 8), v3 = lds32(va + 8 * LD + 8);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* qq = Qs + (nt * 8 + g) * LD + kd + 2 * t;
-          mma_16816(s[nt], a0, a1, a2, a3, lds32(qq), lds32(qq + 8));
-          const __nv_bfloat16* gg = Gs + (nt * 8 + g) * LD + kd + 2 * t;
-          mma_16816(dp[nt], v0, v1, v2, v3, lds32(gg), lds32(gg + 8));
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  // A block whose keys are all masked (a padded tail) has dk = dv = 0 and
+  // walks no q tile.
+  const int kp = k0 + tid % kWBKV;
+  const int live = __syncthreads_or(kp < L && (km == nullptr || km[kp] > 0.5f));
+  const int ntiles = live ? group * nq : 0;  // (head, q tile) pairs
+
+  if (warp >= 8) {  // producer warpgroup: its first warp keeps the ring full
+    hopper::regs_dealloc<24>();
+    if (warp == 8) {
+      if (lane == 0 && ntiles > 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * S::kv_bytes);
+        for (int c = 0; c < H2; ++c) {
+          hopper::tma_load_4d(Ks + c * kWBKV * kRow, &tk, kv_full, 64 * c, hk, k0, b);
+          hopper::tma_load_4d(Vs + c * kWBKV * kRow, &tv, kv_full, 64 * c, hk, k0, b);
         }
       }
-
-      // p^T into s, ds^T = p^T (dp^T - delta) into dp; 0 off the valid set
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages, h = hk * group + i / nq, q0 = (first + i % nq) * kWBQ4;
+        const size_t row = (size_t)(b * H + h) * L;
+        if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+        // lse (in log2 units) and delta read once per tile; rows past L get
+        // lse = +inf, so their p is 0
+        for (int c = lane; c < kWBQ4; c += 32) {
+          const int qp = q0 + c;
+          lseS[s * kWBQ4 + c] = qp < L ? lse[row + qp] * kLog2e : INFINITY;
+          deltaS[s * kWBQ4 + c] = qp < L ? delta[row + qp] : 0.f;
+        }
+        if (lane == 0) {
+          uint8_t* Qs = base + S::q_off + s * S::q_bytes;
+          uint8_t* Gs = base + S::g_off + s * S::q_bytes;
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * S::q_bytes);
+          for (int c = 0; c < H2; ++c) {
+            hopper::tma_load_4d(Qs + c * kWBQ4 * kRow, &tq, &full[s], 64 * c, h, q0, b);
+            hopper::tma_load_4d(Gs + c * kWBQ4 * kRow, &tg, &full[s], 64 * c, h, q0, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {  // consumer warpgroups: 64 keys each, 16 a warp
+    hopper::regs_alloc<240>();
+    const int wg = warp / 4, g = lane / 4, t = lane % 4;
+    const int kw0 = k0 + 64 * wg + 16 * (warp % 4);  // this warp's first key
+    const int key_a = kw0 + g, key_b = key_a + 8;    // the thread's two keys
+    const uint8_t* Kw = Ks + 64 * wg * kRow;
+    const uint8_t* Vw = Vs + 64 * wg * kRow;
+    // the key mask of the thread's keys, read once; keys past L are invalid
+    const bool kv_a = key_a < L && (km == nullptr || km[key_a] > 0.5f);
+    const bool kv_b = key_b < L && (km == nullptr || km[key_b] > 0.5f);
+    const bool keys_valid = __all_sync(0xffffffffu, kv_a && kv_b);
+    const float scale_log2 = scale * kLog2e;
+    float dka[H2][32], dva[H2][32];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
+    for (int c = 0; c < H2; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dka[c][e] = dva[c][e] = 0.f;
+    if (ntiles > 0) hopper::mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kStages, q0 = (first + i % nq) * kWBQ4;
+      const uint8_t* Qs = base + S::q_off + s * S::q_bytes;
+      const uint8_t* Gs = base + S::g_off + s * S::q_bytes;
+      hopper::mbar_wait(&full[s], (i / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, all K-major
+      float st[32], dpt[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 32;
+        hopper::wgmma_ss_m64n64(st, hopper::sw128_desc(Kw + c * kWBKV * kRow + off),
+                                hopper::sw128_desc(Qs + c * kWBQ4 * kRow + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 32;
+        hopper::wgmma_ss_m64n64(dpt, hopper::sw128_desc(Vw + c * kWBKV * kRow + off),
+                                hopper::sw128_desc(Gs + c * kWBQ4 * kRow + off), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      // p^T = exp2(s scale log2e - lse log2e) into st, ds^T = p^T (dp^T -
+      // delta) into dpt. Only an edge tile (the sequence end, a masked key,
+      // the diagonal or a window edge for this warp's keys) evaluates the
+      // predicate per entry; p is 0 off the valid set.
+      const bool interior =
+          keys_valid && q0 + kWBQ4 <= L && (!causal || kw0 + 15 <= q0) &&
+          (window <= 0 || (q0 + kWBQ4 - 1 - kw0 < window && (causal || kw0 + 15 - q0 < window)));
+      const float* ls = lseS + s * kWBQ4;
+      const float* ds = deltaS + s * kWBQ4;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(ds + c);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = nt * 8 + 2 * t + e, qp = q0 + col;
-          const float lq = Ls[col], dq_ = Ds[col];
-          const float p0 = valid_at(qp, key0, L, causal, window, km)
-                               ? expf(s[nt][e] * scale - lq) : 0.f;
-          const float p1 = valid_at(qp, key1, L, causal, window, km)
-                               ? expf(s[nt][2 + e] * scale - lq) : 0.f;
-          s[nt][e] = p0;
-          s[nt][2 + e] = p1;
-          dp[nt][e] = p0 * (dp[nt][e] - dq_);
-          dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dq_);
+          const float lq = e ? l2.y : l2.x, dq_ = e ? d2.y : d2.x;
+          float p0 = hopper::exp2_approx(fmaf(st[4 * j + e], scale_log2, -lq));
+          float p1 = hopper::exp2_approx(fmaf(st[4 * j + 2 + e], scale_log2, -lq));
+          if (!interior) {
+            const int qp = q0 + c + e;
+            if (!(kv_a && in_band(qp, key_a, causal, window))) p0 = 0.f;
+            if (!(kv_b && in_band(qp, key_b, causal, window))) p1 = 0.f;
+          }
+          st[4 * j + e] = p0;
+          st[4 * j + 2 + e] = p1;
+          dpt[4 * j + e] = p0 * (dpt[4 * j + e] - dq_);
+          dpt[4 * j + 2 + e] = p1 * (dpt[4 * j + 2 + e] - dq_);
         }
       }
 
-      // dv += p^T dO and dk += ds^T q: p^T, ds^T re-packed as A operands
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T packed to bf16 from the
+      // accumulators (the register-A layout); dO and q read MN-major with the
+      // transpose flag, so neither needs a transposed copy
+      uint32_t pa[kWBQ4 / 16][4], sa[kWBQ4 / 16][4];
 #pragma unroll
-      for (int kq = 0; kq < kBQ4 / 16; ++kq) {
-        const uint32_t p0 = pack_bf16x2(s[2 * kq][0], s[2 * kq][1]);
-        const uint32_t p1 = pack_bf16x2(s[2 * kq][2], s[2 * kq][3]);
-        const uint32_t p2 = pack_bf16x2(s[2 * kq + 1][0], s[2 * kq + 1][1]);
-        const uint32_t p3 = pack_bf16x2(s[2 * kq + 1][2], s[2 * kq + 1][3]);
-        const uint32_t d0 = pack_bf16x2(dp[2 * kq][0], dp[2 * kq][1]);
-        const uint32_t d1 = pack_bf16x2(dp[2 * kq][2], dp[2 * kq][3]);
-        const uint32_t d2 = pack_bf16x2(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
-        const uint32_t d3 = pack_bf16x2(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
+      for (int kk = 0; kk < kWBQ4 / 16; ++kk) {
 #pragma unroll
-        for (int j = 0; j < C8; ++j) {
-          const __nv_bfloat16* gt = Gt + (j * 8 + g) * TLD + kq * 16 + 2 * t;
-          mma_16816(dva[j], p0, p1, p2, p3, lds32(gt), lds32(gt + 8));
-          const __nv_bfloat16* qt_ = Qt + (j * 8 + g) * TLD + kq * 16 + 2 * t;
-          mma_16816(dka[j], d0, d1, d2, d3, lds32(qt_), lds32(qt_ + 8));
+        for (int r = 0; r < 4; ++r) {
+          pa[kk][r] = hopper::pack_bf16x2(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+          sa[kk][r] = hopper::pack_bf16x2(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
         }
       }
-    }
-  }
-
 #pragma unroll
-  for (int j = 0; j < C8; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (key0 < L) {
-      const size_t off = (size_t)b * L * ks + (size_t)key0 * ks + (size_t)hk * D + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
-          __floats2bfloat162_rn(dka[j][0] * scale, dka[j][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[j][0], dva[j][1]);
+      for (int c = 0; c < H2; ++c) {
+        hopper::fence_regs(dva[c]);
+        hopper::fence_regs(dka[c]);
+      }
+      hopper::fence_regs(pa);
+      hopper::fence_regs(sa);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWBQ4 / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < H2; ++c) {
+          hopper::wgmma_rs_m64n64_tb(dva[c], pa[kk],
+                                     hopper::sw128_desc(Gs + c * kWBQ4 * kRow + kk * 2048));
+          hopper::wgmma_rs_m64n64_tb(dka[c], sa[kk],
+                                     hopper::sw128_desc(Qs + c * kWBQ4 * kRow + kk * 2048));
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < H2; ++c) {
+        hopper::fence_regs(dva[c]);
+        hopper::fence_regs(dka[c]);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
-    if (key1 < L) {
-      const size_t off = (size_t)b * L * ks + (size_t)key1 * ks + (size_t)hk * D + d;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off) =
-          __floats2bfloat162_rn(dka[j][2] * scale, dka[j][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(dva[j][2], dva[j][3]);
-    }
+
+    const size_t ks = (size_t)Hkv * D;
+    const size_t off_a = (size_t)b * L * ks + (size_t)key_a * ks + (size_t)hk * D;
+    const size_t off_b = off_a + 8 * ks;
+#pragma unroll
+    for (int c = 0; c < H2; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * c + 8 * j + 2 * t;
+        if (key_a < L) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off_a + d) =
+              __floats2bfloat162_rn(dka[c][4 * j] * scale, dka[c][4 * j + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off_a + d) =
+              __floats2bfloat162_rn(dva[c][4 * j], dva[c][4 * j + 1]);
+        }
+        if (key_b < L) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + off_b + d) =
+              __floats2bfloat162_rn(dka[c][4 * j + 2] * scale, dka[c][4 * j + 3] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off_b + d) =
+              __floats2bfloat162_rn(dva[c][4 * j + 2], dva[c][4 * j + 3]);
+        }
+      }
   }
 }
 
@@ -687,16 +814,20 @@ int launch_dq(const Args& a, void* dq) {
 }
 
 template <int D>
-int launch_dkv_mma(const Args& a, void* dk, void* dv) {
+int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   static bool done = false;
-  constexpr size_t bytes = dkv_mma_smem_bytes<D>();
-  cudaError_t e = configure(fa_bwd_dkv_mma_kernel<D>, bytes, done);
+  constexpr uint32_t bytes = DkvSmem<D>::bytes;
+  cudaError_t e = configure(fa_bwd_dkv_wgmma_kernel<D>, bytes, done);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)(a.B * a.Hkv), (unsigned)((a.L + kBK - 1) / kBK));
-  fa_bwd_dkv_mma_kernel<D><<<grid, 128, bytes, a.s>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+  CUtensorMap tq, tk, tv, tg;
+  if (!hopper::bf16_rows_map(&tq, a.q, a.B, a.L, a.H, D, kWBQ4) ||
+      !hopper::bf16_rows_map(&tg, a.dout, a.B, a.L, a.H, D, kWBQ4) ||
+      !hopper::bf16_rows_map(&tk, a.k, a.B, a.L, a.Hkv, D, kWBKV) ||
+      !hopper::bf16_rows_map(&tv, a.v, a.B, a.L, a.Hkv, D, kWBKV))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(a.B * a.Hkv) * (unsigned)((a.L + kWBKV - 1) / kWBKV);
+  fa_bwd_dkv_wgmma_kernel<D><<<blocks, kWThreads, bytes, a.s>>>(
+      tq, tk, tv, tg, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.key_mask), static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), a.L, a.H, a.Hkv, a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
@@ -757,7 +888,7 @@ extern "C" int dk_flash_attention_bwd_dkv(const void* q, const void* k, const vo
                static_cast<cudaStream_t>(stream)};
   if (!valid_args(a)) return (int)cudaErrorInvalidValue;
   if (use_mma(a, dtype))
-    return D == 128 ? launch_dkv_mma<128>(a, dk, dv) : launch_dkv_mma<64>(a, dk, dv);
+    return D == 128 ? launch_dkv_wgmma<128>(a, dk, dv) : launch_dkv_wgmma<64>(a, dk, dv);
   if (dtype == 0) return launch_dkv<float>(a, dk, dv);
   if (dtype == 1) return launch_dkv<__nv_bfloat16>(a, dk, dv);
   return (int)cudaErrorInvalidValue;

@@ -1,0 +1,86 @@
+"""The port's kernel build helpers (distkeras_tpu_torch/ops/_build.py) on
+the CPU: no nvcc is needed to check how a library is named and how the
+compiler's and the disassembler's reports are read.
+
+- A library's name hashes its source, every shared header under
+  ``csrc/`` and the flags, so editing a header (the wgmma, TMA and
+  mbarrier helpers in ``hopper.cuh``) never loads a stale build.
+- ``ptxas_report`` reads registers, stack and spills per kernel from
+  ``ptxas -v``; ``count_sass`` counts instructions by opcode per function
+  of a ``cuobjdump -sass`` listing, predicated ones included (the check
+  that a kernel issues ``HGMMA`` and ``UTMALDG``).
+"""
+
+import pytest
+
+from distkeras_tpu_torch.ops import _build
+
+PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119fa_fwd_wgmma_kernelILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119fa_fwd_wgmma_kernelILi128EEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 480 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113fa_fwd_kernelIfEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113fa_fwd_kernelIfEEvv
+    40 bytes stack frame, 68 bytes spill stores, 56 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 440 bytes cmem[0]
+"""
+
+SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_119fa_fwd_wgmma_kernelILi128EEvv
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/              @!P0 UTMALDG.4D [UR8], [UR4] ;
+        /*0020*/                   UTMALDG.4D [UR16], [UR4] ;
+        /*0030*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;
+        /*0040*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR12], R24, gsb0 ;
+        /*0050*/              @UP0 HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR20], R88 ;
+\t\t..........
+\t\tFunction : _ZN12_GLOBAL__N_113fa_fwd_kernelIfEEvv
+        /*0000*/                   FFMA R0, R1, R2, R0 ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+
+
+def _tree(tmp_path, header="// v1\n"):
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text(header)
+
+
+def test_library_name_hashes_source_headers_and_flags(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    _tree(tmp_path)
+    first = _build._library_path("k")
+    assert first == _build._library_path("k")           # stable
+    (tmp_path / "h.cuh").write_text("// v2\n")          # a header edit
+    second = _build._library_path("k")
+    assert second != first
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edit\n')
+    assert _build._library_path("k") not in (first, second)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build._library_path("k") != second
+    assert _build._log_path("k").endswith(".ptxas.txt")
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    rep = _build.ptxas_report(PTXAS)
+    wgmma = rep["_ZN12_GLOBAL__N_119fa_fwd_wgmma_kernelILi128EEvv"]
+    fma = rep["_ZN12_GLOBAL__N_113fa_fwd_kernelIfEEvv"]
+    assert wgmma == dict(stack=0, spill_stores=0, spill_loads=0,
+                         registers=168)
+    assert fma == dict(stack=40, spill_stores=68, spill_loads=56,
+                       registers=32)
+
+
+@pytest.mark.parametrize("opcodes", [("HGMMA", "UTMALDG"),
+                                     ("HGMMA", "UTMALDG", "HMMA")])
+def test_count_sass_counts_opcodes_per_function(opcodes):
+    counts = _build.count_sass(SASS, opcodes)
+    wgmma = counts["_ZN12_GLOBAL__N_119fa_fwd_wgmma_kernelILi128EEvv"]
+    fma = counts["_ZN12_GLOBAL__N_113fa_fwd_kernelIfEEvv"]
+    assert (wgmma["HGMMA"], wgmma["UTMALDG"]) == (3, 2)
+    assert (fma["HGMMA"], fma["UTMALDG"]) == (0, 0)
+    if "HMMA" in opcodes:          # mma.sync, not counted as HGMMA
+        assert (wgmma["HMMA"], fma["HMMA"]) == (0, 1)
