@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. the card's name and power limit (``nvidia-smi``);
 2. build all five kernel sources from ``distkeras_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together), then show that the kernels
-   redesigned on wgmma (K2's and K4's bf16 paths) issue ``HGMMA`` and
-   ``UTMALDG`` (TMA) instructions and spill nothing (``check_sass``);
+   redesigned on wgmma (K2's, K3's and K4's bf16 paths and K7's dwh
+   product) issue ``HGMMA`` and ``UTMALDG`` (TMA) instructions and spill
+   nothing (``check_sass``);
 3. K1 ``q_matmul`` against its plain version at every Dense shape of the
    served 400M config, decode (M=8) and prefill (M=1024) rows, with kernel,
    plain and library (``torch.matmul`` over a pre-dequantized bf16 weight)
@@ -29,10 +30,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    over the same tensors) times and the bound;
 6. K6 and K7, the LSTM scan forward and backward, against their plain
    versions at the training shapes (G=8 workers, B=64, T=200, H=128, bf16)
-   and small ragged f32 / bf16 cases, with kernel, plain and library
-   (cuDNN's ``nn.LSTM`` at the same T, G·B and H, forward and backward;
-   its forget-bias convention differs, so it is timed, not compared)
-   times and the bounds;
+   and small ragged f32 / bf16 cases (see ``check_lstm``), K7 twice for
+   equal bits, with kernel, plain and library (cuDNN's ``nn.LSTM`` at the
+   same T, G·B and H, forward and backward; its forget-bias convention
+   differs, so it is timed, not compared) times and the bounds, and K7's
+   two launches (the reverse scan, the dwh product) timed apart;
 7. K2, K3 and K4, the flash-attention forward and backward (dq, dk/dv),
    against their plain versions at the LM's and the classifier's training
    shapes and at small GQA / window / ragged / masked-key / f32 /
@@ -528,38 +530,57 @@ def check_flash_bwd(torch, fa):
 # the kernels redesigned on wgmma: kernels-line entry → (library, function)
 WGMMA_KERNELS = {
     "flash_attention": ("flash_attention", "fa_fwd_wgmma_kernel"),
+    "flash_attention_bwd_dq": ("flash_attention_bwd",
+                               "fa_bwd_dq_wgmma_kernel"),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 "fa_bwd_dkv_wgmma_kernel"),
 }
 
 
+# the same check for wgmma kernels not templated on a head dim
+WGMMA_KERNELS_ONE = {
+    "lstm_backward": ("lstm", "lstm_dwh_wgmma_kernel"),
+}
+
+
+def _sass_row(lib, fn, tag, report, sass):
+    regs = [v for k, v in report.items() if tag in k]
+    ops = [v for k, v in sass.items() if tag in k]
+    if len(regs) != 1 or len(ops) != 1:
+        raise AssertionError(f"{tag} not found once in the build of {lib}: "
+                             f"{list(report)}")
+    row = dict(**regs[0], hgmma=ops[0]["HGMMA"], utmaldg=ops[0]["UTMALDG"])
+    if not (row["hgmma"] > 0 and row["utmaldg"] > 0
+            and row.get("spill_stores", 0) == 0
+            and row.get("spill_loads", 0) == 0):
+        raise AssertionError(f"{fn} ({tag}): {row}")
+    return row
+
+
 def check_sass(_build):
-    """Each kernel redesigned on wgmma, at both head dims, issues ``HGMMA``
-    and ``UTMALDG`` (TMA) instructions in its SASS (``cuobjdump -sass`` of
-    the built library), spills nothing (``ptxas -v``), and ``setmaxnreg``
-    was not ignored. Registers are the launch count; the consumer
+    """Each kernel redesigned on wgmma (the flash kernels at both head
+    dims, the LSTM's dwh product once) issues ``HGMMA`` and ``UTMALDG``
+    (TMA) instructions in its SASS (``cuobjdump -sass`` of the built
+    library), spills nothing (``ptxas -v``), and ``setmaxnreg`` was not
+    ignored. Registers are the launch count; the consumer
     warpgroups raise theirs with ``setmaxnreg``."""
     out = {}
-    for entry, (lib, fn) in WGMMA_KERNELS.items():
+    kernels = [(entry, lib, fn, {f"D={d}": f"{fn}ILi{d}E" for d in (64, 128)})
+               for entry, (lib, fn) in WGMMA_KERNELS.items()]
+    kernels += [(entry, lib, fn, {"": fn})
+                for entry, (lib, fn) in WGMMA_KERNELS_ONE.items()]
+    for entry, lib, fn, tags in kernels:
         text = _build.build_log(lib)
         if "setmaxnreg ignored" in text:
             raise AssertionError(f"{lib}: ptxas ignored setmaxnreg:\n{text}")
         report = _build.ptxas_report(text)
         sass = _build.sass_counts(lib)
-        for d in (64, 128):
-            tag = f"{fn}ILi{d}E"
-            regs = [v for k, v in report.items() if tag in k]
-            ops = [v for k, v in sass.items() if tag in k]
-            if len(regs) != 1 or len(ops) != 1:
-                raise AssertionError(f"{fn}<{d}> not found once in the "
-                                     f"build of {lib}: {list(report)}")
-            row = dict(**regs[0], hgmma=ops[0]["HGMMA"],
-                       utmaldg=ops[0]["UTMALDG"])
-            if not (row["hgmma"] > 0 and row["utmaldg"] > 0
-                    and row.get("spill_stores", 0) == 0
-                    and row.get("spill_loads", 0) == 0):
-                raise AssertionError(f"{fn}<{d}>: {row}")
-            out.setdefault(entry, {})[f"D={d}"] = row
+        for key, tag in tags.items():
+            row = _sass_row(lib, fn, tag, report, sass)
+            if key:
+                out.setdefault(entry, {})[key] = row
+            else:
+                out[entry] = row
         log(f"sass {entry} ({fn}): {json.dumps(out[entry])}")
     return out
 
@@ -979,17 +1000,28 @@ def check_adam(torch, pk):
 
 def check_lstm(torch, rec):
     """K6 and K7 against their plain versions at the slice's shape (bf16,
-    G=8 workers, B=64, T=200, H=128) and at small ragged cases (B=20 is
-    not a multiple of the 16-row tile). Tolerance: bf16 kernel and plain
-    round the same f32 values to bf16 each step, and a one-ulp flip of h
-    feeds the next steps, so outputs agree to 2^-6 of the plain output's
-    largest magnitude (two bf16 ulps); f32 to 1e-5 of it (summation
-    order only)."""
+    G=8 workers, B=64, T=200, H=128) and at small cases: B=20 and B=17 are
+    not multiples of the 16-row tile, T=1 and T=2 the edges of the
+    backward's one-step-ahead prefetch, T=70 a ragged last chunk of the
+    tensor-core dwh product (H=64, bf16), H=144 (bf16) and H=256 (f32)
+    the scans whose staged step inputs do not fit in shared memory.
+    Tolerance: bf16 kernel and plain round the same f32 values to bf16
+    each step, and a one-ulp flip of h feeds the next steps, so outputs
+    agree to 2^-6 of the plain output's largest magnitude (two bf16 ulps);
+    f32 to 1e-5 of it (summation order only). K7 is deterministic: a second launch gives the same bits. At the
+    slice's shape K7's two launches, the reverse scan and the dwh product,
+    are also timed apart (``scan_ms``, ``dwh_ms``)."""
     import torch.nn as nn
 
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    cases = [(IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H, torch.bfloat16),
-             (2, 20, 7, 32, torch.float32), (2, 20, 7, 32, torch.bfloat16)]
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H, bf),
+             (2, 20, 7, 32, f32), (2, 20, 7, 32, bf), (2, 17, 70, 64, bf),
+             (2, 17, 2, 64, bf), (3, 17, 1, 64, bf), (2, 17, 2, 32, f32),
+             # the scans whose staged inputs do not fit in shared memory
+             # (step inputs read in the step), the tensor-core and the FMA
+             # paths, and the FMA dwh for bf16 at H not a multiple of 64
+             (1, 17, 3, 144, bf), (1, 17, 3, 256, f32)]
     fwd_rows, bwd_rows, max_err = [], [], 0.0
     for G, B, T, H, dt in cases:
         gx = (torch.randn((G, B, T, 4 * H), generator=gen, device=DEVICE)
@@ -1000,9 +1032,14 @@ def check_lstm(torch, rec):
         hs, cs = rec.lstm_forward(gx, wh, True)
         hp, cp = rec.lstm_forward(gx, wh, True, impl="plain")
         dgx, dwh = rec.lstm_backward(gx, wh, hs, cs, dhs)
+        dgx2, dwh2 = rec.lstm_backward(gx, wh, hs, cs, dhs)
         dgp, dwp = rec.lstm_backward(gx, wh, hp, cp, dhs, impl="plain")
         torch.cuda.synchronize()
-        rel = 2.0 ** -6 if dt == torch.bfloat16 else 1e-5
+        label = f"G={G} B={B} T={T} H={H} {str(dt).split('.')[-1]}"
+        if not (torch.equal(dgx, dgx2) and torch.equal(dwh, dwh2)):
+            raise AssertionError(f"lstm {label}: two backward launches "
+                                 f"differ (K7 must be deterministic)")
+        rel = 2.0 ** -6 if dt == bf else 1e-5
         errs = {}
         for name, got, ref in (("hs", hs, hp), ("cs", cs, cp),
                                ("dgx", dgx, dgp), ("dwh", dwh, dwp)):
@@ -1011,10 +1048,9 @@ def check_lstm(torch, rec):
             if not (errs[name] <= rel * scale
                     and torch.isfinite(got.float()).all()):
                 raise AssertionError(
-                    f"lstm G={G} B={B} T={T} H={H} {dt} {name}: max |kernel"
-                    f" - plain| = {errs[name]} beyond {rel} x {scale}")
+                    f"lstm {label} {name}: max |kernel - plain| = "
+                    f"{errs[name]} beyond {rel} x {scale}")
         max_err = max(max_err, errs["hs"], errs["dgx"])
-        label = f"G={G} B={B} T={T} H={H} {str(dt).split('.')[-1]}"
         log(f"lstm {label}: ok " + json.dumps(errs))
         if (G, B, T, H) != (IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H):
             continue
@@ -1045,11 +1081,16 @@ def check_lstm(torch, rec):
             **bound(gates * esz + wbytes * 4 + 2 * seq * esz, mac,
                     PEAK_BF16)))
         log("lstm_forward " + json.dumps(fwd_rows[-1]))
+        dgx_, dwh_ = torch.empty_like(dgx), torch.empty_like(dwh)
         bwd_rows.append(dict(
             G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1],
             max_abs_err=max(errs["dgx"], errs["dwh"]),
             kernel_ms=cuda_ms(torch, lambda: rec.lstm_backward(
                 gx, wh, hs, cs, dhs), iters=5),
+            scan_ms=cuda_ms(torch, lambda: rec._lstm_bwd_into(
+                dgx_, dwh_, gx, wh, hs, cs, dhs, parts=1), iters=5),
+            dwh_ms=cuda_ms(torch, lambda: rec._lstm_bwd_into(
+                dgx_, dwh_, gx, wh, hs, cs, dhs, parts=2), iters=5),
             eager_ms=eager_ms(torch, lambda: rec.lstm_backward(
                 gx, wh, hs, cs, dhs), iters=5),
             plain_ms=cuda_ms(torch, lambda: rec.lstm_backward(
@@ -1058,7 +1099,7 @@ def check_lstm(torch, rec):
             **bound(2 * gates * esz + 3 * seq * esz + wbytes * 4
                     + wbytes * 4, 3.0 * mac, PEAK_BF16)))
         log("lstm_backward " + json.dumps(bwd_rows[-1]))
-        del lstm_lib, x, xr, out, dout
+        del lstm_lib, x, xr, out, dout, dgx_, dwh_
     return fwd_rows, bwd_rows, max_err
 
 
@@ -1371,6 +1412,8 @@ def main() -> int:
             bound_by="bytes" if by_bytes >= 0.5 * bound_ms else "operations",
             library_ms=total(rows, pick, "library_ms"),
             checked=True,
+            **({k: total(rows, pick, k) for k in ("scan_ms", "dwh_ms")}
+               if "scan_ms" in rows[0] else {}),
             shapes=rows,
             **({"sass": sass[name]} if name in sass else {})))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,6 +35,38 @@
 // each kernel does three (K3) or four (K4) L x L x D products per head, half
 // that causal, against a few reads of q/k/v/dO: operations, so the tensor
 // cores are the roof. Two kernels each, chosen by dtype and head dim:
+//  * fa_bwd_dq_wgmma_kernel (K3: bfloat16, D = 64 or 128, 16-byte aligned
+//    inputs). 128 q rows a block, 384 threads in three warpgroups, on a 1-D
+//    grid whose consecutive blocks are the q tiles of one head (and the
+//    heads of one GQA group neighbours), so the blocks resident together
+//    read the same K/V from L2 (with the head index fastest: 540 against
+//    497-516 us at config 9's shape, 657-664 against 609-633 at config 6's,
+//    flash_ab.py on the H100); under causal masking the last q tiles have
+//    the longest bands and launch first.
+//    - Loads: one producer warp (warpgroup 2, down to 40 registers by
+//      setmaxnreg) brings the block's q and dO tiles once and 64-key K/V
+//      tiles through a 2-stage TMA ring (the 4-D maps of K4; a 3-stage ring
+//      measured within the 2-stage one's spread), and writes each k tile's
+//      key validity (key mask
+//      and sequence end, read once per tile) and whether all or none of it
+//      is valid; a tile with no valid key is neither loaded nor computed.
+//      The consumers read their rows' lse (times log2 e; +inf past L) and
+//      delta once into registers.
+//    - Products: two consumer warpgroups (up to 232 registers each) own 64
+//      q rows each. S = Q K^T and dP = dO V^T are wgmma m64n64k16 with q or
+//      dO as A and the K or V tile as B, all K-major; dQ += dS K is wgmma
+//      m64n64k16 (one per 64-column half of D) with dS packed to bf16 from
+//      the accumulators as the register A operand and K read MN-major
+//      through the transpose flag: no transposed copy of K exists. dQ
+//      (64 x D f32 per warpgroup) stays in registers, scaled and stored once.
+//    - p = exp2(s * scale * log2 e - lse * log2 e) is one FFMA and one
+//      ex2.approx; only an edge tile (the sequence end, a masked key, the
+//      diagonal or a window edge for the warp's 16 rows) evaluates the
+//      predicate per entry. A fully masked row meets only skipped or edge
+//      tiles, so its dq is exactly 0.
+//    ptxas (CUDA 12.9): 168 registers at launch, no spills; SASS: 24 HGMMA
+//    and 8 UTMALDG at D = 128, 12 and 4 at D = 64 (chip_smoke.py's
+//    check_sass).
 //  * fa_bwd_dkv_wgmma_kernel (K4: bfloat16, D = 64 or 128, 16-byte aligned
 //    inputs). 128 keys a block, 384 threads in three warpgroups, on a 1-D
 //    grid whose consecutive blocks are the k tiles of one head, so the
@@ -57,23 +89,13 @@
 //      packed to bf16 from the accumulators, and dO and q read MN-major
 //      through wgmma's transpose flag: no transposed copy of q or dO
 //      exists. dK and dV (2 x 64 x D f32 per warpgroup) stay in registers.
-//    - p = exp2(s * scale * log2 e - lse * log2 e) is one FFMA and one
-//      ex2.approx; only an edge tile (the sequence end, a masked key of the
+//    - p as in K3; only an edge tile (the sequence end, a masked key of the
 //      warp's 16 keys, the diagonal or a window edge) evaluates the
 //      predicate per entry, with the key mask of the thread's two keys read
 //      once per block.
 //    ptxas (CUDA 12.9): 168 registers at launch (setmaxnreg moves them to
 //    the consumers), no spills; SASS: 32 HGMMA and 8 UTMALDG at D = 128,
 //    16 and 4 at D = 64 (chip_smoke.py's check_sass).
-//  * fa_bwd_dq_mma_kernel (K3: bfloat16, D = 64 or 128, 16-byte aligned
-//    inputs): the products on the tensor cores through mma.sync m16n8k16
-//    with f32 accumulation, FA2-style. Four warps own 16 query rows each;
-//    S and dP stay in registers, ds is formed there and re-packed as the
-//    bf16 A operand of dq += ds k, so no score tile touches shared memory.
-//    k, read as the "col" B fragment of that product, is also stored
-//    transposed in shared memory, so each fragment is one 32-bit load;
-//    rows are padded 16 bytes so fragment loads hit 32 distinct banks.
-//    Loads are not pipelined and the products are mma.sync, not wgmma.
 //  * fa_bwd_*_kernel (float32, or any other D <= 128): plain f32 FMAs over
 //    shared-memory tiles, one score tile entry per thread at a time.
 //
@@ -350,170 +372,248 @@ fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   }
 }
 
-// -- bfloat16 on the tensor cores --------------------------------------------
+// -- bfloat16 on the tensor cores: wgmma, TMA rings, warp specialisation ----
 
-constexpr int kBQ = 64;   // K3: q rows per block (4 warps x 16)
-constexpr int kBK = 64;   // K3: keys per k tile
+constexpr int kWThreads = 384;  // warpgroups 0-1 consume, warpgroup 2 loads
+constexpr uint32_t kRow = 128;  // bytes of one swizzled tile row (64 bf16)
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// K3 on wgmma: a block owns 128 q rows (two consumer warpgroups of 64) and
+// walks the in-band 64-key tiles of its (b, h) through a TMA ring.
+constexpr int kDqBQ = 128;     // q rows per block
+constexpr int kDqBK = 64;      // keys per k tile
+constexpr int kDqStages = 2;   // depth of the K/V ring
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// c += A B, m16n8k16: a0/a2 A row g at k {2t, 2t+1} / {2t+8, 2t+9}, a1/a3 row
-// g+8; b0/b1 B column g at the same k; c0,c1 row g and c2,c3 row g+8 at
-// columns 2t, 2t+1 (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Store 8 bf16 (one 16-byte word w) transposed: column r of rows c .. c+7.
-__device__ __forceinline__ void store_t8(__nv_bfloat16* t, int ld, int c, int r, uint4 w) {
-  const uint32_t vw[4] = {w.x, w.y, w.z, w.w};
-  unsigned short* t16 = reinterpret_cast<unsigned short*>(t);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) t16[(c + e) * ld + r] = (unsigned short)(vw[e / 2] >> (16 * (e % 2)));
-}
+// Shared memory of the wgmma K3, offsets from a 1024-byte aligned base.
+template <int D>
+struct DqSmem {
+  static constexpr int H2 = D / 64;                            // 64-column halves
+  static constexpr uint32_t q_bytes = H2 * kDqBQ * kRow;       // the q (or dO) tile
+  static constexpr uint32_t kv_bytes = H2 * kDqBK * kRow;      // one K or V tile
+  static constexpr uint32_t g_off = q_bytes;
+  static constexpr uint32_t k_off = 2 * q_bytes;               // [kDqStages] K tiles
+  static constexpr uint32_t v_off = k_off + kDqStages * kv_bytes;
+  static constexpr uint32_t mask_off = v_off + kDqStages * kv_bytes;  // [kDqStages][kDqBK] f32
+  static constexpr uint32_t flag_off = mask_off + kDqStages * kDqBK * 4;
+  static constexpr uint32_t bar_off = flag_off + 64;
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 3 * kDqStages) + 1024;  // + alignment
+};
 
 template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((size_t)4 * kBQ * (D + 8) + (size_t)D * (kBK + 8));
-}
-
-template <int D>
-__global__ void __launch_bounds__(128)
-fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     const float* __restrict__ key_mask, __nv_bfloat16* __restrict__ dq, int L,
-                     int H, int Hkv, float scale, int causal, int window) {
-  constexpr int LD = D + 8, TLD = kBK + 8, C8 = D / 8;  // padded row strides
+__global__ void __launch_bounds__(kWThreads, 1)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tg, const float* __restrict__ lse,
+                       const float* __restrict__ delta, const float* __restrict__ key_mask,
+                       __nv_bfloat16* __restrict__ dq, int L, int H, int Hkv, float scale,
+                       int causal, int window) {
+  using S = DqSmem<D>;
+  constexpr int H2 = S::H2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kBQ][LD]
-  __nv_bfloat16* Gs = Qs + kBQ * LD;                                // [kBQ][LD]: dO
-  __nv_bfloat16* Ks = Gs + kBQ * LD;                                // [kBK][LD]
-  __nv_bfloat16* Vs = Ks + kBK * LD;                                // [kBK][LD]
-  __nv_bfloat16* Kt = Vs + kBK * LD;                                // [D][TLD]: k^T
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = base;
+  uint8_t* Gs = base + S::g_off;
+  float* maskS = reinterpret_cast<float*>(base + S::mask_off);
+  int* flagS = reinterpret_cast<int*>(base + S::flag_off);
+  uint64_t* qg_full = reinterpret_cast<uint64_t*>(base + S::bar_off);  // q and dO landed
+  uint64_t* k_full = qg_full + 1;        // K tile landed, key mask tile written
+  uint64_t* v_full = k_full + kDqStages;  // V tile landed
+  uint64_t* empty = v_full + kDqStages;   // both consumer warpgroups are done with the stage
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  // One block per (b*h, q tile) on a 1-D grid: the q tiles of one head are
+  // consecutive and the heads of one GQA group neighbours, so the blocks
+  // resident together read the same K/V from L2; under causal masking the
+  // last q tiles have the longest bands and launch first.
+  const int nqt = (L + kDqBQ - 1) / kDqBQ;
+  const int bh = (int)blockIdx.x / nqt, b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.y * kBQ;
-  const size_t qs = (size_t)H * D, ks = (size_t)Hkv * D;
-  const __nv_bfloat16* qb = q + (size_t)b * L * qs + (size_t)h * D;
-  const __nv_bfloat16* gb = dout + (size_t)b * L * qs + (size_t)h * D;
-  const __nv_bfloat16* kb = k + (size_t)b * L * ks + (size_t)hk * D;
-  const __nv_bfloat16* vb = v + (size_t)b * L * ks + (size_t)hk * D;
-  const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int i = tid; i < kBQ * C8; i += 128) {
-    const int r = i / C8, c = (i % C8) * 8, qp = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * LD + c) =
-        qp < L ? *reinterpret_cast<const uint4*>(qb + (size_t)qp * qs + c) : zero;
-    *reinterpret_cast<uint4*>(Gs + r * LD + c) =
-        qp < L ? *reinterpret_cast<const uint4*>(gb + (size_t)qp * qs + c) : zero;
-  }
-
-  const int r0 = warp * 16;                       // this warp's rows in the tile
-  const int row0 = q0 + r0 + g, row1 = row0 + 8;  // the thread's two rows
-  const float lse0 = row0 < L ? lse[(size_t)bh * L + row0] : 0.f;
-  const float lse1 = row1 < L ? lse[(size_t)bh * L + row1] : 0.f;
-  const float dl0 = row0 < L ? delta[(size_t)bh * L + row0] : 0.f;
-  const float dl1 = row1 < L ? delta[(size_t)bh * L + row1] : 0.f;
-  float acc[C8][4];
-#pragma unroll
-  for (int j = 0; j < C8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
+  const int q0 = (nqt - 1 - (int)blockIdx.x % nqt) * kDqBQ;
   int first, last;
-  k_band(q0, kBQ, kBK, L, causal, window, first, last);
-  for (int kt = first; kt <= last; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile's Ks/Vs/Kt are consumed (and Qs/Gs stored)
-    for (int i = tid; i < kBK * C8; i += 128) {
-      const int r = i % kBK, c = (i / kBK) * 8, kp = k0 + r;  // r fastest: Kt stores
-      const uint4 kw = kp < L ? *reinterpret_cast<const uint4*>(kb + (size_t)kp * ks + c) : zero;
-      *reinterpret_cast<uint4*>(Ks + r * LD + c) = kw;
-      *reinterpret_cast<uint4*>(Vs + r * LD + c) =
-          kp < L ? *reinterpret_cast<const uint4*>(vb + (size_t)kp * ks + c) : zero;
-      store_t8(Kt, TLD, c, r, kw);
-    }
-    __syncthreads();
+  k_band(q0, kDqBQ, kDqBK, L, causal, window, first, last);
+  const int ntiles = last - first + 1;
 
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys as 8 n8 tiles each
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D; kd += 16) {
-      const __nv_bfloat16* qa = Qs + (r0 + g) * LD + kd + 2 * t;
-      const __nv_bfloat16* ga = Gs + (r0 + g) * LD + kd + 2 * t;
-      const uint32_t a0 = lds32(qa), a1 = lds32(qa + 8 * LD);
-      const uint32_t a2 = lds32(qa + 8), a3 = lds32(qa + 8 * LD + 8);
-      const uint32_t g0 = lds32(ga), g1 = lds32(ga + 8 * LD);
-      const uint32_t g2 = lds32(ga + 8), g3 = lds32(ga + 8 * LD + 8);
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const __nv_bfloat16* kk = Ks + (nt * 8 + g) * LD + kd + 2 * t;
-        mma_16816(s[nt], a0, a1, a2, a3, lds32(kk), lds32(kk + 8));
-        const __nv_bfloat16* vv = Vs + (nt * 8 + g) * LD + kd + 2 * t;
-        mma_16816(dp[nt], g0, g1, g2, g3, lds32(vv), lds32(vv + 8));
-      }
+  if (tid == 0) {
+    hopper::mbar_init(qg_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(&k_full[s], 32);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
     }
-
-    // ds = p (dp - delta), p rebuilt from lse; 0 off the valid set
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kp = k0 + nt * 8 + 2 * t + e;
-        s[nt][e] = valid_at(row0, kp, L, causal, window, km)
-                       ? expf(s[nt][e] * scale - lse0) * (dp[nt][e] - dl0)
-                       : 0.f;
-        s[nt][2 + e] = valid_at(row1, kp, L, causal, window, km)
-                           ? expf(s[nt][2 + e] * scale - lse1) * (dp[nt][2 + e] - dl1)
-                           : 0.f;
-      }
-    }
-
-    // dq += ds K: ds re-packed from the registers as the A operand
-#pragma unroll
-    for (int kq = 0; kq < kBK / 16; ++kq) {
-      const uint32_t a0 = pack_bf16x2(s[2 * kq][0], s[2 * kq][1]);
-      const uint32_t a1 = pack_bf16x2(s[2 * kq][2], s[2 * kq][3]);
-      const uint32_t a2 = pack_bf16x2(s[2 * kq + 1][0], s[2 * kq + 1][1]);
-      const uint32_t a3 = pack_bf16x2(s[2 * kq + 1][2], s[2 * kq + 1][3]);
-#pragma unroll
-      for (int j = 0; j < C8; ++j) {
-        const __nv_bfloat16* kk = Kt + (j * 8 + g) * TLD + kq * 16 + 2 * t;
-        mma_16816(acc[j], a0, a1, a2, a3, lds32(kk), lds32(kk + 8));
-      }
-    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
+  if (warp >= 8) {  // producer warpgroup: its first warp keeps the ring full
+    hopper::regs_dealloc<40>();
+    if (warp == 8) {
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(qg_full, 2 * S::q_bytes);
+        for (int c = 0; c < H2; ++c) {
+          hopper::tma_load_4d(Qs + c * kDqBQ * kRow, &tq, qg_full, 64 * c, h, q0, b);
+          hopper::tma_load_4d(Gs + c * kDqBQ * kRow, &tg, qg_full, 64 * c, h, q0, b);
+        }
+      }
+      const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kDqStages, k0 = (first + i) * kDqBK;
+        if (i >= kDqStages) hopper::mbar_wait(&empty[s], (i / kDqStages - 1) & 1);
+        // the tile's key validity (mask and sequence end), read once, and
+        // whether all of it (1) or none of it (-1: skipped without loading)
+        // is valid
+        bool all = true, any = false;
+        for (int c = lane; c < kDqBK; c += 32) {
+          const int kp = k0 + c;
+          const float mv = (kp < L && (km == nullptr || km[kp] > 0.5f)) ? 1.f : 0.f;
+          maskS[s * kDqBK + c] = mv;
+          all = all && mv > 0.f;
+          any = any || mv > 0.f;
+        }
+        all = __all_sync(0xffffffffu, all);
+        any = __any_sync(0xffffffffu, any);
+        if (lane == 0 && !any) {
+          flagS[s] = -1;
+          hopper::mbar_arrive(&k_full[s]);
+          hopper::mbar_arrive(&v_full[s]);
+        } else if (lane == 0) {
+          flagS[s] = all ? 1 : 0;
+          uint8_t* Ks = base + S::k_off + s * S::kv_bytes;
+          uint8_t* Vs = base + S::v_off + s * S::kv_bytes;
+          hopper::mbar_arrive_expect_tx(&k_full[s], S::kv_bytes);
+          for (int c = 0; c < H2; ++c)
+            hopper::tma_load_4d(Ks + c * kDqBK * kRow, &tk, &k_full[s], 64 * c, hk, k0, b);
+          hopper::mbar_arrive_expect_tx(&v_full[s], S::kv_bytes);
+          for (int c = 0; c < H2; ++c)
+            hopper::tma_load_4d(Vs + c * kDqBK * kRow, &tv, &v_full[s], 64 * c, hk, k0, b);
+        } else {
+          hopper::mbar_arrive(&k_full[s]);
+        }
+      }
+    }
+  } else {  // consumer warpgroups: 64 q rows each, 16 a warp
+    hopper::regs_alloc<232>();
+    const int wg = warp / 4, g = lane / 4, t = lane % 4;
+    const int wr0 = q0 + 64 * wg + 16 * (warp % 4);  // this warp's first row
+    const int row_a = wr0 + g, row_b = row_a + 8;     // the thread's two rows
+    const uint8_t* Qw = Qs + 64 * wg * kRow;
+    const uint8_t* Gw = Gs + 64 * wg * kRow;
+    // lse (in log2 units) and delta of the thread's rows, read once; rows
+    // past L get lse = +inf, so their p is 0
+    const size_t lrow = (size_t)bh * L;
+    const float lse_a = row_a < L ? lse[lrow + row_a] * kLog2e : INFINITY;
+    const float lse_b = row_b < L ? lse[lrow + row_b] * kLog2e : INFINITY;
+    const float dl_a = row_a < L ? delta[lrow + row_a] : 0.f;
+    const float dl_b = row_b < L ? delta[lrow + row_b] : 0.f;
+    const float scale_log2 = scale * kLog2e;
+    float acc[H2][32];
 #pragma unroll
-  for (int j = 0; j < C8; ++j) {
-    const int d = j * 8 + 2 * t;
-    if (row0 < L)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)b * L * qs + (size_t)row0 * qs +
-                                         (size_t)h * D + d) =
-          __floats2bfloat162_rn(acc[j][0] * scale, acc[j][1] * scale);
-    if (row1 < L)
-      *reinterpret_cast<__nv_bfloat162*>(dq + (size_t)b * L * qs + (size_t)row1 * qs +
-                                         (size_t)h * D + d) =
-          __floats2bfloat162_rn(acc[j][2] * scale, acc[j][3] * scale);
+    for (int c = 0; c < H2; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
+    hopper::mbar_wait(qg_full, 0);
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kDqStages, k0 = (first + i) * kDqBK;
+      const uint32_t parity = (i / kDqStages) & 1;
+      const uint8_t* Ks = base + S::k_off + s * S::kv_bytes;
+      const uint8_t* Vs = base + S::v_off + s * S::kv_bytes;
+      hopper::mbar_wait(&k_full[s], parity);
+      const int flag = flagS[s];
+      if (flag < 0) {  // no valid key: p = 0 throughout
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);
+        continue;
+      }
+
+      // S = Q K^T and dP = dO V^T: 64 rows x 64 keys, all operands K-major
+      float sc[32], dp[32];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 32;
+        hopper::wgmma_ss_m64n64(sc, hopper::sw128_desc(Qw + c * kDqBQ * kRow + off),
+                                hopper::sw128_desc(Ks + c * kDqBK * kRow + off), kk > 0);
+      }
+      hopper::mbar_wait(&v_full[s], parity);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 32;
+        hopper::wgmma_ss_m64n64(dp, hopper::sw128_desc(Gw + c * kDqBQ * kRow + off),
+                                hopper::sw128_desc(Vs + c * kDqBK * kRow + off), kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // p = exp2(s scale log2e - lse log2e), ds = p (dp - delta) into sc.
+      // Only an edge tile (the sequence end, a masked key, the diagonal or
+      // a window edge for this warp's rows) evaluates the predicate per
+      // entry; p is 0 off the valid set.
+      const bool interior =
+          flag > 0 && (!causal || k0 + kDqBK - 1 <= wr0) &&
+          (window <= 0 || (wr0 + 15 - k0 < window && (causal || k0 + kDqBK - 1 - wr0 < window)));
+      const float* mk = maskS + s * kDqBK;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e, kp = k0 + c;
+          float pa = hopper::exp2_approx(fmaf(sc[4 * j + e], scale_log2, -lse_a));
+          float pb = hopper::exp2_approx(fmaf(sc[4 * j + 2 + e], scale_log2, -lse_b));
+          if (!interior) {
+            const bool mv = mk[c] > 0.f;
+            if (!(mv && in_band(row_a, kp, causal, window))) pa = 0.f;
+            if (!(mv && in_band(row_b, kp, causal, window))) pb = 0.f;
+          }
+          sc[4 * j + e] = pa * (dp[4 * j + e] - dl_a);
+          sc[4 * j + 2 + e] = pb * (dp[4 * j + 2 + e] - dl_b);
+        }
+      }
+
+      // dQ += dS K: dS packed to bf16 from the accumulators (the register-A
+      // layout); K read MN-major through the transpose flag, so no
+      // transposed copy of K exists
+      uint32_t da[kDqBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kDqBK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = hopper::pack_bf16x2(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+#pragma unroll
+      for (int c = 0; c < H2; ++c) hopper::fence_regs(acc[c]);
+      hopper::fence_regs(da);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqBK / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < H2; ++c)
+          hopper::wgmma_rs_m64n64_tb(acc[c], da[kk],
+                                     hopper::sw128_desc(Ks + c * kDqBK * kRow + kk * 2048));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < H2; ++c) hopper::fence_regs(acc[c]);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+
+    const size_t qs = (size_t)H * D;
+    __nv_bfloat16* orow_a = dq + (size_t)b * L * qs + (size_t)row_a * qs + (size_t)h * D;
+    __nv_bfloat16* orow_b = orow_a + 8 * qs;
+#pragma unroll
+    for (int c = 0; c < H2; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * c + 8 * j + 2 * t;
+        if (row_a < L)
+          *reinterpret_cast<__nv_bfloat162*>(orow_a + d) =
+              __floats2bfloat162_rn(acc[c][4 * j] * scale, acc[c][4 * j + 1] * scale);
+        if (row_b < L)
+          *reinterpret_cast<__nv_bfloat162*>(orow_b + d) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2] * scale, acc[c][4 * j + 3] * scale);
+      }
   }
 }
 
@@ -522,9 +622,6 @@ fa_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 constexpr int kWBKV = 128;      // keys per block
 constexpr int kWBQ4 = 64;       // q rows per q tile
 constexpr int kStages = 2;      // depth of the q/dO ring
-constexpr int kWThreads = 384;  // warpgroups 0-1 consume, warpgroup 2 loads
-constexpr uint32_t kRow = 128;  // bytes of one swizzled tile row (64 bf16)
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory of the wgmma K4, offsets from a 1024-byte aligned base.
 template <int D>
@@ -739,21 +836,31 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       if (lane == 0) hopper::mbar_arrive(&empty[s]);
     }
 
+    // The thread's keys and offsets are recomputed from the special
+    // registers here, so nothing computed before the loop stays live
+    // across it (without this ptxas spills a few predicates at D = 128).
+    uint32_t tid_e, bid_e;
+    asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(tid_e));
+    asm volatile("mov.u32 %0, %%ctaid.x;\n" : "=r"(bid_e));
+    const int bkv_e = (int)bid_e / nkt, lane_e = (int)tid_e % 32, t_e = lane_e % 4;
+    const int ka = ((int)bid_e % nkt) * kWBKV + 64 * ((int)tid_e / 128) +
+                   16 * (((int)tid_e / 32) % 4) + lane_e / 4;
     const size_t ks = (size_t)Hkv * D;
-    const size_t off_a = (size_t)b * L * ks + (size_t)key_a * ks + (size_t)hk * D;
+    const size_t off_a = (size_t)(bkv_e / Hkv) * L * ks + (size_t)ka * ks +
+                         (size_t)(bkv_e % Hkv) * D;
     const size_t off_b = off_a + 8 * ks;
 #pragma unroll
     for (int c = 0; c < H2; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int d = 64 * c + 8 * j + 2 * t;
-        if (key_a < L) {
+        const int d = 64 * c + 8 * j + 2 * t_e;
+        if (ka < L) {
           *reinterpret_cast<__nv_bfloat162*>(dk + off_a + d) =
               __floats2bfloat162_rn(dka[c][4 * j] * scale, dka[c][4 * j + 1] * scale);
           *reinterpret_cast<__nv_bfloat162*>(dv + off_a + d) =
               __floats2bfloat162_rn(dva[c][4 * j], dva[c][4 * j + 1]);
         }
-        if (key_b < L) {
+        if (ka + 8 < L) {
           *reinterpret_cast<__nv_bfloat162*>(dk + off_b + d) =
               __floats2bfloat162_rn(dka[c][4 * j + 2] * scale, dka[c][4 * j + 3] * scale);
           *reinterpret_cast<__nv_bfloat162*>(dv + off_b + d) =
@@ -784,16 +891,20 @@ struct Args {
 };
 
 template <int D>
-int launch_dq_mma(const Args& a, void* dq) {
+int launch_dq_wgmma(const Args& a, void* dq) {
   static bool done = false;
-  constexpr size_t bytes = dq_mma_smem_bytes<D>();
-  cudaError_t e = configure(fa_bwd_dq_mma_kernel<D>, bytes, done);
+  constexpr uint32_t bytes = DqSmem<D>::bytes;
+  cudaError_t e = configure(fa_bwd_dq_wgmma_kernel<D>, bytes, done);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)(a.B * a.H), (unsigned)((a.L + kBQ - 1) / kBQ));
-  fa_bwd_dq_mma_kernel<D><<<grid, 128, bytes, a.s>>>(
-      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+  CUtensorMap tq, tk, tv, tg;
+  if (!hopper::bf16_rows_map(&tq, a.q, a.B, a.L, a.H, D, kDqBQ) ||
+      !hopper::bf16_rows_map(&tg, a.dout, a.B, a.L, a.H, D, kDqBQ) ||
+      !hopper::bf16_rows_map(&tk, a.k, a.B, a.L, a.Hkv, D, kDqBK) ||
+      !hopper::bf16_rows_map(&tv, a.v, a.B, a.L, a.Hkv, D, kDqBK))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(a.B * a.H) * (unsigned)((a.L + kDqBQ - 1) / kDqBQ);
+  fa_bwd_dq_wgmma_kernel<D><<<blocks, kWThreads, bytes, a.s>>>(
+      tq, tk, tv, tg, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<const float*>(a.key_mask), static_cast<__nv_bfloat16*>(dq), a.L, a.H, a.Hkv,
       a.scale, a.causal, a.window);
   return (int)cudaGetLastError();
@@ -873,7 +984,8 @@ extern "C" int dk_flash_attention_bwd_dq(const void* q, const void* k, const voi
   const Args a{q, k, v, dout, lse, delta, key_mask, B, L, H, Hkv, D, scale, causal, window,
                static_cast<cudaStream_t>(stream)};
   if (!valid_args(a)) return (int)cudaErrorInvalidValue;
-  if (use_mma(a, dtype)) return D == 128 ? launch_dq_mma<128>(a, dq) : launch_dq_mma<64>(a, dq);
+  if (use_mma(a, dtype))
+    return D == 128 ? launch_dq_wgmma<128>(a, dq) : launch_dq_wgmma<64>(a, dq);
   if (dtype == 0) return launch_dq<float>(a, dq);
   if (dtype == 1) return launch_dq<__nv_bfloat16>(a, dq);
   return (int)cudaErrorInvalidValue;

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA tile loads through tensor maps, warpgroup matrix multiplies
-// (wgmma) with shared-memory descriptors for the 128-byte swizzle, register
-// reallocation between warpgroups, and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels and
+// the LSTM's weight-gradient product: mbarriers, TMA tile loads through
+// tensor maps, warpgroup matrix multiplies (wgmma) with shared-memory
+// descriptors for the 128-byte swizzle, register reallocation between
+// warpgroups, and the host-side tensor-map encoder.
 //
 // Tiles in shared memory: a TMA box of 64 bf16 columns (128 bytes) by R rows
 // lands with CU_TENSOR_MAP_SWIZZLE_128B as R rows of 128 bytes, the 16-byte
@@ -14,8 +15,9 @@
 //    byte offset 1024 between 8-row groups;
 //  * MN-major (the contraction runs along the rows; the transpose flag, which
 //    wgmma has for 16-bit types): start at row 16 k (2048 bytes per k16
-//    step), stride byte offset 1024 between 8-row groups, and N = 64 columns,
-//    one swizzle atom wide, so the leading byte offset is never used.
+//    step), stride byte offset 1024 between 8-row groups, and M or N = 64
+//    columns, one swizzle atom wide, so the leading byte offset is never
+//    used (B only in the flash kernels; A and B in the LSTM's dwh).
 //
 // cuTensorMapEncodeTiled (a libcuda function) is looked up at run time with
 // cudaGetDriverEntryPoint, so a library built on this header needs no -lcuda.
@@ -164,6 +166,18 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, ui
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x n64, f32) += A B, k16; A and B from shared memory, both MN-major (the
+// transpose flags): each a tile of 16 rows along the contraction by 64 columns of M
+// (A) or N (B), one swizzle atom wide.
+__device__ __forceinline__ void wgmma_ss_m64n64_tt(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // d (m64 x n64, f32) += A B, k16; A from registers (four bf16 pairs per thread in the

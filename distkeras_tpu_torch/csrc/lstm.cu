@@ -39,11 +39,33 @@
 // dc in f32 in shared memory, writes dgx_t = T(dz) and forms the carried
 // dh_{t-1} = T(dz) @ wh^T on the tensor cores from the same staged wh
 // (its B fragments are contiguous pairs of a wh row, while the forward
-// product's are pairs of a column, read as two 16-bit loads). The weight
-// gradient dwh = sum_t h_{t-1}^T T(dz_t) does not belong to the
-// recurrence: lstm_dwh_kernel computes it afterwards from the saved hs
-// and the emitted dgx as a [H, B(T-1)] x [B(T-1), 4H] product per worker,
-// one f32 accumulator per output element in a fixed order: deterministic.
+// product's are pairs of a column, read as two 16-bit loads). It is
+// latency-bound like the forward: read from global memory inside the step,
+// h_{t-1}, gx_t, c_t, c_{t-1} and dhs_t would sit on the dependent chain.
+// So the whole block copies step t-1's inputs (h_{t-2},
+// gx_{t-1}, dhs_{t-1} and c_{t-2}; 29 KiB at the IMDB shape) into a second
+// shared-memory buffer by cp.async at the top of step t, so they land
+// while step t computes (a ring of three c tiles reads each c once: step
+// t's c_t is step t+1's c_{t-1}), and dh_{t-1} is summed in four partial
+// mma chains of 4H/64 steps instead of one of 4H/16. Two barriers a step,
+// as before: the dz tile is published before the dh product reads all of
+// it, and the end of the step publishes the landed inputs and frees dz (a
+// second dz tile to drop one barrier does not fit beside wh at H = 128).
+// Shapes whose staged buffers do not fit in shared memory, or whose
+// sequences are not 16-byte aligned, run lstm_bwd_direct_kernel: the same
+// step with its inputs read from global memory in the step.
+// The weight gradient dwh = sum_t h_{t-1}^T T(dz_t) does not belong to the
+// recurrence: it is a [H, B(T-1)] x [B(T-1), 4H] product per worker over
+// the saved hs and the emitted dgx, 13.4 GFLOP at the IMDB shape. In bf16
+// at H a multiple of 64, lstm_dwh_wgmma_kernel runs it on the tensor
+// cores (wgmma with both operands read MN-major from TMA tiles, bf16 in,
+// f32 accumulate: the same products as f32 FMAs of the bf16 values);
+// otherwise lstm_dwh_kernel does f32 FMAs. Both sum in a fixed order, one
+// block per output tile: deterministic.
+// ptxas (CUDA 12.9), no spills: the staged scans 96-124 registers, the
+// direct ones 120-126, lstm_dwh_wgmma_kernel 58 (SASS: 4 HGMMA, 2 UTMALDG;
+// chip_smoke.py's check_sass). At the IMDB shape on the H100 the scan
+// takes ~1.6 ms and dwh ~0.08 ms (PERF.md).
 // Plain C interface (bound with ctypes): each dk_lstm_* returns the
 // cudaGetLastError() of its launches, 0 on success.
 
@@ -52,6 +74,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -228,11 +252,224 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ gx, const float* __restric
   }
 }
 
+// -- backward -----------------------------------------------------------------
+
+// cp.async of one 16-byte chunk; src_bytes = 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, bf16 a, bf16 b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(a, b);
+}
+
+// Rows row0 .. row0+15 of step t of a [G, B, T, n] sequence into a
+// [kRows][ld] tile by cp.async (16 bytes a copy, every thread of the block);
+// rows past B and steps outside [0, T) land as zeros.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* __restrict__ src, int g,
+                                           int row0, int B, int Tn, int t, int n) {
+  constexpr int kPer = 16 / (int)sizeof(T);
+  const int chunks = n / kPer;
+  for (int idx = threadIdx.x; idx < kRows * chunks; idx += blockDim.x) {
+    const int r = idx / chunks, c = (idx - r * chunks) * kPer, row = row0 + r;
+    const bool in = row < B && t >= 0 && t < Tn;
+    cp_async16(dst + r * ld + c, in ? src + (((size_t)g * B + row) * Tn + t) * n + c : src,
+               in ? 16 : 0);
+  }
+}
+
+// Shared-memory plan of the staged backward scan: wh (tensor-core path
+// only), two buffers of step inputs {h_{t-1}, dhs_t, gx_t}, a ring of three
+// c tiles, the dz tile, then the f32 carries dc and dh.
+struct StagedPlan {
+  int ldw, ldh, ldz;
+  size_t tile_h, buf, buf_bytes, cs, dz, carry, total;
+};
+
+template <typename T>
+__host__ __device__ inline StagedPlan staged_plan(int H, bool mma) {
+  StagedPlan p;
+  p.ldw = 4 * H + kPad;
+  p.ldh = H + kPad;
+  p.ldz = 4 * H + kPad;
+  p.tile_h = (size_t)kRows * p.ldh * sizeof(T);
+  const size_t tile_z = (size_t)kRows * p.ldz * sizeof(T);
+  p.buf = mma ? (size_t)H * p.ldw * sizeof(bf16) : 0;
+  p.buf_bytes = 2 * p.tile_h + tile_z;
+  p.cs = p.buf + 2 * p.buf_bytes;
+  p.dz = p.cs + 3 * p.tile_h;
+  p.carry = p.dz + tile_z;
+  p.total = p.carry + 2 * (size_t)kRows * H * sizeof(float);
+  return p;
+}
+
+// The reverse-time scan with every step's inputs on chip before the step
+// starts: at the top of step t the whole block copies step t-1's h_{t-2},
+// dhs_{t-1}, gx_{t-1} and c_{t-2} into the other buffer by cp.async; the
+// copies land while step t computes, and the barrier that ends step t makes
+// them visible. c_t is step t+1's c_{t-1}, so the three-tile ring loads each
+// c once. Two barriers a step: after the dz tile is written (the dh product
+// reads all of it) and at the end (the next stage landed; dz free again).
 template <typename T, bool kMma>
 __global__ void lstm_bwd_kernel(const T* __restrict__ gx, const float* __restrict__ wh,
                                 const T* __restrict__ hs, const T* __restrict__ cs,
                                 const T* __restrict__ dhs, T* __restrict__ dgx, int B, int Tn,
                                 int H) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const StagedPlan p = staged_plan<T>(H, kMma);
+  bf16* wh_s = reinterpret_cast<bf16*>(smem);
+  T* dz_s = reinterpret_cast<T*>(smem + p.dz);
+  float* dc_s = reinterpret_cast<float*>(smem + p.carry);
+  float* dh_s = dc_s + kRows * H;
+  const int g = blockIdx.y, row0 = blockIdx.x * kRows, H4 = 4 * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tq = lane & 3;
+  const int nwarps = blockDim.x >> 5, slabs = H / 16;
+  const float* whg = wh + (size_t)g * H * H4;
+  auto buf_at = [&](int buf, int k) {  // k: 0 h_{t-1}, 1 dhs_t, 2 gx_t
+    return reinterpret_cast<T*>(smem + p.buf + buf * p.buf_bytes + k * p.tile_h);
+  };
+  auto cs_at = [&](int t) {  // the ring slot of c_t (t >= -1)
+    return reinterpret_cast<T*>(smem + p.cs + ((t + 3) % 3) * p.tile_h);
+  };
+  auto stage_step = [&](int t, int buf) {  // step t's inputs; zeros out of range
+    stage_rows(buf_at(buf, 0), p.ldh, hs, g, row0, B, Tn, t - 1, H);
+    stage_rows(buf_at(buf, 1), p.ldh, dhs, g, row0, B, Tn, t, H);
+    stage_rows(buf_at(buf, 2), p.ldz, gx, g, row0, B, Tn, t, H4);
+    stage_rows(cs_at(t - 1), p.ldh, cs, g, row0, B, Tn, t - 1, H);
+    cp_async_commit();
+  };
+
+  stage_rows(cs_at(Tn - 1), p.ldh, cs, g, row0, B, Tn, Tn - 1, H);
+  stage_step(Tn - 1, 0);
+  if constexpr (kMma) stage_wh(wh_s, whg, H, p.ldw);
+  for (int idx = threadIdx.x; idx < 2 * kRows * H; idx += blockDim.x) dc_s[idx] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int t = Tn - 1; t >= 0; --t) {
+    const int buf = (Tn - 1 - t) & 1;
+    if (t > 0) stage_step(t - 1, buf ^ 1);
+    const T* h_s = buf_at(buf, 0);
+    const T* dhs_s = buf_at(buf, 1);
+    const T* gx_s = buf_at(buf, 2);
+    const T* c_s = cs_at(t);
+    const T* cp_s = cs_at(t - 1);
+    for (int slab = warp; slab < slabs; slab += nwarps) {
+      float acc[4][2][4];
+      gate_products<T, kMma>(acc, h_s, p.ldh, wh_s, p.ldw, whg, H, slab, gid, tq);
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = gid + 8 * half, row = row0 + r;
+          const int j0 = slab * 16 + nt * 8 + 2 * tq;  // the thread's two columns
+          T dq[4][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + e;
+            float z[4];
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              z[q] = to_f(gx_s[r * p.ldz + q * H + j]) + acc[q][nt][2 * half + e];
+            const float ig = sigmoid(z[0]), fg = sigmoid(z[1] + 1.f);
+            const float gg = tanhf(z[2]), og = sigmoid(z[3]);
+            const float c = to_f(c_s[r * p.ldh + j]), c_prev = to_f(cp_s[r * p.ldh + j]);
+            const float tc = tanhf(c);
+            const float dh = to_f(dhs_s[r * p.ldh + j]) + dh_s[r * H + j];
+            const float d_o = dh * tc * og * (1.f - og);
+            const float dc = dh * og * (1.f - tc * tc) + dc_s[r * H + j];
+            dc_s[r * H + j] = dc * fg;
+            dq[0][e] = from_f<T>(dc * gg * ig * (1.f - ig));
+            dq[1][e] = from_f<T>(dc * c_prev * fg * (1.f - fg));
+            dq[2][e] = from_f<T>(dc * ig * (1.f - gg * gg));
+            dq[3][e] = from_f<T>(d_o);
+          }
+          const size_t at = ((size_t)g * B + row) * Tn + t;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            store2(dz_s + r * p.ldz + q * H + j0, dq[q][0], dq[q][1]);
+            if (row < B) store2(dgx + at * H4 + q * H + j0, dq[q][0], dq[q][1]);
+          }
+        }
+    }
+    __syncthreads();  // the dz tile is complete
+    // dh_{t-1} = T(dz) @ wh^T for this warp's slabs, in four partial sums
+    // over k (a 4H/64-deep mma chain each, not 4H/16), added in a fixed order
+    for (int slab = warp; slab < slabs; slab += nwarps) {
+      float acc[4][2][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[k][nt][r] = 0.f;
+      if constexpr (kMma) {
+        const bf16* dzb = reinterpret_cast<const bf16*>(dz_s);
+        for (int k0 = 0; k0 < H4; k0 += 64) {
+#pragma unroll
+          for (int part = 0; part < 4; ++part) {
+            const int k = k0 + 16 * part + 2 * tq;
+            const uint32_t a0 = lds32(dzb + gid * p.ldz + k);
+            const uint32_t a1 = lds32(dzb + (gid + 8) * p.ldz + k);
+            const uint32_t a2 = lds32(dzb + gid * p.ldz + k + 8);
+            const uint32_t a3 = lds32(dzb + (gid + 8) * p.ldz + k + 8);
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              const bf16* w = wh_s + (slab * 16 + nt * 8 + gid) * p.ldw + k;
+              mma16816(acc[part][nt], a0, a1, a2, a3, lds32(w), lds32(w + 8));
+            }
+          }
+        }
+      } else {
+        for (int n = 0; n < H4; ++n) {
+          const float d0 = to_f(dz_s[gid * p.ldz + n]), d1 = to_f(dz_s[(gid + 8) * p.ldz + n]);
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = slab * 16 + nt * 8 + 2 * tq + e;
+              const float w = to_f(from_f<T>(__ldg(whg + (size_t)j * H4 + n)));
+              acc[0][nt][e] = fmaf(d0, w, acc[0][nt][e]);
+              acc[0][nt][2 + e] = fmaf(d1, w, acc[0][nt][2 + e]);
+            }
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int reg = 2 * half + e;
+            dh_s[(gid + 8 * half) * H + slab * 16 + nt * 8 + 2 * tq + e] =
+                (acc[0][nt][reg] + acc[1][nt][reg]) + (acc[2][nt][reg] + acc[3][nt][reg]);
+          }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // step t-1's inputs landed for every thread; dz free
+  }
+}
+
+// The scan with step inputs read from global memory in the step, for the
+// shapes whose staged plan does not fit in shared memory or whose sequences
+// are not 16-byte aligned.
+template <typename T, bool kMma>
+__global__ void lstm_bwd_direct_kernel(const T* __restrict__ gx, const float* __restrict__ wh,
+                                       const T* __restrict__ hs, const T* __restrict__ cs,
+                                       const T* __restrict__ dhs, T* __restrict__ dgx, int B,
+                                       int Tn, int H) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Plan p = plan<T>(H, kMma, true);
   bf16* wh_s = reinterpret_cast<bf16*>(smem);
@@ -394,15 +631,102 @@ lstm_dwh_kernel(const T* __restrict__ hs, const T* __restrict__ dgx, float* __re
     }
 }
 
+// dwh on the tensor cores (bf16, H a multiple of 64, 16-byte aligned hs and
+// dgx): one block per (worker, 64 rows of H, 64 columns of 4H), 64 x 64 f32
+// accumulators in one consumer warpgroup. The contraction runs over the
+// pairs (b, u) with u = t - 1: for each batch row, chunks of 64 steps of hs
+// (rows u) and of dgx (rows u + 1) arrive by TMA through a 4-deep ring (one
+// producer warp; 3-D tiles of the [G*B, T, n] sequences, steps past T
+// zero-filled, which also drops the pair (T-1, T)), and each chunk is four
+// wgmma m64n64k16 with both operands read MN-major. One block sums its whole
+// contraction in a fixed order: deterministic, no atomics, no second pass.
+constexpr int kDwStep = 64;                // steps per chunk; rows and columns per block
+constexpr int kDwStages = 4;               // depth of the TMA ring
+constexpr uint32_t kDwBytes = kDwStep * 128;  // one 64 x 64 bf16 tile
+constexpr uint32_t kDwSmem = kDwStages * 2 * kDwBytes + 8 * 2 * kDwStages + 1024;
+
+__global__ void __launch_bounds__(160)
+lstm_dwh_wgmma_kernel(const __grid_constant__ CUtensorMap th, const __grid_constant__ CUtensorMap tg,
+                      float* __restrict__ dwh, int B, int Tn, int H) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kDwStages * 2 * kDwBytes);
+  uint64_t* empty = full + kDwStages;
+  const int g = blockIdx.z, i0 = blockIdx.y * kDwStep, n0 = blockIdx.x * kDwStep;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nch = (Tn - 1 + kDwStep - 1) / kDwStep;  // chunks per batch row
+  const int total = B * nch;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDwStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 4);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      for (int i = 0; i < total; ++i) {
+        const int s = i % kDwStages, b = i / nch, u0 = (i % nch) * kDwStep;
+        if (i >= kDwStages) hopper::mbar_wait(&empty[s], (i / kDwStages - 1) & 1);
+        uint8_t* A = base + s * 2 * kDwBytes;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kDwBytes);
+        hopper::tma_load_4d(A, &th, &full[s], i0, 0, u0, g * B + b);
+        hopper::tma_load_4d(A + kDwBytes, &tg, &full[s], n0, 0, u0 + 1, g * B + b);
+      }
+    }
+  } else {  // consumer warpgroup: rows i0 + 16 warp .. + 15
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    for (int i = 0; i < total; ++i) {
+      const int s = i % kDwStages;
+      const uint8_t* A = base + s * 2 * kDwBytes;
+      hopper::mbar_wait(&full[s], (i / kDwStages) & 1);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDwStep / 16; ++kk)
+        hopper::wgmma_ss_m64n64_tt(acc, hopper::sw128_desc(A + kk * 2048),
+                                   hopper::sw128_desc(A + kDwBytes + kk * 2048));
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+    }
+    const int gid = lane / 4, t = lane % 4, H4 = 4 * H;
+    float* out = dwh + ((size_t)g * H + i0 + 16 * warp + gid) * H4 + n0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(out + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(out + 8 * (size_t)H4 + 8 * j) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
 // Raise a scan kernel's dynamic shared-memory cap to the card's limit,
 // once per instantiation (a launch then asks for what its H needs).
 template <typename T, bool kMma, bool kBackward>
 int configure() {
   static const int err = (int)cudaFuncSetAttribute(
-      kBackward ? (const void*)lstm_bwd_kernel<T, kMma> : (const void*)lstm_fwd_kernel<T, kMma>,
+      kBackward ? (const void*)lstm_bwd_direct_kernel<T, kMma>
+                : (const void*)lstm_fwd_kernel<T, kMma>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemCap);
   return err;
 }
+
+template <typename T, bool kMma>
+int configure_staged() {
+  static const int err = (int)cudaFuncSetAttribute(
+      (const void*)lstm_bwd_kernel<T, kMma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemCap);
+  return err;
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T>
 bool use_mma(int H) {
@@ -426,22 +750,58 @@ int fwd(const void* gx, const void* wh, void* hs, void* cs, int G, int B, int Tn
   return (int)cudaGetLastError();
 }
 
+int dwh_wgmma(const void* hs, const void* dgx, void* dwh, int G, int B, int Tn, int H,
+              cudaStream_t s) {
+  static const int err = (int)cudaFuncSetAttribute(
+      lstm_dwh_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDwSmem);
+  if (err) return err;
+  CUtensorMap th, tg;
+  if (!hopper::bf16_rows_map(&th, hs, G * B, Tn, 1, H, kDwStep) ||
+      !hopper::bf16_rows_map(&tg, dgx, G * B, Tn, 1, 4 * H, kDwStep))
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(4 * H / kDwStep), (unsigned)(H / kDwStep), (unsigned)G);
+  lstm_dwh_wgmma_kernel<<<grid, 160, kDwSmem, s>>>(th, tg, static_cast<float*>(dwh), B, Tn, H);
+  return (int)cudaGetLastError();
+}
+
+// parts: 1 = the reverse scan (dgx), 2 = the weight gradient (dwh, from hs
+// and the dgx already in place), 3 = both, in that order.
 template <typename T>
 int bwd(const void* gx, const void* wh, const void* hs, const void* cs, const void* dhs,
-        void* dgx, void* dwh, int G, int B, int Tn, int H, cudaStream_t s) {
-  const bool mma = use_mma<T>(H);
-  const size_t bytes = plan<T>(H, mma, true).total;
-  if (bytes > kSmemCap) return (int)cudaErrorInvalidValue;
-  auto kernel = mma ? lstm_bwd_kernel<T, true> : lstm_bwd_kernel<T, false>;
-  if (int e = mma ? configure<T, true, true>() : configure<T, false, true>()) return e;
-  kernel<<<scan_grid(G, B), scan_threads(H), bytes, s>>>(
-      static_cast<const T*>(gx), static_cast<const float*>(wh), static_cast<const T*>(hs),
-      static_cast<const T*>(cs), static_cast<const T*>(dhs), static_cast<T*>(dgx), B, Tn, H);
-  if (cudaError_t e = cudaGetLastError()) return (int)e;
-  dim3 grid((unsigned)((4 * H + kDwTile - 1) / kDwTile), (unsigned)((H + kDwTile - 1) / kDwTile),
-            (unsigned)G);
-  lstm_dwh_kernel<T><<<grid, 256, 0, s>>>(static_cast<const T*>(hs), static_cast<const T*>(dgx),
-                                          static_cast<float*>(dwh), B, Tn, H);
+        void* dgx, void* dwh, int G, int B, int Tn, int H, int parts, cudaStream_t s) {
+  if (parts & 1) {
+    const bool mma = use_mma<T>(H);
+    const size_t staged = staged_plan<T>(H, mma).total;
+    const T *gx_ = static_cast<const T*>(gx), *hs_ = static_cast<const T*>(hs),
+            *cs_ = static_cast<const T*>(cs), *dhs_ = static_cast<const T*>(dhs);
+    const float* wh_ = static_cast<const float*>(wh);
+    T* dgx_ = static_cast<T*>(dgx);
+    if (staged <= kSmemCap && aligned16(gx) && aligned16(hs) && aligned16(cs) &&
+        aligned16(dhs)) {
+      auto kernel = mma ? lstm_bwd_kernel<T, true> : lstm_bwd_kernel<T, false>;
+      if (int e = mma ? configure_staged<T, true>() : configure_staged<T, false>()) return e;
+      kernel<<<scan_grid(G, B), scan_threads(H), staged, s>>>(gx_, wh_, hs_, cs_, dhs_, dgx_, B,
+                                                               Tn, H);
+    } else {
+      const size_t bytes = plan<T>(H, mma, true).total;
+      if (bytes > kSmemCap) return (int)cudaErrorInvalidValue;
+      auto kernel = mma ? lstm_bwd_direct_kernel<T, true> : lstm_bwd_direct_kernel<T, false>;
+      if (int e = mma ? configure<T, true, true>() : configure<T, false, true>()) return e;
+      kernel<<<scan_grid(G, B), scan_threads(H), bytes, s>>>(gx_, wh_, hs_, cs_, dhs_, dgx_, B,
+                                                              Tn, H);
+    }
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  if (parts & 2) {
+    if constexpr (std::is_same<T, bf16>::value) {
+      if (H % kDwStep == 0 && aligned16(hs) && aligned16(dgx))
+        return dwh_wgmma(hs, dgx, dwh, G, B, Tn, H, s);
+    }
+    dim3 grid((unsigned)((4 * H + kDwTile - 1) / kDwTile), (unsigned)((H + kDwTile - 1) / kDwTile),
+              (unsigned)G);
+    lstm_dwh_kernel<T><<<grid, 256, 0, s>>>(static_cast<const T*>(hs), static_cast<const T*>(dgx),
+                                            static_cast<float*>(dwh), B, Tn, H);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -472,13 +832,14 @@ extern "C" int dk_lstm_fwd(const void* gx, const void* wh, void* hs, void* cs, i
 }
 
 // Backward scan and weight gradient: gx, hs, cs, dhs as saved / given ->
-// dgx [G,B,T,4H] (dtype), dwh [G,H,4H] f32.
+// dgx [G,B,T,4H] (dtype), dwh [G,H,4H] f32; `parts` as for bwd (3 on the
+// training path; 1 and 2 time the two launches apart).
 extern "C" int dk_lstm_bwd(const void* gx, const void* wh, const void* hs, const void* cs,
                            const void* dhs, void* dgx, void* dwh, int G, int B, int Tn, int H,
-                           int dtype, void* stream) {
-  if (!shape_ok(G, B, Tn, H)) return (int)cudaErrorInvalidValue;
+                           int dtype, int parts, void* stream) {
+  if (!shape_ok(G, B, Tn, H) || parts < 1 || parts > 3) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd<float>(gx, wh, hs, cs, dhs, dgx, dwh, G, B, Tn, H, s);
-  if (dtype == 1) return bwd<bf16>(gx, wh, hs, cs, dhs, dgx, dwh, G, B, Tn, H, s);
+  if (dtype == 0) return bwd<float>(gx, wh, hs, cs, dhs, dgx, dwh, G, B, Tn, H, parts, s);
+  if (dtype == 1) return bwd<bf16>(gx, wh, hs, cs, dhs, dgx, dwh, G, B, Tn, H, parts, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -110,7 +110,8 @@ def _bind(lib):
     lib.dk_lstm_supported.restype = i
     lib.dk_lstm_fwd.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
     lib.dk_lstm_fwd.restype = i
-    lib.dk_lstm_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
+    lib.dk_lstm_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                vp]
     lib.dk_lstm_bwd.restype = i
 
 
@@ -153,16 +154,25 @@ def _lstm_fwd_cuda(gx, wh, save_c: bool):
     return hs, cs
 
 
+def _lstm_bwd_into(dgx, dwh, gx, wh, hs, cs, dhs, parts: int = 3):
+    """Launch K7 into ``dgx`` and ``dwh``: ``parts`` 1 runs the reverse
+    scan (dgx), 2 the weight-gradient product (dwh, from ``hs`` and the
+    ``dgx`` in place), 3 both. Counts nothing: :func:`lstm_backward` is the
+    entry; ``chip_smoke.py`` times the two launches apart through this."""
+    lib, dtype = _check(gx, wh, hs, cs, dhs, dgx)
+    G, B, T, H4 = gx.shape
+    err = lib.dk_lstm_bwd(gx.data_ptr(), wh.data_ptr(), hs.data_ptr(),
+                          cs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(),
+                          dwh.data_ptr(), G, B, T, H4 // 4, dtype, parts,
+                          torch.cuda.current_stream(gx.device).cuda_stream)
+    _build.check(err, "lstm backward")
+
+
 def _lstm_bwd_cuda(gx, wh, hs, cs, dhs):
-    lib, dtype = _check(gx, wh, hs, cs, dhs)
     G, B, T, H4 = gx.shape
     dgx = torch.empty_like(gx)
     dwh = torch.empty((G, H4 // 4, H4), dtype=torch.float32, device=gx.device)
-    err = lib.dk_lstm_bwd(gx.data_ptr(), wh.data_ptr(), hs.data_ptr(),
-                          cs.data_ptr(), dhs.data_ptr(), dgx.data_ptr(),
-                          dwh.data_ptr(), G, B, T, H4 // 4, dtype,
-                          torch.cuda.current_stream(gx.device).cuda_stream)
-    _build.check(err, "lstm backward")
+    _lstm_bwd_into(dgx, dwh, gx, wh, hs, cs, dhs)
     lstm_backward.launches += 1
     return dgx, dwh
 

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""A/B of the flash-attention kernels K2 (forward) and K4 (dk/dv) of two
-checkouts of this repository on one card.
+"""A/B of the flash-attention kernels K2 (forward), K3 (dq) and K4 (dk/dv)
+of two checkouts of this repository on one card.
 
     python3 flash_ab.py OTHER_ROOT [OTHER_ROOT ...]
 
 runs, for each OTHER_ROOT in turn, its kernels, this checkout's, this
 checkout's again and its own again, each in a process of its own (so each
 builds and loads its own libraries), and prints one JSON line per case and
-side: K2 and K4 against their plain versions (O within 2e-2 and lse within
-1e-3; dk/dv within 2^-6 of the plain output's largest magnitude; fully
-masked rows exactly 0, as ``chip_smoke.py`` holds them) and their device
+side: K2, K3 and K4 against their plain versions (O within 2e-2 and lse
+within 1e-3; dq, dk and dv within 2^-6 of the plain output's largest
+magnitude; fully masked rows exactly 0, as ``chip_smoke.py`` holds them)
+and their device
 times under CUDA-graph replay (``chip_smoke.cuda_ms``), at edge-tile
 cases, the served prefill lengths and the two training shapes (config 9:
 B'=16, L=2048, H=8, D=128, causal; config 6: D=64, non-causal, ragged key
@@ -61,6 +62,7 @@ def _build_report(_build):
         return {}
     out = {}
     for lib, fn in (("flash_attention", "fa_fwd_wgmma_kernel"),
+                    ("flash_attention_bwd", "fa_bwd_dq_wgmma_kernel"),
                     ("flash_attention_bwd", "fa_bwd_dkv_wgmma_kernel")):
         report = _build.ptxas_report(_build.build_log(lib))
         sass = _build.sass_counts(lib)
@@ -99,25 +101,29 @@ def measure(side: str, root: str) -> int:
         ro, rlse = fa._fa_forward_plain(q, k, v, km, **kw)
         delta = fa._delta(o, g)
         args = (q, k, v, km, lse, delta, g)
+        dq = fa._fa_bwd_dq(*args, **kw)
         dk, dv = fa._fa_bwd_dkv(*args, **kw)
-        _, rk, rv = fa._fa_bwd_plain(*args, **kw, parts=("dkv",))
+        rq, rk, rv = fa._fa_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
         row = dict(side=side, root=root, B=B, L=L, H=H, Hkv=Hkv, D=D,
                    causal=causal,
                    window=window, key_mask=mk, o_err=cs._err(o, ro),
-                   lse_err=cs._err(lse, rlse), dk_err=cs._err(dk, rk),
-                   dv_err=cs._err(dv, rv))
+                   lse_err=cs._err(lse, rlse), dq_err=cs._err(dq, rq),
+                   dk_err=cs._err(dk, rk), dv_err=cs._err(dv, rv))
         ok = (row["o_err"] <= 2e-2 and row["lse_err"] <= 1e-3
               and bool(torch.isfinite(o.float()).all())
+              and row["dq_err"] <= 2.0 ** -6 * rq.float().abs().max().item()
               and row["dk_err"] <= 2.0 ** -6 * rk.float().abs().max().item()
               and row["dv_err"] <= 2.0 ** -6 * rv.float().abs().max().item())
         if mk == "half":
             ok = ok and all(t[1].abs().max().item() == 0.0
-                            for t in (o, dk, dv))
-        del ro, rlse, rk, rv
+                            for t in (o, dq, dk, dv))
+        del ro, rlse, rq, rk, rv
         iters = 10 if L >= 2048 else 20
         row.update(ok=ok, k2_ms=cs.cuda_ms(
             torch, lambda: fa._fa_forward(q, k, v, km, **kw), iters=iters),
+            k3_ms=cs.cuda_ms(torch, lambda: fa._fa_bwd_dq(*args, **kw),
+                             iters=iters),
             k4_ms=cs.cuda_ms(torch, lambda: fa._fa_bwd_dkv(*args, **kw),
                              iters=iters))
         failed += not ok

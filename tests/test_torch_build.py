@@ -9,11 +9,20 @@ compiler's and the disassembler's reports are read.
   ``ptxas -v``; ``count_sass`` counts instructions by opcode per function
   of a ``cuobjdump -sass`` listing, predicated ones included (the check
   that a kernel issues ``HGMMA`` and ``UTMALDG``).
+- ``chip_smoke.check_sass`` holds every kernel redesigned on wgmma, K3's
+  dq kernel among them, to those reports; it is imported here without a
+  card and fed made-up reports.
 """
+
+import importlib.util
+import os
+import types
 
 import pytest
 
 from distkeras_tpu_torch.ops import _build
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
@@ -84,3 +93,64 @@ def test_count_sass_counts_opcodes_per_function(opcodes):
     assert (fma["HGMMA"], fma["UTMALDG"]) == (0, 0)
     if "HMMA" in opcodes:          # mma.sync, not counted as HGMMA
         assert (wgmma["HMMA"], fma["HMMA"]) == (0, 1)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_under_test", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_wgmma_kernels_name_the_dq_kernel():
+    cs = _chip_smoke()
+    assert cs.WGMMA_KERNELS["flash_attention_bwd_dq"] == (
+        "flash_attention_bwd", "fa_bwd_dq_wgmma_kernel")
+    assert cs.WGMMA_KERNELS_ONE["lstm_backward"] == (
+        "lstm", "lstm_dwh_wgmma_kernel")
+
+
+def _fake_build(cs, spilled=None, hgmma=4):
+    """A stand-in for ``_build`` whose libraries hold every kernel that
+    ``check_sass`` looks for; ``spilled`` names one that spills."""
+    funcs = {}
+    for lib, fn in cs.WGMMA_KERNELS.values():
+        for d in (64, 128):
+            funcs.setdefault(lib, []).append(
+                f"_ZN12_GLOBAL__N_1{len(fn) + 7}{fn}ILi{d}EEEvv")
+    for lib, fn in cs.WGMMA_KERNELS_ONE.values():
+        funcs.setdefault(lib, []).append(f"_ZN12_GLOBAL__N_1{len(fn)}{fn}Evv")
+
+    def build_log(lib):
+        text = ""
+        for f in funcs[lib]:
+            spill = 16 if spilled and spilled in f else 0
+            text += (f"ptxas info    : Compiling entry function '{f}' for "
+                     f"'sm_90a'\nptxas info    : Function properties for "
+                     f"{f}\n    {spill} bytes stack frame, {spill} bytes "
+                     f"spill stores, {spill} bytes spill loads\nptxas info"
+                     f"    : Used 168 registers, used 1 barriers\n")
+        return text
+
+    return types.SimpleNamespace(
+        build_log=build_log, ptxas_report=_build.ptxas_report,
+        sass_counts=lambda lib: {f: {"HGMMA": hgmma, "UTMALDG": 2}
+                                 for f in funcs[lib]})
+
+
+@pytest.mark.parametrize("fault", [None, "fa_bwd_dq_wgmma_kernelILi128E",
+                                   "lstm_dwh_wgmma_kernel", "no_hgmma"])
+def test_check_sass_holds_each_wgmma_kernel(fault):
+    cs = _chip_smoke()
+    cs.log = lambda msg: None
+    if fault is None:
+        out = cs.check_sass(_fake_build(cs))
+        assert set(out["flash_attention_bwd_dq"]) == {"D=64", "D=128"}
+        assert out["flash_attention_bwd_dq"]["D=128"]["hgmma"] == 4
+        assert out["lstm_backward"]["spill_stores"] == 0
+        return
+    fake = (_fake_build(cs, hgmma=0) if fault == "no_hgmma"
+            else _fake_build(cs, spilled=fault))
+    with pytest.raises(AssertionError):
+        cs.check_sass(fake)

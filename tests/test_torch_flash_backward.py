@@ -97,6 +97,62 @@ def test_plain_backward_vs_jax_math_ragged(L, hkv, causal, window, masked):
                                    atol=ATOL)
 
 
+# Semantics the tensor-core dq kernel (K3: 128 q rows a block, 64-key
+# tiles, blocks of one head consecutive) must keep, on the plain backward
+# it is held to on the card:
+# (name, B, L, H, Hkv, D, causal, window, masked keys [lo, hi), oracle)
+K3_EDGES = [
+    # a whole 64-key tile masked inside rows that stay valid (a tile the
+    # kernel skips without loading): non-causal, and causal with a window
+    ("masked_key_tile", 2, 256, 4, 2, 16, False, None, (64, 128), "pallas"),
+    ("masked_key_tile_causal", 2, 256, 4, 2, 16, True, 96, (128, 192),
+     "pallas"),
+    # a GQA group of 4: query heads 0-3 read kv head 0, heads 4-7 kv head 1
+    ("gqa4", 2, 128, 8, 2, 16, True, None, None, "pallas"),
+    # causal at L = 1024: the last q tiles have the longest bands
+    ("causal_long", 1, 1024, 2, 2, 64, True, None, None, "math"),
+]
+
+
+@pytest.mark.parametrize("name,b,L,h,hkv,d,causal,window,hole,oracle",
+                         K3_EDGES, ids=[c[0] for c in K3_EDGES])
+def test_plain_backward_vs_jax_k3_edges(name, b, L, h, hkv, d, causal,
+                                        window, hole, oracle):
+    """The plain backward against the Pallas backward in interpret mode
+    (as ``test_plain_backward_vs_jax_pallas_interpret``) or, at L = 1024,
+    against ``_attention_bwd_math`` (as the ragged test, to stay fast on
+    the CPU); tolerance as there. Keys of a masked tile get exactly zero
+    dk and dv."""
+    rng = np.random.default_rng(L + h)
+    q, g = (rng.normal(size=(b, L, h, d)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.normal(size=(b, L, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    km = None
+    if hole is not None:
+        km = np.ones((b, L), np.float32)
+        km[:, hole[0]:hole[1]] = 0.0
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
+    out, lse = tfa._fa_forward(_t(q), _t(k), _t(v), _t(km), **kw)
+    got = tfa._fa_backward(_t(q), _t(k), _t(v), _t(km), out, lse, _t(g),
+                           **kw)
+    if oracle == "pallas":
+        jo, jl = jfa._fa_forward(_j(q), _j(k), _j(v), _j(km),
+                                 interpret=True, **kw)
+        ref = jfa._fa_backward(_j(q), _j(k), _j(v), _j(km), jo, jl, _j(g),
+                               interpret=True, **kw)
+    else:
+        ref = jfa._attention_bwd_math(_j(q), _j(k), _j(v), _j(km),
+                                      jnp.asarray(lse.numpy()), _j(g), **kw)
+    for a, r in zip(got, ref):
+        assert tuple(a.shape) == r.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=0,
+                                   atol=ATOL)
+    if hole is not None:
+        for grad in got[1:]:
+            assert torch.all(grad[:, hole[0]:hole[1]] == 0.0)
+
+
 @pytest.mark.parametrize("hkv,causal,window,masked",
                          [CASES[1], CASES[5], CASES[7]])
 def test_function_grads_vs_jax_grad(hkv, causal, window, masked):

@@ -61,6 +61,26 @@ def test_gradients_match_jax(oracle):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **GTOL)
 
 
+@pytest.mark.parametrize("b,t", [(8, 1), (8, 2), (17, 16)],
+                         ids=["T1", "T2", "B17"])
+@pytest.mark.parametrize("oracle", ["pallas", "reference"])
+def test_gradients_match_jax_at_scan_edges(oracle, b, t):
+    """The edges of the backward kernel's one-step-ahead prefetch (T = 1:
+    no step to prefetch; T = 2: one) and a batch that leaves a ragged
+    16-row tile (B = 17), against JAX's gradients at the tolerance of
+    ``test_gradients_match_jax``."""
+    gx, wh, probe = make_inputs(20 + t, b=b, t=t)
+    fn = jax_pallas if oracle == "pallas" else jrec.lstm_scan_reference
+    jg = jax.grad(lambda a, w: jnp.sum(fn(a, w) * probe), argnums=(0, 1))(
+        jnp.asarray(gx), jnp.asarray(wh))
+    p = torch.from_numpy(probe)
+    tg = torch.func.grad(
+        lambda a, w: torch.sum(trec.lstm_scan(a, w) * p), argnums=(0, 1))(
+        torch.from_numpy(gx), torch.from_numpy(wh))
+    for a, r in zip(tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), **GTOL)
+
+
 def test_autograd_backward_matches_func_grad():
     """``loss.backward()`` through the Functions equals ``torch.func.grad``
     and the plain-torch reference's autograd (f32 products of the same
