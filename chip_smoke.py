@@ -11,13 +11,18 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. the card's name and power limit (``nvidia-smi``);
 2. build all five kernel sources from ``distkeras_tpu_torch/csrc`` (one
    ``nvcc`` per source, started together), then show that the kernels
-   redesigned on wgmma (K2's, K3's and K4's bf16 paths and K7's dwh
-   product) issue ``HGMMA`` and ``UTMALDG`` (TMA) instructions and spill
-   nothing (``check_sass``);
+   redesigned on wgmma (K2's, K3's and K4's bf16 paths, K7's dwh product
+   and every instantiation of K1's prefill kernel) issue ``HGMMA`` and
+   ``UTMALDG`` (TMA) instructions and spill nothing, and that K6's cluster
+   scan, K7's two scans and K1's split decode kernel spill nothing
+   (``check_sass``);
 3. K1 ``q_matmul`` against its plain version at every Dense shape of the
-   served 400M config, decode (M=8) and prefill (M=1024) rows, with kernel,
-   plain and library (``torch.matmul`` over a pre-dequantized bf16 weight)
-   times and the card's bound;
+   served 400M config: decode (M=8, twice for equal bits: the K split sums
+   in rank order), the served prefill lengths (``SERVED_LENGTHS``) and
+   M=1024, with kernel, plain and library (``torch.matmul`` over a
+   pre-dequantized bf16 weight) times and the card's bound, each row with
+   the launch plan (``quant.plan_q_matmul``); then ragged edges for every
+   kernel path;
 4. K2 flash-attention forward against its plain version at prefill shapes
    (B=4 and the served B=1 lengths; H=16, Hkv=1, D=128, bf16, causal) and
    at small cases for its edge tiles (ragged L, windows, masked keys
@@ -30,11 +35,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    over the same tensors) times and the bound;
 6. K6 and K7, the LSTM scan forward and backward, against their plain
    versions at the training shapes (G=8 workers, B=64, T=200, H=128, bf16)
-   and small ragged f32 / bf16 cases (see ``check_lstm``), K7 twice for
-   equal bits, with kernel, plain and library (cuDNN's ``nn.LSTM`` at the
-   same T, G·B and H, forward and backward; its forget-bias convention
-   differs, so it is timed, not compared) times and the bounds, and K7's
-   two launches (the reverse scan, the dwh product) timed apart;
+   and small ragged f32 / bf16 cases at the edges of K6's cluster scan
+   and K7's prefetch (see ``check_lstm``), K6 also without saved cell
+   states (the eval path's launch), K7 twice for equal bits, with kernel,
+   plain and library (cuDNN's ``nn.LSTM`` at the same T, G·B and H,
+   forward and backward; its forget-bias convention differs, so it is
+   timed, not compared) times and the bounds, K6's launch (cluster size,
+   rows, blocks) and K7's two launches (the reverse scan, the dwh
+   product) timed apart;
 7. K2, K3 and K4, the flash-attention forward and backward (dq, dk/dv),
    against their plain versions at the LM's and the classifier's training
    shapes and at small GQA / window / ragged / masked-key / f32 /
@@ -53,8 +61,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``GenerationServer`` to 4 concurrent ``GenerationClient``s (prompts of
    128/77/208/333 tokens, 32 greedy new tokens each), then quantize it
    (``quantize_lm``) and serve again; K1 and K2's launch counters, reset
-   just before, must show both launched; every served stream is held to a
-   full forward, tie-aware (see ``tie_aware_check``);
+   just before, must show both launched, K1 at decode and at prefill;
+   every served stream is held to a full forward, tie-aware (see
+   ``tie_aware_check``);
 10. train: ``DynSGD(lstm_classifier(), worker_optimizer="fused_adam",
     features_col=["features", "mask"], num_workers=8, batch_size=64,
     communication_window=4)`` — BASELINE config 5 at its published width
@@ -82,7 +91,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     under ``DOWNPOUR(worker_optimizer="sgd",
     learning_rate=1e-3, num_workers=2, batch_size=8)`` for 3 windows on
     ragged rows; K2, K3 and K4 must have launched and the loss be finite;
-13. print the ``kernels`` JSON line, then the result line
+13. print the ``kernels`` JSON line (K1 as one decode step and, as
+    ``q_matmul_prefill``, one 1024-token prefill), then the result line
     ``{"ok": true, "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
@@ -199,7 +209,11 @@ def rotating(items):
 
 
 def check_q_matmul(torch, quant):
-    """Phase 3: K1 against its plain version, with times and bounds."""
+    """Phase 3: K1 against its plain version at every Dense shape of the
+    served config: decode (M=8, the served batch), the served prefill
+    lengths (SERVED_LENGTHS, one batched prefill per padded length) and
+    M=1024, with kernel, plain and library times and the card's bound; the
+    split decode kernel twice for equal bits; then ragged edges."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows, max_err = [], 0.0
     for (k, n) in DENSE:
@@ -210,13 +224,14 @@ def check_q_matmul(torch, quant):
               for _ in range(nrot)]
         deq = [quant.dequantize(q_, axis=1, dtype=torch.bfloat16)
                for q_ in qs]
-        cases = [(m, torch.bfloat16) for m in (8, 1024)]
+        cases = [(m, torch.bfloat16) for m in (8, *SERVED_LENGTHS, 1024)]
         if (k, n) == DENSE[0]:   # ragged decode rows, and the f32 kernel
             cases += [(13, torch.bfloat16), (8, torch.float32),
                       (1024, torch.float32)]
         for m, dt in cases:
             x = torch.randn((m, k), generator=gen, device=DEVICE).to(dt)
             got = quant.q_matmul(x, qt).float()
+            again = quant.q_matmul(x, qt).float()
             ref = quant._q_matmul_plain(x, qt.q, qt.scale, dt).float()
             torch.cuda.synchronize()
             rtol = 1e-2 if dt == torch.bfloat16 else 1e-5
@@ -228,7 +243,11 @@ def check_q_matmul(torch, quant):
                 raise AssertionError(
                     f"q_matmul M={m} K={k} N={n} {dt}: max |kernel - plain| "
                     f"= {err} beyond rtol={rtol}, atol={atol}")
+            if not torch.equal(got, again):   # the K split sums in rank order
+                raise AssertionError(f"q_matmul M={m} K={k} N={n} {dt}: two "
+                                     f"launches differ")
             max_err = max(max_err, err)
+            plan = quant.plan_q_matmul(m, n, k, dt)
             nq, nd = rotating(qs), rotating(deq)
             kernel_ms = cuda_ms(torch, lambda: quant.q_matmul(x, nq()))
             call_ms = eager_ms(torch, lambda: quant.q_matmul(x, nq()))
@@ -239,7 +258,10 @@ def check_q_matmul(torch, quant):
             esz = 2 if dt == torch.bfloat16 else 4
             nbytes = m * k * esz + k * n + n * 4 + m * n * esz
             row = dict(M=m, K=k, N=n, dtype=str(dt).split(".")[-1],
-                       max_abs_err=err, kernel_ms=kernel_ms,
+                       plan=dict(kernel=plan.kernel, tokens=plan.tokens,
+                                 channels=plan.channels, splits=plan.splits,
+                                 blocks=plan.blocks),
+                       max_abs_err=err, equal_bits=True, kernel_ms=kernel_ms,
                        eager_ms=call_ms, plain_ms=plain_ms,
                        library_ms=library_ms,
                        **bound(nbytes, 2.0 * m * n * k,
@@ -247,10 +269,15 @@ def check_q_matmul(torch, quant):
             rows.append(row)
             log("q_matmul " + json.dumps(row))
         del qs, deq
-    # ragged edges: M, K, N that no tile divides, K that rules out 16-byte
-    # copies; each kernel (f32 tile, bf16 decode, bf16 prefill) masks them
+    # ragged edges: M, K, N that no tile divides. K that rules out 16-byte
+    # rows takes the element-masked kernels (f32 tile, bf16 decode, bf16
+    # mma.sync prefill); K a multiple of 16 but not of a chunk, N not of a
+    # channel tile and M not of a token tile take the split decode and the
+    # wgmma prefill kernels, whose TMA boxes and cp.async pieces zero-fill
     for m, k, n in ((40, 200, 300), (50, 77, 130), (3, 77, 130),
-                    (12, 200, 300)):
+                    (12, 200, 300), (40, 208, 300), (3, 208, 130),
+                    (12, 1040, 300), (300, 1040, 1000), (17, 64, 64),
+                    (257, 2048, 130)):
         qt = quant.quantize(torch.randn((n, k), generator=gen,
                                         device=DEVICE), axis=1)
         for dt in (torch.bfloat16, torch.float32):
@@ -264,7 +291,8 @@ def check_q_matmul(torch, quant):
                 raise AssertionError(
                     f"q_matmul edge M={m} K={k} N={n} {dt}: max |kernel - "
                     f"plain| = {(got - ref).abs().max().item()}")
-        log(f"q_matmul edge M={m} K={k} N={n}: ok")
+        log(f"q_matmul edge M={m} K={k} N={n}: ok "
+            f"({quant.plan_q_matmul(m, n, k).kernel} in bf16)")
     return rows, max_err
 
 
@@ -537,10 +565,70 @@ WGMMA_KERNELS = {
 }
 
 
-# the same check for wgmma kernels not templated on a head dim
+# the same check for the other wgmma kernels, each of its instantiations
 WGMMA_KERNELS_ONE = {
     "lstm_backward": ("lstm", "lstm_dwh_wgmma_kernel"),
+    "q_matmul_prefill": ("quant", "qmm_prefill_wgmma_kernel"),
 }
+
+# kernels on the main paths held to no spills (registers reported), every
+# instantiation: K6's cluster scan, K7's two scans (lstm.cu is one
+# translation unit, and register allocation there is fragile), K1's split
+# decode kernel
+NO_SPILL_KERNELS = {
+    "lstm_forward": ("lstm", "lstm_fwd_cluster_kernel"),
+    "lstm_backward_scan": ("lstm", "lstm_bwd_kernel"),
+    "lstm_backward_direct_scan": ("lstm", "lstm_bwd_direct_kernel"),
+    "q_matmul": ("quant", "qmm_decode_split_kernel"),
+}
+
+
+def _template_tag(name, fn):
+    """``<256,2>`` for a mangled ``fn<256, 2>``; "" if not a template."""
+    rest = name[name.index(fn) + len(fn):]
+    if not rest.startswith("I"):
+        return ""
+    inner, args = rest[1:], []
+    while inner and not inner.startswith("E"):
+        if inner.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+            inner = inner[len("13__nv_bfloat16"):]
+        elif inner.startswith("f"):
+            args.append("f32")
+            inner = inner[1:]
+        elif inner[:2] in ("Li", "Lb"):
+            end = inner.index("E")
+            val = inner[2:end]
+            args.append(val if inner[1] == "i" else ("true" if val == "1"
+                                                     else "false"))
+            inner = inner[end + 1:]
+        else:
+            break
+    return "<" + ",".join(args) + ">"
+
+
+def _kernel_rows(lib, fn, report, sass, need_wgmma):
+    """Every instantiation of ``fn`` in ``lib``'s build: registers, spills
+    and (for a wgmma kernel) its HGMMA / UTMALDG counts, held to no spills
+    and, for a wgmma kernel, HGMMA > 0 and UTMALDG > 0."""
+    names = [k for k in report if fn in k and
+             (k[k.index(fn) + len(fn):][:1] in ("I", "E", "v"))]
+    if not names:
+        raise AssertionError(f"{fn} not found in the build of {lib}: "
+                             f"{list(report)}")
+    rows = {}
+    for name in names:
+        ops = sass.get(name, {})
+        row = dict(report[name])
+        if need_wgmma:
+            row.update(hgmma=ops.get("HGMMA", 0), utmaldg=ops.get("UTMALDG", 0))
+        bad = (row.get("spill_stores", 0) or row.get("spill_loads", 0)
+               or (need_wgmma and not (row["hgmma"] > 0
+                                       and row["utmaldg"] > 0)))
+        if bad:
+            raise AssertionError(f"{fn} ({name}): {row}")
+        rows[_template_tag(name, fn)] = row
+    return rows[""] if list(rows) == [""] else rows
 
 
 def _sass_row(lib, fn, tag, report, sass):
@@ -559,16 +647,16 @@ def _sass_row(lib, fn, tag, report, sass):
 
 def check_sass(_build):
     """Each kernel redesigned on wgmma (the flash kernels at both head
-    dims, the LSTM's dwh product once) issues ``HGMMA`` and ``UTMALDG``
-    (TMA) instructions in its SASS (``cuobjdump -sass`` of the built
-    library), spills nothing (``ptxas -v``), and ``setmaxnreg`` was not
-    ignored. Registers are the launch count; the consumer
+    dims, the LSTM's dwh product, K1's prefill kernel at every token tile
+    and warpgroup count) issues ``HGMMA`` and ``UTMALDG`` (TMA)
+    instructions in its SASS (``cuobjdump -sass`` of the built library),
+    spills nothing (``ptxas -v``), and ``setmaxnreg`` was not ignored;
+    the scans and K1's decode kernel (``NO_SPILL_KERNELS``) spill nothing.
+    Registers are the launch count; the flash kernels' consumer
     warpgroups raise theirs with ``setmaxnreg``."""
     out = {}
     kernels = [(entry, lib, fn, {f"D={d}": f"{fn}ILi{d}E" for d in (64, 128)})
                for entry, (lib, fn) in WGMMA_KERNELS.items()]
-    kernels += [(entry, lib, fn, {"": fn})
-                for entry, (lib, fn) in WGMMA_KERNELS_ONE.items()]
     for entry, lib, fn, tags in kernels:
         text = _build.build_log(lib)
         if "setmaxnreg ignored" in text:
@@ -576,12 +664,20 @@ def check_sass(_build):
         report = _build.ptxas_report(text)
         sass = _build.sass_counts(lib)
         for key, tag in tags.items():
-            row = _sass_row(lib, fn, tag, report, sass)
-            if key:
-                out.setdefault(entry, {})[key] = row
-            else:
-                out[entry] = row
+            out.setdefault(entry, {})[key] = _sass_row(lib, fn, tag, report,
+                                                       sass)
         log(f"sass {entry} ({fn}): {json.dumps(out[entry])}")
+    for table, need_wgmma in ((WGMMA_KERNELS_ONE, True),
+                              (NO_SPILL_KERNELS, False)):
+        for entry, (lib, fn) in table.items():
+            text = _build.build_log(lib)
+            if "setmaxnreg ignored" in text:
+                raise AssertionError(f"{lib}: ptxas ignored setmaxnreg")
+            rows = _kernel_rows(lib, fn, _build.ptxas_report(text),
+                                _build.sass_counts(lib) if need_wgmma else {},
+                                need_wgmma)
+            out[entry] = rows
+            log(f"sass {entry} ({fn}): {json.dumps(rows)}")
     return out
 
 
@@ -1000,11 +1096,15 @@ def check_adam(torch, pk):
 
 def check_lstm(torch, rec):
     """K6 and K7 against their plain versions at the slice's shape (bf16,
-    G=8 workers, B=64, T=200, H=128) and at small cases: B=20 and B=17 are
-    not multiples of the 16-row tile, T=1 and T=2 the edges of the
-    backward's one-step-ahead prefetch, T=70 a ragged last chunk of the
-    tensor-core dwh product (H=64, bf16), H=144 (bf16) and H=256 (f32)
-    the scans whose staged step inputs do not fit in shared memory.
+    G=8 workers, B=64, T=200, H=128) and at small cases: B=20, B=17 and
+    B=33 are not multiples of the 16-row tile, T=1 and T=2 the edges of
+    the scans' prefetch rings (K6's cluster scan at H 32, 64 and 128, and
+    K7's backward), T=70 a ragged last chunk of the tensor-core dwh
+    product (H=64, bf16), H=144 (bf16) and H=256 (f32) the scans whose
+    staged step inputs do not fit in shared memory (and the forward's
+    per-block scan). Every case also runs the forward without saving the
+    cell states (the eval path's launch): the same hs bits, no cs. The
+    ``lstm_forward`` row names the launch (cluster size, blocks).
     Tolerance: bf16 kernel and plain round the same f32 values to bf16
     each step, and a one-ulp flip of h feeds the next steps, so outputs
     agree to 2^-6 of the plain output's largest magnitude (two bf16 ulps);
@@ -1018,9 +1118,13 @@ def check_lstm(torch, rec):
     cases = [(IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H, bf),
              (2, 20, 7, 32, f32), (2, 20, 7, 32, bf), (2, 17, 70, 64, bf),
              (2, 17, 2, 64, bf), (3, 17, 1, 64, bf), (2, 17, 2, 32, f32),
+             # the cluster scan's edges at the IMDB width: one step, two
+             # steps, and a third 16-row group holding one row
+             (1, 17, 1, 128, bf), (2, 33, 2, 128, bf),
              # the scans whose staged inputs do not fit in shared memory
              # (step inputs read in the step), the tensor-core and the FMA
-             # paths, and the FMA dwh for bf16 at H not a multiple of 64
+             # paths, and the FMA dwh for bf16 at H not a multiple of 64;
+             # neither takes the forward's cluster scan
              (1, 17, 3, 144, bf), (1, 17, 3, 256, f32)]
     fwd_rows, bwd_rows, max_err = [], [], 0.0
     for G, B, T, H, dt in cases:
@@ -1029,8 +1133,11 @@ def check_lstm(torch, rec):
         wh = torch.randn((G, H, 4 * H), generator=gen, device=DEVICE) \
             / H ** 0.5
         dhs = torch.randn((G, B, T, H), generator=gen, device=DEVICE).to(dt)
+        launch = rec.forward_launch(gx)
         hs, cs = rec.lstm_forward(gx, wh, True)
         hp, cp = rec.lstm_forward(gx, wh, True, impl="plain")
+        # the eval path's launch: no cell states saved, the same hs
+        hn, cn = rec.lstm_forward(gx, wh, False)
         dgx, dwh = rec.lstm_backward(gx, wh, hs, cs, dhs)
         dgx2, dwh2 = rec.lstm_backward(gx, wh, hs, cs, dhs)
         dgp, dwp = rec.lstm_backward(gx, wh, hp, cp, dhs, impl="plain")
@@ -1039,9 +1146,13 @@ def check_lstm(torch, rec):
         if not (torch.equal(dgx, dgx2) and torch.equal(dwh, dwh2)):
             raise AssertionError(f"lstm {label}: two backward launches "
                                  f"differ (K7 must be deterministic)")
+        if cn.numel() != 0 or not torch.equal(hn, hs):
+            raise AssertionError(f"lstm {label}: the forward without cell "
+                                 f"states gives other hs")
         rel = 2.0 ** -6 if dt == bf else 1e-5
         errs = {}
-        for name, got, ref in (("hs", hs, hp), ("cs", cs, cp),
+        for name, got, ref in (("hs", hs, hp), ("hs_no_cells", hn, hp),
+                               ("cs", cs, cp),
                                ("dgx", dgx, dgp), ("dwh", dwh, dwp)):
             errs[name] = _err(got, ref)
             scale = ref.float().abs().max().item()
@@ -1051,7 +1162,7 @@ def check_lstm(torch, rec):
                     f"lstm {label} {name}: max |kernel - plain| = "
                     f"{errs[name]} beyond {rel} x {scale}")
         max_err = max(max_err, errs["hs"], errs["dgx"])
-        log(f"lstm {label}: ok " + json.dumps(errs))
+        log(f"lstm {label}: ok " + json.dumps(dict(errs, forward=launch)))
         if (G, B, T, H) != (IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H):
             continue
         esz = 2 if dt == torch.bfloat16 else 4
@@ -1069,10 +1180,12 @@ def check_lstm(torch, rec):
             out, [xr, *lstm_lib.parameters()], dout, retain_graph=True),
             iters=10)
         fwd_rows.append(dict(
-            G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1],
-            max_abs_err=max(errs["hs"], errs["cs"]),
+            G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1], launch=launch,
+            max_abs_err=max(errs["hs"], errs["hs_no_cells"], errs["cs"]),
             kernel_ms=cuda_ms(torch, lambda: rec.lstm_forward(gx, wh, True),
                               iters=5),
+            kernel_no_cells_ms=cuda_ms(torch, lambda: rec.lstm_forward(
+                gx, wh, False), iters=5),
             eager_ms=eager_ms(torch, lambda: rec.lstm_forward(gx, wh, True),
                               iters=5),
             plain_ms=cuda_ms(torch, lambda: rec.lstm_forward(
@@ -1296,10 +1409,12 @@ def main() -> int:
 
     with torch.inference_mode():
         quant.q_matmul.launches = 0
+        quant.q_matmul.prefill_launches = 0
         fa._fa_forward.launches = 0
         prompts, res16, _ = serve(torch, model, "bf16")
         _, res8, _ = serve(torch, qmodel, "int8")
         launches = {"q_matmul": quant.q_matmul.launches,
+                    "q_matmul_prefill": quant.q_matmul.prefill_launches,
                     "flash_attention": fa._fa_forward.launches}
         log(f"launches on the served path: {json.dumps(launches)}")
         if min(launches.values()) < 1:
@@ -1365,6 +1480,10 @@ def main() -> int:
         return [(r, PER_STEP[(r["K"], r["N"])]) for r in rows
                 if r["M"] == 8 and r["dtype"] == "bfloat16"]
 
+    def prefill_1024(rows):   # one 1024-token prefill's calls (8 layers, head)
+        return [(r, PER_STEP[(r["K"], r["N"])]) for r in rows
+                if r["M"] == 1024 and r["dtype"] == "bfloat16"]
+
     def served_prefill(rows):  # one layer's prefill attention, 4 prompts
         return [(r, 1) for r in rows if (r["B"], r["H"], r["Hkv"]) ==
                 (1, HEADS, KV_HEADS) and r["L"] in SERVED_LENGTHS]
@@ -1376,10 +1495,15 @@ def main() -> int:
         return [(r, 1) for r in rows
                 if (r["L"], r["D"]) == (LM_L, LM_DIM // LM_HEADS)]
 
+    sass_for = dict(sass, lstm_backward=dict(
+        dwh=sass["lstm_backward"], scan=sass["lstm_backward_scan"],
+        direct_scan=sass["lstm_backward_direct_scan"]))
     kernels = []
     for name, src, replaces, rows, pick, err in (
             ("q_matmul", "distkeras_tpu_torch/csrc/quant.cu",
              "distkeras_tpu/ops/quant.py:93", qrows, decode_step, q_err),
+            ("q_matmul_prefill", "distkeras_tpu_torch/csrc/quant.cu",
+             "distkeras_tpu/ops/quant.py:93", qrows, prefill_1024, q_err),
             ("flash_attention", "distkeras_tpu_torch/csrc/flash_attention.cu",
              "distkeras_tpu/ops/flash_attention.py:146", frows,
              served_prefill, f_err),
@@ -1414,8 +1538,9 @@ def main() -> int:
             checked=True,
             **({k: total(rows, pick, k) for k in ("scan_ms", "dwh_ms")}
                if "scan_ms" in rows[0] else {}),
-            shapes=rows,
-            **({"sass": sass[name]} if name in sass else {})))
+            shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
+            else rows,
+            **({"sass": sass_for[name]} if name in sass_for else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

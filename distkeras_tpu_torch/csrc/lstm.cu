@@ -16,7 +16,11 @@
 // dependent steps. At the IMDB config (T=200, B=64, H=128, G=8, bf16) the
 // forward moves ~157 MB (~47 us at HBM rate) and does 13.4 GFLOP (~14 us
 // on the tensor cores), while 200 steps each wait for the last one.
-// So the design keeps everything a step needs on chip:
+// In bf16 at H 32, 64 and 128 the forward runs lstm_fwd_cluster_kernel:
+// each group of batch rows spread over a thread-block cluster, h exchanged
+// through distributed shared memory every step (see its note); at the IMDB
+// shape ~0.41 ms against the per-block scan's ~1.49 (PERF.md, lstm_probe.py
+// for the parts of a step). The per-block scans, forward and backward:
 //  * rows of the batch are independent recurrences, so blocks split
 //    (G, B / 16) and never synchronise with one another: no grid barrier;
 //  * each block stages its worker's wh once, in T, in shared memory
@@ -63,9 +67,9 @@
 // otherwise lstm_dwh_kernel does f32 FMAs. Both sum in a fixed order, one
 // block per output tile: deterministic.
 // ptxas (CUDA 12.9), no spills: the staged scans 96-124 registers, the
-// direct ones 120-126, lstm_dwh_wgmma_kernel 58 (SASS: 4 HGMMA, 2 UTMALDG;
-// chip_smoke.py's check_sass). At the IMDB shape on the H100 the scan
-// takes ~1.6 ms and dwh ~0.08 ms (PERF.md).
+// direct ones 120-126, the cluster forward 74-126, lstm_dwh_wgmma_kernel 58
+// (SASS: 4 HGMMA, 2 UTMALDG; chip_smoke.py's check_sass). At the IMDB shape
+// on the H100 the backward scan takes ~1.6 ms and dwh ~0.08 ms (PERF.md).
 // Plain C interface (bound with ctypes): each dk_lstm_* returns the
 // cudaGetLastError() of its launches, 0 on success.
 
@@ -76,6 +80,43 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+
+// Per-step probes: lstm_probe.py builds this file with -DDK_LSTM_PROBE (which
+// adds the dk_lstm_probe_* entry points: a forward scan on a chosen path, and
+// the counters), and each warp of the forward scans then adds the clock64()
+// cycles between their STEP_MARKs to dk_lstm_probe_cycles (slot 7 counts the
+// warps); -DDK_LSTM_PROBE_NOMARK keeps the entry points without the marks,
+// -DDK_LSTM_PROBE_NO_GX drops lstm_fwd_kernel's in-step gx loads. The
+// shipped build compiles the marks to nothing.
+#ifdef DK_LSTM_PROBE
+__device__ unsigned long long dk_lstm_probe_cycles[8];
+#endif
+#if defined(DK_LSTM_PROBE) && !defined(DK_LSTM_PROBE_NOMARK)
+#define STEP_DECL long long step_t0_ = clock64(), step_acc_[7] = {0, 0, 0, 0, 0, 0, 0}
+#define STEP_MARK(i)                        \
+  do {                                      \
+    const long long n_ = clock64();         \
+    step_acc_[i] += n_ - step_t0_;          \
+    step_t0_ = n_;                          \
+  } while (0)
+#define STEP_FLUSH()                                                                    \
+  do {                                                                                  \
+    if ((threadIdx.x & 31) == 0) {                                                      \
+      for (int i_ = 0; i_ < 7; ++i_)                                                    \
+        atomicAdd(&dk_lstm_probe_cycles[i_], (unsigned long long)step_acc_[i_]);        \
+      atomicAdd(&dk_lstm_probe_cycles[7], 1ull);                                        \
+    }                                                                                   \
+  } while (0)
+#else
+#define STEP_DECL do {} while (0)
+#define STEP_MARK(i) do {} while (0)
+#define STEP_FLUSH() do {} while (0)
+#endif
+#ifdef DK_LSTM_PROBE_NO_GX
+#define GX_LOAD(v) 0.f
+#else
+#define GX_LOAD(v) (v)
+#endif
 
 namespace {
 
@@ -214,12 +255,15 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ gx, const float* __restric
   __syncthreads();
 
   int buf = 0;
+  STEP_DECL;
   for (int t = 0; t < Tn; ++t) {
+    STEP_MARK(6);
     const T* hcur = h_s + buf * kRows * p.ldh;
     T* hnext = h_s + (buf ^ 1) * kRows * p.ldh;
     for (int slab = warp; slab < slabs; slab += nwarps) {
       float acc[4][2][4];
       gate_products<T, kMma>(acc, hcur, p.ldh, wh_s, p.ldw, whg, H, slab, gid, tq);
+      STEP_MARK(1);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
@@ -234,7 +278,7 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ gx, const float* __restric
             float z[4];
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              z[q] = (valid ? to_f(gxr[q * H + j]) : 0.f) + acc[q][nt][reg];
+              z[q] = GX_LOAD(valid ? to_f(gxr[q * H + j]) : 0.f) + acc[q][nt][reg];
             const float ig = sigmoid(z[0]), fg = sigmoid(z[1] + 1.f);
             const float gg = tanhf(z[2]), og = sigmoid(z[3]);
             const float c = fg * c_s[r * H + j] + ig * gg;
@@ -246,10 +290,13 @@ __global__ void lstm_fwd_kernel(const T* __restrict__ gx, const float* __restric
               if (save_c) cs[at * H + j] = from_f<T>(c);
             }
           }
+      STEP_MARK(2);
     }
     __syncthreads();
+    STEP_MARK(5);
     buf ^= 1;
   }
+  STEP_FLUSH();
 }
 
 // -- backward -----------------------------------------------------------------
@@ -289,6 +336,230 @@ __device__ __forceinline__ void stage_rows(T* dst, int ld, const T* __restrict__
                in ? 16 : 0);
   }
 }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// -- forward scan across a thread-block cluster (bf16) ------------------------
+//
+// The per-block scan above runs one block per (worker, 16 rows): 32 blocks
+// at the IMDB shape on 132 SMs, each walking T dependent steps alone. Here a
+// cluster of C blocks shares each (worker, R rows): block r owns H/C hidden
+// units and all four gates' columns for them, so the gate math stays in the
+// thread that holds the products. Warp w owns 8 of those units (one n8 tile
+// of each gate); its B fragments of wh (cast to bf16) for all of K stay in
+// registers for the whole scan (64 at H = 128), so a step reads only h from
+// shared memory (ldmatrix) and runs 4 independent mma chains of H/16. c lives
+// in the registers of the thread that owns its cell. gx_t for the block's
+// columns arrives by cp.async kDepth - 1 steps ahead into a ring, so no
+// global load sits on the dependent chain. Each step a block writes its
+// h_t slice into every block's next-h tile through distributed shared memory
+// and one cluster barrier publishes it; the barrier is split into arrive
+// (release) and wait (acquire) so the hs / cs stores overlap the wait.
+// Products in the same k order as lstm_fwd_kernel's; same gate functions.
+constexpr int kDepth = 4;  // steps of gx in flight
+
+template <int H, int C>
+struct ClusterFwd {
+  static constexpr int Hc = H / C;          // hidden units per block
+  static constexpr int warps = Hc / 8;      // one n8 tile of units a warp
+  static constexpr int threads = 32 * warps;
+  static constexpr int KT = H / 16;         // k tiles of h @ wh
+  static constexpr int ldh = H + kPad;      // bf16 per row of an h tile
+  static constexpr int ldg = 4 * Hc + kPad; // bf16 per row of a staged gx tile
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(hopper::smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&a)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(a[0]), "=r"(a[1])
+               : "r"(hopper::smem_u32(p))
+               : "memory");
+}
+
+// R batch rows a cluster: 16, or 8 where that still leaves at most two
+// blocks a SM (then rows 8..15 of the mma's A tile are zeros, and each thread
+// has half the cells, so half the gate math on the dependent chain).
+template <int H, int C, int R>
+__global__ void __launch_bounds__(ClusterFwd<H, C>::threads)
+lstm_fwd_cluster_kernel(const bf16* __restrict__ gx, const float* __restrict__ wh,
+                        bf16* __restrict__ hs, bf16* __restrict__ cs, int B, int Tn, int save_c) {
+  using P = ClusterFwd<H, C>;
+  constexpr int kHalves = R / 8;  // 8-row halves of the mma tile that hold rows
+  __shared__ __align__(16) bf16 h_s[2][R][P::ldh];
+  __shared__ __align__(16) bf16 gx_s[kDepth][R][P::ldg];
+  const int rank = (int)hopper::cluster_rank();
+  const int g = blockIdx.y, row0 = (blockIdx.x / C) * R, H4 = 4 * H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tq = lane & 3;
+  const int ul = 8 * warp + 2 * tq;        // the thread's two units, local to the block
+  const int u0 = rank * P::Hc + ul;        // ... and in h
+  STEP_DECL;
+
+  uint32_t bw[4][P::KT][2];  // B fragments: column rank Hc + 8 warp + gid of each gate
+  {
+    const float* whg = wh + (size_t)g * H * H4 + rank * P::Hc + 8 * warp + gid;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int kk = 0; kk < P::KT; ++kk) {
+        const float* w = whg + (size_t)(16 * kk + 2 * tq) * H4 + q * H;
+        bw[q][kk][0] = pack2(__float2bfloat16_rn(w[0]), __float2bfloat16_rn(w[H4]));
+        bw[q][kk][1] = pack2(__float2bfloat16_rn(w[8 * H4]), __float2bfloat16_rn(w[9 * H4]));
+      }
+  }
+  for (int idx = tid; idx < R * P::ldh; idx += P::threads) (&h_s[0][0][0])[idx] = from_f<bf16>(0.f);
+
+  // step t's gx columns of this block (gate q: q H + rank Hc ..), rows past B
+  // and steps past T as zeros
+  auto stage_gx = [&](int t) {
+    constexpr int per_gate = P::Hc / 8, per_row = 4 * per_gate;  // 16-byte pieces
+    bf16* dst = &gx_s[t % kDepth][0][0];
+    for (int idx = tid; idx < R * per_row; idx += P::threads) {
+      const int r = idx / per_row, p = idx % per_row, q = p / per_gate;
+      const int col = q * P::Hc + (p % per_gate) * 8, row = row0 + r;
+      const bool in = row < B && t < Tn;
+      const bf16* src =
+          gx + (((size_t)g * B + row) * Tn + t) * H4 + q * H + rank * P::Hc + (p % per_gate) * 8;
+      cp_async16(dst + r * P::ldg + col, in ? src : gx, in ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kDepth - 1; ++t) {
+    stage_gx(t);
+    cp_async_commit();
+  }
+  float c[2 * kHalves];  // cells (gid + 8 half, u0 + e) at 2 half + e
+#pragma unroll
+  for (int e = 0; e < 2 * kHalves; ++e) c[e] = 0.f;
+  cp_async_wait<kDepth - 2>();
+  hopper::cluster_sync();  // every block runs; h_{-1} = 0 and gx_0 are in place
+
+  for (int t = 0; t < Tn; ++t) {
+    STEP_MARK(6);
+    stage_gx(t + kDepth - 1);  // into the slot step t - 1 read
+    cp_async_commit();
+    STEP_MARK(0);
+    float acc[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.f;
+    const bf16* hcur = &h_s[t & 1][0][0];
+#pragma unroll
+    for (int kk = 0; kk < P::KT; ++kk) {
+      uint32_t a[4];
+      if constexpr (R == 16) {
+        ldmatrix_x4(a, hcur + (lane & 15) * P::ldh + 16 * kk + 8 * (lane >> 4));
+      } else {
+        uint32_t lo[2];
+        ldmatrix_x2(lo, hcur + (lane & 7) * P::ldh + 16 * kk + 8 * ((lane >> 3) & 1));
+        a[0] = lo[0];
+        a[2] = lo[1];
+        a[1] = a[3] = 0u;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        mma16816(acc[q], a[0], a[1], a[2], a[3], bw[q][kk][0], bw[q][kk][1]);
+    }
+    STEP_MARK(1);
+    const bf16* gxs = &gx_s[t % kDepth][0][0];
+    uint32_t hp[kHalves], cp[kHalves];
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) {
+      const int r = gid + 8 * half;
+      float zz[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(gxs + r * P::ldg + q * P::Hc + ul);
+        zz[q][0] = to_f(v.x) + acc[q][2 * half];
+        zz[q][1] = to_f(v.y) + acc[q][2 * half + 1];
+      }
+      bf16 hv[2], cv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ig = sigmoid(zz[0][e]), fg = sigmoid(zz[1][e] + 1.f);
+        const float gg = tanhf(zz[2][e]), og = sigmoid(zz[3][e]);
+        const float cc = fg * c[2 * half + e] + ig * gg;
+        c[2 * half + e] = cc;
+        hv[e] = from_f<bf16>(og * tanhf(cc));
+        cv[e] = from_f<bf16>(cc);
+      }
+      hp[half] = pack2(hv[0], hv[1]);
+      cp[half] = pack2(cv[0], cv[1]);
+    }
+    STEP_MARK(2);
+    if (t + 1 < Tn) {
+      bf16* hnext = &h_s[(t + 1) & 1][0][0];
+#pragma unroll
+      for (int peer = 0; peer < C; ++peer)
+#pragma unroll
+        for (int half = 0; half < kHalves; ++half)
+          hopper::st_cluster_u32(
+              hopper::cluster_map(hnext + (gid + 8 * half) * P::ldh + u0, (uint32_t)peer),
+              hp[half]);
+    }
+    cp_async_wait<kDepth - 2>();  // this thread's pieces of gx_{t+1} landed
+    hopper::cluster_arrive();
+    STEP_MARK(3);
+#pragma unroll
+    for (int half = 0; half < kHalves; ++half) {
+      const int row = row0 + gid + 8 * half;
+      if (row < B) {
+        const size_t at = (((size_t)g * B + row) * Tn + t) * H + u0;
+        *reinterpret_cast<uint32_t*>(hs + at) = hp[half];
+        if (save_c) *reinterpret_cast<uint32_t*>(cs + at) = cp[half];
+      }
+    }
+    STEP_MARK(4);
+    hopper::cluster_wait();  // h_t of every block, and gx_{t+1}, in place
+    STEP_MARK(5);
+  }
+  STEP_FLUSH();
+}
+
+template <int H, int C, int R>
+int fwd_cluster(const void* gx, const void* wh, void* hs, void* cs, int G, int B, int Tn,
+                int save_c, cudaStream_t s) {
+  using P = ClusterFwd<H, C>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(C * ((B + R - 1) / R)), (unsigned)G);
+  cfg.blockDim = dim3(P::threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, lstm_fwd_cluster_kernel<H, C, R>, static_cast<const bf16*>(gx),
+      static_cast<const float*>(wh), static_cast<bf16*>(hs), static_cast<bf16*>(cs), B, Tn,
+      save_c);
+  return e ? (int)e : (int)cudaGetLastError();
+}
+
+// Rows a cluster takes: 8 where G ceil(B / 8) clusters of C blocks still fit
+// two blocks a SM of the H100's 132, else 16.
+int cluster_rows(int G, int B, int C) { return G * ((B + 7) / 8) * C <= 2 * 132 ? 8 : 16; }
+
+template <int H, int C>
+int fwd_cluster_rows(const void* gx, const void* wh, void* hs, void* cs, int G, int B, int Tn,
+                     int save_c, int rows, cudaStream_t s) {
+  return rows == 8 ? fwd_cluster<H, C, 8>(gx, wh, hs, cs, G, B, Tn, save_c, s)
+                   : fwd_cluster<H, C, 16>(gx, wh, hs, cs, G, B, Tn, save_c, s);
+}
+
+// The cluster a bf16 forward scan of this H runs on (0: the per-block scan).
+int cluster_size(int H) { return H == 128 || H == 64 ? 4 : H == 32 ? 2 : 0; }
 
 // Shared-memory plan of the staged backward scan: wh (tensor-core path
 // only), two buffers of step inputs {h_{t-1}, dhs_t, gx_t}, a ring of three
@@ -736,9 +1007,21 @@ bool use_mma(int H) {
 dim3 scan_grid(int G, int B) { return dim3((unsigned)((B + kRows - 1) / kRows), (unsigned)G); }
 int scan_threads(int H) { return 32 * (H / 16 < kMaxWarps ? H / 16 : kMaxWarps); }
 
+// path: -1 the plan's choice, 0 the per-block scan, 1 the cluster scan (bf16,
+// H of cluster_size, 16-byte aligned gx; rows of cluster_rows), 2 the same on
+// 16 rows a cluster.
 template <typename T>
 int fwd(const void* gx, const void* wh, void* hs, void* cs, int G, int B, int Tn, int H,
-        int save_c, cudaStream_t s) {
+        int save_c, int path, cudaStream_t s) {
+  const int C = std::is_same<T, bf16>::value && aligned16(gx) ? cluster_size(H) : 0;
+  if (path < 0) path = C > 0 ? 1 : 0;
+  if (path == 1 || path == 2) {  // 2: the cluster scan on 16 rows whatever the plan
+    if (C == 0) return (int)cudaErrorInvalidValue;
+    const int rows = path == 2 ? 16 : cluster_rows(G, B, C);
+    if (H == 128) return fwd_cluster_rows<128, 4>(gx, wh, hs, cs, G, B, Tn, save_c, rows, s);
+    if (H == 64) return fwd_cluster_rows<64, 4>(gx, wh, hs, cs, G, B, Tn, save_c, rows, s);
+    return fwd_cluster_rows<32, 2>(gx, wh, hs, cs, G, B, Tn, save_c, rows, s);
+  }
   const bool mma = use_mma<T>(H);
   const size_t bytes = plan<T>(H, mma, false).total;
   if (bytes > kSmemCap) return (int)cudaErrorInvalidValue;
@@ -826,10 +1109,33 @@ extern "C" int dk_lstm_fwd(const void* gx, const void* wh, void* hs, void* cs, i
                            int Tn, int H, int save_c, int dtype, void* stream) {
   if (!shape_ok(G, B, Tn, H) || (save_c && cs == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd<float>(gx, wh, hs, cs, G, B, Tn, H, save_c, s);
-  if (dtype == 1) return fwd<bf16>(gx, wh, hs, cs, G, B, Tn, H, save_c, s);
+  if (dtype == 0) return fwd<float>(gx, wh, hs, cs, G, B, Tn, H, save_c, -1, s);
+  if (dtype == 1) return fwd<bf16>(gx, wh, hs, cs, G, B, Tn, H, save_c, -1, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The cluster size the forward scan of this (dtype, H) runs on, given 16-byte
+// aligned gx (0 for the per-block scan), and the batch rows a cluster takes.
+extern "C" int dk_lstm_fwd_cluster(int dtype, int H) { return dtype == 1 ? cluster_size(H) : 0; }
+extern "C" int dk_lstm_fwd_cluster_rows(int G, int B, int C) { return cluster_rows(G, B, C); }
+
+#ifdef DK_LSTM_PROBE
+// The forward scan on a chosen path (0 per-block, 1 cluster, 2 cluster on 16
+// rows), bf16.
+extern "C" int dk_lstm_probe_fwd(const void* gx, const void* wh, void* hs, void* cs, int G,
+                                 int B, int Tn, int H, int save_c, int path, void* stream) {
+  if (!shape_ok(G, B, Tn, H)) return (int)cudaErrorInvalidValue;
+  return fwd<bf16>(gx, wh, hs, cs, G, B, Tn, H, save_c, path, static_cast<cudaStream_t>(stream));
+}
+
+// Copy the 8 probe counters out and zero them.
+extern "C" int dk_lstm_probe_read(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, dk_lstm_probe_cycles, sizeof(dk_lstm_probe_cycles));
+  if (e) return (int)e;
+  const unsigned long long zeros[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(dk_lstm_probe_cycles, zeros, sizeof(zeros));
+}
+#endif
 
 // Backward scan and weight gradient: gx, hs, cs, dhs as saved / given ->
 // dgx [G,B,T,4H] (dtype), dwh [G,H,4H] f32; `parts` as for bwd (3 on the

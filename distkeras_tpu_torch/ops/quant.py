@@ -15,6 +15,7 @@ package keeps ``[K, N]``; ``convert.params_from_jax`` transposes.
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections.abc import Mapping
 from typing import NamedTuple
 
@@ -64,10 +65,103 @@ def _q_matmul_plain(x2, q, scale, out_dtype):
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+DECODE_M = 16           # rows that take a decode kernel
+SMS = 132               # streaming multiprocessors of an H100 SXM
+CHUNK = 64              # k per pipeline stage of the wgmma prefill kernel
+DECODE_CHUNK = 128      # ... and of the split decode kernel
+DECODE_CHANNELS = 32    # output channels per block of the split decode kernel
+TOKEN_TILES = (64, 128, 192, 256)   # the wgmma prefill kernel's token widths
+MAX_DECODE_SPLITS = 8   # blocks of one K split: a portable cluster
+MAX_SPLITS = 3          # ... of a prefill split (more cost more than they give)
+
+# dk_q_matmul's path codes
+_PATHS = {"f32": 0, "decode_direct": 1, "decode": 2, "prefill_direct": 3,
+          "prefill": 4}
+
+
+class MatmulPlan(NamedTuple):
+    """How :func:`q_matmul`'s kernel covers an ``[M, K] x [N, K]`` product:
+    ``kernel`` (``"decode"``/``"prefill"`` split K over a cluster of
+    ``splits`` blocks; ``"decode_direct"``/``"prefill_direct"`` the element-
+    masked kernels for shapes that TMA and cp.async rows cannot take;
+    ``"f32"``), the block's ``channels`` and ``tokens`` (its output tile),
+    ``wg`` (the prefill kernel's consumer warpgroups), ``grid`` (blocks
+    along channels, tokens and K) and ``chunk`` (the k a pipeline stage
+    holds: the K split hands out whole chunks)."""
+
+    kernel: str
+    channels: int
+    tokens: int
+    wg: int
+    splits: int
+    grid: tuple
+    chunk: int = CHUNK
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def chunk_range(rank: int, splits: int, chunks: int) -> tuple[int, int]:
+    """The K chunks ``[lo, hi)`` that block ``rank`` of a K split sums
+    (the kernels compute the same floor division)."""
+    return rank * chunks // splits, (rank + 1) * chunks // splits
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _prefill_cost(m, n, k, tn, wg, splits):
+    """Relative time of a prefill plan: its waves of blocks, each loading
+    a block's chunks of x (tn tokens, bf16) and q (64 wg channels, int8),
+    which bound the kernel on the card, plus a K split's reduction of the
+    f32 partial tile through distributed shared memory."""
+    blocks = _cdiv(n, 64 * wg) * _cdiv(m, tn) * splits
+    per_block = (_cdiv(_cdiv(k, CHUNK), splits) * (tn * 128 + wg * 4096)
+                 + (splits > 1) * tn * 64 * wg * 2)
+    return _cdiv(blocks, SMS) * per_block
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_q_matmul(m: int, n: int, k: int, dtype=torch.bfloat16,
+                  aligned: bool = True) -> MatmulPlan:
+    """The launch plan for ``x [m, k] @ q [n, k]ᵀ``: a pure function of the
+    shape, the dtype and whether x and q are 16-byte aligned.
+
+    Decode (m <= 16) is bound by the weight bytes: split K so that at least
+    two blocks run per SM. Prefill is bound by the bytes each SM takes in
+    per chunk, and a block fills an SM: the plan takes the token tile,
+    channel tile (128 or 64) and K split (at most ``MAX_SPLITS``, and only
+    within one wave of blocks) whose waves of blocks load the fewest bytes
+    (``_prefill_cost``; PERF.md gives the measurements it was fitted
+    to)."""
+    if dtype == torch.float32:
+        return MatmulPlan("f32", 64, 64, 0, 1, (_cdiv(n, 64), _cdiv(m, 64), 1))
+    if not (aligned and k % 16 == 0):
+        if m <= DECODE_M:
+            return MatmulPlan("decode_direct", 16, m, 0, 1, (_cdiv(n, 16), 1, 1))
+        return MatmulPlan("prefill_direct", 128, 64, 0, 1,
+                          (_cdiv(n, 128), _cdiv(m, 64), 1))
+    if m <= DECODE_M:
+        tiles = _cdiv(n, DECODE_CHANNELS)
+        splits = max(1, min(MAX_DECODE_SPLITS, _cdiv(k, DECODE_CHUNK),
+                            _cdiv(2 * SMS, tiles)))
+        return MatmulPlan("decode", DECODE_CHANNELS, m, 0, splits,
+                          (tiles, 1, splits), DECODE_CHUNK)
+    most = min(MAX_SPLITS, _cdiv(k, CHUNK))
+    tn, wg, splits = min(
+        ((tn, wg, s) for tn in TOKEN_TILES for wg in (2, 1)
+         for s in range(1, most + 1)
+         if s == 1 or _cdiv(n, 64 * wg) * _cdiv(m, tn) * s <= SMS),
+        key=lambda o: (_prefill_cost(m, n, k, *o), -o[0], -o[1], o[2]))
+    return MatmulPlan("prefill", 64 * wg, tn, wg, splits,
+                      (_cdiv(n, 64 * wg), _cdiv(m, tn), splits))
+
 
 def _bind(lib):
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.dk_q_matmul.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
+    lib.dk_q_matmul.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
     lib.dk_q_matmul.restype = i
 
 
@@ -88,13 +182,18 @@ def _q_matmul_cuda(x2, q, scale, out_dtype):
     lib = _build.load("quant", _bind)
     m, k = x2.shape
     n = q.shape[0]
+    plan = plan_q_matmul(m, n, k, x2.dtype, aligned=(
+        x2.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0))
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
     err = lib.dk_q_matmul(
         x2.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n,
-        k, dtype, torch.cuda.current_stream(x2.device).cuda_stream,
+        k, dtype, _PATHS[plan.kernel], plan.tokens, plan.wg, plan.splits,
+        torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(err, "q_matmul")
     q_matmul.launches += 1
+    if plan.kernel.startswith("prefill"):
+        q_matmul.prefill_launches += 1
     return out
 
 
@@ -102,9 +201,10 @@ def q_matmul(x, qt: QTensor, *, out_dtype=None):
     """``x [..., K] @ dequant(qt)ᵀ → [..., N]`` with ``qt.q [N, K]``.
 
     On a CUDA tensor this launches the hand-written kernel
-    (``csrc/quant.cu``) — any M, K and N, ragged edges masked in the kernel
-    — or raises; on a CPU tensor it runs the plain version. ``launches``
-    counts kernel launches."""
+    (``csrc/quant.cu``, the path of :func:`plan_q_matmul`) — any M, K and
+    N, ragged edges masked in the kernel — or raises; on a CPU tensor it
+    runs the plain version. ``launches`` counts kernel launches,
+    ``prefill_launches`` those of them with more than 16 rows."""
     n, k = qt.q.shape
     if x.shape[-1] != k:
         raise ValueError(f"x trailing dim {x.shape[-1]} != weight columns {k}")
@@ -126,6 +226,7 @@ def q_matmul(x, qt: QTensor, *, out_dtype=None):
 
 
 q_matmul.launches = 0
+q_matmul.prefill_launches = 0
 
 
 def quantize_dense_tree(params, paths: set | None = None):

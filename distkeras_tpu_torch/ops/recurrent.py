@@ -2,8 +2,10 @@
 
 Port of ``distkeras_tpu/ops/recurrent.py``. The TPU kernels ran the whole
 scan as one Pallas grid with the h/c carries in VMEM; on Hopper the same
-work is ``csrc/lstm.cu``: the forward scan (K6), and the reverse-time
-backward scan with its weight-gradient product (K7). Gate math as in
+work is ``csrc/lstm.cu``: the forward scan (K6; in bf16 at H 32, 64 and
+128 spread over a thread-block cluster per group of 8 or 16 batch rows,
+see :func:`forward_launch`), and the reverse-time backward scan with its
+weight-gradient product (K7). Gate math as in
 ``models.lstm``: forget bias +1.0, c carried in f32, h in the model dtype.
 
 The numerics follow the kernel, not :func:`lstm_scan_reference`: ``z``
@@ -113,6 +115,10 @@ def _bind(lib):
     lib.dk_lstm_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
                                 vp]
     lib.dk_lstm_bwd.restype = i
+    lib.dk_lstm_fwd_cluster.argtypes = [i, i]
+    lib.dk_lstm_fwd_cluster.restype = i
+    lib.dk_lstm_fwd_cluster_rows.argtypes = [i, i, i]
+    lib.dk_lstm_fwd_cluster_rows.restype = i
 
 
 def _check(gx, wh, *rest):
@@ -152,6 +158,24 @@ def _lstm_fwd_cuda(gx, wh, save_c: bool):
     _build.check(err, "lstm forward")
     lstm_forward.launches += 1
     return hs, cs
+
+
+def forward_launch(gx) -> dict:
+    """How K6 launches on this ``gx [G,B,T,4H]`` (a CUDA tensor): the
+    cluster size (0 for the per-block scan, which f32, an H the cluster
+    plan does not take, or a gx not 16-byte aligned get), the batch rows a
+    cluster (or block) takes, the blocks and the threads a block."""
+    G, B, T, H4 = gx.shape
+    H = H4 // 4
+    lib = _build.load("lstm", _bind)
+    dtype = _DTYPE_CODE[gx.dtype]
+    c = lib.dk_lstm_fwd_cluster(dtype, H) if gx.data_ptr() % 16 == 0 else 0
+    if c:
+        rows = lib.dk_lstm_fwd_cluster_rows(G, B, c)
+        return dict(cluster=c, rows=rows, blocks=G * -(-B // rows) * c,
+                    threads=32 * H // (8 * c))
+    return dict(cluster=0, rows=16, blocks=G * -(-B // 16),
+                threads=32 * min(H // 16, 8))
 
 
 def _lstm_bwd_into(dgx, dwh, gx, wh, hs, cs, dhs, parts: int = 3):

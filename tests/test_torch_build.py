@@ -9,9 +9,10 @@ compiler's and the disassembler's reports are read.
   ``ptxas -v``; ``count_sass`` counts instructions by opcode per function
   of a ``cuobjdump -sass`` listing, predicated ones included (the check
   that a kernel issues ``HGMMA`` and ``UTMALDG``).
-- ``chip_smoke.check_sass`` holds every kernel redesigned on wgmma, K3's
-  dq kernel among them, to those reports; it is imported here without a
-  card and fed made-up reports.
+- ``chip_smoke.check_sass`` holds every kernel redesigned on wgmma (K3's
+  dq kernel and every instantiation of K1's prefill among them) and the
+  scans to those reports; it is imported here without a card and fed
+  made-up reports.
 """
 
 import importlib.util
@@ -109,18 +110,35 @@ def test_wgmma_kernels_name_the_dq_kernel():
         "flash_attention_bwd", "fa_bwd_dq_wgmma_kernel")
     assert cs.WGMMA_KERNELS_ONE["lstm_backward"] == (
         "lstm", "lstm_dwh_wgmma_kernel")
+    assert cs.WGMMA_KERNELS_ONE["q_matmul_prefill"] == (
+        "quant", "qmm_prefill_wgmma_kernel")
+    assert cs.NO_SPILL_KERNELS["lstm_forward"] == (
+        "lstm", "lstm_fwd_cluster_kernel")
 
 
-def _fake_build(cs, spilled=None, hgmma=4):
+# template arguments of the made-up instantiations of each templated kernel
+_INSTANCES = {"qmm_prefill_wgmma_kernel": ("ILi256ELi2E", "ILi64ELi1E"),
+              "lstm_fwd_cluster_kernel": ("ILi128ELi4E", "ILi32ELi2E"),
+              "lstm_bwd_kernel": ("I13__nv_bfloat16Lb1E", "IfLb0E"),
+              "lstm_bwd_direct_kernel": ("I13__nv_bfloat16Lb1E", "IfLb0E"),
+              "qmm_decode_split_kernel": ("ILb0E", "ILb1E")}
+
+
+def _fake_build(cs, spilled=None, hgmma=4, no_hgmma_in=None):
     """A stand-in for ``_build`` whose libraries hold every kernel that
-    ``check_sass`` looks for; ``spilled`` names one that spills."""
+    ``check_sass`` looks for, the templated ones in two instantiations;
+    ``spilled`` names one that spills, ``no_hgmma_in`` one whose SASS has
+    no HGMMA."""
     funcs = {}
     for lib, fn in cs.WGMMA_KERNELS.values():
         for d in (64, 128):
             funcs.setdefault(lib, []).append(
                 f"_ZN12_GLOBAL__N_1{len(fn) + 7}{fn}ILi{d}EEEvv")
-    for lib, fn in cs.WGMMA_KERNELS_ONE.values():
-        funcs.setdefault(lib, []).append(f"_ZN12_GLOBAL__N_1{len(fn)}{fn}Evv")
+    for lib, fn in [*cs.WGMMA_KERNELS_ONE.values(),
+                    *cs.NO_SPILL_KERNELS.values()]:
+        for args in _INSTANCES.get(fn, ("",)):
+            funcs.setdefault(lib, []).append(
+                f"_ZN12_GLOBAL__N_1{len(fn)}{fn}{args}Evv")
 
     def build_log(lib):
         text = ""
@@ -133,15 +151,25 @@ def _fake_build(cs, spilled=None, hgmma=4):
                      f"    : Used 168 registers, used 1 barriers\n")
         return text
 
+    def sass_counts(lib):
+        return {f: {"HGMMA": 0 if no_hgmma_in and no_hgmma_in in f
+                    else hgmma, "UTMALDG": 2} for f in funcs[lib]}
+
     return types.SimpleNamespace(
         build_log=build_log, ptxas_report=_build.ptxas_report,
-        sass_counts=lambda lib: {f: {"HGMMA": hgmma, "UTMALDG": 2}
-                                 for f in funcs[lib]})
+        sass_counts=sass_counts)
 
 
 @pytest.mark.parametrize("fault", [None, "fa_bwd_dq_wgmma_kernelILi128E",
-                                   "lstm_dwh_wgmma_kernel", "no_hgmma"])
+                                   "lstm_dwh_wgmma_kernel", "no_hgmma",
+                                   "qmm_prefill_wgmma_kernelILi256E",
+                                   "no_hgmma_qmm", "lstm_fwd_cluster_kernel",
+                                   "lstm_bwd_kernel"])
 def test_check_sass_holds_each_wgmma_kernel(fault):
+    """``check_sass`` passes clean reports and fails on a spill in any
+    checked kernel (K3 at D=128, the dwh product, one instantiation of
+    K1's wgmma prefill, K6's cluster scan, K7's staged scan) and on a
+    wgmma kernel with no HGMMA (all of them, or K1's prefill alone)."""
     cs = _chip_smoke()
     cs.log = lambda msg: None
     if fault is None:
@@ -149,8 +177,17 @@ def test_check_sass_holds_each_wgmma_kernel(fault):
         assert set(out["flash_attention_bwd_dq"]) == {"D=64", "D=128"}
         assert out["flash_attention_bwd_dq"]["D=128"]["hgmma"] == 4
         assert out["lstm_backward"]["spill_stores"] == 0
+        assert set(out["q_matmul_prefill"]) == {"<256,2>", "<64,1>"}
+        assert out["q_matmul_prefill"]["<256,2>"]["hgmma"] == 4
+        assert set(out["lstm_forward"]) == {"<128,4>", "<32,2>"}
+        assert set(out["lstm_backward_scan"]) == {"<bf16,true>",
+                                                  "<f32,false>"}
         return
-    fake = (_fake_build(cs, hgmma=0) if fault == "no_hgmma"
-            else _fake_build(cs, spilled=fault))
+    if fault == "no_hgmma":
+        fake = _fake_build(cs, hgmma=0)
+    elif fault == "no_hgmma_qmm":
+        fake = _fake_build(cs, no_hgmma_in="qmm_prefill_wgmma_kernel")
+    else:
+        fake = _fake_build(cs, spilled=fault)
     with pytest.raises(AssertionError):
         cs.check_sass(fake)

@@ -160,6 +160,31 @@ def test_bf16_forward_near_jax_pallas():
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("save_c", [False, True])
+@pytest.mark.parametrize("b,t,h", [(8, 16, 32), (17, 5, 64)],
+                         ids=["B8H32", "B17H64"])
+def test_forward_with_and_without_cells_matches_jax_pallas(b, t, h, save_c):
+    """K6's entry without the saved cell states (the eval path's launch)
+    and with them, against the JAX package's Pallas forward ``_fwd`` in
+    interpret mode with the same ``save_c``: hs (and cs) to the forward
+    tolerance of ``test_forward_matches_jax``; without cells no cs is
+    made. H 32 and 64 and a ragged 16-row tile (B=17) are shapes the
+    card's cluster scan takes."""
+    gx, wh, _ = make_inputs(30 + h + save_c, b=b, t=t, h=h)
+    jhs, jcs = jrec._fwd(jnp.asarray(gx).transpose(1, 0, 2), jnp.asarray(wh),
+                         True, save_c=save_c)
+    hs, cs = trec.lstm_forward(torch.from_numpy(gx)[None],
+                               torch.from_numpy(wh)[None], save_c)
+    assert hs.shape == (1, b, t, h) and hs.dtype == torch.float32
+    np.testing.assert_allclose(hs[0].numpy(),
+                               np.asarray(jhs).transpose(1, 0, 2), **TOL)
+    if save_c:
+        np.testing.assert_allclose(cs[0].numpy(),
+                                   np.asarray(jcs).transpose(1, 0, 2), **TOL)
+    else:
+        assert jcs is None and cs.numel() == 0
+
+
 def test_impl_validation_and_no_kernel_on_cpu():
     gx, wh, _ = make_inputs(5, b=2, t=3)
     with pytest.raises(ValueError, match="lstm impl"):
