@@ -34,7 +34,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    leaves, with kernel, plain and library (``torch.optim.Adam(fused=True)``
    over the same tensors) times and the bound;
 6. K6 and K7, the LSTM scan forward and backward, against their plain
-   versions at the training shapes (G=8 workers, B=64, T=200, H=128, bf16)
+   versions at the training shapes (G=8 workers, B=64, T=200, H=128, bf16;
+   and G=1, the parameter-server path's launch, each worker alone)
    and small ragged f32 / bf16 cases at the edges of K6's cluster scan
    and K7's prefetch (see ``check_lstm``), K6 also without saved cell
    states (the eval path's launch), K7 twice for equal bits, with kernel,
@@ -91,9 +92,26 @@ Phases, in order; any failure exits non-zero and prints no result:
     under ``DOWNPOUR(worker_optimizer="sgd",
     learning_rate=1e-3, num_workers=2, batch_size=8)`` for 3 windows on
     ragged rows; K2, K3 and K4 must have launched and the loss be finite;
-13. print the ``kernels`` JSON line (K1 as one decode step and, as
-    ``q_matmul_prefill``, one 1024-token prefill), then the result line
-    ``{"ok": true, "device": {...}}`` last.
+13. the parameter-server backend (``backend="ps"``), every launch counter
+    set to 0 just before each phase and read just after: config 3
+    (CIFAR-10 VGG-small under DOWNPOUR, bf16 compute, f32 params, fused
+    Adam lr 5e-4) through a ``SocketParameterServer`` the phase starts, 4
+    worker threads of batch 512, window 1, 2 epochs of 32 windows a worker
+    — 256 commits and 256 folds, some commit priced τ ≥ 1, K5 launched
+    256 times, the loss falling and held-out accuracy above PS3_ACC_BAR;
+    config 5 (the IMDB LSTM above) under DynSGD through the in-process PS,
+    8 workers of batch 64, window 4, 2 epochs of 3 windows — K5, K6 and
+    K7 launched once a step a worker (192 each), 48 commits, the loss
+    falling; one worker through the in-process PS through the kernels and
+    through their plain versions, centers within ``compare_window``'s bf16
+    bound; then the MNIST example's twin
+    (``distkeras_tpu_torch.examples.mnist``) in this process, ADAG and
+    DOWNPOUR through the PS with int8 commits, each to test accuracy >
+    0.8; each phase prints its wall time;
+14. print the ``kernels`` JSON line (K1 as one decode step and, as
+    ``q_matmul_prefill``, one 1024-token prefill; every row with its
+    launches on the PS phases, K6 and K7 with their G=1 times), then the
+    result line ``{"ok": true, "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
 """
@@ -139,6 +157,26 @@ LM_CMP_DEPTH = 2          # kernels-vs-plain window: plain attention holds
 CLS_VOCAB, CLS_L, CLS_DIM, CLS_HEADS, CLS_DEPTH = 8192, 2048, 512, 8, 8
 CLS_W, CLS_BATCH, CLS_WINDOW, CLS_WINDOWS, CLS_LR = 2, 8, 5, 3, 1e-3
 LOSS = "sparse_softmax_cross_entropy"
+# the parameter-server path (backend="ps"): config 3 (bench.py:316-324,
+# CIFAR-10 VGG-small under DOWNPOUR, Adam 5e-4) through a socket PS this
+# script starts, 4 worker threads of batch 512 over 65536 rows, 2 epochs.
+# Window 1, DOWNPOUR's push every step: at window 4 four workers' summed
+# multi-step Adam windows learn slowly and erratically, in the JAX package
+# too (PERF.md, Findings)
+PS3_W, PS3_BATCH, PS3_WINDOW, PS3_LR, PS3_EPOCHS = 4, 512, 1, 5e-4, 2
+PS3_WINDOWS = 32          # windows a worker an epoch
+PS3_TEST = 2048
+PS3_ACC_BAR = 0.3         # held-out accuracy gate (PERF.md, Findings)
+# config 5 through the in-process PS: 8 worker threads of batch 64,
+# window 4, 3 windows a worker an epoch, 2 epochs
+PS5_W, PS5_WINDOWS, PS5_EPOCHS = 8, 3, 2
+PS_PARITY_WINDOWS = 2     # the one-worker kernels-vs-plain PS run
+PS_DISP_FRAC = 0.25       # its per-leaf displacement agreement
+MNIST_RUNS = (["--trainer", "adag"],
+              # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
+              # paper's push-every-step) is where it learns reliably
+              ["--trainer", "downpour", "--backend", "ps", "--compression",
+               "int8", "--workers", "4", "--window", "1"])
 
 
 def log(msg: str) -> None:
@@ -1096,7 +1134,9 @@ def check_adam(torch, pk):
 
 def check_lstm(torch, rec):
     """K6 and K7 against their plain versions at the slice's shape (bf16,
-    G=8 workers, B=64, T=200, H=128) and at small cases: B=20, B=17 and
+    G=8 workers, B=64, T=200, H=128), at the parameter-server path's (G=1:
+    each worker thread launches alone; its row names the launch plan) and
+    at small cases: B=20, B=17 and
     B=33 are not multiples of the 16-row tile, T=1 and T=2 the edges of
     the scans' prefetch rings (K6's cluster scan at H 32, 64 and 128, and
     K7's backward), T=70 a ragged last chunk of the tensor-core dwh
@@ -1104,18 +1144,21 @@ def check_lstm(torch, rec):
     staged step inputs do not fit in shared memory (and the forward's
     per-block scan). Every case also runs the forward without saving the
     cell states (the eval path's launch): the same hs bits, no cs. The
-    ``lstm_forward`` row names the launch (cluster size, blocks).
+    ``lstm_forward`` rows name the launch (cluster size, rows, blocks).
     Tolerance: bf16 kernel and plain round the same f32 values to bf16
     each step, and a one-ulp flip of h feeds the next steps, so outputs
     agree to 2^-6 of the plain output's largest magnitude (two bf16 ulps);
-    f32 to 1e-5 of it (summation order only). K7 is deterministic: a second launch gives the same bits. At the
-    slice's shape K7's two launches, the reverse scan and the dwh product,
-    are also timed apart (``scan_ms``, ``dwh_ms``)."""
+    f32 to 1e-5 of it (summation order only). K7 is deterministic: a
+    second launch gives the same bits. At the two training shapes K7's two
+    launches, the reverse scan and the dwh product, are also timed apart
+    (``scan_ms``, ``dwh_ms``)."""
     import torch.nn as nn
 
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     bf, f32 = torch.bfloat16, torch.float32
     cases = [(IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H, bf),
+             # the parameter-server path: each worker launches alone (G=1)
+             (1, IMDB_BATCH, IMDB_T, IMDB_H, bf),
              (2, 20, 7, 32, f32), (2, 20, 7, 32, bf), (2, 17, 70, 64, bf),
              (2, 17, 2, 64, bf), (3, 17, 1, 64, bf), (2, 17, 2, 32, f32),
              # the cluster scan's edges at the IMDB width: one step, two
@@ -1163,8 +1206,9 @@ def check_lstm(torch, rec):
                     f"{errs[name]} beyond {rel} x {scale}")
         max_err = max(max_err, errs["hs"], errs["dgx"])
         log(f"lstm {label}: ok " + json.dumps(dict(errs, forward=launch)))
-        if (G, B, T, H) != (IMDB_W, IMDB_BATCH, IMDB_T, IMDB_H):
+        if (B, T, H) != (IMDB_BATCH, IMDB_T, IMDB_H) or G not in (IMDB_W, 1):
             continue
+        path = "collective" if G == IMDB_W else "ps"
         esz = 2 if dt == torch.bfloat16 else 4
         seq, gates, wbytes = G * B * T * H, G * B * T * 4 * H, G * H * 4 * H
         mac = 2.0 * G * B * T * H * 4 * H
@@ -1180,7 +1224,8 @@ def check_lstm(torch, rec):
             out, [xr, *lstm_lib.parameters()], dout, retain_graph=True),
             iters=10)
         fwd_rows.append(dict(
-            G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1], launch=launch,
+            path=path, G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1],
+            launch=launch,
             max_abs_err=max(errs["hs"], errs["hs_no_cells"], errs["cs"]),
             kernel_ms=cuda_ms(torch, lambda: rec.lstm_forward(gx, wh, True),
                               iters=5),
@@ -1196,7 +1241,7 @@ def check_lstm(torch, rec):
         log("lstm_forward " + json.dumps(fwd_rows[-1]))
         dgx_, dwh_ = torch.empty_like(dgx), torch.empty_like(dwh)
         bwd_rows.append(dict(
-            G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1],
+            path=path, G=G, B=B, T=T, H=H, dtype=str(dt).split(".")[-1],
             max_abs_err=max(errs["dgx"], errs["dwh"]),
             kernel_ms=cuda_ms(torch, lambda: rec.lstm_backward(
                 gx, wh, hs, cs, dhs), iters=5),
@@ -1355,6 +1400,256 @@ def train_adag_lenet(torch):
         raise AssertionError(f"ADAG lenet: test accuracy {acc} <= 0.95")
 
 
+def _ps_launch_counters():
+    """Every kernel wrapper's launch counter, by its kernels-line name."""
+    from distkeras_tpu_torch.ops import flash_attention as fa
+    from distkeras_tpu_torch.ops import pallas_kernels as pk
+    from distkeras_tpu_torch.ops import quant
+    from distkeras_tpu_torch.ops import recurrent as rec
+
+    return {"q_matmul": (quant.q_matmul, "launches"),
+            "q_matmul_prefill": (quant.q_matmul, "prefill_launches"),
+            "flash_attention": (fa._fa_forward, "launches"),
+            "flash_attention_bwd_dq": (fa._fa_bwd_dq, "launches"),
+            "flash_attention_bwd_dkv": (fa._fa_bwd_dkv, "launches"),
+            "fused_adam": (pk.fused_adam_step, "launches"),
+            "lstm_forward": (rec.lstm_forward, "launches"),
+            "lstm_backward": (rec.lstm_backward, "launches")}
+
+
+def counted(run):
+    """Run ``run()`` with every launch counter set to 0 just before and
+    read just after: ``(run's result, {kernel: launches})``."""
+    counters = _ps_launch_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    out = run()
+    return out, {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def _phase_summary(phases):
+    return {k: dict(count=v["count"], mean_ms=v["mean_ms"],
+                    max_ms=v["max_ms"], total_ms=v["total_ms"])
+            for k, v in phases.items()}
+
+
+def _worker_loss_fell(history, workers, epochs):
+    """Each epoch's mean window loss over every worker: the last epoch's
+    must be below the first's."""
+    by_epoch = [[r["loss"] for r in history if r.get("epoch") == e
+                 and "loss" in r] for e in range(epochs)]
+    means = [float(np.mean(v)) for v in by_epoch]
+    ok = (all(len(v) > 0 for v in by_epoch) and means[-1] < means[0]
+          and all(np.isfinite(means)))
+    return ok, means
+
+
+def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
+               device: str) -> dict:
+    """Config 3 (bench.py:316-324: CIFAR-10 VGG-small under DOWNPOUR,
+    the stale-gradient PS) through the socket transport: a
+    ``SocketParameterServer`` started here, the trainer's PS3_W worker
+    threads pointed at it (``ps_host``/``ps_port``), so the server's
+    ``stats()`` and ``recent_staleness()`` can be read. ``vgg_small()`` in
+    bf16 with f32 params on the synthetic CIFAR-10 stand-in, fused Adam at
+    ``lr``, PS3_EPOCHS epochs of ``windows`` windows of ``window`` steps
+    of ``batch`` rows a worker; then held-out accuracy (``ModelPredictor``
+    + ``AccuracyEvaluator``) on PS3_TEST rows. Returns the run's record.
+    (``ps_sweep.py`` runs this path at other windows and rates, in either
+    package.)"""
+    from distkeras_tpu_torch.datasets import cifar10
+    from distkeras_tpu_torch.evaluators import AccuracyEvaluator
+    from distkeras_tpu_torch.models import vgg_small
+    from distkeras_tpu_torch.parallel.merge_rules import DownpourMerge
+    from distkeras_tpu_torch.parameter_servers import SocketParameterServer
+    from distkeras_tpu_torch.predictors import ModelPredictor
+    from distkeras_tpu_torch.trainers import DOWNPOUR
+
+    rows = PS3_W * batch * window * windows
+    train, test = cifar10(n_train=rows, n_test=PS3_TEST)
+    spec = vgg_small()
+    init, _ = spec.init_np(0)
+    server = SocketParameterServer(init, DownpourMerge(), PS3_W)
+    server.initialize()
+    server.start()
+    try:
+        t = DOWNPOUR(spec, loss=LOSS, worker_optimizer="fused_adam",
+                     learning_rate=lr, num_workers=PS3_W,
+                     batch_size=batch, communication_window=window,
+                     num_epoch=PS3_EPOCHS, backend="ps",
+                     ps_transport="socket", ps_host="127.0.0.1",
+                     ps_port=server.port, device=device)
+        t0 = time.perf_counter()
+        center = t.train(train, shuffle=True)
+        wall = time.perf_counter() - t0
+        stats = server.stats()
+        taus = server.recent_staleness()
+    finally:
+        server.stop()
+    t1 = time.perf_counter()
+    acc = AccuracyEvaluator().evaluate(ModelPredictor(
+        spec, center, device=device).predict(test))
+    eval_s = time.perf_counter() - t1
+    commits = PS3_W * windows * PS3_EPOCHS
+    fell, means = _worker_loss_fell(t.history, PS3_W, PS3_EPOCHS)
+    return dict(window=window, lr=lr, batch=batch,
+                windows_a_worker_an_epoch=windows, wall_s=wall,
+                eval_s=eval_s, expected_commits=commits,
+                commits=stats["commits"], num_updates=stats["num_updates"],
+                bytes_in=stats["bytes_in"], bytes_out=stats["bytes_out"],
+                center_lock_mean_hold_ns=stats["center_lock_mean_hold_ns"],
+                staleness=dict(max=max(taus, default=0),
+                               mean=float(np.mean(taus)) if taus else 0.0,
+                               histogram={str(k): taus.count(k)
+                                          for k in sorted(set(taus))}),
+                loss_fell=fell, epoch_mean_loss=means, test_accuracy=acc,
+                window_wall_ms=1e3 * wall / (commits / PS3_W),
+                exchange_phases=_phase_summary(t.exchange_phases_))
+
+
+def train_ps_vgg(torch):
+    """Config 3 at PS3_WINDOW, PS3_LR, PS3_BATCH and PS3_WINDOWS on the
+    card (``run_ps_vgg``). Gates: one commit and one fold a window a
+    worker; some commit priced τ ≥ 1 (the run was asynchronous); the loss
+    falls; held-out accuracy above PS3_ACC_BAR. The caller reads K5."""
+    rec = run_ps_vgg(torch, PS3_WINDOW, PS3_LR, PS3_BATCH, PS3_WINDOWS,
+                     DEVICE)
+    log("train DOWNPOUR vgg_small via the socket PS: " + json.dumps(rec))
+    commits = rec["expected_commits"]
+    if rec["commits"] != commits or rec["num_updates"] != commits:
+        raise AssertionError(f"socket PS: {rec['commits']} commits and "
+                             f"{rec['num_updates']} folds, expected "
+                             f"{commits}")
+    if not rec["staleness"]["max"] >= 1:
+        raise AssertionError(f"socket PS: no commit was stale "
+                             f"({rec['staleness']}): the run was not "
+                             f"asynchronous")
+    if not rec["loss_fell"]:
+        raise AssertionError(f"socket PS: the loss did not fall: "
+                             f"{rec['epoch_mean_loss']}")
+    if not rec["test_accuracy"] > PS3_ACC_BAR:
+        raise AssertionError(f"socket PS: held-out accuracy "
+                             f"{rec['test_accuracy']} <= {PS3_ACC_BAR}")
+    return rec
+
+
+def train_ps_lstm(torch, train):
+    """Config 5 (the IMDB LSTM at full width, bf16 compute, f32 params)
+    under DynSGD through the in-process PS: PS5_W worker threads of batch
+    IMDB_BATCH, window IMDB_WINDOW, fused Adam, PS5_EPOCHS epochs of
+    PS5_WINDOWS windows a worker, unshuffled. Gates: one commit a window a
+    worker; the loss falls. The caller reads K5, K6 and K7."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    rows = PS5_W * IMDB_BATCH * IMDB_WINDOW * PS5_WINDOWS
+    ds = train.gather(np.arange(rows))
+    spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T, embed_dim=IMDB_E,
+                           hidden_dim=IMDB_H)
+    t = DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
+               learning_rate=IMDB_LR, features_col=["features", "mask"],
+               num_workers=PS5_W, batch_size=IMDB_BATCH,
+               communication_window=IMDB_WINDOW, num_epoch=PS5_EPOCHS,
+               backend="ps", device=DEVICE)
+    t0 = time.perf_counter()
+    t.train(ds)
+    wall = time.perf_counter() - t0
+    stats = t.ps_stats_
+    commits = PS5_W * PS5_WINDOWS * PS5_EPOCHS
+    fell, means = _worker_loss_fell(t.history, PS5_W, PS5_EPOCHS)
+    rec = dict(wall_s=wall, commits=stats["commits"],
+               num_updates=stats["num_updates"],
+               batched_folds=stats["batched_folds"],
+               center_lock_mean_hold_ns=stats["center_lock_mean_hold_ns"],
+               epoch_mean_loss=means,
+               window_wall_ms=1e3 * wall / (commits / PS5_W),
+               exchange_phases=_phase_summary(stats["exchange_phases"]))
+    log("train DynSGD imdb_lstm via the in-process PS: " + json.dumps(rec))
+    if stats["commits"] != commits:
+        raise AssertionError(f"in-process PS: {stats['commits']} commits, "
+                             f"expected {commits}")
+    if not fell:
+        raise AssertionError(f"in-process PS: the loss did not fall: "
+                             f"{means}")
+    return rec
+
+
+def compare_ps_window(torch, train):
+    """One worker through the in-process PS (DynSGD, the IMDB LSTM at full
+    width, PS_PARITY_WINDOWS windows, unshuffled) through the kernels and,
+    from the same init on the same rows, through every kernel's plain
+    version. The bound is ``compare_window``'s for the Adam steps taken:
+    2.02 lr a step (W=1, τ=0: the center is the worker's own sum). That
+    bound is about twice the furthest Adam can move an element, so it
+    cannot catch a kernel that yields no gradient or a wrong one: each
+    leaf's displacement from the init must also match the plain run's,
+    ``|Δkernel − Δplain| <= PS_DISP_FRAC |Δplain|`` (L2 norms; a plain bf16
+    run against a plain f32 one parts by 4.1% at most on the CPU), and
+    the plain run must have moved every leaf."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.ops.pallas_kernels import fused_adam
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    rows = IMDB_BATCH * IMDB_WINDOW * PS_PARITY_WINDOWS
+    ds = train.gather(np.arange(rows))
+    out = {}
+    for impl in ("kernel", "plain"):
+        spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                               embed_dim=IMDB_E, hidden_dim=IMDB_H,
+                               scan_impl=impl)
+        t = DynSGD(spec, loss=LOSS, worker_optimizer=fused_adam(
+                       IMDB_LR, impl=impl), learning_rate=IMDB_LR,
+                   features_col=["features", "mask"], num_workers=1,
+                   batch_size=IMDB_BATCH, communication_window=IMDB_WINDOW,
+                   num_epoch=1, backend="ps", device=DEVICE)
+        out[impl] = (t.train(ds), t.history.losses())
+        init = spec.init_np(t.seed)[0]   # the run's init, both impls alike
+    (ck, lk), (cp, lp) = out["kernel"], out["plain"]
+    diff = max(_err(ck[k], cp[k]) for k in ck)
+    limit = 2.02 * IMDB_LR * IMDB_WINDOW * PS_PARITY_WINDOWS
+    loss_diff = max(abs(a - b) for a, b in zip(lk, lp))
+    disp, moved = {}, {}
+    for k in ck:
+        i0 = torch.as_tensor(init[k], dtype=torch.float32)
+        dp, dk = cp[k].float() - i0, ck[k].float() - i0
+        moved[k] = dp.norm().item()
+        disp[k] = (dk - dp).norm().item() / max(moved[k], 1e-30)
+    rec = dict(max_center_diff=diff, limit=limit,
+               max_displacement_rel_diff=max(disp.values()),
+               displacement_rel_diff=disp, displacement_limit=PS_DISP_FRAC,
+               losses_kernel=lk, losses_plain=lp)
+    log("one-worker PS window kernels vs plain: " + json.dumps(rec))
+    if not (diff <= limit and len(lk) == PS_PARITY_WINDOWS
+            and loss_diff <= 1e-2
+            and all(v <= PS_DISP_FRAC for v in disp.values())
+            and all(v > 0 for v in moved.values())
+            and all(torch.isfinite(v).all() for v in ck.values())):
+        raise AssertionError(f"one-worker PS kernels vs plain: max |center "
+                             f"diff| {diff} (limit {limit}), displacement "
+                             f"parts by {disp} (limit {PS_DISP_FRAC}), plain "
+                             f"displacement {moved}, losses {lk} vs {lp}")
+    return rec
+
+
+def run_mnist_twin():
+    """The MNIST example's twin (``distkeras_tpu_torch.examples.mnist``)
+    in this process, once a MNIST_RUNS entry, held to the JAX example's
+    gate (test accuracy > 0.8)."""
+    from distkeras_tpu_torch.examples import mnist as twin
+
+    recs = []
+    for args in MNIST_RUNS:
+        t0 = time.perf_counter()
+        acc = twin.main(args + ["--device", DEVICE])
+        recs.append(dict(args=args, test_accuracy=acc,
+                         wall_s=time.perf_counter() - t0))
+        log("mnist twin: " + json.dumps(recs[-1]))
+        if not acc > 0.8:
+            raise AssertionError(f"mnist twin {args}: test accuracy {acc} "
+                                 f"<= 0.8")
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -1472,6 +1767,40 @@ def main() -> int:
                              f"training path: {cls_launches}")
     log(f"training paths done at {time.perf_counter() - t0:.1f}s")
 
+    # the parameter-server path (backend="ps"): each phase's launches are
+    # counted from 0 just before it and read just after
+    t_ps = time.perf_counter()
+    vgg_rec, ps3 = counted(lambda: train_ps_vgg(torch))
+    ps3_k5 = PS3_W * PS3_WINDOWS * PS3_WINDOW * PS3_EPOCHS
+    log(f"launches on the socket PS path: {json.dumps(ps3)}")
+    if ps3["fused_adam"] != ps3_k5:
+        raise AssertionError(f"socket PS: K5 launched {ps3['fused_adam']} "
+                             f"times, expected {ps3_k5}")
+    log(json.dumps({"phase": "ps_config3_socket",
+                    "wall_s": time.perf_counter() - t_ps}))
+    torch.cuda.empty_cache()
+    t_ps = time.perf_counter()
+    lstm_rec, ps5 = counted(lambda: train_ps_lstm(torch, train))
+    ps5_steps = PS5_W * PS5_WINDOWS * IMDB_WINDOW * PS5_EPOCHS
+    log(f"launches on the in-process PS path: {json.dumps(ps5)}")
+    for name in ("fused_adam", "lstm_forward", "lstm_backward"):
+        if ps5[name] != ps5_steps:
+            raise AssertionError(f"in-process PS: {name} launched "
+                                 f"{ps5[name]} times, expected {ps5_steps} "
+                                 f"(one a step a worker)")
+    log(json.dumps({"phase": "ps_config5_inprocess",
+                    "wall_s": time.perf_counter() - t_ps}))
+    t_ps = time.perf_counter()
+    compare_ps_window(torch, train)
+    log(json.dumps({"phase": "ps_one_worker_parity",
+                    "wall_s": time.perf_counter() - t_ps}))
+    t_ps = time.perf_counter()
+    run_mnist_twin()
+    log(json.dumps({"phase": "mnist_twin",
+                    "wall_s": time.perf_counter() - t_ps}))
+    torch.cuda.empty_cache()
+    log(f"parameter-server paths done at {time.perf_counter() - t0:.1f}s")
+
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
         return None if any(v is None for v in vals) else sum(vals)
@@ -1488,8 +1817,8 @@ def main() -> int:
         return [(r, 1) for r in rows if (r["B"], r["H"], r["Hkv"]) ==
                 (1, HEADS, KV_HEADS) and r["L"] in SERVED_LENGTHS]
 
-    def one_launch(rows):      # one launch at the training path's shapes
-        return [(r, 1) for r in rows]
+    def one_launch(rows):      # one launch at the collective path's shapes
+        return [(r, 1) for r in rows if r.get("path") != "ps"]
 
     def lm_shape(rows):        # one launch at config 9's training shape
         return [(r, 1) for r in rows
@@ -1527,6 +1856,7 @@ def main() -> int:
         by_bytes = sum(r["bound_ms"] * w for r, w in pick(rows)
                        if r["bound_by"] == "bytes")
         bound_ms = total(rows, pick, "bound_ms")
+        ps_rows = [r for r in rows if r.get("path") == "ps"]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=launches[name], max_abs_err=err,
@@ -1538,6 +1868,9 @@ def main() -> int:
             checked=True,
             **({k: total(rows, pick, k) for k in ("scan_ms", "dwh_ms")}
                if "scan_ms" in rows[0] else {}),
+            ps_launches={"config3_socket": ps3[name],
+                         "config5_inprocess": ps5[name]},
+            **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,
             **({"sass": sass_for[name]} if name in sass_for else {})))

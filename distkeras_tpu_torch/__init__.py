@@ -17,5 +17,12 @@ merge rules and window engine (:mod:`~distkeras_tpu_torch.parallel`),
 :mod:`~distkeras_tpu_torch.data`, :mod:`~distkeras_tpu_torch.datasets`,
 the six trainers (:mod:`~distkeras_tpu_torch.trainers`), and the fused
 Adam and LSTM-scan kernels — with the weight bridge
-(:mod:`~distkeras_tpu_torch.convert`).
+(:mod:`~distkeras_tpu_torch.convert`); the asynchronous parameter-server
+backend (:mod:`~distkeras_tpu_torch.parameter_servers`,
+:mod:`~distkeras_tpu_torch.workers`, ``parallel.compression``,
+``observability.trace``); and the paper's user surface
+(:mod:`~distkeras_tpu_torch.transformers`,
+:mod:`~distkeras_tpu_torch.evaluators`,
+:mod:`~distkeras_tpu_torch.predictors`, the MNIST example in
+``examples``).
 """

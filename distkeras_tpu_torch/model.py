@@ -15,12 +15,16 @@ state:
 ``torch.func.functional_call``: the module is a stateless template whose
 own tensors are never read once params are supplied. A tuple ``x`` unpacks
 into several inputs (the LSTM takes ``(tokens, mask)``).
+``functional_call`` swaps the supplied tensors into the module for the
+call, so threads that apply one spec at the same time (the parameter-server
+backend's workers) each get their own copy of the template.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import threading
 from typing import Any, Callable
 
 import torch
@@ -50,6 +54,23 @@ class ModelSpec:
         return to_np(params), to_np(state)
 
 
+def per_thread(template: nn.Module):
+    """A callable returning the module to hand ``functional_call`` in the
+    calling thread: ``template`` itself in the main thread, a copy of it
+    made on first use in any other."""
+    local = threading.local()
+
+    def module_here() -> nn.Module:
+        mod = getattr(local, "module", None)
+        if mod is None:
+            mod = local.module = (
+                template if threading.current_thread()
+                is threading.main_thread() else copy.deepcopy(template))
+        return mod
+
+    return module_here
+
+
 def from_module(module: nn.Module, *, name: str | None = None) -> ModelSpec:
     """Wrap an ``nn.Module`` whose ``reset_parameters(generator)`` draws
     its initial weights. ``init(seed)`` draws them on the CPU from a
@@ -65,9 +86,11 @@ def from_module(module: nn.Module, *, name: str | None = None) -> ModelSpec:
         state = {k: v.detach() for k, v in fresh.named_buffers()}
         return params, state
 
+    module_here = per_thread(template)
+
     def apply(params, state, x, training):
         inputs = x if isinstance(x, tuple) else (x,)
-        out = torch.func.functional_call(template, {**params, **state},
+        out = torch.func.functional_call(module_here(), {**params, **state},
                                          inputs)
         return out, state
 

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from distkeras_tpu_torch.model import ModelSpec, from_module
+from distkeras_tpu_torch.model import ModelSpec, from_module, per_thread
 from distkeras_tpu_torch.models.transformer import sincos_positions
 from distkeras_tpu_torch.ops.flash_attention import (
     attention,
@@ -485,10 +485,11 @@ def transformer_lm_spec(vocab=1024, maxlen=256, dim=128, heads=4, depth=2,
     if not fused_ce:
         return spec
     chunk = int(ce_chunk)
+    module_here = per_thread(module)
 
     def fused(params, state, x, y, training, mask=None):
-        h = torch.func.functional_call(module, {**params, **state}, (x,),
-                                       {"return_hidden": True})
+        h = torch.func.functional_call(module_here(), {**params, **state},
+                                       (x,), {"return_hidden": True})
         b_, l_, d_ = h.shape
         token_mask = None
         if mask is not None:

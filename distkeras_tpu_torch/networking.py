@@ -5,12 +5,13 @@ The port's own copy of the framing in ``distkeras_tpu/networking.py``: an
 resolves no globals beyond numpy array reconstruction, so a forged frame
 cannot execute code, and a length cap so it cannot allocate without bound.
 Frames carry dicts of primitives and numpy arrays; tensors are turned into
-numpy arrays before they go on the wire.
+numpy arrays before any frame is built (the unpickler rejects a tensor).
 """
 
 from __future__ import annotations
 
 import io
+import os
 import pickle
 import socket
 import struct
@@ -39,6 +40,38 @@ class ProtocolError(ConnectionError):
         self.frame_size = frame_size
         self.peer = peer
         self.retryable = retryable
+
+
+class PeerDeadError(ProtocolError):
+    """The other end of a shared-memory ring died or closed mid-operation.
+    Retryable: the shm lane's equivalent of a torn TCP connection."""
+
+    def __init__(self, message: str, *, peer: str | None = None):
+        super().__init__(message, peer=peer, retryable=True)
+
+
+class FencedEpochError(ProtocolError):
+    """A parameter server rejected an operation carrying a stale fencing
+    epoch. Not retryable against the same server: the mismatch is
+    deterministic."""
+
+    def __init__(self, message: str, *, client_epoch: int | None = None,
+                 server_epoch: int | None = None, peer: str | None = None):
+        ctx = ""
+        if client_epoch is not None or server_epoch is not None:
+            ctx = (f" (client epoch {client_epoch}, server epoch "
+                   f"{server_epoch})")
+        super().__init__(message + ctx, peer=peer, retryable=False)
+        self.client_epoch = client_epoch
+        self.server_epoch = server_epoch
+
+
+class ShardMapMismatchError(ProtocolError):
+    """A sharded-PS client is wired to the wrong shard (its shard-map
+    handshake disagrees with the client's plan). Not retryable."""
+
+    def __init__(self, message: str, *, peer: str | None = None):
+        super().__init__(message, peer=peer, retryable=False)
 
 
 class ServerBusyError(ProtocolError):
@@ -83,6 +116,28 @@ class _RestrictedUnpickler(pickle.Unpickler):
         )
 
 
+def determine_host_address() -> str:
+    """Best-effort routable address of this host (the reference's
+    ``determine_host_address``): the pod worker address from
+    ``TPU_WORKER_HOSTNAMES``/``TPU_WORKER_ID`` when set, else the address
+    of the interface the default route uses (a UDP ``connect`` selects it
+    and sends no packet), else loopback."""
+    hostnames = os.environ.get("TPU_WORKER_HOSTNAMES", "")
+    worker_id = os.environ.get("TPU_WORKER_ID", "")
+    if hostnames and worker_id.isdigit():
+        hosts = hostnames.split(",")
+        if int(worker_id) < len(hosts) and hosts[int(worker_id)].strip():
+            return hosts[int(worker_id)].strip()
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        s.connect(("8.8.8.8", 80))
+        return s.getsockname()[0]
+    except OSError:
+        return "127.0.0.1"
+    finally:
+        s.close()
+
+
 def connect(host: str, port: int,
             timeout: float | None = 30.0) -> socket.socket:
     """Open a TCP connection with Nagle disabled (small-frame latency)."""
@@ -121,6 +176,12 @@ def decode_frame(raw: bytes) -> Any:
 
 
 def recv_data(sock: socket.socket, max_bytes: int = MAX_FRAME_BYTES) -> Any:
+    return recv_data_raw(sock, max_bytes)[0]
+
+
+def recv_data_raw(sock: socket.socket,
+                  max_bytes: int = MAX_FRAME_BYTES) -> tuple[Any, bytes]:
+    """Like :func:`recv_data`, and also the frame's raw pickled bytes."""
     (length,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
     if length > max_bytes:
         # not retryable: the same frame would bust the cap on every retry
@@ -128,4 +189,5 @@ def recv_data(sock: socket.socket, max_bytes: int = MAX_FRAME_BYTES) -> Any:
             f"frame of {length} bytes exceeds the {max_bytes}-byte cap",
             frame_size=int(length), peer=_peer_of(sock), retryable=False,
         )
-    return decode_frame(_recv_exact(sock, length, expected=int(length)))
+    raw = _recv_exact(sock, length, expected=int(length))
+    return decode_frame(raw), raw

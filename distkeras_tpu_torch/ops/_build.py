@@ -119,6 +119,18 @@ def load(name: str, bind) -> ctypes.CDLL:
         return lib
 
 
+_count_lock = threading.Lock()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to a kernel wrapper's launch counter (``fn.<attr>``) under a
+    lock: worker threads launch kernels at the same time, and ``+= 1`` on
+    an attribute is not atomic. Readers and resets use the attribute as
+    before."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if err != 0:

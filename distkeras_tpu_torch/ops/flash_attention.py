@@ -262,7 +262,7 @@ def _fa_forward_cuda(q, k, v, key_mask, *, scale, causal, window):
         0 if window is None else int(window), _DTYPE_CODE[q.dtype], stream,
     )
     _build.check(err, "flash_attention")
-    _fa_forward.launches += 1
+    _build.count_launch(_fa_forward)
     return out, lse
 
 
@@ -326,7 +326,7 @@ def _fa_bwd_dq(q, k, v, key_mask, lse, delta, g, *, scale, causal,
         0 if window is None else int(window), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd_dq")
-    _fa_bwd_dq.launches += 1
+    _build.count_launch(_fa_bwd_dq)
     return dq
 
 
@@ -346,7 +346,7 @@ def _fa_bwd_dkv(q, k, v, key_mask, lse, delta, g, *, scale, causal,
         int(bool(causal)), 0 if window is None else int(window),
         _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd_dkv")
-    _fa_bwd_dkv.launches += 1
+    _build.count_launch(_fa_bwd_dkv)
     return dk, dv
 
 

@@ -123,7 +123,7 @@ def _adam_launch(table, k):
         .multi_processor_count,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_adam")
-    fused_adam_step.launches += 1
+    _build.count_launch(fused_adam_step)
 
 
 def fused_adam_step(gs, ms, vs, count: int, lr, b1=0.9, b2=0.999, eps=1e-8,

@@ -191,9 +191,9 @@ def _q_matmul_cuda(x2, q, scale, out_dtype):
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     _build.check(err, "q_matmul")
-    q_matmul.launches += 1
+    _build.count_launch(q_matmul)
     if plan.kernel.startswith("prefill"):
-        q_matmul.prefill_launches += 1
+        _build.count_launch(q_matmul, "prefill_launches")
     return out
 
 

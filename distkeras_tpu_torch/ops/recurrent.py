@@ -156,7 +156,7 @@ def _lstm_fwd_cuda(gx, wh, save_c: bool):
                           int(save_c), dtype,
                           torch.cuda.current_stream(gx.device).cuda_stream)
     _build.check(err, "lstm forward")
-    lstm_forward.launches += 1
+    _build.count_launch(lstm_forward)
     return hs, cs
 
 
@@ -197,7 +197,7 @@ def _lstm_bwd_cuda(gx, wh, hs, cs, dhs):
     dgx = torch.empty_like(gx)
     dwh = torch.empty((G, H4 // 4, H4), dtype=torch.float32, device=gx.device)
     _lstm_bwd_into(dgx, dwh, gx, wh, hs, cs, dhs)
-    lstm_backward.launches += 1
+    _build.count_launch(lstm_backward)
     return dgx, dwh
 
 

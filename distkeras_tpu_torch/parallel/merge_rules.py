@@ -111,6 +111,11 @@ class ElasticAverageMerge(MergeRule):
     def fold(self, center, commit, num_workers, staleness):
         return tree_map(lambda c, d: c + d, center, commit)
 
+    def worker_commit(self, worker, center):
+        """The asynchronous worker's commit, ``alpha · (worker − center)``
+        on host numpy trees; the worker subtracts it from itself too."""
+        return tree_map(lambda w, c: self.alpha * (w - c), worker, center)
+
 
 class DynSGDMerge(MergeRule):
     """DynSGD: each commit is scaled by ``1/(τ+1)``. Lockstep lowering:
@@ -134,3 +139,20 @@ class DynSGDMerge(MergeRule):
         s = 1.0 / (float(staleness) + 1.0)
         return tree_map(lambda c, d: c + d * s, center, commit)
 
+
+
+def get_merge_rule(name: str, *, rho: float = 3.0, learning_rate: float = 0.05,
+                   **_) -> MergeRule:
+    """A trainer's merge rule by name (``adag``, ``downpour``, ``aeasgd`` /
+    ``eamsgd`` / ``easgd`` with ``alpha = rho · learning_rate``,
+    ``dynsgd``)."""
+    name = name.lower()
+    if name == "adag":
+        return ADAGMerge()
+    if name == "downpour":
+        return DownpourMerge()
+    if name in ("aeasgd", "eamsgd", "easgd"):
+        return ElasticAverageMerge(alpha=rho * learning_rate)
+    if name == "dynsgd":
+        return DynSGDMerge()
+    raise ValueError(f"unknown merge rule {name!r}")

@@ -1,25 +1,32 @@
 """Trainer hierarchy — the reference's user-facing API, on PyTorch + CUDA.
 
-Port of ``distkeras_tpu/trainers.py`` on the collective backend:
-``Trainer``, ``DistributedTrainer``, ``AsynchronousDistributedTrainer``,
-``SingleTrainer`` and the five algorithms ``ADAG, DOWNPOUR, AEASGD, EAMSGD,
-DynSGD`` with the reference's constructor kwargs and defaults, and
-``train(dataset, shuffle=False) -> trained params``. ``train`` builds a
-:class:`~distkeras_tpu_torch.parallel.LocalSGDEngine` and runs
-communication windows whose merge rule is the parameter exchange.
+Port of ``distkeras_tpu/trainers.py``: ``Trainer``, ``DistributedTrainer``,
+``AsynchronousDistributedTrainer``, ``SingleTrainer`` and the five
+algorithms ``ADAG, DOWNPOUR, AEASGD, EAMSGD, DynSGD`` with the reference's
+constructor kwargs and defaults, and ``train(dataset, shuffle=False) ->
+trained params``. On the collective backend (the default) ``train`` builds
+a :class:`~distkeras_tpu_torch.parallel.LocalSGDEngine` and runs
+communication windows whose merge rule is the parameter exchange; with
+``backend="ps"`` it runs free-running worker threads against a parameter
+server (:func:`~distkeras_tpu_torch.workers.run_async_training`) over the
+in-process or the socket transport, or an external server at ``ps_host``.
 
 ``device="cuda"`` (the default) replaces the JAX package's ``mesh``: one
-card holds all ``num_workers`` stacked workers. Kwargs whose machinery
-belongs to a later slice of the port (the parameter-server backend and its
-resilience, elastic and observability knobs, checkpoints, EMA, validation,
-profiling, meshes) are accepted by name and raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item when set to anything but their default:
-nothing is silently ignored.
+card holds all ``num_workers`` workers. ``validation_data`` scores a
+held-out set after every epoch (after the run on the PS backend);
+``profile_dir`` records a ``torch.profiler`` trace of the run. Kwargs whose
+machinery belongs to a later slice of the port (the PS backend's
+resilience, sharding, elastic and observability knobs, the pipelined
+exchange, checkpoints, EMA, meshes) are accepted by name and raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item when set to
+anything but their default: nothing is silently ignored.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from typing import Callable
 
@@ -27,10 +34,18 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import optim, utils
-from distkeras_tpu_torch.data import Dataset, prefetch_to_device
+from distkeras_tpu_torch.data import (
+    Dataset,
+    padded_chunks,
+    prefetch_to_device,
+)
 from distkeras_tpu_torch.model import ModelSpec
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.parallel.local_sgd import LocalSGDEngine
+from distkeras_tpu_torch.parallel.compression import (
+    resolve_codec,
+    validate_pull_compression,
+)
 from distkeras_tpu_torch.parallel.merge_rules import (
     ADAGMerge,
     DownpourMerge,
@@ -38,38 +53,41 @@ from distkeras_tpu_torch.parallel.merge_rules import (
     ElasticAverageMerge,
     MergeRule,
 )
+from distkeras_tpu_torch.utils import tree_map
 
 #: reference kwargs of later slices: name → (default, ROADMAP item)
 _LATER = {
-    "backend": ("collective", "A7 (the async parameter-server backend)"),
     "mesh": (None, "A12 (meshes across cards)"),
     "ema_decay": (None, "A8 (checkpoints and EMA)"),
     "checkpoint_dir": (None, "A8 (checkpoints and EMA)"),
     "checkpoint_every": (1, "A8 (checkpoints and EMA)"),
     "resume": (False, "A8 (checkpoints and EMA)"),
     "checkpoint_async": (False, "A8 (checkpoints and EMA)"),
-    "validation_data": (None, "A9 (validation, profiling, Keras frontend)"),
-    "profile_dir": (None, "A9 (validation, profiling, Keras frontend)"),
     "deploy_streamer": (None, "A13 (deploy streaming)"),
+    "ps_pipeline_depth": (0, "A7 (the pipelined exchange)"),
 }
-for _name, _default in {
-        "ps_transport": "inprocess", "ps_port": 0, "ps_host": None,
-        "worker_id_offset": 0, "compression": None, "pull_compression": None,
-        "trace": False, "trace_dir": None, "trace_sample": 1.0,
-        "analyze": False, "watch": False, "watch_rules": None,
-        "watch_dir": None, "watch_hook": None, "scrape_interval": 0.5,
-        "tolerate_worker_failures": False, "worker_restart_budget": 0,
-        "worker_restart_delay": 0.0, "retry_policy": None,
-        "heartbeat_interval": None, "lease_timeout": None,
-        "fault_plan": None, "ps_wal_dir": None, "ps_snapshot_every": 100,
-        "ps_wal_group_window": 8, "ps_wal_group_interval": 0.25,
-        "ps_standby": False, "ps_failover_timeout": None,
-        "ps_num_shards": 1, "ps_chain_length": 1, "ps_fused_exchange": True,
-        "ps_pipeline_depth": 0, "elastic": False, "autoscale_target": None,
-        "preempt_drain_timeout": 5.0, "max_pool_size": None,
-        "directory": False, "directory_standby": True,
-        "ps_directory": None}.items():
-    _LATER[_name] = (_default, "A7 (the async parameter-server backend)")
+for _item, _knobs in {
+        "A7.6 (resilience: WAL, retry, heartbeats, faults, standby)": {
+            "tolerate_worker_failures": False, "worker_restart_budget": 0,
+            "worker_restart_delay": 0.0, "retry_policy": None,
+            "heartbeat_interval": None, "lease_timeout": None,
+            "fault_plan": None, "ps_wal_dir": None,
+            "ps_snapshot_every": 100, "ps_wal_group_window": 8,
+            "ps_wal_group_interval": 0.25, "ps_standby": False,
+            "ps_failover_timeout": None},
+        "A7.7 (sharding)": {"ps_num_shards": 1, "ps_chain_length": 1},
+        "A7.8 (elastic membership)": {
+            "elastic": False, "autoscale_target": None,
+            "preempt_drain_timeout": 5.0, "max_pool_size": None},
+        "A7.9 (the membership directory)": {
+            "directory": False, "directory_standby": True,
+            "ps_directory": None},
+        "A13 (observability: analyze and watch)": {
+            "analyze": False, "watch": False, "watch_rules": None,
+            "watch_dir": None, "watch_hook": None,
+            "scrape_interval": 0.5}}.items():
+    for _name, _default in _knobs.items():
+        _LATER[_name] = (_default, _item)
 
 
 def _check_later(kwargs: dict) -> None:
@@ -177,6 +195,98 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _profile_ctx(profile_dir, device: torch.device):
+    """A ``torch.profiler`` context recording CPU (and, on the card, CUDA)
+    activity for a training run, which writes a Chrome trace into
+    ``profile_dir`` on exit; a no-op without a directory. The trace's path
+    is in ``paths`` once the run ends."""
+    if not profile_dir:
+        return contextlib.nullcontext(), []
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(str(profile_dir), exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    paths: list[str] = []
+
+    def write(prof):
+        path = os.path.join(str(profile_dir),
+                            f"trace-{os.getpid()}-{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        paths.append(path)
+
+    return profile(activities=activities, on_trace_ready=write), paths
+
+
+class _Validator:
+    """Held-out evaluation of ``validation_data`` (the JAX package's
+    ``_Validator``): one masked forward per fixed-size chunk
+    (``padded_chunks``), so ``val_loss`` is the exact mean over real rows
+    for every named loss; ``val_accuracy`` when the label column is
+    integer and the model emits a trailing class dimension."""
+
+    def __init__(self, spec: ModelSpec, loss_fn: Callable, ds: Dataset,
+                 features_col: list[str], label_col: str, batch_size: int,
+                 device: torch.device, fused_loss=None):
+        if len(ds) == 0:
+            raise ValueError("validation_data has 0 rows")
+        if fused_loss is not None and len(features_col) != 1:
+            raise ValueError(
+                "fused-loss validation supports a single features column")
+        self.spec = spec
+        self.ds = ds
+        self.cols = list(features_col) + [label_col]
+        self.bs = int(batch_size)
+        self.n_feat = len(features_col)
+        self.device = device
+        self.fused_loss = fused_loss
+        self.label_integer = np.issubdtype(
+            np.asarray(ds[label_col][:1]).dtype, np.integer)
+        self._per_row = torch.func.vmap(
+            lambda yy, oo: loss_fn(yy[None], oo[None]))
+
+    def _eval_chunk(self, params, nt, arrs, mask):
+        feats, y = arrs[:self.n_feat], arrs[self.n_feat]
+        x = feats[0] if self.n_feat == 1 else tuple(feats)
+        if self.fused_loss is not None:
+            loss = self.fused_loss(params, nt, x, y, training=False,
+                                   mask=mask)[0]
+            return loss * torch.sum(mask), -1.0
+        out, _ = self.spec.apply(params, nt, x, False)
+        loss_sum = torch.sum(self._per_row(y, out) * mask)
+        if (self.label_integer and y.ndim == 1 and out.ndim == 2
+                and out.shape[-1] >= 2):
+            pred = torch.argmax(out, dim=-1).to(y.dtype)
+            return loss_sum, torch.sum((pred == y).to(torch.float32) * mask)
+        return loss_sum, -1.0
+
+    def __call__(self, params, nt) -> dict:
+        params = tree_map(lambda x: x.to(self.device), params)
+        nt = tree_map(lambda x: x.to(self.device), nt)
+        loss_sum, correct_sum, acc_defined = 0.0, 0.0, True
+        cols = [np.asarray(self.ds[c]) for c in self.cols]
+        with torch.no_grad():
+            for chunk, real in padded_chunks(cols, self.bs):
+                mask = torch.zeros(self.bs, dtype=torch.float32,
+                                   device=self.device)
+                mask[:real] = 1.0
+                arrs = tuple(torch.as_tensor(c).to(self.device)
+                             for c in chunk)
+                ls, cs = self._eval_chunk(params, nt, arrs, mask)
+                loss_sum += float(ls)
+                cs = float(cs)
+                if cs < 0:
+                    acc_defined = False
+                else:
+                    correct_sum += cs
+        n = len(self.ds)
+        rec = {"val_loss": loss_sum / n}
+        if acc_defined:
+            rec["val_accuracy"] = correct_sum / n
+        return rec
+
+
 class Trainer:
     """Abstract base trainer: ``train()``, ``record_training_start/end``,
     ``get_training_time``, ``get_history``."""
@@ -215,15 +325,19 @@ class Trainer:
         losses = [float(l) for l in self.history.losses()[-last:]]
         return float(np.mean(losses)) if losses else float("nan")
 
-    def _epoch_metrics(self, epoch: int, rows: int, updates: int,
-                       elapsed: float):
-        rec = {"epoch": epoch, "samples_per_sec": round(rows / elapsed, 1),
+    def _epoch_metrics(self, epoch: int | None, rows: int, updates: int,
+                       elapsed: float, label: str = "epoch"):
+        """Record (and with ``log_metrics`` print) throughput: per epoch, or
+        for the whole run with ``epoch=None`` (the free-running PS)."""
+        rec = {"samples_per_sec": round(rows / elapsed, 1),
                "updates_per_sec": round(updates / elapsed, 2),
                "wall_time": round(elapsed, 4)}
+        if epoch is not None:
+            rec = {"epoch": epoch, **rec}
         self.metrics_.append(rec)
         self.history.append(**rec)
         if self.log_metrics:
-            print(json.dumps({"metric": "epoch", **rec}), flush=True)
+            print(json.dumps({"metric": label, **rec}), flush=True)
 
     def _materialize_history(self):
         """Device loss scalars → host floats, one record per window."""
@@ -273,6 +387,13 @@ class DistributedTrainer(Trainer):
                  seed: int = 0, device="cuda",
                  device_data: bool | None = None, prefetch: int = 1,
                  log_metrics: bool = False, clipnorm=None, clipvalue=None,
+                 validation_data=None, profile_dir=None,
+                 backend: str = "collective",
+                 ps_transport: str = "inprocess", ps_port: int = 0,
+                 ps_host: str | None = None, worker_id_offset: int = 0,
+                 compression=None, pull_compression: str | None = None,
+                 trace: bool = False, trace_dir=None,
+                 trace_sample: float = 1.0, ps_fused_exchange: bool = True,
                  **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
@@ -294,6 +415,47 @@ class DistributedTrainer(Trainer):
         self.device_data_budget_bytes = 512 * 1024 * 1024
         self.prefetch = int(prefetch)
         self.log_metrics = bool(log_metrics)
+        # a held-out Dataset (or (x, y)) scored after each epoch on the
+        # collective backend and after the run on the PS backend
+        self.validation_data = validation_data
+        self.profile_dir = profile_dir
+        self.profile_path_ = None
+        if backend not in ("collective", "ps"):
+            raise ValueError(
+                f"backend must be 'collective' or 'ps', got {backend!r}")
+        self.backend = backend
+        if ps_transport in ("shm", "native"):
+            raise NotImplementedError(
+                f"ps_transport={ps_transport!r} is not ported yet: "
+                f"ROADMAP.md A7.5 (the shared-memory and native transports)")
+        if ps_transport not in ("inprocess", "socket"):
+            raise ValueError(f"ps_transport must be 'inprocess' or 'socket', "
+                             f"got {ps_transport!r}")
+        if ps_host is not None and ps_transport != "socket":
+            raise ValueError("ps_host requires ps_transport='socket' (an "
+                             "external PS is reached over TCP)")
+        self.ps_transport = ps_transport
+        self.ps_port = int(ps_port)
+        self.ps_host = ps_host
+        self.worker_id_offset = int(worker_id_offset)
+        if compression is not None:
+            resolve_codec(compression)  # fail fast on bad values
+            if backend != "ps":
+                raise ValueError("compression applies to backend='ps' only "
+                                 "(collective merges cross no wire)")
+        self.compression = compression
+        if pull_compression is not None:
+            validate_pull_compression(pull_compression)
+            if backend != "ps":
+                raise ValueError("pull_compression applies to backend='ps' "
+                                 "only (collective merges cross no wire)")
+        self.pull_compression = pull_compression
+        self.trace = bool(trace)
+        self.trace_dir = trace_dir
+        self.trace_sample = float(trace_sample)
+        self.trace_path_ = None
+        self.ps_fused_exchange = bool(ps_fused_exchange)
+        self.ps_stats_ = None
 
     def allocate_merge_rule(self) -> MergeRule:
         raise NotImplementedError
@@ -309,7 +471,59 @@ class DistributedTrainer(Trainer):
             self.loss if isinstance(self.loss, str) else None)
 
     def train(self, dataset, shuffle: bool = False):
-        return self._train_collective(self._coerce_dataset(dataset), shuffle)
+        ds = self._coerce_dataset(dataset)
+        ctx, paths = _profile_ctx(self.profile_dir, self.device)
+        try:
+            with ctx:
+                if self.backend == "ps":
+                    return self._train_ps(ds, shuffle)
+                return self._train_collective(ds, shuffle)
+        finally:
+            if paths:
+                self.profile_path_ = paths[-1]
+
+    def _make_validator(self):
+        """The ``validation_data`` evaluator, or None; built before training
+        starts, so a malformed set fails fast."""
+        if self.validation_data is None:
+            return None
+        return _Validator(
+            self.spec, self.loss_fn,
+            self._coerce_dataset(self.validation_data), self.features_col,
+            self.label_col, self.batch_size, self.device,
+            fused_loss=(self.spec.fused_losses or {}).get(self.loss))
+
+    def _validate_epoch(self, validator, params, nt, epoch):
+        rec = validator(params, nt)
+        rec = {"epoch": epoch, **rec} if epoch is not None else dict(rec)
+        self.metrics_.append(rec)
+        self.history.append(**rec)
+        if self.log_metrics:
+            print(json.dumps({"metric": "validation", **rec}), flush=True)
+
+    def _train_ps(self, ds: Dataset, shuffle: bool):
+        """``backend="ps"``: worker threads against a parameter server; the
+        history holds one record per worker window."""
+        from distkeras_tpu_torch.workers import run_async_training
+
+        validator = self._make_validator()
+        self.record_training_start()
+        t0 = time.perf_counter()
+        center, nt, history = run_async_training(self, ds, shuffle)
+        elapsed = time.perf_counter() - t0
+        self.record_training_end()
+        for rec in history:
+            self.history.append(**rec)
+        if self.log_metrics and elapsed > 0:
+            # hogwild epochs overlap freely: whole-run throughput
+            n_updates = sum(1 for r in history if "loss" in r)
+            rows = n_updates * self.communication_window * self.batch_size
+            self._epoch_metrics(None, rows, n_updates, elapsed, label="run")
+        params = tree_map(lambda c: torch.from_numpy(np.asarray(c)), center)
+        nt = tree_map(lambda x: torch.from_numpy(np.asarray(x)), nt)
+        if validator is not None:
+            self._validate_epoch(validator, params, nt, None)
+        return self._finalize(params, nt)
 
     def _train_collective(self, ds: Dataset, shuffle: bool):
         engine = LocalSGDEngine(
@@ -328,6 +542,8 @@ class DistributedTrainer(Trainer):
 
         W, win, B = self.num_workers, self.communication_window, \
             self.batch_size
+        validator = self._make_validator()
+        worker0 = lambda st: tree_map(lambda x: x[0], st.nt)
         self.record_training_start()
         if use_resident:
             staged = engine.stage_dataset(ds.worker_shards(
@@ -343,6 +559,9 @@ class DistributedTrainer(Trainer):
                     _synchronize(self.device)
                     self._epoch_metrics(epoch, W * n_windows * win * B,
                                         n_windows, time.perf_counter() - t0)
+                if validator is not None:
+                    self._validate_epoch(validator, state.center,
+                                         worker0(state), epoch)
         else:
             for epoch in range(self.num_epoch):
                 seed = (self.seed + epoch) if shuffle else None
@@ -360,6 +579,9 @@ class DistributedTrainer(Trainer):
                     _synchronize(self.device)
                     self._epoch_metrics(epoch, n_windows * W * win * B,
                                         n_windows, time.perf_counter() - t0)
+                if validator is not None:
+                    self._validate_epoch(validator, state.center,
+                                         worker0(state), epoch)
         _synchronize(self.device)
         self.record_training_end()
         self.state_ = state

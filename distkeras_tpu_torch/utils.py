@@ -1,9 +1,13 @@
 """Small helpers shared across the port: device resolution, nested-dict
-tree maps, and the training history and timer the trainers keep."""
+tree maps and the host tree walk of the parameter server, weight
+serialization, the reference's row helpers, and the training history and
+timer the trainers keep."""
 
 from __future__ import annotations
 
+import io
 import json
+import pickle
 import time
 from collections.abc import Mapping
 
@@ -38,6 +42,133 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, Mapping):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
     return [tree]
+
+
+def flatten(tree) -> tuple[list, object]:
+    """``(leaves, structure)`` of a host tree of nested dicts, lists and
+    tuples: the parameter server's replacement for ``jax.tree.flatten``.
+    Dict keys are walked in sorted order, as ``jax.tree`` walks them, so
+    leaf ``i`` names the same array in both packages; ``None`` is an empty
+    subtree, as there."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            keys = sorted(node)
+            return (dict, keys, [walk(node[k]) for k in keys])
+        if isinstance(node, (list, tuple)):
+            return (type(node), None, [walk(v) for v in node])
+        if node is None:
+            return (None, None, [])
+        leaves.append(node)
+        return None
+
+    return leaves, walk(tree)
+
+
+def unflatten(structure, leaves):
+    """Rebuild the tree :func:`flatten` walked, from ``leaves`` in its
+    order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return next(it)
+        kind, keys, kids = node
+        if kind is None:
+            return None
+        if kind is dict:
+            return {k: build(c) for k, c in zip(keys, kids)}
+        return kind(build(c) for c in kids)
+
+    return build(structure)
+
+
+def host_tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of host trees alike in structure (the
+    parameter server's ``jax.tree.map``)."""
+    leaves, st = flatten(tree)
+    others = [flatten(r)[0] for r in rest]
+    return unflatten(st, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_to_numpy(tree):
+    """Every leaf as a numpy array; tensors leave the device (a
+    synchronising copy from the card; on the CPU the array may share the
+    tensor's memory)."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    return host_tree_map(leaf, tree)
+
+
+def serialize_weights(tree) -> bytes:
+    """A host tree as bytes: an ``.npz`` of its leaves beside its
+    structure. The structure is pickled, so deserialize only bytes this
+    process's own code wrote."""
+    leaves, st = flatten(tree_to_numpy(tree))
+    buf = io.BytesIO()
+    np.savez(buf, *leaves)
+    return pickle.dumps({"structure": st, "npz": buf.getvalue()})
+
+
+def deserialize_weights(data: bytes):
+    payload = pickle.loads(data)
+    with np.load(io.BytesIO(payload["npz"])) as npz:
+        leaves = [npz[k] for k in npz.files]
+    return unflatten(payload["structure"], leaves)
+
+
+def uniform_weights(tree, bounds=(-0.5, 0.5), seed: int = 0):
+    """Every leaf redrawn uniformly in ``bounds`` from a ``torch.Generator``
+    seeded with ``seed`` (the reference's ``uniform_weights``; the JAX
+    package draws from ``jax.random``, so the numbers differ). Leaves keep
+    their dtype and, for tensors, their device."""
+    lo, hi = float(bounds[0]), float(bounds[1])
+    gen = torch.Generator().manual_seed(int(seed))
+
+    def leaf(x):
+        shape = tuple(x.shape)
+        u = torch.rand(shape, generator=gen, dtype=torch.float32) \
+            * (hi - lo) + lo
+        if isinstance(x, torch.Tensor):
+            return u.to(device=x.device, dtype=x.dtype)
+        return u.numpy().astype(np.asarray(x).dtype)
+
+    return host_tree_map(leaf, tree)
+
+
+def shuffle(dataset):
+    """The reference's ``shuffle(df)``: the dataset's rows in a new
+    order."""
+    return dataset.shuffle()
+
+
+def new_dataframe_row(row: Mapping, name: str, value) -> dict:
+    """The reference's ``new_dataframe_row``: the row with one more
+    column."""
+    out = dict(row)
+    out[name] = value
+    return out
+
+
+def to_vector(label, n: int) -> np.ndarray:
+    """Integer class label → one-hot float vector of length ``n``."""
+    v = np.zeros(n, dtype=np.float32)
+    v[int(label)] = 1.0
+    return v
+
+
+def to_dense_vector(values, indices=None, n: int | None = None) -> np.ndarray:
+    """Sparse ``(indices, values)`` → dense float vector of length ``n``;
+    with ``indices=None`` a dense float cast of ``values``."""
+    if indices is None:
+        return np.asarray(values, dtype=np.float32)
+    out = np.zeros(n, dtype=np.float32)
+    out[np.asarray(indices, dtype=np.int64)] = values
+    return out
 
 
 def fold_vmapped(x, bdim, size):
@@ -76,6 +207,10 @@ class History:
 
     def losses(self) -> list[float]:
         return [r["loss"] for r in self.records if "loss" in r]
+
+    def val_losses(self) -> list[float]:
+        """The held-out losses of the trainers' ``validation_data``."""
+        return [r["val_loss"] for r in self.records if "val_loss" in r]
 
     def to_json(self) -> str:
         return json.dumps(self.records, default=json_default)

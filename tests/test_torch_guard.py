@@ -37,19 +37,31 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "distkeras_tpu", "distkeras"))
-print(len(names), bad)
+                                    "ml_dtypes", "distkeras_tpu",
+                                    "distkeras"))
+missing = sorted(set(sys.argv[1:]) - set(names))
+print(len(names), missing, bad)
 """
+
+#: the modules of the parameter-server slice and the user surface: each
+#: must be among those the probe imports
+_NEW_MODULES = ["transformers", "evaluators", "predictors",
+                "parameter_servers", "workers", "observability.trace",
+                "parallel.compression", "examples.mnist"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE,
+         *(f"distkeras_tpu_torch.{m}" for m in _NEW_MODULES)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 25, out.stdout          # every module was imported
+    n, rest = out.stdout.strip().split(" ", 1)
+    missing, bad = rest.split("] ", 1)
+    assert int(n) >= 41, out.stdout          # every module was imported
+    assert missing == "[", f"modules not found: {missing}]"
     assert bad == "[]", f"forbidden modules imported: {bad}"
 
 
@@ -95,6 +107,28 @@ def test_transformer_training_defaults_to_cuda(spec_fn):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         trainers.ADAG(make())
     assert trainers.ADAG(make(), device="cpu").device.type == "cpu"
+
+
+def test_ps_backend_predictor_and_mnist_twin_default_to_cuda():
+    """The parameter-server trainer, the predictor and the MNIST example
+    run on the card unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    from distkeras_tpu_torch.examples import mnist as mnist_twin
+    from distkeras_tpu_torch.models import mlp
+    from distkeras_tpu_torch.predictors import ModelPredictor
+
+    spec = mlp(input_shape=(4,), hidden=(4,), num_classes=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainers.DynSGD(spec, backend="ps", ps_transport="socket")
+    assert trainers.DynSGD(spec, backend="ps",
+                           device="cpu").device.type == "cpu"
+    params, _ = spec.init(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ModelPredictor(spec, params)
+    assert ModelPredictor(spec, params, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mnist_twin.main(["--model", "mlp", "--rows", "256"])
 
 
 def test_engine_defaults_to_cuda():
