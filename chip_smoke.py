@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero and prints no result:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build all five kernel sources from ``distkeras_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together), then show that the kernels
+   ``nvcc`` per source, started together) and, beside them, the native
+   parameter server's C++ core (``native/dkps.cpp``, ``g++``), then show
+   that the kernels
    redesigned on wgmma (K2's, K3's and K4's bf16 paths, K7's dwh product
    and every instantiation of K1's prefill kernel) issue ``HGMMA`` and
    ``UTMALDG`` (TMA) instructions and spill nothing, and that K6's cluster
@@ -95,10 +97,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 13. the parameter-server backend (``backend="ps"``), every launch counter
     set to 0 just before each phase and read just after: config 3
     (CIFAR-10 VGG-small under DOWNPOUR, bf16 compute, f32 params, fused
-    Adam lr 5e-4) through a ``SocketParameterServer`` the phase starts, 4
-    worker threads of batch 512, window 1, 2 epochs of 32 windows a worker
-    — 256 commits and 256 folds, some commit priced τ ≥ 1, K5 launched
-    256 times, the loss falling and held-out accuracy above PS3_ACC_BAR;
+    Adam at PS3_LR) through a ``SocketParameterServer`` the phase starts,
+    4 worker threads of batch 512, window 1, 2 epochs of 32 windows a
+    worker — 256 commits and 256 folds, some commit priced τ ≥ 1, K5
+    launched 256 times, the loss falling and held-out accuracy above
+    PS3_ACC_BAR;
     config 5 (the IMDB LSTM above) under DynSGD through the in-process PS,
     8 workers of batch 64, window 4, 2 epochs of 3 windows — K5, K6 and
     K7 launched once a step a worker (192 each), 48 commits, the loss
@@ -107,10 +110,22 @@ Phases, in order; any failure exits non-zero and prints no result:
     bound; then the MNIST example's twin
     (``distkeras_tpu_torch.examples.mnist``) in this process, ADAG and
     DOWNPOUR through the PS with int8 commits, each to test accuracy >
-    0.8; each phase prints its wall time;
+    0.8; then config 5 through the native PS at ``ps_pipeline_depth=1``
+    (K5, K6 and K7 once a step a worker, 48 commits and folds, the loss
+    falling, some commit priced τ ≥ 1, its τ beside the in-process serial
+    run's); one DOWNPOUR worker on config 5 over the native PS serially
+    and pipelined, centers within ``compare_ps_window``'s bound and
+    displacement check (the largest difference printed); and config 3
+    again through the native PS serially, and at depth 1 through the
+    native and the shm PS at PS3_PIPE_LR for PS3_PIPE_EPOCHS (each run:
+    one commit and one fold a window a worker, K5 once a step, every
+    worker's loss falling, held-out accuracy above PS3_ACC_BAR; its
+    window's phases, τ and the center lock's hold printed); each phase
+    prints its wall time;
 14. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
-    launches on the PS phases, K6 and K7 with their G=1 times), then the
+    launches on the PS phases, K6 and K7 with their G=1 times), read
+    config 3's gates (``ps3_failures``), then the
     result line ``{"ok": true, "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
@@ -118,6 +133,7 @@ The library calls are yardsticks only; the port never calls them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -158,20 +174,26 @@ CLS_VOCAB, CLS_L, CLS_DIM, CLS_HEADS, CLS_DEPTH = 8192, 2048, 512, 8, 8
 CLS_W, CLS_BATCH, CLS_WINDOW, CLS_WINDOWS, CLS_LR = 2, 8, 5, 3, 1e-3
 LOSS = "sparse_softmax_cross_entropy"
 # the parameter-server path (backend="ps"): config 3 (bench.py:316-324,
-# CIFAR-10 VGG-small under DOWNPOUR, Adam 5e-4) through a socket PS this
-# script starts, 4 worker threads of batch 512 over 65536 rows, 2 epochs.
+# CIFAR-10 VGG-small under DOWNPOUR) through a socket PS this script
+# starts, 4 worker threads of batch 512 over 65536 rows, 2 epochs.
 # Window 1, DOWNPOUR's push every step: at window 4 four workers' summed
 # multi-step Adam windows learn slowly and erratically, in the JAX package
-# too (PERF.md, Findings)
-PS3_W, PS3_BATCH, PS3_WINDOW, PS3_LR, PS3_EPOCHS = 4, 512, 1, 5e-4, 2
+# too. Adam at 2.5e-4, half bench.py's 5e-4: at 5e-4 one serial run in
+# five or six misses the accuracy bar (PERF.md, Findings)
+PS3_W, PS3_BATCH, PS3_WINDOW, PS3_LR, PS3_EPOCHS = 4, 512, 1, 2.5e-4, 2
 PS3_WINDOWS = 32          # windows a worker an epoch
 PS3_TEST = 2048
 PS3_ACC_BAR = 0.3         # held-out accuracy gate (PERF.md, Findings)
+# DOWNPOUR with four Adam workers learns config 3 while lr·τ stays near
+# 1e-3 (PERF.md, Findings): τ is ~3 serially and ~7 pipelined, so the
+# pipelined runs take half the rate for twice the epochs
+PS3_PIPE_LR, PS3_PIPE_EPOCHS = 1.25e-4, 4
 # config 5 through the in-process PS: 8 worker threads of batch 64,
 # window 4, 3 windows a worker an epoch, 2 epochs
 PS5_W, PS5_WINDOWS, PS5_EPOCHS = 8, 3, 2
 PS_PARITY_WINDOWS = 2     # the one-worker kernels-vs-plain PS run
 PS_DISP_FRAC = 0.25       # its per-leaf displacement agreement
+PS_PIPE_WINDOWS = 3       # the one-worker serial-vs-pipelined native run
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -1444,17 +1466,103 @@ def _worker_loss_fell(history, workers, epochs):
     return ok, means
 
 
+@contextlib.contextmanager
+def _servers_built(module, name: str):
+    """Record every parameter server the class ``module.name`` builds
+    inside the block (the trainer starts its own; this reads its
+    ``stats()`` and τ after the run)."""
+    cls = getattr(module, name)
+    made = []
+
+    class Recording(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    setattr(module, name, Recording)
+    try:
+        yield made
+    finally:
+        setattr(module, name, cls)
+
+
+class _NativeTaus:
+    """τ of every native exchange, from the versions the C++ server
+    returns: a pull and an exchange answer with the center version they
+    recorded (an exchange's is its post-fold version), so an exchange
+    folded at ``v`` was priced ``τ = v − 1 − pv``, ``pv`` the version of
+    the worker's latest record before it, or of the one before that for
+    an exchange with the lag flag (``native_ps._XCHG_LAG``). Stands in
+    for ``native_ps.load_dkps`` over the block."""
+
+    def __init__(self, native_ps):
+        self._mod = native_ps
+        self._load = native_ps.load_dkps
+        self._lib = None
+        self._records: dict = {}
+        self.taus: list[int] = []
+
+    def __enter__(self):
+        self._lib = self._load()
+        self._mod.load_dkps = lambda: self
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.load_dkps = self._load
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def dkps_client_pull(self, handle, out):
+        v = self._lib.dkps_client_pull(handle, out)
+        if v >= 0:
+            self._records.setdefault(handle, []).append(v)
+        return v
+
+    def dkps_client_exchange(self, handle, flags, *args):
+        v = self._lib.dkps_client_exchange(handle, flags, *args)
+        rec = self._records.setdefault(handle, [])
+        if v >= 0 and rec:
+            lag = flags & self._mod._XCHG_LAG and len(rec) >= 2
+            self.taus.append(int(v - 1 - rec[-2 if lag else -1]))
+            rec.append(v)
+        return v
+
+
+def _staleness(taus) -> dict:
+    return dict(max=max(taus, default=0),
+                mean=float(np.mean(taus)) if taus else 0.0,
+                count=len(taus),
+                histogram={str(k): taus.count(k) for k in sorted(set(taus))})
+
+
+def _each_worker_loss_fell(history, workers, epochs):
+    """Per worker: its last epoch's mean window loss below its first's."""
+    out = []
+    for w in range(workers):
+        means = [np.mean([r["loss"] for r in history
+                          if r.get("worker") == w and r.get("epoch") == e])
+                 for e in (0, epochs - 1)]
+        out.append(bool(np.all(np.isfinite(means)) and means[1] < means[0]))
+    return out
+
+
 def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
-               device: str) -> dict:
+               device: str, transport: str = "socket", depth: int = 0,
+               epochs: int = PS3_EPOCHS) -> dict:
     """Config 3 (bench.py:316-324: CIFAR-10 VGG-small under DOWNPOUR,
-    the stale-gradient PS) through the socket transport: a
-    ``SocketParameterServer`` started here, the trainer's PS3_W worker
-    threads pointed at it (``ps_host``/``ps_port``), so the server's
-    ``stats()`` and ``recent_staleness()`` can be read. ``vgg_small()`` in
-    bf16 with f32 params on the synthetic CIFAR-10 stand-in, fused Adam at
-    ``lr``, PS3_EPOCHS epochs of ``windows`` windows of ``window`` steps
-    of ``batch`` rows a worker; then held-out accuracy (``ModelPredictor``
-    + ``AccuracyEvaluator``) on PS3_TEST rows. Returns the run's record.
+    the stale-gradient PS) through ``transport`` at ``ps_pipeline_depth``
+    ``depth``. On the socket transport a ``SocketParameterServer`` started
+    here, the trainer's PS3_W worker threads pointed at it
+    (``ps_host``/``ps_port``); on ``"native"`` and ``"shm"`` the trainer's
+    own server, recorded as it is built (``_servers_built``). Either way
+    the server's ``stats()`` and τ are read after the run (τ from
+    ``recent_staleness()``, or on native from the versions the server
+    returns: ``_NativeTaus``). ``vgg_small()`` in bf16 with f32 params on
+    the synthetic CIFAR-10 stand-in, fused Adam at ``lr``, ``epochs``
+    epochs of ``windows`` windows of ``window`` steps of ``batch`` rows a
+    worker; then held-out accuracy (``ModelPredictor`` +
+    ``AccuracyEvaluator``) on PS3_TEST rows. Returns the run's record.
     (``ps_sweep.py`` runs this path at other windows and rates, in either
     package.)"""
     from distkeras_tpu_torch.datasets import cifar10
@@ -1468,77 +1576,129 @@ def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
     rows = PS3_W * batch * window * windows
     train, test = cifar10(n_train=rows, n_test=PS3_TEST)
     spec = vgg_small()
-    init, _ = spec.init_np(0)
-    server = SocketParameterServer(init, DownpourMerge(), PS3_W)
-    server.initialize()
-    server.start()
-    try:
-        t = DOWNPOUR(spec, loss=LOSS, worker_optimizer="fused_adam",
-                     learning_rate=lr, num_workers=PS3_W,
-                     batch_size=batch, communication_window=window,
-                     num_epoch=PS3_EPOCHS, backend="ps",
-                     ps_transport="socket", ps_host="127.0.0.1",
-                     ps_port=server.port, device=device)
+    kw = dict(loss=LOSS, worker_optimizer="fused_adam", learning_rate=lr,
+              num_workers=PS3_W, batch_size=batch,
+              communication_window=window, num_epoch=epochs,
+              backend="ps", ps_transport=transport,
+              ps_pipeline_depth=depth, device=device)
+    if transport == "socket":
+        init, _ = spec.init_np(0)
+        server = SocketParameterServer(init, DownpourMerge(), PS3_W)
+        server.initialize()
+        server.start()
+        try:
+            t = DOWNPOUR(spec, ps_host="127.0.0.1", ps_port=server.port,
+                         **kw)
+            t0 = time.perf_counter()
+            center = t.train(train, shuffle=True)
+            wall = time.perf_counter() - t0
+            stats = server.stats()
+            taus = server.recent_staleness()
+        finally:
+            server.stop()
+    else:
+        t = DOWNPOUR(spec, **kw)
         t0 = time.perf_counter()
-        center = t.train(train, shuffle=True)
+        center, servers, taus = _train_recording(t, train, True, transport)
         wall = time.perf_counter() - t0
-        stats = server.stats()
-        taus = server.recent_staleness()
-    finally:
-        server.stop()
+        stats = t.ps_stats_
     t1 = time.perf_counter()
     acc = AccuracyEvaluator().evaluate(ModelPredictor(
         spec, center, device=device).predict(test))
     eval_s = time.perf_counter() - t1
-    commits = PS3_W * windows * PS3_EPOCHS
-    fell, means = _worker_loss_fell(t.history, PS3_W, PS3_EPOCHS)
-    return dict(window=window, lr=lr, batch=batch,
+    commits = PS3_W * windows * epochs
+    fell, means = _worker_loss_fell(t.history, PS3_W, epochs)
+    return dict(transport=transport, pipeline_depth=depth, window=window,
+                lr=lr, batch=batch, epochs=epochs,
                 windows_a_worker_an_epoch=windows, wall_s=wall,
                 eval_s=eval_s, expected_commits=commits,
                 commits=stats["commits"], num_updates=stats["num_updates"],
                 bytes_in=stats["bytes_in"], bytes_out=stats["bytes_out"],
                 center_lock_mean_hold_ns=stats["center_lock_mean_hold_ns"],
-                staleness=dict(max=max(taus, default=0),
-                               mean=float(np.mean(taus)) if taus else 0.0,
-                               histogram={str(k): taus.count(k)
-                                          for k in sorted(set(taus))}),
-                loss_fell=fell, epoch_mean_loss=means, test_accuracy=acc,
+                staleness=_staleness(taus),
+                loss_fell=fell, epoch_mean_loss=means,
+                worker_loss_fell=_each_worker_loss_fell(t.history, PS3_W,
+                                                        epochs),
+                test_accuracy=acc,
                 window_wall_ms=1e3 * wall / (commits / PS3_W),
                 exchange_phases=_phase_summary(t.exchange_phases_))
 
 
+def _train_recording(t, ds, shuffle: bool, transport: str):
+    """``t.train(ds)`` on the trainer's own ``transport`` server, recorded
+    as it is built: ``(center, [server], τ of every commit)``."""
+    import distkeras_tpu_torch.workers as workers
+
+    if transport == "native":
+        from distkeras_tpu_torch import native_ps as module
+
+        name = "NativeSocketParameterServer"
+    elif transport == "shm":
+        from distkeras_tpu_torch import shm as module
+
+        name = "ShmParameterServer"
+    else:
+        module, name = workers, "ParameterServer"
+    with contextlib.ExitStack() as stack:
+        servers = stack.enter_context(_servers_built(module, name))
+        tap = (stack.enter_context(_NativeTaus(module))
+               if transport == "native" else None)
+        center = t.train(ds, shuffle=shuffle)
+    if len(servers) != 1:
+        raise AssertionError(f"{transport}: {len(servers)} servers built")
+    taus = tap.taus if tap is not None else servers[0].recent_staleness()
+    return center, servers, taus
+
+
 def train_ps_vgg(torch):
-    """Config 3 at PS3_WINDOW, PS3_LR, PS3_BATCH and PS3_WINDOWS on the
-    card (``run_ps_vgg``). Gates: one commit and one fold a window a
-    worker; some commit priced τ ≥ 1 (the run was asynchronous); the loss
-    falls; held-out accuracy above PS3_ACC_BAR. The caller reads K5."""
+    """Config 3 at PS3_WINDOW, PS3_LR, PS3_BATCH and PS3_WINDOWS through a
+    socket PS (``run_ps_vgg``). Returns the run's record; its gates are
+    read by ``ps3_failures`` after the ``kernels`` line."""
     rec = run_ps_vgg(torch, PS3_WINDOW, PS3_LR, PS3_BATCH, PS3_WINDOWS,
                      DEVICE)
     log("train DOWNPOUR vgg_small via the socket PS: " + json.dumps(rec))
-    commits = rec["expected_commits"]
-    if rec["commits"] != commits or rec["num_updates"] != commits:
-        raise AssertionError(f"socket PS: {rec['commits']} commits and "
-                             f"{rec['num_updates']} folds, expected "
-                             f"{commits}")
-    if not rec["staleness"]["max"] >= 1:
-        raise AssertionError(f"socket PS: no commit was stale "
-                             f"({rec['staleness']}): the run was not "
-                             f"asynchronous")
-    if not rec["loss_fell"]:
-        raise AssertionError(f"socket PS: the loss did not fall: "
-                             f"{rec['epoch_mean_loss']}")
-    if not rec["test_accuracy"] > PS3_ACC_BAR:
-        raise AssertionError(f"socket PS: held-out accuracy "
-                             f"{rec['test_accuracy']} <= {PS3_ACC_BAR}")
     return rec
 
 
-def train_ps_lstm(torch, train):
+def ps3_failures(name: str, rec: dict, launches: dict,
+                 each_worker: bool) -> list:
+    """Config 3's gates on one run, as messages (empty when it passed):
+    one commit and one fold a window a worker; K5 once a step; some commit
+    priced τ ≥ 1 (the run was asynchronous); the loss falls (with
+    ``each_worker``, every worker's own too); held-out accuracy above
+    PS3_ACC_BAR."""
+    out = []
+    commits = rec["expected_commits"]
+    k5 = PS3_W * rec["windows_a_worker_an_epoch"] * rec["window"] \
+        * rec["epochs"]
+    if rec["commits"] != commits or rec["num_updates"] != commits:
+        out.append(f"{name}: {rec['commits']} commits and "
+                   f"{rec['num_updates']} folds, expected {commits}")
+    if launches["fused_adam"] != k5:
+        out.append(f"{name}: K5 launched {launches['fused_adam']} times, "
+                   f"expected {k5}")
+    if not rec["staleness"]["max"] >= 1:
+        out.append(f"{name}: no commit was stale ({rec['staleness']}): "
+                   f"the run was not asynchronous")
+    if not (rec["loss_fell"]
+            and (all(rec["worker_loss_fell"]) or not each_worker)):
+        out.append(f"{name}: the loss did not fall: "
+                   f"{rec['epoch_mean_loss']}, by worker "
+                   f"{rec['worker_loss_fell']}")
+    if not rec["test_accuracy"] > PS3_ACC_BAR:
+        out.append(f"{name}: held-out accuracy {rec['test_accuracy']} <= "
+                   f"{PS3_ACC_BAR}")
+    return out
+
+
+def run_ps_lstm(torch, train, transport: str, depth: int) -> dict:
     """Config 5 (the IMDB LSTM at full width, bf16 compute, f32 params)
-    under DynSGD through the in-process PS: PS5_W worker threads of batch
+    under DynSGD through the trainer's own ``transport`` server at
+    ``ps_pipeline_depth`` ``depth``: PS5_W worker threads of batch
     IMDB_BATCH, window IMDB_WINDOW, fused Adam, PS5_EPOCHS epochs of
-    PS5_WINDOWS windows a worker, unshuffled. Gates: one commit a window a
-    worker; the loss falls. The caller reads K5, K6 and K7."""
+    PS5_WINDOWS windows a worker, unshuffled. Gates: one commit and one
+    fold a window a worker; the loss falls. Returns the run's record (τ
+    of every commit included); the caller reads K5, K6 and K7."""
     from distkeras_tpu_torch.models import lstm_classifier
     from distkeras_tpu_torch.trainers import DynSGD
 
@@ -1550,27 +1710,125 @@ def train_ps_lstm(torch, train):
                learning_rate=IMDB_LR, features_col=["features", "mask"],
                num_workers=PS5_W, batch_size=IMDB_BATCH,
                communication_window=IMDB_WINDOW, num_epoch=PS5_EPOCHS,
-               backend="ps", device=DEVICE)
+               backend="ps", ps_transport=transport,
+               ps_pipeline_depth=depth, device=DEVICE)
     t0 = time.perf_counter()
-    t.train(ds)
+    _, _, taus = _train_recording(t, ds, False, transport)
     wall = time.perf_counter() - t0
     stats = t.ps_stats_
     commits = PS5_W * PS5_WINDOWS * PS5_EPOCHS
     fell, means = _worker_loss_fell(t.history, PS5_W, PS5_EPOCHS)
-    rec = dict(wall_s=wall, commits=stats["commits"],
-               num_updates=stats["num_updates"],
+    rec = dict(transport=transport, pipeline_depth=depth, wall_s=wall,
+               commits=stats["commits"], num_updates=stats["num_updates"],
                batched_folds=stats["batched_folds"],
                center_lock_mean_hold_ns=stats["center_lock_mean_hold_ns"],
-               epoch_mean_loss=means,
+               staleness=_staleness(taus), epoch_mean_loss=means,
                window_wall_ms=1e3 * wall / (commits / PS5_W),
                exchange_phases=_phase_summary(stats["exchange_phases"]))
-    log("train DynSGD imdb_lstm via the in-process PS: " + json.dumps(rec))
-    if stats["commits"] != commits:
-        raise AssertionError(f"in-process PS: {stats['commits']} commits, "
-                             f"expected {commits}")
+    label = f"{transport} PS at depth {depth}"
+    log(f"train DynSGD imdb_lstm via the {label}: " + json.dumps(rec))
+    if stats["commits"] != commits or stats["num_updates"] != commits:
+        raise AssertionError(f"{label}: {stats['commits']} commits and "
+                             f"{stats['num_updates']} folds, expected "
+                             f"{commits}")
     if not fell:
-        raise AssertionError(f"in-process PS: the loss did not fall: "
-                             f"{means}")
+        raise AssertionError(f"{label}: the loss did not fall: {means}")
+    return rec
+
+
+def train_ps_lstm(torch, train):
+    """Config 5 through the in-process PS, serially (``run_ps_lstm``)."""
+    return run_ps_lstm(torch, train, "inprocess", 0)
+
+
+def train_ps_lstm_native_pipelined(torch, train, serial):
+    """Config 5 through the native PS at depth 1 (``run_ps_lstm``). Gate:
+    some commit was priced τ ≥ 1. Prints its τ beside ``serial``'s (the
+    in-process run's); timing moves τ from run to run, so the strict
+    check that ``lag`` prices from the previous pull is the CPU test's."""
+    rec = run_ps_lstm(torch, train, "native", 1)
+    log("config 5 staleness, native pipelined vs in-process serial: "
+        + json.dumps(dict(native_pipelined=rec["staleness"],
+                          inprocess_serial=serial["staleness"])))
+    if not rec["staleness"]["max"] >= 1:
+        raise AssertionError(f"native pipelined PS: no commit was priced "
+                             f"τ >= 1 ({rec['staleness']})")
+    return rec
+
+
+def train_ps_vgg_transports(torch):
+    """Config 3 at PS3_WINDOW, PS3_BATCH and PS3_WINDOWS through the native
+    transport serially (PS3_LR, PS3_EPOCHS, as ``train_ps_vgg`` runs it)
+    and pipelined, and through shm pipelined (both at PS3_PIPE_LR for
+    PS3_PIPE_EPOCHS: the same rate times steps, and about the same rate
+    times τ, since pipelining doubles τ), each counted alone
+    (``counted``). Returns ``{run: (record, launches)}``;
+    ``ps3_failures`` reads each run's gates (every worker's loss falls
+    among them) after the ``kernels`` line."""
+    out = {}
+    for transport, depth in (("native", 0), ("native", 1), ("shm", 1)):
+        name = f"config3_{transport}" + ("_pipelined" if depth else "")
+        lr, epochs = ((PS3_PIPE_LR, PS3_PIPE_EPOCHS) if depth
+                      else (PS3_LR, PS3_EPOCHS))
+        out[name] = counted(lambda: run_ps_vgg(
+            torch, PS3_WINDOW, lr, PS3_BATCH, PS3_WINDOWS, DEVICE,
+            transport=transport, depth=depth, epochs=epochs))
+        log(f"train DOWNPOUR vgg_small via the {transport} PS at depth "
+            f"{depth}: " + json.dumps(out[name][0]))
+        log(f"launches on the {name} path: {json.dumps(out[name][1])}")
+    return out
+
+
+def compare_ps_pipeline(torch, train):
+    """One DOWNPOUR worker on config 5 through the kernels over the
+    native transport, serially and then at depth 1, from the same init on
+    the same PS_PIPE_WINDOWS windows, unshuffled. The JAX package pins the
+    two to the same bits (one worker's deferred re-base telescopes:
+    ``C_N = C_{N-1} + sent_N`` at fold scale 1); on the card the two runs
+    may part where a kernel's sums are not run-to-run deterministic (the
+    embedding's backward adds its rows with atomics). The centers are held
+    to ``compare_ps_window``'s bound and displacement check; the largest
+    difference is printed."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DOWNPOUR
+
+    rows = IMDB_BATCH * IMDB_WINDOW * PS_PIPE_WINDOWS
+    ds = train.gather(np.arange(rows))
+    out = {}
+    for depth in (0, 1):
+        spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                               embed_dim=IMDB_E, hidden_dim=IMDB_H)
+        t = DOWNPOUR(spec, loss=LOSS, worker_optimizer="fused_adam",
+                     learning_rate=IMDB_LR,
+                     features_col=["features", "mask"], num_workers=1,
+                     batch_size=IMDB_BATCH, communication_window=IMDB_WINDOW,
+                     num_epoch=1, backend="ps", ps_transport="native",
+                     ps_pipeline_depth=depth, device=DEVICE)
+        out[depth] = (t.train(ds), t.history.losses())
+        init = spec.init_np(t.seed)[0]
+    (c0, l0), (c1, l1) = out[0], out[1]
+    diff = max(_err(c1[k], c0[k]) for k in c0)
+    bits_equal = all(torch.equal(c1[k], c0[k]) for k in c0)
+    limit = 2.02 * IMDB_LR * IMDB_WINDOW * PS_PIPE_WINDOWS
+    disp, moved = {}, {}
+    for k in c0:
+        i0 = torch.as_tensor(init[k], dtype=torch.float32)
+        d0, d1 = c0[k].float() - i0, c1[k].float() - i0
+        moved[k] = d0.norm().item()
+        disp[k] = (d1 - d0).norm().item() / max(moved[k], 1e-30)
+    rec = dict(max_center_diff=diff, bits_equal=bits_equal, limit=limit,
+               max_displacement_rel_diff=max(disp.values()),
+               displacement_limit=PS_DISP_FRAC, losses_serial=l0,
+               losses_pipelined=l1)
+    log("one-worker native PS serial vs pipelined: " + json.dumps(rec))
+    if not (diff <= limit and len(l1) == len(l0) == PS_PIPE_WINDOWS
+            and all(v <= PS_DISP_FRAC for v in disp.values())
+            and all(v > 0 for v in moved.values())
+            and all(torch.isfinite(v).all() for v in c1.values())):
+        raise AssertionError(f"one-worker native PS serial vs pipelined: "
+                             f"max |center diff| {diff} (limit {limit}), "
+                             f"displacement parts by {disp}, serial "
+                             f"displacement {moved}, losses {l0} vs {l1}")
     return rec
 
 
@@ -1650,6 +1908,31 @@ def run_mnist_twin():
     return recs
 
 
+def _build_all(_build) -> dict:
+    """Every kernel source with ``nvcc`` (``_build.build``) and, at the
+    same time, the native parameter server's C++ core with ``g++``
+    (``native.build``): seconds per library, the core's as ``dkps``."""
+    from distkeras_tpu_torch import native
+
+    out, errors = {}, []
+
+    def gxx():
+        try:
+            out["dkps"] = native.build()
+        except BaseException as e:   # re-raised below, after nvcc
+            errors.append(e)
+
+    th = threading.Thread(target=gxx)
+    th.start()
+    try:
+        secs = _build.build()
+    finally:
+        th.join()
+    if errors:
+        raise errors[0]
+    return {**secs, **out}
+
+
 def main() -> int:
     import torch
 
@@ -1677,7 +1960,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    secs = _build.build()
+    secs = _build_all(_build)
     log(f"build: {json.dumps(secs)} total {time.perf_counter() - t0:.2f}s")
     sass = check_sass(_build)
 
@@ -1771,11 +2054,7 @@ def main() -> int:
     # counted from 0 just before it and read just after
     t_ps = time.perf_counter()
     vgg_rec, ps3 = counted(lambda: train_ps_vgg(torch))
-    ps3_k5 = PS3_W * PS3_WINDOWS * PS3_WINDOW * PS3_EPOCHS
     log(f"launches on the socket PS path: {json.dumps(ps3)}")
-    if ps3["fused_adam"] != ps3_k5:
-        raise AssertionError(f"socket PS: K5 launched {ps3['fused_adam']} "
-                             f"times, expected {ps3_k5}")
     log(json.dumps({"phase": "ps_config3_socket",
                     "wall_s": time.perf_counter() - t_ps}))
     torch.cuda.empty_cache()
@@ -1797,6 +2076,31 @@ def main() -> int:
     t_ps = time.perf_counter()
     run_mnist_twin()
     log(json.dumps({"phase": "mnist_twin",
+                    "wall_s": time.perf_counter() - t_ps}))
+    torch.cuda.empty_cache()
+
+    # the pipelined exchange and the native and shm transports; config 3's
+    # runs are gated after the kernels line (ps3_failures), so a run that
+    # does not learn still leaves every kernel's numbers printed
+    t_ps = time.perf_counter()
+    _, ps5p = counted(lambda: train_ps_lstm_native_pipelined(
+        torch, train, lstm_rec))
+    log(f"launches on the native pipelined PS path: {json.dumps(ps5p)}")
+    for name in ("fused_adam", "lstm_forward", "lstm_backward"):
+        if ps5p[name] != ps5_steps:
+            raise AssertionError(f"native pipelined PS: {name} launched "
+                                 f"{ps5p[name]} times, expected "
+                                 f"{ps5_steps} (one a step a worker)")
+    log(json.dumps({"phase": "ps_config5_native_pipelined",
+                    "wall_s": time.perf_counter() - t_ps}))
+    t_ps = time.perf_counter()
+    compare_ps_pipeline(torch, train)
+    log(json.dumps({"phase": "ps_pipeline_parity",
+                    "wall_s": time.perf_counter() - t_ps}))
+    torch.cuda.empty_cache()
+    t_ps = time.perf_counter()
+    vgg_runs = train_ps_vgg_transports(torch)
+    log(json.dumps({"phase": "ps_config3_transports",
                     "wall_s": time.perf_counter() - t_ps}))
     torch.cuda.empty_cache()
     log(f"parameter-server paths done at {time.perf_counter() - t0:.1f}s")
@@ -1869,12 +2173,20 @@ def main() -> int:
             **({k: total(rows, pick, k) for k in ("scan_ms", "dwh_ms")}
                if "scan_ms" in rows[0] else {}),
             ps_launches={"config3_socket": ps3[name],
-                         "config5_inprocess": ps5[name]},
+                         "config5_inprocess": ps5[name],
+                         **{k: v[1][name] for k, v in vgg_runs.items()},
+                         "config5_native_pipelined": ps5p[name]},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,
             **({"sass": sass_for[name]} if name in sass_for else {})))
     print(json.dumps({"kernels": kernels}), flush=True)
+    failures = ps3_failures("config3_socket", vgg_rec, ps3, False)
+    for name, (rec3, launches3) in vgg_runs.items():
+        failures += ps3_failures(name, rec3, launches3, True)
+    if failures:
+        raise AssertionError("config 3's gates failed: "
+                             + "; ".join(failures))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,7 @@ asks for the CPU::
         --backend ps --compression int8 --workers 4
     python -m distkeras_tpu_torch.examples.mnist --device cpu --model mlp \\
         --rows 2048
+    python -m distkeras_tpu_torch.examples.mnist --frontend keras
 
 The last line printed is ``test accuracy: <fraction>``.
 """
@@ -16,6 +17,7 @@ The last line printed is ``test accuracy: <fraction>``.
 from __future__ import annotations
 
 import argparse
+import os
 
 from distkeras_tpu_torch.datasets import is_synthetic, mnist
 from distkeras_tpu_torch.evaluators import AccuracyEvaluator
@@ -42,7 +44,6 @@ TRAINERS = {
 
 #: flags of the JAX example whose machinery is a later slice of the port
 _LATER_FLAGS = {
-    "frontend": "A9 (the Keras frontend)",
     "ema": "A8 (checkpoints and EMA)",
     "int8_predict": "A11.5 (quantize_serving)",
 }
@@ -53,7 +54,10 @@ def parse_args(argv=None):
     ap.add_argument("--trainer", choices=sorted(TRAINERS), default="adag")
     ap.add_argument("--model", choices=["cnn", "mlp"], default="cnn")
     ap.add_argument("--frontend", choices=["native", "keras"],
-                    default="native")
+                    default="native",
+                    help="the port's model zoo, or a user-written Keras 3 "
+                         "model (KERAS_BACKEND=torch) handed straight to "
+                         "the trainer")
     ap.add_argument("--workers", type=int, default=None)
     ap.add_argument("--epochs", type=int, default=2)
     ap.add_argument("--batch-size", type=int, default=128)
@@ -72,10 +76,38 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     for flag, item in _LATER_FLAGS.items():
         value = getattr(args, flag)
-        if value not in (None, False, "native"):
+        if value not in (None, False):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet: "
                      f"ROADMAP.md {item}")
     return args
+
+
+def build_keras_model(kind: str):
+    """A user-written Keras 3 model, as the JAX example builds it (on
+    Keras's torch backend unless ``KERAS_BACKEND`` says otherwise)."""
+    os.environ.setdefault("KERAS_BACKEND", "torch")
+    import keras
+
+    if kind == "cnn":
+        layers = [
+            keras.layers.Input((28, 28, 1)),
+            keras.layers.Conv2D(32, 5, padding="same", activation="relu"),
+            keras.layers.MaxPooling2D(),
+            keras.layers.Conv2D(64, 5, padding="same", activation="relu"),
+            keras.layers.MaxPooling2D(),
+            keras.layers.Flatten(),
+            keras.layers.Dense(256, activation="relu"),
+            keras.layers.Dense(10),
+        ]
+    else:
+        layers = [
+            keras.layers.Input((28, 28, 1)),
+            keras.layers.Flatten(),
+            keras.layers.Dense(500, activation="relu"),
+            keras.layers.Dense(300, activation="relu"),
+            keras.layers.Dense(10),
+        ]
+    return keras.Sequential(layers)
 
 
 def main(argv=None) -> float:
@@ -90,7 +122,10 @@ def main(argv=None) -> float:
                                output_col="label_onehot")
     train = onehot.transform(train)
 
-    model = lenet() if args.model == "cnn" else mlp()
+    if args.frontend == "keras":
+        model = build_keras_model(args.model)
+    else:
+        model = lenet() if args.model == "cnn" else mlp()
     cls = TRAINERS[args.trainer]
     kw = dict(loss="softmax_cross_entropy", worker_optimizer="adam",
               learning_rate=args.lr, batch_size=args.batch_size,

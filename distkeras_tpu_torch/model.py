@@ -18,6 +18,11 @@ into several inputs (the LSTM takes ``(tokens, mask)``).
 ``functional_call`` swaps the supplied tensors into the module for the
 call, so threads that apply one spec at the same time (the parameter-server
 backend's workers) each get their own copy of the template.
+
+:func:`from_keras` wraps a built Keras 3 model on Keras's torch backend
+through ``model.stateless_call``, so the reference's contract, "hand a
+Keras model to a trainer", holds on the port too. Keras is imported only
+when a Keras model is wrapped: the package never needs it otherwise.
 """
 
 from __future__ import annotations
@@ -96,3 +101,65 @@ def from_module(module: nn.Module, *, name: str | None = None) -> ModelSpec:
 
     return ModelSpec(init=init, apply=apply,
                      name=name or type(module).__name__, module=module)
+
+
+def _keras_keys(variables) -> list[str]:
+    """Dict keys for Keras variables: the list index, zero-padded so the
+    sorted walk of :func:`utils.flatten` keeps Keras's order, then the
+    variable's path."""
+    return [f"{i:04d}:{v.path}" for i, v in enumerate(variables)]
+
+
+def from_keras(model, *, name: str | None = None) -> ModelSpec:
+    """Wrap a built Keras 3 model (``KERAS_BACKEND=torch``) via
+    ``stateless_call``. Trainable variables become the params,
+    non-trainable ones (BatchNorm's moving statistics, a Dropout seed) the
+    state, each a dict in the model's variable order (keys from
+    :func:`_keras_keys`). ``init`` returns the model's current weights, as
+    CPU tensors; ``apply`` runs on the device its params lie on."""
+    import keras
+
+    if keras.backend.backend() != "torch":
+        raise ValueError(
+            f"Keras is running the {keras.backend.backend()!r} backend; "
+            f"distkeras_tpu_torch needs KERAS_BACKEND=torch (set the env "
+            f"var before importing keras: stateless_call on another "
+            f"backend cannot take torch tensors)")
+    if not model.built:
+        raise ValueError(
+            "Keras model must be built (call it once or set input shape)")
+    pkeys = _keras_keys(model.trainable_variables)
+    skeys = _keras_keys(model.non_trainable_variables)
+
+    def init(seed):
+        del seed  # a Keras model arrives initialised: its weights are used
+        grab = lambda vs: [v.value.detach().to("cpu", copy=True) for v in vs]
+        return (dict(zip(pkeys, grab(model.trainable_variables))),
+                dict(zip(skeys, grab(model.non_trainable_variables))))
+
+    def apply(params, state, x, training):
+        p = [params[k] for k in pkeys]
+        device = p[0].device if p else getattr(x, "device", "cpu")
+        # Keras places the tensors it creates on its default device (the
+        # card when there is one): pin them to the params' device
+        with keras.device(str(device)):
+            out, new_state = model.stateless_call(
+                p, [state[k] for k in skeys], x, training=training)
+        return out, dict(zip(skeys, new_state))
+
+    return ModelSpec(init=init, apply=apply, name=name or model.name)
+
+
+def keras_weights_to_model(model, params: dict, state: dict) -> None:
+    """Write trained params and state (:func:`from_keras`'s dicts) back
+    into the live Keras model, in place."""
+    for var, key in zip(model.trainable_variables,
+                        _keras_keys(model.trainable_variables)):
+        var.assign(_host(params[key]))
+    for var, key in zip(model.non_trainable_variables,
+                        _keras_keys(model.non_trainable_variables)):
+        var.assign(_host(state[key]))
+
+
+def _host(x):
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else x

@@ -64,8 +64,11 @@ class LocalSGDEngine:
         self.window = int(window)
         self.batch_size = int(batch_size) if batch_size else None
         self._place = place_on(self.device)
+        # randomness="different": a model that draws inside its step (a
+        # Keras Dropout) draws each worker's own numbers
         self._worker_grads = torch.func.vmap(
-            torch.func.grad_and_value(loss_step, has_aux=True))
+            torch.func.grad_and_value(loss_step, has_aux=True),
+            randomness="different")
 
     # -- init ----------------------------------------------------------------
 

@@ -15,7 +15,10 @@ center is no CPU stand-in for device work, and no tensor reaches it.
 Staleness is tracked for real: ``pull`` records the center version a
 worker saw; ``commit`` computes τ = center updates since that pull and
 hands it to the rule (DynSGD scales by 1/(τ+1); the other rules ignore
-it). ``recent_staleness()`` keeps the last 512 τ.
+it). ``recent_staleness()`` keeps the last 512 τ. Every recorded pull also
+keeps the version before it: a pipelined worker's exchange carries
+``lag=True`` and is priced from that previous version, because the delta
+it commits was computed from the center of one exchange earlier.
 
 Locking discipline, as in the reference:
 
@@ -33,10 +36,9 @@ Locking discipline, as in the reference:
 
 Durability (the write-ahead log, the hot standby), leases and heartbeats,
 retries with their exactly-once commit dedup, epoch fencing, elastic
-membership, sharding, the center's EMA and the pipelined exchange's lagged
-pricing belong to later slices (``ROADMAP.md`` A7, A7.6–A7.9, A8): their
-wire actions answer with an error frame naming the item, and their stats
-counters stay 0.
+membership, sharding and the center's EMA belong to later slices
+(``ROADMAP.md`` A7.6–A7.9, A8): their wire actions answer with an error
+frame naming the item, and their stats counters stay 0.
 """
 
 from __future__ import annotations
@@ -123,12 +125,13 @@ class _FoldWork:
     """One queued commit (or fused exchange) awaiting the fold drain; the
     locked section's outputs travel back to the submitting thread."""
 
-    __slots__ = ("worker_id", "payload", "fused", "compressed", "corr",
+    __slots__ = ("worker_id", "payload", "lag", "fused", "compressed", "corr",
                  "done", "exc", "snap_out", "st", "batched")
 
-    def __init__(self, worker_id, payload, fused, compressed, corr):
+    def __init__(self, worker_id, payload, lag, fused, compressed, corr):
         self.worker_id = worker_id
         self.payload = payload
+        self.lag = lag
         self.fused = fused
         self.compressed = compressed
         self.corr = corr
@@ -173,6 +176,9 @@ class ParameterServer:
         self.num_updates = 0
         self._lock = _TimedLock()
         self._pull_versions: dict[int, int] = {}
+        # the version each worker's pull recorded before its latest one:
+        # every record shifts cur → prev (center lock)
+        self._prev_pull_versions: dict[int, int] = {}
         self._fold_mu = threading.Lock()
         self._fold_pending: list[_FoldWork] = []
         self._pull_errors: dict[int, _PullState] = {}
@@ -223,7 +229,7 @@ class ParameterServer:
         """The one O(1) center-lock pull preamble of every transport: record
         the version, take the immutable snapshot, resolve the residual."""
         with self._lock:
-            self._pull_versions[worker_id] = self.num_updates
+            self._record_pull_locked(worker_id)
             snap = self.center
             st = None
             if compressed:
@@ -231,6 +237,14 @@ class ParameterServer:
                 if st is None:
                     st = self._pull_errors[worker_id] = _PullState()
         return snap, st
+
+    def _record_pull_locked(self, worker_id: int) -> None:
+        """Record a pull at the current ``num_updates`` (call under the
+        center lock), keeping the version it replaces as the previous."""
+        if worker_id in self._pull_versions:
+            self._prev_pull_versions[worker_id] = \
+                self._pull_versions[worker_id]
+        self._pull_versions[worker_id] = self.num_updates
 
     def _encode_pull(self, st: _PullState, snapshot: Tree) -> tuple:
         """Quantize ``snapshot + residual`` to int8 and update the residual,
@@ -313,13 +327,15 @@ class ParameterServer:
         self._commit_impl(worker_id, payload)
         return True
 
-    def exchange(self, worker_id: int, payload: Tree,
+    def exchange(self, worker_id: int, payload: Tree, lag: bool = False,
                  compressed: bool = False) -> tuple:
         """Fused commit + pull under one center-lock section: the fold is
         priced as a commit would be, then the pull version is recorded at
-        the post-fold ``num_updates``. Returns ``(center copy or int8 blob,
-        True)``, the reference's ``(weights, applied)``."""
-        snap, st = self._commit_impl(worker_id, payload, fused=True,
+        the post-fold ``num_updates``. ``lag=True`` (the pipelined worker)
+        prices τ from the previous recorded pull version instead. Returns
+        ``(center copy or int8 blob, True)``, the reference's ``(weights,
+        applied)``."""
+        snap, st = self._commit_impl(worker_id, payload, lag=lag, fused=True,
                                      compressed=compressed)
         if not compressed:
             out = _tree_copy(snap)  # O(model), off the center lock
@@ -330,7 +346,7 @@ class ParameterServer:
         self._count(compressed_pulls=1, bytes_out=nbytes, fused=1)
         return blob, True
 
-    def _commit_impl(self, worker_id: int, payload: Tree,
+    def _commit_impl(self, worker_id: int, payload: Tree, lag: bool = False,
                      fused: bool = False, compressed: bool = False) -> tuple:
         """Decode off the lock, fold through the batched drain, count the
         commit side. Returns ``(snap, st)``: the fused pull's snapshot and
@@ -338,7 +354,7 @@ class ParameterServer:
         nbytes = self._payload_nbytes(payload)  # wire size: BEFORE decode
         with _trace.span("ps.decode"):
             payload = maybe_decode(payload)
-        work = _FoldWork(worker_id, payload, fused, compressed,
+        work = _FoldWork(worker_id, payload, lag, fused, compressed,
                          _trace.current_corr() if _trace.enabled() else None)
         self._enqueue_and_fold(work)
         if work.exc is not None:
@@ -387,14 +403,19 @@ class ParameterServer:
         t0 = time.perf_counter_ns()
         worker_id = work.worker_id
         try:
-            staleness = self.num_updates - self._pull_versions.get(worker_id,
-                                                                   0)
+            if work.lag and worker_id in self._prev_pull_versions:
+                # the pipelined delta was computed from the center of one
+                # exchange ago: price τ from the previous pull version
+                pull_version = self._prev_pull_versions[worker_id]
+            else:
+                pull_version = self._pull_versions.get(worker_id, 0)
+            staleness = self.num_updates - pull_version
             self._tau_recent.append(int(staleness))
             self.center = utils.tree_to_numpy(self.rule.fold(
                 self.center, work.payload, self.num_workers, staleness))
             self.num_updates += 1
             if work.fused:
-                self._pull_versions[worker_id] = self.num_updates
+                self._record_pull_locked(worker_id)
                 work.snap_out = self.center
                 if work.compressed:
                     st = self._pull_errors.get(worker_id)
@@ -691,7 +712,8 @@ class SocketParameterServer(ParameterServer):
         compressed = bool(msg.get("compressed"))
         with _trace.span("ps.exchange"):
             snap, st = self._commit_impl(msg["worker_id"], msg["payload"],
-                                         fused=True, compressed=compressed)
+                                         lag=bool(msg.get("lag")), fused=True,
+                                         compressed=compressed)
             if not compressed:
                 self._begin_reply()
                 try:
@@ -777,12 +799,16 @@ class ParameterServerClient:
         if not (isinstance(ack, dict) and ack.get("ok")):
             raise networking.ProtocolError(f"commit refused: {ack}")
 
-    def exchange(self, worker_id: int | None, payload: Tree) -> Tree:
+    def exchange(self, worker_id: int | None, payload: Tree,
+                 lag: bool = False) -> Tree:
         """Fused commit + pull: one round trip folds ``payload`` and returns
-        the post-fold center, decoded."""
+        the post-fold center, decoded. ``lag=True`` asks the server to price
+        τ from this worker's previous pull (the pipelined exchange)."""
         msg = self._payload_msg("exchange", payload)
         if self.pull_compression == "int8":
             msg["compressed"] = True
+        if lag:
+            msg["lag"] = True
         reply = self._request(msg)
         if "weights" not in reply:
             raise networking.ProtocolError(

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.data import Dataset, padded_chunks
-from distkeras_tpu_torch.model import ModelSpec
+from distkeras_tpu_torch.model import ModelSpec, from_keras
 from distkeras_tpu_torch.utils import resolve_device, tree_map
 
 
@@ -27,7 +27,8 @@ def _to_device(tree, device):
 
 
 class ModelPredictor:
-    """Append a prediction column computed by a trained model: a
+    """Append a prediction column computed by a trained model: a Keras 3
+    model (torch backend) with its weights already trained, or a
     ``ModelSpec`` plus explicit ``(params, state)`` trees, e.g. a trainer's
     ``trained_params_`` / ``trained_nt_``."""
 
@@ -36,13 +37,16 @@ class ModelPredictor:
                  batch_size: int = 512, mesh=None, dp_axis: str = "dp",
                  quantize: bool = False, device="cuda"):
         del dp_axis
-        if not isinstance(model, ModelSpec):
-            raise NotImplementedError(
-                f"ModelPredictor takes a distkeras_tpu_torch ModelSpec, got "
-                f"{type(model)} (the Keras frontend is not ported yet: "
-                f"ROADMAP.md A9)")
-        if params is None:
-            raise ValueError("ModelSpec predictor needs explicit params")
+        if isinstance(model, ModelSpec):
+            if params is None:
+                raise ValueError("ModelSpec predictor needs explicit params")
+        elif hasattr(model, "stateless_call"):
+            model = from_keras(model)
+            params, state = model.init(0)
+        else:
+            raise TypeError(
+                f"ModelPredictor takes a Keras 3 model or a "
+                f"distkeras_tpu_torch ModelSpec, got {type(model)}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= is not ported yet: ROADMAP.md A12 (meshes across "

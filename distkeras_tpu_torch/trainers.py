@@ -9,15 +9,19 @@ a :class:`~distkeras_tpu_torch.parallel.LocalSGDEngine` and runs
 communication windows whose merge rule is the parameter exchange; with
 ``backend="ps"`` it runs free-running worker threads against a parameter
 server (:func:`~distkeras_tpu_torch.workers.run_async_training`) over the
-in-process or the socket transport, or an external server at ``ps_host``.
+in-process, socket, native or shared-memory transport, serially or with
+one window's exchange in flight (``ps_pipeline_depth=1``), or an external
+server at ``ps_host``. A Keras 3 model (torch backend) may stand in for a
+``ModelSpec``: the trained weights are written back into it and ``train``
+returns the same model.
 
 ``device="cuda"`` (the default) replaces the JAX package's ``mesh``: one
 card holds all ``num_workers`` workers. ``validation_data`` scores a
 held-out set after every epoch (after the run on the PS backend);
 ``profile_dir`` records a ``torch.profiler`` trace of the run. Kwargs whose
 machinery belongs to a later slice of the port (the PS backend's
-resilience, sharding, elastic and observability knobs, the pipelined
-exchange, checkpoints, EMA, meshes) are accepted by name and raise
+resilience, sharding, elastic and observability knobs, checkpoints, EMA,
+meshes) are accepted by name and raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item when set to
 anything but their default: nothing is silently ignored.
 """
@@ -39,10 +43,15 @@ from distkeras_tpu_torch.data import (
     padded_chunks,
     prefetch_to_device,
 )
-from distkeras_tpu_torch.model import ModelSpec
+from distkeras_tpu_torch.model import (
+    ModelSpec,
+    from_keras,
+    keras_weights_to_model,
+)
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distkeras_tpu_torch.parallel.compression import (
+    Int8Codec,
     resolve_codec,
     validate_pull_compression,
 )
@@ -64,7 +73,6 @@ _LATER = {
     "resume": (False, "A8 (checkpoints and EMA)"),
     "checkpoint_async": (False, "A8 (checkpoints and EMA)"),
     "deploy_streamer": (None, "A13 (deploy streaming)"),
-    "ps_pipeline_depth": (0, "A7 (the pipelined exchange)"),
 }
 for _item, _knobs in {
         "A7.6 (resilience: WAL, retry, heartbeats, faults, standby)": {
@@ -182,12 +190,15 @@ def _fits_device_budget(ds: Dataset, cols, budget_bytes: int) -> bool:
     return len(ds) * row_bytes <= budget_bytes
 
 
-def _as_spec(model) -> ModelSpec:
+def _as_spec(model) -> tuple[ModelSpec, object]:
+    """A Keras model or a ModelSpec → ``(spec, the Keras model or None)``."""
     if isinstance(model, ModelSpec):
-        return model
+        return model, None
+    if hasattr(model, "stateless_call"):
+        return from_keras(model), model
     raise TypeError(
-        f"model must be a distkeras_tpu_torch ModelSpec, got {type(model)} "
-        f"(the Keras frontend is not ported yet: ROADMAP.md A9)")
+        f"model must be a Keras 3 model or a distkeras_tpu_torch ModelSpec, "
+        f"got {type(model)}")
 
 
 def _synchronize(device: torch.device) -> None:
@@ -294,7 +305,7 @@ class Trainer:
     def __init__(self, keras_model, loss="mse", worker_optimizer="sgd",
                  learning_rate: float = 0.01, seed: int = 0,
                  clipnorm=None, clipvalue=None):
-        self.spec = _as_spec(keras_model)
+        self.spec, self.keras_model = _as_spec(keras_model)
         self.loss = loss
         self.loss_fn = get_loss(loss)
         self.worker_optimizer = worker_optimizer
@@ -366,8 +377,13 @@ class Trainer:
                         f"{type(dataset)}")
 
     def _finalize(self, params, nt):
+        """Keep the trained trees; a Keras model gets them written back and
+        is returned itself."""
         self.trained_params_ = params
         self.trained_nt_ = nt
+        if self.keras_model is not None:
+            keras_weights_to_model(self.keras_model, params, nt)
+            return self.keras_model
         return params
 
 
@@ -394,7 +410,7 @@ class DistributedTrainer(Trainer):
                  compression=None, pull_compression: str | None = None,
                  trace: bool = False, trace_dir=None,
                  trace_sample: float = 1.0, ps_fused_exchange: bool = True,
-                 **later):
+                 ps_pipeline_depth: int = 0, **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
@@ -424,25 +440,32 @@ class DistributedTrainer(Trainer):
             raise ValueError(
                 f"backend must be 'collective' or 'ps', got {backend!r}")
         self.backend = backend
-        if ps_transport in ("shm", "native"):
-            raise NotImplementedError(
-                f"ps_transport={ps_transport!r} is not ported yet: "
-                f"ROADMAP.md A7.5 (the shared-memory and native transports)")
-        if ps_transport not in ("inprocess", "socket"):
-            raise ValueError(f"ps_transport must be 'inprocess' or 'socket', "
-                             f"got {ps_transport!r}")
-        if ps_host is not None and ps_transport != "socket":
-            raise ValueError("ps_host requires ps_transport='socket' (an "
-                             "external PS is reached over TCP)")
+        # the PS transports: in-process (worker threads call the center),
+        # TCP socket, the C++ native PS (flat f32 wire, a fold without the
+        # GIL; native_ps.py) or shared-memory rings (colocated; shm.py)
+        if ps_transport not in ("inprocess", "socket", "native", "shm"):
+            raise ValueError(
+                f"ps_transport must be 'inprocess', 'socket', 'native', or "
+                f"'shm', got {ps_transport!r}")
+        if ps_host is not None and ps_transport not in ("socket", "native"):
+            raise ValueError(
+                "ps_host requires ps_transport='socket' or 'native' (an "
+                "external PS is only reachable over TCP; ps_transport='shm' "
+                "is colocated-only: its rings live in this host's /dev/shm)")
         self.ps_transport = ps_transport
         self.ps_port = int(ps_port)
         self.ps_host = ps_host
         self.worker_id_offset = int(worker_id_offset)
         if compression is not None:
-            resolve_codec(compression)  # fail fast on bad values
+            codec = resolve_codec(compression)  # fail fast on bad values
             if backend != "ps":
                 raise ValueError("compression applies to backend='ps' only "
                                  "(collective merges cross no wire)")
+            if ps_transport == "native" and type(codec) is not Int8Codec:
+                raise ValueError(
+                    "ps_transport='native' supports the stock "
+                    "compression='int8' only (its C++ fold is that codec); "
+                    "use 'socket' for other codecs")
         self.compression = compression
         if pull_compression is not None:
             validate_pull_compression(pull_compression)
@@ -454,7 +477,38 @@ class DistributedTrainer(Trainer):
         self.trace_dir = trace_dir
         self.trace_sample = float(trace_sample)
         self.trace_path_ = None
+        # ps_fused_exchange: each window's commit + pull in one EXCHANGE
+        # round trip. ps_pipeline_depth: 0 the serial loop; 1 launches
+        # window N+1 on the card, then exchanges window N on the host while
+        # it runs, the delta one window stale and priced into DynSGD's τ
+        # through the exchange's lag flag
         self.ps_fused_exchange = bool(ps_fused_exchange)
+        self.ps_pipeline_depth = int(ps_pipeline_depth)
+        if self.ps_pipeline_depth not in (0, 1):
+            raise ValueError(
+                f"ps_pipeline_depth must be 0 (serial) or 1 (one window in "
+                f"flight), got {ps_pipeline_depth}: one exchange already "
+                f"hides behind one window, and each extra window adds "
+                f"DynSGD staleness")
+        if self.ps_pipeline_depth and backend != "ps":
+            raise ValueError(
+                "ps_pipeline_depth applies to backend='ps' only (the "
+                "collective backend has no worker-hosted exchange loop)")
+        if self.ps_pipeline_depth and not self.ps_fused_exchange:
+            raise ValueError(
+                "ps_pipeline_depth >= 1 requires ps_fused_exchange=True: "
+                "only the fused EXCHANGE action carries the lag flag that "
+                "prices the pipeline's one-window staleness into DynSGD τ")
+        if self.ps_pipeline_depth and compression is not None \
+                and ps_transport == "native":
+            raise ValueError(
+                "ps_pipeline_depth >= 1 with compression on "
+                "ps_transport='native' is unsupported: the segmented int8 "
+                "commit wire has no fused EXCHANGE frame, and its two-trip "
+                "fallback cannot carry the pipeline's lag pricing; use "
+                "ps_transport='socket' or drop one of the two")
+        if not self.ps_fused_exchange and backend != "ps":
+            raise ValueError("ps_fused_exchange applies to backend='ps' only")
         self.ps_stats_ = None
 
     def allocate_merge_rule(self) -> MergeRule:

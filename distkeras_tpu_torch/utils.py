@@ -1,7 +1,7 @@
 """Small helpers shared across the port: device resolution, nested-dict
-tree maps and the host tree walk of the parameter server, weight
-serialization, the reference's row helpers, and the training history and
-timer the trainers keep."""
+tree maps and the host tree walk of the parameter server, weight and Keras
+model serialization, the reference's row helpers, and the training history
+and timer the trainers keep."""
 
 from __future__ import annotations
 
@@ -119,6 +119,24 @@ def deserialize_weights(data: bytes):
     with np.load(io.BytesIO(payload["npz"])) as npz:
         leaves = [npz[k] for k in npz.files]
     return unflatten(payload["structure"], leaves)
+
+
+def serialize_keras_model(model) -> dict:
+    """A Keras 3 model as ``{"model": architecture JSON, "weights": [numpy
+    arrays]}``, the reference's ``serialize_keras_model``
+    (``model.to_json()`` and ``model.get_weights()``)."""
+    return {"model": model.to_json(),
+            "weights": [np.asarray(w) for w in model.get_weights()]}
+
+
+def deserialize_keras_model(payload: Mapping):
+    """The Keras model :func:`serialize_keras_model` described, rebuilt
+    with its weights (Keras is imported here, never at package import)."""
+    import keras
+
+    model = keras.models.model_from_json(payload["model"])
+    model.set_weights(payload["weights"])
+    return model
 
 
 def uniform_weights(tree, bounds=(-0.5, 0.5), seed: int = 0):

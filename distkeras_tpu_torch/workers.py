@@ -2,7 +2,8 @@
 
 Port of ``distkeras_tpu/workers.py`` (``AsyncWorker``,
 ``run_async_training``, ``aggregate_exchange_phases``, ``_BoundPS``) for a
-fixed pool of workers over the in-process or socket transport. Each worker
+fixed pool of workers over the in-process, socket, shared-memory (``shm``)
+or native transport. Each worker
 is a host thread that pulls the center, runs ``communication_window``
 local steps on the card (``torch.func.grad_and_value`` of the trainer's
 loss step, then the optimizer: K5 for ``fused_adam``, and K6/K7 inside an
@@ -18,6 +19,15 @@ What a worker commits (the reference's payloads):
 - AEASGD / EAMSGD: the elastic difference ``alpha · (worker − center)``
   against a freshly pulled center; the worker subtracts the transmitted
   difference from itself and keeps its own variable.
+
+With ``ps_pipeline_depth=1`` the delta rules pipeline: a worker launches
+window N+1 on the card, then exchanges window N on the host while the card
+runs (the elastic rules keep the serial loop: their commit needs a fresh
+pull). Window N+1 starts from ``C_{N-1} + sent_N``, the freshest center in
+hand plus this window's own transmitted update, and exchange N carries
+``lag=True`` so DynSGD prices the extra window of staleness. The loop reads
+nothing off the card between launching window N+1 and finishing exchange
+N: window N's loss came to the host with its params, before N+1 launched.
 
 Every worker runs on the trainer's one device, each launching its own
 kernels (``G = 1``) on the current stream; placing workers across cards is
@@ -39,6 +49,7 @@ import torch
 from distkeras_tpu_torch import utils
 from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.parallel.compression import (
+    Int8Codec,
     maybe_decode,
     resolve_codec,
     validate_pull_compression,
@@ -131,7 +142,8 @@ class AsyncWorker:
 
     def __init__(self, worker_id: int, device, window_fn, ps, rule,
                  window: int, batch_size: int, nt, history: list,
-                 lock: threading.Lock, codec=None, fused: bool = True):
+                 lock: threading.Lock, codec=None, fused: bool = True,
+                 pipeline_depth: int = 0):
         self.worker_id = worker_id
         self.device = device
         self.window_fn = window_fn
@@ -148,8 +160,13 @@ class AsyncWorker:
         self._resid = None
         # fused: commit + pull in one EXCHANGE round trip (delta rules)
         self.fused = bool(fused)
+        # ps_pipeline_depth: 1 runs the pipelined loop (delta rules only)
+        self.pipeline_depth = int(pipeline_depth)
         self.error: BaseException | None = None
         self._stage_delta: list | None = None
+        # the pipelined re-base's two alternating staging sets
+        self._stage_base: list | None = None
+        self._base_flip = 0
         self._phases: dict[str, dict] = {}
         self._xid = 0
         # the trainer's stall watch: when this worker last finished a
@@ -205,13 +222,31 @@ class AsyncWorker:
                for h, c, s in zip(hleaves, cleaves, self._stage_delta)]
         return utils.unflatten(structure, out)
 
-    def _do_exchange(self, blob):
+    def _rebase_host(self, center, sent):
+        """The pipelined re-base ``center + sent`` into one of two
+        alternating staging sets: the set window N's params were copied
+        from is rewritten only at window N+2, so nothing can overwrite a
+        buffer a transfer may still read."""
+        cleaves, structure = utils.flatten(center)
+        sleaves = utils.flatten(sent)[0]
+        if self._stage_base is None:
+            self._stage_base = [[np.empty(np.shape(c), np.asarray(c).dtype)
+                                 for c in cleaves] for _ in range(2)]
+        bufs = self._stage_base[self._base_flip]
+        self._base_flip ^= 1
+        out = [np.add(np.asarray(c), np.asarray(s), out=b)
+               for c, s, b in zip(cleaves, sleaves, bufs)]
+        return utils.unflatten(structure, out)
+
+    def _do_exchange(self, blob, lag: bool = False):
         """One exchange: the fused round trip when enabled and the client
-        speaks it (its time lands in ``commit``), else commit then pull."""
+        speaks it (its time lands in ``commit``), else commit then pull.
+        Only the fused exchange carries ``lag`` (the trainer refuses the
+        pipeline without it)."""
         t0 = time.perf_counter()
         exchange = getattr(self.ps, "exchange", None) if self.fused else None
         if exchange is not None:
-            center = exchange(self.worker_id, blob)
+            center = exchange(self.worker_id, blob, lag=lag)
             self._phase("commit", t0)
         else:
             self.ps.commit(self.worker_id, blob)
@@ -230,69 +265,107 @@ class AsyncWorker:
             self.error = e
 
     def _train(self, index, shard_cols, num_epoch, shuffle, seed):
+        """The window loop. A delta rule's window ends in a pending
+        exchange: at depth 0 it is flushed before the next window
+        launches, at depth 1 just after (window N's exchange runs on the
+        host while window N+1 runs on the card, and N+1 starts from
+        ``C_{N-1} + sent_N``). ``compute`` spans a window's launch to its
+        loss on the host, so at depth 1 it contains the previous window's
+        exchange. An elastic rule's commit needs a fresh pull, so it cannot
+        be deferred: it always exchanges serially."""
         rows = len(shard_cols[0])
         win_rows = self.window * self.batch_size
         n_windows = rows // win_rows
         elastic = isinstance(self.rule, ElasticAverageMerge)
+        pipelined = self.pipeline_depth >= 1 and not elastic
         center = self.ps.pull(self.worker_id)
         params = _to_device(center, self.device)
+        base = center          # the window's start, on the host
         nt = _to_device(self.nt, self.device)
         opt = self.window_fn.init_opt(params)
+        pending = None         # window N's (blob, loss, epoch, corr)
         for epoch in range(num_epoch):
             order = (np.random.default_rng((seed, index, epoch))
                      .permutation(rows) if shuffle else np.arange(rows))
             for w in range(n_windows):
-                sl = order[w * win_rows:(w + 1) * win_rows]
-                batches = tuple(
-                    torch.as_tensor(c[sl].reshape(
-                        (self.window, self.batch_size) + c.shape[1:]))
-                    .to(self.device) for c in shard_cols)
-                t0 = time.perf_counter()
+                batches = self._batches(
+                    shard_cols, order[w * win_rows:(w + 1) * win_rows])
+                t_launch = time.perf_counter()
                 params, nt, opt, loss = self.window_fn(params, nt, opt,
                                                        batches)
-                params, center = self._exchange_window(
-                    params, center, loss, epoch, elastic, t0)
+                if pending is not None:
+                    center = self._flush(pending, lag=True)
+                    pending = None
+                if _trace.enabled():
+                    self._xid += 1
+                    _trace.set_corr(f"w{self.worker_id}:x{self._xid}")
+                loss = float(loss)   # waits for this window on the card
+                t0 = self._phase("compute", t_launch)
+                if elastic:
+                    params, center = self._elastic_exchange(params, t0)
+                    self._window_done(loss, epoch)
+                    continue
+                delta = self._window_delta(params, base)
+                t0 = self._phase("fetch", t0)
+                blob, sent = self._compress(delta, owned=True)
+                self._phase("compress", t0)
+                pending = (blob, loss, epoch,
+                           _trace.current_corr() if _trace.enabled()
+                           else None)
+                if pipelined:
+                    base = self._rebase_host(center, sent)
+                else:
+                    center = base = self._flush(pending)
+                    pending = None
+                params = _to_device(base, self.device)
+        if pending is not None:
+            self._flush(pending, lag=True)   # the last window's exchange
         self.final_nt = utils.tree_to_numpy(nt)
 
-    def _exchange_window(self, params, center, loss, epoch: int,
-                         elastic: bool, t_launch: float):
-        """The per-window exchange. Returns the re-based ``(params,
-        center)``."""
-        if _trace.enabled():
-            self._xid += 1
-            _trace.set_corr(f"w{self.worker_id}:x{self._xid}")
-        loss = float(loss)   # waits for the window's compute on the card
-        t0 = self._phase("compute", t_launch)
-        if elastic:
-            # a fresh center at exchange time (EASGD), the elastic
-            # difference committed, and the worker moved by the
-            # transmitted difference (symmetric under lossy compression);
-            # the commit depends on the pull, so it cannot be fused
-            center = self.ps.pull(self.worker_id)
-            t0 = self._phase("pull", t0)
-            host_params = utils.tree_to_numpy(params)
-            t0 = self._phase("fetch", t0)
-            diff = self.rule.worker_commit(host_params, center)
-            blob, sent = self._compress(diff)
-            t0 = self._phase("compress", t0)
-            self.ps.commit(self.worker_id, blob)
-            self._phase("commit", t0)
-            params = _to_device(
-                tree_map(lambda p, d: p - d, host_params, sent), self.device)
-        else:
-            delta = self._window_delta(params, center)
-            t0 = self._phase("fetch", t0)
-            blob, _ = self._compress(delta, owned=True)
-            self._phase("compress", t0)
-            center = self._do_exchange(blob)
-            params = _to_device(center, self.device)
+    def _batches(self, shard_cols, sl):
+        return tuple(torch.as_tensor(c[sl].reshape(
+            (self.window, self.batch_size) + c.shape[1:])).to(self.device)
+            for c in shard_cols)
+
+    def _elastic_exchange(self, params, t0: float):
+        """An elastic rule's exchange: a fresh center at exchange time
+        (EASGD), the elastic difference committed, and the worker moved by
+        the transmitted difference (symmetric under lossy compression).
+        The commit depends on the pull, so it cannot be fused. Returns the
+        moved ``(params, center)``."""
+        center = self.ps.pull(self.worker_id)
+        t0 = self._phase("pull", t0)
+        host_params = utils.tree_to_numpy(params)
+        t0 = self._phase("fetch", t0)
+        diff = self.rule.worker_commit(host_params, center)
+        blob, sent = self._compress(diff)
+        t0 = self._phase("compress", t0)
+        self.ps.commit(self.worker_id, blob)
+        self._phase("commit", t0)
+        params = _to_device(
+            tree_map(lambda p, d: p - d, host_params, sent), self.device)
+        return params, center
+
+    def _flush(self, pending, lag: bool = False):
+        """Exchange one window's commit (``lag=True`` when it was deferred
+        behind the next window); its history row lands when its exchange
+        completes. Returns the fresh center."""
+        blob, loss, epoch, corr = pending
+        if corr is not None:
+            _trace.set_corr(corr)
+        center = self._do_exchange(blob, lag=lag)
+        self._window_done(loss, epoch)
+        return center
+
+    def _window_done(self, loss: float, epoch: int) -> None:
+        """A window's exchange completed: its history row, and the stall
+        watch's progress mark."""
         with self.lock:
             self.history.append({"loss": loss, "epoch": epoch,
                                  "worker": self.worker_id})
         now = time.monotonic()
         self.slowest_s = max(self.slowest_s, now - self.progress_t)
         self.progress_t = now
-        return params, center
 
 
 class _BoundPS:
@@ -315,9 +388,9 @@ class _BoundPS:
     def commit(self, worker_id: int | None, payload):
         self._ps.commit(self.worker_id, payload)
 
-    def exchange(self, worker_id: int | None, payload):
+    def exchange(self, worker_id: int | None, payload, lag: bool = False):
         blob, _applied = self._ps.exchange(
-            self.worker_id, payload,
+            self.worker_id, payload, lag=lag,
             compressed=self.pull_compression == "int8")
         return maybe_decode(blob)
 
@@ -362,6 +435,11 @@ def run_async_training(trainer, ds, shuffle: bool):
     offset = int(trainer.worker_id_offset)
     codec = resolve_codec(trainer.compression)
     pull_comp = trainer.pull_compression
+    if codec is not None and transport == "native":
+        # the trainer admits only the stock Int8Codec here; every float
+        # leaf rides the segmented wire: its flat frame has no raw
+        # passthrough for small leaves
+        codec = Int8Codec(min_size=1)
 
     trace_dir = trainer.trace_dir
     trace_on = bool(trainer.trace) or trace_dir is not None
@@ -372,11 +450,43 @@ def run_async_training(trainer, ds, shuffle: bool):
     trainer.ps_stats_ = None
 
     ps = None
-    if external_host is not None:
+    if external_host is not None and transport == "native":
+        from distkeras_tpu_torch.native_ps import FlatSpec, NativePSClient
+
+        flat_spec = FlatSpec(params)
+
+        def make_client(i):
+            return NativePSClient(external_host, int(trainer.ps_port),
+                                  offset + i, flat_spec,
+                                  pull_compression=pull_comp)
+    elif external_host is not None:
         def make_client(i):
             return ParameterServerClient(external_host, int(trainer.ps_port),
                                          offset + i,
                                          pull_compression=pull_comp)
+    elif transport == "native":
+        from distkeras_tpu_torch.native_ps import (
+            NativePSClient,
+            NativeSocketParameterServer,
+        )
+
+        ps = NativeSocketParameterServer(params, rule, W,
+                                         port=trainer.ps_port)
+        ps.initialize()
+        ps.start()
+
+        def make_client(i):
+            return NativePSClient("127.0.0.1", ps.port, i, ps.spec,
+                                  pull_compression=pull_comp)
+    elif transport == "shm":
+        from distkeras_tpu_torch.shm import ShmParameterServer, ShmPSClient
+
+        ps = ShmParameterServer(params, rule, W)
+        ps.initialize()
+        ps.start()
+
+        def make_client(i):
+            return ShmPSClient(ps, i, pull_compression=pull_comp)
     elif transport == "socket":
         ps = SocketParameterServer(params, rule, W, port=trainer.ps_port)
         ps.initialize()
@@ -407,7 +517,8 @@ def run_async_training(trainer, ds, shuffle: bool):
         workers = [AsyncWorker(i, trainer.device, window_fn, clients[i], rule,
                                trainer.communication_window,
                                trainer.batch_size, nt, history, hlock,
-                               codec=codec, fused=trainer.ps_fused_exchange)
+                               codec=codec, fused=trainer.ps_fused_exchange,
+                               pipeline_depth=trainer.ps_pipeline_depth)
                    for i in range(W)]
         threads = [threading.Thread(
             target=w.train, daemon=True, name=f"distkeras-worker-{i}",

@@ -37,7 +37,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                    "ml_dtypes", "distkeras_tpu",
+                                    "ml_dtypes", "keras", "distkeras_tpu",
                                     "distkeras"))
 missing = sorted(set(sys.argv[1:]) - set(names))
 print(len(names), missing, bad)
@@ -47,10 +47,14 @@ print(len(names), missing, bad)
 #: must be among those the probe imports
 _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "parameter_servers", "workers", "observability.trace",
-                "parallel.compression", "examples.mnist"]
+                "parallel.compression", "examples.mnist", "shm", "native",
+                "native_ps", "model"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Every module of the package, the shm and native transports among
+    them, imports in a fresh process without jax, flax, optax, keras or
+    anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
     out = subprocess.run(

@@ -171,7 +171,7 @@ def test_predictor_later_options_name_their_item():
         tpred.ModelPredictor(spec, params, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A11.5"):
         tpred.ModelPredictor(spec, params, quantize=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="Keras 3 model or"):
         tpred.ModelPredictor(object(), params, device="cpu")
     with pytest.raises(ValueError, match="explicit params"):
         tpred.ModelPredictor(spec, device="cpu")
