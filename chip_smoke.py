@@ -122,7 +122,28 @@ Phases, in order; any failure exits non-zero and prints no result:
     worker's loss falling, held-out accuracy above PS3_ACC_BAR; its
     window's phases, τ and the center lock's hold printed); each phase
     prints its wall time;
-14. print the ``kernels`` JSON line (K1 as one decode step and, as
+14. the parameter server's resilience layer on config 5 (8 workers, batch
+    64, window 4, fused Adam, 2 epochs of 3 windows), each phase one JSON
+    line, its launches counted alone and gated (K5, K6 and K7 once a step
+    actually taken; lifetime folds equal the commits the clients saw
+    acknowledged; the loss falling): ``ps_config5_chaos_socket`` (socket
+    PS with a WAL snapshotting every PS5_SNAPSHOT_EVERY commits,
+    ``RetryPolicy(seed=0)``, heartbeats with a lease below the restart
+    delay, ``FaultPlan(seed=0, drop_recv=PS5_DROP, kill_at={3: 2})`` and a
+    restart budget of one: some replay refused, one restart, some
+    eviction, every worker's loss falling, the log recovered to the final
+    center bit for bit, ``python -m distkeras_tpu_torch.resilience.wal
+    verify`` clean), ``ps_config5_failover`` (a hot standby and a WAL, the
+    primary killed after half the commits: one failover at fence epoch 1,
+    the final center the standby's, the failover time printed beside the
+    timeout) and ``ps_config5_native_wal`` (the native PS's C++ WAL with
+    heartbeats and retries, crash()ed after the last exchange: the port's
+    ``recover_ps_state`` gives the center last served bit for bit, with
+    ``num_updates``, ``last_seq`` and ``fence_epoch``); the WAL phases
+    print the durability cost (window time, ``ps.wal_wait`` total, fsyncs,
+    bytes, the temporary directory's filesystem) beside the in-process
+    window;
+15. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, K6 and K7 with their G=1 times), read
     config 3's gates (``ps3_failures``), then the
@@ -136,10 +157,14 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 
@@ -194,6 +219,20 @@ PS5_W, PS5_WINDOWS, PS5_EPOCHS = 8, 3, 2
 PS_PARITY_WINDOWS = 2     # the one-worker kernels-vs-plain PS run
 PS_DISP_FRAC = 0.25       # its per-leaf displacement agreement
 PS_PIPE_WINDOWS = 3       # the one-worker serial-vs-pipelined native run
+# the resilience phases: config 5 as PS5_* runs it, through the socket PS
+# under chaos (drops, a worker killed and restarted), through a standby
+# failover, and through the native PS's C++ write-ahead log. The chaos
+# phase's lease lapses during the killed worker's restart delay while its
+# peers still heartbeat (windows of ~0.4 s: the eviction is seen), and
+# stays above a live worker's heartbeat gap (a window and its exchange)
+PS5_DROP = 0.15           # the chaos phase's drop_recv
+PS5_KILL = {3: 2}         # worker 3 dies at its window 2
+PS5_HEARTBEAT, PS5_LEASE, PS5_RESTART_DELAY = 0.05, 1.0, 2.0
+PS5_ATTEMPTS = 12         # tries a call: a try fails with p ~ 0.28
+PS5_MAX_DELAY = 0.2       # backoff cap: a replay reaches the server well
+#                           inside the lease its fold renewed
+PS5_SNAPSHOT_EVERY = 16   # snapshots (and log truncation) in the run
+PS5_FAILOVER_TIMEOUT = 2.0
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -1889,6 +1928,444 @@ def compare_ps_window(torch, train):
     return rec
 
 
+def _config5(transport: str, **kw):
+    """Config 5 as ``run_ps_lstm`` runs it (PS5_W workers of batch
+    IMDB_BATCH, window IMDB_WINDOW, fused Adam, PS5_EPOCHS epochs of
+    PS5_WINDOWS windows) on ``transport`` with the resilience ``kw``:
+    ``(trainer, its rows)``."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T, embed_dim=IMDB_E,
+                           hidden_dim=IMDB_H)
+    t = DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
+               learning_rate=IMDB_LR, features_col=["features", "mask"],
+               num_workers=PS5_W, batch_size=IMDB_BATCH,
+               communication_window=IMDB_WINDOW, num_epoch=PS5_EPOCHS,
+               backend="ps", ps_transport=transport, device=DEVICE, **kw)
+    return t, PS5_W * IMDB_BATCH * IMDB_WINDOW * PS5_WINDOWS
+
+
+def _fs_type(path: str) -> str:
+    return subprocess.run(["stat", "-f", "-c", "%T", path],
+                          capture_output=True, text=True, timeout=30,
+                          check=True).stdout.strip()
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, n))
+               for n in os.listdir(path))
+
+
+@contextlib.contextmanager
+def _traced():
+    """Span recording over the block (the trainer leaves a tracer it did
+    not enable on); yields a list that receives the events."""
+    from distkeras_tpu_torch.observability import trace as _trace
+
+    _trace.enable()
+    out: list = []
+    try:
+        yield out
+        out.extend(_trace.events())
+    finally:
+        _trace.disable()
+
+
+def _windows_run(history) -> int:
+    return sum(1 for r in history if "loss" in r)
+
+
+def _phase_gates(name, t, launches, extra) -> list:
+    """The gates every resilience phase shares, as messages: the
+    exactly-once oracle (lifetime folds equal the commits the clients saw
+    acknowledged; ``extra`` says whether ``commits`` counts the run too),
+    the loss falling, and K5, K6 and K7 launched once a step actually
+    taken."""
+    out = []
+    s, r = t.ps_stats_, t.resilience_stats_
+    windows = _windows_run(t.history.records)
+    if not s["num_updates"] == r["logical_commits"] == windows:
+        out.append(f"{name}: {s['num_updates']} folds, "
+                   f"{r['logical_commits']} logical commits, {windows} "
+                   f"windows exchanged: not exactly once")
+    if extra and s["commits"] != r["logical_commits"]:
+        out.append(f"{name}: {s['commits']} commits counted against "
+                   f"{r['logical_commits']} logical")
+    fell, means = _worker_loss_fell(t.history.records, PS5_W, PS5_EPOCHS)
+    if not fell:
+        out.append(f"{name}: the loss did not fall: {means}")
+    steps = windows * IMDB_WINDOW
+    for k in ("fused_adam", "lstm_forward", "lstm_backward"):
+        if launches[k] != steps:
+            out.append(f"{name}: {k} launched {launches[k]} times, expected "
+                       f"{steps} (once a step actually taken)")
+    return out
+
+
+def train_ps_lstm_chaos(torch, train, serial):
+    """Config 5 through the socket PS under chaos: a write-ahead log
+    (``ps_wal_dir`` in a fresh temporary directory, a snapshot every
+    PS5_SNAPSHOT_EVERY commits, so the log rotates and truncates),
+    ``RetryPolicy(seed=0)``, heartbeats with a lease shorter than the
+    restart delay, and ``FaultPlan(seed=0, drop_recv=PS5_DROP,
+    kill_at=PS5_KILL)`` installed with ``with plan:``, a restart budget of
+    one. Gates: exactly once (``commits == logical_commits``), some replay
+    refused (``dup_commits >= 1``), one restart, some eviction, every
+    worker's loss falling, ``recover_ps_state`` of the log equal to the
+    final center bit for bit (``num_updates`` too), the ``wal`` CLI's
+    verify clean, and K5/K6/K7 once a step actually taken. Prints the
+    durability cost beside ``serial``'s (the in-process run's) window."""
+    from distkeras_tpu_torch import workers
+    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
+    from distkeras_tpu_torch.resilience import (
+        FaultPlan,
+        RetryPolicy,
+        recover_ps_state,
+    )
+
+    wal_dir = tempfile.mkdtemp(prefix="dk-wal-chaos-")
+    try:
+        plan = FaultPlan(seed=0, drop_recv=PS5_DROP, kill_at=dict(PS5_KILL))
+        t, rows = _config5(
+            "socket", ps_wal_dir=wal_dir,
+            ps_snapshot_every=PS5_SNAPSHOT_EVERY,
+            retry_policy=RetryPolicy(seed=0, max_attempts=PS5_ATTEMPTS,
+                                     max_delay=PS5_MAX_DELAY),
+            heartbeat_interval=PS5_HEARTBEAT, lease_timeout=PS5_LEASE,
+            worker_restart_budget=1, worker_restart_delay=PS5_RESTART_DELAY,
+            fault_plan=plan)
+
+        def run():
+            with _traced() as events, \
+                    _servers_built(workers, "SocketParameterServer") as made, \
+                    warnings.catch_warnings(), plan:
+                warnings.simplefilter("ignore")   # the restart warning
+                t0 = time.perf_counter()
+                center = t.train(train.gather(np.arange(rows)))
+                wall = time.perf_counter() - t0
+            return center, wall, events, made
+
+        (center, wall, events, made), launches = counted(run)
+        s, r = t.ps_stats_, t.resilience_stats_
+        state = recover_ps_state(wal_dir, DynSGDMerge(), PS5_W, None)
+        recovered_equal = state is not None and all(
+            np.array_equal(state["center"][k], center[k].numpy())
+            for k in center)
+        cli = subprocess.run(
+            [sys.executable, "-m", "distkeras_tpu_torch.resilience.wal",
+             "verify", wal_dir], capture_output=True, text=True, timeout=120)
+        verify = json.loads(cli.stdout) if cli.stdout else {}
+        phases = _phase_summary(s["exchange_phases"])
+        rec = dict(
+            phase="ps_config5_chaos_socket", wall_s=wall,
+            window_ms=sum(v["mean_ms"] for v in phases.values()),
+            inprocess_window_ms=serial["window_wall_ms"],
+            inprocess_window_ms_from_phases=sum(
+                v["mean_ms"] for v in serial["exchange_phases"].values()),
+            wal_wait_total_ms=sum(e["dur_ns"] for e in events
+                                  if e["name"] == "ps.wal_wait") / 1e6,
+            wal_fsyncs=s["wal_fsyncs"], wal_records=s["wal_records"],
+            wal_group_max=s["wal_group_max"],
+            wal_bytes_written=made[0]._wal.bytes_written,
+            wal_fs=_fs_type(wal_dir),
+            commits=s["commits"], num_updates=s["num_updates"],
+            logical_commits=r["logical_commits"],
+            dup_commits=s["dup_commits"], retries=r["retries"],
+            reconnects=r["reconnects"], restarts=r["restarts"],
+            evicted_workers=s["evicted_workers"],
+            heartbeats=s["heartbeats"], worker_retries=s["worker_retries"],
+            faults=plan.stats(), recovered_num_updates=(
+                None if state is None else state["num_updates"]),
+            recovered_equal=recovered_equal, verify_rc=cli.returncode,
+            verify_ok=verify.get("ok"),
+            verify_torn_tail_bytes=verify.get("torn_tail_bytes"),
+            verify_record_totals=verify.get("record_totals"),
+            snapshots=[x["version"] for x in verify.get("snapshots", [])],
+            worker_loss_fell=_each_worker_loss_fell(
+                t.history.records, PS5_W, PS5_EPOCHS),
+            launches=launches, exchange_phases=phases)
+        log(json.dumps(rec))
+        fails = _phase_gates("chaos", t, launches, extra=True)
+        if s["dup_commits"] < 1:
+            fails.append(f"chaos: no replay was refused (dup_commits "
+                         f"{s['dup_commits']}, faults {plan.stats()})")
+        if r["restarts"] != 1 or plan.stats()["kills"] != 1:
+            fails.append(f"chaos: {r['restarts']} restarts after "
+                         f"{plan.stats()['kills']} kills, expected 1")
+        if s["evicted_workers"] < 1:
+            fails.append("chaos: no worker was evicted")
+        if not all(rec["worker_loss_fell"]):
+            fails.append(f"chaos: a worker's loss did not fall: "
+                         f"{rec['worker_loss_fell']}")
+        if not (recovered_equal
+                and rec["recovered_num_updates"] == s["num_updates"]):
+            fails.append(f"chaos: the log recovers to "
+                         f"{rec['recovered_num_updates']} updates, equal "
+                         f"centers {recovered_equal}")
+        if not (cli.returncode == 0 and verify.get("ok")
+                and verify.get("torn_tail_bytes") == 0
+                and len(rec["snapshots"]) == 1):
+            fails.append(f"chaos: wal verify rc {cli.returncode}: "
+                         f"{cli.stdout[-2000:]} {cli.stderr[-2000:]}")
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _timed_servers():
+    """The socket servers (primary, standby) the trainer builds inside the
+    block, each stamping when it crashed (``t_crash``) and when it first
+    folded a commit (``t_first_fold``; a standby folds only once
+    promoted): yields the list they land in."""
+    from distkeras_tpu_torch import workers
+
+    made: list = []
+    names = ("SocketParameterServer", "StandbySocketParameterServer")
+    saved = {n: getattr(workers, n) for n in names}
+
+    def timed(cls):
+        class Timed(cls):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                self.t_crash = self.t_first_fold = None
+                made.append(self)
+
+            def _crash(self):
+                self.t_crash = time.perf_counter()
+                super()._crash()
+
+            def _fold_one_locked(self, work):
+                super()._fold_one_locked(work)
+                if self.t_first_fold is None and work.version:
+                    self.t_first_fold = time.perf_counter()
+
+        return Timed
+
+    for n, cls in saved.items():
+        setattr(workers, n, timed(cls))
+    try:
+        yield made
+    finally:
+        for n, cls in saved.items():
+            setattr(workers, n, cls)
+
+
+def train_ps_lstm_failover(torch, train):
+    """Config 5 through the socket PS with a hot standby and a write-ahead
+    log, the primary crash-stopped once half the run's commits folded
+    (``FaultPlan(kill_ps_after_commits=...)``). Gates: one failover, via
+    the standby, promoted at fence epoch 1; exactly once (lifetime folds
+    equal the logical commits); the loss falls; the final center is the
+    promoted standby's, and its own log replays to it bit for bit; K5/K6/K7
+    once a step actually taken. Prints the failover time (the kill to the
+    standby's first fold) and the failover timeout."""
+    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
+    from distkeras_tpu_torch.resilience import FaultPlan, recover_ps_state
+
+    wal_dir = tempfile.mkdtemp(prefix="dk-wal-failover-")
+    try:
+        kill_after = PS5_W * PS5_WINDOWS * PS5_EPOCHS // 2
+        plan = FaultPlan(kill_ps_after_commits=kill_after)
+        t, rows = _config5("socket", ps_standby=True, ps_wal_dir=wal_dir,
+                           ps_failover_timeout=PS5_FAILOVER_TIMEOUT,
+                           fault_plan=plan)
+
+        def run():
+            with _timed_servers() as made, warnings.catch_warnings(), plan:
+                warnings.simplefilter("ignore")   # the failover warning
+                t0 = time.perf_counter()
+                center = t.train(train.gather(np.arange(rows)))
+                wall = time.perf_counter() - t0
+            return center, wall, made
+
+        (center, wall, made), launches = counted(run)
+        s, r = t.ps_stats_, t.resilience_stats_
+        fo = r["ps_failover"]
+        primary = next(m for m in made if not hasattr(m, "is_standby"))
+        standby = next(m for m in made if hasattr(m, "is_standby"))
+        from_standby = all(np.array_equal(center[k].numpy(), v)
+                           for k, v in standby.get_model().items())
+        state = recover_ps_state(os.path.join(wal_dir, "standby"),
+                                 DynSGDMerge(), PS5_W, None)
+        replay_equal = state is not None and all(
+            np.array_equal(state["center"][k], center[k].numpy())
+            for k in center)
+        rec = dict(
+            phase="ps_config5_failover", wall_s=wall,
+            kill_after_commits=kill_after, failovers=fo["failovers"],
+            failover_log=fo["failover_log"],
+            failover_s=(None if None in (primary.t_crash,
+                                         standby.t_first_fold)
+                        else standby.t_first_fold - primary.t_crash),
+            failover_timeout_s=PS5_FAILOVER_TIMEOUT,
+            promoted=standby.promoted_, fence_epoch=standby.fence_epoch,
+            num_updates=s["num_updates"],
+            logical_commits=r["logical_commits"], retries=r["retries"],
+            reconnects=r["reconnects"], standby_num_updates=(
+                standby.num_updates), center_from_standby=from_standby,
+            standby_log_replays_equal=replay_equal,
+            epoch_mean_loss=_worker_loss_fell(t.history.records, PS5_W,
+                                              PS5_EPOCHS)[1],
+            launches=launches)
+        log(json.dumps(rec))
+        fails = _phase_gates("failover", t, launches, extra=False)
+        if not (fo["failovers"] == 1 and plan.stats()["ps_kills"] == 1
+                and fo["failover_log"][0]["via"] == "standby"):
+            fails.append(f"failover: {fo['failovers']} failovers after "
+                         f"{plan.stats()['ps_kills']} kills: "
+                         f"{fo['failover_log']}")
+        if not (standby.promoted_ and standby.fence_epoch == 1
+                and fo["failover_log"][0]["epoch"] == 1):
+            fails.append(f"failover: the standby promoted "
+                         f"{standby.promoted_} at fence epoch "
+                         f"{standby.fence_epoch}, expected 1")
+        if not (from_standby and standby.num_updates == s["num_updates"]
+                and replay_equal):
+            fails.append(f"failover: the final center is the standby's "
+                         f"{from_standby}, its log replays to it "
+                         f"{replay_equal}")
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _crash_at_first_close():
+    """The native server the trainer builds inside the block, with its C++
+    span ring armed, crash()ed at the first client close (every worker
+    done, none deregistered yet). Just before the crash, the live state is
+    read into the yielded dict: ``center``, ``num_updates``,
+    ``fence_epoch``, ``last_seq`` (each worker's last sent seqno, from its
+    client) and the ring's ``spans``."""
+    from distkeras_tpu_torch import native_ps
+    from distkeras_tpu_torch.resilience import retry
+
+    cap: dict = {}
+    servers: list = []
+    clients: list = []
+    srv_cls, cli_cls = native_ps.NativeSocketParameterServer, \
+        retry.ResilientPSClient
+
+    class Armed(srv_cls):
+        def initialize(self):
+            super().initialize()
+            self.set_trace(True)
+            servers.append(self)
+
+    class CrashAtClose(cli_cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            clients.append(self)
+
+        def close(self):
+            if not cap:
+                ps = servers[0]
+                cap.update(
+                    center=ps.spec.flatten(ps.get_model()),
+                    num_updates=ps.num_updates, fence_epoch=ps.fence_epoch,
+                    last_seq={c.worker_id: c._seq_epoch + c._wire_seq
+                              for c in clients if c.seq},
+                    spans=ps.scrape_trace_events())
+                ps.crash()
+            super().close()
+
+    native_ps.NativeSocketParameterServer = Armed
+    retry.ResilientPSClient = CrashAtClose
+    try:
+        yield cap
+    finally:
+        native_ps.NativeSocketParameterServer = srv_cls
+        retry.ResilientPSClient = cli_cls
+
+
+def train_ps_lstm_native_wal(torch, train, serial):
+    """Config 5 through the native PS, serially, with the C++ write-ahead
+    log (``ps_wal_dir``), heartbeats and ``RetryPolicy(seed=0)``; the
+    server crash()ed after the last exchange. Gate: the port's
+    ``recover_ps_state`` rebuilds from the C++ log the center last served,
+    bit for bit, with ``num_updates``, ``last_seq`` and ``fence_epoch``
+    equal; K5/K6/K7 once a step. Prints the durability cost beside
+    ``serial``'s window."""
+    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
+    from distkeras_tpu_torch.resilience import RetryPolicy, recover_ps_state
+
+    wal_dir = tempfile.mkdtemp(prefix="dk-wal-native-")
+    try:
+        # a lease long past the run: no eviction retires a dedup entry
+        # before the crash, so every worker's last seqno is in the log
+        t, rows = _config5(
+            "native", ps_wal_dir=wal_dir,
+            retry_policy=RetryPolicy(seed=0, max_attempts=PS5_ATTEMPTS),
+            heartbeat_interval=PS5_HEARTBEAT, lease_timeout=300.0)
+
+        def run():
+            with _crash_at_first_close() as cap:
+                t0 = time.perf_counter()
+                t.train(train.gather(np.arange(rows)))
+                wall = time.perf_counter() - t0
+            return cap, wall
+
+        (cap, wall), launches = counted(run)
+        s, r = t.ps_stats_, t.resilience_stats_
+        spec = t.spec
+        template, _ = spec.init_np(t.seed)
+        state = recover_ps_state(wal_dir, DynSGDMerge(), PS5_W, None,
+                                 template=template)
+        from distkeras_tpu_torch.native_ps import FlatSpec
+
+        flat = None if state is None else FlatSpec(template).flatten(
+            state["center"])
+        equal = flat is not None and np.array_equal(flat, cap["center"])
+        phases = _phase_summary(s["exchange_phases"])
+        rec = dict(
+            phase="ps_config5_native_wal", wall_s=wall,
+            window_wall_ms=1e3 * wall / (PS5_WINDOWS * PS5_EPOCHS),
+            window_ms=sum(v["mean_ms"] for v in phases.values()),
+            inprocess_window_ms=serial["window_wall_ms"],
+            inprocess_window_ms_from_phases=sum(
+                v["mean_ms"] for v in serial["exchange_phases"].values()),
+            wal_wait_total_ms=sum(e["dur_ns"] for e in cap["spans"]
+                                  if e["name"] == "ps.wal_wait") / 1e6,
+            wal_fsync_total_ms=sum(e["dur_ns"] for e in cap["spans"]
+                                   if e["name"] == "wal.fsync") / 1e6,
+            wal_fsyncs=s["wal_fsyncs"], wal_records=s["wal_records"],
+            wal_group_max=s["wal_group_max"],
+            wal_bytes_written=_dir_bytes(wal_dir), wal_fs=_fs_type(wal_dir),
+            num_updates=cap["num_updates"],
+            recovered_num_updates=(None if state is None
+                                   else state["num_updates"]),
+            center_bits_equal=equal,
+            last_seq_equal=(state is not None
+                            and state["last_seq"] == cap["last_seq"]),
+            fence_epoch=cap["fence_epoch"], recovered_fence_epoch=(
+                None if state is None else state["fence_epoch"]),
+            heartbeats=s["heartbeats"], logical_commits=r["logical_commits"],
+            launches=launches, exchange_phases=phases)
+        log(json.dumps(rec))
+        fails = _phase_gates("native_wal", t, launches, extra=True)
+        if not (equal and rec["last_seq_equal"]
+                and rec["recovered_num_updates"] == cap["num_updates"]
+                and rec["recovered_fence_epoch"] == cap["fence_epoch"]
+                and len(cap["last_seq"]) == PS5_W):
+            fails.append(f"native_wal: the C++ log recovers to "
+                         f"{rec['recovered_num_updates']} updates (live "
+                         f"{cap['num_updates']}), center bits equal {equal}, "
+                         f"last_seq equal {rec['last_seq_equal']}, fence "
+                         f"{rec['recovered_fence_epoch']} (live "
+                         f"{cap['fence_epoch']})")
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+
+
 def run_mnist_twin():
     """The MNIST example's twin (``distkeras_tpu_torch.examples.mnist``)
     in this process, once a MNIST_RUNS entry, held to the JAX example's
@@ -2103,6 +2580,22 @@ def main() -> int:
     log(json.dumps({"phase": "ps_config3_transports",
                     "wall_s": time.perf_counter() - t_ps}))
     torch.cuda.empty_cache()
+
+    # the resilience layer on config 5: chaos over the socket PS with a
+    # WAL, a standby failover, the native PS's C++ WAL (each counts its
+    # own launches and gates them)
+    resilience = {}
+    for name, fn in (
+            ("config5_chaos_socket",
+             lambda: train_ps_lstm_chaos(torch, train, lstm_rec)),
+            ("config5_failover",
+             lambda: train_ps_lstm_failover(torch, train)),
+            ("config5_native_wal",
+             lambda: train_ps_lstm_native_wal(torch, train, lstm_rec))):
+        resilience[name] = fn()
+        log(f"launches on the {name} path: "
+            f"{json.dumps(resilience[name]['launches'])}")
+        torch.cuda.empty_cache()
     log(f"parameter-server paths done at {time.perf_counter() - t0:.1f}s")
 
     def total(rows, pick, key):
@@ -2175,7 +2668,9 @@ def main() -> int:
             ps_launches={"config3_socket": ps3[name],
                          "config5_inprocess": ps5[name],
                          **{k: v[1][name] for k, v in vgg_runs.items()},
-                         "config5_native_pipelined": ps5p[name]},
+                         "config5_native_pipelined": ps5p[name],
+                         **{k: v["launches"][name]
+                            for k, v in resilience.items()}},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

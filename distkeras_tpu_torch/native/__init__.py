@@ -76,6 +76,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_server_get_center": (None, [vp, f32p]),
         "dkps_server_set_pool_size": (None, [vp, i64]),
         "dkps_server_stats": (None, [vp, u64p]),
+        "dkps_server_crash": (None, [vp]),
+        "dkps_server_wal_open": (ctypes.c_int, [vp, ctypes.c_char_p, u64,
+                                                ctypes.c_double]),
+        "dkps_server_set_num_updates": (None, [vp, u64]),
+        "dkps_server_restore_worker": (None, [vp, u32, i64, i64, i64]),
+        "dkps_server_fence": (u64, [vp, u64]),
+        "dkps_server_fence_epoch": (u64, [vp]),
+        "dkps_server_set_trace": (None, [vp, ctypes.c_int]),
         "dkps_client_from_fd": (vp, [ctypes.c_int, u32, u64]),
         "dkps_client_set_timeout_ms": (ctypes.c_int, [vp, ctypes.c_int]),
         "dkps_client_pull": (i64, [vp, f32p]),
@@ -84,6 +92,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_client_commit_int8": (ctypes.c_int, [
             vp, ctypes.POINTER(ctypes.c_int8), u64p, f32p, u32]),
         "dkps_client_exchange": (i64, [vp, u8, u64, u64, f32p, f32p, u64p]),
+        "dkps_client_commit_seq": (ctypes.c_int, [vp, u64, f32p]),
+        "dkps_client_commit_seq_e": (ctypes.c_int, [vp, u64, u64, f32p,
+                                                    u64p]),
+        "dkps_client_fence": (i64, [vp, u64]),
+        "dkps_client_heartbeat": (ctypes.c_int, [vp, u32]),
+        "dkps_client_deregister": (ctypes.c_int, [vp]),
+        "dkps_client_trace_scrape": (i64, [vp, u64p, u64]),
         "dkps_client_close": (None, [vp]),
     }
     for name, (restype, argtypes) in sig.items():

@@ -21,15 +21,21 @@ order into one f32 vector, in :func:`utils.flatten`'s order (dict keys
 sorted, as ``jax.tree`` walks them), so the vector is the JAX package's
 and either package's client works against the other's server.
 
-The C++ core keeps the write-ahead log, fencing, leases, the center's EMA
-and the trace ring of the whole design; this side never turns them on.
-Asking for them raises ``NotImplementedError`` naming ``ROADMAP.md`` A7.6
-or A8.
+The resilience layer is the C++ core's: per-worker seqno dedup
+(``COMMIT_SEQ``), fencing (``COMMIT_SEQ_E``, ``FENCE``), leases
+(``HEARTBEAT``, ``DEREGISTER``) and a group-commit write-ahead log in the
+Python PS's record format (flat f32 records). Recovery is this side's
+job: a server built with ``wal_dir`` replays ``(snapshot, wal)`` through
+the port's ``resilience.wal.recover_ps_state``, installs the state in the
+C++ server and publishes a fresh base snapshot before handing the live
+segment to the C++ appender. The center's EMA is ``ROADMAP.md`` A8 and
+raises naming it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import socket
 import struct
 import time
@@ -37,7 +43,7 @@ from typing import Any
 
 import numpy as np
 
-from distkeras_tpu_torch import utils
+from distkeras_tpu_torch import networking, utils
 from distkeras_tpu_torch.native import load_dkps
 from distkeras_tpu_torch.parallel.compression import (
     _MARK,
@@ -61,15 +67,12 @@ Tree = Any
 _MODE_FIXED = 0
 _MODE_INV_STALENESS = 1
 
-#: EXCHANGE flags (dkps.cpp, action 14): bit 2 an int8 reply, bit 3 lag
+#: EXCHANGE flags (dkps.cpp, action 14): bit 0 a seq, bit 1 an epoch,
+#: bit 2 an int8 reply, bit 3 lag
+_XCHG_SEQ = 1
+_XCHG_EPOCH = 2
 _XCHG_INT8 = 4
 _XCHG_LAG = 8
-
-_A76 = "ROADMAP.md A7.6 (resilience: fencing, WAL, leases)"
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {item}")
 
 
 def fold_mode(rule: MergeRule, num_workers: int) -> tuple[int, float]:
@@ -128,47 +131,146 @@ def _f32p(arr: np.ndarray):
 
 class NativeSocketParameterServer:
     """The C++ TCP parameter server with ``SocketParameterServer``'s
-    surface: ``initialize()`` binds (resolving an ephemeral port),
-    ``start()`` runs the C++ accept loop, ``stop()`` shuts it down and
-    joins every handler; ``get_model()`` and ``num_updates`` read the
-    center under the C++ mutex."""
+    surface: ``initialize()`` binds (resolving an ephemeral port) and,
+    with ``wal_dir``, recovers the directory's state and opens the C++
+    WAL; ``start()`` runs the C++ accept loop, ``stop()`` shuts it down
+    and joins every handler, ``crash()`` dies like a killed process;
+    ``get_model()``, ``num_updates`` and ``fence_epoch`` read the server
+    under its C++ mutex."""
 
     def __init__(self, center: Tree, rule: MergeRule, num_workers: int,
                  host: str = "127.0.0.1", port: int = 0,
                  ema_decay: float | None = None,
                  lease_timeout: float | None = None,
-                 wal_dir: str | None = None, fence_epoch: int = 0):
+                 wal_dir: str | None = None, snapshot_every: int = 100,
+                 fence_epoch: int = 0, wal_group_window: int = 8,
+                 wal_group_interval: float = 0.25):
         if ema_decay is not None:
-            raise _later("the native PS's center EMA",
-                         "ROADMAP.md A8 (checkpoints and EMA)")
-        if wal_dir is not None:
-            raise _later("the native PS's write-ahead log", _A76)
-        if lease_timeout is not None:
-            raise _later("the native PS's worker leases", _A76)
-        if fence_epoch:
-            raise _later("the native PS's fencing epochs", _A76)
+            raise NotImplementedError(
+                "the native PS's center EMA is not ported yet: ROADMAP.md "
+                "A8 (checkpoints and EMA)")
+        if lease_timeout is not None and lease_timeout <= 0:
+            raise ValueError(
+                f"lease_timeout must be positive, got {lease_timeout}")
         self._lib = load_dkps()
         self.spec = FlatSpec(center)
         self.rule = rule
         self.num_workers = int(num_workers)
         self.host = host
         self.port = int(port)
+        self.lease_timeout = lease_timeout
+        self.wal_dir = None if wal_dir is None else str(wal_dir)
+        self.snapshot_every = int(snapshot_every)
+        self.wal_group_window = int(wal_group_window)
+        self.wal_group_interval = float(wal_group_interval)
+        self._requested_fence_epoch = int(fence_epoch)
+        self.recovered_ = False
+        self.wal_replay_s = 0.0
+        self.crashed_ = False
         self._handle = None
         self._init_vec = self.spec.flatten(center)
 
     def initialize(self) -> None:
+        state = self._recover_wal_state()
         mode, scale = fold_mode(self.rule, self.num_workers)
+        init_vec = self._init_vec
+        if state is not None:
+            init_vec = np.ascontiguousarray(
+                self.spec.flatten(state["center"]))
         h = self._lib.dkps_server_create(
-            _f32p(self._init_vec), self.spec.n, mode, scale,
-            self.host.encode(), self.port, -1.0, -1.0)
+            _f32p(init_vec), self.spec.n, mode, scale,
+            self.host.encode(), self.port, -1.0,
+            -1.0 if self.lease_timeout is None else self.lease_timeout)
         if not h:
             raise OSError(f"dkps server failed to bind {self.host}:"
                           f"{self.port}")
         self._handle = h
         self.port = int(self._lib.dkps_server_port(h))
+        fence = self._requested_fence_epoch
+        if state is not None:
+            self._restore_state(state)
+            fence = max(fence, int(state["fence_epoch"]))
+        if fence:
+            self._lib.dkps_server_fence(h, fence)
         # the pool gauge of stats(), as the Python PS reports it
         self._lib.dkps_server_set_pool_size(h, self.num_workers)
+        if self.wal_dir is not None:
+            self._attach_wal(state)
         self._t_start = time.monotonic()
+
+    # -- durability: recovery is this side's, appending the C++ core's --------
+
+    def _recover_wal_state(self) -> dict | None:
+        if self.wal_dir is None:
+            return None
+        from distkeras_tpu_torch.resilience.wal import recover_ps_state
+
+        t0 = time.monotonic()
+        state = recover_ps_state(self.wal_dir, self.rule, self.num_workers,
+                                 None,
+                                 template=self.spec.unflatten(self._init_vec))
+        if state is not None:
+            self.recovered_ = True
+            self.wal_replay_s = time.monotonic() - t0
+        return state
+
+    def _restore_state(self, state: dict) -> None:
+        """Install the replayed state in the C++ server: the update count
+        and each worker's dedup seqno and pull versions (the exactly-once
+        fence and DynSGD's staleness bases)."""
+        self._lib.dkps_server_set_num_updates(self._handle,
+                                              int(state["num_updates"]))
+        prev = state.get("prev_pull_versions", {})
+        for wid in (set(state["pull_versions"]) | set(state["last_seq"])
+                    | set(prev)):
+            self._lib.dkps_server_restore_worker(
+                self._handle, int(wid),
+                int(state["last_seq"].get(wid, -1)),
+                int(state["pull_versions"].get(wid, -1)),
+                int(prev.get(wid, -1)))
+
+    def _attach_wal(self, state: dict | None) -> None:
+        """Publish a base snapshot at the (possibly recovered) version,
+        which truncates the history below it, through the same
+        ``CommitLog`` the Python PS writes with, then hand the live segment
+        to the C++ appender: a native log replays through
+        ``recover_ps_state`` like any other."""
+        from distkeras_tpu_torch.resilience import wal as _wal
+
+        version = self.num_updates
+        if state is not None:
+            snap_state = dict(state)
+            snap_state.pop("replayed", None)
+        else:
+            snap_state = _wal.ps_state_dict(
+                self.spec.unflatten(self._init_vec), 0, {}, {}, None, 0,
+                self.fence_epoch)
+        snap_state["fence_epoch"] = max(
+            int(snap_state.get("fence_epoch", 0)), self.fence_epoch)
+        log = _wal.CommitLog(self.wal_dir,
+                             snapshot_every=self.snapshot_every)
+        try:
+            # rotate, then publish: the live segment is opened (and its
+            # torn tail truncated) before the publish drops older history
+            log.rotate(version)
+            log.publish_snapshot(snap_state)
+        finally:
+            log.close()
+        seg_path = os.path.join(
+            self.wal_dir,
+            f"{_wal._SEG_PREFIX}{version:012d}{_wal._SEG_SUFFIX}")
+        rc = self._lib.dkps_server_wal_open(
+            self._handle, seg_path.encode(), max(0, self.wal_group_window),
+            self.wal_group_interval)
+        if rc != 0:
+            raise OSError(f"dkps could not open WAL segment {seg_path}")
+
+    def crash(self) -> None:
+        """Chaos seam: die like a killed process: connections torn, the
+        WAL abandoned with its unflushed window, no final fsync."""
+        if self._handle is not None:
+            self._lib.dkps_server_crash(self._handle)
+        self.crashed_ = True
 
     def start(self) -> None:
         self._lib.dkps_server_start(self._handle)
@@ -195,11 +297,57 @@ class NativeSocketParameterServer:
         self._lib.dkps_server_get_center(self._handle, _f32p(out))
         return self.spec.unflatten(out)
 
+    # -- fencing --------------------------------------------------------------
+
+    @property
+    def fence_epoch(self) -> int:
+        if self._handle is None:
+            return self._requested_fence_epoch
+        return int(self._lib.dkps_server_fence_epoch(self._handle))
+
+    def fence(self, epoch: int) -> int:
+        """Raise the fencing epoch (monotone; durable before it returns
+        with a WAL); returns the epoch after."""
+        return int(self._lib.dkps_server_fence(self._handle, int(epoch)))
+
+    # -- the C++ span ring ----------------------------------------------------
+
+    #: span kinds of the C++ ring (dkps.cpp ``TK_*``), in the Python
+    #: server's ``ps.*`` names
+    _TRACE_KINDS = {1: "ps.fold", 2: "ps.wal_wait", 3: "wal.fsync"}
+
+    def set_trace(self, on: bool) -> None:
+        """Arm (or disarm) the server's span ring: fold sections,
+        deferred-ACK WAL waits and group fsyncs (monotonic ns)."""
+        self._lib.dkps_server_set_trace(self._handle, 1 if on else 0)
+
+    def scrape_trace_events(self, max_records: int = 8192) -> list[dict]:
+        """Drain the span ring over the wire (TRACE, action 15): one dict a
+        span, ``{"name", "worker", "seq", "t0_ns", "dur_ns"}`` (``worker``
+        None for the flusher's fsyncs)."""
+        client = NativePSClient("127.0.0.1", self.port, 2**32 - 2, self.spec)
+        try:
+            buf = (ctypes.c_uint64 * (5 * max_records))()
+            n = int(self._lib.dkps_client_trace_scrape(client._handle, buf,
+                                                       max_records))
+        finally:
+            client.close()
+        if n < 0:
+            raise ConnectionError("dkps trace scrape failed")
+        out = []
+        for i in range(n):
+            kind, wid, seq, t0, dur = buf[5 * i:5 * i + 5]
+            out.append({"name": self._TRACE_KINDS.get(kind, f"ps.kind{kind}"),
+                        "worker": None if wid == 0xFFFFFFFF else int(wid),
+                        "seq": int(seq), "t0_ns": int(t0),
+                        "dur_ns": int(dur)})
+        return out
+
     def stats(self) -> dict:
         """``ParameterServer.stats()``'s keys and derived values
         (``build_ps_stats``), from the C++ server's counters: operations,
-        payload bytes, and the center mutex's wait and hold over its pull
-        copies and folds."""
+        payload bytes, the center mutex's wait and hold, and the dedup,
+        fencing, lease and WAL counters."""
         raw = (ctypes.c_uint64 * 22)()
         self._lib.dkps_server_stats(self._handle, raw)
         (pulls, cpulls, commits, bytes_in, bytes_out, acq, wait, hold,
@@ -227,8 +375,9 @@ class NativePSClient:
                  connect_timeout: float = 30.0,
                  pull_compression: str | None = None,
                  epoch: int | None = None):
-        if epoch is not None:
-            raise _later("fenced native commits", _A76)
+        # the fencing token: commits with a seq AND an epoch ride
+        # COMMIT_SEQ_E (action 10); None is never fenced
+        self.epoch = None if epoch is None else int(epoch)
         self.pull_compression = validate_pull_compression(pull_compression)
         self._lib = load_dkps()
         self.worker_id = int(worker_id)
@@ -272,12 +421,36 @@ class NativePSClient:
 
     def commit(self, worker_id: int | None, payload: Tree,
                seq: int | None = None) -> None:
-        if seq is not None:
-            raise _later("deduplicated native commits (seq)", _A76)
+        """``seq``: the per-worker seqno the server folds at most once
+        (``COMMIT_SEQ``, or ``COMMIT_SEQ_E`` with the fencing epoch; a
+        duplicate's ack is success). The segmented int8 wire has no seq
+        slot."""
         if is_encoded(payload):
+            if seq is not None:
+                raise ValueError(
+                    "ps_transport='native' carries commit seqnos on the raw "
+                    "f32 wire only; use ps_transport='socket' to combine "
+                    "compression with retries")
             return self._commit_int8(payload)
         vec = np.ascontiguousarray(self.spec.flatten(payload))
-        if self._lib.dkps_client_commit(self._handle, _f32p(vec)) != 0:
+        if seq is not None and self.epoch is not None:
+            sepoch = ctypes.c_uint64(0)
+            rc = self._lib.dkps_client_commit_seq_e(
+                self._handle, int(self.epoch), int(seq), _f32p(vec),
+                ctypes.byref(sepoch))
+            if rc < 0:
+                raise ConnectionError("dkps commit failed (server gone?)")
+            if rc == 2:
+                raise networking.FencedEpochError(
+                    "commit fenced by the native server",
+                    client_epoch=self.epoch, server_epoch=int(sepoch.value))
+            return
+        if seq is not None:
+            rc = self._lib.dkps_client_commit_seq(self._handle, int(seq),
+                                                  _f32p(vec))
+        else:
+            rc = self._lib.dkps_client_commit(self._handle, _f32p(vec))
+        if rc < 0 or (seq is None and rc != 0):
             raise ConnectionError("dkps commit failed (server gone?)")
 
     def exchange(self, worker_id: int | None, payload: Tree,
@@ -285,24 +458,51 @@ class NativePSClient:
         """Fused commit + pull (EXCHANGE, action 14): one round trip folds
         ``payload`` and returns the post-fold center, on the compressed
         pull wire when ``pull_compression='int8'``; ``lag=True`` prices τ
-        from this worker's previous pull. A codec-encoded commit has no
+        from this worker's previous pull. ``seq`` and the client's epoch
+        ride the frame as in ``commit``. A codec-encoded commit has no
         fused frame: it takes the two-trip commit and pull."""
-        if seq is not None:
-            raise _later("deduplicated native commits (seq)", _A76)
         if is_encoded(payload):
-            self.commit(worker_id, payload)
+            self.commit(worker_id, payload, seq=seq)
             return self.pull()
         vec = np.ascontiguousarray(self.spec.flatten(payload))
         out = np.empty(self.spec.n, dtype=np.float32)
-        flags = ((_XCHG_INT8 if self.pull_compression == "int8" else 0)
+        flags = ((_XCHG_SEQ if seq is not None else 0)
+                 | (_XCHG_EPOCH if self.epoch is not None else 0)
+                 | (_XCHG_INT8 if self.pull_compression == "int8" else 0)
                  | (_XCHG_LAG if lag else 0))
         sepoch = ctypes.c_uint64(0)
         rc = self._lib.dkps_client_exchange(
-            self._handle, flags, 0, 0, _f32p(vec), _f32p(out),
+            self._handle, flags, 0 if self.epoch is None else self.epoch,
+            0 if seq is None else int(seq), _f32p(vec), _f32p(out),
             ctypes.byref(sepoch))
+        if rc == -2:
+            raise networking.FencedEpochError(
+                "exchange fenced by the native server",
+                client_epoch=self.epoch, server_epoch=int(sepoch.value))
         if rc < 0:
             raise ConnectionError("dkps exchange failed (server gone?)")
         return self.spec.unflatten(out)
+
+    def heartbeat(self, retries: int = 0) -> bool:
+        """Renew this worker's lease (HEARTBEAT, action 6); True when the
+        lease already existed."""
+        rc = self._lib.dkps_client_heartbeat(self._handle, int(retries))
+        if rc < 0:
+            raise ConnectionError("dkps heartbeat failed (server gone?)")
+        return rc == 1
+
+    def deregister(self) -> None:
+        """A clean exit: drop this worker's lease without an eviction."""
+        if self._lib.dkps_client_deregister(self._handle) != 0:
+            raise ConnectionError("dkps deregister failed (server gone?)")
+
+    def fence(self, epoch: int) -> int:
+        """Raise the server's fencing epoch (FENCE, action 9); returns the
+        epoch after."""
+        rc = int(self._lib.dkps_client_fence(self._handle, int(epoch)))
+        if rc < 0:
+            raise ConnectionError("dkps fence failed (server gone?)")
+        return rc
 
     def _commit_int8(self, blob: dict) -> None:
         """An ``Int8Codec`` blob on the segmented int8 wire (action 4): 4×

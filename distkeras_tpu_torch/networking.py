@@ -23,6 +23,13 @@ _LEN = struct.Struct(">Q")
 #: trigger a multi-GB allocation).
 MAX_FRAME_BYTES = 2 * 1024 * 1024 * 1024
 
+#: Fault-injection seam (``resilience/faults.py`` installs here): a callable
+#: ``hook(op, sock)``, ``op`` one of ``"send"`` and ``"recv"``, called at the
+#: top of every framed wire operation. It may sleep (a delay fault) or raise
+#: a ``ConnectionError`` (a drop or partition fault). None on the production
+#: path, where it costs one attribute read.
+_fault_hook = None
+
 
 class ProtocolError(ConnectionError):
     """A framed wire operation failed or produced a malformed frame.
@@ -147,6 +154,8 @@ def connect(host: str, port: int,
 
 
 def send_data(sock: socket.socket, obj: Any) -> None:
+    if _fault_hook is not None:
+        _fault_hook("send", sock)
     payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
     sock.sendall(_LEN.pack(len(payload)) + payload)
 
@@ -181,7 +190,10 @@ def recv_data(sock: socket.socket, max_bytes: int = MAX_FRAME_BYTES) -> Any:
 
 def recv_data_raw(sock: socket.socket,
                   max_bytes: int = MAX_FRAME_BYTES) -> tuple[Any, bytes]:
-    """Like :func:`recv_data`, and also the frame's raw pickled bytes."""
+    """Like :func:`recv_data`, and also the frame's raw pickled bytes (a
+    durable server logs a commit's wire frame verbatim)."""
+    if _fault_hook is not None:
+        _fault_hook("recv", sock)
     (length,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
     if length > max_bytes:
         # not retryable: the same frame would bust the cap on every retry

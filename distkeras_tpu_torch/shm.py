@@ -48,9 +48,11 @@ scans only that prefix: the JAX package's ``dkshm_*`` segments are its
 own, so the two packages' leak checks never count each other's.
 
 The header (magic, offsets) is the JAX package's, byte for byte (the
-native core's ring lane reads the same layout). Standby replication and the heartbeat eviction (``ROADMAP.md`` A7.6) and
-the directory's named rendezvous (A7.9) belong to later slices and raise
-``NotImplementedError`` naming them.
+native core's ring lane reads the same layout). The fault-injection seam
+(``networking._fault_hook``) fires at the top of every message send and
+receive, so a ``FaultPlan`` tears rings as it tears sockets. The
+directory's named rendezvous (``ROADMAP.md`` A7.9) belongs to a later
+slice and raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -68,19 +70,20 @@ from typing import Any
 import numpy as np
 
 from distkeras_tpu_torch import networking
-from distkeras_tpu_torch.networking import PeerDeadError, ProtocolError
+from distkeras_tpu_torch.networking import (
+    FencedEpochError,
+    PeerDeadError,
+    ProtocolError,
+)
 from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.parallel.compression import (
     _resolve_dtype,
-    is_encoded,
     maybe_decode,
     validate_pull_compression,
 )
 from distkeras_tpu_torch.parameter_servers import (
-    _LATER_ACTIONS,
     ParameterServerClient,
     SocketParameterServer,
-    _host_payload,
 )
 
 Tree = Any
@@ -488,6 +491,8 @@ class _ShmConn:
         contiguous aligned region); otherwise, and for every control frame,
         the pickle lane carries the socket wire's frame bytes, streamed
         with wraparound (the spill path)."""
+        if networking._fault_hook is not None:
+            networking._fault_hook("send", self)
         if self._closed:
             raise PeerDeadError("send on closed shm connection",
                                 peer=self._name)
@@ -566,6 +571,8 @@ class _ShmConn:
         calls it once the views are consumed (the ring space stays pinned
         until then). ``copy=True`` copies the views out and releases before
         returning."""
+        if networking._fault_hook is not None:
+            networking._fault_hook("recv", self)
         try:
             flags, length = self._next_record()
             if flags == FLAG_PKL:
@@ -631,20 +638,33 @@ class _ShmConn:
 
 class ShmParameterServer(SocketParameterServer):
     """The parameter server over shared-memory rings (``ps_transport=
-    "shm"``), colocated only: the segments are this process's. The fold
-    path, the stats and the trace spans are the socket server's; only the
-    framing differs. Requests arrive through :meth:`_ShmConn.recv_msg`
-    (pickle or bulk lane), and pull and exchange replies ship the center's
-    leaves on the bulk lane, written once from the immutable snapshot into
-    the ring.
+    "shm"``), colocated only: the segments are this process's. The action
+    dispatch, the fold path, the WAL, fencing, heartbeats, the stats and
+    the trace spans are the socket server's; only the framing differs.
+    Requests arrive through :meth:`_ShmConn.recv_msg` (pickle or bulk
+    lane), and pull and exchange replies ship the center's leaves on the
+    bulk lane, written once from the immutable snapshot into the ring. A
+    durable server's commits arrive on the pickle lane, so the WAL logs
+    their frames verbatim (``REC_COMMIT_WIRE``), as over TCP.
 
     :meth:`connect_shm` creates a connection's segment and its handler
-    thread; the segment is unlinked when the handler exits (client close or
-    server stop), so /dev/shm never leaks."""
+    thread; the segment is unlinked when the handler exits (client close,
+    server stop or crash, or the lease eviction of an abandoned worker),
+    so /dev/shm never leaks. ``attach_standby`` is the base server's: the
+    replication stream is a TCP connection to a socket standby."""
 
     def __init__(self, center: Tree, rule, num_workers: int,
-                 ring_bytes: int = DEFAULT_RING_BYTES):
-        super().__init__(center, rule, num_workers, host="shm", port=0)
+                 ring_bytes: int = DEFAULT_RING_BYTES,
+                 lease_timeout: float | None = None,
+                 wal_dir: str | None = None, snapshot_every: int = 100,
+                 fence_epoch: int = 0, wal_group_window: int = 8,
+                 wal_group_interval: float = 0.25):
+        super().__init__(center, rule, num_workers, host="shm", port=0,
+                         lease_timeout=lease_timeout, wal_dir=wal_dir,
+                         snapshot_every=snapshot_every,
+                         fence_epoch=fence_epoch,
+                         wal_group_window=wal_group_window,
+                         wal_group_interval=wal_group_interval)
         if int(ring_bytes) < _HDR_BYTES:
             raise ValueError(
                 f"ring_bytes must be >= {_HDR_BYTES}, got {ring_bytes}")
@@ -665,20 +685,11 @@ class ShmParameterServer(SocketParameterServer):
     def run(self) -> None:
         pass
 
-    def attach_standby(self, host: str, port: int,
-                       timeout: float = 10.0) -> None:
-        raise NotImplementedError(
-            "standby replication is not ported yet: ROADMAP.md A7.6 "
-            "(resilience: fencing, WAL, standby)")
-
-    def _on_evict(self, worker_ids) -> None:
-        raise NotImplementedError(
-            "heartbeat eviction is not ported yet: ROADMAP.md A7.6 "
-            "(resilience: leases and heartbeats)")
-
     def connect_shm(self, worker_id: int) -> tuple[_ShmConn, dict]:
         """One worker↔PS connection: create the segment, start its handler
-        thread, return the client endpoint and the handshake record."""
+        thread, return the client endpoint and the handshake record
+        (``wal_frames``: send commits on the pickle lane, so the WAL logs
+        their frames verbatim)."""
         if not self._running:
             raise ConnectionRefusedError("shm parameter server is stopped")
         seg = mint_segment(SEGMENT_PREFIX, self.ring_bytes)
@@ -698,7 +709,8 @@ class ShmParameterServer(SocketParameterServer):
                              daemon=True, name=f"dktshm-handler-{worker_id}")
         t.start()
         self._handlers.append(t)
-        return cli_conn, {"worker_id": int(worker_id)}
+        return cli_conn, {"worker_id": int(worker_id),
+                          "wal_frames": self._wal is not None}
 
     def _release_segment(self, rec: dict) -> None:
         """Close and unlink one connection's segment (idempotent): flag
@@ -732,56 +744,68 @@ class ShmParameterServer(SocketParameterServer):
             pass
         unregister_segment(seg.name)
 
-    def stop(self) -> None:
-        if not self._running:
-            return
-        self._running = False
+    def _release_all(self) -> None:
         with self._conns_lock:
             recs = list(self._segments)
         for rec in recs:
             self._release_segment(rec)
+
+    def stop(self) -> None:
+        if not self._running:
+            self._close_durability()
+            return
+        self._running = False
+        self._release_all()
         for t in self._handlers:
             t.join(timeout=5)
+        self._close_durability()
+
+    def _crash(self) -> None:
+        """Chaos seam: tear every ring and abandon the WAL unflushed, as
+        the socket server's crash does. The segments are still unlinked
+        (a real kill would leave them to a janitor), so chaos tests leak
+        nothing into /dev/shm."""
+        self.crashed_ = True
+        self._running = False
+        self._release_all()
+        if self._wal is not None:
+            self._wal.abandon()
+
+    def _on_evict(self, worker_ids) -> None:
+        """A lapsed lease reclaims the zombie's transport too: its
+        connections close, their handlers exit and the segments unlink."""
+        super()._on_evict(worker_ids)
+        wids = {int(w) for w in worker_ids}
+        with self._conns_lock:
+            recs = [r for r in self._segments if r["wid"] in wids]
+        for rec in recs:
+            self._release_segment(rec)
 
     # -- the handler ---------------------------------------------------------
 
     def _serve_shm(self, conn: _ShmConn, rec: dict) -> None:
-        """The socket handler's dispatch over ring framing. A bulk commit
-        or exchange folds straight from the mapped ring views; the region
-        is released once the dispatch consumed it (request-reply keeps at
-        most one record in flight, so the pin never blocks the sender)."""
+        """The socket server's dispatch over ring framing, with pull and
+        exchange replies on the bulk lane. A bulk commit or exchange folds
+        straight from the mapped ring views; the region is released once
+        the dispatch consumed it (request-reply keeps at most one record
+        in flight, so the pin never blocks the sender)."""
         try:
             while True:
-                msg, _raw, release = conn.recv_msg()
+                msg, raw, release = conn.recv_msg()
                 try:
                     action = msg.get("action")
-                    if _trace.enabled():
-                        _trace.set_corr(msg.get("corr"))
-                    if action == "pull":
-                        self._serve_pull_shm(conn, msg["worker_id"])
-                    elif action == "pull_int8":
-                        self._serve_compressed_pull_shm(conn,
-                                                        msg["worker_id"])
-                    elif action == "commit":
-                        self.commit(msg["worker_id"], msg["payload"])
-                        conn.send_msg({"ok": True, "dup": False})
-                    elif action == "exchange":
-                        self._serve_exchange_shm(conn, msg)
-                    elif action == "ping":
-                        conn.send_msg({"ok": True, "epoch": 0,
-                                       "num_updates": self.num_updates,
-                                       "standby": False, "shard": None})
-                    elif action == "stats":
-                        conn.send_msg({"ok": True, "stats": self.stats()})
-                    elif action in ("stop", "bye"):
+                    if action in ("pull", "pull_int8", "exchange"):
+                        if _trace.enabled():
+                            _trace.set_corr(msg.get("corr"))
+                        if action == "pull":
+                            self._serve_pull_shm(conn, msg["worker_id"])
+                        elif action == "pull_int8":
+                            self._serve_compressed_pull_shm(
+                                conn, msg["worker_id"])
+                        else:
+                            self._serve_exchange_shm(conn, msg, raw)
+                    elif self._dispatch(conn, msg, raw):
                         break
-                    elif action in _LATER_ACTIONS:
-                        conn.send_msg({
-                            "ok": False,
-                            "error": f"action {action!r} is not ported yet: "
-                                     f"ROADMAP.md {_LATER_ACTIONS[action]}"})
-                    else:
-                        conn.send_msg({"error": f"bad action {action}"})
                 finally:
                     if release is not None:
                         release()
@@ -789,7 +813,7 @@ class ShmParameterServer(SocketParameterServer):
                     # segment's mapping from closing
                     msg = None
         except (ConnectionError, EOFError, OSError, pickle.UnpicklingError):
-            pass  # a torn ring, a dead peer or a refused frame
+            pass  # a torn ring, a dead peer, an injected fault
         finally:
             self._release_segment(rec)
 
@@ -831,19 +855,27 @@ class ShmParameterServer(SocketParameterServer):
         finally:
             self._end_reply()
 
-    def _serve_exchange_shm(self, conn: _ShmConn, msg: dict) -> None:
+    def _serve_exchange_shm(self, conn: _ShmConn, msg: dict,
+                            raw: bytes | None) -> None:
         """The fused exchange over the rings: the commit folds from the
-        request's mapped views, the post-fold snapshot goes back on the
+        request's mapped views (or, on a durable server, the pickle lane's
+        frame, logged verbatim), the post-fold snapshot goes back on the
         bulk lane."""
         compressed = bool(msg.get("compressed"))
         with _trace.span("ps.exchange"):
-            snap, st = self._commit_impl(
-                msg["worker_id"], msg["payload"], lag=bool(msg.get("lag")),
-                fused=True, compressed=compressed)
+            try:
+                applied, snap, st = self._commit_impl(
+                    msg["worker_id"], msg["payload"], seq=msg.get("seq"),
+                    epoch=msg.get("epoch"), wire_frame=raw,
+                    lag=bool(msg.get("lag")), fused=True,
+                    compressed=compressed)
+            except FencedEpochError as fe:
+                conn.send_msg({"error": "fenced", "epoch": fe.server_epoch})
+                return
             if not compressed:
                 self._begin_reply()
                 try:
-                    conn.send_msg({"ok": True, "dup": False,
+                    conn.send_msg({"ok": True, "dup": not applied,
                                    "weights": snap}, bulk=True)
                     self._count(pulls=1, bytes_out=self._center_nbytes,
                                 fused=1)
@@ -853,30 +885,35 @@ class ShmParameterServer(SocketParameterServer):
             with st.lock:
                 blob, nbytes = self._encode_pull(st, snap)
                 epoch = st.epoch
-            self._send_blob_shm(conn, {"ok": True, "dup": False,
+            self._send_blob_shm(conn, {"ok": True, "dup": not applied,
                                        "weights": blob}, st, snap, blob,
                                 epoch, nbytes, fused=1)
 
 
 class ShmPSClient(ParameterServerClient):
     """The worker's side of an shm connection: :class:`ParameterServerClient`
-    over a ring pair. Control actions (ping, stats, close) run through the
-    inherited code, since ``networking.send_data`` / ``recv_data`` speak to
-    the socket-like endpoint. The O(model) paths are the client's own:
-    pull and exchange replies arrive on the bulk lane and are copied out
-    of the ring before it is released; commit and exchange requests ship
-    the delta's leaves on the bulk lane, written once into the ring and
-    folded from the mapped view."""
+    over a ring pair. Control actions (ping, stats, fence, heartbeat,
+    deregister, close) run through the inherited code, since
+    ``networking.send_data`` / ``recv_data`` speak to the socket-like
+    endpoint. The O(model) paths are the client's own: pull and exchange
+    replies arrive on the bulk lane and are copied out of the ring before
+    it is released; commit and exchange requests ship the delta's leaves
+    on the bulk lane, written once into the ring and folded from the
+    mapped view, except against a durable server, where they take the
+    pickle lane so the WAL logs their frames verbatim."""
 
     def __init__(self, server: ShmParameterServer, worker_id: int,
-                 pull_compression: str | None = None):
+                 pull_compression: str | None = None,
+                 epoch: int | None = None):
         self.pull_compression = validate_pull_compression(pull_compression)
         self.worker_id = int(worker_id)
-        conn, _info = server.connect_shm(self.worker_id)
+        self.epoch = None if epoch is None else int(epoch)
+        conn, info = server.connect_shm(self.worker_id)
         self._sock = conn  # the inherited actions speak to this endpoint
+        self._wal_frames = bool(info.get("wal_frames"))
 
     def _bulk_request(self, msg: dict) -> dict:
-        self._sock.send_msg(msg, bulk=True)
+        self._sock.send_msg(msg, bulk=not self._wal_frames)
         reply, _raw, _release = self._sock.recv_msg(copy=True)
         return reply
 
@@ -884,37 +921,23 @@ class ShmPSClient(ParameterServerClient):
         action = "pull_int8" if self.pull_compression == "int8" else "pull"
         self._sock.send_msg({"action": action, "worker_id": self.worker_id})
         reply, _raw, _release = self._sock.recv_msg(copy=True)
-        if "weights" not in reply:
-            raise ProtocolError(
-                f"pull refused: {reply.get('error', reply)}", retryable=True)
+        self._check_reply(reply, "pull")
         return maybe_decode(reply["weights"])
 
-    def _payload_msg(self, action: str, payload) -> dict:
-        if not is_encoded(payload):
-            payload = _host_payload(payload)
-        msg = {"action": action, "worker_id": self.worker_id,
-               "payload": payload}
-        if _trace.enabled() and (corr := _trace.current_corr()):
-            msg["corr"] = corr
-        return msg
-
-    def commit(self, worker_id: int | None, payload: Tree) -> None:
-        ack = self._bulk_request(self._payload_msg("commit", payload))
-        if not (isinstance(ack, dict) and ack.get("ok")):
-            raise ProtocolError(f"commit refused: {ack}", retryable=True)
+    def commit(self, worker_id: int | None, payload: Tree,
+               seq: int | None = None) -> None:
+        ack = self._bulk_request(self._payload_msg("commit", payload, seq))
+        self._check_reply(ack, "commit")
 
     def exchange(self, worker_id: int | None, payload: Tree,
-                 lag: bool = False) -> Tree:
-        msg = self._payload_msg("exchange", payload)
+                 seq: int | None = None, lag: bool = False) -> Tree:
+        msg = self._payload_msg("exchange", payload, seq)
         if self.pull_compression == "int8":
             msg["compressed"] = True
         if lag:
             msg["lag"] = True
         reply = self._bulk_request(msg)
-        if "weights" not in reply:
-            raise ProtocolError(
-                f"exchange refused: {reply.get('error', reply)}",
-                retryable=True)
+        self._check_reply(reply, "exchange")
         return maybe_decode(reply["weights"])
 
 

@@ -18,9 +18,14 @@ returns the same model.
 ``device="cuda"`` (the default) replaces the JAX package's ``mesh``: one
 card holds all ``num_workers`` workers. ``validation_data`` scores a
 held-out set after every epoch (after the run on the PS backend);
-``profile_dir`` records a ``torch.profiler`` trace of the run. Kwargs whose
-machinery belongs to a later slice of the port (the PS backend's
-resilience, sharding, elastic and observability knobs, checkpoints, EMA,
+``profile_dir`` records a ``torch.profiler`` trace of the run. The PS
+backend's resilience knobs (``retry_policy``, ``heartbeat_interval``,
+``lease_timeout``, ``fault_plan``, ``worker_restart_budget``,
+``worker_restart_delay``, ``tolerate_worker_failures``, ``ps_wal_dir``,
+``ps_snapshot_every``, ``ps_wal_group_window``, ``ps_wal_group_interval``,
+``ps_standby``, ``ps_failover_timeout``) are the reference's, with its
+checks. Kwargs whose machinery belongs to a later slice of the port (the
+PS backend's sharding, elastic and observability knobs, checkpoints, EMA,
 meshes) are accepted by name and raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item when set to
 anything but their default: nothing is silently ignored.
@@ -75,14 +80,6 @@ _LATER = {
     "deploy_streamer": (None, "A13 (deploy streaming)"),
 }
 for _item, _knobs in {
-        "A7.6 (resilience: WAL, retry, heartbeats, faults, standby)": {
-            "tolerate_worker_failures": False, "worker_restart_budget": 0,
-            "worker_restart_delay": 0.0, "retry_policy": None,
-            "heartbeat_interval": None, "lease_timeout": None,
-            "fault_plan": None, "ps_wal_dir": None,
-            "ps_snapshot_every": 100, "ps_wal_group_window": 8,
-            "ps_wal_group_interval": 0.25, "ps_standby": False,
-            "ps_failover_timeout": None},
         "A7.7 (sharding)": {"ps_num_shards": 1, "ps_chain_length": 1},
         "A7.8 (elastic membership)": {
             "elastic": False, "autoscale_target": None,
@@ -410,7 +407,17 @@ class DistributedTrainer(Trainer):
                  compression=None, pull_compression: str | None = None,
                  trace: bool = False, trace_dir=None,
                  trace_sample: float = 1.0, ps_fused_exchange: bool = True,
-                 ps_pipeline_depth: int = 0, **later):
+                 ps_pipeline_depth: int = 0,
+                 tolerate_worker_failures: bool = False,
+                 worker_restart_budget: int = 0,
+                 worker_restart_delay: float = 0.0, retry_policy=None,
+                 heartbeat_interval: float | None = None,
+                 lease_timeout: float | None = None, fault_plan=None,
+                 ps_wal_dir: str | None = None, ps_snapshot_every: int = 100,
+                 ps_wal_group_window: int = 8,
+                 ps_wal_group_interval: float = 0.25,
+                 ps_standby: bool = False,
+                 ps_failover_timeout: float | None = None, **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
@@ -510,6 +517,138 @@ class DistributedTrainer(Trainer):
         if not self.ps_fused_exchange and backend != "ps":
             raise ValueError("ps_fused_exchange applies to backend='ps' only")
         self.ps_stats_ = None
+        self._init_resilience(
+            backend, ps_transport, ps_host, tolerate_worker_failures,
+            worker_restart_budget, worker_restart_delay, retry_policy,
+            heartbeat_interval, lease_timeout, fault_plan, ps_wal_dir,
+            ps_snapshot_every, ps_wal_group_window, ps_wal_group_interval,
+            ps_standby, ps_failover_timeout)
+
+    def _init_resilience(self, backend, ps_transport, ps_host,
+                         tolerate_worker_failures, worker_restart_budget,
+                         worker_restart_delay, retry_policy,
+                         heartbeat_interval, lease_timeout, fault_plan,
+                         ps_wal_dir, ps_snapshot_every, ps_wal_group_window,
+                         ps_wal_group_interval, ps_standby,
+                         ps_failover_timeout) -> None:
+        """The PS backend's resilience knobs (``resilience/``), checked as
+        the reference checks them:
+
+        - ``tolerate_worker_failures``: survivors finish the run when a
+          worker dies (it still fails if every worker dies);
+        - ``worker_restart_budget=K``: a dead worker restarts up to K
+          times from a fresh center pull, after ``worker_restart_delay``
+          seconds;
+        - ``retry_policy``: a ``RetryPolicy``; pulls and commits that hit
+          transient transport failures reconnect and retry, commits
+          carrying per-worker seqnos the server folds once;
+        - ``heartbeat_interval``: workers renew a lease at window
+          boundaries; ``lease_timeout`` (default 5× the interval) evicts
+          a silent worker, surfaced in ``ps_stats_`` and fed into DynSGD's
+          staleness;
+        - ``fault_plan``: a ``FaultPlan`` (the caller installs its wire
+          hook with ``with plan:``; kills and stragglers hook the worker
+          loop here);
+        - ``ps_wal_dir``: the write-ahead log and snapshots, on every
+          transport (a directory that holds a log is recovered);
+          ``ps_snapshot_every`` commits between snapshots;
+          ``ps_wal_group_window``: commits an fsync groups (their ACKs
+          wait for it; 1 flushes each record and fsyncs periodically, 0
+          fsyncs on the interval only); ``ps_wal_group_interval`` seconds
+          bound the durability window in every mode;
+        - ``ps_standby`` (socket): a warm replica streams every applied
+          commit and is promoted, with a fencing-epoch bump, when the
+          primary's lease lapses (``ps_failover_timeout`` seconds without
+          a ping; default ``lease_timeout``, else 2 s)."""
+        self.tolerate_worker_failures = bool(tolerate_worker_failures)
+        self.worker_restart_budget = int(worker_restart_budget)
+        if self.worker_restart_budget < 0:
+            raise ValueError(f"worker_restart_budget must be >= 0, got "
+                             f"{worker_restart_budget}")
+        self.worker_restart_delay = float(worker_restart_delay)
+        self.retry_policy = retry_policy
+        if heartbeat_interval is not None and heartbeat_interval <= 0:
+            raise ValueError(f"heartbeat_interval must be positive, got "
+                             f"{heartbeat_interval}")
+        self.heartbeat_interval = heartbeat_interval
+        if lease_timeout is not None and lease_timeout <= 0:
+            raise ValueError(
+                f"lease_timeout must be positive, got {lease_timeout}")
+        self.lease_timeout = lease_timeout
+        self.fault_plan = fault_plan
+        self.ps_wal_dir = ps_wal_dir
+        self.ps_snapshot_every = int(ps_snapshot_every)
+        if self.ps_snapshot_every <= 0:
+            raise ValueError(f"ps_snapshot_every must be positive, got "
+                             f"{ps_snapshot_every}")
+        self.ps_wal_group_window = int(ps_wal_group_window)
+        if self.ps_wal_group_window < 0:
+            raise ValueError(
+                f"ps_wal_group_window must be >= 0 (0 = time-bounded "
+                f"async, 1 = per-record flush, N = group size), got "
+                f"{ps_wal_group_window}")
+        self.ps_wal_group_interval = float(ps_wal_group_interval)
+        if self.ps_wal_group_interval <= 0:
+            raise ValueError(f"ps_wal_group_interval must be positive, got "
+                             f"{ps_wal_group_interval}")
+        self.ps_standby = bool(ps_standby)
+        if ps_failover_timeout is not None and ps_failover_timeout <= 0:
+            raise ValueError(f"ps_failover_timeout must be positive, got "
+                             f"{ps_failover_timeout}")
+        self.ps_failover_timeout = ps_failover_timeout
+        if self.ps_standby and ps_transport != "socket":
+            raise ValueError(
+                "ps_standby requires ps_transport='socket' (the replica is "
+                "a second socket server; the in-process PS shares the "
+                "trainer's fate and the native PS has no replication "
+                "stream)")
+        if self.ps_standby and ps_host is not None:
+            raise ValueError(
+                "ps_standby applies to the PS this trainer hosts; an "
+                "external ps_host owner runs its own standby")
+        if fault_plan is not None and getattr(
+                fault_plan, "kill_ps_after_commits", None) is not None:
+            # a PS kill with no recovery path would crash the run after
+            # every worker spent its retry deadline, and off the socket
+            # transport nothing would fire it
+            if ps_transport != "socket":
+                raise ValueError(
+                    "fault_plan.kill_ps_after_commits requires "
+                    "ps_transport='socket' (the in-process PS shares the "
+                    "trainer's fate; the native PS has no kill/failover "
+                    "wiring)")
+            if ps_host is not None:
+                raise ValueError(
+                    "fault_plan.kill_ps_after_commits applies to the PS "
+                    "this trainer hosts, not an external ps_host")
+            if ps_wal_dir is None and not self.ps_standby:
+                raise ValueError(
+                    "fault_plan.kill_ps_after_commits needs a recovery "
+                    "path: set ps_wal_dir (restart-in-place) or "
+                    "ps_standby=True")
+            if getattr(fault_plan, "kill_shard_id", None):
+                raise ValueError(
+                    f"fault_plan.kill_shard_id="
+                    f"{fault_plan.kill_shard_id} is out of range for one "
+                    f"shard (sharding is not ported yet: ROADMAP.md A7.7)")
+        if fault_plan is not None and getattr(
+                fault_plan, "has_directory_events", False):
+            raise ValueError(
+                "fault_plan carries directory kill/partition events but "
+                "directory=True is not set (the membership directory is "
+                "not ported yet: ROADMAP.md A7.9), so nothing would ever "
+                "consult them")
+        if backend != "ps" and (
+                worker_restart_budget or retry_policy is not None
+                or heartbeat_interval is not None or lease_timeout is not None
+                or fault_plan is not None or ps_wal_dir is not None
+                or ps_standby):
+            raise ValueError(
+                "the resilience knobs (worker_restart_budget, retry_policy, "
+                "heartbeat_interval, lease_timeout, fault_plan, ps_wal_dir, "
+                "ps_standby) apply to backend='ps' only (the collective "
+                "backend is one SPMD program)")
+        self.resilience_stats_ = None
 
     def allocate_merge_rule(self) -> MergeRule:
         raise NotImplementedError

@@ -33,6 +33,21 @@ Every worker runs on the trainer's one device, each launching its own
 kernels (``G = 1``) on the current stream; placing workers across cards is
 ``ROADMAP.md`` A12. Every host→device copy is a real copy, so a worker's
 params never share memory with a PS snapshot or a staging buffer.
+
+The resilience layer (``resilience/``) hooks in here as in the reference:
+a ``FaultPlan`` kills or slows a worker at a window boundary; a retry
+policy or a heartbeat interval wraps every client in a
+``ResilientPSClient`` (reconnects, seqno'd commits the server folds once,
+leases renewed at window boundaries); ``worker_restart_budget`` runs the
+workers under a ``WorkerSupervisor``, which restarts a dead one from a
+fresh center pull in a new thread (a fresh per-thread module and a fresh
+optimizer state: nothing it held on the card is reused); ``ps_wal_dir``
+makes the server durable; and on the socket transport ``ps_standby`` or a
+PS-kill fault starts a ``PSFailoverSupervisor`` that promotes the hot
+standby, or restarts the server in place from its WAL, and repoints every
+client. ``trainer.resilience_stats_`` reports the exactly-once oracle
+(``logical_commits``, to hold against the server's folds), retries,
+reconnects, restarts, the injected faults and the failover log.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ import bisect
 import os
 import threading
 import time
+import warnings
 from typing import Any
 
 import numpy as np
@@ -59,6 +75,7 @@ from distkeras_tpu_torch.parameter_servers import (
     ParameterServer,
     ParameterServerClient,
     SocketParameterServer,
+    StandbySocketParameterServer,
 )
 from distkeras_tpu_torch.utils import tree_map
 
@@ -143,7 +160,7 @@ class AsyncWorker:
     def __init__(self, worker_id: int, device, window_fn, ps, rule,
                  window: int, batch_size: int, nt, history: list,
                  lock: threading.Lock, codec=None, fused: bool = True,
-                 pipeline_depth: int = 0):
+                 pipeline_depth: int = 0, fault_plan=None):
         self.worker_id = worker_id
         self.device = device
         self.window_fn = window_fn
@@ -163,6 +180,17 @@ class AsyncWorker:
         # ps_pipeline_depth: 1 runs the pipelined loop (delta rules only)
         self.pipeline_depth = int(pipeline_depth)
         self.error: BaseException | None = None
+        # the fault plan's kill and straggle hooks fire at each window,
+        # keyed on this worker's windows so far (a restart keeps counting)
+        self.fault_plan = fault_plan
+        self._windows_done = 0
+        # the WorkerSupervisor's restore state: checkpoints are ROADMAP.md
+        # A8, so a restart always starts from a fresh center pull
+        self.snapshot: dict | None = None
+        self.restore: dict | None = None
+        self.start_epoch = 0
+        self.barrier = None
+        self.running = False
         self._stage_delta: list | None = None
         # the pipelined re-base's two alternating staging sets
         self._stage_base: list | None = None
@@ -258,11 +286,15 @@ class AsyncWorker:
     def train(self, index: int, shard_cols: tuple, num_epoch: int,
               shuffle: bool, seed: int) -> None:
         """The reference's ``Worker.train(index, iterator)``; a failure is
-        kept on ``self.error`` for the trainer."""
+        kept on ``self.error`` for the trainer (and its supervisor)."""
+        self.running = True
+        self.progress_t = time.monotonic()
         try:
             self._train(index, shard_cols, num_epoch, shuffle, seed)
         except BaseException as e:
             self.error = e
+        finally:
+            self.running = False
 
     def _train(self, index, shard_cols, num_epoch, shuffle, seed):
         """The window loop. A delta rule's window ends in a pending
@@ -273,21 +305,37 @@ class AsyncWorker:
         loss on the host, so at depth 1 it contains the previous window's
         exchange. An elastic rule's commit needs a fresh pull, so it cannot
         be deferred: it always exchanges serially."""
+        if self.restore is not None:
+            raise NotImplementedError(
+                "restoring a worker from a checkpoint is not ported yet: "
+                "ROADMAP.md A8 (checkpoints and EMA)")
         rows = len(shard_cols[0])
         win_rows = self.window * self.batch_size
         n_windows = rows // win_rows
         elastic = isinstance(self.rule, ElasticAverageMerge)
         pipelined = self.pipeline_depth >= 1 and not elastic
+        # the lease: registered up front (a restarted worker's first
+        # heartbeat re-admits it after an eviction), renewed each window
+        maybe_heartbeat = getattr(self.ps, "maybe_heartbeat", None)
+        if maybe_heartbeat is not None:
+            maybe_heartbeat()
         center = self.ps.pull(self.worker_id)
         params = _to_device(center, self.device)
         base = center          # the window's start, on the host
         nt = _to_device(self.nt, self.device)
         opt = self.window_fn.init_opt(params)
         pending = None         # window N's (blob, loss, epoch, corr)
-        for epoch in range(num_epoch):
+        for epoch in range(self.start_epoch, num_epoch):
             order = (np.random.default_rng((seed, index, epoch))
                      .permutation(rows) if shuffle else np.arange(rows))
             for w in range(n_windows):
+                if self.fault_plan is not None:
+                    # chaos: a kill at this worker's window (once; its
+                    # restart passes the same index unharmed), a straggler
+                    # sleeps here every window
+                    self.fault_plan.maybe_kill(self.worker_id,
+                                               self._windows_done)
+                    self.fault_plan.maybe_straggle(self.worker_id)
                 batches = self._batches(
                     shard_cols, order[w * win_rows:(w + 1) * win_rows])
                 t_launch = time.perf_counter()
@@ -304,6 +352,9 @@ class AsyncWorker:
                 if elastic:
                     params, center = self._elastic_exchange(params, t0)
                     self._window_done(loss, epoch)
+                    self._windows_done += 1
+                    if maybe_heartbeat is not None:
+                        maybe_heartbeat()
                     continue
                 delta = self._window_delta(params, base)
                 t0 = self._phase("fetch", t0)
@@ -318,6 +369,9 @@ class AsyncWorker:
                     center = base = self._flush(pending)
                     pending = None
                 params = _to_device(base, self.device)
+                self._windows_done += 1
+                if maybe_heartbeat is not None:
+                    maybe_heartbeat()  # rate-limited lease renewal
         if pending is not None:
             self._flush(pending, lag=True)   # the last window's exchange
         self.final_nt = utils.tree_to_numpy(nt)
@@ -374,10 +428,12 @@ class _BoundPS:
     decode, so the in-process transport stays the socket's oracle."""
 
     def __init__(self, ps: ParameterServer, worker_id: int,
-                 pull_compression: str | None = None):
+                 pull_compression: str | None = None,
+                 epoch: int | None = None):
         self._ps = ps
         self.worker_id = worker_id
         self.pull_compression = validate_pull_compression(pull_compression)
+        self.epoch = None if epoch is None else int(epoch)
 
     def pull(self, worker_id: int | None = None):
         if self.pull_compression == "int8":
@@ -385,30 +441,41 @@ class _BoundPS:
                                               compressed=True))
         return self._ps.pull(self.worker_id)
 
-    def commit(self, worker_id: int | None, payload):
-        self._ps.commit(self.worker_id, payload)
+    def commit(self, worker_id: int | None, payload, seq: int | None = None):
+        self._ps.commit(self.worker_id, payload, seq=seq, epoch=self.epoch)
 
-    def exchange(self, worker_id: int | None, payload, lag: bool = False):
+    def exchange(self, worker_id: int | None, payload,
+                 seq: int | None = None, lag: bool = False):
         blob, _applied = self._ps.exchange(
-            self.worker_id, payload, lag=lag,
+            self.worker_id, payload, seq=seq, epoch=self.epoch, lag=lag,
             compressed=self.pull_compression == "int8")
         return maybe_decode(blob)
+
+    def heartbeat(self, retries: int = 0) -> bool:
+        return self._ps.heartbeat(self.worker_id, retries=retries)
+
+    def deregister(self) -> None:
+        self._ps.deregister_worker(self.worker_id)
 
     def close(self):
         pass
 
 
 def _join_workers(threads, workers) -> None:
-    """Join every worker thread in bounded slices. A live worker whose last
-    window ended longer ago than its stall limit raises ``TimeoutError``
-    naming it; its daemon thread is left behind, and the caller's
-    ``finally`` closes the clients and stops the PS."""
+    """Join each thread in bounded slices, paired with a worker (the
+    workers' own threads, or the supervisor's thread once per worker). A
+    worker still running whose last window ended longer ago than its
+    stall limit raises ``TimeoutError`` naming it; the daemon threads are
+    left behind, and the caller's ``finally`` closes the clients and
+    stops the PS."""
     pending = list(zip(threads, workers))
     while pending:
         pending[0][0].join(timeout=_JOIN_SLICE_S)
         pending = [(t, w) for t, w in pending if t.is_alive()]
         now = time.monotonic()
         for t, w in pending:
+            if not getattr(w, "running", True):
+                continue
             limit = max(_STALL_FLOOR_S, _STALL_WINDOWS * w.slowest_s)
             if now - w.progress_t > limit:
                 raise TimeoutError(
@@ -417,15 +484,49 @@ def _join_workers(threads, workers) -> None:
                     f"device")
 
 
+def _ps_kwargs(trainer, lease_timeout) -> dict:
+    """The resilience arguments every Python server takes."""
+    return dict(lease_timeout=lease_timeout, wal_dir=trainer.ps_wal_dir,
+                snapshot_every=trainer.ps_snapshot_every,
+                wal_group_window=trainer.ps_wal_group_window,
+                wal_group_interval=trainer.ps_wal_group_interval)
+
+
+def _resilience_stats(clients, supervisor, fault_plan, ps_supervisor):
+    """``trainer.resilience_stats_``: the commit-seqno oracle (logical
+    commits the clients saw acknowledged, to hold against the server's
+    folds), retry and reconnect totals, supervisor restarts, what the
+    fault plan injected and the failover log."""
+    return {
+        "logical_commits": sum(int(getattr(c, "seq", 0)) for c in clients),
+        "retries": sum(int(getattr(c, "retries", 0)) for c in clients),
+        "reconnects": sum(int(getattr(c, "reconnects", 0)) for c in clients),
+        "restarts": supervisor.stats()["restarts"] if supervisor else 0,
+        "faults": fault_plan.stats() if fault_plan is not None else None,
+        "ps_failover": (ps_supervisor.stats() if ps_supervisor is not None
+                        else None),
+    }
+
+
 def run_async_training(trainer, ds, shuffle: bool):
     """Drive the PS backend for a ``DistributedTrainer`` (the reference's
     ``mapPartitionsWithIndex(worker.train).collect()`` job): start the PS
     (or reach the external one at ``ps_host``), run ``num_workers`` worker
     threads over their row shards, and return ``(center, nt, history)``
-    with the center as host numpy. Sets ``trainer.ps_stats_`` (the server's
-    ``stats()`` plus ``exchange_phases``; None for an external PS),
+    with the center as host numpy. Sets ``trainer.ps_stats_`` (the active
+    server's ``stats()`` plus ``exchange_phases``; None for an external
+    PS; after a failover its op counters start at the takeover, while
+    ``num_updates`` spans the run), ``trainer.resilience_stats_`` (with
+    any resilience knob or fault plan; else None),
     ``trainer.exchange_phases_`` (this process's workers' phases, on every
     transport) and ``trainer.trace_path_``."""
+    from distkeras_tpu_torch.resilience.recovery import WorkerSupervisor
+    from distkeras_tpu_torch.resilience.retry import (
+        PSEndpoint,
+        ResilientPSClient,
+        RetryPolicy,
+    )
+
     spec = trainer.spec
     rule = trainer.allocate_merge_rule()
     params, nt = spec.init_np(trainer.seed)
@@ -441,6 +542,45 @@ def run_async_training(trainer, ds, shuffle: bool):
         # passthrough for small leaves
         codec = Int8Codec(min_size=1)
 
+    # the resilience knobs: a retry policy or a heartbeat interval turns
+    # the transport clients into reconnecting, seqno'd, lease-renewing
+    # wrappers
+    retry_policy = trainer.retry_policy
+    hb_interval = trainer.heartbeat_interval
+    resilient = retry_policy is not None or hb_interval is not None
+    lease_timeout = trainer.lease_timeout
+    if lease_timeout is None and hb_interval is not None:
+        lease_timeout = 5.0 * float(hb_interval)  # five missed heartbeats
+    fault_plan = trainer.fault_plan
+    if fault_plan is not None and getattr(fault_plan, "has_elastic_events",
+                                          False):
+        raise ValueError(
+            "fault_plan carries join/preempt membership events but the "
+            "trainer is not elastic (elastic membership is not ported yet: "
+            "ROADMAP.md A7.8); a fixed-pool run never consults them, so "
+            "the chaos would silently test nothing")
+    failover_timeout = trainer.ps_failover_timeout
+    if failover_timeout is None:
+        failover_timeout = lease_timeout if lease_timeout is not None \
+            else 2.0
+    kill_ps_chaos = (fault_plan is not None and getattr(
+        fault_plan, "kill_ps_after_commits", None) is not None)
+    failover = transport == "socket" and external_host is None and (
+        trainer.ps_standby or kill_ps_chaos)
+    if failover and retry_policy is None:
+        # a failover is survivable only through reconnecting clients, and
+        # the default policy's 6 attempts span ~1.5 s, less than detecting
+        # and promoting: budget for the failover with room to spare
+        resilient = True
+        retry_policy = RetryPolicy(
+            max_attempts=100, base_delay=0.05, max_delay=0.5,
+            deadline=max(60.0, 20.0 * float(failover_timeout)))
+    if resilient and transport == "native" and codec is not None:
+        raise ValueError(
+            "ps_transport='native' carries commit seqnos on the raw f32 "
+            "wire only: drop compression or use ps_transport='socket' when "
+            "retry_policy/heartbeat_interval are set")
+
     trace_dir = trainer.trace_dir
     trace_on = bool(trainer.trace) or trace_dir is not None
     trace_owner = trace_on and not _trace.enabled()
@@ -448,8 +588,12 @@ def run_async_training(trainer, ds, shuffle: bool):
         _trace.enable(sample=float(trainer.trace_sample))
     trainer.trace_path_ = None
     trainer.ps_stats_ = None
+    trainer.resilience_stats_ = None
 
     ps = None
+    resolver = None
+    standby = None
+    ps_supervisor = None
     if external_host is not None and transport == "native":
         from distkeras_tpu_torch.native_ps import FlatSpec, NativePSClient
 
@@ -471,7 +615,8 @@ def run_async_training(trainer, ds, shuffle: bool):
         )
 
         ps = NativeSocketParameterServer(params, rule, W,
-                                         port=trainer.ps_port)
+                                         port=trainer.ps_port,
+                                         **_ps_kwargs(trainer, lease_timeout))
         ps.initialize()
         ps.start()
 
@@ -481,22 +626,37 @@ def run_async_training(trainer, ds, shuffle: bool):
     elif transport == "shm":
         from distkeras_tpu_torch.shm import ShmParameterServer, ShmPSClient
 
-        ps = ShmParameterServer(params, rule, W)
+        ps = ShmParameterServer(params, rule, W,
+                                **_ps_kwargs(trainer, lease_timeout))
         ps.initialize()
         ps.start()
 
         def make_client(i):
             return ShmPSClient(ps, i, pull_compression=pull_comp)
     elif transport == "socket":
-        ps = SocketParameterServer(params, rule, W, port=trainer.ps_port)
+        ps = SocketParameterServer(params, rule, W, port=trainer.ps_port,
+                                   **_ps_kwargs(trainer, lease_timeout))
         ps.initialize()
         ps.start()
+        if failover:
+            # clients resolve the CURRENT primary (host, port, fencing
+            # epoch) at every connect, so a promotion repoints every
+            # reconnect
+            resolver = PSEndpoint("127.0.0.1", ps.port,
+                                  epoch=ps.fence_epoch)
 
-        def make_client(i):
-            return ParameterServerClient("127.0.0.1", ps.port, i,
-                                         pull_compression=pull_comp)
+            def make_client(i):
+                host, port, epoch = resolver.resolve()
+                return ParameterServerClient(host, port, i,
+                                             pull_compression=pull_comp,
+                                             epoch=epoch)
+        else:
+            def make_client(i):
+                return ParameterServerClient("127.0.0.1", ps.port, i,
+                                             pull_compression=pull_comp)
     elif transport == "inprocess":
-        ps = ParameterServer(params, rule, W)
+        ps = ParameterServer(params, rule, W,
+                             **_ps_kwargs(trainer, lease_timeout))
 
         def make_client(i):
             return _BoundPS(ps, i, pull_compression=pull_comp)
@@ -504,8 +664,23 @@ def run_async_training(trainer, ds, shuffle: bool):
         raise ValueError(f"unknown ps_transport {transport!r}")
 
     clients: list = []
+    workers: list = []
+    supervisor = None
     try:
-        clients = [make_client(i) for i in range(W)]
+        if failover:
+            standby, ps_supervisor = _start_failover(
+                trainer, ps, params, rule, W, lease_timeout, resolver,
+                fault_plan if kill_ps_chaos else None, failover_timeout)
+
+        def build_client(i):
+            if not resilient:
+                return make_client(i)
+            return ResilientPSClient(lambda: make_client(i), offset + i,
+                                     policy=retry_policy,
+                                     heartbeat_interval=hb_interval,
+                                     resolver=resolver)
+
+        clients = [build_client(i) for i in range(W)]
         cols = trainer.features_col + [trainer.label_col]
         shards = ds.worker_shards(
             W, trainer.batch_size, trainer.communication_window, cols,
@@ -518,40 +693,158 @@ def run_async_training(trainer, ds, shuffle: bool):
                                trainer.communication_window,
                                trainer.batch_size, nt, history, hlock,
                                codec=codec, fused=trainer.ps_fused_exchange,
-                               pipeline_depth=trainer.ps_pipeline_depth)
+                               pipeline_depth=trainer.ps_pipeline_depth,
+                               fault_plan=fault_plan)
                    for i in range(W)]
-        threads = [threading.Thread(
-            target=w.train, daemon=True, name=f"distkeras-worker-{i}",
-            args=(i, tuple(col[i] for col in shards), trainer.num_epoch,
-                  shuffle, trainer.seed)) for i, w in enumerate(workers)]
-        for t in threads:
-            t.start()
-        _join_workers(threads, workers)
-        errors = [w.error for w in workers if w.error is not None]
-        if errors:
-            raise errors[0]
+
+        def args_of(i):
+            return (i, tuple(col[i] for col in shards), trainer.num_epoch,
+                    shuffle, trainer.seed)
+
+        budget = int(trainer.worker_restart_budget)
+        if budget > 0:
+            # restart-with-budget: a dead worker relaunches (in a new
+            # thread, from a fresh center pull) up to `budget` times;
+            # checkpoints are ROADMAP.md A8, so there is nothing to
+            # restore from
+            supervisor = WorkerSupervisor(
+                workers, args_of, max_restarts=budget,
+                restart_delay=trainer.worker_restart_delay,
+                fallback_restore=lambda i: None)
+            runner = threading.Thread(target=supervisor.run, daemon=True,
+                                      name="distkeras-worker-supervisor")
+            runner.start()
+            _join_workers([runner] * W, workers)
+        else:
+            threads = [threading.Thread(
+                target=w.train, daemon=True, name=f"distkeras-worker-{i}",
+                args=args_of(i)) for i, w in enumerate(workers)]
+            for t in threads:
+                t.start()
+            _join_workers(threads, workers)
+
+        # training is over: retire the failover supervisor FIRST (it must
+        # not declare a primary dead because it was stopped), then read
+        # which server holds the final center
+        active = ps
+        if ps_supervisor is not None:
+            ps_supervisor.stop()
+            active = ps_supervisor.active
+            if ps_supervisor.error is not None and not any(
+                    w.error is not None for w in workers):
+                raise RuntimeError(
+                    "the PS failover supervisor died while the workers "
+                    "survived") from ps_supervisor.error
+        if (resilient or supervisor is not None
+                or fault_plan is not None):
+            trainer.resilience_stats_ = _resilience_stats(
+                clients, supervisor, fault_plan, ps_supervisor)
+        _raise_worker_errors(trainer, workers, supervisor, budget)
         trainer.exchange_phases_ = aggregate_exchange_phases(workers)
         if ps is None:
             # the external PS owns the center: a last snapshot over the wire
             clients[0].set_timeout(60.0)
             center = clients[0].pull()
         else:
-            center = ps.get_model()
-            trainer.ps_stats_ = ps.stats()
+            for c in clients:
+                c.close()  # a resilient close deregisters its worker
+            clients = []
+            center = active.get_model()
+            trainer.ps_stats_ = active.stats()
             trainer.ps_stats_["exchange_phases"] = trainer.exchange_phases_
         if trace_dir is not None:
             trainer.trace_path_ = _trace.save(os.path.join(
                 trace_dir, f"ps-trace-{os.getpid()}-{time.time_ns()}.json"))
     finally:
+        if ps_supervisor is not None:
+            ps_supervisor.stop()
         for c in clients:
             c.close()
-        if ps is not None:
-            ps.stop()
+        for server in {id(x): x for x in (
+                ps, standby,
+                ps_supervisor.active if ps_supervisor else None)
+                if x is not None}.values():
+            server.stop()
         if trace_owner:
             _trace.disable()
     final_nt = next((w.final_nt for w in workers if hasattr(w, "final_nt")),
                     nt)
     return center, final_nt, history
+
+
+def _start_failover(trainer, ps, params, rule, W, lease_timeout, resolver,
+                    kill_plan, failover_timeout):
+    """The socket transport's failover wiring: the hot standby (with
+    ``ps_standby``; its WAL under ``<ps_wal_dir>/standby``) attached to the
+    primary, a restart-in-place factory (with ``ps_wal_dir``), the PS-kill
+    chaos hook in the commit path (deterministic in commit count, tearing
+    in-flight ACKs like a real kill), and the started supervisor. Returns
+    ``(standby or None, supervisor)``."""
+    from distkeras_tpu_torch.resilience.recovery import PSFailoverSupervisor
+
+    kw = _ps_kwargs(trainer, lease_timeout)
+    wal_dir = kw.pop("wal_dir")
+    standby = None
+    if trainer.ps_standby:
+        standby = StandbySocketParameterServer(
+            params, rule, W,
+            wal_dir=None if wal_dir is None else f"{wal_dir}/standby", **kw)
+        standby.initialize()
+        standby.start()
+        for attempt in range(3):
+            # a FaultPlan active during setup may drop the handshake
+            try:
+                ps.attach_standby("127.0.0.1", standby.port)
+                break
+            except (ConnectionError, OSError):
+                if attempt == 2:
+                    raise
+    restart_factory = None
+    if wal_dir is not None:
+        def restart_factory():
+            new = SocketParameterServer(params, rule, W, wal_dir=wal_dir,
+                                        **kw)
+            new.initialize()
+            new.start()
+            return new
+    if kill_plan is not None:
+        def kill_hook(version, _ps=ps, _plan=kill_plan):
+            if _plan.should_kill_ps(version):
+                _plan.note_ps_kill()
+                _ps._crash()
+
+        ps.post_commit_hook = kill_hook
+    sup = PSFailoverSupervisor(resolver, ps, standby=standby,
+                               restart_factory=restart_factory,
+                               failover_timeout=float(failover_timeout))
+    sup.start()
+    return standby, sup
+
+
+def _raise_worker_errors(trainer, workers, supervisor, budget) -> None:
+    """Surface the workers' deaths: fatal unless
+    ``tolerate_worker_failures`` and some worker survived (then a
+    warning); past a restart budget, as ``RestartBudgetExceeded``."""
+    from distkeras_tpu_torch.resilience.recovery import (
+        RestartBudgetExceeded,
+    )
+
+    errors = [w.error for w in workers if w.error is not None]
+    if not errors:
+        return
+    survivors = len(workers) - len(errors)
+    if not trainer.tolerate_worker_failures or survivors == 0:
+        first = errors[0]
+        if supervisor is not None and not isinstance(first,
+                                                     KeyboardInterrupt):
+            raise RestartBudgetExceeded(
+                f"worker died past its restart budget ({budget} restarts): "
+                f"{type(first).__name__}: {first}") from first
+        raise first
+    warnings.warn(
+        f"{len(errors)} of {len(workers)} PS workers failed "
+        f"({type(errors[0]).__name__}: {errors[0]}); center trained by "
+        f"the {survivors} survivors", stacklevel=3)
 
 
 __all__ = ["AsyncWorker", "run_async_training", "aggregate_exchange_phases"]

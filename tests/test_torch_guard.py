@@ -43,12 +43,14 @@ missing = sorted(set(sys.argv[1:]) - set(names))
 print(len(names), missing, bad)
 """
 
-#: the modules of the parameter-server slice and the user surface: each
+#: the modules of the parameter-server slices and the user surface: each
 #: must be among those the probe imports
 _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "parameter_servers", "workers", "observability.trace",
                 "parallel.compression", "examples.mnist", "shm", "native",
-                "native_ps", "model"]
+                "native_ps", "model", "resilience", "resilience.heartbeat",
+                "resilience.retry", "resilience.faults", "resilience.wal",
+                "resilience.recovery"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -254,7 +254,7 @@ def test_socket_ps_later_actions_name_their_roadmap_item():
     try:
         s = networking.connect("127.0.0.1", ps.port, timeout=TIMEOUT)
         try:
-            for action, item in (("fence", "A7.6"), ("heartbeat", "A7.6"),
+            for action, item in (("drain", "A7.8"), ("metrics", "A13"),
                                  ("join", "A7.8"), ("deploy_report", "A13"),
                                  ("shard_map", "A7.7")):
                 networking.send_data(s, {"action": action, "worker_id": 0,
@@ -757,9 +757,9 @@ def test_four_worker_ps_run_matches_the_jax_package(name, window,
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(ps_wal_dir="/x"), "A7.6"),
-    (dict(retry_policy=object()), "A7.6"),
-    (dict(ps_standby=True), "A7.6"),
+    (dict(ps_chain_length=2), "A7.7"),
+    (dict(autoscale_target=2), "A7.8"),
+    (dict(ps_directory="h:1"), "A7.9"),
     (dict(ps_num_shards=2), "A7.7"),
     (dict(elastic=True), "A7.8"),
     (dict(directory=True), "A7.9"),

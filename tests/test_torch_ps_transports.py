@@ -31,12 +31,12 @@ from distkeras_tpu.parallel import merge_rules as jr
 from distkeras_tpu_torch import native, shm, trainers, utils
 from distkeras_tpu_torch import parameter_servers as tps
 from distkeras_tpu_torch.data import Dataset
-from distkeras_tpu_torch.networking import PeerDeadError
+from distkeras_tpu_torch.networking import FencedEpochError, PeerDeadError
 from distkeras_tpu_torch.parallel import compression as tcomp
 from distkeras_tpu_torch.parallel import merge_rules as tr
 from distkeras_tpu_torch.shm import ShmParameterServer, ShmPSClient
 from tests.test_torch_pipeline import _equal, _jax_native, _run
-from tests.test_torch_ps import _spec, blobs
+from tests.test_torch_ps import TIMEOUT, _spec, blobs
 
 
 @pytest.fixture(scope="module")
@@ -302,24 +302,49 @@ def test_native_int8_refuses_malformed_segments(tnative):
         ps.stop()
 
 
-def test_native_later_layers_name_their_item(tnative):
+def test_native_later_layers_name_their_item(tnative, tmp_path):
+    """The native server's EMA still names its item (A8). Its WAL, fencing
+    epoch and leases, once refused naming A7.6, now work: a seq'd commit
+    and its replay fold once, a fenced client's commit is refused, a lease
+    lapses into an eviction, and the C++ log recovers to the live
+    center."""
     center = {"w": np.zeros(2, np.float32)}
-    for kw, item in ((dict(wal_dir="/x"), "A7.6"), (dict(fence_epoch=2),
-                     "A7.6"), (dict(lease_timeout=1.0), "A7.6"),
-                     (dict(ema_decay=0.9), "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            tnative.NativeSocketParameterServer(center, tr.ADAGMerge(), 1,
-                                                **kw)
-    ps = _server(tnative, center, tr.ADAGMerge(), 1)
+    with pytest.raises(NotImplementedError, match="A8"):
+        tnative.NativeSocketParameterServer(center, tr.ADAGMerge(), 1,
+                                            ema_decay=0.9)
+    ps = tnative.NativeSocketParameterServer(
+        center, tr.DownpourMerge(), 1, wal_dir=str(tmp_path), fence_epoch=2,
+        lease_timeout=0.2)
+    ps.initialize()
+    ps.start()
     try:
-        with pytest.raises(NotImplementedError, match="A7.6"):
-            _client(tnative, ps, 0, epoch=1)
-        c = _client(tnative, ps, 0)
-        with pytest.raises(NotImplementedError, match="A7.6"):
-            c.commit(0, center, seq=1)
+        assert ps.fence_epoch == 2
+        c = _client(tnative, ps, 0, epoch=2)
+        d = {"w": np.ones(2, np.float32)}
+        c.commit(0, d, seq=1)
+        c.commit(0, d, seq=1)                   # the replay: a duplicate
+        c.epoch = 1
+        with pytest.raises(FencedEpochError):
+            c.commit(0, d, seq=2)
+        assert c.heartbeat() is False           # registered
+        s = ps.stats()
+        assert (s["num_updates"], s["dup_commits"], s["fenced_commits"],
+                s["heartbeats"]) == (1, 1, 1, 1)
+        deadline = time.monotonic() + TIMEOUT
+        while ps.stats()["evicted_workers"] == 0:
+            assert time.monotonic() < deadline, "the lease never lapsed"
+            time.sleep(0.05)
+        assert ps.stats()["active_workers"] == 0
+        live = ps.get_model()
         c.close()
     finally:
         ps.stop()
+    from distkeras_tpu_torch.resilience.wal import recover_ps_state
+
+    state = recover_ps_state(str(tmp_path), tr.DownpourMerge(), 1, None,
+                             template=center)
+    np.testing.assert_array_equal(state["center"]["w"], live["w"])
+    assert state["fence_epoch"] == 2 and state["num_updates"] == 1
 
 
 def test_native_trainer_equals_the_socket_trainer(tnative):
@@ -589,11 +614,51 @@ def test_transport_and_pipeline_validation_matrix():
         mk(ps_pipeline_depth=1, ps_fused_exchange=False)
     with pytest.raises(ValueError, match="native"):
         mk(ps_transport="native", ps_pipeline_depth=1, compression="int8")
-    ps = ShmParameterServer({"w": np.zeros(4, np.float32)},
-                            tr.DownpourMerge(), 1)
-    with pytest.raises(NotImplementedError, match="A7.6"):
-        ps.attach_standby("127.0.0.1", 1)
-    with pytest.raises(NotImplementedError, match="A7.6"):
-        ps._on_evict([0])
     with pytest.raises(NotImplementedError, match="A7.9"):
         shm.set_rendezvous(None, None)
+
+
+def test_shm_attach_standby_and_eviction_work():
+    """``ShmParameterServer.attach_standby`` and ``_on_evict``, once
+    refused, work: the shm primary streams its folds to a socket standby,
+    which promotes to the primary's center bit for bit; a worker whose
+    lease lapses is evicted and its ring segment unlinked."""
+    from distkeras_tpu_torch.parameter_servers import (
+        StandbySocketParameterServer,
+    )
+
+    center = {"w": np.zeros(64, np.float32), "b": np.zeros(3, np.float32)}
+    ps = ShmParameterServer(center, tr.DynSGDMerge(), 2, lease_timeout=0.2)
+    ps.initialize()
+    sb = StandbySocketParameterServer(center, tr.DynSGDMerge(), 2)
+    sb.initialize()
+    sb.start()
+    rng = np.random.default_rng(0)
+    try:
+        ps.attach_standby("127.0.0.1", sb.port)
+        clients = [ShmPSClient(ps, i) for i in range(2)]
+        for k in range(6):
+            c = clients[k % 2]
+            c.pull()
+            c.commit(k % 2, {"w": rng.standard_normal(64).astype(np.float32),
+                             "b": rng.standard_normal(3).astype(np.float32)},
+                     seq=k + 1)
+        clients[1].heartbeat()
+        sb.promote(epoch=1)
+        got, want = sb.get_model(), ps.get_model()
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+        assert sb.num_updates == 6 and sb._last_seq == ps._last_seq
+        seg1 = next(r["seg"].name for r in ps._segments if r["wid"] == 1)
+        deadline = time.monotonic() + TIMEOUT
+        while ps.stats()["evicted_workers"] == 0:
+            assert time.monotonic() < deadline, "the lease never lapsed"
+            time.sleep(0.05)
+        assert 1 not in ps._last_seq
+        assert not os.path.exists(f"/dev/shm/{seg1}")  # unlinked
+        assert any(r["wid"] == 0 for r in ps._segments)
+        for c in clients:
+            c.close()
+    finally:
+        sb.stop()
+        ps.stop()

@@ -228,7 +228,7 @@ def test_resident_and_streaming_paths_agree_unshuffled():
 def test_later_slice_kwargs_raise_naming_their_roadmap_item():
     spec = torch_mlp(input_shape=(8,), hidden=(4,), num_classes=2)
     with pytest.raises(NotImplementedError, match="A7"):
-        trainers.ADAG(spec, ps_wal_dir="/x", device="cpu")
+        trainers.ADAG(spec, ps_num_shards=2, device="cpu")
     with pytest.raises(NotImplementedError, match="A8"):
         trainers.DynSGD(spec, checkpoint_dir="/nonexistent", device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
