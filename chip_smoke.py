@@ -137,16 +137,33 @@ Phases, in order; any failure exits non-zero and prints no result:
     primary killed after half the commits: one failover at fence epoch 1,
     the final center the standby's, the failover time printed beside the
     timeout) and ``ps_config5_native_wal`` (the native PS's C++ WAL with
-    heartbeats and retries, crash()ed after the last exchange: the port's
-    ``recover_ps_state`` gives the center last served bit for bit, with
-    ``num_updates``, ``last_seq`` and ``fence_epoch``); the WAL phases
-    print the durability cost (window time, ``ps.wal_wait`` total, fsyncs,
-    bytes, the temporary directory's filesystem) beside the in-process
-    window;
-15. print the ``kernels`` JSON line (K1 as one decode step and, as
+    heartbeats at the chaos phase's lease, which every request renews, and
+    retries, crash()ed after the last exchange: folds equal the logical
+    commits, and the port's ``recover_ps_state`` gives the center last
+    served bit for bit, with ``num_updates``, ``last_seq`` and
+    ``fence_epoch``); the WAL phases print the durability cost (window
+    time, ``ps.wal_wait`` total, fsyncs, bytes, the temporary directory's
+    filesystem) beside the in-process window;
+15. the sharded center (``sharding/``), each phase one JSON line, its
+    launches counted alone: ``ps_config5_sharded_chain`` (config 5 over
+    PS_SHARDS socket shards with a chain of PS_CHAIN links a shard and a
+    WAL a server, the primary of the shard holding ``Embed_0.weight``
+    killed after half the commits: one failover, on that shard, via its
+    chain's link at fence epoch 1; every shard's folds equal the logical
+    commits; the final center the join of the live shards; each shard's
+    log replaying to its part; the WAL root verifying clean; every
+    worker's loss falling; K5/K6/K7 once a step), ``ps_sharded_parity``
+    (one worker of config 5 through the in-process PS at PS_PARITY_SHARDS
+    shards and at one: centers equal bit for bit) and
+    ``ps_config3_sharded_native`` (config 3 as the native serial run, over
+    PS3_SHARDS native shards: every client's SHARD_INFO handshake under
+    the plan, every shard folding every commit, config 3's gates), each
+    printing the shards' bytes and the window's phases beside the
+    unsharded run's;
+16. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, K6 and K7 with their G=1 times), read
-    config 3's gates (``ps3_failures``), then the
+    config 3's gates (``ps3_failures``, the sharded run's too), then the
     result line ``{"ok": true, "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
@@ -233,6 +250,11 @@ PS5_MAX_DELAY = 0.2       # backoff cap: a replay reaches the server well
 #                           inside the lease its fold renewed
 PS5_SNAPSHOT_EVERY = 16   # snapshots (and log truncation) in the run
 PS5_FAILOVER_TIMEOUT = 2.0
+# the sharded center: config 5 over PS_SHARDS socket shards with a chain
+# of PS_CHAIN links a shard, the heavy shard's primary killed at half the
+# commits; the one-worker parity run at PS_PARITY_SHARDS against one PS;
+# config 3 over PS3_SHARDS native shards
+PS_SHARDS, PS_CHAIN, PS_PARITY_SHARDS, PS3_SHARDS = 2, 2, 4, 4
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -1588,7 +1610,7 @@ def _each_worker_loss_fell(history, workers, epochs):
 
 def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
                device: str, transport: str = "socket", depth: int = 0,
-               epochs: int = PS3_EPOCHS) -> dict:
+               epochs: int = PS3_EPOCHS, num_shards: int = 1) -> dict:
     """Config 3 (bench.py:316-324: CIFAR-10 VGG-small under DOWNPOUR,
     the stale-gradient PS) through ``transport`` at ``ps_pipeline_depth``
     ``depth``. On the socket transport a ``SocketParameterServer`` started
@@ -1597,7 +1619,10 @@ def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
     own server, recorded as it is built (``_servers_built``). Either way
     the server's ``stats()`` and τ are read after the run (τ from
     ``recent_staleness()``, or on native from the versions the server
-    returns: ``_NativeTaus``). ``vgg_small()`` in bf16 with f32 params on
+    returns: ``_NativeTaus``); with ``num_shards`` > 1 the trainer's own
+    sharded center (``ps_num_shards``), its ``commits`` the fewest any
+    shard counted and ``per_shard`` each shard's. ``vgg_small()`` in bf16
+    with f32 params on
     the synthetic CIFAR-10 stand-in, fused Adam at ``lr``, ``epochs``
     epochs of ``windows`` windows of ``window`` steps of ``batch`` rows a
     worker; then held-out accuracy (``ModelPredictor`` +
@@ -1620,6 +1645,8 @@ def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
               communication_window=window, num_epoch=epochs,
               backend="ps", ps_transport=transport,
               ps_pipeline_depth=depth, device=device)
+    if num_shards > 1:
+        kw["ps_num_shards"] = num_shards
     if transport == "socket":
         init, _ = spec.init_np(0)
         server = SocketParameterServer(init, DownpourMerge(), PS3_W)
@@ -1638,7 +1665,8 @@ def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
     else:
         t = DOWNPOUR(spec, **kw)
         t0 = time.perf_counter()
-        center, servers, taus = _train_recording(t, train, True, transport)
+        center, servers, taus = _train_recording(t, train, True, transport,
+                                                 num_shards)
         wall = time.perf_counter() - t0
         stats = t.ps_stats_
     t1 = time.perf_counter()
@@ -1647,11 +1675,16 @@ def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
     eval_s = time.perf_counter() - t1
     commits = PS3_W * windows * epochs
     fell, means = _worker_loss_fell(t.history, PS3_W, epochs)
+    per_shard = [dict(commits=p["commits"], num_updates=p["num_updates"],
+                      shard_nbytes=p["shard_nbytes"])
+                 for p in stats.get("per_shard", ())]
     return dict(transport=transport, pipeline_depth=depth, window=window,
-                lr=lr, batch=batch, epochs=epochs,
+                lr=lr, batch=batch, epochs=epochs, num_shards=num_shards,
                 windows_a_worker_an_epoch=windows, wall_s=wall,
                 eval_s=eval_s, expected_commits=commits,
-                commits=stats["commits"], num_updates=stats["num_updates"],
+                commits=min([stats["commits"]]
+                            + [p["commits"] for p in per_shard]),
+                num_updates=stats["num_updates"], per_shard=per_shard,
                 bytes_in=stats["bytes_in"], bytes_out=stats["bytes_out"],
                 center_lock_mean_hold_ns=stats["center_lock_mean_hold_ns"],
                 staleness=_staleness(taus),
@@ -1663,9 +1696,11 @@ def run_ps_vgg(torch, window: int, lr: float, batch: int, windows: int,
                 exchange_phases=_phase_summary(t.exchange_phases_))
 
 
-def _train_recording(t, ds, shuffle: bool, transport: str):
-    """``t.train(ds)`` on the trainer's own ``transport`` server, recorded
-    as it is built: ``(center, [server], τ of every commit)``."""
+def _train_recording(t, ds, shuffle: bool, transport: str,
+                     num_servers: int = 1):
+    """``t.train(ds)`` on the trainer's own ``transport`` server (or its
+    ``num_servers`` shard servers), recorded as they are built: ``(center,
+    [server], τ of every commit)``."""
     import distkeras_tpu_torch.workers as workers
 
     if transport == "native":
@@ -1683,9 +1718,11 @@ def _train_recording(t, ds, shuffle: bool, transport: str):
         tap = (stack.enter_context(_NativeTaus(module))
                if transport == "native" else None)
         center = t.train(ds, shuffle=shuffle)
-    if len(servers) != 1:
-        raise AssertionError(f"{transport}: {len(servers)} servers built")
-    taus = tap.taus if tap is not None else servers[0].recent_staleness()
+    if len(servers) != num_servers:
+        raise AssertionError(f"{transport}: {len(servers)} servers built, "
+                             f"expected {num_servers}")
+    taus = tap.taus if tap is not None else [
+        tau for srv in servers for tau in srv.recent_staleness()]
     return center, servers, taus
 
 
@@ -2116,16 +2153,19 @@ def train_ps_lstm_chaos(torch, train, serial):
 
 
 @contextlib.contextmanager
-def _timed_servers():
+def _timed_servers(module=None):
     """The socket servers (primary, standby) the trainer builds inside the
-    block, each stamping when it crashed (``t_crash``) and when it first
-    folded a commit (``t_first_fold``; a standby folds only once
-    promoted): yields the list they land in."""
-    from distkeras_tpu_torch import workers
+    block (through ``module``'s names: ``workers`` by default; a sharded
+    group builds through ``parameter_servers``), each stamping when it
+    crashed (``t_crash``) and when it first folded a commit
+    (``t_first_fold``; a standby folds only once promoted): yields the
+    list they land in."""
+    if module is None:
+        from distkeras_tpu_torch import workers as module
 
     made: list = []
     names = ("SocketParameterServer", "StandbySocketParameterServer")
-    saved = {n: getattr(workers, n) for n in names}
+    saved = {n: getattr(module, n) for n in names}
 
     def timed(cls):
         class Timed(cls):
@@ -2146,12 +2186,12 @@ def _timed_servers():
         return Timed
 
     for n, cls in saved.items():
-        setattr(workers, n, timed(cls))
+        setattr(module, n, timed(cls))
     try:
         yield made
     finally:
         for n, cls in saved.items():
-            setattr(workers, n, cls)
+            setattr(module, n, cls)
 
 
 def train_ps_lstm_failover(torch, train):
@@ -2211,6 +2251,9 @@ def train_ps_lstm_failover(torch, train):
             epoch_mean_loss=_worker_loss_fell(t.history.records, PS5_W,
                                               PS5_EPOCHS)[1],
             launches=launches)
+        rec["exchange_phases"] = _phase_summary(s["exchange_phases"])
+        rec["window_ms"] = sum(v["mean_ms"]
+                               for v in rec["exchange_phases"].values())
         log(json.dumps(rec))
         fails = _phase_gates("failover", t, launches, extra=False)
         if not (fo["failovers"] == 1 and plan.stats()["ps_kills"] == 1
@@ -2286,8 +2329,10 @@ def _crash_at_first_close():
 
 def train_ps_lstm_native_wal(torch, train, serial):
     """Config 5 through the native PS, serially, with the C++ write-ahead
-    log (``ps_wal_dir``), heartbeats and ``RetryPolicy(seed=0)``; the
-    server crash()ed after the last exchange. Gate: the port's
+    log (``ps_wal_dir``), heartbeats and a lease as the chaos phase's
+    (PS5_HEARTBEAT, PS5_LEASE: each request renews it in the C++ core) and
+    ``RetryPolicy(seed=0)``; the server crash()ed after the last exchange.
+    Gates: folds equal the logical commits; the port's
     ``recover_ps_state`` rebuilds from the C++ log the center last served,
     bit for bit, with ``num_updates``, ``last_seq`` and ``fence_epoch``
     equal; K5/K6/K7 once a step. Prints the durability cost beside
@@ -2297,12 +2342,10 @@ def train_ps_lstm_native_wal(torch, train, serial):
 
     wal_dir = tempfile.mkdtemp(prefix="dk-wal-native-")
     try:
-        # a lease long past the run: no eviction retires a dedup entry
-        # before the crash, so every worker's last seqno is in the log
         t, rows = _config5(
             "native", ps_wal_dir=wal_dir,
             retry_policy=RetryPolicy(seed=0, max_attempts=PS5_ATTEMPTS),
-            heartbeat_interval=PS5_HEARTBEAT, lease_timeout=300.0)
+            heartbeat_interval=PS5_HEARTBEAT, lease_timeout=PS5_LEASE)
 
         def run():
             with _crash_at_first_close() as cap:
@@ -2345,7 +2388,10 @@ def train_ps_lstm_native_wal(torch, train, serial):
                             and state["last_seq"] == cap["last_seq"]),
             fence_epoch=cap["fence_epoch"], recovered_fence_epoch=(
                 None if state is None else state["fence_epoch"]),
-            heartbeats=s["heartbeats"], logical_commits=r["logical_commits"],
+            heartbeats=s["heartbeats"], lease_timeout_s=PS5_LEASE,
+            evicted_workers=s["evicted_workers"],
+            dup_commits=s["dup_commits"], commits=s["commits"],
+            logical_commits=r["logical_commits"],
             launches=launches, exchange_phases=phases)
         log(json.dumps(rec))
         fails = _phase_gates("native_wal", t, launches, extra=True)
@@ -2364,6 +2410,291 @@ def train_ps_lstm_native_wal(torch, train, serial):
         return rec
     finally:
         shutil.rmtree(wal_dir, ignore_errors=True)
+
+
+def _wal_verify(root: str) -> tuple[int, dict, str]:
+    """``python -m distkeras_tpu_torch.resilience.wal verify root``:
+    ``(rc, report, the output's tail)``."""
+    cli = subprocess.run(
+        [sys.executable, "-m", "distkeras_tpu_torch.resilience.wal",
+         "verify", root], capture_output=True, text=True, timeout=120)
+    report = json.loads(cli.stdout) if cli.stdout else {}
+    return cli.returncode, report, (cli.stdout[-2000:] + cli.stderr[-2000:])
+
+
+def _span_totals(events, *names) -> dict:
+    return {n: dict(count=sum(1 for e in events if e["name"] == n),
+                    total_ms=sum(e["dur_ns"] for e in events
+                                 if e["name"] == n) / 1e6)
+            for n in names}
+
+
+def train_ps_lstm_sharded_chain(torch, train, failover):
+    """Config 5 through a sharded center on the socket transport:
+    ``ps_num_shards=PS_SHARDS``, ``ps_chain_length=PS_CHAIN`` (a replica
+    behind each shard's primary), a WAL a server under one root, and the
+    primary of the shard that holds ``Embed_0.weight`` (10.24 MB of the
+    10.77 MB center) crash-stopped once it folded half the run's commits
+    (``FaultPlan(kill_ps_after_commits=..., kill_shard_id=...)``). Gates:
+    one kill and one failover, on that shard only, via its chain's link, at
+    fence epoch 1; every shard's lifetime folds equal the logical commits
+    (``num_updates == num_updates_max``); the final center is
+    ``plan.join`` of the live servers' parts; each shard's log replays bit
+    for bit to its part (the promoted link's ``chain-1`` log for the killed
+    shard, ``shard-NN`` for the other); the WAL root verifies clean; every
+    worker's loss falls; K5/K6/K7 once a step actually taken. Prints the
+    shards' bytes, the failover time (the kill to the promoted link's
+    first fold), the chain's ``ps.chain_apply`` and ``ps.chain_forward``
+    totals and the window's phases beside ``failover``'s (PR 9's single
+    standby)."""
+    from distkeras_tpu_torch import parameter_servers, sharding
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
+    from distkeras_tpu_torch.resilience import FaultPlan, recover_ps_state
+
+    wal_root = tempfile.mkdtemp(prefix="dk-wal-sharded-")
+    try:
+        spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                               embed_dim=IMDB_E, hidden_dim=IMDB_H)
+        init = spec.init_np(0)[0]   # _config5's trainers init from seed 0
+        splan = sharding.ShardPlan(init, PS_SHARDS)
+        heavy = splan.assignment["['Embed_0.weight']"]
+        kill_after = PS5_W * PS5_WINDOWS * PS5_EPOCHS // 2
+        plan = FaultPlan(kill_ps_after_commits=kill_after,
+                         kill_shard_id=heavy)
+        t, rows = _config5("socket", ps_num_shards=PS_SHARDS,
+                           ps_chain_length=PS_CHAIN, ps_wal_dir=wal_root,
+                           ps_failover_timeout=PS5_FAILOVER_TIMEOUT,
+                           fault_plan=plan)
+
+        def run():
+            with _traced() as events, \
+                    _timed_servers(parameter_servers), \
+                    _servers_built(sharding, "ShardedPSGroup") as groups, \
+                    warnings.catch_warnings(), plan:
+                warnings.simplefilter("ignore")   # the failover warning
+                t0 = time.perf_counter()
+                center = t.train(train.gather(np.arange(rows)))
+                wall = time.perf_counter() - t0
+            return center, wall, events, groups
+
+        (center, wall, events, groups), launches = counted(run)
+        s, r = t.ps_stats_, t.resilience_stats_
+        group = groups[0]
+        fo = r["ps_failover"]
+        per = fo["per_shard"]
+        victim = group.servers[heavy]
+        promoted = group.supervisors[heavy].active
+        live = group.active_servers
+        joined = group.plan.join([srv.get_model() for srv in live])
+        center_equal = sorted(joined) == sorted(center) and all(
+            np.array_equal(center[k].numpy(), joined[k]) for k in center)
+        logs = {sid: (sharding.chain_wal_dir(wal_root, sid, 1)
+                      if sid == heavy else
+                      sharding.shard_wal_dir(wal_root, sid))
+                for sid in range(PS_SHARDS)}
+        replays = {}
+        for sid, d in logs.items():
+            state = recover_ps_state(d, DynSGDMerge(), PS5_W, None,
+                                     template=splan.shard_template(init, sid))
+            part = live[sid].get_model()
+            replays[sid] = (state is not None
+                            and state["num_updates"] == live[sid].num_updates
+                            and sorted(state["center"]) == sorted(part)
+                            and all(np.array_equal(state["center"][p], v)
+                                    for p, v in part.items()))
+        rc, verify, tail = _wal_verify(wal_root)
+        phases = _phase_summary(s["exchange_phases"])
+        rec = dict(
+            phase="ps_config5_sharded_chain", wall_s=wall,
+            num_shards=PS_SHARDS, chain_length=PS_CHAIN,
+            ring=group.plan.digest, shard_paths=group.plan.shard_paths,
+            shard_nbytes=group.plan.shard_nbytes, killed_shard=heavy,
+            kill_after_commits=kill_after, failovers=fo["failovers"],
+            failover_log={sid: p["failover_log"]
+                          for sid, p in enumerate(per)},
+            failover_s=(None if None in (victim.t_crash,
+                                         promoted.t_first_fold)
+                        else promoted.t_first_fold - victim.t_crash),
+            failover_timeout_s=PS5_FAILOVER_TIMEOUT,
+            failover_phase_failover_s=failover["failover_s"],
+            promoted_fence_epoch=promoted.fence_epoch,
+            map_epoch=s["map_epoch"], num_updates=s["num_updates"],
+            num_updates_max=s["num_updates_max"],
+            per_shard_num_updates=[p["num_updates"]
+                                   for p in s["per_shard"]],
+            logical_commits=r["logical_commits"], retries=r["retries"],
+            reconnects=r["reconnects"], center_is_join=center_equal,
+            logs_replay_equal=replays, log_dirs={
+                sid: os.path.relpath(d, wal_root) for sid, d in logs.items()},
+            wal_verify_rc=rc, wal_verify_ok=verify.get("ok"),
+            wal_dirs=verify.get("num_wal_dirs"),
+            spans=_span_totals(events, "ps.chain_apply", "ps.chain_forward",
+                               "ps.promote", "ps.failover"),
+            window_ms=sum(v["mean_ms"] for v in phases.values()),
+            failover_phase_window_ms=failover["window_ms"],
+            worker_loss_fell=_each_worker_loss_fell(
+                t.history.records, PS5_W, PS5_EPOCHS),
+            launches=launches, exchange_phases=phases,
+            failover_phase_exchange_phases=failover["exchange_phases"])
+        log(json.dumps(rec))
+        fails = _phase_gates("sharded_chain", t, launches, extra=False)
+        log0 = per[heavy]["failover_log"]
+        if not (plan.stats()["ps_kills"] == 1 and fo["failovers"] == 1
+                and per[heavy]["failovers"] == 1
+                and all(p["failovers"] == 0 for sid, p in enumerate(per)
+                        if sid != heavy)
+                and log0[0]["via"] == "standby" and log0[0]["epoch"] == 1
+                and promoted is group.chains[heavy][0]
+                and promoted.promoted_ and promoted.fence_epoch == 1):
+            fails.append(f"sharded_chain: {plan.stats()['ps_kills']} kills, "
+                         f"failovers by shard {rec['failover_log']}, the "
+                         f"chain's link promoted {promoted.promoted_} at "
+                         f"epoch {promoted.fence_epoch}")
+        if not s["num_updates"] == s["num_updates_max"] \
+                == r["logical_commits"]:
+            fails.append(f"sharded_chain: shard folds "
+                         f"{rec['per_shard_num_updates']} against "
+                         f"{r['logical_commits']} logical commits")
+        if not center_equal:
+            fails.append("sharded_chain: the final center is not the join "
+                         "of the live shards")
+        if not all(replays.values()):
+            fails.append(f"sharded_chain: logs replay to their parts "
+                         f"{replays}")
+        if not (rc == 0 and verify.get("ok") and verify.get("sharded")):
+            fails.append(f"sharded_chain: wal verify rc {rc}: {tail}")
+        if not all(rec["worker_loss_fell"]):
+            fails.append(f"sharded_chain: a worker's loss did not fall: "
+                         f"{rec['worker_loss_fell']}")
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(wal_root, ignore_errors=True)
+
+
+def compare_ps_sharded(torch, train):
+    """One DynSGD worker on config 5 (fused Adam, PS_PARITY_WINDOWS
+    windows, unshuffled) through the in-process PS at
+    ``ps_num_shards=PS_PARITY_SHARDS`` and at one shard, from the same
+    init on the same rows. Folds are leafwise and each shard sees the
+    global fold order, so the centers must be equal bit for bit. When
+    they are not, a second unsharded run shows whether the card's compute
+    is deterministic run to run (printed; the gate stands). K5/K6/K7 are
+    counted on the sharded run."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    rows = IMDB_BATCH * IMDB_WINDOW * PS_PARITY_WINDOWS
+    ds = train.gather(np.arange(rows))
+
+    def run(shards):
+        spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                               embed_dim=IMDB_E, hidden_dim=IMDB_H)
+        t = DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
+                   learning_rate=IMDB_LR, features_col=["features", "mask"],
+                   num_workers=1, batch_size=IMDB_BATCH,
+                   communication_window=IMDB_WINDOW, num_epoch=1,
+                   backend="ps", ps_num_shards=shards, device=DEVICE)
+        return t.train(ds), t
+
+    def diff(a, b):
+        return max(_err(a[k], b[k]) for k in b)
+
+    t0 = time.perf_counter()
+    (c_n, t_n), launches = counted(lambda: run(PS_PARITY_SHARDS))
+    c_1, t_1 = run(1)
+    equal = all(torch.equal(c_n[k], c_1[k]) for k in c_1)
+    s = t_n.ps_stats_
+    rec = dict(phase="ps_sharded_parity", num_shards=PS_PARITY_SHARDS,
+               windows=PS_PARITY_WINDOWS, bits_equal=equal,
+               max_center_diff=diff(c_n, c_1),
+               shard_nbytes=[p["shard_nbytes"] for p in s["per_shard"]],
+               per_shard_num_updates=[p["num_updates"]
+                                      for p in s["per_shard"]],
+               losses_sharded=t_n.history.losses(),
+               losses_unsharded=t_1.history.losses(), launches=launches,
+               wall_s=time.perf_counter() - t0)
+    if not equal:
+        c_1b, _ = run(1)
+        rec["unsharded_runs_bits_equal"] = all(
+            torch.equal(c_1b[k], c_1[k]) for k in c_1)
+        rec["unsharded_runs_max_diff"] = diff(c_1b, c_1)
+    log(json.dumps(rec))
+    steps = PS_PARITY_WINDOWS * IMDB_WINDOW
+    fails = []
+    if not equal:
+        fails.append(f"sharded_parity: the {PS_PARITY_SHARDS}-shard center "
+                     f"parts from the unsharded one by "
+                     f"{rec['max_center_diff']}")
+    if not (s["num_updates"] == s["num_updates_max"] == PS_PARITY_WINDOWS
+            == t_1.ps_stats_["num_updates"]):
+        fails.append(f"sharded_parity: folds {rec['per_shard_num_updates']}"
+                     f", expected {PS_PARITY_WINDOWS} on every shard")
+    for k in ("fused_adam", "lstm_forward", "lstm_backward"):
+        if launches[k] != steps:
+            fails.append(f"sharded_parity: {k} launched {launches[k]} "
+                         f"times, expected {steps}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return rec
+
+
+def train_ps_vgg_sharded_native(torch, serial):
+    """Config 3 as ``train_ps_vgg_transports`` runs it through the native
+    PS serially (PS3_LR, PS3_EPOCHS), over ``ps_num_shards=PS3_SHARDS``
+    native shard servers, counted alone. Every client's SHARD_INFO
+    handshake is recorded (``NativePSClient.shard_info``). Prints the
+    shards' bytes and the window's phases beside ``serial``'s (the
+    unsharded native run). Returns ``(record, launches)``; its gates
+    (``ps3_sharded_failures`` and ``ps3_failures``) are read after the
+    ``kernels`` line."""
+    from distkeras_tpu_torch import native_ps
+
+    infos: list = []
+    shard_info = native_ps.NativePSClient.shard_info
+
+    def recording(self):
+        info = shard_info(self)
+        infos.append((self.worker_id, info))
+        return info
+
+    native_ps.NativePSClient.shard_info = recording
+    try:
+        rec, launches = counted(lambda: run_ps_vgg(
+            torch, PS3_WINDOW, PS3_LR, PS3_BATCH, PS3_WINDOWS, DEVICE,
+            transport="native", num_shards=PS3_SHARDS))
+    finally:
+        native_ps.NativePSClient.shard_info = shard_info
+    rec.update(phase="ps_config3_sharded_native",
+               handshakes=[(w, i) for w, i in infos],
+               unsharded_window_wall_ms=serial["window_wall_ms"],
+               unsharded_exchange_phases=serial["exchange_phases"],
+               unsharded_test_accuracy=serial["test_accuracy"],
+               launches=launches)
+    log(json.dumps(rec))
+    return rec, launches
+
+
+def ps3_sharded_failures(rec: dict) -> list:
+    """The sharded config 3 run's own gates, as messages: every client's
+    handshake named each shard once under the plan's shard count, and
+    every shard folded every commit."""
+    out = []
+    want = {(w, sid) for w in range(PS3_W) for sid in range(PS3_SHARDS)}
+    got = [(w, i["shard_id"]) for w, i in rec["handshakes"]
+           if i is not None and i["num_shards"] == PS3_SHARDS]
+    if len(got) != len(rec["handshakes"]) or set(got) != want \
+            or len(got) != len(want):
+        out.append(f"config3_sharded_native: handshakes {rec['handshakes']}")
+    commits = rec["expected_commits"]
+    if not (len(rec["per_shard"]) == PS3_SHARDS and all(
+            p["commits"] == p["num_updates"] == commits
+            for p in rec["per_shard"])):
+        out.append(f"config3_sharded_native: shards folded "
+                   f"{rec['per_shard']}, expected {commits} each")
+    return out
 
 
 def run_mnist_twin():
@@ -2596,6 +2927,26 @@ def main() -> int:
         log(f"launches on the {name} path: "
             f"{json.dumps(resilience[name]['launches'])}")
         torch.cuda.empty_cache()
+
+    # the sharded center: config 5 over chained socket shards with a shard
+    # killed, one worker sharded against unsharded, config 3 over native
+    # shards (gated after the kernels line, as config 3's other runs)
+    sharded = {}
+    for name, fn in (
+            ("config5_sharded_chain",
+             lambda: train_ps_lstm_sharded_chain(
+                 torch, train, resilience["config5_failover"])),
+            ("sharded_parity", lambda: compare_ps_sharded(torch, train)),
+            ("config3_sharded_native",
+             lambda: train_ps_vgg_sharded_native(
+                 torch, vgg_runs["config3_native"][0])[0])):
+        t_ps = time.perf_counter()
+        sharded[name] = fn()
+        log(f"launches on the {name} path: "
+            f"{json.dumps(sharded[name]['launches'])}")
+        log(json.dumps({"phase": f"ps_{name}",
+                        "wall_s": time.perf_counter() - t_ps}))
+        torch.cuda.empty_cache()
     log(f"parameter-server paths done at {time.perf_counter() - t0:.1f}s")
 
     def total(rows, pick, key):
@@ -2670,7 +3021,9 @@ def main() -> int:
                          **{k: v[1][name] for k, v in vgg_runs.items()},
                          "config5_native_pipelined": ps5p[name],
                          **{k: v["launches"][name]
-                            for k, v in resilience.items()}},
+                            for k, v in resilience.items()},
+                         **{k: v["launches"][name]
+                            for k, v in sharded.items()}},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,
@@ -2679,6 +3032,10 @@ def main() -> int:
     failures = ps3_failures("config3_socket", vgg_rec, ps3, False)
     for name, (rec3, launches3) in vgg_runs.items():
         failures += ps3_failures(name, rec3, launches3, True)
+    rec3 = sharded["config3_sharded_native"]
+    failures += ps3_failures("config3_sharded_native", rec3,
+                             rec3["launches"], True)
+    failures += ps3_sharded_failures(rec3)
     if failures:
         raise AssertionError("config 3's gates failed: "
                              + "; ".join(failures))

@@ -84,6 +84,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_server_fence": (u64, [vp, u64]),
         "dkps_server_fence_epoch": (u64, [vp]),
         "dkps_server_set_trace": (None, [vp, ctypes.c_int]),
+        "dkps_server_set_shard": (None, [vp, u32, u32]),
         "dkps_client_from_fd": (vp, [ctypes.c_int, u32, u64]),
         "dkps_client_set_timeout_ms": (ctypes.c_int, [vp, ctypes.c_int]),
         "dkps_client_pull": (i64, [vp, f32p]),
@@ -99,6 +100,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_client_heartbeat": (ctypes.c_int, [vp, u32]),
         "dkps_client_deregister": (ctypes.c_int, [vp]),
         "dkps_client_trace_scrape": (i64, [vp, u64p, u64]),
+        "dkps_client_shard_info": (ctypes.c_int, [
+            vp, ctypes.POINTER(u32), ctypes.POINTER(u32), u64p]),
         "dkps_client_close": (None, [vp]),
     }
     for name, (restype, argtypes) in sig.items():

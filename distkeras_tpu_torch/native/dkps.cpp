@@ -44,7 +44,9 @@
 //              with the Python PS's "heartbeat" action; a worker whose
 //              lease lapses past the server's lease_timeout is EVICTED:
 //              counted in stats and its pull_version forgotten, so DynSGD
-//              treats a zombie commit as maximally stale),
+//              treats a zombie commit as maximally stale; every pull,
+//              commit and exchange of a leased worker extends its lease
+//              too, without counting a heartbeat),
 //              7=COMMIT_SEQ (u64 per-worker seqno + n*4 payload bytes:
 //              the retry-safe commit — the server folds each (worker,
 //              seq) at most once, so a client replaying a commit whose
@@ -988,6 +990,20 @@ struct Server {
     return known;
   }
 
+  // a request from a leased worker shows it alive: extend its lease (no
+  // heartbeat counted, nobody registered) — parity with the port's
+  // WorkerRegistry.touch. The handler calls it before it records a pull
+  // or folds a commit, so an eviction cannot retire the dedup entry
+  // between a fold and the replay of its lost ACK unless the replay
+  // itself comes a whole lease later
+  void touch(uint32_t wid) {
+    const uint64_t deadline =
+        now_ns() + static_cast<uint64_t>(lease_timeout_s * 1e9);
+    std::lock_guard<std::mutex> g(lease_mu);
+    auto it = leases.find(wid);
+    if (it != leases.end()) it->second.deadline_ns = deadline;
+  }
+
   void deregister(uint32_t wid) {
     {
       std::lock_guard<std::mutex> g(lease_mu);
@@ -1264,6 +1280,16 @@ struct Server {
     for (;;) {
       uint8_t action;
       if (!recv_all(fd, &action, 1)) break;
+      // every action that records a pull or folds a commit renews the
+      // worker's lease first: PULL, COMMIT, COMMIT_INT8, PULL_INT8,
+      // COMMIT_SEQ, COMMIT_SEQ_E, EXCHANGE
+      switch (action) {
+        case 1: case 2: case 4: case 5: case 7: case 10: case 14:
+          touch(conn_wid_);
+          break;
+        default:
+          break;
+      }
       if (action == 1) {  // PULL
         uint64_t version;
         {

@@ -23,8 +23,12 @@ and either package's client works against the other's server.
 
 The resilience layer is the C++ core's: per-worker seqno dedup
 (``COMMIT_SEQ``), fencing (``COMMIT_SEQ_E``, ``FENCE``), leases
-(``HEARTBEAT``, ``DEREGISTER``) and a group-commit write-ahead log in the
-Python PS's record format (flat f32 records). Recovery is this side's
+(``HEARTBEAT``, ``DEREGISTER``; each pull, commit and exchange of a leased
+worker extends its lease, as ``WorkerRegistry.touch`` does for the Python
+servers), the shard-map handshake (``SHARD_INFO``) and a group-commit
+write-ahead log in the Python PS's record format (flat f32 records). The
+JAX package's copy of the core renews a lease by heartbeats only.
+Recovery is this side's
 job: a server built with ``wal_dir`` replays ``(snapshot, wal)`` through
 the port's ``resilience.wal.recover_ps_state``, installs the state in the
 C++ server and publishes a fresh base snapshot before handing the live
@@ -169,6 +173,8 @@ class NativeSocketParameterServer:
         self.crashed_ = False
         self._handle = None
         self._init_vec = self.spec.flatten(center)
+        # the shard-map record, mirrored from set_shard_info
+        self.shard_info: dict | None = None
 
     def initialize(self) -> None:
         state = self._recover_wal_state()
@@ -309,6 +315,18 @@ class NativeSocketParameterServer:
         """Raise the fencing epoch (monotone; durable before it returns
         with a WAL); returns the epoch after."""
         return int(self._lib.dkps_server_fence(self._handle, int(epoch)))
+
+    # -- the shard-map handshake ------------------------------------------------
+
+    def set_shard_info(self, shard_id: int, num_shards: int) -> None:
+        """Mark this server as holding shard ``shard_id`` of a
+        ``num_shards``-way center: SHARD_INFO (action 11) then advertises
+        it to clients. ``shard_info`` mirrors the record, as the Python
+        servers carry it."""
+        self._lib.dkps_server_set_shard(self._handle, int(shard_id),
+                                        int(num_shards))
+        self.shard_info = {"shard_id": int(shard_id),
+                           "num_shards": int(num_shards)}
 
     # -- the C++ span ring ----------------------------------------------------
 
@@ -503,6 +521,22 @@ class NativePSClient:
         if rc < 0:
             raise ConnectionError("dkps fence failed (server gone?)")
         return rc
+
+    def shard_info(self) -> dict | None:
+        """The shard-map handshake (SHARD_INFO, action 11): the server's
+        shard record, or None for an unsharded center (the surface of
+        ``ParameterServerClient.shard_map``)."""
+        sid, num = ctypes.c_uint32(0), ctypes.c_uint32(0)
+        epoch = ctypes.c_uint64(0)
+        rc = self._lib.dkps_client_shard_info(
+            self._handle, ctypes.byref(sid), ctypes.byref(num),
+            ctypes.byref(epoch))
+        if rc != 0:
+            raise ConnectionError("dkps shard_info failed (server gone?)")
+        if int(num.value) == 0:
+            return None
+        return {"shard_id": int(sid.value), "num_shards": int(num.value),
+                "epoch": int(epoch.value)}
 
     def _commit_int8(self, blob: dict) -> None:
         """An ``Int8Codec`` blob on the segmented int8 wire (action 4): 4×

@@ -55,19 +55,25 @@ reference:
   the ACK; in group mode (``wal_group_window`` > 1) a commit's ACK waits
   for its group's fsync. Snapshots truncate the log; a server built on a
   directory that holds a log recovers it, bit for bit;
-- **the hot standby**: ``attach_standby`` streams the same records to a
-  :class:`StandbySocketParameterServer`, which applies them through
-  ``wal.replay_record`` and serves once ``promote``d.
+- **the hot standby and chain replication**: ``attach_standby`` streams
+  the same records to a :class:`StandbySocketParameterServer`, which
+  applies them through ``wal.replay_record``, forwards each applied record
+  to its own successor when it has one (a chain, ``sharding/``), and
+  serves once ``promote``d;
+- **the shard map**: a server holding one shard of a sharded center
+  (``sharding/``) carries its plan's record in ``shard_info`` and answers
+  the ``shard_map`` action with it (None when unsharded), so a client
+  wired to the wrong shard fails fast.
 
-Elastic membership, sharding, the center's EMA and deploy streaming belong
-to later slices (``ROADMAP.md`` A7.7, A7.8, A8, A13): their wire actions
-answer with an error frame naming the item, and their stats counters stay
-0.
+Elastic membership, the center's EMA and deploy streaming belong to later
+slices (``ROADMAP.md`` A7.8, A8, A13): their wire actions answer with an
+error frame naming the item, and their stats counters stay 0.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import pickle
 import socket
 import threading
@@ -96,7 +102,6 @@ Tree = Any
 _LATER_ACTIONS = {
     "join": "A7.8 (elastic membership)",
     "drain": "A7.8 (elastic membership)",
-    "shard_map": "A7.7 (sharding)",
     "deploy_report": "A13 (deploy streaming)",
     "metrics": "A13 (observability: metrics)",
 }
@@ -277,6 +282,9 @@ class ParameterServer:
         # chaos seam: called with the post-fold version after every
         # applied commit, outside the center lock (the kill-PS fault)
         self.post_commit_hook = None
+        # the shard-map record ({"shard_id", "num_shards", "ring"}) of a
+        # server holding one shard of a sharded center; None unsharded
+        self.shard_info: dict | None = None
 
     def _adopt_state(self, state: dict) -> None:
         """Install a recovered or streamed state (``wal.ps_state_dict``'s
@@ -765,9 +773,9 @@ class ParameterServer:
         traffic."""
         sock = networking.connect(host, int(port), timeout=timeout)
         sock.settimeout(timeout)
-        with self._lock:
+        with self._replication_base() as state:
             networking.send_data(sock, {"action": "replicate_stream",
-                                        "state": self._capture_state_locked()})
+                                        "state": state})
             reply = networking.recv_data(sock)
             if not reply.get("ok"):
                 sock.close()
@@ -778,6 +786,13 @@ class ParameterServer:
         # a wedged standby costs at most one bounded stall before it is
         # dropped
         sock.settimeout(5.0)
+
+    @contextlib.contextmanager
+    def _replication_base(self):
+        """The state a new replica starts from, with the lock that orders
+        it before every later record held over the handshake."""
+        with self._lock:
+            yield self._capture_state_locked()
 
     @property
     def has_standby(self) -> bool:
@@ -949,8 +964,8 @@ class SocketParameterServer(ParameterServer):
     length-prefixed restricted-pickle frames (``networking.py``). Requests
     are ``{"action": ..., "worker_id": i, "payload": tree?}``; the wire
     actions are ``pull``, ``pull_int8``, ``commit``, ``exchange``,
-    ``ping``, ``stats``, ``fence``, ``mark_epoch``, ``heartbeat``,
-    ``deregister``, ``replicate_stream`` (a standby's) and
+    ``ping``, ``shard_map``, ``stats``, ``fence``, ``mark_epoch``,
+    ``heartbeat``, ``deregister``, ``replicate_stream`` (a standby's) and
     ``stop``/``bye``. A commit or exchange may carry ``seq`` and
     ``epoch``; a fenced one is answered ``{"error": "fenced", "epoch"}``."""
 
@@ -1047,6 +1062,8 @@ class SocketParameterServer(ParameterServer):
             self._serve_exchange(conn, msg, raw)
         elif action == "ping":
             networking.send_data(conn, self._ping_reply())
+        elif action == "shard_map":
+            networking.send_data(conn, self._shard_map_reply())
         elif action == "stats":
             networking.send_data(conn, {"ok": True, "stats": self.stats()})
         elif action == "fence":
@@ -1079,7 +1096,14 @@ class SocketParameterServer(ParameterServer):
         return {"ok": True, "epoch": self.fence_epoch,
                 "num_updates": self.num_updates,
                 "standby": bool(getattr(self, "is_standby", False)),
-                "shard": None}
+                "shard": self.shard_info}
+
+    def _shard_map_reply(self) -> dict:
+        """The shard-map handshake: which shard of which plan this server
+        holds (None unsharded) and the fencing epoch the shard-map epoch
+        sums."""
+        return {"ok": True, "shard": self.shard_info,
+                "epoch": self.fence_epoch}
 
     def _serve_replication(self, conn, msg) -> bool:
         """Only a standby takes a replication stream; True when the
@@ -1229,7 +1253,14 @@ class StandbySocketParameterServer(SocketParameterServer):
     ``wal.replay_record``, the path crash recovery uses. Worker actions are
     refused with a retryable ``standby`` error until ``promote(epoch)``
     installs the replicated state under the center lock, stamps the new
-    fencing epoch and turns it into an ordinary serving PS."""
+    fencing epoch and turns it into an ordinary serving PS.
+
+    A replica may have a successor of its own (``attach_standby`` on the
+    replica): it then forwards every record it applies, in apply order, so
+    a chain primary → r1 → r2 … holds the primary's history in every link
+    and survives as many successive primary deaths as it has links
+    (``PSFailoverSupervisor`` promotes down it). The spans
+    ``ps.chain_apply`` and ``ps.chain_forward`` time the two halves."""
 
     def __init__(self, center: Tree, rule: MergeRule, num_workers: int,
                  host: str = "127.0.0.1", port: int = 0,
@@ -1264,6 +1295,8 @@ class StandbySocketParameterServer(SocketParameterServer):
             if state is not None:
                 reply["num_updates"] = state["num_updates"]
             networking.send_data(conn, reply)
+        elif action == "shard_map":
+            networking.send_data(conn, self._shard_map_reply())
         elif action in ("stop", "bye"):
             return True
         else:
@@ -1292,14 +1325,50 @@ class StandbySocketParameterServer(SocketParameterServer):
                     if not self.is_standby:
                         return True  # promoted: this stream is history
                     self._repl_records += 1
-                    _wal.replay_record(self._repl_state, recs[0][0],
-                                       recs[0][1], self.rule,
-                                       self.num_workers, None)
+                    with _trace.span("ps.chain_apply"):
+                        _wal.replay_record(self._repl_state, recs[0][0],
+                                           recs[0][1], self.rule,
+                                           self.num_workers, None)
+                    # a middle link of a chain forwards the raw record to
+                    # its own successor after applying it, under the same
+                    # lock: the order down the chain is the apply order,
+                    # which is the primary's fold order
+                    self._forward_chain_locked(head, body)
         finally:
             # stream end (the dead primary's kernel flushed and closed):
             # every ACKed record has been applied; promote() waits on this
             with self._repl_lock:
                 self._repl_streaming = False
+
+    def _forward_chain_locked(self, head: bytes, body: bytes) -> None:
+        """Send one applied record to this link's successor (call under
+        ``_repl_lock``; an unpromoted replica folds nothing, so nothing
+        else sends on the stream). A failed send drops the successor, as
+        the primary's does: the chain shrinks, the apply loop goes on."""
+        if self._replica_sock is None:
+            return
+        with _trace.span("ps.chain_forward"):
+            self._send_replica_locked((head, body))
+
+    @contextlib.contextmanager
+    def _replication_base(self):
+        """A chain link's successor starts from the replicated state when a
+        stream already runs, else from this server's own; a group attaches
+        its chains tail first before any traffic (``ShardedPSGroup.
+        start``), where the two are the same, so the successor misses no
+        record. ``_repl_lock`` orders it before every forwarded record.
+        Once promoted, the primary's base."""
+        if not self.is_standby:
+            with super()._replication_base() as state:
+                yield state
+            return
+        with self._repl_lock:
+            if self._repl_state is not None:
+                yield {k: v for k, v in self._repl_state.items()
+                       if k != "replayed"}
+            else:
+                with self._lock:
+                    yield self._capture_state_locked()
 
     def promote(self, epoch: int, drain_timeout: float = 5.0) -> None:
         """Become the primary: drain the replication stream, install the
@@ -1421,6 +1490,13 @@ class ParameterServerClient:
         reply = self._request(msg)
         self._check_reply(reply, "exchange")
         return maybe_decode(reply["weights"])
+
+    def shard_map(self) -> dict | None:
+        """The shard-map handshake: the server's shard record
+        (``{"shard_id", "num_shards", "ring"}``), or None for a server
+        holding an unsharded center. ``sharding.ShardedPSClient`` checks
+        it against its plan before first use."""
+        return self._request({"action": "shard_map"}).get("shard")
 
     def ping(self, timeout: float | None = None) -> dict:
         """``{"ok", "epoch", "num_updates", "standby", "shard"}``;

@@ -99,9 +99,9 @@ class FaultPlan:
       count, not wall time. Fires once per run; the supervisor then
       proves the failover (hot-standby promotion or WAL
       restart-in-place). Requires a recovery path on the trainer
-      (``ps_standby=True`` or ``ps_wal_dir``).
+      (``ps_standby=True``, ``ps_wal_dir`` or ``ps_chain_length >= 2``).
     - ``kill_shard_id``: which shard of a sharded center the kill
-      targets (sharding is ``ROADMAP.md`` A7.7).
+      targets (``sharding/``; default shard 0).
 
     Membership-directory faults (``ROADMAP.md`` A7.9; decided per op on
     the directory primary):

@@ -17,8 +17,8 @@ Port of ``distkeras_tpu/resilience/recovery.py``:
   re-admission visible in ``ps.stats()``.
 - :class:`PSFailoverSupervisor` is the trainer-side lease on the PRIMARY
   parameter server: it pings the primary and, when the lease lapses,
-  promotes the hot standby (or restarts the server in place from its
-  WAL), repoints every worker's :class:`~distkeras_tpu_torch.resilience.
+  promotes the hot standby, or the next link of a replication chain (or
+  restarts the server in place from its WAL), repoints every worker's :class:`~distkeras_tpu_torch.resilience.
   retry.PSEndpoint`, and fences the superseded primary.
 
 The membership directory's supervisor (``DirectoryFailoverSupervisor``)
@@ -50,8 +50,9 @@ class PSFailoverSupervisor:
     dead and runs the failover, in this order (promote, publish, then
     fence):
 
-    1. **promote** the hot standby (``standby.promote(epoch+1)``) if one
-       is attached and alive, else ``restart_factory()``: a fresh
+    1. **promote** the first live link of the standby chain that was not
+       promoted yet (``promote(epoch+1)``), else ``restart_factory()``: a
+       fresh
        ``SocketParameterServer`` recovering ``(snapshot, wal)`` in place;
     2. **publish**: ``resolver.update(host, port, epoch+1)`` writes the
        endpoint and the epoch as one lock-guarded triple, so every
@@ -82,7 +83,16 @@ class PSFailoverSupervisor:
                  fault_plan=None, max_failovers: int = 4):
         self.resolver = resolver
         self.active = primary
-        self.standby = standby
+        # one replica or a chain, head first (sharding/): each failover
+        # promotes the first live link not promoted yet, so a chain of k
+        # survives k successive primary deaths before restart_factory
+        if standby is None:
+            self.standbys: list = []
+        elif isinstance(standby, (list, tuple)):
+            self.standbys = [s for s in standby if s is not None]
+        else:
+            self.standbys = [standby]
+        self.standby = self.standbys[0] if self.standbys else None
         self.restart_factory = restart_factory
         self.failover_timeout = float(failover_timeout)
         self.ping_interval = (
@@ -205,13 +215,15 @@ class PSFailoverSupervisor:
         t0 = time.monotonic()
         old_host, old_port, old_epoch = self.resolver.resolve()
         epoch = old_epoch + 1
-        # 1. promote the standby unless it was promoted already, crashed or
-        # stopped: promoting a corpse would burn every worker's retry
-        # deadline behind a closed listener
-        sb = self.standby
-        if (sb is not None and not sb.promoted_
-                and not getattr(sb, "crashed_", False)
-                and getattr(sb, "_running", True)):
+        # 1. promote the first live link not promoted yet: a crashed or
+        # stopped link is skipped, since promoting a corpse would burn
+        # every worker's retry deadline behind a closed listener. (A dead
+        # middle link also cut its tail off the stream, so the chain
+        # guards against successive HEAD deaths.)
+        sb = next((s for s in self.standbys
+                   if not s.promoted_ and not getattr(s, "crashed_", False)
+                   and getattr(s, "_running", True)), None)
+        if sb is not None:
             sb.promote(epoch)
             new = sb
             via = "standby"

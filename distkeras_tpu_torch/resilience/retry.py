@@ -378,10 +378,10 @@ class ResilientPSClient:
         self._run(op)
 
     def shard_map(self) -> dict | None:
-        """Forward the shard-map handshake (sharding, ``ROADMAP.md`` A7.7)
-        to the wrapped transport client, under the retry policy. Returns
-        None when the inner transport has no shard channel (the port's
-        servers answer the action with an error frame naming A7.7)."""
+        """Forward the shard-map handshake (``sharding/``) to the wrapped
+        transport client, under the retry policy, so a supervised sharded
+        run checks its wiring on the resilient path too. Returns None when
+        the inner transport has no shard channel."""
         def op():
             # re-resolve per attempt: a retry's reconnect swaps _client
             inner = self._client

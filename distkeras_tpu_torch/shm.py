@@ -651,7 +651,10 @@ class ShmParameterServer(SocketParameterServer):
     thread; the segment is unlinked when the handler exits (client close,
     server stop or crash, or the lease eviction of an abandoned worker),
     so /dev/shm never leaks. ``attach_standby`` is the base server's: the
-    replication stream is a TCP connection to a socket standby."""
+    replication stream is a TCP connection to a socket standby. A shard
+    server of a sharded center (``sharding/``) answers the ``shard_map``
+    handshake through the same dispatch, so each (worker, shard) ring pair
+    is checked against the plan."""
 
     def __init__(self, center: Tree, rule, num_workers: int,
                  ring_bytes: int = DEFAULT_RING_BYTES,

@@ -23,9 +23,10 @@ backend's resilience knobs (``retry_policy``, ``heartbeat_interval``,
 ``lease_timeout``, ``fault_plan``, ``worker_restart_budget``,
 ``worker_restart_delay``, ``tolerate_worker_failures``, ``ps_wal_dir``,
 ``ps_snapshot_every``, ``ps_wal_group_window``, ``ps_wal_group_interval``,
-``ps_standby``, ``ps_failover_timeout``) are the reference's, with its
+``ps_standby``, ``ps_failover_timeout``) and its sharded center
+(``ps_num_shards``, ``ps_chain_length``) are the reference's, with its
 checks. Kwargs whose machinery belongs to a later slice of the port (the
-PS backend's sharding, elastic and observability knobs, checkpoints, EMA,
+PS backend's elastic and observability knobs, checkpoints, EMA,
 meshes) are accepted by name and raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item when set to
 anything but their default: nothing is silently ignored.
@@ -80,7 +81,6 @@ _LATER = {
     "deploy_streamer": (None, "A13 (deploy streaming)"),
 }
 for _item, _knobs in {
-        "A7.7 (sharding)": {"ps_num_shards": 1, "ps_chain_length": 1},
         "A7.8 (elastic membership)": {
             "elastic": False, "autoscale_target": None,
             "preempt_drain_timeout": 5.0, "max_pool_size": None},
@@ -417,7 +417,9 @@ class DistributedTrainer(Trainer):
                  ps_wal_group_window: int = 8,
                  ps_wal_group_interval: float = 0.25,
                  ps_standby: bool = False,
-                 ps_failover_timeout: float | None = None, **later):
+                 ps_failover_timeout: float | None = None,
+                 ps_num_shards: int = 1, ps_chain_length: int = 1,
+                 **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
@@ -522,7 +524,7 @@ class DistributedTrainer(Trainer):
             worker_restart_budget, worker_restart_delay, retry_policy,
             heartbeat_interval, lease_timeout, fault_plan, ps_wal_dir,
             ps_snapshot_every, ps_wal_group_window, ps_wal_group_interval,
-            ps_standby, ps_failover_timeout)
+            ps_standby, ps_failover_timeout, ps_num_shards, ps_chain_length)
 
     def _init_resilience(self, backend, ps_transport, ps_host,
                          tolerate_worker_failures, worker_restart_budget,
@@ -530,7 +532,8 @@ class DistributedTrainer(Trainer):
                          heartbeat_interval, lease_timeout, fault_plan,
                          ps_wal_dir, ps_snapshot_every, ps_wal_group_window,
                          ps_wal_group_interval, ps_standby,
-                         ps_failover_timeout) -> None:
+                         ps_failover_timeout, ps_num_shards,
+                         ps_chain_length) -> None:
         """The PS backend's resilience knobs (``resilience/``), checked as
         the reference checks them:
 
@@ -559,7 +562,15 @@ class DistributedTrainer(Trainer):
         - ``ps_standby`` (socket): a warm replica streams every applied
           commit and is promoted, with a fencing-epoch bump, when the
           primary's lease lapses (``ps_failover_timeout`` seconds without
-          a ping; default ``lease_timeout``, else 2 s)."""
+          a ping; default ``lease_timeout``, else 2 s);
+        - ``ps_num_shards``: the center split across N PS shards by
+          byte-weighted consistent hashing over leaf paths (``sharding/``),
+          each worker fanning its exchanges out to every shard; bit-
+          identical to the single PS (same fold order and τ a shard);
+        - ``ps_chain_length`` (socket): replicas a shard INCLUDING the
+          primary, chained (each link streams every record to the next;
+          a shard's failover promotes down its chain). A chain of two on
+          one shard is the ``ps_standby`` topology, which it subsumes."""
         self.tolerate_worker_failures = bool(tolerate_worker_failures)
         self.worker_restart_budget = int(worker_restart_budget)
         if self.worker_restart_budget < 0:
@@ -606,6 +617,31 @@ class DistributedTrainer(Trainer):
             raise ValueError(
                 "ps_standby applies to the PS this trainer hosts; an "
                 "external ps_host owner runs its own standby")
+        self.ps_num_shards = int(ps_num_shards)
+        if self.ps_num_shards < 1:
+            raise ValueError(
+                f"ps_num_shards must be >= 1, got {ps_num_shards}")
+        self.ps_chain_length = int(ps_chain_length)
+        if self.ps_chain_length < 1:
+            raise ValueError(
+                f"ps_chain_length must be >= 1, got {ps_chain_length}")
+        sharded = self.ps_num_shards > 1 or self.ps_chain_length > 1
+        if self.ps_chain_length > 1 and ps_transport != "socket":
+            raise ValueError(
+                "ps_chain_length > 1 requires ps_transport='socket' (chain "
+                "replicas are socket servers; the in-process PS shares the "
+                "trainer's fate and the native PS has no replication "
+                "stream)")
+        if sharded and ps_host is not None:
+            raise ValueError(
+                "ps_num_shards/ps_chain_length apply to the center this "
+                "trainer hosts; an external ps_host owner runs its own "
+                "sharded group")
+        if sharded and self.ps_standby:
+            raise ValueError(
+                "ps_standby is the single hot standby; with ps_num_shards/"
+                "ps_chain_length use ps_chain_length >= 2 (chain "
+                "replication subsumes it)")
         if fault_plan is not None and getattr(
                 fault_plan, "kill_ps_after_commits", None) is not None:
             # a PS kill with no recovery path would crash the run after
@@ -621,16 +657,18 @@ class DistributedTrainer(Trainer):
                 raise ValueError(
                     "fault_plan.kill_ps_after_commits applies to the PS "
                     "this trainer hosts, not an external ps_host")
-            if ps_wal_dir is None and not self.ps_standby:
+            if ps_wal_dir is None and not self.ps_standby \
+                    and self.ps_chain_length <= 1:
                 raise ValueError(
                     "fault_plan.kill_ps_after_commits needs a recovery "
-                    "path: set ps_wal_dir (restart-in-place) or "
-                    "ps_standby=True")
-            if getattr(fault_plan, "kill_shard_id", None):
+                    "path: set ps_wal_dir (restart-in-place), "
+                    "ps_standby=True, or ps_chain_length >= 2 (chain "
+                    "failover)")
+            ks = getattr(fault_plan, "kill_shard_id", None)
+            if ks is not None and ks >= self.ps_num_shards:
                 raise ValueError(
-                    f"fault_plan.kill_shard_id="
-                    f"{fault_plan.kill_shard_id} is out of range for one "
-                    f"shard (sharding is not ported yet: ROADMAP.md A7.7)")
+                    f"fault_plan.kill_shard_id={ks} is out of range for "
+                    f"ps_num_shards={self.ps_num_shards}")
         if fault_plan is not None and getattr(
                 fault_plan, "has_directory_events", False):
             raise ValueError(
@@ -642,12 +680,13 @@ class DistributedTrainer(Trainer):
                 worker_restart_budget or retry_policy is not None
                 or heartbeat_interval is not None or lease_timeout is not None
                 or fault_plan is not None or ps_wal_dir is not None
-                or ps_standby):
+                or ps_standby or sharded):
             raise ValueError(
                 "the resilience knobs (worker_restart_budget, retry_policy, "
                 "heartbeat_interval, lease_timeout, fault_plan, ps_wal_dir, "
-                "ps_standby) apply to backend='ps' only (the collective "
-                "backend is one SPMD program)")
+                "ps_standby, ps_num_shards, ps_chain_length) apply to "
+                "backend='ps' only (the collective backend is one SPMD "
+                "program)")
         self.resilience_stats_ = None
 
     def allocate_merge_rule(self) -> MergeRule:

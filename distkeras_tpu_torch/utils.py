@@ -84,6 +84,34 @@ def unflatten(structure, leaves):
     return build(structure)
 
 
+def flatten_with_paths(tree, is_leaf=None) -> tuple[list, object]:
+    """``([(path, leaf)], structure)``: :func:`flatten` with each leaf's
+    path written as ``jax.tree_util.keystr`` writes it, character for
+    character (``['a']['b']`` for dict keys, ``[0]`` for list and tuple
+    indices; keys sorted, ``None`` an empty subtree). A node for which
+    ``is_leaf(node)`` holds is one leaf, not walked into. The structure
+    rebuilds with :func:`unflatten`."""
+    pairs: list = []
+
+    def walk(node, path):
+        if is_leaf is not None and is_leaf(node):
+            pairs.append((path, node))
+            return None
+        if isinstance(node, Mapping):
+            keys = sorted(node)
+            return (dict, keys, [walk(node[k], f"{path}[{k!r}]")
+                                 for k in keys])
+        if isinstance(node, (list, tuple)):
+            return (type(node), None, [walk(v, f"{path}[{i}]")
+                                       for i, v in enumerate(node)])
+        if node is None:
+            return (None, None, [])
+        pairs.append((path, node))
+        return None
+
+    return pairs, walk(tree, "")
+
+
 def host_tree_map(fn, tree, *rest):
     """``fn`` over the leaves of host trees alike in structure (the
     parameter server's ``jax.tree.map``)."""

@@ -492,19 +492,19 @@ def _ps_kwargs(trainer, lease_timeout) -> dict:
                 wal_group_interval=trainer.ps_wal_group_interval)
 
 
-def _resilience_stats(clients, supervisor, fault_plan, ps_supervisor):
+def _resilience_stats(clients, supervisor, fault_plan, failover):
     """``trainer.resilience_stats_``: the commit-seqno oracle (logical
     commits the clients saw acknowledged, to hold against the server's
     folds), retry and reconnect totals, supervisor restarts, what the
-    fault plan injected and the failover log."""
+    fault plan injected and the failover log (``failover``: the
+    supervisor's, or a sharded group's roll-up of its shards', or None)."""
     return {
         "logical_commits": sum(int(getattr(c, "seq", 0)) for c in clients),
         "retries": sum(int(getattr(c, "retries", 0)) for c in clients),
         "reconnects": sum(int(getattr(c, "reconnects", 0)) for c in clients),
         "restarts": supervisor.stats()["restarts"] if supervisor else 0,
         "faults": fault_plan.stats() if fault_plan is not None else None,
-        "ps_failover": (ps_supervisor.stats() if ps_supervisor is not None
-                        else None),
+        "ps_failover": failover,
     }
 
 
@@ -516,7 +516,8 @@ def run_async_training(trainer, ds, shuffle: bool):
     with the center as host numpy. Sets ``trainer.ps_stats_`` (the active
     server's ``stats()`` plus ``exchange_phases``; None for an external
     PS; after a failover its op counters start at the takeover, while
-    ``num_updates`` spans the run), ``trainer.resilience_stats_`` (with
+    ``num_updates`` spans the run; a sharded center's roll-up carries
+    ``num_shards`` and ``per_shard``), ``trainer.resilience_stats_`` (with
     any resilience knob or fault plan; else None),
     ``trainer.exchange_phases_`` (this process's workers' phases, on every
     transport) and ``trainer.trace_path_``."""
@@ -565,9 +566,18 @@ def run_async_training(trainer, ds, shuffle: bool):
             else 2.0
     kill_ps_chaos = (fault_plan is not None and getattr(
         fault_plan, "kill_ps_after_commits", None) is not None)
-    failover = transport == "socket" and external_host is None and (
-        trainer.ps_standby or kill_ps_chaos)
-    if failover and retry_policy is None:
+    # the sharded center (sharding/): the tree split over ps_num_shards
+    # servers, each with ps_chain_length - 1 replicas behind it; one shard
+    # with a chain of two is the ps_standby topology, generalised
+    num_shards = int(trainer.ps_num_shards)
+    chain_length = int(trainer.ps_chain_length)
+    sharded = (num_shards > 1 or chain_length > 1) and external_host is None
+    shard_supervised = sharded and transport == "socket" and (
+        chain_length > 1 or kill_ps_chaos or trainer.ps_wal_dir is not None)
+    failover = (not sharded and transport == "socket"
+                and external_host is None
+                and (trainer.ps_standby or kill_ps_chaos))
+    if (failover or shard_supervised) and retry_policy is None:
         # a failover is survivable only through reconnecting clients, and
         # the default policy's 6 attempts span ~1.5 s, less than detecting
         # and promoting: budget for the failover with room to spare
@@ -594,7 +604,16 @@ def run_async_training(trainer, ds, shuffle: bool):
     resolver = None
     standby = None
     ps_supervisor = None
-    if external_host is not None and transport == "native":
+    group = None
+    if sharded:
+        from distkeras_tpu_torch.sharding import ShardedPSGroup
+
+        kw = _ps_kwargs(trainer, lease_timeout)
+        group = ShardedPSGroup(
+            params, rule, W, num_shards=num_shards, transport=transport,
+            wal_root=kw.pop("wal_dir"), chain_length=chain_length, **kw)
+        ps = group
+    elif external_host is not None and transport == "native":
         from distkeras_tpu_torch.native_ps import FlatSpec, NativePSClient
 
         flat_spec = FlatSpec(params)
@@ -667,12 +686,27 @@ def run_async_training(trainer, ds, shuffle: bool):
     workers: list = []
     supervisor = None
     try:
+        if group is not None:
+            # inside the try: a shard that fails to start stops the rest
+            group.initialize()
+            group.start()
         if failover:
             standby, ps_supervisor = _start_failover(
                 trainer, ps, params, rule, W, lease_timeout, resolver,
                 fault_plan if kill_ps_chaos else None, failover_timeout)
+        if shard_supervised:
+            group.start_supervision(
+                fault_plan=fault_plan if kill_ps_chaos else None,
+                failover_timeout=float(failover_timeout))
 
         def build_client(i):
+            if group is not None:
+                # the fan-out client comes whole: its resilient wrapping
+                # is per shard, one seqno stream a shard
+                return group.make_client(
+                    offset + i, pull_compression=pull_comp,
+                    retry_policy=retry_policy,
+                    heartbeat_interval=hb_interval, resilient=resilient)
             if not resilient:
                 return make_client(i)
             return ResilientPSClient(lambda: make_client(i), offset + i,
@@ -727,18 +761,26 @@ def run_async_training(trainer, ds, shuffle: bool):
         # not declare a primary dead because it was stopped), then read
         # which server holds the final center
         active = ps
+        sup_err = failover_stats = None
         if ps_supervisor is not None:
             ps_supervisor.stop()
             active = ps_supervisor.active
-            if ps_supervisor.error is not None and not any(
-                    w.error is not None for w in workers):
-                raise RuntimeError(
-                    "the PS failover supervisor died while the workers "
-                    "survived") from ps_supervisor.error
+            sup_err = ps_supervisor.error
+            failover_stats = ps_supervisor.stats()
+        elif shard_supervised:
+            # the group reads each shard's ACTIVE server itself; only the
+            # supervisors retire before the final reads
+            group.stop_supervision()
+            sup_err = group.supervisor_error
+            failover_stats = group.failover_stats()
+        if sup_err is not None and not any(w.error is not None
+                                           for w in workers):
+            raise RuntimeError("a PS failover supervisor died while the "
+                               "workers survived") from sup_err
         if (resilient or supervisor is not None
                 or fault_plan is not None):
             trainer.resilience_stats_ = _resilience_stats(
-                clients, supervisor, fault_plan, ps_supervisor)
+                clients, supervisor, fault_plan, failover_stats)
         _raise_worker_errors(trainer, workers, supervisor, budget)
         trainer.exchange_phases_ = aggregate_exchange_phases(workers)
         if ps is None:

@@ -50,12 +50,13 @@ _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "parallel.compression", "examples.mnist", "shm", "native",
                 "native_ps", "model", "resilience", "resilience.heartbeat",
                 "resilience.retry", "resilience.faults", "resilience.wal",
-                "resilience.recovery"]
+                "resilience.recovery", "sharding", "sharding.ring",
+                "sharding.client", "sharding.group"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """Every module of the package, the shm and native transports among
-    them, imports in a fresh process without jax, flax, optax, keras or
+    """Every module of the package, the shm and native transports and the
+    sharded center among them, imports in a fresh process without jax, flax, optax, keras or
     anything of the JAX package."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -66,7 +67,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert out.returncode == 0, out.stderr
     n, rest = out.stdout.strip().split(" ", 1)
     missing, bad = rest.split("] ", 1)
-    assert int(n) >= 41, out.stdout          # every module was imported
+    assert int(n) >= 45, out.stdout          # every module was imported
     assert missing == "[", f"modules not found: {missing}]"
     assert bad == "[]", f"forbidden modules imported: {bad}"
 

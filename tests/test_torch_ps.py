@@ -255,12 +255,16 @@ def test_socket_ps_later_actions_name_their_roadmap_item():
         s = networking.connect("127.0.0.1", ps.port, timeout=TIMEOUT)
         try:
             for action, item in (("drain", "A7.8"), ("metrics", "A13"),
-                                 ("join", "A7.8"), ("deploy_report", "A13"),
-                                 ("shard_map", "A7.7")):
+                                 ("join", "A7.8"), ("deploy_report", "A13")):
                 networking.send_data(s, {"action": action, "worker_id": 0,
                                          "epoch": 1, "version": 1})
                 reply = networking.recv_data(s)
                 assert not reply["ok"] and item in reply["error"], reply
+            # the shard-map handshake is ported (sharding/): an unsharded
+            # server holds no shard
+            networking.send_data(s, {"action": "shard_map"})
+            assert networking.recv_data(s) == {"ok": True, "shard": None,
+                                               "epoch": 0}
         finally:
             s.close()
     finally:
@@ -757,10 +761,10 @@ def test_four_worker_ps_run_matches_the_jax_package(name, window,
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(ps_chain_length=2), "A7.7"),
+    (dict(max_pool_size=4), "A7.8"),
     (dict(autoscale_target=2), "A7.8"),
     (dict(ps_directory="h:1"), "A7.9"),
-    (dict(ps_num_shards=2), "A7.7"),
+    (dict(directory_standby=False), "A7.9"),
     (dict(elastic=True), "A7.8"),
     (dict(directory=True), "A7.9"),
     (dict(watch=True), "A13"),

@@ -347,6 +347,64 @@ def test_native_later_layers_name_their_item(tnative, tmp_path):
     assert state["fence_epoch"] == 2 and state["num_updates"] == 1
 
 
+def _native_lease_script(mod, rules):
+    """Leases of 0.3 s on a native server. Phase 1: worker 0 heartbeats
+    once, then commits every 0.1 s for 1.2 s (four leases) while worker 1
+    heartbeats after each commit (each heartbeat runs the expiry scan).
+    Phase 2: worker 0 heartbeats, commits every 0.1 s for 0.5 s with no
+    scan, worker 1's heartbeat scans, and worker 0 replays its last
+    commit, as a client does whose ACK was lost. Returns (phase 1's
+    evictions, worker 0 still leased after it, the replay's extra
+    folds)."""
+    ps = mod.NativeSocketParameterServer({"w": np.zeros(2, np.float32)},
+                                         rules.DownpourMerge(), 2,
+                                         lease_timeout=0.3)
+    ps.initialize()
+    ps.start()
+    try:
+        c0, c1 = (_client(mod, ps, i) for i in range(2))
+        for c in (c0, c1):
+            c.set_timeout(TIMEOUT)
+            c.heartbeat()
+        d = {"w": np.ones(2, np.float32)}
+        seq = 0
+        for _ in range(12):
+            seq += 1
+            c0.commit(0, d, seq=seq)
+            c1.heartbeat()
+            time.sleep(0.1)
+        s = ps.stats()
+        evicted, leased = s["evicted_workers"], s["active_workers"] == 2
+        c0.heartbeat()
+        for _ in range(5):
+            seq += 1
+            c0.commit(0, d, seq=seq)
+            time.sleep(0.1)
+        c1.heartbeat()
+        before = ps.num_updates
+        c0.commit(0, d, seq=seq)            # the replay of a lost ACK
+        extra = ps.num_updates - before
+        for c in (c0, c1):
+            c.close()
+        return evicted, leased, extra
+    finally:
+        ps.stop()
+
+
+def test_native_lease_renews_on_every_request(tnative):
+    """The port's C++ core extends a leased worker's lease on each pull,
+    commit and exchange, as the Python servers do
+    (``WorkerRegistry.touch``): a worker that commits every 0.1 s and
+    never heartbeats outlives four 0.3 s leases, and a replay after its
+    lease would have lapsed is refused, so the commit folds once. The JAX
+    package's core renews by heartbeats only (``ROADMAP.md`` queue C): it
+    evicts the committing worker, the eviction retires its dedup entry,
+    and the replay folds a second time."""
+    assert _native_lease_script(tnative, tr) == (0, True, 0)
+    evicted, leased, extra = _native_lease_script(_jax_native(), jr)
+    assert evicted >= 1 and not leased and extra == 1
+
+
 def test_native_trainer_equals_the_socket_trainer(tnative):
     """``test_native_ps.py:253``: one DOWNPOUR worker, unshuffled, on the
     native transport ends where the socket transport does (rtol 5e-5,

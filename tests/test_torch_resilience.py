@@ -709,7 +709,7 @@ def test_resilience_knob_validation():
                             join_worker_at_window={0: 1}))
     with pytest.raises(ValueError, match="A7.8"):
         t.train(Dataset.from_arrays(*blobs(n=256)))
-    for kw, item in ((dict(ps_num_shards=2), "A7.7"),
+    for kw, item in ((dict(max_pool_size=4), "A7.8"),
                      (dict(elastic=True), "A7.8"),
                      (dict(directory=True), "A7.9"),
                      (dict(checkpoint_dir="/x"), "A8")):
