@@ -160,11 +160,32 @@ Phases, in order; any failure exits non-zero and prints no result:
     the plan, every shard folding every commit, config 3's gates), each
     printing the shards' bytes and the window's phases beside the
     unsharded run's;
-16. print the ``kernels`` JSON line (K1 as one decode step and, as
+16. checkpoints and the center's EMA on config 5, each phase one JSON
+    line, its launches counted alone and gated (K5, K6 and K7 once a
+    step): ``config5_resume_collective`` (DynSGD W=8 streaming its input,
+    6 windows an epoch: CK_EPOCHS epochs straight against CK_EPOCHS - 1
+    checkpointed and one resumed by a fresh trainer, centers within
+    ``compare_window``'s bf16 bound, bit-equality printed; the same
+    checkpoints written with ``checkpoint_async`` equal bit for bit; the
+    checkpoint's bytes, the synchronous save, the async save on the
+    caller's thread, the restore, the epoch with and without a checkpoint
+    and the file system printed), ``config5_ema_collective`` (EMA_EPOCHS
+    epochs at ``ema_decay`` 0, the EMA bit-equal to the center, and at
+    EMA_DECAY, the EMA model above IMDB_ACC_BAR on fresh held-out rows;
+    the window with and without the EMA printed) and
+    ``ps_config5_checkpoint_ema`` (the in-process PS with a barrier
+    checkpoint, the EMA, a worker killed after the first barrier and
+    restored from its snapshot, folds equal the acknowledged commits; then
+    a resume whose fold count starts at the saved one; the barrier's ms
+    printed); the native WAL phase (14) runs with the EMA too, its log
+    replaying the C++ EMA bit for bit, and the sharded parity phase (15)
+    holds the joined EMA to the single server's bit for bit;
+17. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
-    launches on the PS phases, K6 and K7 with their G=1 times), read
-    config 3's gates (``ps3_failures``, the sharded run's too), then the
-    result line ``{"ok": true, "device": {...}}`` last.
+    launches on the PS phases and the checkpoint and EMA phases, K6 and
+    K7 with their G=1 times), read config 3's gates (``ps3_failures``,
+    the sharded run's too), then the result line ``{"ok": true,
+    "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
 """
@@ -255,6 +276,22 @@ PS5_FAILOVER_TIMEOUT = 2.0
 # commits; the one-worker parity run at PS_PARITY_SHARDS against one PS;
 # config 3 over PS3_SHARDS native shards
 PS_SHARDS, PS_CHAIN, PS_PARITY_SHARDS, PS3_SHARDS = 2, 2, 4, 4
+# checkpoints and the center's EMA on config 5. The collective runs stream
+# their input (the EMA folds every window's center, which the resident
+# path never hands back), IMDB_WINDOWS windows an epoch: run A trains
+# CK_EPOCHS epochs, run B checkpoints CK_EPOCHS - 1 and a fresh trainer
+# resumes the last, run C is B with checkpoint_async. The EMA runs train
+# EMA_EPOCHS epochs (96 windows): an EMA at 0.99 keeps 0.99^n of its
+# initial center after n folds, 0.83 after run A's 18 windows, 0.38 after
+# 96, so only the longer run's EMA is a trained model to score
+CK_EPOCHS = 3
+EMA_DECAY = 0.99
+EMA_EPOCHS = 16
+IMDB_ACC_BAR = 0.75       # held-out accuracy of config 5's EMA model
+IMDB_HELDOUT = 1024       # fresh rows of the synthetic IMDB stand-in
+PS_CK_KILL = 3            # the PS phase's worker killed at its window
+#                           PS5_WINDOWS: the first window after the first
+#                           epoch barrier
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -1965,9 +2002,9 @@ def compare_ps_window(torch, train):
     return rec
 
 
-def _config5(transport: str, **kw):
+def _config5(transport: str, epochs: int = PS5_EPOCHS, **kw):
     """Config 5 as ``run_ps_lstm`` runs it (PS5_W workers of batch
-    IMDB_BATCH, window IMDB_WINDOW, fused Adam, PS5_EPOCHS epochs of
+    IMDB_BATCH, window IMDB_WINDOW, fused Adam, ``epochs`` epochs of
     PS5_WINDOWS windows) on ``transport`` with the resilience ``kw``:
     ``(trainer, its rows)``."""
     from distkeras_tpu_torch.models import lstm_classifier
@@ -1978,7 +2015,7 @@ def _config5(transport: str, **kw):
     t = DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
                learning_rate=IMDB_LR, features_col=["features", "mask"],
                num_workers=PS5_W, batch_size=IMDB_BATCH,
-               communication_window=IMDB_WINDOW, num_epoch=PS5_EPOCHS,
+               communication_window=IMDB_WINDOW, num_epoch=epochs,
                backend="ps", ps_transport=transport, device=DEVICE, **kw)
     return t, PS5_W * IMDB_BATCH * IMDB_WINDOW * PS5_WINDOWS
 
@@ -2283,9 +2320,9 @@ def _crash_at_first_close():
     """The native server the trainer builds inside the block, with its C++
     span ring armed, crash()ed at the first client close (every worker
     done, none deregistered yet). Just before the crash, the live state is
-    read into the yielded dict: ``center``, ``num_updates``,
-    ``fence_epoch``, ``last_seq`` (each worker's last sent seqno, from its
-    client) and the ring's ``spans``."""
+    read into the yielded dict: ``center``, ``ema`` (None without
+    ``ema_decay``), ``num_updates``, ``fence_epoch``, ``last_seq`` (each
+    worker's last sent seqno, from its client) and the ring's ``spans``."""
     from distkeras_tpu_torch import native_ps
     from distkeras_tpu_torch.resilience import retry
 
@@ -2309,8 +2346,10 @@ def _crash_at_first_close():
         def close(self):
             if not cap:
                 ps = servers[0]
+                ema = ps.get_ema()
                 cap.update(
                     center=ps.spec.flatten(ps.get_model()),
+                    ema=None if ema is None else ps.spec.flatten(ema),
                     num_updates=ps.num_updates, fence_epoch=ps.fence_epoch,
                     last_seq={c.worker_id: c._seq_epoch + c._wire_seq
                               for c in clients if c.seq},
@@ -2331,12 +2370,13 @@ def train_ps_lstm_native_wal(torch, train, serial):
     """Config 5 through the native PS, serially, with the C++ write-ahead
     log (``ps_wal_dir``), heartbeats and a lease as the chaos phase's
     (PS5_HEARTBEAT, PS5_LEASE: each request renews it in the C++ core) and
-    ``RetryPolicy(seed=0)``; the server crash()ed after the last exchange.
+    ``RetryPolicy(seed=0)``, and the center's EMA (``ema_decay=EMA_DECAY``,
+    folded by the C++ core); the server crash()ed after the last exchange.
     Gates: folds equal the logical commits; the port's
-    ``recover_ps_state`` rebuilds from the C++ log the center last served,
-    bit for bit, with ``num_updates``, ``last_seq`` and ``fence_epoch``
-    equal; K5/K6/K7 once a step. Prints the durability cost beside
-    ``serial``'s window."""
+    ``recover_ps_state`` rebuilds from the C++ log the center and the EMA
+    last served, bit for bit, with ``num_updates``, ``last_seq`` and
+    ``fence_epoch`` equal; K5/K6/K7 once a step. Prints the durability
+    cost beside ``serial``'s window."""
     from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
     from distkeras_tpu_torch.resilience import RetryPolicy, recover_ps_state
 
@@ -2345,7 +2385,8 @@ def train_ps_lstm_native_wal(torch, train, serial):
         t, rows = _config5(
             "native", ps_wal_dir=wal_dir,
             retry_policy=RetryPolicy(seed=0, max_attempts=PS5_ATTEMPTS),
-            heartbeat_interval=PS5_HEARTBEAT, lease_timeout=PS5_LEASE)
+            heartbeat_interval=PS5_HEARTBEAT, lease_timeout=PS5_LEASE,
+            ema_decay=EMA_DECAY)
 
         def run():
             with _crash_at_first_close() as cap:
@@ -2358,13 +2399,17 @@ def train_ps_lstm_native_wal(torch, train, serial):
         s, r = t.ps_stats_, t.resilience_stats_
         spec = t.spec
         template, _ = spec.init_np(t.seed)
-        state = recover_ps_state(wal_dir, DynSGDMerge(), PS5_W, None,
+        state = recover_ps_state(wal_dir, DynSGDMerge(), PS5_W, EMA_DECAY,
                                  template=template)
         from distkeras_tpu_torch.native_ps import FlatSpec
 
         flat = None if state is None else FlatSpec(template).flatten(
             state["center"])
         equal = flat is not None and np.array_equal(flat, cap["center"])
+        ema_equal = (state is not None and state.get("ema") is not None
+                     and cap["ema"] is not None and np.array_equal(
+                         FlatSpec(template).flatten(state["ema"]),
+                         cap["ema"]))
         phases = _phase_summary(s["exchange_phases"])
         rec = dict(
             phase="ps_config5_native_wal", wall_s=wall,
@@ -2383,7 +2428,10 @@ def train_ps_lstm_native_wal(torch, train, serial):
             num_updates=cap["num_updates"],
             recovered_num_updates=(None if state is None
                                    else state["num_updates"]),
-            center_bits_equal=equal,
+            center_bits_equal=equal, ema_decay=EMA_DECAY,
+            ema_bits_equal=ema_equal,
+            ema_moved=(cap["ema"] is not None and not np.array_equal(
+                cap["ema"], FlatSpec(template).flatten(template))),
             last_seq_equal=(state is not None
                             and state["last_seq"] == cap["last_seq"]),
             fence_epoch=cap["fence_epoch"], recovered_fence_epoch=(
@@ -2395,6 +2443,10 @@ def train_ps_lstm_native_wal(torch, train, serial):
             launches=launches, exchange_phases=phases)
         log(json.dumps(rec))
         fails = _phase_gates("native_wal", t, launches, extra=True)
+        if not (ema_equal and rec["ema_moved"]):
+            fails.append(f"native_wal: the C++ log's EMA recovers bit-equal "
+                         f"{ema_equal} (the live EMA moved from the init: "
+                         f"{rec['ema_moved']})")
         if not (equal and rec["last_seq_equal"]
                 and rec["recovered_num_updates"] == cap["num_updates"]
                 and rec["recovered_fence_epoch"] == cap["fence_epoch"]
@@ -2576,12 +2628,13 @@ def train_ps_lstm_sharded_chain(torch, train, failover):
 
 def compare_ps_sharded(torch, train):
     """One DynSGD worker on config 5 (fused Adam, PS_PARITY_WINDOWS
-    windows, unshuffled) through the in-process PS at
-    ``ps_num_shards=PS_PARITY_SHARDS`` and at one shard, from the same
-    init on the same rows. Folds are leafwise and each shard sees the
-    global fold order, so the centers must be equal bit for bit. When
-    they are not, a second unsharded run shows whether the card's compute
-    is deterministic run to run (printed; the gate stands). K5/K6/K7 are
+    windows, unshuffled, the center's EMA at EMA_DECAY) through the
+    in-process PS at ``ps_num_shards=PS_PARITY_SHARDS`` and at one shard,
+    from the same init on the same rows. Folds are leafwise and each shard
+    sees the global fold order, so the centers, and the joined EMA against
+    the single server's, must be equal bit for bit. When the centers are
+    not, a second unsharded run shows whether the card's compute is
+    deterministic run to run (printed; the gate stands). K5/K6/K7 are
     counted on the sharded run."""
     from distkeras_tpu_torch.models import lstm_classifier
     from distkeras_tpu_torch.trainers import DynSGD
@@ -2596,7 +2649,8 @@ def compare_ps_sharded(torch, train):
                    learning_rate=IMDB_LR, features_col=["features", "mask"],
                    num_workers=1, batch_size=IMDB_BATCH,
                    communication_window=IMDB_WINDOW, num_epoch=1,
-                   backend="ps", ps_num_shards=shards, device=DEVICE)
+                   backend="ps", ps_num_shards=shards, ema_decay=EMA_DECAY,
+                   device=DEVICE)
         return t.train(ds), t
 
     def diff(a, b):
@@ -2606,9 +2660,13 @@ def compare_ps_sharded(torch, train):
     (c_n, t_n), launches = counted(lambda: run(PS_PARITY_SHARDS))
     c_1, t_1 = run(1)
     equal = all(torch.equal(c_n[k], c_1[k]) for k in c_1)
+    ema_n, ema_1 = t_n.ema_params_, t_1.ema_params_
+    ema_equal = all(torch.equal(ema_n[k], ema_1[k]) for k in ema_1)
     s = t_n.ps_stats_
     rec = dict(phase="ps_sharded_parity", num_shards=PS_PARITY_SHARDS,
                windows=PS_PARITY_WINDOWS, bits_equal=equal,
+               ema_decay=EMA_DECAY, ema_bits_equal=ema_equal,
+               ema_max_diff=diff(ema_n, ema_1),
                max_center_diff=diff(c_n, c_1),
                shard_nbytes=[p["shard_nbytes"] for p in s["per_shard"]],
                per_shard_num_updates=[p["num_updates"]
@@ -2628,6 +2686,9 @@ def compare_ps_sharded(torch, train):
         fails.append(f"sharded_parity: the {PS_PARITY_SHARDS}-shard center "
                      f"parts from the unsharded one by "
                      f"{rec['max_center_diff']}")
+    if not ema_equal:
+        fails.append(f"sharded_parity: the joined EMA parts from the single "
+                     f"server's by {rec['ema_max_diff']}")
     if not (s["num_updates"] == s["num_updates_max"] == PS_PARITY_WINDOWS
             == t_1.ps_stats_["num_updates"]):
         fails.append(f"sharded_parity: folds {rec['per_shard_num_updates']}"
@@ -2695,6 +2756,281 @@ def ps3_sharded_failures(rec: dict) -> list:
         out.append(f"config3_sharded_native: shards folded "
                    f"{rec['per_shard']}, expected {commits} each")
     return out
+
+
+def _config5_collective(**kw):
+    """Config 5 as ``train_dynsgd`` runs it (DynSGD, IMDB_W stacked
+    workers of batch IMDB_BATCH, window IMDB_WINDOW, fused Adam,
+    unshuffled), streaming its input, with ``kw``."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T, embed_dim=IMDB_E,
+                           hidden_dim=IMDB_H)
+    return DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
+                  learning_rate=IMDB_LR, features_col=["features", "mask"],
+                  num_workers=IMDB_W, batch_size=IMDB_BATCH,
+                  communication_window=IMDB_WINDOW, device_data=False,
+                  log_metrics=True, device=DEVICE, **kw)
+
+
+def _epoch_ms(t) -> list:
+    """Each epoch's wall time (ms, ``log_metrics``' epoch record: the
+    windows and a synchronise, not the checkpoint after them)."""
+    return [1e3 * m["wall_time"] for m in t.metrics_
+            if "samples_per_sec" in m]
+
+
+def _kernel_steps(name, launches, steps) -> list:
+    """K5, K6 and K7 launched once a step (``steps``) on a collective
+    phase: one launch serves every stacked worker."""
+    return [f"{name}: {k} launched {launches[k]} times, expected {steps}"
+            for k in ("fused_adam", "lstm_forward", "lstm_backward")
+            if launches[k] != steps]
+
+
+def train_resume_collective(torch, train):
+    """Config 5 collective (``_config5_collective``), checkpointed and
+    resumed. Run A trains CK_EPOCHS epochs without stopping; run B trains
+    CK_EPOCHS - 1 with ``checkpoint_dir``, then a fresh trainer with
+    ``resume=True, num_epoch=CK_EPOCHS`` trains the last one only; run C is
+    B's first trainer with ``checkpoint_async=True``. Gates: B's center
+    within ``compare_window``'s bf16 bound of A's (bit-equality printed);
+    the resume trained the last epoch only; C's checkpoint files' leaves
+    equal B's bit for bit; K5/K6/K7 once a step. Prints the checkpoint's
+    bytes, the synchronous save's ms, the async save's ms on the caller's
+    thread, the restore's ms, the epoch's wall time with and without a
+    checkpoint and the directory's file-system type."""
+    from distkeras_tpu_torch import checkpoint as ckpt
+    from distkeras_tpu_torch import utils
+
+    sync_dir = tempfile.mkdtemp(prefix="dk-ckpt-")
+    async_dir = tempfile.mkdtemp(prefix="dk-ckpt-async-")
+    try:
+        def run():
+            a = _config5_collective(num_epoch=CK_EPOCHS)
+            center_a = a.train(train)
+            b = _config5_collective(num_epoch=CK_EPOCHS - 1,
+                                    checkpoint_dir=sync_dir)
+            b.train(train)
+            t0 = time.perf_counter()
+            ckpt.load_checkpoint(sync_dir)
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+            r = _config5_collective(num_epoch=CK_EPOCHS,
+                                    checkpoint_dir=sync_dir, resume=True)
+            center_b = r.train(train)
+            c = _config5_collective(num_epoch=CK_EPOCHS - 1,
+                                    checkpoint_dir=async_dir,
+                                    checkpoint_async=True)
+            c.train(train)
+            return a, b, r, c, center_a, center_b, restore_ms
+
+        (a, b, r, c, center_a, center_b, restore_ms), launches = \
+            counted(run)
+        diff = max(_err(center_a[k], center_b[k]) for k in center_a)
+        bits = all(torch.equal(center_a[k], center_b[k]) for k in center_a)
+        limit = 2.02 * IMDB_LR * IMDB_WINDOW * sum(
+            1.0 / (i + 1) for i in range(IMDB_W))
+        async_equal = []
+        for step in range(CK_EPOCHS - 1):
+            x = utils.flatten(ckpt.restore_checkpoint(sync_dir, step)[0])[0]
+            y = utils.flatten(ckpt.restore_checkpoint(async_dir, step)[0])[0]
+            async_equal.append(len(x) == len(y) and all(
+                np.array_equal(np.asarray(u), np.asarray(v))
+                for u, v in zip(x, y)))
+        ckpt_file = os.path.join(sync_dir, f"ckpt_{0:012d}.dkc")
+        resumed_epochs = sorted({h.get("epoch") for h in r.history
+                                 if "loss" in h})
+        epoch_a, epoch_b = _epoch_ms(a), _epoch_ms(b)
+        rec = dict(
+            phase="config5_resume_collective", epochs=CK_EPOCHS,
+            windows_an_epoch=IMDB_WINDOWS, max_center_diff=diff,
+            limit=limit, bits_equal=bits, resumed_epochs=resumed_epochs,
+            async_files_bits_equal=async_equal,
+            checkpoint_bytes=os.path.getsize(ckpt_file),
+            sync_save_ms=b.checkpoint_ms_,
+            async_save_caller_ms=c.checkpoint_ms_,
+            restore_ms=restore_ms,
+            epoch_ms_without_checkpoint=epoch_a,
+            epoch_ms_with_checkpoint=[
+                e + s for e, s in zip(epoch_b, b.checkpoint_ms_)],
+            checkpoint_fs=_fs_type(sync_dir), launches=launches)
+        log(json.dumps(rec))
+        # A's epochs, B's and its resume's, C's
+        steps = IMDB_WINDOWS * IMDB_WINDOW * (3 * CK_EPOCHS - 1)
+        fails = _kernel_steps("resume_collective", launches, steps)
+        if not diff <= limit:
+            fails.append(f"resume_collective: the resumed center parts from "
+                         f"the uninterrupted one by {diff} (limit {limit})")
+        if resumed_epochs != [CK_EPOCHS - 1]:
+            fails.append(f"resume_collective: the resume trained epochs "
+                         f"{resumed_epochs}")
+        if not all(async_equal):
+            fails.append(f"resume_collective: async checkpoint files equal "
+                         f"the synchronous run's: {async_equal}")
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(sync_dir, ignore_errors=True)
+        shutil.rmtree(async_dir, ignore_errors=True)
+
+
+def _heldout_accuracy(torch, spec, params, heldout) -> float:
+    """``params``' accuracy on the held-out rows (the eval path, in chunks
+    of 256)."""
+    params = {k: v.to(DEVICE) for k, v in params.items()}
+    right = 0
+    with torch.no_grad():
+        for i in range(0, len(heldout["label"]), 256):
+            toks = torch.from_numpy(heldout["features"][i:i + 256]).to(DEVICE)
+            mask = torch.from_numpy(heldout["mask"][i:i + 256]).to(DEVICE)
+            out, _ = spec.apply(params, {}, (toks, mask), False)
+            right += int((out.argmax(-1).cpu().numpy()
+                          == heldout["label"][i:i + 256]).sum())
+    return right / len(heldout["label"])
+
+
+def train_ema_collective(torch, train, resume_rec):
+    """Config 5 collective for EMA_EPOCHS epochs with ``ema_decay=0`` and
+    with ``ema_decay=EMA_DECAY``. Gates: at 0, ``ema_params_`` equals the
+    center bit for bit; at EMA_DECAY it differs from the center and the EMA
+    model's accuracy on IMDB_HELDOUT fresh rows is above IMDB_ACC_BAR;
+    K5/K6/K7 once a step. Prints the window's ms with the EMA beside
+    ``resume_rec``'s run without it."""
+    from distkeras_tpu_torch.datasets import imdb
+
+    _, heldout = imdb(n_train=1, n_test=IMDB_HELDOUT, vocab=IMDB_VOCAB,
+                      maxlen=IMDB_T)
+
+    def run():
+        out = {}
+        for decay in (0.0, EMA_DECAY):
+            t = _config5_collective(num_epoch=EMA_EPOCHS, ema_decay=decay)
+            out[decay] = (t, t.train(train))
+        return out
+
+    out, launches = counted(run)
+    (t0, c0), (t1, c1) = out[0.0], out[EMA_DECAY]
+    zero_equal = all(torch.equal(t0.ema_params_[k], c0[k]) for k in c0)
+    ema_diff = max(_err(t1.ema_params_[k], c1[k]) for k in c1)
+    spec = t1.spec
+    acc_ema = _heldout_accuracy(torch, spec, t1.ema_params_, heldout)
+    acc_center = _heldout_accuracy(torch, spec, c1, heldout)
+    window = lambda ms: [m / IMDB_WINDOWS for m in ms]
+    rec = dict(phase="config5_ema_collective", epochs=EMA_EPOCHS,
+               ema_decay=EMA_DECAY, zero_decay_bits_equal=zero_equal,
+               ema_max_diff_from_center=ema_diff,
+               heldout_rows=IMDB_HELDOUT, heldout_accuracy_ema=acc_ema,
+               heldout_accuracy_center=acc_center,
+               accuracy_bar=IMDB_ACC_BAR,
+               window_ms_with_ema=window(_epoch_ms(t1)),
+               window_ms_without_ema=window(
+                   resume_rec["epoch_ms_without_checkpoint"]),
+               launches=launches)
+    log(json.dumps(rec))
+    fails = _kernel_steps("ema_collective", launches,
+                          2 * EMA_EPOCHS * IMDB_WINDOWS * IMDB_WINDOW)
+    if not zero_equal:
+        fails.append("ema_collective: at decay 0 the EMA is not the center")
+    if not (ema_diff > 0 and acc_ema > IMDB_ACC_BAR):
+        fails.append(f"ema_collective: the EMA parts from the center by "
+                     f"{ema_diff}, its held-out accuracy {acc_ema} (bar "
+                     f"{IMDB_ACC_BAR})")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return rec
+
+
+def train_ps_checkpoint_ema(torch, train):
+    """Config 5 through the in-process PS (``_config5``) with
+    ``checkpoint_dir``, ``ema_decay=EMA_DECAY``, ``worker_restart_budget=1``
+    (tolerated, so the survivors of a broken barrier train on),
+    ``RetryPolicy(seed=0)`` (its seqnos count the acknowledged commits) and
+    ``FaultPlan(kill_at={PS_CK_KILL: PS5_WINDOWS})``: the worker dies at
+    its first window after the first epoch barrier. Then a ``resume=True``
+    run of PS5_EPOCHS + 1 epochs continues from the last barrier. Gates:
+    the restart restored from a ``snapshot`` or a ``checkpoint``, not a
+    center pull; lifetime folds equal the acknowledged commits; the loss
+    falls; K5/K6/K7 once a step; ``ema_params_`` finite; the resume's fold
+    count starts at the saved one and trains the epochs after the saved
+    epoch only. Prints the barrier's ms an epoch."""
+    from distkeras_tpu_torch import checkpoint as ckpt
+    from distkeras_tpu_torch.resilience import FaultPlan, RetryPolicy
+
+    ckpt_dir = tempfile.mkdtemp(prefix="dk-ckpt-ps-")
+    try:
+        plan = FaultPlan(seed=0, kill_at={PS_CK_KILL: PS5_WINDOWS})
+        t, rows = _config5(
+            "inprocess", checkpoint_dir=ckpt_dir, ema_decay=EMA_DECAY,
+            worker_restart_budget=1, tolerate_worker_failures=True,
+            retry_policy=RetryPolicy(seed=0), fault_plan=plan)
+        ds = train.gather(np.arange(rows))
+
+        def run():
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the restart warning
+                t0 = time.perf_counter()
+                t.train(ds)
+                return time.perf_counter() - t0
+
+        wall, launches = counted(run)
+        saved, step = ckpt.restore_checkpoint(ckpt_dir)
+        saved_updates = int(saved["num_updates"])
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir,
+                                                  f"ckpt_{step:012d}.dkc"))
+        r, _ = _config5("inprocess", epochs=PS5_EPOCHS + 1,
+                        checkpoint_dir=ckpt_dir, resume=True)
+
+        def resume():
+            t0 = time.perf_counter()
+            r.train(ds)
+            return time.perf_counter() - t0
+
+        resume_wall, resume_launches = counted(resume)
+        s, res = t.ps_stats_, t.resilience_stats_
+        sources = [x["from"] for x in res["restart_log"]]
+        resumed = [h for h in r.history.records if "loss" in h]
+        ema_finite = all(np.isfinite(v.numpy()).all()
+                         for v in t.ema_params_.values())
+        rec = dict(
+            phase="ps_config5_checkpoint_ema", wall_s=wall,
+            restarts=res["restarts"], restored_from=sources,
+            num_updates=s["num_updates"],
+            logical_commits=res["logical_commits"],
+            checkpoint_step=step, saved_num_updates=saved_updates,
+            barrier_ms=t.checkpoint_ms_, resume_barrier_ms=r.checkpoint_ms_,
+            checkpoint_bytes=ckpt_bytes,
+            checkpoint_fs=_fs_type(ckpt_dir), ema_decay=EMA_DECAY,
+            ema_finite=ema_finite, resume_wall_s=resume_wall,
+            resume_num_updates=r.ps_stats_["num_updates"],
+            resume_windows=len(resumed),
+            resume_epochs=sorted({h["epoch"] for h in resumed}),
+            launches=launches, resume_launches=resume_launches)
+        log(json.dumps(rec))
+        fails = _phase_gates("ps_checkpoint", t, launches, extra=True)
+        if not (sources and set(sources) <= {"snapshot", "checkpoint"}):
+            fails.append(f"ps_checkpoint: the restart restored from "
+                         f"{sources}")
+        if not ema_finite:
+            fails.append("ps_checkpoint: the EMA is not finite")
+        if not (rec["resume_num_updates"] == saved_updates + len(resumed)
+                and rec["resume_epochs"] == list(
+                    range(int(saved["epoch"]) + 1, PS5_EPOCHS + 1))):
+            fails.append(f"ps_checkpoint: the resume folded to "
+                         f"{rec['resume_num_updates']} from the saved "
+                         f"{saved_updates} over {len(resumed)} windows, "
+                         f"epochs {rec['resume_epochs']}")
+        steps = len(resumed) * IMDB_WINDOW
+        fails += [f"ps_checkpoint resume: {k} launched "
+                  f"{resume_launches[k]} times, expected {steps}"
+                  for k in ("fused_adam", "lstm_forward", "lstm_backward")
+                  if resume_launches[k] != steps]
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
 def run_mnist_twin():
@@ -2949,6 +3285,30 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"parameter-server paths done at {time.perf_counter() - t0:.1f}s")
 
+    # checkpoints and the center's EMA, each phase counting and gating its
+    # own launches: config 5 collective checkpointed, resumed and
+    # averaged; config 5 through the PS with a barrier checkpoint, a
+    # worker restored from it, the EMA and a resume
+    ckema: dict = {}
+    for name, fn in (
+            ("config5_resume_collective",
+             lambda: train_resume_collective(torch, train)),
+            ("config5_ema_collective",
+             lambda: train_ema_collective(
+                 torch, train, ckema["config5_resume_collective"])),
+            ("ps_config5_checkpoint_ema",
+             lambda: train_ps_checkpoint_ema(torch, train))):
+        t_ps = time.perf_counter()
+        ckema[name] = fn()
+        log(f"launches on the {name} path: "
+            f"{json.dumps(ckema[name]['launches'])}")
+        log(json.dumps({"phase": name,
+                        "wall_s": time.perf_counter() - t_ps}))
+        torch.cuda.empty_cache()
+    ckema["ps_config5_checkpoint_ema_resume"] = {
+        "launches": ckema["ps_config5_checkpoint_ema"]["resume_launches"]}
+    log(f"checkpoint and EMA paths done at {time.perf_counter() - t0:.1f}s")
+
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
         return None if any(v is None for v in vals) else sum(vals)
@@ -3024,6 +3384,8 @@ def main() -> int:
                             for k, v in resilience.items()},
                          **{k: v["launches"][name]
                             for k, v in sharded.items()}},
+            checkpoint_ema_launches={k: v["launches"][name]
+                                     for k, v in ckema.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

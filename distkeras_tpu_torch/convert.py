@@ -187,3 +187,23 @@ def params_to_jax(params, module) -> dict:
         else:
             node[parts[-1]] = np.ascontiguousarray(leaf)
     return tree
+
+
+def center_from_jax(tree, spec) -> dict:
+    """The center of a checkpoint the JAX package wrote (a flax param tree,
+    as ``checkpoint.load_checkpoint`` rebuilds it) as ``spec``'s params,
+    ``{name: tensor}`` on the CPU in the spec's dtypes. Every leaf must land
+    on a tensor of ``spec.module`` at that tensor's shape and every tensor
+    must be written, or this raises (:func:`tensors_from_jax`): a misread
+    never loads quietly."""
+    if spec.module is None:
+        raise ValueError(
+            f"spec {spec.name!r} has no template module, so a JAX-package "
+            f"checkpoint has nothing to map onto (build the spec with "
+            f"model.from_module)")
+    names = {k for k, _ in spec.module.named_parameters()}
+    out = tensors_from_jax(tree, spec.module)
+    if set(out) != names:
+        raise KeyError(f"the checkpoint's center maps onto {sorted(out)}, "
+                       f"the spec's params are {sorted(names)}")
+    return out

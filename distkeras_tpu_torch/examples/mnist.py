@@ -10,8 +10,10 @@ asks for the CPU::
     python -m distkeras_tpu_torch.examples.mnist --device cpu --model mlp \\
         --rows 2048
     python -m distkeras_tpu_torch.examples.mnist --frontend keras
+    python -m distkeras_tpu_torch.examples.mnist --ema 0.99
 
-The last line printed is ``test accuracy: <fraction>``.
+With ``--ema DECAY`` the Polyak average of the center is scored too. The
+last line printed is ``test accuracy: <fraction>``.
 """
 
 from __future__ import annotations
@@ -44,7 +46,6 @@ TRAINERS = {
 
 #: flags of the JAX example whose machinery is a later slice of the port
 _LATER_FLAGS = {
-    "ema": "A8 (checkpoints and EMA)",
     "int8_predict": "A11.5 (quantize_serving)",
 }
 
@@ -69,7 +70,9 @@ def parse_args(argv=None):
     ap.add_argument("--compression", choices=["int8", "topk"], default=None,
                     help="lossy commit compression for the PS wire "
                          "(backend=ps; error feedback keeps convergence)")
-    ap.add_argument("--ema", type=float, default=None, metavar="DECAY")
+    ap.add_argument("--ema", type=float, default=None, metavar="DECAY",
+                    help="Polyak/EMA averaging of the center; the averaged "
+                         "model is also scored at the end")
     ap.add_argument("--int8-predict", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
@@ -138,6 +141,8 @@ def main(argv=None) -> float:
         kw["backend"] = args.backend
         if args.compression:
             kw["compression"] = args.compression
+    if args.ema is not None:
+        kw["ema_decay"] = args.ema
     trainer = cls(model, **kw)
 
     trainer.train(train, shuffle=True)
@@ -146,6 +151,11 @@ def main(argv=None) -> float:
           f"{trainer.get_training_time():.1f}s ({len(losses)} windows): "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 
+    if args.ema is not None and trainer.ema_params_ is not None:
+        ema_pred = ModelPredictor(trainer.spec, trainer.ema_params_,
+                                  trainer.trained_nt_, device=args.device)
+        print(f"EMA(decay={args.ema}) accuracy: "
+              f"{AccuracyEvaluator().evaluate(ema_pred.predict(test)):.4f}")
     predictor = ModelPredictor(trainer.spec, trainer.trained_params_,
                                trainer.trained_nt_, device=args.device)
     acc = AccuracyEvaluator().evaluate(predictor.predict(test))

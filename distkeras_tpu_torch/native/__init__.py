@@ -85,6 +85,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_server_fence_epoch": (u64, [vp]),
         "dkps_server_set_trace": (None, [vp, ctypes.c_int]),
         "dkps_server_set_shard": (None, [vp, u32, u32]),
+        "dkps_server_get_ema": (ctypes.c_int, [vp, f32p]),
+        "dkps_server_set_ema": (ctypes.c_int, [vp, f32p]),
         "dkps_client_from_fd": (vp, [ctypes.c_int, u32, u64]),
         "dkps_client_set_timeout_ms": (ctypes.c_int, [vp, ctypes.c_int]),
         "dkps_client_pull": (i64, [vp, f32p]),

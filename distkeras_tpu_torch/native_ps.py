@@ -32,8 +32,13 @@ Recovery is this side's
 job: a server built with ``wal_dir`` replays ``(snapshot, wal)`` through
 the port's ``resilience.wal.recover_ps_state``, installs the state in the
 C++ server and publishes a fresh base snapshot before handing the live
-segment to the C++ appender. The center's EMA is ``ROADMAP.md`` A8 and
-raises naming it.
+segment to the C++ appender.
+
+The center's EMA (``ema_decay``; −1 on the C interface means off) is
+folded by the C++ core after every commit, ``e = d·e + (1−d)·c`` in f32
+under the center mutex; ``get_ema()`` reads it (``dkps_server_get_ema``),
+a recovered WAL state restores it (``dkps_server_set_ema``), and the WAL
+replays it with the same f32 arithmetic.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ from distkeras_tpu_torch.parallel.merge_rules import (
 from distkeras_tpu_torch.parameter_servers import (
     _encoded_as_leaves,
     build_ps_stats,
+    validate_ema_decay,
 )
 
 Tree = Any
@@ -149,10 +155,7 @@ class NativeSocketParameterServer:
                  wal_dir: str | None = None, snapshot_every: int = 100,
                  fence_epoch: int = 0, wal_group_window: int = 8,
                  wal_group_interval: float = 0.25):
-        if ema_decay is not None:
-            raise NotImplementedError(
-                "the native PS's center EMA is not ported yet: ROADMAP.md "
-                "A8 (checkpoints and EMA)")
+        self.ema_decay = validate_ema_decay(ema_decay)
         if lease_timeout is not None and lease_timeout <= 0:
             raise ValueError(
                 f"lease_timeout must be positive, got {lease_timeout}")
@@ -185,7 +188,8 @@ class NativeSocketParameterServer:
                 self.spec.flatten(state["center"]))
         h = self._lib.dkps_server_create(
             _f32p(init_vec), self.spec.n, mode, scale,
-            self.host.encode(), self.port, -1.0,
+            self.host.encode(), self.port,
+            -1.0 if self.ema_decay is None else self.ema_decay,
             -1.0 if self.lease_timeout is None else self.lease_timeout)
         if not h:
             raise OSError(f"dkps server failed to bind {self.host}:"
@@ -213,7 +217,7 @@ class NativeSocketParameterServer:
 
         t0 = time.monotonic()
         state = recover_ps_state(self.wal_dir, self.rule, self.num_workers,
-                                 None,
+                                 self.ema_decay,
                                  template=self.spec.unflatten(self._init_vec))
         if state is not None:
             self.recovered_ = True
@@ -221,9 +225,9 @@ class NativeSocketParameterServer:
         return state
 
     def _restore_state(self, state: dict) -> None:
-        """Install the replayed state in the C++ server: the update count
-        and each worker's dedup seqno and pull versions (the exactly-once
-        fence and DynSGD's staleness bases)."""
+        """Install the replayed state in the C++ server: the update count,
+        each worker's dedup seqno and pull versions (the exactly-once fence
+        and DynSGD's staleness bases) and the EMA."""
         self._lib.dkps_server_set_num_updates(self._handle,
                                               int(state["num_updates"]))
         prev = state.get("prev_pull_versions", {})
@@ -234,6 +238,9 @@ class NativeSocketParameterServer:
                 int(state["last_seq"].get(wid, -1)),
                 int(state["pull_versions"].get(wid, -1)),
                 int(prev.get(wid, -1)))
+        if self.ema_decay is not None and state.get("ema") is not None:
+            ema = np.ascontiguousarray(self.spec.flatten(state["ema"]))
+            self._lib.dkps_server_set_ema(self._handle, _f32p(ema))
 
     def _attach_wal(self, state: dict | None) -> None:
         """Publish a base snapshot at the (possibly recovered) version,
@@ -248,8 +255,11 @@ class NativeSocketParameterServer:
             snap_state = dict(state)
             snap_state.pop("replayed", None)
         else:
+            center = self.spec.unflatten(self._init_vec)
             snap_state = _wal.ps_state_dict(
-                self.spec.unflatten(self._init_vec), 0, {}, {}, None, 0,
+                center, 0, {}, {},
+                None if self.ema_decay is None
+                else utils.host_tree_map(np.copy, center), 0,
                 self.fence_epoch)
         snap_state["fence_epoch"] = max(
             int(snap_state.get("fence_epoch", 0)), self.fence_epoch)
@@ -298,9 +308,23 @@ class NativeSocketParameterServer:
             return 0
         return int(self._lib.dkps_server_num_updates(self._handle))
 
+    @num_updates.setter
+    def num_updates(self, v: int) -> None:
+        self._lib.dkps_server_set_num_updates(self._handle, int(v))
+
     def get_model(self) -> Tree:
         out = np.empty(self.spec.n, dtype=np.float32)
         self._lib.dkps_server_get_center(self._handle, _f32p(out))
+        return self.spec.unflatten(out)
+
+    def get_ema(self) -> Tree | None:
+        """The Polyak-averaged center (None unless ``ema_decay`` was
+        set)."""
+        if self.ema_decay is None:
+            return None
+        out = np.empty(self.spec.n, dtype=np.float32)
+        if self._lib.dkps_server_get_ema(self._handle, _f32p(out)) != 0:
+            return None
         return self.spec.unflatten(out)
 
     # -- fencing --------------------------------------------------------------

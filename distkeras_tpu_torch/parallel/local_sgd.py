@@ -27,7 +27,12 @@ from distkeras_tpu_torch.data import place_on
 from distkeras_tpu_torch.model import ModelSpec
 from distkeras_tpu_torch.optim import GradientTransformation
 from distkeras_tpu_torch.parallel.merge_rules import MergeRule
-from distkeras_tpu_torch.utils import resolve_device, tree_map
+from distkeras_tpu_torch.utils import (
+    resolve_device,
+    tree_leaves,
+    tree_like,
+    tree_map,
+)
 
 LossStep = Callable[[dict, dict, tuple], tuple[torch.Tensor, dict]]
 
@@ -85,6 +90,28 @@ class LocalSGDEngine:
             center=center, workers=workers,
             nt=tree_map(stack, tree_map(put, nt)),
             opt_state=self.optimizer.init(workers), step=0)
+
+    def init_state_from(self, host_state: TrainState) -> TrainState:
+        """Place a restored host ``TrainState`` (a checkpoint's: numpy
+        leaves, or CPU bf16 tensors) on the device: the resume path. The
+        optimizer state takes the structure and leaf types of a fresh
+        ``optimizer.init`` (its step counts come back as ints)."""
+        leaves = tree_leaves(host_state.workers)
+        if leaves and leaves[0].shape[0] != self.num_workers:
+            raise ValueError(
+                f"checkpoint has {leaves[0].shape[0]} workers, engine "
+                f"expects {self.num_workers}")
+
+        def put(x):
+            t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+                np.array(x, copy=True))
+            return t.to(self.device)
+
+        workers = tree_map(put, host_state.workers)
+        opt = tree_like(host_state.opt_state, self.optimizer.init(workers))
+        return TrainState(center=tree_map(put, host_state.center),
+                          workers=workers, nt=tree_map(put, host_state.nt),
+                          opt_state=opt, step=int(host_state.step))
 
     # -- the window ------------------------------------------------------------
 

@@ -65,9 +65,17 @@ reference:
   the ``shard_map`` action with it (None when unsharded), so a client
   wired to the wrong shard fails fast.
 
-Elastic membership, the center's EMA and deploy streaming belong to later
-slices (``ROADMAP.md`` A7.8, A8, A13): their wire actions answer with an
-error frame naming the item, and their stats counters stay 0.
+**The center's EMA** (``ema_decay``): after each applied commit the
+server folds ``e = d·e + (1−d)·c`` with the post-fold center, under its
+own ``_ema_lock`` (never the center lock) into preallocated scratch, in
+version order: a fold that lost the race to a newer center is dropped.
+``get_ema()`` reads it. WAL snapshots carry it (``ema``, ``ema_version``),
+replay refolds it, and a standby receives it with its replication base,
+so a recovered or promoted server's EMA is the live one's, bit for bit.
+
+Elastic membership and deploy streaming belong to later slices
+(``ROADMAP.md`` A7.8, A13): their wire actions answer with an error frame
+naming the item, and their stats counters stay 0.
 """
 
 from __future__ import annotations
@@ -157,8 +165,8 @@ class _FoldWork:
     __slots__ = ("worker_id", "payload", "seq", "epoch", "lag", "fused",
                  "compressed", "wire_frame", "rec_payload", "rec_sum",
                  "rec_type", "corr", "done", "exc", "fenced", "server_epoch",
-                 "dup", "version", "snap_out", "st", "wait_token",
-                 "snap_state", "batched")
+                 "dup", "version", "center_snap", "snap_out", "st",
+                 "wait_token", "snap_state", "batched")
 
     def __init__(self, worker_id, payload, seq, epoch, lag, fused,
                  compressed, wire_frame, rec_payload, rec_sum, rec_type,
@@ -181,6 +189,7 @@ class _FoldWork:
         self.server_epoch = 0
         self.dup = False
         self.version = 0
+        self.center_snap = None   # the post-fold center, for the EMA
         self.snap_out = None
         self.st = None
         self.wait_token = None
@@ -206,6 +215,16 @@ def _tree_copy(tree: Tree) -> Tree:
     return utils.host_tree_map(np.copy, tree)
 
 
+def validate_ema_decay(ema_decay):
+    """``ema_decay`` as a float in [0, 1), or None (the EMA off)."""
+    if ema_decay is None:
+        return None
+    ema_decay = float(ema_decay)
+    if not 0.0 <= ema_decay < 1.0:
+        raise ValueError(f"ema_decay must be in [0, 1), got {ema_decay}")
+    return ema_decay
+
+
 def _is_floatish(arr: np.ndarray) -> bool:
     return np.issubdtype(arr.dtype, np.floating)
 
@@ -216,6 +235,7 @@ class ParameterServer:
     "inprocess"``) and the base of :class:`SocketParameterServer`."""
 
     def __init__(self, center: Tree, rule: MergeRule, num_workers: int,
+                 ema_decay: float | None = None,
                  lease_timeout: float | None = None,
                  wal_dir: str | None = None, snapshot_every: int = 100,
                  fence_epoch: int = 0, wal_group_window: int = 8,
@@ -243,6 +263,16 @@ class ParameterServer:
                                         on_evict=self._on_evict)
         # the commit dedup: each worker's last APPLIED seqno (center lock)
         self._last_seq: dict[int, int] = {}
+        # the Polyak average of the center (None: off), folded per commit
+        # under its own lock from the post-fold snapshot; _ema_version
+        # orders racing folds, and the scratch is reused by every fold
+        self.ema_decay = validate_ema_decay(ema_decay)
+        self._ema = None if ema_decay is None else _tree_copy(self.center)
+        self._ema_lock = threading.Lock()
+        self._ema_version = 0
+        self._ema_scratch = (None if self._ema is None
+                             else utils.host_tree_map(np.empty_like,
+                                                      self._ema))
         self._pull_errors: dict[int, _PullState] = {}
         self._stats_lock = threading.Lock()
         self._n_pending_replies = 0
@@ -268,7 +298,8 @@ class ParameterServer:
         if wal_dir is not None:
             t0 = time.monotonic()
             state = _wal.recover_ps_state(wal_dir, rule, self.num_workers,
-                                          None, template=self.center)
+                                          self.ema_decay,
+                                          template=self.center)
             if state is not None:
                 self._adopt_state(state)
                 self.recovered_ = True
@@ -295,16 +326,54 @@ class ParameterServer:
         self._prev_pull_versions = dict(state.get("prev_pull_versions", {}))
         self._last_seq = dict(state["last_seq"])
         self.fence_epoch = max(self.fence_epoch, int(state["fence_epoch"]))
+        if self.ema_decay is not None and state.get("ema") is not None:
+            self._ema = state["ema"]
+            self._ema_version = int(state["ema_version"])
+            self._ema_scratch = utils.host_tree_map(np.empty_like, self._ema)
         self._center_nbytes = sum(
             np.asarray(leaf).nbytes for leaf in utils.flatten(self.center)[0])
 
     def _capture_state_locked(self) -> dict:
         """The recoverable state (call under the center lock): O(workers)
-        dict copies and a reference to the immutable center."""
+        dict copies and a reference to the immutable center. The EMA is
+        added after, by :meth:`_attach_ema_state` under its own lock (one
+        lock at a time); its version may run ahead of the center's, which
+        replay handles by skipping EMA folds at or below ``ema_version``."""
         return _wal.ps_state_dict(
             self.center, self.num_updates, self._pull_versions,
             self._last_seq, None, 0, self.fence_epoch,
             prev_pull_versions=self._prev_pull_versions)
+
+    def _attach_ema_state(self, state: dict) -> dict:
+        if self._ema is not None:
+            with self._ema_lock:
+                state["ema"] = _tree_copy(self._ema)
+                state["ema_version"] = self._ema_version
+        return state
+
+    def _fold_ema(self, version: int, snap: Tree) -> None:
+        """``e = d·e + (1−d)·c`` with the center of ``version``, the
+        reference's numpy ops in its order, unless a newer center already
+        folded (this one is subsumed)."""
+        d = self.ema_decay
+
+        def fma(e, c, s):
+            np.multiply(np.asarray(c, dtype=e.dtype), 1.0 - d, out=s)
+            e *= d
+            e += s
+
+        with self._ema_lock:
+            if version > self._ema_version:
+                self._ema_version = version
+                utils.host_tree_map(fma, self._ema, snap, self._ema_scratch)
+
+    def get_ema(self) -> Tree:
+        """The Polyak-averaged center (None unless ``ema_decay`` was set);
+        a copy taken under the EMA's lock (it is folded in place)."""
+        if self._ema is None:
+            return None
+        with self._ema_lock:
+            return _tree_copy(self._ema)
 
     @property
     def _durable(self) -> bool:
@@ -553,7 +622,10 @@ class ParameterServer:
                         "replay it", retryable=True)
             else:
                 self._wal.maybe_fsync()  # periodic, off the critical path
+        if self._ema is not None:
+            self._fold_ema(work.version, work.center_snap)
         if work.snap_state is not None and self._wal._fh is not None:
+            self._attach_ema_state(work.snap_state)
             self._wal.publish_snapshot(work.snap_state)
         return True, work.snap_out, work.st
 
@@ -629,6 +701,7 @@ class ParameterServer:
                     self.center, work.payload, self.num_workers, staleness))
                 self.num_updates += 1
                 work.version = self.num_updates
+                work.center_snap = self.center
                 if work.rec_payload is None and self._durable:
                     # a standby attached between the pre-lock check and
                     # this fold: encode here, so the stream misses nothing
@@ -790,9 +863,15 @@ class ParameterServer:
     @contextlib.contextmanager
     def _replication_base(self):
         """The state a new replica starts from, with the lock that orders
-        it before every later record held over the handshake."""
+        it before every later record held over the handshake. The EMA is
+        taken first, under its own lock: attached before traffic, as every
+        caller does, it is the center's."""
+        ema = self._attach_ema_state({})
         with self._lock:
-            yield self._capture_state_locked()
+            state = self._capture_state_locked()
+            state["ema"] = ema.get("ema")
+            state["ema_version"] = ema.get("ema_version", 0)
+            yield state
 
     @property
     def has_standby(self) -> bool:
@@ -971,11 +1050,12 @@ class SocketParameterServer(ParameterServer):
 
     def __init__(self, center: Tree, rule: MergeRule, num_workers: int,
                  host: str = "127.0.0.1", port: int = 0,
+                 ema_decay: float | None = None,
                  lease_timeout: float | None = None,
                  wal_dir: str | None = None, snapshot_every: int = 100,
                  fence_epoch: int = 0, wal_group_window: int = 8,
                  wal_group_interval: float = 0.25):
-        super().__init__(center, rule, num_workers,
+        super().__init__(center, rule, num_workers, ema_decay=ema_decay,
                          lease_timeout=lease_timeout, wal_dir=wal_dir,
                          snapshot_every=snapshot_every,
                          fence_epoch=fence_epoch,
@@ -1264,11 +1344,13 @@ class StandbySocketParameterServer(SocketParameterServer):
 
     def __init__(self, center: Tree, rule: MergeRule, num_workers: int,
                  host: str = "127.0.0.1", port: int = 0,
+                 ema_decay: float | None = None,
                  lease_timeout: float | None = None,
                  wal_dir: str | None = None, snapshot_every: int = 100,
                  wal_group_window: int = 8,
                  wal_group_interval: float = 0.25):
         super().__init__(center, rule, num_workers, host=host, port=port,
+                         ema_decay=ema_decay,
                          lease_timeout=lease_timeout, wal_dir=wal_dir,
                          snapshot_every=snapshot_every,
                          wal_group_window=wal_group_window,
@@ -1328,7 +1410,7 @@ class StandbySocketParameterServer(SocketParameterServer):
                     with _trace.span("ps.chain_apply"):
                         _wal.replay_record(self._repl_state, recs[0][0],
                                            recs[0][1], self.rule,
-                                           self.num_workers, None)
+                                           self.num_workers, self.ema_decay)
                     # a middle link of a chain forwards the raw record to
                     # its own successor after applying it, under the same
                     # lock: the order down the chain is the apply order,
@@ -1368,7 +1450,10 @@ class StandbySocketParameterServer(SocketParameterServer):
                        if k != "replayed"}
             else:
                 with self._lock:
-                    yield self._capture_state_locked()
+                    base = self._capture_state_locked()
+                base.setdefault("ema", None)
+                self._attach_ema_state(base)
+                yield base
 
     def promote(self, epoch: int, drain_timeout: float = 5.0) -> None:
         """Become the primary: drain the replication stream, install the
@@ -1405,6 +1490,7 @@ class StandbySocketParameterServer(SocketParameterServer):
             self.is_standby = False
             self.promoted_ = True
         if snap is not None:
+            self._attach_ema_state(snap)
             self._wal.publish_snapshot(snap)
 
 
@@ -1561,4 +1647,4 @@ def _host_payload(tree: Tree) -> Tree:
 
 __all__ = ["ParameterServer", "SocketParameterServer",
            "StandbySocketParameterServer", "ParameterServerClient",
-           "build_ps_stats"]
+           "build_ps_stats", "validate_ema_decay"]

@@ -5,9 +5,9 @@ Port of ``distkeras_tpu/resilience/recovery.py``:
 - :class:`WorkerSupervisor` upgrades ``tolerate_worker_failures`` ("ignore
   the dead") to "restart the dead": a worker thread that dies with a
   tolerable error is relaunched, up to ``max_restarts`` times, from the
-  best state available: its latest in-memory snapshot, else the
-  ``fallback_restore`` hook's (checkpoints are ``ROADMAP.md`` A8, so the
-  trainer's hook answers None), else fresh per-worker state from a
+  best state available: its latest in-memory snapshot (taken at the last
+  checkpoint barrier), else the ``fallback_restore`` hook's (the trainer's
+  reads the newest on-disk checkpoint), else fresh per-worker state from a
   **fresh center pull**: the center kept training while the worker was
   down, so the restart re-bases onto the survivors' progress. The
   restarted worker renews its lease on its first window and its commits
@@ -323,8 +323,8 @@ class WorkerSupervisor:
         if restore is not None and epoch is not None:
             w.start_epoch = epoch + 1
         w.error = None
-        # a death breaks an epoch rendezvous for everyone (checkpoint
-        # barriers, ROADMAP.md A8): the restartee trains barrier-free
+        # a death breaks the checkpoint barrier for everyone: the
+        # restartee (like its tolerant peers) trains on barrier-free
         w.barrier = None
         self.restart_log.append({
             "worker": i, "attempt": self.restarts[i], "from": source,

@@ -38,8 +38,11 @@ sends each appended record to the replica before ACKing, and the standby
 applies it through :func:`replay_record`, the one definition of "apply an
 event" for disk and stream alike.
 
-The center's EMA (``ema_decay``) belongs to ``ROADMAP.md`` A8: the port's
-states carry ``ema`` as None, and replay with an ``ema_decay`` raises.
+The center's EMA (``ema_decay``) rides the same path: a snapshot carries
+``ema`` and ``ema_version``, and replay refolds it after every commit above
+that version with the live server's arithmetic (numpy ops for a pickle
+commit, the C++ core's f32 ``d·e + (1−d)·c`` for a flat native one), so a
+recovered EMA is the live one, bit for bit.
 """
 
 from __future__ import annotations
@@ -737,17 +740,13 @@ def replay_record(state: dict, rec_type: int, body: Any, rule,
 
     This is the single definition of "apply an event": crash recovery
     replays disk records through it and the hot standby applies streamed
-    records through it — the two consumers cannot diverge. The fold
-    arithmetic is the PS's own (the same ``rule.fold`` →
-    ``tree_to_numpy`` sequence), so a replayed state is bit-identical to
-    the sequential no-crash server's.
+    records through it — the two consumers cannot diverge. The fold and
+    EMA arithmetic are the PS's own (the same ``rule.fold`` →
+    ``tree_to_numpy`` → fma sequence), so a replayed state is
+    bit-identical to the sequential no-crash server's.
     """
     from distkeras_tpu_torch import utils
 
-    if ema_decay is not None:
-        raise NotImplementedError(
-            "replaying the center's EMA is not ported yet: ROADMAP.md A8 "
-            "(checkpoints and EMA)")
     if rec_type in (REC_COMMIT, REC_COMMIT2, REC_COMMIT_WIRE):
         worker_id, seq, pull_version, version, payload_bytes = body
         if version != state["num_updates"] + 1:
@@ -778,6 +777,13 @@ def replay_record(state: dict, rec_type: int, body: Any, rule,
         state["num_updates"] += 1
         if seq is not None:
             state["last_seq"][worker_id] = seq
+        if ema_decay is not None and state.get("ema") is not None \
+                and state["num_updates"] > state["ema_version"]:
+            # a snapshot's EMA may run AHEAD of its center version (the
+            # EMA folds on its own lock after the commit's critical
+            # section): folds at or below ema_version are already in it
+            _ema_fma_inplace(state["ema"], state["center"], ema_decay)
+            state["ema_version"] = state["num_updates"]
     elif rec_type == REC_COMMIT_FLAT:
         # native commit: the C++ fold was `center[i] += payload[i] * scale`
         # (one mul, one add per element, no FMA contraction on baseline
@@ -801,6 +807,14 @@ def replay_record(state: dict, rec_type: int, body: Any, rule,
         state["num_updates"] += 1
         if seq is not None:
             state["last_seq"][worker_id] = seq
+        if ema_decay is not None and flat["e"] is not None:
+            # dkps.cpp: e[i] = d*e[i] + (1.0f - d)*c[i] with d cast to f32:
+            # the f32 `1 - d`, not the f64 one rounded later
+            d32 = np.float32(ema_decay)
+            od32 = np.float32(1.0) - d32
+            flat["e"] *= d32
+            flat["e"] += flat["c"] * od32
+            state["ema_version"] = state["num_updates"]
     elif rec_type in (REC_PULL, REC_PULL_FLAT):
         worker_id, version = body
         # the live servers shift cur → prev on EVERY pull-version record
@@ -847,7 +861,9 @@ def _flat_replay_state(state: dict) -> dict:
         from distkeras_tpu_torch.native_ps import FlatSpec
 
         spec = FlatSpec(state["center"])
-        flat = {"spec": spec, "c": spec.flatten(state["center"])}
+        flat = {"spec": spec, "c": spec.flatten(state["center"]),
+                "e": (spec.flatten(state["ema"])
+                      if state.get("ema") is not None else None)}
         state["_flat"] = flat
     return flat
 
@@ -857,6 +873,22 @@ def _finish_flat_replay(state: dict) -> None:
     if flat is None:
         return
     state["center"] = flat["spec"].unflatten(flat["c"])
+    if flat["e"] is not None:
+        state["ema"] = flat["spec"].unflatten(flat["e"])
+
+
+def _ema_fma_inplace(ema: Pytree, center: Pytree, d: float) -> None:
+    """``e = d·e + (1−d)·c`` in the Python PS's operation order (multiply
+    into a temporary, scale e, add), so replay matches the live fold
+    bitwise."""
+    from distkeras_tpu_torch import utils
+
+    def fma(e, c):
+        s = np.multiply(np.asarray(c, dtype=e.dtype), 1.0 - d)
+        e *= d
+        e += s
+
+    utils.host_tree_map(fma, ema, center)
 
 
 def recover_ps_state(directory: str, rule, num_workers: int,
@@ -905,6 +937,8 @@ def recover_ps_state(directory: str, rule, num_workers: int,
             utils.tree_to_numpy(template), 0, {}, {},
             None, 0, 0,
         )
+        if ema_decay is not None:
+            state["ema"] = utils.host_tree_map(np.copy, state["center"])
     replayed = 0
     for name in segs:
         base = int(name[len(_SEG_PREFIX):-len(_SEG_SUFFIX)])

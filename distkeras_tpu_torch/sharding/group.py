@@ -24,10 +24,13 @@ shard at a time, what ``run_async_training`` owns for one PS:
   fencing epochs, rises with every failover.
 
 The group stands in for a single ``ParameterServer`` where the trainer
-reads one after the run (``get_model``, ``num_updates``, ``stats``,
-``stop``), reassembling the tree from each shard's ACTIVE server (a
-promoted replica, not the corpse it replaced). The center's EMA is
-``ROADMAP.md`` A8, the metrics registry A13 and the membership directory's
+reads one (``get_model``, ``get_ema``, ``num_updates``, ``mark_epoch``,
+``stats``, ``stop``), reassembling the tree from each shard's ACTIVE
+server (a promoted replica, not the corpse it replaced). With
+``ema_decay`` every shard and replica folds the EMA of its sub-center per
+commit (a replica through ``replay_record``, so a promoted link carries
+it); a fold is leafwise, so the joined EMA is the single server's. The
+metrics registry is ``ROADMAP.md`` A13 and the membership directory's
 registration of shards A7.9: each refuses naming its item.
 """
 
@@ -74,10 +77,6 @@ class ShardedPSGroup:
             raise ValueError(
                 f"transport must be 'inprocess', 'socket', 'native', or "
                 f"'shm', got {transport!r}")
-        if ema_decay is not None:
-            raise NotImplementedError(
-                "the sharded center's EMA is not ported yet: ROADMAP.md A8 "
-                "(checkpoints and EMA)")
         if chain_length < 1:
             raise ValueError(f"chain_length must be >= 1, got {chain_length}")
         if chain_length > 1 and transport != "socket":
@@ -91,6 +90,7 @@ class ShardedPSGroup:
         self.num_workers = int(num_workers)
         self.transport = transport
         self.host = host
+        self.ema_decay = ema_decay
         self.lease_timeout = lease_timeout
         self.wal_root = None if wal_root is None else str(wal_root)
         self.snapshot_every = int(snapshot_every)
@@ -123,7 +123,8 @@ class ShardedPSGroup:
     # -- construction ------------------------------------------------------------
 
     def _server_kwargs(self, wal_dir: str | None) -> dict:
-        return dict(lease_timeout=self.lease_timeout, wal_dir=wal_dir,
+        return dict(ema_decay=self.ema_decay,
+                    lease_timeout=self.lease_timeout, wal_dir=wal_dir,
                     snapshot_every=self.snapshot_every,
                     wal_group_window=self.wal_group_window,
                     wal_group_interval=self.wal_group_interval)
@@ -294,13 +295,35 @@ class ShardedPSGroup:
         vals = [int(s.num_updates) for s in self.active_servers]
         return min(vals) if vals else 0
 
+    @num_updates.setter
+    def num_updates(self, v: int) -> None:
+        """Seed every shard's fold count (a checkpoint resume)."""
+        for s in self.active_servers:
+            s.num_updates = int(v)
+
+    @property
+    def recovered_(self) -> bool:
+        """Some shard recovered its state from a WAL."""
+        return any(getattr(s, "recovered_", False)
+                   for s in self.active_servers)
+
     def get_model(self) -> Tree:
         return self.plan.join([s.get_model() for s in self.active_servers])
 
-    def get_ema(self):
-        raise NotImplementedError(
-            "the sharded center's EMA is not ported yet: ROADMAP.md A8 "
-            "(checkpoints and EMA)")
+    def get_ema(self) -> Tree | None:
+        """The join of the shards' EMAs (None unless ``ema_decay``)."""
+        if self.ema_decay is None:
+            return None
+        return self.plan.join([s.get_ema() for s in self.active_servers])
+
+    def mark_epoch(self, epoch: int) -> None:
+        """Log the training-epoch boundary on every shard that logs one
+        (the checkpoint barrier quiesces the workers first, so all shards
+        mark it at the same fold count)."""
+        for s in self.active_servers:
+            mark = getattr(s, "mark_epoch", None)
+            if mark is not None:
+                mark(int(epoch))
 
     def stats(self) -> dict:
         per = []

@@ -639,8 +639,9 @@ class _ShmConn:
 class ShmParameterServer(SocketParameterServer):
     """The parameter server over shared-memory rings (``ps_transport=
     "shm"``), colocated only: the segments are this process's. The action
-    dispatch, the fold path, the WAL, fencing, heartbeats, the stats and
-    the trace spans are the socket server's; only the framing differs.
+    dispatch, the fold path, the center's EMA, the WAL, fencing,
+    heartbeats, the stats and the trace spans are the socket server's;
+    only the framing differs.
     Requests arrive through :meth:`_ShmConn.recv_msg` (pickle or bulk
     lane), and pull and exchange replies ship the center's leaves on the
     bulk lane, written once from the immutable snapshot into the ring. A
@@ -658,11 +659,13 @@ class ShmParameterServer(SocketParameterServer):
 
     def __init__(self, center: Tree, rule, num_workers: int,
                  ring_bytes: int = DEFAULT_RING_BYTES,
+                 ema_decay: float | None = None,
                  lease_timeout: float | None = None,
                  wal_dir: str | None = None, snapshot_every: int = 100,
                  fence_epoch: int = 0, wal_group_window: int = 8,
                  wal_group_interval: float = 0.25):
         super().__init__(center, rule, num_workers, host="shm", port=0,
+                         ema_decay=ema_decay,
                          lease_timeout=lease_timeout, wal_dir=wal_dir,
                          snapshot_every=snapshot_every,
                          fence_epoch=fence_epoch,

@@ -25,11 +25,16 @@ backend's resilience knobs (``retry_policy``, ``heartbeat_interval``,
 ``ps_snapshot_every``, ``ps_wal_group_window``, ``ps_wal_group_interval``,
 ``ps_standby``, ``ps_failover_timeout``) and its sharded center
 (``ps_num_shards``, ``ps_chain_length``) are the reference's, with its
-checks. Kwargs whose machinery belongs to a later slice of the port (the
-PS backend's elastic and observability knobs, checkpoints, EMA,
-meshes) are accepted by name and raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item when set to
-anything but their default: nothing is silently ignored.
+checks. ``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` /
+``checkpoint_async`` snapshot the training state at epoch boundaries and
+resume from it (``checkpoint.py``; on the PS backend at an epoch barrier
+of the workers), also from a checkpoint the JAX package wrote (its center
+carries over); ``ema_decay`` keeps a Polyak average of the center,
+``ema_params_``, per window on the collective backend and per commit on
+the PS. Kwargs whose machinery belongs to a later slice of the port (the
+PS backend's elastic and observability knobs, meshes) are accepted by
+name and raise ``NotImplementedError`` naming their ``ROADMAP.md`` item
+when set to anything but their default: nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ import contextlib
 import json
 import os
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -68,16 +74,12 @@ from distkeras_tpu_torch.parallel.merge_rules import (
     ElasticAverageMerge,
     MergeRule,
 )
+from distkeras_tpu_torch.parameter_servers import validate_ema_decay
 from distkeras_tpu_torch.utils import tree_map
 
 #: reference kwargs of later slices: name → (default, ROADMAP item)
 _LATER = {
     "mesh": (None, "A12 (meshes across cards)"),
-    "ema_decay": (None, "A8 (checkpoints and EMA)"),
-    "checkpoint_dir": (None, "A8 (checkpoints and EMA)"),
-    "checkpoint_every": (1, "A8 (checkpoints and EMA)"),
-    "resume": (False, "A8 (checkpoints and EMA)"),
-    "checkpoint_async": (False, "A8 (checkpoints and EMA)"),
     "deploy_streamer": (None, "A13 (deploy streaming)"),
 }
 for _item, _knobs in {
@@ -196,6 +198,33 @@ def _as_spec(model) -> tuple[ModelSpec, object]:
     raise TypeError(
         f"model must be a Keras 3 model or a distkeras_tpu_torch ModelSpec, "
         f"got {type(model)}")
+
+
+def _ema_tracking(center: dict, decay: float, use_resident: bool):
+    """The window-by-window EMA of a streaming training loop: ``(use_resident,
+    ema, ema_step)``. The resident input mode is overridden (with a
+    warning): the EMA folds in every window's center, which a whole epoch
+    walked on the device never hands back. ``ema`` is a copy of the center
+    (the engine's states are its own); ``ema_step(ema, center)`` folds
+    ``d·e + (1−d)·c`` in place over the leaves, in the reference's order:
+    both products rounded, then their sum."""
+    if use_resident:
+        warnings.warn(
+            "ema_decay tracks the center per step/window, which needs the "
+            "streaming input path; overriding the resident input mode for "
+            "this run", stacklevel=3)
+        use_resident = False
+    d = float(decay)
+    ema = tree_map(lambda x: x.detach().clone(), center)
+
+    def ema_step(ema, center):
+        e = utils.flatten(ema)[0]
+        torch._foreach_mul_(e, d)
+        torch._foreach_add_(e, torch._foreach_mul(utils.flatten(center)[0],
+                                                  1.0 - d))
+        return ema
+
+    return use_resident, ema, ema_step
 
 
 def _synchronize(device: torch.device) -> None:
@@ -419,7 +448,9 @@ class DistributedTrainer(Trainer):
                  ps_standby: bool = False,
                  ps_failover_timeout: float | None = None,
                  ps_num_shards: int = 1, ps_chain_length: int = 1,
-                 **later):
+                 ema_decay: float | None = None, checkpoint_dir=None,
+                 checkpoint_every: int = 1, resume: bool = False,
+                 checkpoint_async: bool = False, **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
@@ -518,6 +549,32 @@ class DistributedTrainer(Trainer):
                 "ps_transport='socket' or drop one of the two")
         if not self.ps_fused_exchange and backend != "ps":
             raise ValueError("ps_fused_exchange applies to backend='ps' only")
+        # the Polyak average of the center (per window on the collective
+        # backend, per commit on the PS), in ema_params_ beside the raw
+        # center; EMA state is not checkpointed: a resume restarts it from
+        # the restored center
+        self.ema_decay = validate_ema_decay(ema_decay)
+        if self.ema_decay is not None and backend == "ps" \
+                and ps_host is not None:
+            raise ValueError(
+                "ema_decay with an external ps_host must be configured on "
+                "the PS owner's server (the center lives there)")
+        self.ema_params_ = None
+        # epoch checkpoints: the full training state every
+        # checkpoint_every epochs and the last; checkpoint_async writes on
+        # a background thread
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self.resume = bool(resume)
+        self.checkpoint_async = bool(checkpoint_async)
+        self._async_ckpt = None
+        self.checkpoint_ms_: list[float] = []
+        if self.ps_pipeline_depth and checkpoint_dir:
+            raise ValueError(
+                "ps_pipeline_depth >= 1 is incompatible with epoch-barrier "
+                "checkpointing (checkpoint_dir): the barrier would snapshot "
+                "with one window still un-exchanged; drop checkpoint_dir or "
+                "run depth 0")
         self.ps_stats_ = None
         self._init_resilience(
             backend, ps_transport, ps_host, tolerate_worker_failures,
@@ -692,6 +749,37 @@ class DistributedTrainer(Trainer):
     def allocate_merge_rule(self) -> MergeRule:
         raise NotImplementedError
 
+    def _dispatch_checkpoint(self, payload, epoch: int) -> None:
+        """One checkpoint write, on a background thread with
+        ``checkpoint_async`` (its host copy on this one), else here."""
+        from distkeras_tpu_torch import checkpoint as ckpt
+
+        if self.checkpoint_async:
+            if self._async_ckpt is None:
+                self._async_ckpt = ckpt.AsyncCheckpointer()
+            self._async_ckpt.save(self.checkpoint_dir, payload, step=epoch)
+        else:
+            ckpt.save_checkpoint(self.checkpoint_dir, payload, step=epoch)
+
+    def _finish_checkpoints(self) -> None:
+        """Join an in-flight async save and re-raise its failure (from a
+        ``finally``: an aborted run neither drops nor hides one)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+
+    def _maybe_checkpoint(self, state, epoch: int) -> None:
+        """The epoch's checkpoint when the cadence calls for one; its time
+        on this thread (the whole save, or the async host copy) lands in
+        ``checkpoint_ms_``."""
+        from distkeras_tpu_torch import checkpoint as ckpt
+
+        if self.checkpoint_dir and ckpt.should_checkpoint(
+                epoch, self.checkpoint_every, self.num_epoch):
+            t0 = time.perf_counter()
+            self._dispatch_checkpoint({"state": state, "epoch": epoch},
+                                      epoch)
+            self.checkpoint_ms_.append(1e3 * (time.perf_counter() - t0))
+
     def allocate_optimizer(self):
         return resolve_optimizer(self.worker_optimizer, self.learning_rate,
                                  clipnorm=self.clipnorm,
@@ -704,6 +792,11 @@ class DistributedTrainer(Trainer):
 
     def train(self, dataset, shuffle: bool = False):
         ds = self._coerce_dataset(dataset)
+        if self.backend == "ps" and self.checkpoint_async:
+            raise ValueError(
+                "checkpoint_async is not supported on backend='ps' (the "
+                "hogwild workers checkpoint at a cross-thread barrier); use "
+                "the collective backend or synchronous checkpoints")
         ctx, paths = _profile_ctx(self.profile_dir, self.device)
         try:
             with ctx:
@@ -713,6 +806,9 @@ class DistributedTrainer(Trainer):
         finally:
             if paths:
                 self.profile_path_ = paths[-1]
+            # an aborted run neither drops an in-flight save nor hides its
+            # failure
+            self._finish_checkpoints()
 
     def _make_validator(self):
         """The ``validation_data`` evaluator, or None; built before training
@@ -753,6 +849,9 @@ class DistributedTrainer(Trainer):
             self._epoch_metrics(None, rows, n_updates, elapsed, label="run")
         params = tree_map(lambda c: torch.from_numpy(np.asarray(c)), center)
         nt = tree_map(lambda x: torch.from_numpy(np.asarray(x)), nt)
+        if self.ema_params_ is not None:
+            self.ema_params_ = tree_map(
+                lambda c: torch.from_numpy(np.asarray(c)), self.ema_params_)
         if validator is not None:
             self._validate_epoch(validator, params, nt, None)
         return self._finalize(params, nt)
@@ -766,11 +865,19 @@ class DistributedTrainer(Trainer):
             batch_size=self.batch_size)
         params, nt = self.spec.init(self.seed)
         state = engine.init_state(params, nt)
+        self.checkpoint_ms_ = []
+        start_epoch = 0
+        if self.checkpoint_dir and self.resume:
+            state, start_epoch = self._resume_collective(engine, state, nt)
         cols = self.features_col + [self.label_col]
         use_resident = self.device_data
         if use_resident is None:
             use_resident = _fits_device_budget(
                 ds, cols, self.device_data_budget_bytes)
+        ema = ema_step = None
+        if self.ema_decay is not None:
+            use_resident, ema, ema_step = _ema_tracking(
+                state.center, self.ema_decay, use_resident)
 
         W, win, B = self.num_workers, self.communication_window, \
             self.batch_size
@@ -782,7 +889,7 @@ class DistributedTrainer(Trainer):
                 W, B, win, cols, seed=self.seed if shuffle else None,
                 cover_all=shuffle))
             n_windows = staged[0].shape[1] // (win * B)
-            for epoch in range(self.num_epoch):
+            for epoch in range(start_epoch, self.num_epoch):
                 seed = (self.seed + epoch) if shuffle else None
                 t0 = time.perf_counter()
                 state, losses = engine.run_epoch_resident(state, staged, seed)
@@ -794,8 +901,9 @@ class DistributedTrainer(Trainer):
                 if validator is not None:
                     self._validate_epoch(validator, state.center,
                                          worker0(state), epoch)
+                self._maybe_checkpoint(state, epoch)
         else:
-            for epoch in range(self.num_epoch):
+            for epoch in range(start_epoch, self.num_epoch):
                 seed = (self.seed + epoch) if shuffle else None
                 t0 = time.perf_counter()
                 n_windows = 0
@@ -805,6 +913,8 @@ class DistributedTrainer(Trainer):
                         batch_iter, engine.place_batch, depth=self.prefetch)
                 for batch in batch_iter:
                     state, loss = engine.run_window(state, batch)
+                    if ema_step is not None:
+                        ema = ema_step(ema, state.center)
                     self.history.append(loss=loss, epoch=epoch)
                     n_windows += 1
                 if self.log_metrics and n_windows:
@@ -814,12 +924,46 @@ class DistributedTrainer(Trainer):
                 if validator is not None:
                     self._validate_epoch(validator, state.center,
                                          worker0(state), epoch)
+                self._maybe_checkpoint(state, epoch)
         _synchronize(self.device)
+        if ema is not None:
+            self.ema_params_ = tree_map(lambda x: x.detach().cpu(), ema)
+        self._finish_checkpoints()
         self.record_training_end()
         self.state_ = state
         self._materialize_history()
         return self._finalize(engine.center_params(state),
                               engine.worker_nt(state, 0))
+
+
+    def _resume_collective(self, engine, state, nt):
+        """``(state, start_epoch)`` from the newest checkpoint, if there is
+        one. The same worker count resumes exactly (``init_state_from``);
+        another count, or a checkpoint the JAX package wrote (its optax
+        moments have no counterpart here), resumes elastically: the center
+        re-broadcast to fresh workers, the window count kept."""
+        from distkeras_tpu_torch import checkpoint as ckpt
+        from distkeras_tpu_torch.convert import center_from_jax
+
+        if ckpt.latest_step(self.checkpoint_dir) is None:
+            return state, 0
+        payload, _, origin = ckpt.load_checkpoint(self.checkpoint_dir)
+        host = payload["state"]
+        saved = host if origin == "jax" else vars(host)
+        leaves = utils.flatten(saved["workers"])[0]
+        ckpt_w = leaves[0].shape[0] if leaves else self.num_workers
+        if origin == "port" and ckpt_w == self.num_workers:
+            state = engine.init_state_from(host)
+        else:
+            ckpt.warn_elastic_resume(ckpt_w, self.num_workers)
+            if origin == "jax":
+                center = center_from_jax(saved["center"], self.spec)
+            else:
+                center = saved["center"]
+                nt = tree_map(lambda x: x[0], saved["nt"])
+            state = engine.init_state(center, nt)
+            state.step = int(np.asarray(saved["step"]))
+        return state, int(np.asarray(payload["epoch"])) + 1
 
 
 class AsynchronousDistributedTrainer(DistributedTrainer):
@@ -836,13 +980,14 @@ class SingleTrainer(DistributedTrainer):
                  learning_rate: float = 0.01, batch_size: int = 32,
                  features_col="features", label_col: str = "label",
                  num_epoch: int = 1, seed: int = 0, device="cuda",
-                 prefetch: int = 1, clipnorm=None, clipvalue=None, **later):
+                 prefetch: int = 1, ema_decay: float | None = None,
+                 clipnorm=None, clipvalue=None, **later):
         super().__init__(
             keras_model, loss, worker_optimizer, learning_rate=learning_rate,
             num_workers=1, batch_size=batch_size, features_col=features_col,
             label_col=label_col, num_epoch=num_epoch, communication_window=1,
-            seed=seed, device=device, prefetch=prefetch, clipnorm=clipnorm,
-            clipvalue=clipvalue, **later)
+            seed=seed, device=device, prefetch=prefetch, ema_decay=ema_decay,
+            clipnorm=clipnorm, clipvalue=clipvalue, **later)
 
     def allocate_merge_rule(self) -> MergeRule:
         return ADAGMerge()  # with W=1 the merge is the identity fold

@@ -5,6 +5,7 @@ and timer the trainers keep."""
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import pickle
@@ -44,18 +45,32 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _is_namedtuple(node) -> bool:
+    return isinstance(node, tuple) and hasattr(type(node), "_fields")
+
+
+def _is_dataclass(node) -> bool:
+    return dataclasses.is_dataclass(node) and not isinstance(node, type)
+
+
 def flatten(tree) -> tuple[list, object]:
-    """``(leaves, structure)`` of a host tree of nested dicts, lists and
-    tuples: the parameter server's replacement for ``jax.tree.flatten``.
-    Dict keys are walked in sorted order, as ``jax.tree`` walks them, so
-    leaf ``i`` names the same array in both packages; ``None`` is an empty
-    subtree, as there."""
+    """``(leaves, structure)`` of a host tree of nested dicts, lists,
+    tuples, ``NamedTuple``s and dataclasses (the engine's ``TrainState``):
+    the parameter server's replacement for ``jax.tree.flatten``. Dict keys
+    are walked in sorted order and a dataclass's fields in declaration
+    order, as ``jax.tree`` walks a dict and a flax struct, so leaf ``i``
+    names the same array in both packages; ``None`` is an empty subtree,
+    as there."""
     leaves: list = []
 
     def walk(node):
         if isinstance(node, Mapping):
             keys = sorted(node)
             return (dict, keys, [walk(node[k]) for k in keys])
+        if _is_dataclass(node):
+            names = [f.name for f in dataclasses.fields(node)]
+            return (type(node), names, [walk(getattr(node, n))
+                                        for n in names])
         if isinstance(node, (list, tuple)):
             return (type(node), None, [walk(v) for v in node])
         if node is None:
@@ -79,6 +94,10 @@ def unflatten(structure, leaves):
             return None
         if kind is dict:
             return {k: build(c) for k, c in zip(keys, kids)}
+        if dataclasses.is_dataclass(kind):
+            return kind(**{k: build(c) for k, c in zip(keys, kids)})
+        if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+            return kind(*(build(c) for c in kids))
         return kind(build(c) for c in kids)
 
     return build(structure)
@@ -88,7 +107,8 @@ def flatten_with_paths(tree, is_leaf=None) -> tuple[list, object]:
     """``([(path, leaf)], structure)``: :func:`flatten` with each leaf's
     path written as ``jax.tree_util.keystr`` writes it, character for
     character (``['a']['b']`` for dict keys, ``[0]`` for list and tuple
-    indices; keys sorted, ``None`` an empty subtree). A node for which
+    indices, ``.name`` for a ``NamedTuple``'s or a dataclass's fields; keys
+    sorted, ``None`` an empty subtree). A node for which
     ``is_leaf(node)`` holds is one leaf, not walked into. The structure
     rebuilds with :func:`unflatten`."""
     pairs: list = []
@@ -101,6 +121,12 @@ def flatten_with_paths(tree, is_leaf=None) -> tuple[list, object]:
             keys = sorted(node)
             return (dict, keys, [walk(node[k], f"{path}[{k!r}]")
                                  for k in keys])
+        if _is_dataclass(node) or _is_namedtuple(node):
+            names = ([f.name for f in dataclasses.fields(node)]
+                     if _is_dataclass(node) else list(node._fields))
+            return (type(node), names if _is_dataclass(node) else None,
+                    [walk(getattr(node, n), f"{path}.{n}")
+                     for n in names])
         if isinstance(node, (list, tuple)):
             return (type(node), None, [walk(v, f"{path}[{i}]")
                                        for i, v in enumerate(node)])
@@ -120,6 +146,28 @@ def host_tree_map(fn, tree, *rest):
     return unflatten(st, [fn(*xs) for xs in zip(leaves, *others)])
 
 
+def tree_like(saved, template, device=None):
+    """``saved`` (a checkpoint's host tree: numpy leaves or CPU tensors) in
+    ``template``'s structure and leaf types: a tensor leaf of ``template``
+    takes its dtype and ``device`` (default: its own), any other leaf its
+    Python type (an optimizer's step count comes back as an int)."""
+    fresh, structure = flatten(template)
+    leaves = flatten(saved)[0]
+    if len(leaves) != len(fresh):
+        raise ValueError(f"saved tree has {len(leaves)} leaves, the template "
+                         f"{len(fresh)}")
+
+    def leaf(h, f):
+        if not isinstance(f, torch.Tensor):
+            return type(f)(np.asarray(h).item())
+        t = h if isinstance(h, torch.Tensor) else torch.from_numpy(
+            np.array(h, copy=True))
+        return t.to(device=f.device if device is None else device,
+                    dtype=f.dtype, copy=True)
+
+    return unflatten(structure, [leaf(h, f) for h, f in zip(leaves, fresh)])
+
+
 def tree_to_numpy(tree):
     """Every leaf as a numpy array; tensors leave the device (a
     synchronising copy from the card; on the CPU the array may share the
@@ -134,18 +182,39 @@ def tree_to_numpy(tree):
 
 def serialize_weights(tree) -> bytes:
     """A host tree as bytes: an ``.npz`` of its leaves beside its
-    structure. The structure is pickled, so deserialize only bytes this
-    process's own code wrote."""
-    leaves, st = flatten(tree_to_numpy(tree))
+    structure. A bf16 tensor leaf (numpy has no bf16) is stored as its
+    int16 bits and comes back as a CPU bf16 tensor; every other leaf comes
+    back as numpy. The structure is pickled, so deserialize only bytes
+    this process's own code wrote."""
+    leaves, st = flatten(tree)
+    arrays, bf16 = [], []
+    for i, x in enumerate(leaves):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+            bf16.append(i)
+            x = x.detach().cpu().view(torch.int16)
+        arrays.append(x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                      else np.asarray(x))
     buf = io.BytesIO()
-    np.savez(buf, *leaves)
-    return pickle.dumps({"structure": st, "npz": buf.getvalue()})
+    np.savez(buf, *arrays)
+    return pickle.dumps({"structure": st, "npz": buf.getvalue(),
+                         "bf16": bf16})
+
+
+def npz_leaves(blob: bytes) -> list:
+    """The arrays of an ``np.savez`` blob, in the order they were saved."""
+    with np.load(io.BytesIO(blob)) as npz:
+        return [npz[f"arr_{i}"] for i in range(len(npz.files))]
 
 
 def deserialize_weights(data: bytes):
-    payload = pickle.loads(data)
-    with np.load(io.BytesIO(payload["npz"])) as npz:
-        leaves = [npz[k] for k in npz.files]
+    return weights_from_payload(pickle.loads(data))
+
+
+def weights_from_payload(payload: dict):
+    """The tree of an unpickled :func:`serialize_weights` payload."""
+    leaves = npz_leaves(payload["npz"])
+    for i in payload.get("bf16", ()):
+        leaves[i] = torch.from_numpy(leaves[i]).view(torch.bfloat16)
     return unflatten(payload["structure"], leaves)
 
 

@@ -39,15 +39,24 @@ a ``FaultPlan`` kills or slows a worker at a window boundary; a retry
 policy or a heartbeat interval wraps every client in a
 ``ResilientPSClient`` (reconnects, seqno'd commits the server folds once,
 leases renewed at window boundaries); ``worker_restart_budget`` runs the
-workers under a ``WorkerSupervisor``, which restarts a dead one from a
-fresh center pull in a new thread (a fresh per-thread module and a fresh
-optimizer state: nothing it held on the card is reused); ``ps_wal_dir``
+workers under a ``WorkerSupervisor``, which restarts a dead one in a new
+thread (a fresh per-thread module: nothing it held on the card is reused)
+from its snapshot at the last epoch barrier, else the newest checkpoint's,
+else a fresh center pull; ``ps_wal_dir``
 makes the server durable; and on the socket transport ``ps_standby`` or a
 PS-kill fault starts a ``PSFailoverSupervisor`` that promotes the hot
 standby, or restarts the server in place from its WAL, and repoints every
 client. ``trainer.resilience_stats_`` reports the exactly-once oracle
 (``logical_commits``, to hold against the server's folds), retries,
 reconnects, restarts, the injected faults and the failover log.
+
+Checkpoints (``checkpoint_dir``) are taken at an epoch barrier: every
+worker snapshots its optimizer state and non-trainables (an elastic rule's
+worker its params too) and waits; the last to arrive writes the center,
+the snapshots, the epoch and the fold count (``checkpoint.py``) and marks
+the epoch in the server's log. ``resume`` restores them; with
+``ema_decay`` every server folds the Polyak average of the center per
+commit, read back into ``trainer.ema_params_``.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from distkeras_tpu_torch import checkpoint as ckpt
 from distkeras_tpu_torch import utils
 from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.parallel.compression import (
@@ -149,9 +159,11 @@ def _build_local_window(loss_step, optimizer):
 
 
 def _to_device(tree, device):
-    """Host numpy tree → tensors on ``device``, always a copy."""
-    return tree_map(lambda a: torch.tensor(np.asarray(a), device=device),
-                    tree)
+    """Host tree (numpy, or CPU tensors) → tensors on ``device``, always a
+    copy."""
+    return tree_map(lambda a: a.to(device, copy=True)
+                    if isinstance(a, torch.Tensor)
+                    else torch.tensor(np.asarray(a), device=device), tree)
 
 
 class AsyncWorker:
@@ -160,7 +172,9 @@ class AsyncWorker:
     def __init__(self, worker_id: int, device, window_fn, ps, rule,
                  window: int, batch_size: int, nt, history: list,
                  lock: threading.Lock, codec=None, fused: bool = True,
-                 pipeline_depth: int = 0, fault_plan=None):
+                 pipeline_depth: int = 0, fault_plan=None, barrier=None,
+                 ckpt_pred=None, restore: dict | None = None,
+                 start_epoch: int = 0, tolerant: bool = False):
         self.worker_id = worker_id
         self.device = device
         self.window_fn = window_fn
@@ -184,12 +198,17 @@ class AsyncWorker:
         # keyed on this worker's windows so far (a restart keeps counting)
         self.fault_plan = fault_plan
         self._windows_done = 0
-        # the WorkerSupervisor's restore state: checkpoints are ROADMAP.md
-        # A8, so a restart always starts from a fresh center pull
+        # the epoch barrier of checkpointing (ckpt_pred(epoch) says which
+        # epochs end at it): each worker leaves its snapshot there, and a
+        # tolerant worker whose peer died breaking it trains on without
+        # one. A restart (or a resume) restores from `restore`
+        self.barrier = barrier
+        self.ckpt_pred = ckpt_pred
+        self.tolerant = bool(tolerant)
         self.snapshot: dict | None = None
-        self.restore: dict | None = None
-        self.start_epoch = 0
-        self.barrier = None
+        self.restore = restore
+        self.start_epoch = int(start_epoch)
+        self._epoch_done: int | None = None
         self.running = False
         self._stage_delta: list | None = None
         # the pipelined re-base's two alternating staging sets
@@ -293,6 +312,8 @@ class AsyncWorker:
             self._train(index, shard_cols, num_epoch, shuffle, seed)
         except BaseException as e:
             self.error = e
+            if self.barrier is not None:
+                self.barrier.abort()  # peers at the barrier must not hang
         finally:
             self.running = False
 
@@ -304,11 +325,10 @@ class AsyncWorker:
         ``C_{N-1} + sent_N``). ``compute`` spans a window's launch to its
         loss on the host, so at depth 1 it contains the previous window's
         exchange. An elastic rule's commit needs a fresh pull, so it cannot
-        be deferred: it always exchanges serially."""
-        if self.restore is not None:
-            raise NotImplementedError(
-                "restoring a worker from a checkpoint is not ported yet: "
-                "ROADMAP.md A8 (checkpoints and EMA)")
+        be deferred: it always exchanges serially. A restored worker takes
+        its optimizer state and non-trainables from ``restore``; an elastic
+        rule's worker owns its variables, so its params too, while a delta
+        rule's re-bases onto the live center, as after any exchange."""
         rows = len(shard_cols[0])
         win_rows = self.window * self.batch_size
         n_windows = rows // win_rows
@@ -319,11 +339,19 @@ class AsyncWorker:
         maybe_heartbeat = getattr(self.ps, "maybe_heartbeat", None)
         if maybe_heartbeat is not None:
             maybe_heartbeat()
-        center = self.ps.pull(self.worker_id)
-        params = _to_device(center, self.device)
+        restore = self.restore
+        if restore is not None and elastic:
+            center = None   # the elastic exchange pulls its own
+            params = _to_device(restore["params"], self.device)
+        else:
+            center = self.ps.pull(self.worker_id)
+            params = _to_device(center, self.device)
         base = center          # the window's start, on the host
         nt = _to_device(self.nt, self.device)
         opt = self.window_fn.init_opt(params)
+        if restore is not None:
+            nt = utils.tree_like(restore["nt"], nt)
+            opt = utils.tree_like(restore["opt"], opt)
         pending = None         # window N's (blob, loss, epoch, corr)
         for epoch in range(self.start_epoch, num_epoch):
             order = (np.random.default_rng((seed, index, epoch))
@@ -372,9 +400,31 @@ class AsyncWorker:
                 self._windows_done += 1
                 if maybe_heartbeat is not None:
                     maybe_heartbeat()  # rate-limited lease renewal
+            if self.barrier is not None and self.ckpt_pred(epoch):
+                self._epoch_barrier(epoch, params, nt, opt, elastic)
         if pending is not None:
             self._flush(pending, lag=True)   # the last window's exchange
         self.final_nt = utils.tree_to_numpy(nt)
+
+    def _epoch_barrier(self, epoch: int, params, nt, opt,
+                       elastic: bool) -> None:
+        """Leave this worker's snapshot and wait at the checkpoint barrier
+        (its action, run by the last to arrive, writes the checkpoint).
+        Only an elastic rule's worker saves its params: a delta worker
+        re-bases onto the restored center."""
+        snap = {"opt": ckpt.host_copy(opt), "nt": ckpt.host_copy(nt)}
+        if elastic:
+            snap["params"] = ckpt.host_copy(params)
+        self.snapshot = snap
+        self._epoch_done = epoch
+        try:
+            self.barrier.wait()
+        except threading.BrokenBarrierError:
+            if not self.tolerant:
+                raise
+            # a tolerated peer death broke the rendezvous: train on
+            # without further checkpoints
+            self.barrier = None
 
     def _batches(self, shard_cols, sl):
         return tuple(torch.as_tensor(c[sl].reshape(
@@ -485,8 +535,9 @@ def _join_workers(threads, workers) -> None:
 
 
 def _ps_kwargs(trainer, lease_timeout) -> dict:
-    """The resilience arguments every Python server takes."""
-    return dict(lease_timeout=lease_timeout, wal_dir=trainer.ps_wal_dir,
+    """The EMA and resilience arguments every server takes."""
+    return dict(ema_decay=trainer.ema_decay,
+                lease_timeout=lease_timeout, wal_dir=trainer.ps_wal_dir,
                 snapshot_every=trainer.ps_snapshot_every,
                 wal_group_window=trainer.ps_wal_group_window,
                 wal_group_interval=trainer.ps_wal_group_interval)
@@ -495,14 +546,19 @@ def _ps_kwargs(trainer, lease_timeout) -> dict:
 def _resilience_stats(clients, supervisor, fault_plan, failover):
     """``trainer.resilience_stats_``: the commit-seqno oracle (logical
     commits the clients saw acknowledged, to hold against the server's
-    folds), retry and reconnect totals, supervisor restarts, what the
+    folds), retry and reconnect totals, supervisor restarts and their log
+    (each restart's worker, attempt, error and the state it restored
+    ``from``: ``snapshot``, ``checkpoint`` or ``center-pull``), what the
     fault plan injected and the failover log (``failover``: the
     supervisor's, or a sharded group's roll-up of its shards', or None)."""
+    sup = supervisor.stats() if supervisor else {"restarts": 0,
+                                                 "restart_log": []}
     return {
         "logical_commits": sum(int(getattr(c, "seq", 0)) for c in clients),
         "retries": sum(int(getattr(c, "retries", 0)) for c in clients),
         "reconnects": sum(int(getattr(c, "reconnects", 0)) for c in clients),
-        "restarts": supervisor.stats()["restarts"] if supervisor else 0,
+        "restarts": sup["restarts"],
+        "restart_log": sup["restart_log"],
         "faults": fault_plan.stats() if fault_plan is not None else None,
         "ps_failover": failover,
     }
@@ -520,7 +576,9 @@ def run_async_training(trainer, ds, shuffle: bool):
     ``num_shards`` and ``per_shard``), ``trainer.resilience_stats_`` (with
     any resilience knob or fault plan; else None),
     ``trainer.exchange_phases_`` (this process's workers' phases, on every
-    transport) and ``trainer.trace_path_``."""
+    transport), ``trainer.ema_params_`` (with ``ema_decay``),
+    ``trainer.checkpoint_ms_`` (each barrier's checkpoint action) and
+    ``trainer.trace_path_``."""
     from distkeras_tpu_torch.resilience.recovery import WorkerSupervisor
     from distkeras_tpu_torch.resilience.retry import (
         PSEndpoint,
@@ -532,6 +590,11 @@ def run_async_training(trainer, ds, shuffle: bool):
     rule = trainer.allocate_merge_rule()
     params, nt = spec.init_np(trainer.seed)
     W = trainer.num_workers
+    ckpt_dir = trainer.checkpoint_dir
+    start_epoch, restores, restored_updates = 0, [None] * W, 0
+    if ckpt_dir and trainer.resume:
+        params, start_epoch, restores, restored_updates = _resume(
+            trainer, params)
     transport = trainer.ps_transport
     external_host = trainer.ps_host
     offset = int(trainer.worker_id_offset)
@@ -599,6 +662,8 @@ def run_async_training(trainer, ds, shuffle: bool):
     trainer.trace_path_ = None
     trainer.ps_stats_ = None
     trainer.resilience_stats_ = None
+    trainer.ema_params_ = None
+    trainer.checkpoint_ms_ = []
 
     ps = None
     resolver = None
@@ -685,6 +750,7 @@ def run_async_training(trainer, ds, shuffle: bool):
     clients: list = []
     workers: list = []
     supervisor = None
+    snap_client = None
     try:
         if group is not None:
             # inside the try: a shard that fails to start stops the rest
@@ -715,6 +781,11 @@ def run_async_training(trainer, ds, shuffle: bool):
                                      resolver=resolver)
 
         clients = [build_client(i) for i in range(W)]
+        if restored_updates and ps is not None \
+                and not getattr(ps, "recovered_", False):
+            # a recovered WAL is the finer-grained truth: only a resume
+            # without one seeds the update count
+            ps.num_updates = restored_updates
         cols = trainer.features_col + [trainer.label_col]
         shards = ds.worker_shards(
             W, trainer.batch_size, trainer.communication_window, cols,
@@ -723,12 +794,55 @@ def run_async_training(trainer, ds, shuffle: bool):
                                         trainer.allocate_optimizer())
         history: list[dict] = []
         hlock = threading.Lock()
+        barrier = ckpt_pred = None
+        if ckpt_dir:
+            if ps is None:
+                # the external PS's center is pulled on a client of its
+                # own under a sentinel worker id: a training worker's
+                # pull would record its version and understate its
+                # DynSGD staleness after every checkpoint
+                snap_client = _snapshot_client(trainer, params,
+                                               external_host, transport)
+
+            def ckpt_pred(epoch):
+                return ckpt.should_checkpoint(
+                    epoch, trainer.checkpoint_every, trainer.num_epoch)
+
+            def checkpoint_action():
+                # in the last worker to arrive, while the rest wait; under
+                # a failover the current primary holds the center
+                t0 = time.perf_counter()
+                live = (ps_supervisor.active if ps_supervisor is not None
+                        else ps)
+                epoch = workers[0]._epoch_done
+                payload = {"center": (live.get_model() if live is not None
+                                      else snap_client.pull()),
+                           "workers": [w.snapshot for w in workers],
+                           "epoch": epoch}
+                if live is not None:
+                    payload["num_updates"] = live.num_updates
+                ckpt.save_checkpoint(ckpt_dir, payload, step=epoch)
+                # the one coherent epoch boundary: mark it in the log
+                mark = getattr(live if live is not None else snap_client,
+                               "mark_epoch", None)
+                if mark is not None:
+                    try:
+                        mark(int(epoch))
+                    except Exception:  # noqa: BLE001
+                        pass  # advisory: never fail the barrier
+                trainer.checkpoint_ms_.append(
+                    1e3 * (time.perf_counter() - t0))
+
+            barrier = threading.Barrier(W, action=checkpoint_action)
         workers = [AsyncWorker(i, trainer.device, window_fn, clients[i], rule,
                                trainer.communication_window,
                                trainer.batch_size, nt, history, hlock,
                                codec=codec, fused=trainer.ps_fused_exchange,
                                pipeline_depth=trainer.ps_pipeline_depth,
-                               fault_plan=fault_plan)
+                               fault_plan=fault_plan, barrier=barrier,
+                               ckpt_pred=ckpt_pred, restore=restores[i],
+                               start_epoch=start_epoch,
+                               tolerant=trainer.tolerate_worker_failures)
                    for i in range(W)]
 
         def args_of(i):
@@ -737,14 +851,13 @@ def run_async_training(trainer, ds, shuffle: bool):
 
         budget = int(trainer.worker_restart_budget)
         if budget > 0:
-            # restart-with-budget: a dead worker relaunches (in a new
-            # thread, from a fresh center pull) up to `budget` times;
-            # checkpoints are ROADMAP.md A8, so there is nothing to
-            # restore from
+            # restart-with-budget: a dead worker relaunches in a new thread
+            # up to `budget` times, from its barrier snapshot, else the
+            # newest checkpoint's, else a fresh center pull
             supervisor = WorkerSupervisor(
                 workers, args_of, max_restarts=budget,
                 restart_delay=trainer.worker_restart_delay,
-                fallback_restore=lambda i: None)
+                fallback_restore=lambda i: _checkpointed_worker(ckpt_dir, i))
             runner = threading.Thread(target=supervisor.run, daemon=True,
                                       name="distkeras-worker-supervisor")
             runner.start()
@@ -792,6 +905,8 @@ def run_async_training(trainer, ds, shuffle: bool):
                 c.close()  # a resilient close deregisters its worker
             clients = []
             center = active.get_model()
+            if trainer.ema_decay is not None:
+                trainer.ema_params_ = active.get_ema()
             trainer.ps_stats_ = active.stats()
             trainer.ps_stats_["exchange_phases"] = trainer.exchange_phases_
         if trace_dir is not None:
@@ -800,8 +915,9 @@ def run_async_training(trainer, ds, shuffle: bool):
     finally:
         if ps_supervisor is not None:
             ps_supervisor.stop()
-        for c in clients:
-            c.close()
+        for c in clients + [snap_client]:
+            if c is not None:
+                c.close()
         for server in {id(x): x for x in (
                 ps, standby,
                 ps_supervisor.active if ps_supervisor else None)
@@ -812,6 +928,58 @@ def run_async_training(trainer, ds, shuffle: bool):
     final_nt = next((w.final_nt for w in workers if hasattr(w, "final_nt")),
                     nt)
     return center, final_nt, history
+
+
+def _resume(trainer, params):
+    """``(center, start epoch, per-worker restores, fold count)`` from the
+    newest checkpoint in ``trainer.checkpoint_dir`` (the fresh ``params``
+    and nothing restored when there is none). The same worker count
+    restores every worker's snapshot; another count, or a checkpoint the
+    JAX package wrote (its optax state has no counterpart here), resumes
+    elastically from the center."""
+    from distkeras_tpu_torch.convert import center_from_jax
+
+    W = trainer.num_workers
+    if ckpt.latest_step(trainer.checkpoint_dir) is None:
+        return params, 0, [None] * W, 0
+    payload, _, origin = ckpt.load_checkpoint(trainer.checkpoint_dir)
+    saved = payload["workers"]
+    restores = [None] * W
+    if origin == "jax":
+        center = utils.tree_to_numpy(center_from_jax(payload["center"],
+                                                     trainer.spec))
+    else:
+        center = payload["center"]
+    if origin == "port" and len(saved) == W:
+        restores = list(saved)
+    else:
+        ckpt.warn_elastic_resume(len(saved), W)
+    return (center, int(np.asarray(payload["epoch"])) + 1, restores,
+            int(np.asarray(payload.get("num_updates", 0))))
+
+
+def _checkpointed_worker(ckpt_dir, i: int) -> dict | None:
+    """Worker ``i``'s snapshot in the newest checkpoint the port wrote, or
+    None (the supervisor's fallback when a worker died before its first
+    barrier snapshot)."""
+    if not ckpt_dir or ckpt.latest_step(ckpt_dir) is None:
+        return None
+    payload, _, origin = ckpt.load_checkpoint(ckpt_dir)
+    saved = (payload.get("workers") or []) if origin == "port" else []
+    return saved[i] if i < len(saved) else None
+
+
+def _snapshot_client(trainer, params, host: str, transport: str):
+    """A client of the external PS under the sentinel worker id
+    ``2**32 − 1`` (no commit ever uses it), for the barrier's center
+    pull."""
+    sentinel = 2**32 - 1
+    if transport == "native":
+        from distkeras_tpu_torch.native_ps import FlatSpec, NativePSClient
+
+        return NativePSClient(host, int(trainer.ps_port), sentinel,
+                              FlatSpec(params))
+    return ParameterServerClient(host, int(trainer.ps_port), sentinel)
 
 
 def _start_failover(trainer, ps, params, rule, W, lease_timeout, resolver,

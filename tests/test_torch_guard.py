@@ -51,7 +51,7 @@ _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "native_ps", "model", "resilience", "resilience.heartbeat",
                 "resilience.retry", "resilience.faults", "resilience.wal",
                 "resilience.recovery", "sharding", "sharding.ring",
-                "sharding.client", "sharding.group"]
+                "sharding.client", "sharding.group", "checkpoint"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

@@ -36,7 +36,19 @@ def test_mnist_twin_runs_end_to_end(extra):
 
 
 def test_mnist_twin_later_flags_name_their_item():
-    """``--frontend keras`` now runs (``tests/test_torch_keras.py``); the
-    flags still of a later slice name their item."""
+    """``--frontend keras`` now runs (``tests/test_torch_keras.py``), and so
+    does ``--ema`` (``test_mnist_twin_scores_the_ema``); the flags still of
+    a later slice name their item."""
+    proc = run_twin("--int8-predict")
+    assert proc.returncode == 2 and "A11.5" in proc.stderr, proc.stderr
+
+
+def test_mnist_twin_scores_the_ema():
+    """``--ema DECAY`` trains with the center's Polyak average and scores
+    the averaged model too, before the final ``test accuracy`` line."""
     proc = run_twin("--ema", "0.9")
-    assert proc.returncode == 2 and "A8" in proc.stderr, proc.stderr
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    ema_acc = float(proc.stdout.split("EMA(decay=0.9) accuracy:", 1)[1]
+                    .split("\n", 1)[0])
+    acc = float(proc.stdout.rsplit("test accuracy:", 1)[1].strip())
+    assert acc > 0.8 and ema_acc > 0.8, proc.stdout

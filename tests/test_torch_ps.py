@@ -768,7 +768,6 @@ def test_four_worker_ps_run_matches_the_jax_package(name, window,
     (dict(elastic=True), "A7.8"),
     (dict(directory=True), "A7.9"),
     (dict(watch=True), "A13"),
-    (dict(ema_decay=0.9), "A8"),
 ])
 def test_later_ps_kwargs_raise_naming_their_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -777,11 +776,12 @@ def test_later_ps_kwargs_raise_naming_their_item(kwargs, item):
 
 @pytest.mark.parametrize("kwargs", [
     dict(ps_pipeline_depth=1), dict(ps_transport="shm"),
-    dict(ps_transport="native")], ids=["pipelined", "shm", "native"])
+    dict(ps_transport="native"), dict(ema_decay=0.9)],
+    ids=["pipelined", "shm", "native", "ema"])
 def test_ps_kwargs_of_the_transport_slice_train(kwargs):
-    """The pipelined exchange and the shm and native transports, once
-    refused, now train: four DynSGD workers learn (final loss < 0.6), one
-    commit a window a worker."""
+    """The pipelined exchange, the shm and native transports and the
+    center's EMA, once refused, now train: four DynSGD workers learn (final
+    loss < 0.6), one commit a window a worker."""
     t = trainers.DynSGD(_spec(), loss="sparse_softmax_cross_entropy",
                         worker_optimizer="sgd", learning_rate=0.1,
                         num_workers=4, batch_size=32, num_epoch=3,
@@ -790,6 +790,7 @@ def test_ps_kwargs_of_the_transport_slice_train(kwargs):
     t.train(Dataset.from_arrays(*blobs()), shuffle=True)
     assert _final_loss(t) < 0.6
     assert t.ps_stats_["commits"] == len(t.history.losses()) == 96
+    assert (t.ema_params_ is not None) == ("ema_decay" in kwargs)
 
 
 def test_ps_kwarg_validation():

@@ -303,18 +303,15 @@ def test_native_int8_refuses_malformed_segments(tnative):
 
 
 def test_native_later_layers_name_their_item(tnative, tmp_path):
-    """The native server's EMA still names its item (A8). Its WAL, fencing
-    epoch and leases, once refused naming A7.6, now work: a seq'd commit
-    and its replay fold once, a fenced client's commit is refused, a lease
-    lapses into an eviction, and the C++ log recovers to the live
-    center."""
+    """The native server's EMA (once refused naming A8), WAL, fencing
+    epoch and leases (once refused naming A7.6) now work: a seq'd commit
+    and its replay fold once, the EMA folds once, a fenced client's commit
+    is refused, a lease lapses into an eviction, and the C++ log recovers
+    to the live center and EMA."""
     center = {"w": np.zeros(2, np.float32)}
-    with pytest.raises(NotImplementedError, match="A8"):
-        tnative.NativeSocketParameterServer(center, tr.ADAGMerge(), 1,
-                                            ema_decay=0.9)
     ps = tnative.NativeSocketParameterServer(
         center, tr.DownpourMerge(), 1, wal_dir=str(tmp_path), fence_epoch=2,
-        lease_timeout=0.2)
+        lease_timeout=0.2, ema_decay=0.5)
     ps.initialize()
     ps.start()
     try:
@@ -335,15 +332,19 @@ def test_native_later_layers_name_their_item(tnative, tmp_path):
             assert time.monotonic() < deadline, "the lease never lapsed"
             time.sleep(0.05)
         assert ps.stats()["active_workers"] == 0
-        live = ps.get_model()
+        live, live_ema = ps.get_model(), ps.get_ema()
+        # one fold from 0 to 1 at decay 0.5: the EMA is halfway
+        np.testing.assert_array_equal(live_ema["w"], np.full(2, 0.5,
+                                                             np.float32))
         c.close()
     finally:
         ps.stop()
     from distkeras_tpu_torch.resilience.wal import recover_ps_state
 
-    state = recover_ps_state(str(tmp_path), tr.DownpourMerge(), 1, None,
+    state = recover_ps_state(str(tmp_path), tr.DownpourMerge(), 1, 0.5,
                              template=center)
     np.testing.assert_array_equal(state["center"]["w"], live["w"])
+    np.testing.assert_array_equal(state["ema"]["w"], live_ema["w"])
     assert state["fence_epoch"] == 2 and state["num_updates"] == 1
 
 

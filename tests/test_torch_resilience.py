@@ -711,10 +711,17 @@ def test_resilience_knob_validation():
         t.train(Dataset.from_arrays(*blobs(n=256)))
     for kw, item in ((dict(max_pool_size=4), "A7.8"),
                      (dict(elastic=True), "A7.8"),
-                     (dict(directory=True), "A7.9"),
-                     (dict(checkpoint_dir="/x"), "A8")):
+                     (dict(directory=True), "A7.9")):
         with pytest.raises(NotImplementedError, match=item):
             trainers.DynSGD(_spec(), backend="ps", device="cpu", **kw)
+    # checkpoints (once refused naming A8) are taken, with the
+    # reference's check against the pipelined exchange
+    t = trainers.DynSGD(_spec(), backend="ps", device="cpu",
+                        checkpoint_dir="/x", checkpoint_every=2)
+    assert (t.checkpoint_dir, t.checkpoint_every) == ("/x", 2)
+    with pytest.raises(ValueError, match="ps_pipeline_depth"):
+        trainers.DynSGD(_spec(), backend="ps", device="cpu",
+                        checkpoint_dir="/x", ps_pipeline_depth=1)
     trainers.DOWNPOUR(_spec(), backend="ps", device="cpu",
                       ps_transport="socket", ps_standby=True,
                       fault_plan=tres.FaultPlan(kill_ps_after_commits=5))

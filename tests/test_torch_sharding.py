@@ -639,18 +639,21 @@ def test_sharded_stats_rollup_shapes():
 
 
 def test_sharded_group_refuses_later_items():
-    """The center's EMA (A8), the metrics registry (A13), the directory
-    (A7.9) and a sharded live join or drain (A7.8) name their items."""
+    """The metrics registry (A13), the directory (A7.9) and a sharded live
+    join or drain (A7.8) name their items; the center's EMA, once refused
+    naming A8, is the join of the shards' EMAs (the center itself before
+    any commit)."""
     tree = _model_tree()
-    with pytest.raises(NotImplementedError, match="A8"):
-        ShardedPSGroup(tree, tr.ADAGMerge(), 1, ema_decay=0.9)
     group = ShardedPSGroup(tree, tr.ADAGMerge(), 1, num_shards=2,
-                           transport="socket")
+                           transport="socket", ema_decay=0.9)
     group.initialize()
     group.start()
     try:
-        with pytest.raises(NotImplementedError, match="A8"):
-            group.get_ema()
+        ema = group.get_ema()
+        for (pa, a), (pb, b) in zip(utils.flatten_with_paths(ema)[0],
+                                    utils.flatten_with_paths(tree)[0]):
+            assert pa == pb
+            np.testing.assert_array_equal(a, b)
         with pytest.raises(NotImplementedError, match="A13"):
             group.metrics()
         with pytest.raises(NotImplementedError, match="A7.9"):

@@ -229,8 +229,11 @@ def test_later_slice_kwargs_raise_naming_their_roadmap_item():
     spec = torch_mlp(input_shape=(8,), hidden=(4,), num_classes=2)
     with pytest.raises(NotImplementedError, match="A7"):
         trainers.ADAG(spec, elastic=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        trainers.DynSGD(spec, checkpoint_dir="/nonexistent", device="cpu")
+    # the checkpoint and EMA knobs (A8) are taken
+    t = trainers.DynSGD(spec, checkpoint_dir="/nonexistent", resume=True,
+                        checkpoint_async=True, ema_decay=0.5, device="cpu")
+    assert (t.checkpoint_dir, t.resume, t.checkpoint_async, t.ema_decay) \
+        == ("/nonexistent", True, True, 0.5)
     with pytest.raises(NotImplementedError, match="A12"):
         trainers.SingleTrainer(spec, mesh=object(), device="cpu")
     with pytest.raises(TypeError, match="unexpected keyword"):
