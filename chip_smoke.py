@@ -98,9 +98,9 @@ Phases, in order; any failure exits non-zero and prints no result:
     set to 0 just before each phase and read just after: config 3
     (CIFAR-10 VGG-small under DOWNPOUR, bf16 compute, f32 params, fused
     Adam at PS3_LR) through a ``SocketParameterServer`` the phase starts,
-    4 worker threads of batch 512, window 1, 2 epochs of 32 windows a
-    worker — 256 commits and 256 folds, some commit priced τ ≥ 1, K5
-    launched 256 times, the loss falling and held-out accuracy above
+    4 worker threads of batch 512, window 1, 4 epochs of 32 windows a
+    worker — 512 commits and 512 folds, some commit priced τ ≥ 1, K5
+    launched 512 times, the loss falling and held-out accuracy above
     PS3_ACC_BAR;
     config 5 (the IMDB LSTM above) under DynSGD through the in-process PS,
     8 workers of batch 64, window 4, 2 epochs of 3 windows — K5, K6 and
@@ -180,12 +180,32 @@ Phases, in order; any failure exits non-zero and prints no result:
     printed); the native WAL phase (14) runs with the EMA too, its log
     replaying the C++ EMA bit for bit, and the sharded parity phase (15)
     holds the joined EMA to the single server's bit for bit;
-17. print the ``kernels`` JSON line (K1 as one decode step and, as
+17. elastic membership on config 5 (``elastic=True``,
+    ``RetryPolicy(seed=0)``, 8 initial workers, 2 epochs of 24 blocks),
+    each phase one JSON line with the card's name and power limit, its
+    launches counted alone and gated (K5, K6 and K7 once a step):
+    ``ps_config5_elastic`` (the in-process PS, then the socket PS with a
+    WAL, ``FaultPlan(join_worker_at_window={0: 1},
+    preempt_worker_at_window={3: 2})``: the assigner's ledger exactly
+    once, one join, one clean drain and the pool back at 8 in the
+    coordinator and the server, folds equal the acknowledged commits, the
+    joiner's first DynSGD τ priced from its join pull, the loss falling;
+    the join's ms (request to first commit), the drain's ms (notice to
+    report) and the window's ms before and after the join printed),
+    ``ps_config5_elastic_native_pipelined`` (the
+    native PS at depth 1: the same gates, the core's counters equal to
+    the in-process run's), ``ps_config5_elastic_sharded`` (2 socket
+    shards: every shard's folds equal the logical commits, every shard
+    counted the join and the drain) and ``ps_config5_autoscale`` (an
+    ``ElasticPolicy`` whose 1e6 rounds/s no pool reaches, at most
+    PS5_POOL_MAX workers: some autoscaler join, the live pool never above
+    the cap, the ledger exact; its decisions printed with their times);
+18. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
-    launches on the PS phases and the checkpoint and EMA phases, K6 and
-    K7 with their G=1 times), read config 3's gates (``ps3_failures``,
-    the sharded run's too), then the result line ``{"ok": true,
-    "device": {...}}`` last.
+    launches on the PS phases, the checkpoint and EMA phases and the
+    elastic phases, K6 and K7 with their G=1 times), read config 3's
+    gates (``ps3_failures``, the sharded run's too), then the result line
+    ``{"ok": true, "device": {...}}`` last.
 
 The library calls are yardsticks only; the port never calls them.
 """
@@ -211,6 +231,7 @@ PEAK_BF16 = 989e12          # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12            # H100 SXM f32 FLOP/s outside the tensor cores
 
 DEVICE = "cuda"
+SMI = None                # nvidia-smi's name and power limit, set by main()
 VOCAB, MAXLEN, DIM, HEADS, KV_HEADS, DEPTH = 16384, 1024, 2048, 16, 1, 8
 PROMPTS = (128, 77, 208, 333)
 SERVED_LENGTHS = (80, 128, 208, 336)   # the prompts padded to BLOCK
@@ -238,19 +259,23 @@ CLS_W, CLS_BATCH, CLS_WINDOW, CLS_WINDOWS, CLS_LR = 2, 8, 5, 3, 1e-3
 LOSS = "sparse_softmax_cross_entropy"
 # the parameter-server path (backend="ps"): config 3 (bench.py:316-324,
 # CIFAR-10 VGG-small under DOWNPOUR) through a socket PS this script
-# starts, 4 worker threads of batch 512 over 65536 rows, 2 epochs.
+# starts, 4 worker threads of batch 512 over 65536 rows, 4 epochs.
 # Window 1, DOWNPOUR's push every step: at window 4 four workers' summed
 # multi-step Adam windows learn slowly and erratically, in the JAX package
 # too. Adam at 2.5e-4, half bench.py's 5e-4: at 5e-4 one serial run in
-# five or six misses the accuracy bar (PERF.md, Findings)
-PS3_W, PS3_BATCH, PS3_WINDOW, PS3_LR, PS3_EPOCHS = 4, 512, 1, 2.5e-4, 2
+# five or six misses the accuracy bar (PERF.md, Findings). The loss sits
+# on a plateau near 2.3 for an epoch or two, and at 2 epochs about one
+# run in ten has a worker whose loss has not yet fallen (PERF.md,
+# Findings), so 4 epochs
+PS3_W, PS3_BATCH, PS3_WINDOW, PS3_LR, PS3_EPOCHS = 4, 512, 1, 2.5e-4, 4
 PS3_WINDOWS = 32          # windows a worker an epoch
 PS3_TEST = 2048
 PS3_ACC_BAR = 0.3         # held-out accuracy gate (PERF.md, Findings)
 # DOWNPOUR with four Adam workers learns config 3 while lr·τ stays near
 # 1e-3 (PERF.md, Findings): τ is ~3 serially and ~7 pipelined, so the
-# pipelined runs take half the rate for twice the epochs
-PS3_PIPE_LR, PS3_PIPE_EPOCHS = 1.25e-4, 4
+# pipelined runs take half the rate for twice the epochs: at that rate
+# the plateau lasts about three epochs
+PS3_PIPE_LR, PS3_PIPE_EPOCHS = 1.25e-4, 8
 # config 5 through the in-process PS: 8 worker threads of batch 64,
 # window 4, 3 windows a worker an epoch, 2 epochs
 PS5_W, PS5_WINDOWS, PS5_EPOCHS = 8, 3, 2
@@ -292,6 +317,14 @@ IMDB_HELDOUT = 1024       # fresh rows of the synthetic IMDB stand-in
 PS_CK_KILL = 3            # the PS phase's worker killed at its window
 #                           PS5_WINDOWS: the first window after the first
 #                           epoch barrier
+# elastic membership on config 5 (PS5_W initial workers, 2 epochs of
+# PS5_W * PS5_WINDOWS = 24 blocks): one worker joins when worker 0 has
+# finished its first window, worker 3 is preempted at its second; the
+# autoscaler's target no pool of the card reaches, so it joins up to
+# PS5_POOL_MAX workers
+PS5_ELASTIC_PLAN = dict(join_worker_at_window={0: 1},
+                        preempt_worker_at_window={3: 2})
+PS5_POOL_MAX = 10
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -3033,6 +3066,381 @@ def train_ps_checkpoint_ema(torch, train):
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# -- elastic membership -------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _elastic_probe(module, names):
+    """Measurement hooks over an elastic run. Every worker's window is
+    timed as it completes (``AsyncWorker._window_done``: its end and its
+    length since the worker's previous mark, its start or its last
+    window); every server of the classes ``module.<names>`` builds records
+    each worker's first applied fold (its τ, the pull version it was
+    priced from, the version it produced), each join's version and the
+    largest pool gauge; the coordinator's live pool is read after each
+    admission. Yields ``{"windows", "servers", "pool"}``."""
+    from distkeras_tpu_torch import workers
+    from distkeras_tpu_torch.resilience import elastic
+
+    out = {"windows": [], "servers": [], "pool": []}
+    saved = {n: getattr(module, n) for n in names}
+    window_done = workers.AsyncWorker._window_done
+    admit = elastic.ElasticCoordinator._admit
+
+    def timed_window(self, loss, epoch):
+        now = time.monotonic()
+        out["windows"].append((self.worker_id, now, now - self.progress_t))
+        window_done(self, loss, epoch)
+
+    def counted_admit(self, worker_id, joiner):
+        admit(self, worker_id, joiner)
+        with self._lock:
+            out["pool"].append(sum(
+                1 for w, t in self._threads.items()
+                if t.is_alive() and w not in self._draining
+                and w not in self.timeout_drained))
+
+    def probed(cls):
+        class Probed(cls):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                self.first_fold, self.join_version = {}, {}
+                self.pool_max = self._pool_size
+                out["servers"].append(self)
+
+            def _fold_one_locked(self, work):
+                wid = work.worker_id
+                if work.lag and wid in self._prev_pull_versions:
+                    pv = self._prev_pull_versions[wid]
+                else:
+                    pv = self._pull_versions.get(wid, 0)
+                super()._fold_one_locked(work)
+                if work.version and wid not in self.first_fold:
+                    self.first_fold[wid] = dict(
+                        tau=self._tau_recent[-1], pull_version=pv,
+                        version=work.version)
+
+            def join_worker(self, worker_id):
+                rec = super().join_worker(worker_id)
+                self.join_version[worker_id] = rec["num_updates"]
+                self.pool_max = max(self.pool_max, rec["pool_size"])
+                return rec
+
+        return Probed
+
+    for n, cls in saved.items():
+        setattr(module, n, probed(cls))
+    workers.AsyncWorker._window_done = timed_window
+    elastic.ElasticCoordinator._admit = counted_admit
+    try:
+        yield out
+    finally:
+        for n, cls in saved.items():
+            setattr(module, n, cls)
+        workers.AsyncWorker._window_done = window_done
+        elastic.ElasticCoordinator._admit = admit
+
+
+class _NativeFirstFolds(_NativeTaus):
+    """``_NativeTaus`` that also knows each connection's worker id: every
+    worker's first exchange's τ, the pull version it was priced from and
+    the version it produced (``first_fold``), as the Python servers'
+    probe records them."""
+
+    def __init__(self, native_ps):
+        super().__init__(native_ps)
+        self._wid: dict = {}
+        self.first_fold: dict = {}
+
+    def dkps_client_from_fd(self, fd, wid, n):
+        handle = self._lib.dkps_client_from_fd(fd, wid, n)
+        self._wid[handle] = int(wid)
+        return handle
+
+    def dkps_client_exchange(self, handle, flags, *args):
+        before = list(self._records.get(handle, []))
+        v = super().dkps_client_exchange(handle, flags, *args)
+        wid = self._wid.get(handle)
+        if v >= 0 and before and wid not in self.first_fold:
+            lag = flags & self._mod._XCHG_LAG and len(before) >= 2
+            self.first_fold[wid] = dict(tau=self.taus[-1],
+                                        pull_version=before[-2 if lag
+                                                            else -1],
+                                        version=int(v))
+        return v
+
+
+def _window_split(windows, t_join, t_first):
+    """Mean window ms and count: the windows that ended before the join's
+    request, and those that started after the joiner's first commit (the
+    plan's drain falls near the join, so the pool after it is back to
+    PS5_W workers, one of them the joiner)."""
+    def mean(sel):
+        ms = [1e3 * d for _, end, d in windows if sel(end - d, end)]
+        return dict(mean_ms=float(np.mean(ms)) if ms else None,
+                    count=len(ms))
+
+    return dict(before_join=mean(lambda s, e: e <= t_join),
+                after_join=mean(lambda s, e: s >= t_first))
+
+
+def _elastic_gates(name, t, launches, first_fold, joiner, extra) -> list:
+    """The gates of every elastic phase, as messages: ``_phase_gates``
+    (exactly once, the loss falling by epoch means, K5/K6/K7 once a step)
+    plus the assigner's ledger exactly once and the joiner's first DynSGD
+    commit priced from its join pull: ``τ = version − 1 − pull version``
+    with a pull version above 0, so below the fold count a worker that
+    never pulled would pay."""
+    out = _phase_gates(name, t, launches, extra)
+    el = t.resilience_stats_["elastic"]
+    o = el["assigner"]
+    if not o["exactly_once"]:
+        out.append(f"{name}: the assigner's ledger is not exactly once: {o}")
+    first = first_fold.get(joiner)
+    if first is None:
+        out.append(f"{name}: the joiner {joiner} folded nothing")
+    elif not (first["tau"] == first["version"] - 1 - first["pull_version"]
+              and first["pull_version"] > 0
+              and first["tau"] < first["version"] - 1):
+        out.append(f"{name}: the joiner's first commit was priced "
+                   f"{first}, not from its join pull")
+    return out
+
+
+def run_ps_lstm_elastic(torch, train, name, transport, probe_module,
+                        probe_names, **kw):
+    """Config 5 (``_config5``) with ``elastic=True``,
+    ``RetryPolicy(seed=0)`` (its seqnos count the acknowledged commits) and
+    ``FaultPlan(seed=0, **PS5_ELASTIC_PLAN)`` on ``transport``, ``kw`` on
+    top. Returns ``(trainer, record, launches, probe)``; the record holds
+    the membership counters, the join's ms (its request to the joiner's
+    first commit), the drain's ms (the notice to the drain's report), the
+    window's ms before and after the join, the
+    joiner's first τ beside the run's, and the card."""
+    from distkeras_tpu_torch import native_ps
+    from distkeras_tpu_torch.resilience import FaultPlan, RetryPolicy
+
+    plan = FaultPlan(seed=0, **PS5_ELASTIC_PLAN)
+    t, rows = _config5(transport, elastic=True,
+                       retry_policy=RetryPolicy(seed=0), fault_plan=plan,
+                       **kw)
+    ds = train.gather(np.arange(rows))
+    native_taus = _NativeFirstFolds(native_ps)
+
+    def run():
+        with _elastic_probe(probe_module, probe_names) as probe, \
+                native_taus, warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            t0 = time.perf_counter()
+            t.train(ds)
+            return time.perf_counter() - t0, probe
+
+    (wall, probe), launches = counted(run)
+    s, r = t.ps_stats_, t.resilience_stats_
+    el = r["elastic"]
+    first_fold = (probe["servers"][0].first_fold if probe["servers"]
+                  else native_taus.first_fold)
+    joiner = el["join_log"][0]["worker"] if el["join_log"] else None
+    t_join = el["join_log"][0]["t"] if el["join_log"] else None
+    t_first = min((end for w, end, _ in probe["windows"] if w == joiner),
+                  default=None)
+    drain = el["drain_log"][0] if el["drain_log"] else None
+    taus = (list(probe["servers"][0].recent_staleness())
+            if probe["servers"] else native_taus.taus)
+    rec = dict(
+        phase=name, device=SMI, wall_s=wall,
+        joined=el["joined"], preempted=el["preempted"],
+        drain_timeouts=el["drain_timeouts"],
+        membership={k: s[k] for k in ELASTIC_COUNTERS},
+        num_updates=s["num_updates"], commits=s["commits"],
+        logical_commits=r["logical_commits"],
+        windows=_windows_run(t.history.records),
+        assigner=el["assigner"],
+        join_ms=(None if t_first is None or t_join is None
+                 else 1e3 * (t_first - t_join)),
+        drain_ms=(None if drain is None
+                  else 1e3 * (drain["t_done"] - drain["t"])),
+        window_ms=(_window_split(probe["windows"], t_join, t_first)
+                   if None not in (t_join, t_first) else None),
+        joiner=joiner, joiner_first_fold=first_fold.get(joiner),
+        pool_at_join=PS5_W + 1, staleness=_staleness(taus),
+        launches=launches,
+        exchange_phases=_phase_summary(s["exchange_phases"]))
+    log(json.dumps(rec))
+    return t, rec, launches, probe
+
+
+#: the membership counters every server's stats() carries
+ELASTIC_COUNTERS = ("pool_size", "joined_workers", "preempted_workers",
+                    "drain_timeouts")
+
+
+def _membership_gates(name, rec) -> list:
+    m, out = rec["membership"], []
+    if (rec["joined"], rec["preempted"], rec["drain_timeouts"]) != (1, 1, 0):
+        out.append(f"{name}: {rec['joined']} joins, {rec['preempted']} "
+                   f"preemptions, {rec['drain_timeouts']} drain timeouts, "
+                   f"expected 1, 1, 0")
+    if (m["joined_workers"], m["preempted_workers"], m["drain_timeouts"],
+            m["pool_size"]) != (1, 1, 0, PS5_W):
+        out.append(f"{name}: the server counted {m}")
+    if rec["join_ms"] is None or rec["drain_ms"] is None:
+        out.append(f"{name}: the join ({rec['join_ms']}) or the drain "
+                   f"({rec['drain_ms']}) was not timed")
+    return out
+
+
+def train_ps_lstm_elastic(torch, train):
+    """``ps_config5_elastic``: config 5 elastic (``run_ps_lstm_elastic``)
+    on the in-process PS, then on the socket PS with a write-ahead log.
+    Gates, each run: the assigner's ledger exactly once (every block of
+    each epoch completed once, none in flight, no stale completion); one
+    join, one preemption, no drain timeout, in the coordinator and in the
+    server's counters (the pool back at PS5_W); lifetime folds equal the
+    acknowledged commits and the windows run; the joiner's first τ priced
+    from its join pull; the loss falling; K5/K6/K7 once a step."""
+    from distkeras_tpu_torch import workers
+
+    recs, fails = {}, []
+    wal_dir = tempfile.mkdtemp(prefix="dk-wal-elastic-")
+    try:
+        for name, transport, names, kw in (
+                ("inprocess", "inprocess", ("ParameterServer",), {}),
+                ("socket_wal", "socket", ("SocketParameterServer",),
+                 dict(ps_wal_dir=wal_dir))):
+            t, rec, launches, probe = run_ps_lstm_elastic(
+                torch, train, f"ps_config5_elastic_{name}", transport,
+                workers, names, **kw)
+            recs[name] = rec
+            fails += _elastic_gates(f"elastic {name}", t, launches,
+                                    probe["servers"][0].first_fold,
+                                    rec["joiner"], extra=True)
+            fails += _membership_gates(f"elastic {name}", rec)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return recs
+
+
+def train_ps_lstm_elastic_native_pipelined(torch, train, inprocess):
+    """``ps_config5_elastic_native_pipelined``: the same plan through the
+    native PS at ``ps_pipeline_depth=1``: ``_train_elastic_pipelined`` and
+    the C++ JOIN/DRAIN. The same gates (the joiner's τ from the versions
+    the core returns), and the core's membership counters equal to the
+    in-process run's (``inprocess``, its record)."""
+    from distkeras_tpu_torch import workers
+
+    t, rec, launches, probe = run_ps_lstm_elastic(
+        torch, train, "ps_config5_elastic_native_pipelined", "native",
+        workers, (), ps_pipeline_depth=1)
+    fails = _elastic_gates("elastic native pipelined", t, launches,
+                           {rec["joiner"]: rec["joiner_first_fold"]},
+                           rec["joiner"], extra=True)
+    fails += _membership_gates("elastic native pipelined", rec)
+    if rec["membership"] != inprocess["membership"]:
+        fails.append(f"elastic native pipelined: the core counted "
+                     f"{rec['membership']}, the in-process PS "
+                     f"{inprocess['membership']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return rec
+
+
+def train_ps_lstm_elastic_sharded(torch, train):
+    """``ps_config5_elastic_sharded``: the same plan over PS_SHARDS socket
+    shards. Gates: the elastic gates (the joiner's τ on every shard);
+    every shard's lifetime folds equal the logical commits (``num_updates``
+    min == max); every shard counted the join and the drain."""
+    from distkeras_tpu_torch import parameter_servers
+
+    t, rec, launches, probe = run_ps_lstm_elastic(
+        torch, train, "ps_config5_elastic_sharded", "socket",
+        parameter_servers, ("SocketParameterServer",),
+        ps_num_shards=PS_SHARDS)
+    s = t.ps_stats_
+    fails = _membership_gates("elastic sharded", rec)
+    for i, srv in enumerate(probe["servers"]):
+        fails += _elastic_gates(f"elastic sharded shard {i}", t, launches,
+                                srv.first_fold, rec["joiner"], extra=False)
+    if not s["num_updates"] == s["num_updates_max"] == \
+            t.resilience_stats_["logical_commits"]:
+        fails.append(f"elastic sharded: shards folded {s['num_updates']}"
+                     f"..{s['num_updates_max']} against "
+                     f"{t.resilience_stats_['logical_commits']} logical")
+    counted_each = [(x["joined_workers"], x["preempted_workers"])
+                    for x in s["per_shard"]]
+    if len(counted_each) != PS_SHARDS or set(counted_each) != {(1, 1)}:
+        fails.append(f"elastic sharded: the shards counted (joins, "
+                     f"drains) {counted_each}")
+    rec["per_shard_membership"] = counted_each
+    rec["per_shard_num_updates"] = [x["num_updates"] for x in s["per_shard"]]
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return rec
+
+
+def train_ps_lstm_autoscale(torch, train):
+    """``ps_config5_autoscale``: config 5 elastic on the in-process PS with
+    ``autoscale_target=ElasticPolicy(target_rounds_per_sec=1e6,
+    cooldown_s=0.5, max_workers=PS5_POOL_MAX)`` and ``max_pool_size=
+    PS5_POOL_MAX``, no fault plan. Gates: some join the autoscaler asked
+    for; the coordinator's live pool never above PS5_POOL_MAX; the
+    assigner's ledger exactly once; folds equal the acknowledged commits;
+    the loss falling; K5/K6/K7 once a step. Prints the policy's decisions
+    and the joins with their times from the run's start."""
+    from distkeras_tpu_torch import workers
+    from distkeras_tpu_torch.resilience import ElasticPolicy, RetryPolicy
+
+    policy = ElasticPolicy(target_rounds_per_sec=1e6, cooldown_s=0.5,
+                           max_workers=PS5_POOL_MAX)
+    t, rows = _config5("inprocess", elastic=True,
+                       retry_policy=RetryPolicy(seed=0),
+                       autoscale_target=policy, max_pool_size=PS5_POOL_MAX)
+    ds = train.gather(np.arange(rows))
+
+    def run():
+        with _elastic_probe(workers, ("ParameterServer",)) as probe:
+            t0 = time.perf_counter()
+            m0 = time.monotonic()
+            t.train(ds)
+            return time.perf_counter() - t0, m0, probe
+
+    (wall, m0, probe), launches = counted(run)
+    s, r = t.ps_stats_, t.resilience_stats_
+    el = r["elastic"]
+    rec = dict(
+        phase="ps_config5_autoscale", device=SMI, wall_s=wall,
+        joined=el["joined"], preempted=el["preempted"],
+        drain_timeouts=el["drain_timeouts"],
+        membership={k: s[k] for k in ELASTIC_COUNTERS},
+        live_pool_max=max(probe["pool"], default=0),
+        server_pool_max=probe["servers"][0].pool_max,
+        decisions=[dict(d, t=d["t"] - m0) for d in el["policy_decisions"]],
+        joins=[dict(j, t=j["t"] - m0) for j in el["join_log"]],
+        drains=[dict(d, t=d["t"] - m0, t_done=d["t_done"] - m0)
+                for d in el["drain_log"]],
+        num_updates=s["num_updates"], logical_commits=r["logical_commits"],
+        windows=_windows_run(t.history.records), assigner=el["assigner"],
+        launches=launches,
+        exchange_phases=_phase_summary(s["exchange_phases"]))
+    log(json.dumps(rec))
+    fails = _phase_gates("autoscale", t, launches, extra=True)
+    if not el["assigner"]["exactly_once"]:
+        fails.append(f"autoscale: the ledger is not exactly once: "
+                     f"{el['assigner']}")
+    if not any(j["reason"] == "autoscaler" for j in el["join_log"]):
+        fails.append(f"autoscale: no join from the autoscaler: "
+                     f"{el['join_log']}, {el['policy_decisions']}")
+    if not 0 < rec["live_pool_max"] <= PS5_POOL_MAX:
+        fails.append(f"autoscale: the live pool reached "
+                     f"{rec['live_pool_max']} (max {PS5_POOL_MAX})")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return rec
+
+
 def run_mnist_twin():
     """The MNIST example's twin (``distkeras_tpu_torch.examples.mnist``)
     in this process, once a MNIST_RUNS entry, held to the JAX example's
@@ -3099,6 +3507,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
+    global SMI
+    SMI = smi
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -3309,6 +3719,33 @@ def main() -> int:
         "launches": ckema["ps_config5_checkpoint_ema"]["resume_launches"]}
     log(f"checkpoint and EMA paths done at {time.perf_counter() - t0:.1f}s")
 
+    # elastic membership on config 5, each phase counting and gating its
+    # own launches: a live join and a preemption drain on the in-process
+    # and the socket PS (with a WAL), on the native PS pipelined and over
+    # socket shards; the autoscaler growing the pool
+    elastic: dict = {}
+    t_ps = time.perf_counter()
+    for name, rec in train_ps_lstm_elastic(torch, train).items():
+        elastic[f"config5_elastic_{name}"] = rec
+    log(json.dumps({"phase": "ps_config5_elastic",
+                    "wall_s": time.perf_counter() - t_ps}))
+    for name, fn in (
+            ("config5_elastic_native_pipelined",
+             lambda: train_ps_lstm_elastic_native_pipelined(
+                 torch, train, elastic["config5_elastic_inprocess"])),
+            ("config5_elastic_sharded",
+             lambda: train_ps_lstm_elastic_sharded(torch, train)),
+            ("config5_autoscale",
+             lambda: train_ps_lstm_autoscale(torch, train))):
+        t_ps = time.perf_counter()
+        elastic[name] = fn()
+        log(json.dumps({"phase": f"ps_{name}",
+                        "wall_s": time.perf_counter() - t_ps}))
+        torch.cuda.empty_cache()
+    for name, rec in elastic.items():
+        log(f"launches on the {name} path: {json.dumps(rec['launches'])}")
+    log(f"elastic paths done at {time.perf_counter() - t0:.1f}s")
+
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
         return None if any(v is None for v in vals) else sum(vals)
@@ -3386,6 +3823,8 @@ def main() -> int:
                             for k, v in sharded.items()}},
             checkpoint_ema_launches={k: v["launches"][name]
                                      for k, v in ckema.items()},
+            elastic_launches={k: v["launches"][name]
+                              for k, v in elastic.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -101,6 +101,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_client_fence": (i64, [vp, u64]),
         "dkps_client_heartbeat": (ctypes.c_int, [vp, u32]),
         "dkps_client_deregister": (ctypes.c_int, [vp]),
+        "dkps_client_join": (ctypes.c_int, [vp, u64p, u64p]),
+        "dkps_client_drain": (ctypes.c_int, [vp, u8]),
         "dkps_client_trace_scrape": (i64, [vp, u64p, u64]),
         "dkps_client_shard_info": (ctypes.c_int, [
             vp, ctypes.POINTER(u32), ctypes.POINTER(u32), u64p]),

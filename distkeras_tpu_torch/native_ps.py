@@ -538,6 +538,25 @@ class NativePSClient:
         if self._lib.dkps_client_deregister(self._handle) != 0:
             raise ConnectionError("dkps deregister failed (server gone?)")
 
+    def join(self) -> dict:
+        """Live-join admission (JOIN, action 12): the C++ core leases this
+        worker and grows its pool gauge; the surface of
+        ``ParameterServerClient.join``."""
+        updates, pool = ctypes.c_uint64(0), ctypes.c_uint64(0)
+        if self._lib.dkps_client_join(self._handle, ctypes.byref(updates),
+                                      ctypes.byref(pool)) != 0:
+            raise ConnectionError("dkps join failed (server gone?)")
+        return {"ok": True, "num_updates": int(updates.value),
+                "pool_size": int(pool.value)}
+
+    def drain(self, timeout: bool = False) -> None:
+        """Preemption drain (DRAIN, action 13): a clean deregister plus the
+        core's membership counters; ``timeout=True`` reports a drain whose
+        deadline lapsed."""
+        if self._lib.dkps_client_drain(self._handle,
+                                       1 if timeout else 0) != 0:
+            raise ConnectionError("dkps drain failed (server gone?)")
+
     def fence(self, epoch: int) -> int:
         """Raise the server's fencing epoch (FENCE, action 9); returns the
         epoch after."""

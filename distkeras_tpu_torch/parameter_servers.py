@@ -73,9 +73,17 @@ version order: a fold that lost the race to a newer center is dropped.
 replay refolds it, and a standby receives it with its replication base,
 so a recovered or promoted server's EMA is the live one's, bit for bit.
 
-Elastic membership and deploy streaming belong to later slices
-(``ROADMAP.md`` A7.8, A13): their wire actions answer with an error frame
-naming the item, and their stats counters stay 0.
+**Elastic membership** (``resilience/elastic.py``): ``join_worker``
+leases a live joiner (quietly: ``heartbeats`` stays a heartbeat count) and
+grows the ``pool_size`` gauge; ``drain_worker`` is a clean deregister plus
+the ``preempted_workers`` and ``drain_timeouts`` counters. Both ride lossy
+links, so each counts once per membership flip of a worker id (a lost-ACK
+replay counts nothing); an eviction retires a worker's records. The
+``join`` and ``drain`` wire actions serve them.
+
+Deploy streaming and the metrics registry belong to a later slice
+(``ROADMAP.md`` A13): their wire actions answer with an error frame naming
+the item, and the deploy counters stay 0.
 """
 
 from __future__ import annotations
@@ -108,8 +116,6 @@ Tree = Any
 
 #: wire actions of later slices → the ROADMAP item that ports them
 _LATER_ACTIONS = {
-    "join": "A7.8 (elastic membership)",
-    "drain": "A7.8 (elastic membership)",
     "deploy_report": "A13 (deploy streaming)",
     "metrics": "A13 (observability: metrics)",
 }
@@ -284,6 +290,17 @@ class ParameterServer:
         self._n_batched_folds = 0
         self._bytes_in = 0
         self._bytes_out = 0
+        # elastic membership (stats lock): the pool gauge starts at the
+        # configured worker count, joins grow it and drains shrink it;
+        # telemetry, not durable state. A worker id's join counts once
+        # until it drains and its drain once until it re-joins (a replay
+        # after a lost ACK counts nothing); eviction retires both records
+        self._pool_size = int(num_workers)
+        self._n_joined = 0
+        self._n_preempted = 0
+        self._n_drain_timeouts = 0
+        self._joined_wids: set[int] = set()
+        self._drained_wids: set[int] = set()
         self._t_start = time.monotonic()
         self._center_nbytes = sum(
             np.asarray(leaf).nbytes for leaf in utils.flatten(self.center)[0])
@@ -805,9 +822,48 @@ class ParameterServer:
                 self._log_locked(_wal.encode_record(_wal.REC_DEREG,
                                                     (int(worker_id),)))
 
+    def join_worker(self, worker_id: int) -> dict:
+        """Live-join admission: lease the worker (quietly: ``heartbeats``
+        stays a heartbeat count) and grow the pool gauge. The joiner's
+        next pull records its pull version, so its first DynSGD commit is
+        priced at the true small τ. Returns the admission record the wire
+        action answers with: ``{"pool_size", "num_updates"}``."""
+        _trace.instant("ps.join", corr=f"w{worker_id}")
+        self._registry.register(worker_id)
+        with self._stats_lock:
+            self._drained_wids.discard(worker_id)
+            if worker_id not in self._joined_wids:
+                self._joined_wids.add(worker_id)
+                self._n_joined += 1
+                self._pool_size += 1
+            pool = self._pool_size
+        with self._lock:
+            updates = self.num_updates
+        return {"pool_size": pool, "num_updates": updates}
+
+    def drain_worker(self, worker_id: int, timeout: bool = False) -> None:
+        """Preemption drain: a clean deregister (the lease dropped without
+        an eviction, the dedup seqno retired) plus the membership counters;
+        ``timeout=True`` records a drain whose deadline lapsed (the
+        coordinator's force-drain; eviction stays the backstop)."""
+        _trace.instant("ps.drain", corr=f"w{worker_id}",
+                       args={"timeout": bool(timeout)})
+        self.deregister_worker(worker_id)
+        with self._stats_lock:
+            if worker_id in self._drained_wids:
+                return
+            self._drained_wids.add(worker_id)
+            self._joined_wids.discard(worker_id)
+            self._n_preempted += 1
+            if timeout:
+                self._n_drain_timeouts += 1
+            self._pool_size = max(0, self._pool_size - 1)
+
     def _on_evict(self, worker_ids: list[int]) -> None:
         """A lapsed lease: forget the workers' pull versions (DynSGD prices
-        a zombie commit at τ = num_updates) and their dedup entries."""
+        a zombie commit at τ = num_updates), their dedup entries and their
+        join and drain records (a returning worker re-registers, and the
+        sets stay bounded under long churn)."""
         with self._lock:
             for wid in worker_ids:
                 self._pull_versions.pop(wid, None)
@@ -816,6 +872,10 @@ class ParameterServer:
             if self._durable:
                 self._log_locked(_wal.encode_record(
                     _wal.REC_EVICT, ([int(w) for w in worker_ids],)))
+        with self._stats_lock:
+            for wid in worker_ids:
+                self._joined_wids.discard(wid)
+                self._drained_wids.discard(wid)
 
     def fence(self, epoch: int) -> int:
         """Raise the fencing epoch (monotone): commits carrying an older
@@ -934,9 +994,11 @@ class ParameterServer:
         """Contention and throughput counters (``build_ps_stats``'s keys):
         the commit dedup's ``dup_commits``, ``fenced_commits``, the lease
         registry's ``active_workers`` / ``evicted_workers`` /
-        ``heartbeats`` / ``worker_retries`` and the WAL's records, fsyncs
-        and largest group; the membership and deploy counters stay 0
-        until their slices."""
+        ``heartbeats`` / ``worker_retries``, the WAL's records, fsyncs and
+        largest group, and the membership's ``pool_size`` (the configured
+        workers plus joins minus drains), ``joined_workers``,
+        ``preempted_workers`` and ``drain_timeouts``; the deploy counters
+        stay 0 until their slice."""
         if settle:
             self._settle_stats()
         elapsed = time.monotonic() - self._t_start
@@ -945,6 +1007,8 @@ class ParameterServer:
                       self._n_commits, self._bytes_in, self._bytes_out)
             fusedx, batched = self._n_fused, self._n_batched_folds
             dups = self._n_dup_commits
+            pool, joined = self._pool_size, self._n_joined
+            preempted, drain_to = self._n_preempted, self._n_drain_timeouts
         hb = self._registry.stats()
         wal = self._wal
         return build_ps_stats(
@@ -959,7 +1023,9 @@ class ParameterServer:
             wal_records=0 if wal is None else wal.wal_records,
             wal_fsyncs=0 if wal is None else wal.wal_fsyncs,
             wal_group_max=0 if wal is None else wal.wal_group_max,
-            pool_size=self.num_workers, fused_exchanges=fusedx,
+            pool_size=pool, joined_workers=joined,
+            preempted_workers=preempted, drain_timeouts=drain_to,
+            fused_exchanges=fusedx,
             batched_folds=batched)
 
 
@@ -1158,6 +1224,14 @@ class SocketParameterServer(ParameterServer):
             networking.send_data(conn, {"ok": True, "known": known})
         elif action == "deregister":
             self.deregister_worker(msg["worker_id"])
+            networking.send_data(conn, {"ok": True})
+        elif action == "join":
+            rec = self.join_worker(msg["worker_id"])
+            rec["ok"] = True
+            networking.send_data(conn, rec)
+        elif action == "drain":
+            self.drain_worker(msg["worker_id"],
+                              timeout=bool(msg.get("timeout")))
             networking.send_data(conn, {"ok": True})
         elif action == "replicate_stream":
             return self._serve_replication(conn, msg)
@@ -1617,6 +1691,26 @@ class ParameterServerClient:
     def deregister(self) -> None:
         """A clean exit: drop this worker's lease without an eviction."""
         self._request({"action": "deregister", "worker_id": self.worker_id})
+
+    def join(self) -> dict:
+        """Live-join admission: lease this worker mid-run and read the pool
+        gauge and the center's version (``{"ok", "pool_size",
+        "num_updates"}``). Pull right after: that pull records this
+        worker's pull version, so DynSGD prices its first commit at the
+        true small τ."""
+        reply = self._request({"action": "join",
+                               "worker_id": self.worker_id})
+        if not reply.get("ok"):
+            raise networking.ProtocolError(
+                f"join refused: {reply.get('error', reply)}", retryable=True)
+        return reply
+
+    def drain(self, timeout: bool = False) -> None:
+        """Preemption drain: a clean deregister (the dedup seqno retired)
+        plus the server's membership counters; ``timeout=True`` reports a
+        drain whose deadline lapsed."""
+        self._request({"action": "drain", "worker_id": self.worker_id,
+                       "timeout": bool(timeout)})
 
     def stats(self) -> dict:
         """The server's ``stats()``, settled, over the wire."""

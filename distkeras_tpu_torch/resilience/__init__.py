@@ -21,16 +21,28 @@ Port of ``distkeras_tpu/resilience/``:
   write-ahead log with group commit, fsync'd snapshots), crash recovery
   (:func:`recover_ps_state`), and the record stream the hot standby
   applies; ``python -m distkeras_tpu_torch.resilience.wal verify <dir>``.
-
-Elastic membership (``elastic.py``) is ``ROADMAP.md`` A7.8.
+- :mod:`~distkeras_tpu_torch.resilience.elastic`: elastic membership:
+  :class:`ShardAssigner` (window blocks leased per epoch, confirmed after
+  the commit's ACK, handed back on a drain: every example once an epoch),
+  :class:`ElasticCoordinator` (live joins, preemption drains against a
+  deadline, the autoscaler's loop) and :class:`ElasticPolicy` (grow or
+  shrink against a rounds/s target, release persistent stragglers).
 
 Trainer knobs: ``retry_policy``, ``heartbeat_interval``,
 ``lease_timeout``, ``worker_restart_budget``, ``worker_restart_delay``,
 ``tolerate_worker_failures``, ``fault_plan``, ``ps_wal_dir``,
 ``ps_snapshot_every``, ``ps_wal_group_window``, ``ps_wal_group_interval``,
-``ps_standby`` and ``ps_failover_timeout`` (see ``DistributedTrainer``).
+``ps_standby``, ``ps_failover_timeout``, ``elastic``,
+``autoscale_target``, ``preempt_drain_timeout`` and ``max_pool_size``
+(see ``DistributedTrainer``).
 """
 
+from distkeras_tpu_torch.resilience.elastic import (  # noqa: F401
+    WOULD_BLOCK,
+    ElasticCoordinator,
+    ElasticPolicy,
+    ShardAssigner,
+)
 from distkeras_tpu_torch.resilience.faults import (  # noqa: F401
     FaultInjectedError,
     FaultPlan,
@@ -58,6 +70,10 @@ from distkeras_tpu_torch.resilience.wal import (  # noqa: F401
 )
 
 __all__ = [
+    "WOULD_BLOCK",
+    "ElasticCoordinator",
+    "ElasticPolicy",
+    "ShardAssigner",
     "FaultInjectedError",
     "FaultPlan",
     "WorkerKilled",

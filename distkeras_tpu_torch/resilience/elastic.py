@@ -1,0 +1,712 @@
+"""Elastic membership: live worker join, preemption-aware drain, autoscaling.
+
+The port's copy of ``distkeras_tpu/resilience/elastic.py``. The fixed pool
+survives workers *leaving* (leases, eviction, restarts, exactly-once
+dedup); elastic membership lets the pool *grow* mid-run and lets a
+preempted worker leave cleanly instead of dying into a restart budget.
+Every piece is trainer-side host code; the servers only count joins and
+drains (``ParameterServer.join_worker`` / ``drain_worker``).
+
+- :class:`ShardAssigner`: dynamic data-shard assignment. The epoch is a
+  pool of window-sized **blocks** (one block = one ``window × batch``
+  training window over a per-epoch permutation seeded on ``(seed,
+  epoch)`` through numpy, exactly as the reference draws it); workers
+  lease blocks one at a time and confirm each after its window's commit
+  was acknowledged. A drained worker hands its unfinished blocks back; a
+  joiner simply starts claiming. Every example trains exactly once per
+  epoch across any sequence of clean joins and drains (``oracle()``).
+- the **live-join protocol**, run by the joining worker itself: the
+  ``join`` wire action (lease admitted, ``pool_size`` and
+  ``joined_workers`` counted), then a pull, which records the joiner's
+  pull version server-side so its first DynSGD commit is priced at the
+  true small τ, never at the fold count a version-less worker would pay;
+  a fresh client brings a fresh commit-seqno stream. On a sharded center
+  the joiner's fan-out client checks the shard map on every shard.
+- the **preemption-notice path**: ``request_preempt(worker_id)`` sets the
+  worker's drain event and arms a deadline. The worker finishes its
+  in-flight window, commits it, hands its remaining blocks back and
+  exits; the coordinator then sends the ``drain`` wire action (a clean
+  deregister that retires the dedup seqno and decrements ``pool_size``).
+  A worker that misses the deadline is force-drained: its blocks are
+  released on its behalf, its client is closed out from under it, the
+  drain is reported with ``timeout=True`` (``drain_timeouts``) and lease
+  eviction stays the backstop; whatever its abandoned thread raises later
+  is recorded, not raised (:meth:`ElasticCoordinator.worker_error`).
+- :class:`ElasticPolicy`: the autoscaler. It grows or shrinks the pool
+  against a rounds/s target and releases **persistent stragglers** (a
+  worker whose rate sits in the τ tail), with the rates and the straggler
+  verdict from :mod:`~distkeras_tpu_torch.observability.watch`.
+
+Every worker, joiners included, runs on the trainer's one device.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import warnings
+from typing import Any, Callable
+
+import numpy as np
+
+from distkeras_tpu_torch.observability import trace as _trace
+from distkeras_tpu_torch.observability.timeseries import TimeSeriesStore
+from distkeras_tpu_torch.observability.watch import (
+    rates_from_counts,
+    straggler_workers,
+    worker_rates,
+)
+
+__all__ = ["ShardAssigner", "ElasticPolicy", "ElasticCoordinator",
+           "WOULD_BLOCK"]
+
+#: Sentinel ``ShardAssigner.claim(wait=False)`` returns when every
+#: remaining block is in flight (possibly with the CALLER — the pipelined
+#: worker claims its next block while its previous one is still awaiting
+#: its deferred exchange). The pipelined loop flushes that exchange and
+#: re-claims blocking; waiting here instead would deadlock on the
+#: worker's own unconfirmed block.
+WOULD_BLOCK = object()
+
+
+class ShardAssigner:
+    """Dynamic per-epoch block pool with exactly-once accounting.
+
+    One **block** is one training window: ``window × batch_size`` rows of
+    a seeded per-epoch permutation (shuffle) or of ``arange(n_rows)``.
+    Rows past the last whole block are dropped per epoch, matching the
+    fixed-pool loop's drop-tail semantics (under shuffle a different tail
+    is dropped each epoch).
+
+    Thread-safety: every method is safe to call from any worker or
+    coordinator thread. ``claim`` blocks while all remaining blocks are
+    in flight with other workers — a drained/dead worker's release wakes
+    the waiters — and returns ``None`` only when every block of every
+    epoch is complete (or ``stop()`` goes true).
+    """
+
+    def __init__(self, n_rows: int, window: int, batch_size: int,
+                 num_epoch: int, seed: int = 0, shuffle: bool = False,
+                 start_epoch: int = 0,
+                 on_epoch_complete: Callable[[int], None] | None = None):
+        self.n_rows = int(n_rows)
+        self.window = int(window)
+        self.batch_size = int(batch_size)
+        self.win_rows = self.window * self.batch_size
+        self.blocks_per_epoch = self.n_rows // self.win_rows
+        if self.blocks_per_epoch == 0:
+            raise ValueError(
+                f"dataset of {n_rows} rows too small for one window of "
+                f"{self.win_rows} rows (window={window} × "
+                f"batch={batch_size})"
+            )
+        self.seed = int(seed)
+        self.shuffle = bool(shuffle)
+        self.epochs = list(range(int(start_epoch), int(num_epoch)))
+        self._cv = threading.Condition()
+        B = self.blocks_per_epoch
+        self._avail: dict[int, set[int]] = {e: set(range(B))
+                                            for e in self.epochs}
+        self._done: dict[int, set[int]] = {e: set() for e in self.epochs}
+        self._inflight: dict[tuple[int, int], int] = {}
+        self._by_worker: dict[int, set[tuple[int, int]]] = {}
+        self._perms: dict[int, np.ndarray] = {}
+        self._claims = 0
+        self._released_blocks = 0
+        self._stale_completions = 0
+        #: fired (outside the lock) when the LAST block of an epoch
+        #: confirms — the one membership-independent epoch boundary an
+        #: elastic run has; run_async_training points it at
+        #: ``ps.mark_epoch`` so the deployer's epoch-cut snapshots (and
+        #: the elastic epoch-barrier checkpoint that falls out of them)
+        #: exist without a fixed-pool rendezvous
+        self.on_epoch_complete = on_epoch_complete
+
+    def _perm(self, epoch: int) -> np.ndarray:
+        """The epoch's row order (cached while the epoch is live). Seeded
+        on (seed, epoch) only — membership changes cannot alter which
+        rows belong to which block, which is what makes the exactly-once
+        guarantee a *data* property, not a scheduling accident."""
+        p = self._perms.get(epoch)
+        if p is None:
+            p = (np.random.default_rng((self.seed, epoch))
+                 .permutation(self.n_rows)
+                 if self.shuffle else np.arange(self.n_rows))
+            self._perms[epoch] = p
+        return p
+
+    def epoch_rows(self, epoch: int) -> np.ndarray:
+        """All rows the epoch trains (the first ``blocks × win_rows`` of
+        its permutation) — the coverage side of the oracle."""
+        return self._perm(epoch)[: self.blocks_per_epoch * self.win_rows]
+
+    def claim(self, worker_id: int,
+              stop: Callable[[], bool] | None = None, wait: bool = True):
+        """Lease the next block: ``(epoch, block, row_indices)``, or
+        ``None`` when all work is complete / ``stop()`` goes true.
+        Earlier epochs are served first; a worker may run ahead into the
+        next epoch while a peer still holds blocks of the previous one
+        (hogwild epochs, like the fixed-pool loop's free-running
+        workers). ``wait=False`` returns :data:`WOULD_BLOCK` instead of
+        waiting when the pool is empty but blocks remain in flight — the
+        pipelined worker's probe (its own deferred block may be what the
+        pool is waiting on)."""
+        while True:
+            with self._cv:
+                for e in self.epochs:
+                    avail = self._avail[e]
+                    if avail:
+                        b = min(avail)
+                        avail.remove(b)
+                        self._inflight[(e, b)] = worker_id
+                        self._by_worker.setdefault(worker_id, set()).add(
+                            (e, b)
+                        )
+                        self._claims += 1
+                        idx = self._perm(e)[
+                            b * self.win_rows: (b + 1) * self.win_rows
+                        ]
+                        return e, b, idx
+                if not self._inflight:
+                    return None  # every block of every epoch is complete
+                if not wait:
+                    return WOULD_BLOCK
+                # all remaining blocks are in flight with other workers —
+                # a drain/death may hand some back; wait, bounded, so a
+                # draining waiter can notice its stop flag
+                self._cv.wait(0.05)
+            if stop is not None and stop():
+                return None
+
+    def complete(self, worker_id: int, epoch: int, block: int) -> bool:
+        """Confirm a block trained-and-committed. Returns False (a
+        **stale completion**) when the block no longer belongs to this
+        worker — it was force-released after a drain deadline and may
+        already be reassigned; the caller's work stands (its commit
+        folded) but the accounting belongs to the new owner."""
+        key = (int(epoch), int(block))
+        retired = False
+        with self._cv:
+            owner = self._inflight.get(key)
+            if owner != worker_id:
+                self._stale_completions += 1
+                return False
+            self._inflight.pop(key)
+            self._by_worker.get(worker_id, set()).discard(key)
+            self._done[epoch].add(block)
+            if len(self._done[epoch]) == self.blocks_per_epoch:
+                self._perms.pop(epoch, None)  # epoch retired: free the perm
+                retired = True
+            self._cv.notify_all()
+        if retired and self.on_epoch_complete is not None:
+            try:
+                self.on_epoch_complete(int(epoch))
+            except Exception:  # noqa: BLE001
+                pass  # the mark is advisory: never fail a completion
+        return True
+
+    def release(self, worker_id: int) -> int:
+        """Hand the worker's in-flight blocks back to the pool (the
+        drain/death path). Returns how many went back. Idempotent."""
+        n = 0
+        with self._cv:
+            for key in self._by_worker.pop(worker_id, set()):
+                if self._inflight.get(key) == worker_id:
+                    self._inflight.pop(key)
+                    self._avail[key[0]].add(key[1])
+                    n += 1
+            self._released_blocks += n
+            if n:
+                self._cv.notify_all()
+        return n
+
+    def oracle(self) -> dict:
+        """The exactly-once ledger: ``exactly_once`` is True iff every
+        block of every epoch completed exactly once with nothing left in
+        flight and no stale completions (a stale completion means a
+        timeout-drained worker's window was retrained — at-least-once,
+        the honest price of a missed drain deadline)."""
+        with self._cv:
+            total = len(self.epochs) * self.blocks_per_epoch
+            done = sum(len(s) for s in self._done.values())
+            return {
+                "epochs": len(self.epochs),
+                "blocks_per_epoch": self.blocks_per_epoch,
+                "blocks_total": total,
+                "blocks_done": done,
+                "blocks_in_flight": len(self._inflight),
+                "claims": self._claims,
+                "released_blocks": self._released_blocks,
+                "stale_completions": self._stale_completions,
+                "exactly_once": (done == total and not self._inflight
+                                 and self._stale_completions == 0),
+            }
+
+
+class ElasticPolicy:
+    """Deterministic autoscaling decisions from progress observations.
+
+    ``observe(now, per_worker_windows)`` is fed the pool's cumulative
+    per-worker window counts; it differentiates against the previous
+    observation and returns at most one action per call. The rounds/s
+    and straggler math is not private: differentiation is
+    :func:`observability.watch.rates_from_counts` and the straggler
+    verdict :func:`observability.watch.straggler_workers`, the two
+    definitions the watchtower's commit-skew rule evaluates over the
+    shared ``worker.<wid>.windows`` series, and
+    :meth:`observe_series` reads its rates straight off that store (the
+    path the :class:`ElasticCoordinator` drives), so the autoscaler and
+    the alerting can never disagree about who is slow. Actions:
+
+    - ``("join", None)`` — total rounds/s fell below
+      ``grow_margin × target`` with headroom under ``max_workers``;
+    - ``("release", worker_id)`` — either the pool overshoots
+      ``shrink_margin × target``, or the worker is a **persistent
+      straggler**: its rate sat below ``straggler_ratio × median`` for
+      ``patience`` consecutive observations. A straggler's commits are
+      the DynSGD τ tail — the center is already down-weighting them
+      toward nothing, so releasing the worker returns its data share to
+      workers whose commits still move the model.
+
+    ``target_rounds_per_sec=None`` disables the throughput rules and
+    keeps only the straggler release. ``cooldown_s`` spaces membership
+    changes so one slow observation cannot thrash the pool. Pure state
+    machine over the values it is fed — no clocks, no threads — so tests
+    drive it synthetically.
+    """
+
+    def __init__(self, target_rounds_per_sec: float | None = None,
+                 min_workers: int = 1, max_workers: int | None = None,
+                 grow_margin: float = 0.85, shrink_margin: float = 1.3,
+                 straggler_ratio: float = 0.25, patience: int = 3,
+                 cooldown_s: float = 2.0, window_s: float = 1.0):
+        if target_rounds_per_sec is not None and target_rounds_per_sec <= 0:
+            raise ValueError(
+                f"target_rounds_per_sec must be positive, got "
+                f"{target_rounds_per_sec}"
+            )
+        if min_workers < 1:
+            raise ValueError(f"min_workers must be >= 1, got {min_workers}")
+        if max_workers is not None and max_workers < min_workers:
+            raise ValueError(
+                f"max_workers ({max_workers}) < min_workers ({min_workers})"
+            )
+        if patience < 1:
+            raise ValueError(f"patience must be >= 1, got {patience}")
+        self.target = (None if target_rounds_per_sec is None
+                       else float(target_rounds_per_sec))
+        self.min_workers = int(min_workers)
+        self.max_workers = None if max_workers is None else int(max_workers)
+        self.grow_margin = float(grow_margin)
+        self.shrink_margin = float(shrink_margin)
+        self.straggler_ratio = float(straggler_ratio)
+        self.patience = int(patience)
+        self.cooldown_s = float(cooldown_s)
+        # trailing-window length for the shared-timeseries observation
+        # path (observe_series): long enough for >= 2 scrape samples at
+        # the coordinator's poll cadence, short enough to track churn
+        if window_s <= 0:
+            raise ValueError(f"window_s must be positive, got {window_s}")
+        self.window_s = float(window_s)
+        self._last: tuple[float, dict[int, int]] | None = None
+        self._lag: dict[int, int] = {}
+        self._last_action_t = -float("inf")
+        self.decisions: list[dict] = []
+
+    def observe(self, now: float,
+                per_worker_windows: dict[int, int]) -> list[tuple]:
+        if self._last is None:
+            self._last = (float(now), dict(per_worker_windows))
+            return []
+        t0, prev = self._last
+        self._last = (float(now), dict(per_worker_windows))
+        rates = rates_from_counts(t0, prev, now, per_worker_windows)
+        if not rates:
+            return []
+        return self._decide(now, rates)
+
+    def observe_series(self, store, now: float,
+                       window_s: float | None = None,
+                       wids=None) -> list[tuple]:
+        """Observe off the SHARED timeseries: per-worker rounds/s read
+        from the ``worker.<wid>.windows`` counter series (the store the
+        coordinator's progress sampling feeds and the watchtower's skew
+        rule evaluates) over the trailing window — the single-definition
+        path ``ElasticCoordinator.run`` drives. ``wids`` restricts to
+        the currently-live pool (a drained worker's series lingers for
+        one window; it must not be re-released)."""
+        if window_s is None:
+            window_s = self.window_s
+        rates = worker_rates(store, window_s, float(now))
+        if wids is not None:
+            live = set(wids)
+            rates = {w: r for w, r in rates.items() if w in live}
+        if not rates:
+            return []
+        return self._decide(now, rates)
+
+    def _decide(self, now: float, rates: dict) -> list[tuple]:
+        """The decision body, shared by both observation paths."""
+        pool = len(rates)
+        total = sum(rates.values())
+        # straggler bookkeeping runs every observation (cooldown or not):
+        # patience counts consecutive slow WINDOWS of observation
+        if pool >= 2:
+            _med, lagging = straggler_workers(rates,
+                                              self.straggler_ratio)
+            lag_set = set(lagging)
+            for wid in rates:
+                if wid in lag_set:
+                    self._lag[wid] = self._lag.get(wid, 0) + 1
+                else:
+                    self._lag.pop(wid, None)
+            for wid in list(self._lag):
+                if wid not in rates:
+                    self._lag.pop(wid)
+        else:
+            self._lag.clear()
+        if float(now) - self._last_action_t < self.cooldown_s:
+            return []
+        lagged = sorted(w for w, n in self._lag.items()
+                        if n >= self.patience)
+        if lagged and pool > self.min_workers:
+            wid = min(lagged, key=lambda w: (rates.get(w, 0.0), w))
+            self._lag.pop(wid, None)
+            self._last_action_t = float(now)
+            self.decisions.append({"action": "release", "worker": wid,
+                                   "reason": "straggler",
+                                   "rate": rates.get(wid, 0.0),
+                                   "t": float(now)})
+            return [("release", wid)]
+        if self.target is not None:
+            if total < self.grow_margin * self.target and (
+                    self.max_workers is None or pool < self.max_workers):
+                self._last_action_t = float(now)
+                self.decisions.append({"action": "join",
+                                       "reason": "under_target",
+                                       "rounds_per_sec": total,
+                                       "t": float(now)})
+                return [("join", None)]
+            if total > self.shrink_margin * self.target \
+                    and pool > self.min_workers:
+                wid = min(rates, key=lambda w: (rates[w], w))
+                self._last_action_t = float(now)
+                self.decisions.append({"action": "release", "worker": wid,
+                                       "reason": "over_target",
+                                       "rounds_per_sec": total,
+                                       "t": float(now)})
+                return [("release", wid)]
+        return []
+
+
+class ElasticCoordinator:
+    """Trainer-side membership manager: spawns joiners, drains preempted
+    workers against a deadline, runs the autoscaling policy, and carries
+    the run to completion across any membership schedule.
+
+    ``spawn(worker_id, joiner)`` (supplied by ``run_async_training``)
+    builds a fully-wired worker — transport client (socket / native /
+    sharded fan-out, resilient wrapping included), the trainer's device,
+    the window function — and returns ``(worker, client,
+    started_thread)``.
+    ``make_drain_client(worker_id)`` builds a throwaway client for the
+    force-drain RPC when the worker itself missed the deadline.
+
+    Beyond the reference, ``stats()`` times the membership events on the
+    host's monotonic clock: each ``join_log`` entry carries its request
+    time ``t``, each ``drain_log`` entry its notice ``t`` and ``t_done``
+    (the drain reported to the PS) and whether it timed out, and each of
+    the policy's ``decisions`` its observation time ``t``.
+    """
+
+    def __init__(self, assigner: ShardAssigner,
+                 spawn: Callable[[int, bool], tuple],
+                 make_drain_client: Callable[[int], Any] | None = None,
+                 fault_plan=None, policy: ElasticPolicy | None = None,
+                 drain_timeout: float = 5.0, poll_interval: float = 0.1,
+                 max_pool_size: int | None = None, store=None):
+        self.assigner = assigner
+        # the shared progress timeseries: every poll samples live
+        # workers' cumulative window counts into ``worker.<wid>.windows``,
+        # and the policy observes rates off those series (a watchtower
+        # passes its own store in), so there is one definition of
+        # rounds/s.
+        if store is None and policy is not None:
+            store = TimeSeriesStore()
+        self.store = store
+        self._spawn = spawn
+        self._make_drain_client = make_drain_client
+        self.fault_plan = fault_plan
+        self.policy = policy
+        self.drain_timeout = float(drain_timeout)
+        self.poll_interval = float(poll_interval)
+        self.max_pool_size = (
+            None if max_pool_size is None else int(max_pool_size)
+        )
+        self._lock = threading.Lock()
+        self.workers: dict[int, Any] = {}
+        self.clients: dict[int, Any] = {}
+        self._threads: dict[int, threading.Thread] = {}
+        self._drainers: list[threading.Thread] = []
+        self._draining: set[int] = set()
+        self._drained: set[int] = set()
+        self.timeout_drained: set[int] = set()
+        self._next_id = 0
+        self.joined = 0
+        self.preempted = 0
+        self.drain_timeouts = 0
+        self.join_log: list[dict] = []
+        self.drain_log: list[dict] = []
+
+    # -- membership ----------------------------------------------------------
+
+    def start(self, initial_ids: list[int]) -> None:
+        with self._lock:
+            self._next_id = (max(initial_ids) + 1) if initial_ids else 0
+        for wid in initial_ids:
+            self._admit(wid, joiner=False)
+
+    def _admit(self, worker_id: int, joiner: bool) -> None:
+        worker, client, thread = self._spawn(worker_id, joiner)
+        with self._lock:
+            self.workers[worker_id] = worker
+            self.clients[worker_id] = client
+            self._threads[worker_id] = thread
+
+    def request_join(self, reason: str = "fault_plan") -> int | None:
+        """Live-join one worker (fresh id). Returns the new id, or None
+        when the pool is at ``max_pool_size``."""
+        with self._lock:
+            # same liveness rule as _live_progress/stats: an abandoned
+            # timeout-drained thread is not pool capacity — counting it
+            # would block the refill its force-drain was meant to allow
+            live = [w for w, t in self._threads.items()
+                    if t.is_alive() and w not in self._draining
+                    and w not in self.timeout_drained]
+            if (self.max_pool_size is not None
+                    and len(live) >= self.max_pool_size):
+                return None
+            wid = self._next_id
+            self._next_id += 1
+            self.joined += 1
+            self.join_log.append({"worker": wid, "reason": reason,
+                                  "t": time.monotonic()})
+        with _trace.span("elastic.join", corr=f"w{wid}",
+                         args={"reason": reason}):
+            self._admit(wid, joiner=True)
+        return wid
+
+    def request_preempt(self, worker_id: int,
+                        reason: str = "fault_plan") -> bool:
+        """Deliver a preemption notice: the worker drains — finish the
+        in-flight window, flush its commit, hand blocks back, clean
+        ``drain`` deregistration — within ``drain_timeout`` seconds, or
+        is force-drained (blocks released on its behalf, the drain
+        reported with ``timeout=True``, lease eviction as backstop)."""
+        with self._lock:
+            w = self.workers.get(worker_id)
+            t = self._threads.get(worker_id)
+            if w is None or t is None or worker_id in self._draining \
+                    or worker_id in self._drained:
+                return False
+            self._draining.add(worker_id)
+            self.preempted += 1
+            t_notice = time.monotonic()
+        w.drain_event.set()
+        drainer = threading.Thread(
+            target=self._drain, args=(worker_id, reason, t_notice),
+            daemon=True,
+            name=f"distkeras-drain-{worker_id}",
+        )
+        drainer.start()
+        with self._lock:
+            self._drainers.append(drainer)
+        return True
+
+    def _drain(self, worker_id: int, reason: str, t_notice: float) -> None:
+        with _trace.span("elastic.drain", corr=f"w{worker_id}",
+                         args={"reason": reason}):
+            timed_out = self._drain_impl(worker_id)
+        with self._lock:
+            self.drain_log.append({"worker": worker_id, "reason": reason,
+                                   "timeout": timed_out, "t": t_notice,
+                                   "t_done": time.monotonic()})
+
+    def _drain_impl(self, worker_id: int) -> bool:
+        t = self._threads[worker_id]
+        t.join(self.drain_timeout)
+        timed_out = t.is_alive()
+        client = self.clients.get(worker_id)
+        if timed_out:
+            # deadline lapsed: release the worker's shard range on its
+            # behalf, close its client out from under it (tears any
+            # blocked wire op, so the wedged thread dies fast), and
+            # report the timeout drain on a throwaway admin client —
+            # eviction remains the backstop for whatever is left
+            with self._lock:
+                self.timeout_drained.add(worker_id)
+                self.drain_timeouts += 1
+            self.assigner.release(worker_id)
+            try:
+                if client is not None:
+                    client.close()
+            except Exception:
+                pass
+            admin = None
+            try:
+                if self._make_drain_client is not None:
+                    admin = self._make_drain_client(worker_id)
+                    self._report_drain(admin, timeout=True)
+            except Exception as e:
+                warnings.warn(
+                    f"force-drain of worker {worker_id} could not reach "
+                    f"the PS ({type(e).__name__}: {e}); lease eviction "
+                    f"will retire it", stacklevel=2,
+                )
+            finally:
+                if admin is not None:
+                    try:
+                        admin.close()
+                    except Exception:
+                        pass
+        else:
+            # clean drain: the worker already released its blocks on
+            # exit; report the drain on its own (now idle) client, which
+            # also retires the dedup seqno via the deregister path. The
+            # client stays open — the common shutdown path closes every
+            # client exactly once.
+            try:
+                if client is not None:
+                    self._report_drain(client, timeout=False)
+            except Exception as e:
+                # same degradation as the timeout path, named: the pool
+                # gauge stays over-counted and the dedup/lease entries
+                # linger until eviction retires them — never silently
+                warnings.warn(
+                    f"drain of worker {worker_id} could not reach the PS "
+                    f"({type(e).__name__}: {e}); lease eviction will "
+                    f"retire it", stacklevel=2,
+                )
+        with self._lock:
+            self._drained.add(worker_id)
+            self._draining.discard(worker_id)
+        return timed_out
+
+    @staticmethod
+    def _report_drain(client, timeout: bool) -> None:
+        drain = getattr(client, "drain", None)
+        if drain is not None:
+            drain(timeout=timeout)
+        else:  # transport without a drain channel: fall back to deregister
+            dereg = getattr(client, "deregister", None)
+            if dereg is not None:
+                dereg()
+
+    # -- the deterministic fault seam (called by workers per window) ---------
+
+    def on_window(self, worker_id: int, window_index: int) -> None:
+        """Worker window-boundary hook: fires the fault plan's seeded
+        join/preempt events — the same (worker_id, window_index) seam as
+        ``kill_at``, so elastic chaos is exactly reproducible."""
+        plan = self.fault_plan
+        if plan is None:
+            return
+        if plan.take_join(worker_id, window_index):
+            self.request_join(reason="fault_plan")
+        if plan.take_preempt(worker_id, window_index):
+            self.request_preempt(worker_id, reason="fault_plan")
+
+    # -- the run loop --------------------------------------------------------
+
+    def _live_progress(self) -> dict[int, int]:
+        with self._lock:
+            return {
+                wid: int(getattr(w, "_windows_done", 0))
+                for wid, w in self.workers.items()
+                if self._threads[wid].is_alive()
+                and wid not in self._draining
+                and wid not in self.timeout_drained
+            }
+
+    def run(self) -> None:
+        """Supervise to completion: all worker threads done (abandoned
+        timeout-drained threads excluded) and every drain settled."""
+        while True:
+            with self._lock:
+                threads = dict(self._threads)
+                draining = set(self._draining)
+                abandoned = set(self.timeout_drained)
+            alive = [wid for wid, t in threads.items()
+                     if t.is_alive() and wid not in abandoned]
+            if not alive and not draining:
+                break
+            now = time.monotonic()
+            progress = (self._live_progress()
+                        if self.store is not None or self.policy is not None
+                        else None)
+            if self.store is not None and progress:
+                for wid, n in progress.items():
+                    self.store.sample(f"worker.{wid}.windows", now, n,
+                                      "counter")
+            if self.policy is not None and progress:
+                # the single-definition path: rates come off the shared
+                # series, not a private differentiation
+                actions = (
+                    self.policy.observe_series(
+                        self.store, now,
+                        window_s=max(self.policy.window_s,
+                                     3 * self.poll_interval),
+                        wids=progress.keys())
+                    if self.store is not None
+                    else self.policy.observe(now, progress)
+                )
+                for action, wid in actions:
+                    if action == "join":
+                        self.request_join(reason="autoscaler")
+                    elif action == "release":
+                        self.request_preempt(wid, reason="autoscaler")
+            time.sleep(self.poll_interval)
+        with self._lock:
+            drainers = list(self._drainers)
+        for d in drainers:
+            d.join(timeout=self.drain_timeout + 5.0)
+
+    # -- results -------------------------------------------------------------
+
+    def all_workers(self) -> list:
+        with self._lock:
+            return [self.workers[w] for w in sorted(self.workers)]
+
+    def all_clients(self) -> list:
+        with self._lock:
+            return [self.clients[w] for w in sorted(self.clients)]
+
+    def worker_error(self, worker) -> BaseException | None:
+        """The worker's error, unless it was timeout-drained (we gave up
+        on it — whatever its abandoned thread raised afterward is
+        expected fallout, recorded in stats, not a run failure)."""
+        with self._lock:
+            for wid, w in self.workers.items():
+                if w is worker and wid in self.timeout_drained:
+                    return None
+        return worker.error
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "joined": self.joined,
+                "preempted": self.preempted,
+                "drain_timeouts": self.drain_timeouts,
+                "pool_size_final": sum(
+                    1 for wid, t in self._threads.items()
+                    if t.is_alive() and wid not in self.timeout_drained
+                ),
+                "workers_total": len(self.workers),
+                "join_log": list(self.join_log),
+                "drain_log": list(self.drain_log),
+                "policy_decisions": (
+                    list(self.policy.decisions)
+                    if self.policy is not None else []
+                ),
+                "assigner": self.assigner.oracle(),
+            }

@@ -19,11 +19,13 @@ A drop raises :class:`FaultInjectedError`, a ``ProtocolError`` (so a
 as a torn connection. ``max_faults`` bounds the injected wire faults, so
 a chaotic run always drains to completion.
 
-The plan also carries the JAX package's elastic-membership events
-(``join_worker_at_window``, ``preempt_worker_at_window``; ``ROADMAP.md``
-A7.8) and membership-directory faults (A7.9) with the same decisions;
-the port's trainers refuse a plan that carries them, since nothing here
-consults them yet.
+The plan also carries the elastic-membership events
+(``join_worker_at_window``, ``preempt_worker_at_window``), which an
+``elastic=True`` trainer's coordinator fires at window boundaries, and
+the membership-directory faults (``ROADMAP.md`` A7.9) with the JAX
+package's decisions; the port's trainers refuse a plan with directory
+faults (nothing consults them yet) and a plan with membership events
+unless ``elastic=True``.
 """
 
 from __future__ import annotations
@@ -78,8 +80,8 @@ class FaultPlan:
       straggler (slow host, thermal throttle, noisy neighbor stand-in).
       Same seam as ``kill_at``, no randomness at all.
 
-    Elastic-membership faults (``ROADMAP.md`` A7.8; keyed on the same
-    deterministic (worker_id, window_index) seam as ``kill_at``):
+    Elastic-membership faults (``resilience/elastic.py``; keyed on the
+    same deterministic (worker_id, window_index) seam as ``kill_at``):
 
     - ``join_worker_at_window``: ``{observer_worker_id: window_index}`` —
       at the observer's first window boundary AT OR AFTER that index,
@@ -258,7 +260,7 @@ class FaultPlan:
             self._n_straggles += 1
         time.sleep(s)
 
-    # -- elastic-membership hooks (ROADMAP.md A7.8) -------------------------
+    # -- elastic-membership hooks (the elastic coordinator) ------------------
 
     def take_join(self, worker_id: int, window_index: int) -> bool:
         """True exactly once, at ``worker_id``'s first window boundary AT

@@ -351,7 +351,7 @@ class ResilientPSClient:
         return True
 
     def join(self) -> dict | None:
-        """Elastic live-join admission (``ROADMAP.md`` A7.8), under the
+        """Elastic live-join admission (``resilience/elastic.py``), under the
         retry policy. Returns the server's admission record, or None when
         the transport has no join channel (the lease then starts with the
         first heartbeat)."""
@@ -363,7 +363,7 @@ class ResilientPSClient:
         return self._run(op)
 
     def drain(self, timeout: bool = False) -> None:
-        """Preemption drain (``ROADMAP.md`` A7.8: a clean deregister and
+        """Preemption drain (``resilience/elastic.py``: a clean deregister and
         the server's elastic counters), under the retry policy. Falls back
         to a plain deregister on transports without a drain channel."""
         def op():

@@ -18,8 +18,9 @@ on one shard replays there only.
 ``verify_shard_map`` checks that each sub-client is wired to the shard it
 stands for (shard id, shard count and the plan's ring digest); a
 mis-wired endpoint raises the non-retryable
-:class:`~distkeras_tpu_torch.networking.ShardMapMismatchError`. Elastic
-live join and drain fanned over the shards are ``ROADMAP.md`` A7.8.
+:class:`~distkeras_tpu_torch.networking.ShardMapMismatchError`. An elastic
+live join and a preemption drain fan out to every shard, so each shard
+counts the same membership events.
 """
 
 from __future__ import annotations
@@ -123,14 +124,18 @@ class ShardedPSClient:
                                       if hasattr(c, "deregister") else None))
 
     def join(self) -> dict | None:
-        raise NotImplementedError(
-            "a sharded live join is not ported yet: ROADMAP.md A7.8 "
-            "(elastic membership)")
+        """Live join on every shard (the pool is one global membership;
+        each shard counts the same joins, as it leases the same workers).
+        Returns shard 0's admission record."""
+        out = self._scatter(
+            lambda c, sid: c.join() if hasattr(c, "join") else None)
+        return out[0] if out else None
 
     def drain(self, timeout: bool = False) -> None:
-        raise NotImplementedError(
-            "a sharded preemption drain is not ported yet: ROADMAP.md A7.8 "
-            "(elastic membership)")
+        """Preemption drain fanned out to every shard: each retires this
+        worker's dedup seqno and counts the drain in its own stats."""
+        self._scatter(lambda c, sid: (c.drain(timeout=timeout)
+                                      if hasattr(c, "drain") else None))
 
     def set_timeout(self, seconds: float | None) -> None:
         for c in self._clients:

@@ -23,16 +23,18 @@ backend's resilience knobs (``retry_policy``, ``heartbeat_interval``,
 ``lease_timeout``, ``fault_plan``, ``worker_restart_budget``,
 ``worker_restart_delay``, ``tolerate_worker_failures``, ``ps_wal_dir``,
 ``ps_snapshot_every``, ``ps_wal_group_window``, ``ps_wal_group_interval``,
-``ps_standby``, ``ps_failover_timeout``) and its sharded center
-(``ps_num_shards``, ``ps_chain_length``) are the reference's, with its
-checks. ``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` /
+``ps_standby``, ``ps_failover_timeout``), its sharded center
+(``ps_num_shards``, ``ps_chain_length``) and its elastic membership
+(``elastic``, ``autoscale_target``, ``preempt_drain_timeout``,
+``max_pool_size``) are the reference's, with its checks.
+``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` /
 ``checkpoint_async`` snapshot the training state at epoch boundaries and
 resume from it (``checkpoint.py``; on the PS backend at an epoch barrier
 of the workers), also from a checkpoint the JAX package wrote (its center
 carries over); ``ema_decay`` keeps a Polyak average of the center,
 ``ema_params_``, per window on the collective backend and per commit on
 the PS. Kwargs whose machinery belongs to a later slice of the port (the
-PS backend's elastic and observability knobs, meshes) are accepted by
+PS backend's directory and observability knobs, meshes) are accepted by
 name and raise ``NotImplementedError`` naming their ``ROADMAP.md`` item
 when set to anything but their default: nothing is silently ignored.
 """
@@ -83,9 +85,6 @@ _LATER = {
     "deploy_streamer": (None, "A13 (deploy streaming)"),
 }
 for _item, _knobs in {
-        "A7.8 (elastic membership)": {
-            "elastic": False, "autoscale_target": None,
-            "preempt_drain_timeout": 5.0, "max_pool_size": None},
         "A7.9 (the membership directory)": {
             "directory": False, "directory_standby": True,
             "ps_directory": None},
@@ -450,7 +449,9 @@ class DistributedTrainer(Trainer):
                  ps_num_shards: int = 1, ps_chain_length: int = 1,
                  ema_decay: float | None = None, checkpoint_dir=None,
                  checkpoint_every: int = 1, resume: bool = False,
-                 checkpoint_async: bool = False, **later):
+                 checkpoint_async: bool = False, elastic: bool = False,
+                 autoscale_target=None, preempt_drain_timeout: float = 5.0,
+                 max_pool_size: int | None = None, **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
@@ -569,7 +570,7 @@ class DistributedTrainer(Trainer):
         self.checkpoint_async = bool(checkpoint_async)
         self._async_ckpt = None
         self.checkpoint_ms_: list[float] = []
-        if self.ps_pipeline_depth and checkpoint_dir:
+        if self.ps_pipeline_depth and checkpoint_dir and not elastic:
             raise ValueError(
                 "ps_pipeline_depth >= 1 is incompatible with epoch-barrier "
                 "checkpointing (checkpoint_dir): the barrier would snapshot "
@@ -582,6 +583,66 @@ class DistributedTrainer(Trainer):
             heartbeat_interval, lease_timeout, fault_plan, ps_wal_dir,
             ps_snapshot_every, ps_wal_group_window, ps_wal_group_interval,
             ps_standby, ps_failover_timeout, ps_num_shards, ps_chain_length)
+        self._init_elastic(backend, ps_host, elastic, autoscale_target,
+                           preempt_drain_timeout, max_pool_size)
+
+    def _init_elastic(self, backend, ps_host, elastic, autoscale_target,
+                      preempt_drain_timeout, max_pool_size) -> None:
+        """The PS backend's elastic membership (``resilience/elastic.py``),
+        checked as the reference checks it:
+
+        - ``elastic=True``: a dynamic pool. Data shards are window blocks
+          leased from a shared assigner (every example once an epoch
+          across membership changes), workers join live, and a preempted
+          worker drains (finishes its window, commits, hands its blocks
+          back, deregisters) instead of dying into a restart budget;
+        - ``autoscale_target``: the rounds/s the autoscaler tracks, or an
+          ``ElasticPolicy``: under target it joins workers up to
+          ``max_pool_size``, over target (or for a persistent straggler)
+          it drains one;
+        - ``preempt_drain_timeout``: the seconds a preempted worker has to
+          drain before it is force-drained;
+        - ``max_pool_size``: the ceiling of joins (default twice
+          ``num_workers``)."""
+        self.elastic = bool(elastic)
+        self.autoscale_target = autoscale_target
+        self.preempt_drain_timeout = float(preempt_drain_timeout)
+        self.max_pool_size = (None if max_pool_size is None
+                              else int(max_pool_size))
+        if self.elastic and backend != "ps":
+            raise ValueError(
+                "elastic=True applies to backend='ps' only (the collective "
+                "backend is one fixed SPMD program)")
+        if self.elastic and ps_host is not None:
+            raise ValueError(
+                "elastic=True manages the pool this trainer hosts; an "
+                "external ps_host owner runs its own elastic coordinator")
+        if self.elastic and self.worker_restart_budget:
+            raise ValueError(
+                "elastic=True and worker_restart_budget are mutually "
+                "exclusive: elastic membership replaces restart-in-place (a "
+                "preempted or dead worker's blocks go back to the pool; "
+                "scale-up goes through the live-join path)")
+        if not self.elastic:
+            if autoscale_target is not None:
+                raise ValueError(
+                    "autoscale_target requires elastic=True (the autoscaler "
+                    "grows and shrinks the pool through the live-join and "
+                    "drain paths)")
+            if max_pool_size is not None:
+                raise ValueError("max_pool_size requires elastic=True")
+        if isinstance(autoscale_target, (int, float)) \
+                and autoscale_target <= 0:
+            raise ValueError(f"autoscale_target must be positive, got "
+                             f"{autoscale_target}")
+        if self.preempt_drain_timeout <= 0:
+            raise ValueError(f"preempt_drain_timeout must be positive, got "
+                             f"{preempt_drain_timeout}")
+        if self.max_pool_size is not None \
+                and self.max_pool_size < self.num_workers:
+            raise ValueError(
+                f"max_pool_size ({max_pool_size}) must be >= num_workers "
+                f"({self.num_workers})")
 
     def _init_resilience(self, backend, ps_transport, ps_host,
                          tolerate_worker_failures, worker_restart_budget,

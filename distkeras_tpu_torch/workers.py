@@ -2,8 +2,8 @@
 
 Port of ``distkeras_tpu/workers.py`` (``AsyncWorker``,
 ``run_async_training``, ``aggregate_exchange_phases``, ``_BoundPS``) for a
-fixed pool of workers over the in-process, socket, shared-memory (``shm``)
-or native transport. Each worker
+fixed or an elastic pool of workers over the in-process, socket,
+shared-memory (``shm``) or native transport. Each worker
 is a host thread that pulls the center, runs ``communication_window``
 local steps on the card (``torch.func.grad_and_value`` of the trainer's
 loss step, then the optimizer: K5 for ``fused_adam``, and K6/K7 inside an
@@ -49,6 +49,17 @@ standby, or restarts the server in place from its WAL, and repoints every
 client. ``trainer.resilience_stats_`` reports the exactly-once oracle
 (``logical_commits``, to hold against the server's folds), retries,
 reconnects, restarts, the injected faults and the failover log.
+
+With ``elastic=True`` the pool is dynamic (``resilience/elastic.py``):
+workers lease window blocks from a shared ``ShardAssigner`` instead of
+training static shards and confirm each block after its exchange's ACK;
+the fault plan's join/preempt events or the autoscaler add workers live
+(a joiner sends ``join``, then pulls, so DynSGD prices its first commit
+from that pull) and drain them at a window boundary (the in-flight window
+committed, its blocks handed back, ``drain`` sent); at depth 1 the
+pipelined elastic loop flushes its own deferred exchange rather than wait
+on a block it holds itself. Elastic runs take no epoch barrier and no
+restart supervisor.
 
 Checkpoints (``checkpoint_dir``) are taken at an epoch barrier: every
 worker snapshots its optimizer state and non-trainables (an elastic rule's
@@ -174,7 +185,9 @@ class AsyncWorker:
                  lock: threading.Lock, codec=None, fused: bool = True,
                  pipeline_depth: int = 0, fault_plan=None, barrier=None,
                  ckpt_pred=None, restore: dict | None = None,
-                 start_epoch: int = 0, tolerant: bool = False):
+                 start_epoch: int = 0, tolerant: bool = False,
+                 assigner=None, drain_event: threading.Event | None = None,
+                 coordinator=None, joiner: bool = False):
         self.worker_id = worker_id
         self.device = device
         self.window_fn = window_fn
@@ -209,6 +222,16 @@ class AsyncWorker:
         self.restore = restore
         self.start_epoch = int(start_epoch)
         self._epoch_done: int | None = None
+        # elastic membership (resilience/elastic.py): with an assigner the
+        # worker leases window blocks from the shared per-epoch pool
+        # instead of training a static shard; drain_event is its
+        # preemption notice (read at window boundaries), the coordinator
+        # fires the fault plan's join/preempt events at each window, and
+        # a joiner sends the join action before its first pull
+        self.assigner = assigner
+        self.drain_event = drain_event
+        self.coordinator = coordinator
+        self.joiner = bool(joiner)
         self.running = False
         self._stage_delta: list | None = None
         # the pipelined re-base's two alternating staging sets
@@ -309,7 +332,18 @@ class AsyncWorker:
         self.running = True
         self.progress_t = time.monotonic()
         try:
-            self._train(index, shard_cols, num_epoch, shuffle, seed)
+            if self.assigner is not None:
+                # elastic: shard_cols holds the whole columns, and the
+                # assigner (built with the epochs, the seed and the
+                # shuffle) hands out the blocks
+                pipelined = self.pipeline_depth >= 1 and not isinstance(
+                    self.rule, ElasticAverageMerge)
+                if pipelined:
+                    self._train_elastic_pipelined(shard_cols)
+                else:
+                    self._train_elastic(shard_cols)
+            else:
+                self._train(index, shard_cols, num_epoch, shuffle, seed)
         except BaseException as e:
             self.error = e
             if self.barrier is not None:
@@ -357,13 +391,7 @@ class AsyncWorker:
             order = (np.random.default_rng((seed, index, epoch))
                      .permutation(rows) if shuffle else np.arange(rows))
             for w in range(n_windows):
-                if self.fault_plan is not None:
-                    # chaos: a kill at this worker's window (once; its
-                    # restart passes the same index unharmed), a straggler
-                    # sleeps here every window
-                    self.fault_plan.maybe_kill(self.worker_id,
-                                               self._windows_done)
-                    self.fault_plan.maybe_straggle(self.worker_id)
+                self._window_hooks()
                 batches = self._batches(
                     shard_cols, order[w * win_rows:(w + 1) * win_rows])
                 t_launch = time.perf_counter()
@@ -373,8 +401,7 @@ class AsyncWorker:
                     center = self._flush(pending, lag=True)
                     pending = None
                 if _trace.enabled():
-                    self._xid += 1
-                    _trace.set_corr(f"w{self.worker_id}:x{self._xid}")
+                    self._next_corr()
                 loss = float(loss)   # waits for this window on the card
                 t0 = self._phase("compute", t_launch)
                 if elastic:
@@ -405,6 +432,179 @@ class AsyncWorker:
         if pending is not None:
             self._flush(pending, lag=True)   # the last window's exchange
         self.final_nt = utils.tree_to_numpy(nt)
+
+    def _elastic_start(self):
+        """The elastic loops' preamble: a joiner's ``join`` (lease
+        admitted, the pool counted), the lease's first heartbeat, then the
+        pull that records this worker's pull version (so a joiner's first
+        DynSGD commit is priced at the true small τ). Returns ``(center,
+        params, nt, opt, maybe_heartbeat)``."""
+        if self.joiner:
+            join = getattr(self.ps, "join", None)
+            if join is not None:
+                join()
+        maybe_heartbeat = getattr(self.ps, "maybe_heartbeat", None)
+        if maybe_heartbeat is not None:
+            maybe_heartbeat()
+        center = self.ps.pull(self.worker_id)
+        params = _to_device(center, self.device)
+        nt = _to_device(self.nt, self.device)
+        return center, params, nt, self.window_fn.init_opt(params), \
+            maybe_heartbeat
+
+    def _block_done(self, epoch: int, block: int, maybe_heartbeat) -> None:
+        """A block's exchange was acknowledged (durable when a WAL is on):
+        confirm it to the assigner, then the window-boundary hooks (the
+        lease, the fault plan's seeded join/preempt events)."""
+        self.assigner.complete(self.worker_id, epoch, block)
+        self._windows_done += 1
+        if maybe_heartbeat is not None:
+            maybe_heartbeat()
+        if self.coordinator is not None:
+            self.coordinator.on_window(self.worker_id, self._windows_done)
+
+    def _next_corr(self) -> None:
+        """Stamp this thread's correlation id for the window being staged
+        (``w<id>:x<n>``); call only while tracing."""
+        self._xid += 1
+        _trace.set_corr(f"w{self.worker_id}:x{self._xid}")
+
+    def _window_hooks(self) -> None:
+        """The fault plan's chaos at a window's start: a kill at this
+        worker's window (once; a restart passes the same index unharmed),
+        a straggler's sleep every window."""
+        if self.fault_plan is not None:
+            self.fault_plan.maybe_kill(self.worker_id, self._windows_done)
+            self.fault_plan.maybe_straggle(self.worker_id)
+
+    def _train_elastic(self, cols: tuple) -> None:
+        """The elastic loop: lease a block, train its window, exchange,
+        and confirm the block after the exchange's ACK, until the pool is
+        out of work or a preemption notice drains this worker. A drained
+        worker leaves at a window boundary (its last window committed and
+        confirmed); an elastic rule's worker first commits its final
+        elastic difference, so the center keeps what its variable holds
+        beyond the center. Any unconfirmed block goes back on exit."""
+        elastic_rule = isinstance(self.rule, ElasticAverageMerge)
+        center, params, nt, opt, maybe_heartbeat = self._elastic_start()
+        drain = self.drain_event
+        stop = drain.is_set if drain is not None else None
+        try:
+            while True:
+                if drain is not None and drain.is_set():
+                    if elastic_rule and self._windows_done > 0:
+                        self._commit_final_elastic(params)
+                    break
+                task = self.assigner.claim(self.worker_id, stop=stop)
+                if task is None:
+                    break
+                epoch, block, idx = task
+                self._window_hooks()
+                batches = self._batches(cols, idx)
+                t_launch = time.perf_counter()
+                params, nt, opt, loss = self.window_fn(params, nt, opt,
+                                                       batches)
+                if _trace.enabled():
+                    self._next_corr()
+                loss = float(loss)   # waits for this window on the card
+                t0 = self._phase("compute", t_launch)
+                if elastic_rule:
+                    params, center = self._elastic_exchange(params, t0)
+                else:
+                    delta = self._window_delta(params, center)
+                    t0 = self._phase("fetch", t0)
+                    blob, _ = self._compress(delta, owned=True)
+                    self._phase("compress", t0)
+                    center = self._do_exchange(blob)
+                    params = _to_device(center, self.device)
+                self._window_done(loss, epoch)
+                self._block_done(epoch, block, maybe_heartbeat)
+        finally:
+            # a leased block never confirmed goes back to the pool: the
+            # drain path on a clean exit, the safety net on a death
+            self.assigner.release(self.worker_id)
+        self.final_nt = utils.tree_to_numpy(nt)
+
+    def _commit_final_elastic(self, params) -> None:
+        """A cleanly drained elastic-rule worker's last exchange: a fresh
+        center, the final elastic difference ``alpha · (worker − center)``
+        committed. The pulled center and the worker's variable stay in
+        ``drained_center_`` and ``final_params_``."""
+        center = self.ps.pull(self.worker_id)
+        host_params = utils.tree_to_numpy(params)
+        diff = self.rule.worker_commit(host_params, center)
+        blob, _ = self._compress(diff)
+        self.ps.commit(self.worker_id, blob)
+        self.drained_center_ = center
+        self.final_params_ = host_params
+
+    def _train_elastic_pipelined(self, cols: tuple) -> None:
+        """The elastic loop at ``ps_pipeline_depth=1`` (delta rules): the
+        pipelined data flow of :meth:`_train` over leased blocks. A block
+        is confirmed only after its deferred exchange's ACK. When every
+        remaining block is in flight, the claim does not wait (it returns
+        ``WOULD_BLOCK``): the pool may be waiting on this worker's own
+        deferred block, so the worker flushes its exchange first and then
+        claims, waiting. A drain, or an empty pool, flushes the pending
+        window before the worker leaves."""
+        from distkeras_tpu_torch.resilience.elastic import WOULD_BLOCK
+
+        center, params, nt, opt, maybe_heartbeat = self._elastic_start()
+        base = center
+        drain = self.drain_event
+        stop = drain.is_set if drain is not None else None
+        pending = None   # window N's (blob, loss, epoch, corr, block)
+        try:
+            while True:
+                if drain is not None and drain.is_set():
+                    break   # the flush below commits the in-flight window
+                task = self.assigner.claim(self.worker_id, stop=stop,
+                                           wait=False)
+                if task is WOULD_BLOCK:
+                    if pending is not None:
+                        center = self._flush_elastic(pending,
+                                                     maybe_heartbeat)
+                        pending = None
+                    task = self.assigner.claim(self.worker_id, stop=stop)
+                if task is None:
+                    break
+                epoch, block, idx = task
+                self._window_hooks()
+                batches = self._batches(cols, idx)
+                t_launch = time.perf_counter()
+                params, nt, opt, loss = self.window_fn(params, nt, opt,
+                                                       batches)
+                if pending is not None:
+                    center = self._flush_elastic(pending, maybe_heartbeat)
+                    pending = None
+                if _trace.enabled():
+                    self._next_corr()
+                loss = float(loss)
+                t0 = self._phase("compute", t_launch)
+                delta = self._window_delta(params, base)
+                t0 = self._phase("fetch", t0)
+                blob, sent = self._compress(delta, owned=True)
+                self._phase("compress", t0)
+                base = self._rebase_host(center, sent)
+                params = _to_device(base, self.device)
+                pending = (blob, loss, epoch,
+                           _trace.current_corr() if _trace.enabled()
+                           else None, block)
+            if pending is not None:
+                self._flush_elastic(pending, maybe_heartbeat)
+                pending = None
+        finally:
+            self.assigner.release(self.worker_id)
+        self.final_nt = utils.tree_to_numpy(nt)
+
+    def _flush_elastic(self, pending, maybe_heartbeat):
+        """Exchange one deferred elastic window (priced with ``lag``), then
+        confirm its block and run the window-boundary hooks, in the serial
+        loop's order. Returns the fresh center."""
+        *window, block = pending
+        center = self._flush(tuple(window), lag=True)
+        self._block_done(window[2], block, maybe_heartbeat)
+        return center
 
     def _epoch_barrier(self, epoch: int, params, nt, opt,
                        elastic: bool) -> None:
@@ -507,6 +707,14 @@ class _BoundPS:
     def deregister(self) -> None:
         self._ps.deregister_worker(self.worker_id)
 
+    def join(self) -> dict:
+        rec = self._ps.join_worker(self.worker_id)
+        rec["ok"] = True
+        return rec
+
+    def drain(self, timeout: bool = False) -> None:
+        self._ps.drain_worker(self.worker_id, timeout=timeout)
+
     def close(self):
         pass
 
@@ -543,14 +751,16 @@ def _ps_kwargs(trainer, lease_timeout) -> dict:
                 wal_group_interval=trainer.ps_wal_group_interval)
 
 
-def _resilience_stats(clients, supervisor, fault_plan, failover):
+def _resilience_stats(clients, supervisor, fault_plan, failover,
+                      coordinator=None):
     """``trainer.resilience_stats_``: the commit-seqno oracle (logical
     commits the clients saw acknowledged, to hold against the server's
     folds), retry and reconnect totals, supervisor restarts and their log
     (each restart's worker, attempt, error and the state it restored
     ``from``: ``snapshot``, ``checkpoint`` or ``center-pull``), what the
-    fault plan injected and the failover log (``failover``: the
-    supervisor's, or a sharded group's roll-up of its shards', or None)."""
+    fault plan injected, the failover log (``failover``: the
+    supervisor's, or a sharded group's roll-up of its shards', or None)
+    and the elastic coordinator's ``stats()`` (or None)."""
     sup = supervisor.stats() if supervisor else {"restarts": 0,
                                                  "restart_log": []}
     return {
@@ -561,6 +771,7 @@ def _resilience_stats(clients, supervisor, fault_plan, failover):
         "restart_log": sup["restart_log"],
         "faults": fault_plan.stats() if fault_plan is not None else None,
         "ps_failover": failover,
+        "elastic": None if coordinator is None else coordinator.stats(),
     }
 
 
@@ -578,7 +789,11 @@ def run_async_training(trainer, ds, shuffle: bool):
     ``trainer.exchange_phases_`` (this process's workers' phases, on every
     transport), ``trainer.ema_params_`` (with ``ema_decay``),
     ``trainer.checkpoint_ms_`` (each barrier's checkpoint action) and
-    ``trainer.trace_path_``."""
+    ``trainer.trace_path_``. With ``elastic=True`` an
+    :class:`~distkeras_tpu_torch.resilience.elastic.ElasticCoordinator`
+    owns the pool (see :func:`_run_elastic`), and
+    ``resilience_stats_["elastic"]`` holds its joins, drains, the
+    autoscaler's decisions and the assigner's exactly-once ledger."""
     from distkeras_tpu_torch.resilience.recovery import WorkerSupervisor
     from distkeras_tpu_torch.resilience.retry import (
         PSEndpoint,
@@ -590,8 +805,17 @@ def run_async_training(trainer, ds, shuffle: bool):
     rule = trainer.allocate_merge_rule()
     params, nt = spec.init_np(trainer.seed)
     W = trainer.num_workers
+    # elastic membership: window blocks leased from a shared assigner, live
+    # joins, preemption drains and the autoscaler replace the static
+    # shards, the epoch barrier and the restart supervisor
+    elastic_mode = trainer.elastic
     ckpt_dir = trainer.checkpoint_dir
     start_epoch, restores, restored_updates = 0, [None] * W, 0
+    if ckpt_dir and elastic_mode and not trainer.resume:
+        warnings.warn(
+            "elastic runs do not write epoch-barrier checkpoints (the "
+            "barrier assumes a fixed pool); checkpoint_dir is resume-only "
+            "under elastic=True", stacklevel=3)
     if ckpt_dir and trainer.resume:
         params, start_epoch, restores, restored_updates = _resume(
             trainer, params)
@@ -616,13 +840,13 @@ def run_async_training(trainer, ds, shuffle: bool):
     if lease_timeout is None and hb_interval is not None:
         lease_timeout = 5.0 * float(hb_interval)  # five missed heartbeats
     fault_plan = trainer.fault_plan
-    if fault_plan is not None and getattr(fault_plan, "has_elastic_events",
-                                          False):
+    if fault_plan is not None and not elastic_mode \
+            and getattr(fault_plan, "has_elastic_events", False):
         raise ValueError(
             "fault_plan carries join/preempt membership events but the "
-            "trainer is not elastic (elastic membership is not ported yet: "
-            "ROADMAP.md A7.8); a fixed-pool run never consults them, so "
-            "the chaos would silently test nothing")
+            "trainer is not elastic — set elastic=True (a fixed-pool run "
+            "never consults them, so the chaos would silently test "
+            "nothing)")
     failover_timeout = trainer.ps_failover_timeout
     if failover_timeout is None:
         failover_timeout = lease_timeout if lease_timeout is not None \
@@ -750,6 +974,7 @@ def run_async_training(trainer, ds, shuffle: bool):
     clients: list = []
     workers: list = []
     supervisor = None
+    coordinator = None
     snap_client = None
     try:
         if group is not None:
@@ -766,6 +991,7 @@ def run_async_training(trainer, ds, shuffle: bool):
                 failover_timeout=float(failover_timeout))
 
         def build_client(i):
+            # any id: the elastic coordinator mints joiners' clients here
             if group is not None:
                 # the fan-out client comes whole: its resilient wrapping
                 # is per shard, one seqno stream a shard
@@ -780,14 +1006,14 @@ def run_async_training(trainer, ds, shuffle: bool):
                                      heartbeat_interval=hb_interval,
                                      resolver=resolver)
 
-        clients = [build_client(i) for i in range(W)]
+        clients = [] if elastic_mode else [build_client(i) for i in range(W)]
         if restored_updates and ps is not None \
                 and not getattr(ps, "recovered_", False):
             # a recovered WAL is the finer-grained truth: only a resume
             # without one seeds the update count
             ps.num_updates = restored_updates
         cols = trainer.features_col + [trainer.label_col]
-        shards = ds.worker_shards(
+        shards = None if elastic_mode else ds.worker_shards(
             W, trainer.batch_size, trainer.communication_window, cols,
             seed=trainer.seed if shuffle else None, cover_all=shuffle)
         window_fn = _build_local_window(trainer._loss_step(),
@@ -795,7 +1021,7 @@ def run_async_training(trainer, ds, shuffle: bool):
         history: list[dict] = []
         hlock = threading.Lock()
         barrier = ckpt_pred = None
-        if ckpt_dir:
+        if ckpt_dir and not elastic_mode:
             if ps is None:
                 # the external PS's center is pulled on a client of its
                 # own under a sentinel worker id: a training worker's
@@ -834,23 +1060,33 @@ def run_async_training(trainer, ds, shuffle: bool):
                     1e3 * (time.perf_counter() - t0))
 
             barrier = threading.Barrier(W, action=checkpoint_action)
-        workers = [AsyncWorker(i, trainer.device, window_fn, clients[i], rule,
-                               trainer.communication_window,
-                               trainer.batch_size, nt, history, hlock,
-                               codec=codec, fused=trainer.ps_fused_exchange,
-                               pipeline_depth=trainer.ps_pipeline_depth,
-                               fault_plan=fault_plan, barrier=barrier,
-                               ckpt_pred=ckpt_pred, restore=restores[i],
-                               start_epoch=start_epoch,
-                               tolerant=trainer.tolerate_worker_failures)
-                   for i in range(W)]
+        if elastic_mode:
+            coordinator = _run_elastic(
+                trainer, ds, cols, shuffle, start_epoch, build_client,
+                window_fn, rule, nt, history, hlock, codec, fault_plan,
+                lambda: (ps_supervisor.active if ps_supervisor is not None
+                         else ps))
+            workers = coordinator.all_workers()
+            clients = coordinator.all_clients()
+        else:
+            workers = [AsyncWorker(
+                i, trainer.device, window_fn, clients[i], rule,
+                trainer.communication_window, trainer.batch_size, nt,
+                history, hlock, codec=codec, fused=trainer.ps_fused_exchange,
+                pipeline_depth=trainer.ps_pipeline_depth,
+                fault_plan=fault_plan, barrier=barrier, ckpt_pred=ckpt_pred,
+                restore=restores[i], start_epoch=start_epoch,
+                tolerant=trainer.tolerate_worker_failures)
+                for i in range(W)]
 
         def args_of(i):
             return (i, tuple(col[i] for col in shards), trainer.num_epoch,
                     shuffle, trainer.seed)
 
         budget = int(trainer.worker_restart_budget)
-        if budget > 0:
+        if elastic_mode:
+            pass   # the coordinator drove the run to its end
+        elif budget > 0:
             # restart-with-budget: a dead worker relaunches in a new thread
             # up to `budget` times, from its barrier snapshot, else the
             # newest checkpoint's, else a fresh center pull
@@ -886,15 +1122,21 @@ def run_async_training(trainer, ds, shuffle: bool):
             group.stop_supervision()
             sup_err = group.supervisor_error
             failover_stats = group.failover_stats()
-        if sup_err is not None and not any(w.error is not None
+        def surfaced(w):
+            # a timeout-drained worker was given up on: whatever its
+            # abandoned thread raised later is recorded, not raised
+            return (coordinator.worker_error(w) if coordinator is not None
+                    else w.error)
+
+        if sup_err is not None and not any(surfaced(w) is not None
                                            for w in workers):
             raise RuntimeError("a PS failover supervisor died while the "
                                "workers survived") from sup_err
         if (resilient or supervisor is not None
-                or fault_plan is not None):
+                or fault_plan is not None or coordinator is not None):
             trainer.resilience_stats_ = _resilience_stats(
-                clients, supervisor, fault_plan, failover_stats)
-        _raise_worker_errors(trainer, workers, supervisor, budget)
+                clients, supervisor, fault_plan, failover_stats, coordinator)
+        _raise_worker_errors(trainer, workers, supervisor, budget, surfaced)
         trainer.exchange_phases_ = aggregate_exchange_phases(workers)
         if ps is None:
             # the external PS owns the center: a last snapshot over the wire
@@ -930,13 +1172,102 @@ def run_async_training(trainer, ds, shuffle: bool):
     return center, final_nt, history
 
 
+def _run_elastic(trainer, ds, cols, shuffle, start_epoch, build_client,
+                 window_fn, rule, nt, history, hlock, codec, fault_plan,
+                 live_server):
+    """Drive an ``elastic=True`` run to its end and return its
+    :class:`~distkeras_tpu_torch.resilience.elastic.ElasticCoordinator`.
+
+    The coordinator owns the pool: the initial workers, live joiners (the
+    fault plan's events or the autoscaler, up to ``max_pool_size``,
+    default twice the workers) and preemption drains against
+    ``preempt_drain_timeout``. The shared ``ShardAssigner`` owns the data:
+    window blocks of a ``(seed, epoch)`` permutation, leased, confirmed
+    after their commit's ACK and handed back on a drain, so every example
+    trains once an epoch across any clean membership schedule. When the
+    last block of an epoch is confirmed, the live server (``live_server()``)
+    marks the epoch in its log. Every worker, joiners included, runs on
+    the trainer's device."""
+    from distkeras_tpu_torch.resilience.elastic import (
+        ElasticCoordinator,
+        ElasticPolicy,
+        ShardAssigner,
+    )
+
+    W = trainer.num_workers
+    cols_full = tuple(np.asarray(ds[c]) for c in cols)
+
+    def mark_epoch(epoch: int) -> None:
+        mark = getattr(live_server(), "mark_epoch", None)
+        if mark is not None:
+            try:
+                mark(int(epoch))
+            except Exception:  # noqa: BLE001
+                pass   # advisory: a mark never stalls training
+
+    assigner = ShardAssigner(
+        len(ds), trainer.communication_window, trainer.batch_size,
+        trainer.num_epoch, seed=trainer.seed, shuffle=shuffle,
+        start_epoch=start_epoch, on_epoch_complete=mark_epoch)
+    max_pool = trainer.max_pool_size
+    if max_pool is None:
+        max_pool = 2 * W   # joins need headroom; unbounded is a footgun
+    target = trainer.autoscale_target
+    if isinstance(target, ElasticPolicy):
+        policy = target
+    elif target is not None:
+        policy = ElasticPolicy(target_rounds_per_sec=float(target),
+                               max_workers=int(max_pool))
+    else:
+        policy = None
+    coordinator = None
+
+    def spawn(worker_id, joiner):
+        client = build_client(worker_id)
+        w = AsyncWorker(
+            worker_id, trainer.device, window_fn, client, rule,
+            trainer.communication_window, trainer.batch_size, nt, history,
+            hlock, codec=codec, fused=trainer.ps_fused_exchange,
+            pipeline_depth=trainer.ps_pipeline_depth, fault_plan=fault_plan,
+            tolerant=trainer.tolerate_worker_failures, assigner=assigner,
+            drain_event=threading.Event(), coordinator=coordinator,
+            joiner=joiner)
+        t = threading.Thread(
+            target=w.train, daemon=True, name=f"distkeras-elastic-{worker_id}",
+            args=(worker_id, cols_full, trainer.num_epoch, shuffle,
+                  trainer.seed))
+        t.start()
+        return w, client, t
+
+    coordinator = ElasticCoordinator(
+        assigner, spawn, make_drain_client=build_client,
+        fault_plan=fault_plan, policy=policy,
+        drain_timeout=trainer.preempt_drain_timeout,
+        max_pool_size=int(max_pool))
+    try:
+        coordinator.start(list(range(W)))
+        coordinator.run()
+    except BaseException:
+        # a worker or client that failed to start: stop the rest at their
+        # next window boundary and tear their connections down
+        for w in coordinator.all_workers():
+            w.drain_event.set()
+        for c in coordinator.all_clients():
+            try:
+                c.close()
+            except Exception:  # noqa: BLE001
+                pass
+        raise
+    return coordinator
+
+
 def _resume(trainer, params):
     """``(center, start epoch, per-worker restores, fold count)`` from the
     newest checkpoint in ``trainer.checkpoint_dir`` (the fresh ``params``
     and nothing restored when there is none). The same worker count
-    restores every worker's snapshot; another count, or a checkpoint the
-    JAX package wrote (its optax state has no counterpart here), resumes
-    elastically from the center."""
+    restores every worker's snapshot; another count, a checkpoint the JAX
+    package wrote (its optax state has no counterpart here), or an elastic
+    trainer (its pool is dynamic) resumes elastically from the center."""
     from distkeras_tpu_torch.convert import center_from_jax
 
     W = trainer.num_workers
@@ -950,7 +1281,7 @@ def _resume(trainer, params):
                                                      trainer.spec))
     else:
         center = payload["center"]
-    if origin == "port" and len(saved) == W:
+    if origin == "port" and len(saved) == W and not trainer.elastic:
         restores = list(saved)
     else:
         ckpt.warn_elastic_resume(len(saved), W)
@@ -1031,15 +1362,17 @@ def _start_failover(trainer, ps, params, rule, W, lease_timeout, resolver,
     return standby, sup
 
 
-def _raise_worker_errors(trainer, workers, supervisor, budget) -> None:
-    """Surface the workers' deaths: fatal unless
-    ``tolerate_worker_failures`` and some worker survived (then a
-    warning); past a restart budget, as ``RestartBudgetExceeded``."""
+def _raise_worker_errors(trainer, workers, supervisor, budget,
+                         surfaced) -> None:
+    """Surface the workers' deaths (``surfaced(w)``: a worker's error as
+    the run counts it): fatal unless ``tolerate_worker_failures`` and some
+    worker survived (then a warning); past a restart budget, as
+    ``RestartBudgetExceeded``."""
     from distkeras_tpu_torch.resilience.recovery import (
         RestartBudgetExceeded,
     )
 
-    errors = [w.error for w in workers if w.error is not None]
+    errors = [e for w in workers if (e := surfaced(w)) is not None]
     if not errors:
         return
     survivors = len(workers) - len(errors)

@@ -23,8 +23,9 @@ the JAX package's ``adam``: the same update), the trainer's ``seed`` from
 ``--seeds`` (its init and shuffle; the data stay the same), then held-out
 accuracy on 2048 stand-in rows through the package's ``ModelPredictor``
 and ``AccuracyEvaluator``. Prints one JSON line a run: the epochs' mean
-losses, the accuracy, the commits, and on the in-process transport the
-τ of every commit (mean, max and histogram). ``--aligned-start`` holds
+losses (over every worker, and each worker's own), the accuracy, the
+commits, and on the in-process transport the τ of every commit (mean,
+max and histogram). ``--aligned-start`` holds
 each worker's first exchange until every worker has reached its own, so
 no worker commits alone while the others still start up (the JAX
 package's workers each compile their window first, and stagger). Gates
@@ -158,9 +159,12 @@ def run(mods, window: int, lr: float, batch: int, steps: int,
     acc = AccuracyEvaluator().evaluate(
         ModelPredictor(spec, center, **predict_kw).predict(test))
     by_epoch: dict = {}
+    by_worker: dict = {}
     for r in t.history.records:
         if "loss" in r:
             by_epoch.setdefault(r.get("epoch"), []).append(float(r["loss"]))
+            by_worker.setdefault(r.get("worker"), {}).setdefault(
+                r.get("epoch"), []).append(float(r["loss"]))
     return dict(algorithm=trainer_cls.__name__, transport=transport,
                 pipeline_depth=depth, window=window,
                 lr=lr, batch=batch, epochs=epochs, seed=seed,
@@ -172,6 +176,9 @@ def run(mods, window: int, lr: float, batch: int, steps: int,
                 tau_hist={str(k): taus.count(k) for k in sorted(set(taus))},
                 epoch_mean_loss=[float(np.mean(by_epoch[e]))
                                  for e in sorted(by_epoch, key=str)],
+                worker_epoch_mean_loss={
+                    str(w): [float(np.mean(v[e])) for e in sorted(v, key=str)]
+                    for w, v in sorted(by_worker.items(), key=str)},
                 test_accuracy=float(acc), wall_s=wall)
 
 

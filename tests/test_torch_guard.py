@@ -51,7 +51,9 @@ _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "native_ps", "model", "resilience", "resilience.heartbeat",
                 "resilience.retry", "resilience.faults", "resilience.wal",
                 "resilience.recovery", "sharding", "sharding.ring",
-                "sharding.client", "sharding.group", "checkpoint"]
+                "sharding.client", "sharding.group", "checkpoint",
+                "observability.timeseries", "observability.watch",
+                "resilience.elastic"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

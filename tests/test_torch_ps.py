@@ -250,16 +250,29 @@ def test_socket_ps_stats_served_over_wire():
 
 
 def test_socket_ps_later_actions_name_their_roadmap_item():
+    """The metrics and deploy actions (A13) answer with an error naming
+    their item; the elastic ``join`` and ``drain`` actions, once refused
+    naming A7.8, answer: the pool grows by the joiner and shrinks by the
+    drain."""
     ps = _socket_ps({"w": np.zeros(2, np.float32)}, tr.ADAGMerge(), 1)
     try:
         s = networking.connect("127.0.0.1", ps.port, timeout=TIMEOUT)
         try:
-            for action, item in (("drain", "A7.8"), ("metrics", "A13"),
-                                 ("join", "A7.8"), ("deploy_report", "A13")):
+            for action, item in (("metrics", "A13"),
+                                 ("deploy_report", "A13")):
                 networking.send_data(s, {"action": action, "worker_id": 0,
                                          "epoch": 1, "version": 1})
                 reply = networking.recv_data(s)
                 assert not reply["ok"] and item in reply["error"], reply
+            networking.send_data(s, {"action": "join", "worker_id": 3})
+            assert networking.recv_data(s) == {"ok": True, "pool_size": 2,
+                                               "num_updates": 0}
+            networking.send_data(s, {"action": "drain", "worker_id": 3})
+            assert networking.recv_data(s) == {"ok": True}
+            st = ps.stats()
+            assert (st["pool_size"], st["joined_workers"],
+                    st["preempted_workers"], st["drain_timeouts"]) == \
+                (1, 1, 1, 0)
             # the shard-map handshake is ported (sharding/): an unsharded
             # server holds no shard
             networking.send_data(s, {"action": "shard_map"})
@@ -770,8 +783,21 @@ def test_four_worker_ps_run_matches_the_jax_package(name, window,
     (dict(watch=True), "A13"),
 ])
 def test_later_ps_kwargs_raise_naming_their_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        trainers.DynSGD(_spec(), backend="ps", device="cpu", **kwargs)
+    """Later slices' knobs raise naming their item. Elastic membership's
+    (A7.8), once refused too, are accepted under ``elastic=True`` and
+    checked as the reference checks them without it."""
+    if item != "A7.8":
+        with pytest.raises(NotImplementedError, match=item):
+            trainers.DynSGD(_spec(), backend="ps", device="cpu", **kwargs)
+        return
+    if "elastic" not in kwargs:
+        with pytest.raises(ValueError, match="requires elastic=True"):
+            trainers.DynSGD(_spec(), backend="ps", device="cpu", **kwargs)
+    t = trainers.DynSGD(_spec(), backend="ps", device="cpu",
+                        **dict(kwargs, elastic=True))
+    assert t.elastic
+    for name, value in kwargs.items():
+        assert getattr(t, name) == value
 
 
 @pytest.mark.parametrize("kwargs", [

@@ -3,7 +3,7 @@ sharding/``) held against the JAX package's (``distkeras_tpu/sharding/``)
 on the CPU: the hash ring, bit-identical N-shard folds, chain replication,
 the kill-one-shard chaos, the sharded WAL verify and the stats roll-up,
 one port test for each of ``tests/test_sharding.py``'s (its sharded live
-join waits for ``ROADMAP.md`` A7.8).
+join is ``tests/test_torch_elastic.py``'s).
 
 Across packages: leaf paths are ``jax.tree_util.keystr``'s strings in
 ``tree_flatten_with_path``'s order; ``stable_hash``, ``HashRing.assign``
@@ -639,10 +639,10 @@ def test_sharded_stats_rollup_shapes():
 
 
 def test_sharded_group_refuses_later_items():
-    """The metrics registry (A13), the directory (A7.9) and a sharded live
-    join or drain (A7.8) name their items; the center's EMA, once refused
-    naming A8, is the join of the shards' EMAs (the center itself before
-    any commit)."""
+    """The metrics registry (A13) and the directory (A7.9) name their
+    items; a sharded live join and drain, once refused naming A7.8, count
+    on every shard; the center's EMA, once refused naming A8, is the join
+    of the shards' EMAs (the center itself before any commit)."""
     tree = _model_tree()
     group = ShardedPSGroup(tree, tr.ADAGMerge(), 1, num_shards=2,
                            transport="socket", ema_decay=0.9)
@@ -658,11 +658,15 @@ def test_sharded_group_refuses_later_items():
             group.metrics()
         with pytest.raises(NotImplementedError, match="A7.9"):
             group.start_supervision(directory=object())
+        # a sharded live join and drain (once refused naming A7.8) register
+        # and drain on both shards
         c = group.make_client(0)
-        with pytest.raises(NotImplementedError, match="A7.8"):
-            c.join()
-        with pytest.raises(NotImplementedError, match="A7.8"):
-            c.drain()
+        assert c.join()["pool_size"] == 2
+        c.drain()
+        for srv in group.servers:
+            st = srv.stats()
+            assert (st["pool_size"], st["joined_workers"],
+                    st["preempted_workers"]) == (1, 1, 1)
         c.close()
     finally:
         group.stop()

@@ -227,8 +227,15 @@ def test_resident_and_streaming_paths_agree_unshuffled():
 
 def test_later_slice_kwargs_raise_naming_their_roadmap_item():
     spec = torch_mlp(input_shape=(8,), hidden=(4,), num_classes=2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    # elastic membership (A7.8, once refused) is taken, with the
+    # reference's check that it needs backend="ps"; the directory (A7.9)
+    # still names its item
+    with pytest.raises(ValueError, match="backend='ps'"):
         trainers.ADAG(spec, elastic=True, device="cpu")
+    assert trainers.ADAG(spec, elastic=True, backend="ps",
+                         device="cpu").elastic
+    with pytest.raises(NotImplementedError, match="A7.9"):
+        trainers.ADAG(spec, directory=True, device="cpu")
     # the checkpoint and EMA knobs (A8) are taken
     t = trainers.DynSGD(spec, checkpoint_dir="/nonexistent", resume=True,
                         checkpoint_async=True, ema_decay=0.5, device="cpu")
