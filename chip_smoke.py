@@ -200,10 +200,38 @@ Phases, in order; any failure exits non-zero and prints no result:
     ``ElasticPolicy`` whose 1e6 rounds/s no pool reaches, at most
     PS5_POOL_MAX workers: some autoscaler join, the live pool never above
     the cap, the ledger exact; its decisions printed with their times);
-18. print the ``kernels`` JSON line (K1 as one decode step and, as
+18. the membership directory (``directory/``), each phase one JSON line
+    with the card, its launches counted alone:
+    ``ps_config5_directory_chaos`` (config 5 elastic over 2 chained socket
+    shards with ``directory=True``: every client, the joiner's too, minted
+    from a lookup; shard 1's primary killed at half the commits, the
+    directory primary at its PS5_DIR_KILL_OPS-th op, a partition window of
+    dropped directory ops; gates: one kill of each, one join, drops ridden
+    out, a shard and a directory failover, folds equal the logical
+    commits on every shard, each shard's log replaying bit for bit to its
+    part, ``wal verify`` naming the directory log, the ledger exact, both
+    shards in the final membership with shard 1 at the promoted link and
+    fence epoch >= 1, the directory's lookups at least the 9 clients, the
+    loss falling, K5/K6/K7 once a step; the failovers' ms beside their
+    timeouts printed, and the windows outside the failovers beside a
+    control run's, the same trainer and plan without the directory) and
+    ``ps_config5_ps_directory`` (a trainer that knows only
+    ``ps_directory=`` trains against 2 shards this script hosts and
+    registers: folds equal the logical commits on each shard, the
+    trainer's center the join of the shards' bit for bit, K5/K6/K7 once a
+    step). ``serve_router_int8`` runs in phase 9's serving block: two
+    ``GenerationServer`` replicas of the int8 model registered with
+    ``register_with`` behind a ``RoutedGenerationClient``; one prefix's
+    repeats on one replica, distinct prefixes on both, 10 concurrent
+    streams all complete with replica "a" hard-killed mid-stream, every
+    stream (and the same prompts served unrouted) tie-aware, "a" out of
+    the directory within 3 TTLs, K1 and K2 launched on the routed traffic
+    alone;
+19. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
-    launches on the PS phases, the checkpoint and EMA phases and the
-    elastic phases, K6 and K7 with their G=1 times), read config 3's
+    launches on the PS phases, the checkpoint and EMA phases, the
+    elastic phases and the directory phases, K6 and K7 with their G=1
+    times), read config 3's
     gates (``ps3_failures``, the sharded run's too), then the result line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -325,6 +353,28 @@ PS_CK_KILL = 3            # the PS phase's worker killed at its window
 PS5_ELASTIC_PLAN = dict(join_worker_at_window={0: 1},
                         preempt_worker_at_window={3: 2})
 PS5_POOL_MAX = 10
+# the membership directory on config 5: the elastic run over PS_SHARDS
+# socket shards chained PS_CHAIN deep, with the hosted directory and its
+# standby. Shard 1's primary dies at half the commits and the directory
+# primary at its PS5_DIR_KILL_OPS-th op; ops PS5_DIR_PART_AFTER + 1 ..
+# + PS5_DIR_PART_OPS are dropped (a partition right after the two
+# registrations and the eight initial lookups). The directory's op count
+# grows with time (its supervisors renew both entries every half second),
+# so the kill lands a few seconds in, after the joiner's lookup. Leases
+# outlast a sharded window (~1 s on the card) and a failover; the
+# retry budget is the JAX package's acceptance test's, since a client
+# waits out a shard failover and a directory failover
+PS5_DIR_KILL_OPS = 24
+PS5_DIR_VICTIM = 1
+PS5_DIR_KILL_AFTER = PS5_W * PS5_WINDOWS * PS5_EPOCHS // 2
+PS5_DIR_PART_AFTER, PS5_DIR_PART_OPS = 10, 4
+PS5_DIR_HEARTBEAT, PS5_DIR_LEASE = 0.25, 10.0
+PS5_DIR_RETRY = dict(max_attempts=200, base_delay=0.01, max_delay=0.2,
+                     deadline=120.0, seed=0)
+# the prefix-affine router over two int8 replicas of the served config:
+# the route key's prefix, the replicas' directory lease, the concurrent
+# requests of the kill
+ROUTER_PREFIX, ROUTER_TTL, ROUTER_REQUESTS = 16, 1.0, 10
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -1570,14 +1620,24 @@ def _ps_launch_counters():
             "lstm_backward": (rec.lstm_backward, "launches")}
 
 
+def zero_launches():
+    """Set every launch counter to 0."""
+    for fn, attr in _ps_launch_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_launches():
+    """Every launch counter: ``{kernel: launches}``."""
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in _ps_launch_counters().items()}
+
+
 def counted(run):
     """Run ``run()`` with every launch counter set to 0 just before and
     read just after: ``(run's result, {kernel: launches})``."""
-    counters = _ps_launch_counters()
-    for fn, attr in counters.values():
-        setattr(fn, attr, 0)
+    zero_launches()
     out = run()
-    return out, {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    return out, read_launches()
 
 
 def _phase_summary(phases):
@@ -2514,6 +2574,35 @@ def _span_totals(events, *names) -> dict:
             for n in names}
 
 
+def _config5_init():
+    """Config 5's initial center, as ``_config5``'s trainers make it (seed
+    0)."""
+    from distkeras_tpu_torch.models import lstm_classifier
+
+    return lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                           embed_dim=IMDB_E, hidden_dim=IMDB_H).init_np(0)[0]
+
+
+def _replays_equal(splan, init, live, logs) -> dict:
+    """Each shard's log (``logs[sid]``) replayed with DynSGD at PS5_W
+    workers against its live server's part: equal fold count and every
+    leaf bit for bit."""
+    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
+    from distkeras_tpu_torch.resilience import recover_ps_state
+
+    out = {}
+    for sid, d in logs.items():
+        state = recover_ps_state(d, DynSGDMerge(), PS5_W, None,
+                                 template=splan.shard_template(init, sid))
+        part = live[sid].get_model()
+        out[sid] = (state is not None
+                    and state["num_updates"] == live[sid].num_updates
+                    and sorted(state["center"]) == sorted(part)
+                    and all(np.array_equal(state["center"][p], v)
+                            for p, v in part.items()))
+    return out
+
+
 def train_ps_lstm_sharded_chain(torch, train, failover):
     """Config 5 through a sharded center on the socket transport:
     ``ps_num_shards=PS_SHARDS``, ``ps_chain_length=PS_CHAIN`` (a replica
@@ -2533,15 +2622,11 @@ def train_ps_lstm_sharded_chain(torch, train, failover):
     totals and the window's phases beside ``failover``'s (PR 9's single
     standby)."""
     from distkeras_tpu_torch import parameter_servers, sharding
-    from distkeras_tpu_torch.models import lstm_classifier
-    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
-    from distkeras_tpu_torch.resilience import FaultPlan, recover_ps_state
+    from distkeras_tpu_torch.resilience import FaultPlan
 
     wal_root = tempfile.mkdtemp(prefix="dk-wal-sharded-")
     try:
-        spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
-                               embed_dim=IMDB_E, hidden_dim=IMDB_H)
-        init = spec.init_np(0)[0]   # _config5's trainers init from seed 0
+        init = _config5_init()
         splan = sharding.ShardPlan(init, PS_SHARDS)
         heavy = splan.assignment["['Embed_0.weight']"]
         kill_after = PS5_W * PS5_WINDOWS * PS5_EPOCHS // 2
@@ -2578,16 +2663,7 @@ def train_ps_lstm_sharded_chain(torch, train, failover):
                       if sid == heavy else
                       sharding.shard_wal_dir(wal_root, sid))
                 for sid in range(PS_SHARDS)}
-        replays = {}
-        for sid, d in logs.items():
-            state = recover_ps_state(d, DynSGDMerge(), PS5_W, None,
-                                     template=splan.shard_template(init, sid))
-            part = live[sid].get_model()
-            replays[sid] = (state is not None
-                            and state["num_updates"] == live[sid].num_updates
-                            and sorted(state["center"]) == sorted(part)
-                            and all(np.array_equal(state["center"][p], v)
-                                    for p, v in part.items()))
+        replays = _replays_equal(splan, init, live, logs)
         rc, verify, tail = _wal_verify(wal_root)
         phases = _phase_summary(s["exchange_phases"])
         rec = dict(
@@ -3441,6 +3517,552 @@ def train_ps_lstm_autoscale(torch, train):
     return rec
 
 
+@contextlib.contextmanager
+def _timed_directories():
+    """The directory replicas ``directory/host.py`` builds inside the
+    block, each stamping when it crashed (``t_crash``) and when its
+    promotion finished (``t_promoted``): yields the list they land in."""
+    from distkeras_tpu_torch.directory import host
+
+    made: list = []
+    saved = {n: getattr(host, n)
+             for n in ("DirectoryServer", "StandbyDirectoryServer")}
+
+    def timed(cls):
+        class Timed(cls):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, **kw)
+                self.t_crash = self.t_promoted = None
+                made.append(self)
+
+            def _crash(self):
+                self.t_crash = time.perf_counter()
+                super()._crash()
+
+            def promote(self, *args, **kw):
+                super().promote(*args, **kw)
+                self.t_promoted = time.perf_counter()
+
+        return Timed
+
+    for n, cls in saved.items():
+        setattr(host, n, timed(cls))
+    try:
+        yield made
+    finally:
+        for n, cls in saved.items():
+            setattr(host, n, cls)
+
+
+def _directory_chaos_run(train, wal_root, with_directory):
+    """One run of ``ps_config5_directory_chaos``'s trainer, its WAL under
+    ``wal_root``: config 5 elastic over PS_SHARDS socket shards chained
+    PS_CHAIN deep, heartbeats, the retry policy, shard 1's primary killed
+    at half the commits and a worker joined at worker 0's first window;
+    ``with_directory`` adds ``directory=True`` and the plan's directory
+    kill and partition. Without them it is the phase's control. Returns
+    ``dict(t, plan, center, wall, probe, dirs, group, hosted, launches)``
+    (``hosted`` None without the directory)."""
+    from distkeras_tpu_torch import directory, parameter_servers, sharding
+    from distkeras_tpu_torch import workers
+    from distkeras_tpu_torch.resilience import FaultPlan, RetryPolicy
+
+    events = (dict(kill_directory_after_ops=PS5_DIR_KILL_OPS,
+                   directory_partition_after=PS5_DIR_PART_AFTER,
+                   directory_partition_ops=PS5_DIR_PART_OPS)
+              if with_directory else {})
+    plan = FaultPlan(seed=0, kill_ps_after_commits=PS5_DIR_KILL_AFTER,
+                     kill_shard_id=PS5_DIR_VICTIM,
+                     join_worker_at_window={0: 1}, **events)
+    t, rows = _config5(
+        "socket", directory=with_directory, ps_num_shards=PS_SHARDS,
+        ps_chain_length=PS_CHAIN, ps_wal_dir=wal_root,
+        ps_failover_timeout=PS5_FAILOVER_TIMEOUT, elastic=True,
+        heartbeat_interval=PS5_DIR_HEARTBEAT, lease_timeout=PS5_DIR_LEASE,
+        retry_policy=RetryPolicy(**PS5_DIR_RETRY), fault_plan=plan)
+
+    def run():
+        with _elastic_probe(workers, ()) as probe, \
+                _timed_servers(parameter_servers), \
+                _timed_directories() as dirs, \
+                _servers_built(sharding, "ShardedPSGroup") as groups, \
+                _servers_built(directory, "HostedDirectory") as hosts, \
+                warnings.catch_warnings(), plan:
+            warnings.simplefilter("ignore")   # the failover warnings
+            t0 = time.perf_counter()
+            center = t.train(train.gather(np.arange(rows)))
+            wall = time.perf_counter() - t0
+        return center, wall, probe, dirs, groups[0], hosts
+
+    (center, wall, probe, dirs, group, hosts), launches = counted(run)
+    return dict(t=t, plan=plan, center=center, wall=wall, probe=probe,
+                dirs=dirs, group=group, hosted=hosts[0] if hosts else None,
+                launches=launches)
+
+
+def _windows_by_failover(windows, spans):
+    """The probe's windows split into those that overlap a failover span
+    (held up by it) and the rest: count, mean, min and max ms of each.
+    ``spans`` are ``(start, end)`` on ``time.perf_counter``'s clock, the
+    windows on ``time.monotonic``'s; a span with an unknown end is
+    skipped."""
+    shift = time.monotonic() - time.perf_counter()
+    spans = [(a + shift, b + shift) for a, b in spans if None not in (a, b)]
+    held, outside = [], []
+    for _, end, d in windows:
+        hit = any(end - d < b and end > a for a, b in spans)
+        (held if hit else outside).append(1e3 * d)
+
+    def summary(ms):
+        return dict(count=len(ms),
+                    mean_ms=float(np.mean(ms)) if ms else None,
+                    min_ms=min(ms, default=None),
+                    max_ms=max(ms, default=None))
+
+    return dict(outside=summary(outside), held=summary(held))
+
+
+def train_ps_lstm_directory_chaos(torch, train):
+    """``ps_config5_directory_chaos``: config 5 (``_config5``) elastic over
+    PS_SHARDS chained socket shards (``ps_chain_length=PS_CHAIN``, a WAL
+    under one root) with ``directory=True`` (the hosted directory, its
+    standby and their WAL under ``<root>/directory``): every worker's
+    client, the joiner's too, minted from a directory lookup. The fault
+    plan joins a worker at worker 0's first window, crash-stops shard 1's
+    primary at half the commits and the directory primary at its
+    PS5_DIR_KILL_OPS-th op, and drops ops PS5_DIR_PART_AFTER + 1 ..
+    + PS5_DIR_PART_OPS. Gates: one PS kill, one directory kill, one join;
+    some partition drops; a shard failover and a directory failover; every
+    shard's folds equal the logical commits; each shard's log replays bit
+    for bit to its part of the final center; the WAL root verifies and
+    names the directory log; the assigner's ledger exactly once; the final
+    membership holds both shards, shard 1 at the promoted link at fence
+    epoch >= 1; the directory's lookups at least the 9 clients minted; the
+    loss falling by epoch means; K5/K6/K7 once a step. Prints the shard's
+    and the directory's failover ms beside their timeouts, the publishes,
+    renewals and lookups, and the windows outside the failovers beside
+    those of a control run first: the same trainer and plan without the
+    directory and its events (one kill, one join, a failover, exactly once
+    and K5/K6/K7 once a step gated), so the difference is the
+    directory's."""
+    from distkeras_tpu_torch import sharding
+
+    t_phase = time.perf_counter()
+    ctl_root = tempfile.mkdtemp(prefix="dk-wal-nodirectory-")
+    try:
+        c = _directory_chaos_run(train, ctl_root, with_directory=False)
+    finally:
+        shutil.rmtree(ctl_root, ignore_errors=True)
+    ct, cfs = c["t"], c["plan"].stats()
+    c_victim = c["group"].servers[PS5_DIR_VICTIM]
+    c_promoted = c["group"].supervisors[PS5_DIR_VICTIM].active
+    c_failover = (c_victim.t_crash, c_promoted.t_first_fold)
+    control = dict(
+        wall_s=c["wall"], faults={k: cfs[k] for k in ("ps_kills", "joins")},
+        shard_failovers=ct.resilience_stats_["ps_failover"]["failovers"],
+        shard_failover_ms=(None if None in c_failover
+                           else 1e3 * (c_failover[1] - c_failover[0])),
+        num_updates=ct.ps_stats_["num_updates"],
+        num_updates_max=ct.ps_stats_["num_updates_max"],
+        logical_commits=ct.resilience_stats_["logical_commits"],
+        windows=_windows_by_failover(c["probe"]["windows"], [c_failover]),
+        exchange_phases=_phase_summary(ct.ps_stats_["exchange_phases"]),
+        launches=c["launches"])
+    fails = _phase_gates("directory_chaos control", ct, c["launches"],
+                         extra=False)
+    if (cfs["ps_kills"], cfs["joins"]) != (1, 1) \
+            or control["shard_failovers"] < 1 \
+            or ct.ps_stats_["num_updates"] != ct.ps_stats_["num_updates_max"]:
+        fails.append(f"directory_chaos control: {control}")
+    del c
+    torch.cuda.empty_cache()
+
+    wal_root = tempfile.mkdtemp(prefix="dk-wal-directory-")
+    try:
+        init = _config5_init()
+        splan = sharding.ShardPlan(init, PS_SHARDS)
+        victim_sid = PS5_DIR_VICTIM
+        kill_after = PS5_DIR_KILL_AFTER
+        run = _directory_chaos_run(train, wal_root, with_directory=True)
+        t, plan, launches = run["t"], run["plan"], run["launches"]
+        center, wall, probe = run["center"], run["wall"], run["probe"]
+        dirs, group, hosted = run["dirs"], run["group"], run["hosted"]
+        s, r = t.ps_stats_, t.resilience_stats_
+        fs, el, dstats = plan.stats(), r["elastic"], r["directory"]
+        per = r["ps_failover"]["per_shard"]
+        victim = group.servers[victim_sid]
+        promoted = group.supervisors[victim_sid].active
+        live = group.active_servers
+        joined = group.plan.join([srv.get_model() for srv in live])
+        center_equal = sorted(joined) == sorted(center) and all(
+            np.array_equal(center[k].numpy(), joined[k]) for k in center)
+        logs = {sid: (sharding.chain_wal_dir(wal_root, sid, 1)
+                      if per[sid]["failovers"] else
+                      sharding.shard_wal_dir(wal_root, sid))
+                for sid in range(PS_SHARDS)}
+        replays = _replays_equal(splan, init, live, logs)
+        rc, verify, tail = _wal_verify(wal_root)
+        dead = next((d for d in dirs if d.t_crash is not None), None)
+        took = next((d for d in dirs if d.t_promoted is not None), None)
+        entries = {e["key"]: e for e in dstats["membership"]["entries"]}
+        shard1 = entries.get(f"shard-{victim_sid:02d}", {})
+        counts = {k: sum(getattr(d, k) for d in dirs)
+                  for k in ("publishes", "renews", "lookups",
+                            "stale_rejects", "expired_entries")}
+        t_join = el["join_log"][0]["t"] if el["join_log"] else None
+        joiner = el["join_log"][0]["worker"] if el["join_log"] else None
+        t_first = min((end for w, end, _ in probe["windows"]
+                       if w == joiner), default=None)
+        phases = _phase_summary(s["exchange_phases"])
+        by_failover = _windows_by_failover(probe["windows"], [
+            (victim.t_crash, promoted.t_first_fold),
+            (None, None) if None in (dead, took)
+            else (dead.t_crash, took.t_promoted)])
+        rec = dict(
+            phase="ps_config5_directory_chaos", device=SMI, wall_s=wall,
+            num_shards=PS_SHARDS, chain_length=PS_CHAIN,
+            killed_shard=victim_sid, kill_after_commits=kill_after,
+            directory_kill_after_ops=PS5_DIR_KILL_OPS,
+            directory_partition=[PS5_DIR_PART_AFTER, PS5_DIR_PART_OPS],
+            faults={k: fs[k] for k in ("ps_kills", "directory_kills",
+                                       "directory_ops", "directory_drops",
+                                       "joins")},
+            shard_failovers={sid: p["failover_log"]
+                             for sid, p in enumerate(per)},
+            shard_failover_ms=(None if None in (victim.t_crash,
+                                                promoted.t_first_fold)
+                               else 1e3 * (promoted.t_first_fold
+                                           - victim.t_crash)),
+            directory_failover=dstats.get("failover"),
+            directory_failover_ms=(None if dead is None or took is None
+                                   else 1e3 * (took.t_promoted
+                                               - dead.t_crash)),
+            failover_timeout_s=PS5_FAILOVER_TIMEOUT,
+            directory_ttl_s=hosted.default_ttl,
+            entry_ttl_s=hosted.entry_ttl(True),
+            directory_counts=counts,
+            directory_supervisor_publishes=[
+                sup.publishes for sup in group.supervisors],
+            membership={k: dict(port=e["port"], epoch=e["epoch"],
+                                ttl=e["ttl"]) for k, e in entries.items()},
+            promoted_port=promoted.port,
+            promoted_fence_epoch=promoted.fence_epoch,
+            num_updates=s["num_updates"],
+            num_updates_max=s["num_updates_max"],
+            per_shard_num_updates=[p["num_updates"]
+                                   for p in s["per_shard"]],
+            logical_commits=r["logical_commits"], retries=r["retries"],
+            reconnects=r["reconnects"],
+            windows=_windows_run(t.history.records),
+            assigner=el["assigner"], joined=el["joined"],
+            center_is_join=center_equal, logs_replay_equal=replays,
+            wal_verify_rc=rc, wal_verify_ok=verify.get("ok"),
+            wal_dirs=verify.get("num_wal_dirs"),
+            directory_dirs=verify.get("num_directory_dirs"),
+            window_ms=(_window_split(probe["windows"], t_join, t_first)
+                       if None not in (t_join, t_first) else None),
+            window_ms_all=float(np.mean([1e3 * d for _, _, d in
+                                         probe["windows"]])),
+            window_ms_median=float(np.median([1e3 * d for _, _, d in
+                                              probe["windows"]])),
+            window_ms_each=sorted(1e3 * d for _, _, d in probe["windows"]),
+            windows_by_failover=by_failover,
+            directory_window_cost_ms=(
+                None if None in (by_failover["outside"]["mean_ms"],
+                                 control["windows"]["outside"]["mean_ms"])
+                else by_failover["outside"]["mean_ms"]
+                - control["windows"]["outside"]["mean_ms"]),
+            control=control, launches=launches, exchange_phases=phases,
+            phase_wall_s=time.perf_counter() - t_phase)
+        log(json.dumps(rec))
+        fails += _phase_gates("directory_chaos", t, launches, extra=False)
+        if (fs["ps_kills"], fs["directory_kills"], fs["joins"]) != (1, 1, 1):
+            fails.append(f"directory_chaos: faults {rec['faults']}, "
+                         f"expected one PS kill, one directory kill, one "
+                         f"join")
+        if fs["directory_drops"] < 1:
+            fails.append("directory_chaos: the partition dropped nothing")
+        if per[victim_sid]["failovers"] < 1 or not (
+                dstats.get("failover") or {}).get("failovers"):
+            fails.append(f"directory_chaos: shard failovers "
+                         f"{[p['failovers'] for p in per]}, directory "
+                         f"{rec['directory_failover']}")
+        if not s["num_updates"] == s["num_updates_max"] \
+                == r["logical_commits"]:
+            fails.append(f"directory_chaos: shard folds "
+                         f"{rec['per_shard_num_updates']} against "
+                         f"{r['logical_commits']} logical commits")
+        if not center_equal:
+            fails.append("directory_chaos: the final center is not the "
+                         "join of the live shards")
+        if not all(replays.values()):
+            fails.append(f"directory_chaos: logs replay to their parts "
+                         f"{replays}")
+        if not (rc == 0 and verify.get("ok")
+                and verify.get("num_directory_dirs", 0) >= 1):
+            fails.append(f"directory_chaos: wal verify rc {rc}: {tail}")
+        if not el["assigner"]["exactly_once"] or el["joined"] != 1:
+            fails.append(f"directory_chaos: the ledger {el['assigner']}, "
+                         f"{el['joined']} joins")
+        if set(entries) != {"shard-00", "shard-01"} or not (
+                shard1.get("port") == promoted.port
+                and promoted is not victim
+                and shard1.get("epoch", 0) >= 1):
+            fails.append(f"directory_chaos: final membership "
+                         f"{rec['membership']}, the promoted link at port "
+                         f"{promoted.port}")
+        if counts["lookups"] < PS5_W + 1:
+            fails.append(f"directory_chaos: {counts['lookups']} lookups for "
+                         f"{PS5_W + 1} clients minted")
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(wal_root, ignore_errors=True)
+
+
+def train_ps_lstm_ps_directory(torch, train):
+    """``ps_config5_ps_directory``: this phase hosts config 5's center over
+    PS_SHARDS socket shards (a ``ShardedPSGroup``) and registers them with
+    its own ``DirectoryServer``, non-expiring as an unsupervised fleet is;
+    a DynSGD trainer that knows only ``ps_directory="host:port"`` trains
+    PS5_W workers for one epoch. Gates: every shard's folds equal the
+    logical commits; the trainer's returned center equals the join of the
+    shards' centers bit for bit; K5/K6/K7 once a step."""
+    from distkeras_tpu_torch.directory import DirectoryServer
+    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
+    from distkeras_tpu_torch.sharding import ShardedPSGroup
+
+    t_phase = time.perf_counter()
+    init = _config5_init()
+    group = ShardedPSGroup(init, DynSGDMerge(), PS5_W, num_shards=PS_SHARDS,
+                           transport="socket")
+    dsrv = DirectoryServer(default_ttl=None)
+    try:
+        group.initialize()
+        group.start()
+        dsrv.initialize()
+        dsrv.start()
+        plan = group.plan
+        meta = {"num_shards": plan.num_shards, "ring": plan.digest,
+                "vnodes": plan.ring.vnodes, "bound": plan.bound}
+        for sid, srv in enumerate(group.servers):
+            dsrv.publish("ps", f"shard-{sid:02d}", srv.host, srv.port,
+                         epoch=srv.fence_epoch, meta=meta, ttl=None)
+        t, rows = _config5("socket", epochs=1,
+                           ps_directory=f"{dsrv.host}:{dsrv.port}")
+
+        def run():
+            t0 = time.perf_counter()
+            center = t.train(train.gather(np.arange(rows)))
+            return center, time.perf_counter() - t0
+
+        (center, wall), launches = counted(run)
+        gs, r = group.stats(), t.resilience_stats_
+        joined = plan.join([srv.get_model() for srv in group.servers])
+        center_equal = sorted(joined) == sorted(center) and all(
+            np.array_equal(center[k].numpy(), joined[k]) for k in center)
+        windows = _windows_run(t.history.records)
+        rec = dict(
+            phase="ps_config5_ps_directory", device=SMI, wall_s=wall,
+            num_shards=PS_SHARDS, directory=dsrv.stats(),
+            num_updates=gs["num_updates"],
+            num_updates_max=gs["num_updates_max"],
+            logical_commits=r["logical_commits"], windows=windows,
+            center_is_join=center_equal, launches=launches,
+            exchange_phases=_phase_summary(t.exchange_phases_),
+            phase_wall_s=time.perf_counter() - t_phase)
+        log(json.dumps(rec))
+        fails = []
+        if not gs["num_updates"] == gs["num_updates_max"] \
+                == r["logical_commits"] == windows:
+            fails.append(f"ps_directory: shard folds {gs['num_updates']}.."
+                         f"{gs['num_updates_max']}, {r['logical_commits']} "
+                         f"logical commits, {windows} windows")
+        if not center_equal:
+            fails.append("ps_directory: the trainer's center is not the "
+                         "join of the shards'")
+        steps = windows * IMDB_WINDOW
+        for k in ("fused_adam", "lstm_forward", "lstm_backward"):
+            if launches[k] != steps:
+                fails.append(f"ps_directory: {k} launched {launches[k]} "
+                             f"times, expected {steps}")
+        if rec["directory"]["lookups"] < PS5_W:
+            fails.append(f"ps_directory: {rec['directory']['lookups']} "
+                         f"lookups for {PS5_W} workers")
+        if fails:
+            raise AssertionError("; ".join(fails))
+        return rec
+    finally:
+        dsrv.stop()
+        group.stop()
+
+
+def serve_router(torch, qmodel):
+    """``serve_router_int8``: two ``GenerationServer`` replicas of the int8
+    400M config (their own engines and KV caches, the weights shared),
+    each registered with ``register_with(ttl=ROUTER_TTL)`` into a
+    ``DirectoryServer``, behind ``RoutedGenerationClient(directory=seeds,
+    prefix_tokens=ROUTER_PREFIX)``: a warm pass of one prefix's repeats
+    (must land on one replica), 6 distinct prefixes (must reach both),
+    then ROUTER_REQUESTS concurrent requests with PROMPTS-length tails and
+    NEW_TOKENS new tokens each, replica "a" hard-killed ~50 ms after they
+    start. Gates: every stream completes; some failover; the streams and
+    the same prompts served unrouted by "b" pass ``tie_aware_check``;
+    within 3 TTLs "a" leaves the directory and a forced refresh routes
+    only to "b"; K1 (decode and prefill) and K2 launch. The launches are
+    counted from 0 just before the warm pass and read as the streams
+    join, before the unrouted replay and the tie-aware checks."""
+    from distkeras_tpu_torch.directory import (
+        DirectoryClient,
+        DirectoryServer,
+        RoutedGenerationClient,
+    )
+    from distkeras_tpu_torch.serving import (
+        GenerationClient,
+        GenerationEngine,
+        GenerationServer,
+    )
+
+    t_phase = time.perf_counter()
+    dsrv = DirectoryServer(default_ttl=None)
+    dsrv.initialize()
+    dsrv.start()
+    seeds = [(dsrv.host, dsrv.port)]
+    replicas, router, dc = {}, None, None
+    try:
+        for key in ("a", "b"):
+            srv = GenerationServer(GenerationEngine(
+                qmodel, max_batch=8, block_size=BLOCK, device=DEVICE),
+                poll_interval=0.01)
+            srv.start()
+            srv.register_with(seeds, key=key, ttl=ROUTER_TTL)
+            replicas[key] = srv
+        router = RoutedGenerationClient(directory=seeds,
+                                        prefix_tokens=ROUTER_PREFIX)
+        rng = np.random.default_rng(7)
+        prefixes = [rng.integers(0, VOCAB, (ROUTER_PREFIX,)).astype(
+            np.int32) for _ in range(6)]
+
+        def tail(n):
+            return rng.integers(0, VOCAB, (n,)).astype(np.int32)
+
+        zero_launches()
+        for _ in range(2):
+            router.generate(np.concatenate([prefixes[0], tail(8)]),
+                            max_new_tokens=4)
+        before = dict(router.stats()["routed"])
+        for _ in range(3):
+            router.generate(np.concatenate([prefixes[0], tail(8)]),
+                            max_new_tokens=4)
+        after = router.stats()["routed"]
+        moved = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+        for p in prefixes:
+            router.generate(np.concatenate([p, tail(8)]), max_new_tokens=4)
+        spread = dict(router.stats()["routed"])
+        prompts = [np.concatenate([prefixes[i % len(prefixes)],
+                                   tail(PROMPTS[i % len(PROMPTS)])])
+                   for i in range(ROUTER_REQUESTS)]
+        first = [router._route_order(p)[0] for p in prompts]
+        results, errors, lat = {}, {}, {}
+
+        def go(i):
+            t0 = time.perf_counter()
+            try:
+                results[i] = router.generate(prompts[i],
+                                             max_new_tokens=NEW_TOKENS)
+            except Exception as e:  # gated below, after the teardown
+                errors[i] = repr(e)
+            lat[i] = time.perf_counter() - t0
+
+        dc = DirectoryClient(seeds)
+        gone = {}
+
+        def watch(t_kill):
+            # from the kill on: when "a"'s entry leaves the directory
+            while time.perf_counter() - t_kill < 3 * ROUTER_TTL + 5:
+                if all(e["key"] != "a" for e in dc.lookup("serve")):
+                    gone["s"] = time.perf_counter() - t_kill
+                    return
+                time.sleep(0.02)
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(ROUTER_REQUESTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        time.sleep(0.05)
+        t_kill = time.perf_counter()
+        replicas["a"]._crash()
+        watcher = threading.Thread(target=watch, args=(t_kill,))
+        watcher.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        watcher.join(3 * ROUTER_TTL + 10)
+        gone_s = gone.get("s")
+        router.refresh(force=True)
+        after_refresh = sorted(router.replicas)
+        stats = router.stats()
+        unrouted = {}
+        c = GenerationClient(replicas["b"].host, replicas["b"].port)
+        try:
+            for i, p in enumerate(prompts):
+                unrouted[i] = c.generate(p, max_new_tokens=NEW_TOKENS)
+        finally:
+            c.close()
+    finally:
+        if router is not None:
+            router.close()
+        if dc is not None:
+            dc.close()
+        for srv in replicas.values():
+            srv.stop(drain=False, timeout=5)
+        dsrv.stop()
+    n_tok = NEW_TOKENS * len(results)
+    replayed = [lat[i] for i in results if first[i] == "a"]
+    stayed = [lat[i] for i in results if first[i] != "a"]
+    rec = dict(
+        phase="serve_router_int8", device=SMI, wall_s=wall,
+        tokens=n_tok, tokens_per_s=n_tok / wall, routed=stats["routed"],
+        warm_moved=moved, spread=spread, failovers=stats["failovers"],
+        first_choice=first, replayed_latency_s=replayed,
+        stayed_latency_s=stayed,
+        replayed_mean_s=float(np.mean(replayed)) if replayed else None,
+        stayed_mean_s=float(np.mean(stayed)) if stayed else None,
+        directory_gone_s=gone_s, ttl_s=ROUTER_TTL,
+        after_refresh=after_refresh, errors=errors,
+        streams_equal_unrouted=sum(
+            bool(np.array_equal(results[i], unrouted[i])) for i in results),
+        launches=launches, phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    fails = [f"router: {k} never launched on the routed path: {launches}"
+             for k in ("q_matmul", "q_matmul_prefill", "flash_attention")
+             if launches[k] < 1]
+    if errors or len(results) != ROUTER_REQUESTS:
+        fails.append(f"router: streams failed: {errors}")
+    if sum(1 for v in moved.values() if v) != 1:
+        fails.append(f"router: one prefix's repeats went to {moved}")
+    if not all(spread.get(k, 0) > 0 for k in ("a", "b")):
+        fails.append(f"router: distinct prefixes reached {spread}")
+    if stats["failovers"] < 1:
+        fails.append("router: no failover")
+    if gone_s is None or gone_s > 3 * ROUTER_TTL:
+        fails.append(f"router: 'a' left the directory after {gone_s} s")
+    if after_refresh != ["b"]:
+        fails.append(f"router: a forced refresh routes to {after_refresh}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    for i, toks in results.items():
+        if toks.shape != (NEW_TOKENS,) or toks.min() < 0 \
+                or toks.max() >= VOCAB:
+            raise AssertionError(f"router: bad stream {i}: {toks}")
+    tie_aware_check(torch, qmodel, prompts, results, "router int8")
+    tie_aware_check(torch, qmodel, prompts, unrouted, "router unrouted")
+    return rec
+
+
 def run_mnist_twin():
     """The MNIST example's twin (``distkeras_tpu_torch.examples.mnist``)
     in this process, once a MNIST_RUNS entry, held to the JAX example's
@@ -3555,6 +4177,9 @@ def main() -> int:
 
         tie_aware_check(torch, model, prompts, res16, "bf16")
         tie_aware_check(torch, qmodel, prompts, res8, "int8")
+        # the prefix-affine router over two int8 replicas registered in a
+        # membership directory, one hard-killed mid-stream
+        router_launches = serve_router(torch, qmodel)["launches"]
     del model, qmodel
     torch.cuda.empty_cache()
 
@@ -3746,6 +4371,21 @@ def main() -> int:
         log(f"launches on the {name} path: {json.dumps(rec['launches'])}")
     log(f"elastic paths done at {time.perf_counter() - t0:.1f}s")
 
+    # the membership directory on config 5, each phase counting and gating
+    # its own launches: the elastic sharded run with a hosted directory, a
+    # shard primary and the directory primary killed; a trainer that finds
+    # an external fleet through its directory alone
+    directory_runs: dict = {}
+    for name, fn in (
+            ("ps_config5_directory_chaos",
+             lambda: train_ps_lstm_directory_chaos(torch, train)),
+            ("ps_config5_ps_directory",
+             lambda: train_ps_lstm_ps_directory(torch, train))):
+        directory_runs[name] = fn()
+        torch.cuda.empty_cache()
+    directory_runs["serve_router_int8"] = {"launches": router_launches}
+    log(f"directory paths done at {time.perf_counter() - t0:.1f}s")
+
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
         return None if any(v is None for v in vals) else sum(vals)
@@ -3825,6 +4465,8 @@ def main() -> int:
                                      for k, v in ckema.items()},
             elastic_launches={k: v["launches"][name]
                               for k, v in elastic.items()},
+            directory_launches={k: v["launches"][name]
+                                for k, v in directory_runs.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -1,0 +1,851 @@
+"""The membership directory: a replicated (role, key) → endpoint map.
+
+Port of ``distkeras_tpu/directory/service.py``. A :class:`DirectoryServer`
+maps ``(role, key)``, e.g. ``("ps", "shard-01")``, ``("serve",
+"replica-a")`` or ``("shm", segment)``, to ``(host, port, fence epoch,
+lease)``, so a joiner on another host finds the fleet from the
+directory's seed addresses alone. It reuses three mechanisms of the PS:
+
+- **the write-ahead log** (``resilience/wal.py``): every state change
+  (publish, withdraw, expiry, the directory's own fence) is appended as a
+  framed ``REC_DIR_*`` record before the ACK, snapshots truncate the log,
+  and ``python -m distkeras_tpu_torch.resilience.wal verify`` audits it
+  like a shard's log. Lease renewals are runtime liveness, as PS
+  heartbeats are, and are never logged;
+- **the apply-and-forward chain**: the primary streams each record (same
+  framing) to a :class:`StandbyDirectoryServer` before the ACK; the
+  standby applies it through the same :func:`apply_directory_record`
+  that recovery uses and forwards the raw frame down its chain.
+  Promotion stamps a bumped fence epoch and re-arms every lease (the new
+  primary cannot know which owners renewed against the dead one);
+- **leases**: entries carry a TTL; a renewal extends the deadline,
+  expiry scans are rate-limited to a quarter lease, and a lapsed entry
+  is dropped, so a dead PS shard's registration ages out and the
+  promoted link's re-registration (at its bumped epoch) wins.
+
+Registration races resolve by fence epoch: a publish wins iff its epoch
+is >= the live entry's, so a promotion's epoch + 1 replaces the dead
+primary's entry and the dead primary's stale re-publish is rejected as
+``stale_epoch``.
+
+The directory is not on the training hot path: workers reach it when
+their client is built and when a reconnect re-resolves, so a directory
+outage stalls failover re-resolution, never a healthy worker's exchange.
+"""
+
+from __future__ import annotations
+
+import pickle
+import threading
+import time
+from typing import Any, Callable
+
+from distkeras_tpu_torch import networking
+from distkeras_tpu_torch.observability import trace as _trace
+from distkeras_tpu_torch.resilience import wal as _wal
+
+__all__ = [
+    "DirectoryServer", "StandbyDirectoryServer", "DirectoryState",
+    "apply_directory_record", "recover_directory_state",
+    "directory_state_dict",
+]
+
+
+def directory_state_dict(entries: dict, version: int,
+                         fence_epoch: int) -> dict:
+    """The full recoverable directory state (plain containers only, so
+    the restricted unpickler loads it back). ``num_updates`` is the
+    version counter — the SAME key the WAL snapshot machinery and the
+    ``verify`` tool already read, so directory snapshots ride the
+    existing (snapshot, wal) file format unchanged."""
+    return {
+        "num_updates": int(version),
+        "entries": {
+            k: dict(v) for k, v in entries.items()
+        },
+        "fence_epoch": int(fence_epoch),
+    }
+
+
+class DirectoryState:
+    """The pure map: entries + version + fence epoch, with ONE
+    definition of "apply an event" shared by the live server, crash
+    recovery, and the standby's stream apply (the PS discipline —
+    consumers that share the apply function cannot diverge).
+
+    Lease deadlines live OUTSIDE the replayed state (wall-less replay):
+    the live server stamps ``deadline`` on publish/renew; recovery and
+    promotion re-arm every entry with a fresh TTL, because neither can
+    know which owners renewed against the previous incarnation.
+    """
+
+    def __init__(self, fence_epoch: int = 0):
+        self.entries: dict[tuple[str, str], dict] = {}
+        self.version = 0
+        self.fence_epoch = int(fence_epoch)
+
+    def adopt(self, state: dict) -> None:
+        self.entries = {
+            tuple(k): dict(v) for k, v in state.get("entries", {}).items()
+        }
+        self.version = int(state.get("num_updates", 0))
+        self.fence_epoch = max(self.fence_epoch,
+                               int(state.get("fence_epoch", 0)))
+
+    def snapshot(self) -> dict:
+        return directory_state_dict(
+            {k: {kk: vv for kk, vv in v.items() if kk != "deadline"}
+             for k, v in self.entries.items()},
+            self.version, self.fence_epoch,
+        )
+
+    # -- the apply function (live = replay = stream) -------------------------
+
+    def apply(self, rec_type: int, body: Any) -> None:
+        apply_directory_record(self, rec_type, body)
+
+
+def apply_directory_record(state: DirectoryState, rec_type: int,
+                           body: Any) -> None:
+    """Apply ONE ``REC_DIR_*`` record to ``state``. Every record carries
+    the post-apply version; a gap means segments replayed out of order
+    (or mixed logs) — same contract as the PS WAL's sequence check."""
+    if rec_type == _wal.REC_DIR_PUT:
+        role, key, host, port, epoch, meta, ttl, version = body
+        _check_version(state, version)
+        state.entries[(str(role), str(key))] = {
+            "host": str(host), "port": int(port), "epoch": int(epoch),
+            "meta": dict(meta or {}),
+            "ttl": None if ttl is None else float(ttl),
+        }
+        state.version = int(version)
+    elif rec_type == _wal.REC_DIR_DEL:
+        role, key, _epoch, version = body
+        _check_version(state, version)
+        state.entries.pop((str(role), str(key)), None)
+        state.version = int(version)
+    elif rec_type == _wal.REC_DIR_EXPIRE:
+        keys, version = body
+        _check_version(state, version)
+        for role, key in keys:
+            state.entries.pop((str(role), str(key)), None)
+        state.version = int(version)
+    elif rec_type == _wal.REC_DIR_FENCE:
+        epoch, version = body
+        _check_version(state, version)
+        state.fence_epoch = max(state.fence_epoch, int(epoch))
+        state.version = int(version)
+    # unknown types: forward-compat skip
+
+
+def _check_version(state: DirectoryState, version: int) -> None:
+    if int(version) != state.version + 1:
+        raise ValueError(
+            f"directory WAL sequence gap: record applies to version "
+            f"{version} but state is at {state.version}"
+        )
+
+
+def recover_directory_state(directory: str) -> DirectoryState | None:
+    """Reconstruct the directory from ``(newest valid snapshot, wal)`` —
+    the exact shape :func:`resilience.wal.recover_ps_state` uses, minus
+    the model arithmetic. Returns None on a fresh start."""
+    import os
+
+    try:
+        names = os.listdir(directory)
+    except OSError:
+        return None
+    snaps = sorted(
+        (n for n in names
+         if n.startswith(_wal._SNAP_PREFIX)
+         and n.endswith(_wal._SNAP_SUFFIX)),
+        reverse=True,
+    )
+    segs = sorted(
+        n for n in names
+        if n.startswith(_wal._SEG_PREFIX) and n.endswith(_wal._SEG_SUFFIX)
+    )
+    state = None
+    snap_version = 0
+    for name in snaps:
+        blob = _wal._load_snapshot(os.path.join(directory, name))
+        if blob is not None:
+            state = DirectoryState()
+            state.adopt(blob)
+            snap_version = state.version
+            break
+    if state is None:
+        if not segs:
+            return None
+        state = DirectoryState()
+    replayed = 0
+    for name in segs:
+        base = int(name[len(_wal._SEG_PREFIX):-len(_wal._SEG_SUFFIX)])
+        if base < snap_version:
+            continue  # pre-snapshot history, already folded in
+        with open(os.path.join(directory, name), "rb") as f:
+            data = f.read()
+        for rec_type, body in _wal.iter_records(data):
+            apply_directory_record(state, rec_type, body)
+            replayed += 1
+    state.replayed = replayed
+    return state
+
+
+class DirectoryServer:
+    """Socket service around a :class:`DirectoryState`.
+
+    Wire protocol (length-prefixed restricted-pickle frames, the same
+    ``networking.py`` framing every other server speaks):
+
+    - ``publish``: upsert ``(role, key) → (host, port, epoch, meta)``
+      with a lease; wins iff ``epoch >=`` the live entry's (fence-epoch
+      arbitration — two racing promotions resolve to the higher epoch,
+      in either arrival order). Doubles as a renewal.
+    - ``renew``: extend the entry's lease (no WAL record, no stream —
+      liveness is runtime state).
+    - ``lookup``: entries for a role (optionally one key). Runs a forced
+      expiry pass first: a lapsed lease is never served.
+    - ``withdraw``: epoch-guarded removal (clean shutdown).
+    - ``membership``: the full view + per-entry lease age (the health
+      snapshot's ``directory`` section).
+    - ``ping`` / ``fence`` / ``stats`` / ``replicate_stream`` / ``bye``:
+      the same admin surface as the PS servers, so the trainer-side
+      failover supervisor drives a directory exactly like a PS primary.
+    """
+
+    is_standby = False
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 wal_dir: str | None = None, snapshot_every: int = 64,
+                 default_ttl: float | None = 10.0,
+                 fence_epoch: int = 0, fault_plan=None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.host = host
+        self.port = int(port)
+        self.default_ttl = (
+            None if default_ttl is None else float(default_ttl)
+        )
+        self._clock = clock
+        self.fault_plan = fault_plan
+        self.snapshot_every = int(snapshot_every)
+        self._lock = threading.Lock()
+        self.state = DirectoryState(fence_epoch=fence_epoch)
+        # lease deadlines per entry key, live-side only (never replayed)
+        self._deadlines: dict[tuple[str, str], float] = {}
+        # expiry scans rate-limit to a quarter of the default lease —
+        # the resilience/heartbeat.py discipline
+        self._expiry_every = max((self.default_ttl or 10.0) / 4.0, 1e-3)
+        self._next_expiry = self._clock()
+        # counters
+        self.publishes = 0
+        self.renews = 0
+        self.lookups = 0
+        self.withdraws = 0
+        self.expired_entries = 0
+        self.stale_rejects = 0
+        self.ops = 0
+        self._records_since_snapshot = 0
+        self.recovered_ = False
+        self.wal_replay_s = 0.0
+        self._wal = None
+        if wal_dir is not None:
+            t0 = time.monotonic()
+            rec = recover_directory_state(wal_dir)
+            if rec is not None:
+                self.state = rec
+                self.state.fence_epoch = max(self.state.fence_epoch,
+                                             int(fence_epoch))
+                self._rearm_all_leases()
+                self.recovered_ = True
+                self.wal_replay_s = time.monotonic() - t0
+            # membership events are rare and must be durable before the
+            # ACK: window 1 = flush-per-record
+            self._wal = _wal.CommitLog(
+                wal_dir, snapshot_every=snapshot_every, group_window=1,
+            )
+            self._wal.open_segment(self.state.version)
+        self._replica_sock = None
+        self._n_standby_drops = 0
+        self._server_sock = None
+        self._service_thread: threading.Thread | None = None
+        self._handlers: list[threading.Thread] = []
+        self._conns: list = []
+        self._conns_lock = threading.Lock()
+        self._running = False
+        self.crashed_ = False
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def initialize(self) -> None:
+        import socket as _socket
+
+        self._server_sock = _socket.socket(
+            _socket.AF_INET, _socket.SOCK_STREAM
+        )
+        self._server_sock.setsockopt(
+            _socket.SOL_SOCKET, _socket.SO_REUSEADDR, 1
+        )
+        self._server_sock.bind((self.host, self.port))
+        self.port = self._server_sock.getsockname()[1]
+        self._server_sock.listen(64)
+        self._running = True
+
+    def start(self) -> None:
+        if self._server_sock is None:
+            self.initialize()
+        self._service_thread = threading.Thread(
+            target=self.run, daemon=True, name="dk-directory",
+        )
+        self._service_thread.start()
+
+    def run(self) -> None:
+        import socket as _socket
+
+        while self._running:
+            try:
+                conn, _ = self._server_sock.accept()
+            except OSError:
+                break
+            if not self._running:
+                conn.close()
+                break
+            conn.setsockopt(_socket.IPPROTO_TCP, _socket.TCP_NODELAY, 1)
+            with self._conns_lock:
+                self._conns.append(conn)
+            t = threading.Thread(target=self._handle, args=(conn,),
+                                 daemon=True)
+            t.start()
+            self._handlers = [h for h in self._handlers if h.is_alive()]
+            self._handlers.append(t)
+
+    def stop(self) -> None:
+        if not self._running:
+            if self._wal is not None:
+                self._wal.close()
+            return
+        self._running = False
+        try:
+            with networking.connect(self.host, self.port, timeout=5) as s:
+                networking.send_data(s, {"action": "bye"})
+        except OSError:
+            pass
+        if self._server_sock is not None:
+            self._server_sock.close()
+        if self._service_thread is not None:
+            self._service_thread.join(timeout=5)
+        # handler threads blocked on a client that never hung up end too
+        self._close_conns()
+        if self._wal is not None:
+            self._wal.close()
+        sock, self._replica_sock = self._replica_sock, None
+        if sock is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def _crash(self) -> None:
+        """Chaos seam: die like a SIGKILL'd process — listener and live
+        connections torn mid-flight, WAL abandoned without a final
+        fsync. The directory-kill chaos and the failover supervisor are
+        tested against THIS, not a tidy stop."""
+        self.crashed_ = True
+        self._running = False
+        if self._server_sock is not None:
+            try:
+                self._server_sock.close()
+            except OSError:
+                pass
+        self._close_conns()
+        if self._wal is not None:
+            self._wal.abandon()
+        sock, self._replica_sock = self._replica_sock, None
+        if sock is not None:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def _close_conns(self) -> None:
+        import socket as _socket
+
+        with self._conns_lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.shutdown(_socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+
+    # -- fencing (the directory's OWN failover token) ------------------------
+
+    @property
+    def fence_epoch(self) -> int:
+        return self.state.fence_epoch
+
+    def fence(self, epoch: int) -> int:
+        with self._lock:
+            if int(epoch) > self.state.fence_epoch:
+                self._apply_and_log(
+                    _wal.REC_DIR_FENCE,
+                    (int(epoch), self.state.version + 1),
+                )
+        if self._wal is not None:
+            self._wal.sync()  # a fence must be durable by its ack
+        return self.state.fence_epoch
+
+    # -- the map operations (all under self._lock) ---------------------------
+
+    def _apply_and_log(self, rec_type: int, body: Any) -> None:
+        """Apply one event and make it durable + replicated BEFORE the
+        caller ACKs: the apply runs the shared replay function, the WAL
+        append flushes per record (window 1), and the standby receives
+        the SAME framed bytes pre-ACK — disk and stream cannot diverge.
+        Call with the lock held."""
+        rec = _wal.encode_record(rec_type, body)
+        self.state.apply(rec_type, body)
+        if self._wal is not None:
+            self._wal.append(rec)
+            self._records_since_snapshot += 1
+        sock = self._replica_sock
+        if sock is not None:
+            try:
+                sock.sendall(rec)
+            except OSError:
+                self._replica_sock = None
+                self._n_standby_drops += 1
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+
+    def publish(self, role: str, key: str, host: str, port: int,
+                epoch: int = 0, meta: dict | None = None,
+                ttl: float | None = ...) -> dict:
+        """Upsert an entry; fence-epoch arbitration decides races (the
+        higher epoch wins in either arrival order; an equal epoch is a
+        renewal/update from the same incarnation)."""
+        if ttl is ...:
+            ttl = self.default_ttl
+        k = (str(role), str(key))
+        now = self._clock()
+        with self._lock:
+            self._expire_locked(now)
+            live = self.state.entries.get(k)
+            if live is not None and int(epoch) < int(live["epoch"]):
+                self.stale_rejects += 1
+                return {"ok": False, "error": "stale_epoch",
+                        "epoch": int(live["epoch"])}
+            changed = (
+                live is None
+                or live["host"] != str(host)
+                or live["port"] != int(port)
+                or int(live["epoch"]) != int(epoch)
+                or dict(live.get("meta") or {}) != dict(meta or {})
+                # a ttl change alone must be durable/replicated too: the
+                # recovered/promoted directory re-arms leases FROM the
+                # stored ttl, so a lease-mode flip that skipped the log
+                # would erase (or immortalize) the entry after failover
+                or live.get("ttl") != (None if ttl is None else float(ttl))
+            )
+            if changed:
+                self._apply_and_log(_wal.REC_DIR_PUT, (
+                    str(role), str(key), str(host), int(port), int(epoch),
+                    dict(meta or {}),
+                    None if ttl is None else float(ttl),
+                    self.state.version + 1,
+                ))
+            else:
+                # identical re-publish = a renewal: no record, no stream
+                self.renews += 1
+            if ttl is not None:
+                self._deadlines[k] = now + float(ttl)
+            else:
+                self._deadlines.pop(k, None)
+            self.publishes += 1
+            version = self.state.version
+        self._maybe_snapshot()
+        return {"ok": True, "version": version}
+
+    def renew(self, role: str, key: str) -> dict:
+        k = (str(role), str(key))
+        now = self._clock()
+        with self._lock:
+            self._expire_locked(now)
+            entry = self.state.entries.get(k)
+            if entry is None:
+                return {"ok": False, "error": "unknown_entry"}
+            self.renews += 1
+            ttl = entry.get("ttl")
+            if ttl is not None:
+                self._deadlines[k] = now + float(ttl)
+        return {"ok": True}
+
+    def withdraw(self, role: str, key: str, epoch: int = 0) -> dict:
+        k = (str(role), str(key))
+        with self._lock:
+            live = self.state.entries.get(k)
+            if live is None:
+                return {"ok": True, "absent": True}
+            if int(epoch) < int(live["epoch"]):
+                self.stale_rejects += 1
+                return {"ok": False, "error": "stale_epoch",
+                        "epoch": int(live["epoch"])}
+            self._apply_and_log(_wal.REC_DIR_DEL, (
+                str(role), str(key), int(epoch), self.state.version + 1,
+            ))
+            self._deadlines.pop(k, None)
+            self.withdraws += 1
+        self._maybe_snapshot()
+        return {"ok": True}
+
+    def lookup(self, role: str, key: str | None = None) -> list[dict]:
+        now = self._clock()
+        with self._lock:
+            self._expire_locked(now, force=True)
+            self.lookups += 1
+            out = []
+            for (r, k), entry in sorted(self.state.entries.items()):
+                if r != str(role) or (key is not None and k != str(key)):
+                    continue
+                rec = dict(entry)
+                rec["role"], rec["key"] = r, k
+                out.append(rec)
+        return out
+
+    def membership(self) -> dict:
+        """The full view + per-entry lease ages — the observable shape
+        ``health_snapshot``'s ``directory`` section embeds."""
+        now = self._clock()
+        with self._lock:
+            self._expire_locked(now, force=True)
+            entries = []
+            for (r, k), entry in sorted(self.state.entries.items()):
+                deadline = self._deadlines.get((r, k))
+                rec = {
+                    "role": r, "key": k, "host": entry["host"],
+                    "port": entry["port"], "epoch": entry["epoch"],
+                    "meta": dict(entry.get("meta") or {}),
+                    "ttl": entry.get("ttl"),
+                    "lease_age_s": (
+                        None if deadline is None or entry.get("ttl") is None
+                        else round(float(entry["ttl"]) - (deadline - now), 4)
+                    ),
+                    "lease_remaining_s": (
+                        None if deadline is None
+                        else round(deadline - now, 4)
+                    ),
+                }
+                entries.append(rec)
+            return {
+                "version": self.state.version,
+                "fence_epoch": self.state.fence_epoch,
+                "standby": bool(self.is_standby),
+                "entries": entries,
+            }
+
+    def _rearm_all_leases(self) -> None:
+        """Give every entry a fresh TTL window (recovery / promotion):
+        the new incarnation cannot know which owners renewed against the
+        previous one, so everyone gets one full lease to re-appear —
+        after which the genuinely dead age out."""
+        now = self._clock()
+        self._deadlines = {
+            k: now + float(e["ttl"])
+            for k, e in self.state.entries.items()
+            if e.get("ttl") is not None
+        }
+
+    def _expire_locked(self, now: float, force: bool = False) -> None:
+        if not force and now < self._next_expiry:
+            return
+        self._next_expiry = now + self._expiry_every
+        dead = sorted(
+            k for k, deadline in self._deadlines.items()
+            if deadline < now and k in self.state.entries
+        )
+        if not dead:
+            return
+        self._apply_and_log(_wal.REC_DIR_EXPIRE, (
+            [list(k) for k in dead], self.state.version + 1,
+        ))
+        for k in dead:
+            self._deadlines.pop(k, None)
+        self.expired_entries += len(dead)
+
+    def _maybe_snapshot(self) -> None:
+        if self._wal is None or self.snapshot_every <= 0:
+            return
+        with self._lock:
+            if self._records_since_snapshot < self.snapshot_every:
+                return
+            # phase 1 under the lock (the PS discipline): rotate so every
+            # later record lands post-snapshot, capture the state
+            self._wal.rotate(self.state.version)
+            self._records_since_snapshot = 0
+            snap = self.state.snapshot()
+        self._wal.publish_snapshot(snap)  # phase 2: off the lock
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "version": self.state.version,
+                "fence_epoch": self.state.fence_epoch,
+                "entries": len(self.state.entries),
+                "publishes": self.publishes,
+                "renews": self.renews,
+                "lookups": self.lookups,
+                "withdraws": self.withdraws,
+                "expired_entries": self.expired_entries,
+                "stale_rejects": self.stale_rejects,
+                "ops": self.ops,
+                "standby_drops": self._n_standby_drops,
+                "wal_records": (0 if self._wal is None
+                                else self._wal.wal_records),
+            }
+
+    # -- replication (primary side) ------------------------------------------
+
+    def attach_standby(self, host: str, port: int,
+                       timeout: float = 10.0) -> None:
+        """Open the apply-and-forward stream to a standby: one full
+        state frame, then every subsequent record's raw bytes pre-ACK —
+        the PS chain path on directory records."""
+        sock = networking.connect(host, int(port), timeout=timeout)
+        sock.settimeout(timeout)
+        with self._lock:
+            networking.send_data(sock, {
+                "action": "replicate_stream",
+                "state": self.state.snapshot(),
+            })
+            reply = networking.recv_data(sock)
+            if not reply.get("ok"):
+                sock.close()
+                raise ConnectionError(
+                    f"directory standby at {host}:{port} refused the "
+                    f"replication stream: {reply}"
+                )
+            self._replica_sock = sock
+        sock.settimeout(5.0)  # bounded per-record forward
+
+    # -- the wire loop -------------------------------------------------------
+
+    def _maybe_fault(self) -> None:
+        """The directory chaos seam, consulted once per handled op on
+        the PRIMARY: a partition window drops the op (torn connection to
+        the client — retryable weather), the kill crash-stops this
+        server mid-service."""
+        plan = self.fault_plan
+        if plan is None or self.is_standby:
+            return
+        verdict = plan.take_directory_op()
+        if verdict == "kill":
+            self._crash()
+            raise ConnectionAbortedError("injected directory kill")
+        if verdict == "drop":
+            from distkeras_tpu_torch.resilience.faults import (
+                FaultInjectedError,
+            )
+
+            raise FaultInjectedError("injected directory partition")
+
+    def _handle(self, conn) -> None:
+        try:
+            while True:
+                msg = networking.recv_data(conn)
+                action = msg.get("action")
+                self.ops += 1
+                if action in ("stop", "bye"):
+                    break
+                if action == "replicate_stream":
+                    if self._serve_replication(conn, msg):
+                        break
+                    continue
+                if action == "ping":
+                    # same reply shape as the PS ping, so the trainer-side
+                    # failover supervisor drives a directory unchanged
+                    networking.send_data(conn, {
+                        "ok": True, "epoch": self.fence_epoch,
+                        "num_updates": self.state.version,
+                        "standby": bool(self.is_standby),
+                        "directory": True,
+                    })
+                    continue
+                self._maybe_fault()
+                if self.is_standby:
+                    # pre-promotion: worker ops get a retryable refusal
+                    networking.send_data(
+                        conn, {"ok": False, "error": "standby",
+                               "standby": True}
+                    )
+                    continue
+                if action == "publish":
+                    with _trace.span("directory.publish",
+                                     args={"role": msg.get("role"),
+                                           "key": msg.get("key")}):
+                        reply = self.publish(
+                            msg["role"], msg["key"], msg["host"],
+                            msg["port"], epoch=int(msg.get("epoch", 0)),
+                            meta=msg.get("meta"),
+                            ttl=msg.get("ttl", ...),
+                        )
+                    networking.send_data(conn, reply)
+                elif action == "renew":
+                    networking.send_data(
+                        conn, self.renew(msg["role"], msg["key"])
+                    )
+                elif action == "lookup":
+                    networking.send_data(conn, {
+                        "ok": True,
+                        "entries": self.lookup(msg["role"],
+                                               msg.get("key")),
+                    })
+                elif action == "withdraw":
+                    networking.send_data(conn, self.withdraw(
+                        msg["role"], msg["key"],
+                        epoch=int(msg.get("epoch", 0)),
+                    ))
+                elif action == "membership":
+                    networking.send_data(
+                        conn, {"ok": True, "membership": self.membership()}
+                    )
+                elif action == "fence":
+                    networking.send_data(
+                        conn,
+                        {"ok": True, "epoch": self.fence(int(msg["epoch"]))},
+                    )
+                elif action == "stats":
+                    networking.send_data(
+                        conn, {"ok": True, "stats": self.stats()}
+                    )
+                else:
+                    networking.send_data(
+                        conn, {"error": f"bad action {action!r}"}
+                    )
+        except (ConnectionError, EOFError, OSError):
+            pass
+        except pickle.UnpicklingError:
+            pass
+        finally:
+            with self._conns_lock:
+                if conn in self._conns:
+                    self._conns.remove(conn)
+            conn.close()
+
+    def _serve_replication(self, conn, msg) -> bool:
+        networking.send_data(conn, {"ok": False, "error": "not a standby"})
+        return False
+
+
+class StandbyDirectoryServer(DirectoryServer):
+    """Warm directory replica: applies the primary's record stream
+    through the shared apply function, forwards the raw frame down-chain
+    (a chain of directory replicas composes exactly like the PS chains),
+    and serves nothing but pings until promoted."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.is_standby = True
+        self.promoted_ = False
+        self._repl_lock = threading.Lock()
+        self._repl_streaming = False
+        self._repl_records = 0
+
+    def _serve_replication(self, conn, msg) -> bool:
+        with self._repl_lock:
+            snap = None
+            with self._lock:
+                self.state = DirectoryState(
+                    fence_epoch=self.state.fence_epoch
+                )
+                self.state.adopt(msg["state"])
+                if self._wal is not None:
+                    # re-base the durable log on the ADOPTED state: the
+                    # stream's records continue from the primary's
+                    # version, so appending them to a segment based at
+                    # this replica's own (possibly older) version would
+                    # leave a version gap that a later recovery rejects.
+                    # rotate-under-lock + publish-outside, the snapshot
+                    # discipline everywhere else.
+                    self._wal.rotate(self.state.version)
+                    self._records_since_snapshot = 0
+                    snap = self.state.snapshot()
+            self._repl_streaming = True
+        if snap is not None:
+            self._wal.publish_snapshot(snap)
+        networking.send_data(conn, {"ok": True})
+        hdr = _wal._HDR
+        try:
+            while True:
+                head = networking._recv_exact(conn, hdr.size)
+                rec_type, crc, ln = hdr.unpack(head)
+                body = networking._recv_exact(conn, ln, expected=ln)
+                recs = list(_wal.iter_records(head + body))
+                if not recs:
+                    raise networking.ProtocolError(
+                        "corrupt directory replication record",
+                        retryable=False,
+                    )
+                with self._repl_lock:
+                    if not self.is_standby:
+                        return True  # promoted: this stream is history
+                    self._repl_records += 1
+                    with self._lock:
+                        with _trace.span("directory.chain_apply"):
+                            self.state.apply(recs[0][0], recs[0][1])
+                        if self._wal is not None:
+                            self._wal.append(head + body)
+                            self._records_since_snapshot += 1
+                        # chain forward: raw frame to our own successor,
+                        # under the apply lock so down-chain order IS the
+                        # apply order
+                        sock = self._replica_sock
+                        if sock is not None:
+                            try:
+                                sock.sendall(head)
+                                sock.sendall(body)
+                            except OSError:
+                                self._replica_sock = None
+                                self._n_standby_drops += 1
+                                try:
+                                    sock.close()
+                                except OSError:
+                                    pass
+        finally:
+            with self._repl_lock:
+                self._repl_streaming = False
+
+    def promote(self, epoch: int, drain_timeout: float = 5.0) -> None:
+        """Become the primary: drain the stream (a dead primary's kernel
+        flushes and FINs in bounded time), stamp the bumped fence epoch
+        (durably — the promoted history must outrank the corpse's), and
+        re-arm every lease."""
+        with _trace.span("directory.promote", args={"epoch": int(epoch)}):
+            deadline = time.monotonic() + float(drain_timeout)
+            last = -1
+            while time.monotonic() < deadline:
+                with self._repl_lock:
+                    streaming = self._repl_streaming
+                    applied = self._repl_records
+                if not streaming or applied == last:
+                    break
+                last = applied
+                time.sleep(0.05)
+            with self._repl_lock:
+                with self._lock:
+                    if int(epoch) > self.state.fence_epoch:
+                        self._apply_and_log(
+                            _wal.REC_DIR_FENCE,
+                            (int(epoch), self.state.version + 1),
+                        )
+                    self._rearm_all_leases()
+                self.is_standby = False
+                self.promoted_ = True
+            if self._wal is not None:
+                self._wal.sync()

@@ -22,10 +22,10 @@ a chaotic run always drains to completion.
 The plan also carries the elastic-membership events
 (``join_worker_at_window``, ``preempt_worker_at_window``), which an
 ``elastic=True`` trainer's coordinator fires at window boundaries, and
-the membership-directory faults (``ROADMAP.md`` A7.9) with the JAX
-package's decisions; the port's trainers refuse a plan with directory
-faults (nothing consults them yet) and a plan with membership events
-unless ``elastic=True``.
+the membership-directory faults (``directory/``) with the JAX package's
+decisions; the port's trainers refuse a plan with directory faults
+unless ``directory=True`` and a plan with membership events unless
+``elastic=True``.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ class FaultPlan:
     - ``kill_shard_id``: which shard of a sharded center the kill
       targets (``sharding/``; default shard 0).
 
-    Membership-directory faults (``ROADMAP.md`` A7.9; decided per op on
+    Membership-directory faults (``directory/``; decided per op on
     the directory primary):
 
     - ``kill_directory_after_ops``: crash-stop the directory primary
@@ -311,7 +311,7 @@ class FaultPlan:
             self._ps_killed = True
             self._n_ps_kills += 1
 
-    # -- membership-directory hook (ROADMAP.md A7.9) -------------------------
+    # -- membership-directory hook (directory/) -------------------------------
 
     def take_directory_op(self) -> str:
         """Consulted once per handled op on the directory PRIMARY:

@@ -19,10 +19,10 @@ Port of ``distkeras_tpu/resilience/recovery.py``:
   parameter server: it pings the primary and, when the lease lapses,
   promotes the hot standby, or the next link of a replication chain (or
   restarts the server in place from its WAL), repoints every worker's :class:`~distkeras_tpu_torch.resilience.
-  retry.PSEndpoint`, and fences the superseded primary.
-
-The membership directory's supervisor (``DirectoryFailoverSupervisor``)
-belongs to ``ROADMAP.md`` A7.9.
+  retry.PSEndpoint`, publishes the successor to the membership directory
+  when one is wired (``publish=``), and fences the superseded primary.
+- :class:`DirectoryFailoverSupervisor` is the same machinery pointed at
+  the membership directory's primary (``directory/``).
 """
 
 from __future__ import annotations
@@ -55,8 +55,10 @@ class PSFailoverSupervisor:
        fresh
        ``SocketParameterServer`` recovering ``(snapshot, wal)`` in place;
     2. **publish**: ``resolver.update(host, port, epoch+1)`` writes the
-       endpoint and the epoch as one lock-guarded triple, so every
-       re-resolve from here on names the new primary at the new epoch;
+       endpoint and the epoch as one lock-guarded triple, and the
+       membership directory's entry (with ``publish=``) gets the same
+       triple, so every re-resolve from here on names the new primary at
+       the new epoch;
     3. **fence** the superseded primary (best effort: it is usually dead
        and the connect is refused; an unconfirmed fence is retried every
        tick): commits carrying its epoch are refused from then on, so a
@@ -74,13 +76,24 @@ class PSFailoverSupervisor:
     its commit count past the threshold, then recovers from its own kill.
     (The trainer also installs the kill in the commit path itself,
     deterministic in commit count; whichever fires first takes it.)
+
+    ``publish(host, port, epoch)`` writes this server's directory entry:
+    at failover, between the repoint and the fence, and on every healthy
+    ping as the entry's lease renewal, so a dead primary's registration
+    ages out while a live one's never does. A publication that fails (the
+    directory itself failing over) is kept and sent again each watch
+    tick: the directory never stalls the failover it advertises.
     """
+
+    #: what this supervisor watches (the directory's supervisor renames it)
+    _kind = "parameter server"
 
     def __init__(self, resolver, primary, standby=None,
                  restart_factory: Callable[[], Any] | None = None,
                  failover_timeout: float = 2.0,
                  ping_interval: float | None = None,
-                 fault_plan=None, max_failovers: int = 4):
+                 fault_plan=None, max_failovers: int = 4,
+                 publish: Callable[[str, int, int], None] | None = None):
         self.resolver = resolver
         self.active = primary
         # one replica or a chain, head first (sharding/): each failover
@@ -110,6 +123,9 @@ class PSFailoverSupervisor:
         # unreachable: usually dead, possibly only stalled), retried every
         # watch tick so a stalled zombie is fenced the moment it answers
         self._pending_fences: list[tuple[str, int, int, dict]] = []
+        self._publish_cb = publish
+        self._pending_publish: tuple[str, int, int] | None = None
+        self.publishes = 0
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
@@ -153,6 +169,17 @@ class PSFailoverSupervisor:
                 now = time.monotonic()
                 if info is not None and info.get("ok"):
                     deadline = now + self.failover_timeout
+                    if self._publish_cb is not None \
+                            and self._pending_publish is None:
+                        # a healthy ping renews the directory lease (an
+                        # identical re-publish is a renewal there); best
+                        # effort: a directory failing over must not stall
+                        # this loop
+                        try:
+                            self._publish_cb(*self.resolver.resolve())
+                            self.publishes += 1
+                        except Exception:  # noqa: BLE001
+                            pass
                     plan = self.fault_plan
                     if plan is not None and plan.should_kill_ps(
                             int(info.get("num_updates", 0))):
@@ -172,6 +199,8 @@ class PSFailoverSupervisor:
                     deadline = time.monotonic() + self.failover_timeout
                 if self._pending_fences:
                     self._retry_pending_fences()
+                if self._pending_publish is not None:
+                    self._publish_now(*self._pending_publish)
                 self._stop.wait(self.ping_interval)
         except BaseException as e:  # surfaced by run_async_training
             self.error = e
@@ -211,6 +240,20 @@ class PSFailoverSupervisor:
         with _trace.span("ps.failover"):
             self._failover_impl()
 
+    def _publish_now(self, host: str, port: int, epoch: int) -> bool:
+        """Write the directory entry (when wired); a failure keeps the
+        triple, sent again each watch tick."""
+        if self._publish_cb is None:
+            return True
+        try:
+            self._publish_cb(host, int(port), int(epoch))
+            self.publishes += 1
+            self._pending_publish = None
+            return True
+        except Exception:  # noqa: BLE001
+            self._pending_publish = (host, int(port), int(epoch))
+            return False
+
     def _failover_impl(self) -> None:
         t0 = time.monotonic()
         old_host, old_port, old_epoch = self.resolver.resolve()
@@ -234,14 +277,15 @@ class PSFailoverSupervisor:
             via = "restart"
         else:
             raise RuntimeError(
-                "primary parameter server died with no standby and no "
-                "restart factory (set ps_standby=True or ps_wal_dir)"
-            )
-        # 2. publish: endpoint and epoch land as ONE triple, before any
-        # fence, so a worker the fence bounces re-resolves straight onto
-        # the promoted primary at the new epoch
+                f"primary {self._kind} died with no standby and no "
+                f"restart factory (set ps_standby=True or ps_wal_dir)")
+        # 2. publish: endpoint and epoch land as ONE triple in the
+        # resolver and then in the directory, before any fence, so a
+        # worker the fence bounces re-resolves straight onto the promoted
+        # primary at the new epoch
         self.resolver.update(new.host, new.port, epoch)
         self.active = new
+        published = self._publish_now(new.host, new.port, epoch)
         # 3. fence the superseded history (best effort now; retried)
         fence_confirmed = self._try_fence(old_host, old_port, epoch)
         latency = time.monotonic() - t0
@@ -253,12 +297,13 @@ class PSFailoverSupervisor:
                 float(getattr(new, "wal_replay_s", 0.0)), 4
             ),
             "fence_confirmed": fence_confirmed,
+            "published": published,
         }
         self.failover_log.append(entry)
         if not fence_confirmed:
             self._pending_fences.append((old_host, old_port, epoch, entry))
         warnings.warn(
-            f"parameter server failed over via {via} to "
+            f"{self._kind} failed over via {via} to "
             f"{new.host}:{new.port} (epoch {epoch}, "
             f"{latency * 1e3:.0f} ms)",
             stacklevel=2,
@@ -269,8 +314,20 @@ class PSFailoverSupervisor:
             "failovers": self.failovers,
             "failover_latency_s": round(self.failover_latency_s, 4),
             "wal_replay_s": round(self.wal_replay_s, 4),
+            "publishes": self.publishes,
             "failover_log": list(self.failover_log),
         }
+
+
+class DirectoryFailoverSupervisor(PSFailoverSupervisor):
+    """The same lease watch, promotion and repoint pointed at a
+    :class:`~distkeras_tpu_torch.directory.DirectoryServer`: the directory
+    speaks the PS admin surface (``ping``, ``fence``, promotion of its
+    standby), so watching it costs one subclass and no new protocol.
+    Clients need no repoint: they probe the seed list and prefer the
+    highest fence epoch, which the promotion just bumped."""
+
+    _kind = "membership directory"
 
 
 class WorkerSupervisor:

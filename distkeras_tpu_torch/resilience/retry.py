@@ -241,6 +241,17 @@ class ResilientPSClient:
             self._client.close()
         except Exception:
             pass
+        refresh = getattr(self.resolver, "refresh", None)
+        if refresh is not None:
+            # a directory-backed resolver (directory/): a connect failure
+            # or a FencedEpochError re-resolves through the directory
+            # before the factory rebuilds. Best effort: a directory that
+            # is failing over leaves the cached endpoint for this attempt
+            # and the next retry asks again
+            try:
+                refresh()
+            except Exception:
+                pass
         try:
             self._client = self._make_client()
             self.reconnects += 1

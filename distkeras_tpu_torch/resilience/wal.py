@@ -95,7 +95,7 @@ REC_FENCE_FLAT = 11   # u64 epoch
 # live path's exact pipeline: restricted-unpickle -> ["payload"] ->
 # maybe_decode -> tree_to_numpy -> rule.fold.
 REC_COMMIT_WIRE = 12
-# membership-directory records (the directory, ROADMAP.md A7.9): the replicated
+# membership-directory records (directory/service.py): the replicated
 # (role, key) -> (endpoint, epoch, lease) map logs its state changes
 # through the SAME record framing — pickle-bodied tuples, each carrying
 # the post-apply version so replay detects gaps exactly like the PS log.
@@ -1022,7 +1022,7 @@ def verify_dir(directory: str) -> dict:
             }
             report["segments"].append(rec)
     report["record_totals"] = totals
-    # a membership-directory log (ROADMAP.md A7.9) walks the same
+    # a membership-directory log (directory/service.py) walks the same
     # framing; flag it so the aggregate report names which directory under
     # a shared root is the coordination log vs a shard's commit log
     report["directory"] = any(

@@ -154,11 +154,14 @@ class GenerationEngine:
     (int8 models from ``quantize_lm`` drop in unchanged) living on
     ``device`` — the card unless the caller asks for the CPU.
     ``num_blocks`` defaults to enough for ``max_batch`` rows of ``maxlen``
-    each, plus the scratch block."""
+    each, plus the scratch block. ``model_version`` is the version a
+    serving replica advertises in its directory registration (0 by
+    default, as in the JAX package); nothing here changes it until the
+    live weight swap (``ROADMAP.md`` A11.2) is ported."""
 
     def __init__(self, model, *, max_batch: int = 8, block_size: int = 16,
                  num_blocks: int | None = None, max_queue: int = 64,
-                 device="cuda"):
+                 device="cuda", model_version: int = 0):
         if not isinstance(model, TransformerLM):
             raise TypeError(f"GenerationEngine needs a TransformerLM, got "
                             f"{type(model)}")
@@ -175,6 +178,7 @@ class GenerationEngine:
             raise ValueError(f"block_size must be in [1, maxlen="
                              f"{model.maxlen}], got {block_size}")
         self._module = model
+        self.model_version = int(model_version)
         self.max_batch = int(max_batch)
         self.block_size = int(block_size)
         self.max_queue = int(max_queue)
@@ -579,6 +583,13 @@ class GenerationEngine:
             while self._queue:
                 self._finalize(self._queue.popleft(), "cancelled",
                                "engine stopped")
+
+    def prefix_hit_rate(self) -> float:
+        """The token-level prefix-cache hit rate a replica publishes into
+        its directory meta (the router's affinity weight). The port has no
+        prefix cache until ``ROADMAP.md`` A11.1, so this is 0.0, exactly
+        what the JAX engine returns with its cache off."""
+        return 0.0
 
     def stats(self) -> dict:
         with self._lock:

@@ -8,7 +8,9 @@ True, "tokens": int32 array, "new_tokens": n}``. While a request is in
 flight the handler polls the connection: a client that dies mid-generation
 is detected by its EOF, its request is cancelled, and the engine frees its
 cache blocks the next iteration. ``stop(drain=True)`` stops admission,
-lets in-flight requests finish, then closes.
+lets in-flight requests finish, then closes. ``register_with`` publishes
+the replica into a membership directory (``directory/``) under a renewed
+lease, which ``stop`` withdraws.
 """
 
 from __future__ import annotations
@@ -48,6 +50,13 @@ class GenerationServer:
         self._running = False
         self.connections_ = 0
         self.dead_connections_ = 0
+        # the membership directory: register_with() publishes this replica
+        # under the "serve" role with a renewed lease, so a
+        # RoutedGenerationClient finds it, and a killed replica's entry
+        # ages out
+        self._dir_reg: tuple | None = None   # (client, key, ttl, epoch)
+        self._dir_renewer: threading.Thread | None = None
+        self._dir_stop = threading.Event()
 
     def initialize(self) -> None:
         self._server_sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -160,6 +169,61 @@ class GenerationServer:
                 if conn in self._conns:
                     self._conns.remove(conn)
 
+    def register_with(self, directory, key: str | None = None,
+                      ttl: float = 5.0, epoch: int = 0) -> str:
+        """Publish this replica into a membership directory (a
+        ``DirectoryClient`` or its seeds): ``("serve", key) → (host,
+        port)`` with a ``ttl`` lease that a background thread renews at a
+        third of the lease, so the entry expires within one TTL of this
+        replica's death and a router's next refresh drops it. The meta
+        carries the engine's ``model_version`` and ``prefix_hit_rate()``,
+        published again with every renewal. ``stop()`` withdraws the
+        entry. Returns the registered key."""
+        from distkeras_tpu_torch.directory.client import DirectoryClient
+
+        if not isinstance(directory, DirectoryClient):
+            directory = DirectoryClient(directory)
+        if key is None:
+            key = f"{self.host}:{self.port}"
+
+        def publish():
+            directory.publish(
+                "serve", key, self.host, self.port, epoch=int(epoch),
+                ttl=float(ttl),
+                meta={"model_version": int(self.engine.model_version),
+                      "prefix_hit_rate": float(
+                          self.engine.prefix_hit_rate())})
+
+        publish()
+        self._dir_reg = (directory, key, float(ttl), int(epoch))
+        self._dir_stop.clear()
+
+        def renewer():
+            while not self._dir_stop.wait(max(ttl / 3.0, 0.05)):
+                try:
+                    publish()
+                except Exception:  # noqa: BLE001
+                    pass   # directory weather: the next tick retries
+
+        self._dir_renewer = threading.Thread(
+            target=renewer, daemon=True, name="dk-serve-dir-renew")
+        self._dir_renewer.start()
+        return key
+
+    def _withdraw_registration(self) -> None:
+        self._dir_stop.set()
+        if self._dir_renewer is not None:
+            self._dir_renewer.join(timeout=2)
+            self._dir_renewer = None
+        reg, self._dir_reg = self._dir_reg, None
+        if reg is not None:
+            directory, key, _ttl, epoch = reg
+            try:
+                directory.withdraw("serve", key, epoch=epoch)
+            except Exception:  # noqa: BLE001
+                pass   # the lease's expiry is the backstop
+            directory.close()   # a later request reconnects
+
     def stats(self) -> dict:
         s = self.engine.stats()
         with self._conns_lock:
@@ -170,7 +234,9 @@ class GenerationServer:
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Graceful by default: stop accepting, let every admitted request
-        finish and its reply flush, then tear down."""
+        finish and its reply flush, then tear down; a directory
+        registration is withdrawn first."""
+        self._withdraw_registration()
         self._running = False
         if self._server_sock is not None:
             try:
@@ -189,6 +255,28 @@ class GenerationServer:
             t.join(timeout=2)
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=2)
+
+    def _crash(self, timeout: float = 5.0) -> None:
+        """Chaos seam: die like a killed process — no renewal and no
+        withdrawal (the lease's expiry drops the entry), the engine
+        stopped without a drain, the listener and every live connection
+        shut mid-stream. ``stop()`` after it still joins the threads."""
+        self._dir_stop.set()
+        self._running = False
+        self.engine.stop(drain=False, timeout=timeout)
+        if self._server_sock is not None:
+            try:
+                self._server_sock.close()
+            except OSError:
+                pass
+        with self._conns_lock:
+            conns = list(self._conns)
+        for c in conns:
+            for close in (lambda: c.shutdown(socket.SHUT_RDWR), c.close):
+                try:
+                    close()
+                except OSError:
+                    pass
 
 
 class GenerationClient:

@@ -29,9 +29,10 @@ reads one (``get_model``, ``get_ema``, ``num_updates``, ``mark_epoch``,
 server (a promoted replica, not the corpse it replaced). With
 ``ema_decay`` every shard and replica folds the EMA of its sub-center per
 commit (a replica through ``replay_record``, so a promoted link carries
-it); a fold is leafwise, so the joined EMA is the single server's. The
-metrics registry is ``ROADMAP.md`` A13 and the membership directory's
-registration of shards A7.9: each refuses naming its item.
+it); a fold is leafwise, so the joined EMA is the single server's. With
+a membership directory, ``start_supervision(directory=)`` registers every
+shard primary there. The metrics registry is ``ROADMAP.md`` A13 and
+refuses naming its item.
 """
 
 from __future__ import annotations
@@ -204,11 +205,13 @@ class ShardedPSGroup:
         down the shard's chain, else restart it from its WAL. A
         ``fault_plan`` carrying ``kill_ps_after_commits`` arms the kill in
         the commit path of the shard it names (``kill_shard_id``, default
-        0)."""
-        if directory is not None:
-            raise NotImplementedError(
-                "registering shards with a membership directory is not "
-                "ported yet: ROADMAP.md A7.9 (the membership directory)")
+        0).
+
+        ``directory`` (a :class:`~distkeras_tpu_torch.directory.
+        HostedDirectory`) registers every shard primary as ``("ps",
+        "shard-NN")`` and hands each supervisor its publish callable:
+        promotions land in the directory before the old primary is fenced,
+        healthy pings renew the lease, and a dead shard's entry expires."""
         if self.transport != "socket":
             raise ValueError(
                 "per-shard failover supervision needs transport='socket'")
@@ -230,10 +233,13 @@ class ShardedPSGroup:
                     new.initialize()
                     new.start()
                     return new
+            publish = None
+            if directory is not None:
+                publish = directory.register_shard(sid, srv, self.plan)
             sup = PSFailoverSupervisor(
                 self.resolvers[sid], srv, standby=self.chains[sid] or None,
                 restart_factory=factory,
-                failover_timeout=float(failover_timeout))
+                failover_timeout=float(failover_timeout), publish=publish)
             sup.start()
             self.supervisors.append(sup)
         if fault_plan is not None and getattr(

@@ -50,9 +50,10 @@ own, so the two packages' leak checks never count each other's.
 The header (magic, offsets) is the JAX package's, byte for byte (the
 native core's ring lane reads the same layout). The fault-injection seam
 (``networking._fault_hook``) fires at the top of every message send and
-receive, so a ``FaultPlan`` tears rings as it tears sockets. The
-directory's named rendezvous (``ROADMAP.md`` A7.9) belongs to a later
-slice and raises ``NotImplementedError`` naming it.
+receive, so a ``FaultPlan`` tears rings as it tears sockets. With the
+membership directory's rendezvous installed (:func:`set_rendezvous`,
+``directory.install_shm_rendezvous``) every segment minted is published
+under the directory's ``shm`` role and withdrawn when it is unlinked.
 """
 
 from __future__ import annotations
@@ -136,19 +137,43 @@ _seg_counter = itertools.count()
 _SEG_REGISTRY: dict[str, int] = {}
 _SEG_REGISTRY_LOCK = threading.Lock()
 
+# the rendezvous across processes: with a membership directory installed
+# (``directory.install_shm_rendezvous``), every mint publishes the
+# segment's name under the directory's "shm" role and every unlink
+# withdraws it, so separate trainer processes on one host find each
+# other's segments by name. The process registry above stays the fallback
+# without one. Both callbacks are best effort: a directory outage never
+# fails a mint
+_RENDEZVOUS: tuple | None = None   # (publish(name, size), withdraw(name))
+
 
 def set_rendezvous(publish, withdraw) -> None:
-    """The directory's named rendezvous for segments across processes."""
-    raise NotImplementedError(
-        "the shm segment rendezvous is not ported yet: ROADMAP.md A7.9 "
-        "(the membership directory)")
+    """Install the rendezvous callbacks for this process's segments (one
+    rendezvous at a time: the directory is one a process)."""
+    global _RENDEZVOUS
+    _RENDEZVOUS = (publish, withdraw)
+
+
+def clear_rendezvous(publish=None) -> None:
+    """Uninstall the rendezvous (only the one ``publish`` installed, when
+    given, so a stale uninstaller cannot clear a newer one)."""
+    global _RENDEZVOUS
+    if publish is None or (_RENDEZVOUS is not None
+                           and _RENDEZVOUS[0] is publish):
+        _RENDEZVOUS = None
 
 
 def unregister_segment(name: str) -> None:
     """Drop one segment from the live-inventory registry (every unlink
-    path calls it)."""
+    path calls it) and withdraw it from the rendezvous."""
     with _SEG_REGISTRY_LOCK:
         _SEG_REGISTRY.pop(name, None)
+    rdv = _RENDEZVOUS
+    if rdv is not None:
+        try:
+            rdv[1](name)
+        except Exception:  # noqa: BLE001
+            pass   # best effort: the directory's lease is the backstop
 
 
 def segment_inventory() -> dict:
@@ -188,6 +213,12 @@ def mint_segment(name_prefix: str,
     _WORD.pack_into(seg.buf, _OFF_CAP, int(ring_bytes))
     with _SEG_REGISTRY_LOCK:
         _SEG_REGISTRY[seg.name] = seg.size
+    rdv = _RENDEZVOUS
+    if rdv is not None:
+        try:
+            rdv[0](seg.name, seg.size)
+        except Exception:  # noqa: BLE001
+            pass   # best effort: a mint never fails on a directory outage
     return seg
 
 

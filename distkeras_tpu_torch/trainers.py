@@ -26,7 +26,9 @@ backend's resilience knobs (``retry_policy``, ``heartbeat_interval``,
 ``ps_standby``, ``ps_failover_timeout``), its sharded center
 (``ps_num_shards``, ``ps_chain_length``) and its elastic membership
 (``elastic``, ``autoscale_target``, ``preempt_drain_timeout``,
-``max_pool_size``) are the reference's, with its checks.
+``max_pool_size``) and its membership directory (``directory``,
+``directory_standby``, ``ps_directory``) are the reference's, with its
+checks.
 ``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` /
 ``checkpoint_async`` snapshot the training state at epoch boundaries and
 resume from it (``checkpoint.py``; on the PS backend at an epoch barrier
@@ -34,7 +36,7 @@ of the workers), also from a checkpoint the JAX package wrote (its center
 carries over); ``ema_decay`` keeps a Polyak average of the center,
 ``ema_params_``, per window on the collective backend and per commit on
 the PS. Kwargs whose machinery belongs to a later slice of the port (the
-PS backend's directory and observability knobs, meshes) are accepted by
+PS backend's observability knobs, meshes) are accepted by
 name and raise ``NotImplementedError`` naming their ``ROADMAP.md`` item
 when set to anything but their default: nothing is silently ignored.
 """
@@ -85,9 +87,6 @@ _LATER = {
     "deploy_streamer": (None, "A13 (deploy streaming)"),
 }
 for _item, _knobs in {
-        "A7.9 (the membership directory)": {
-            "directory": False, "directory_standby": True,
-            "ps_directory": None},
         "A13 (observability: analyze and watch)": {
             "analyze": False, "watch": False, "watch_rules": None,
             "watch_dir": None, "watch_hook": None,
@@ -451,7 +450,9 @@ class DistributedTrainer(Trainer):
                  checkpoint_every: int = 1, resume: bool = False,
                  checkpoint_async: bool = False, elastic: bool = False,
                  autoscale_target=None, preempt_drain_timeout: float = 5.0,
-                 max_pool_size: int | None = None, **later):
+                 max_pool_size: int | None = None, directory: bool = False,
+                 directory_standby: bool = True, ps_directory=None,
+                 **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
@@ -577,6 +578,10 @@ class DistributedTrainer(Trainer):
                 "with one window still un-exchanged; drop checkpoint_dir or "
                 "run depth 0")
         self.ps_stats_ = None
+        self._init_directory(backend, ps_transport, ps_host, directory,
+                             directory_standby, ps_directory,
+                             ps_num_shards > 1 or ps_chain_length > 1
+                             or ps_standby or ps_wal_dir is not None)
         self._init_resilience(
             backend, ps_transport, ps_host, tolerate_worker_failures,
             worker_restart_budget, worker_restart_delay, retry_policy,
@@ -585,6 +590,58 @@ class DistributedTrainer(Trainer):
             ps_standby, ps_failover_timeout, ps_num_shards, ps_chain_length)
         self._init_elastic(backend, ps_host, elastic, autoscale_target,
                            preempt_drain_timeout, max_pool_size)
+
+    def _init_directory(self, backend, ps_transport, ps_host, directory,
+                        directory_standby, ps_directory,
+                        owner_knobs: bool) -> None:
+        """The membership directory's knobs (``directory/``), checked as
+        the reference checks them:
+
+        - ``directory=True``: host the replicated directory beside the PS
+          fleet (a WAL-backed ``DirectoryServer`` and, unless
+          ``directory_standby=False``, a standby fed by its stream),
+          mapping ``("ps", "shard-NN")`` to the endpoint, fence epoch and
+          lease. Every worker's client, joiners included, is minted from a
+          directory lookup; failover supervisors publish a promotion there
+          before fencing the old primary, and their healthy pings renew
+          the lease;
+        - ``ps_directory``: seeds (``"host:port"`` or ``(host, port)``,
+          one or a list) of an external fleet's directory, which this
+          trainer discovers the fleet through instead of ``ps_host``.
+
+        ``owner_knobs`` says whether a knob of the fleet's owner
+        (``ps_num_shards``, ``ps_chain_length``, ``ps_standby``,
+        ``ps_wal_dir``) is set."""
+        self.directory = bool(directory)
+        self.directory_standby = bool(directory_standby)
+        self.ps_directory = ps_directory
+        if not (self.directory or ps_directory is not None):
+            return
+        if backend != "ps":
+            raise ValueError(
+                "directory/ps_directory apply to backend='ps' only")
+        if self.directory and ps_transport != "socket":
+            raise ValueError(
+                "directory=True requires ps_transport='socket' (the "
+                "directory registers TCP endpoints; the in-process and shm "
+                "transports have no cross-host endpoints to publish)")
+        if self.directory and ps_directory is not None:
+            raise ValueError(
+                "directory=True hosts the directory; ps_directory= "
+                "discovers an external one: set exactly one")
+        if ps_host is not None:
+            raise ValueError(
+                "directory/ps_directory replace ps_host: endpoints come "
+                "from the directory, not constructor arguments")
+        if ps_directory is not None and owner_knobs:
+            raise ValueError(
+                "ps_directory discovers a fleet some other process hosts: "
+                "the server-side knobs (ps_num_shards, ps_chain_length, "
+                "ps_standby, ps_wal_dir) belong to that owner")
+        if ps_directory is not None and ps_transport != "socket":
+            raise ValueError(
+                "ps_directory requires ps_transport='socket' (the "
+                "discovered endpoints are TCP servers)")
 
     def _init_elastic(self, backend, ps_host, elastic, autoscale_target,
                       preempt_drain_timeout, max_pool_size) -> None:
@@ -788,12 +845,12 @@ class DistributedTrainer(Trainer):
                     f"fault_plan.kill_shard_id={ks} is out of range for "
                     f"ps_num_shards={self.ps_num_shards}")
         if fault_plan is not None and getattr(
-                fault_plan, "has_directory_events", False):
+                fault_plan, "has_directory_events", False) \
+                and not self.directory:
             raise ValueError(
                 "fault_plan carries directory kill/partition events but "
-                "directory=True is not set (the membership directory is "
-                "not ported yet: ROADMAP.md A7.9), so nothing would ever "
-                "consult them")
+                "directory=True is not set: nothing would ever consult "
+                "them, so the chaos would silently test nothing")
         if backend != "ps" and (
                 worker_restart_budget or retry_policy is not None
                 or heartbeat_interval is not None or lease_timeout is not None

@@ -752,7 +752,7 @@ def _ps_kwargs(trainer, lease_timeout) -> dict:
 
 
 def _resilience_stats(clients, supervisor, fault_plan, failover,
-                      coordinator=None):
+                      coordinator=None, directory=None):
     """``trainer.resilience_stats_``: the commit-seqno oracle (logical
     commits the clients saw acknowledged, to hold against the server's
     folds), retry and reconnect totals, supervisor restarts and their log
@@ -760,7 +760,8 @@ def _resilience_stats(clients, supervisor, fault_plan, failover,
     ``from``: ``snapshot``, ``checkpoint`` or ``center-pull``), what the
     fault plan injected, the failover log (``failover``: the
     supervisor's, or a sharded group's roll-up of its shards', or None)
-    and the elastic coordinator's ``stats()`` (or None)."""
+    the elastic coordinator's ``stats()`` (or None) and the hosted
+    membership directory's ``stats()`` (``directory``, or None)."""
     sup = supervisor.stats() if supervisor else {"restarts": 0,
                                                  "restart_log": []}
     return {
@@ -772,6 +773,7 @@ def _resilience_stats(clients, supervisor, fault_plan, failover,
         "faults": fault_plan.stats() if fault_plan is not None else None,
         "ps_failover": failover,
         "elastic": None if coordinator is None else coordinator.stats(),
+        "directory": directory,
     }
 
 
@@ -793,7 +795,14 @@ def run_async_training(trainer, ds, shuffle: bool):
     :class:`~distkeras_tpu_torch.resilience.elastic.ElasticCoordinator`
     owns the pool (see :func:`_run_elastic`), and
     ``resilience_stats_["elastic"]`` holds its joins, drains, the
-    autoscaler's decisions and the assigner's exactly-once ledger."""
+    autoscaler's decisions and the assigner's exactly-once ledger. With
+    ``directory=True`` a :class:`~distkeras_tpu_torch.directory.
+    HostedDirectory` (its WAL under ``<ps_wal_dir>/directory``) registers
+    every PS endpoint, and every client, joiners included, is minted from a
+    directory lookup; with ``ps_directory`` the clients are minted from an
+    external fleet's directory. ``trainer.directory_stats_`` (also
+    ``resilience_stats_["directory"]``) holds the hosted directory's
+    registrations, counters, failover log and final membership."""
     from distkeras_tpu_torch.resilience.recovery import WorkerSupervisor
     from distkeras_tpu_torch.resilience.retry import (
         PSEndpoint,
@@ -864,7 +873,14 @@ def run_async_training(trainer, ds, shuffle: bool):
     failover = (not sharded and transport == "socket"
                 and external_host is None
                 and (trainer.ps_standby or kill_ps_chaos))
-    if (failover or shard_supervised) and retry_policy is None:
+    # the membership directory (directory/): hosted beside the fleet it
+    # describes (directory=True), or an external fleet's (ps_directory=
+    # seeds); either way every client is minted from a lookup, and a
+    # reconnect re-resolves through it
+    directory_on = trainer.directory
+    dir_seeds = trainer.ps_directory
+    if (failover or shard_supervised or directory_on
+            or dir_seeds is not None) and retry_policy is None:
         # a failover is survivable only through reconnecting clients, and
         # the default policy's 6 attempts span ~1.5 s, less than detecting
         # and promoting: budget for the failover with room to spare
@@ -886,6 +902,7 @@ def run_async_training(trainer, ds, shuffle: bool):
     trainer.trace_path_ = None
     trainer.ps_stats_ = None
     trainer.resilience_stats_ = None
+    trainer.directory_stats_ = None
     trainer.ema_params_ = None
     trainer.checkpoint_ms_ = []
 
@@ -894,6 +911,18 @@ def run_async_training(trainer, ds, shuffle: bool):
     standby = None
     ps_supervisor = None
     group = None
+    hosted = external_directory = None
+    if directory_on:
+        from distkeras_tpu_torch.directory import HostedDirectory
+
+        # the default lease outlives two failover timeouts (a loaded host
+        # renews late); its WAL lives beside the shards'
+        hosted = HostedDirectory(
+            wal_dir=(None if trainer.ps_wal_dir is None
+                     else os.path.join(trainer.ps_wal_dir, "directory")),
+            standby=trainer.directory_standby,
+            default_ttl=max(2.0 * float(failover_timeout), 1.0),
+            failover_timeout=float(failover_timeout), fault_plan=fault_plan)
     if sharded:
         from distkeras_tpu_torch.sharding import ShardedPSGroup
 
@@ -902,6 +931,13 @@ def run_async_training(trainer, ds, shuffle: bool):
             params, rule, W, num_shards=num_shards, transport=transport,
             wal_root=kw.pop("wal_dir"), chain_length=chain_length, **kw)
         ps = group
+    elif dir_seeds is not None:
+        # an external fleet found through its directory: the seeds are the
+        # only addresses given, and build_client mints each worker's
+        # client from a lookup
+        from distkeras_tpu_torch.directory import DirectoryClient, parse_seeds
+
+        external_directory = DirectoryClient(parse_seeds(dir_seeds))
     elif external_host is not None and transport == "native":
         from distkeras_tpu_torch.native_ps import FlatSpec, NativePSClient
 
@@ -977,21 +1013,50 @@ def run_async_training(trainer, ds, shuffle: bool):
     coordinator = None
     snap_client = None
     try:
+        if hosted is not None:
+            hosted.start()
         if group is not None:
             # inside the try: a shard that fails to start stops the rest
             group.initialize()
             group.start()
+        ps_publish = None
+        if hosted is not None and group is None:
+            # the single PS is shard 0 of 1; without a supervisor to renew
+            # it the entry never expires
+            ps_publish = hosted.register_shard(0, ps, None,
+                                               supervised=failover)
         if failover:
             standby, ps_supervisor = _start_failover(
                 trainer, ps, params, rule, W, lease_timeout, resolver,
-                fault_plan if kill_ps_chaos else None, failover_timeout)
+                fault_plan if kill_ps_chaos else None, failover_timeout,
+                publish=ps_publish)
         if shard_supervised:
             group.start_supervision(
                 fault_plan=fault_plan if kill_ps_chaos else None,
-                failover_timeout=float(failover_timeout))
+                failover_timeout=float(failover_timeout), directory=hosted)
+        elif hosted is not None and group is not None:
+            # no supervisors to renew their leases: entries that never
+            # expire (discovery works; nothing ages out)
+            for sid, srv in enumerate(group.servers):
+                hosted.register_shard(sid, srv, group.plan,
+                                      supervised=False)
 
         def build_client(i):
-            # any id: the elastic coordinator mints joiners' clients here
+            # any id: the elastic coordinator mints joiners' clients here.
+            # With a directory, every client comes from a lookup
+            if hosted is not None:
+                return hosted.build_worker_client(
+                    params, offset + i, retry_policy=retry_policy,
+                    heartbeat_interval=hb_interval,
+                    pull_compression=pull_comp)
+            if external_directory is not None:
+                from distkeras_tpu_torch.directory import build_ps_client
+
+                return build_ps_client(
+                    external_directory, params, offset + i,
+                    retry_policy=retry_policy,
+                    heartbeat_interval=hb_interval,
+                    pull_compression=pull_comp)
             if group is not None:
                 # the fan-out client comes whole: its resilient wrapping
                 # is per shard, one seqno stream a shard
@@ -1028,7 +1093,9 @@ def run_async_training(trainer, ds, shuffle: bool):
                 # pull would record its version and understate its
                 # DynSGD staleness after every checkpoint
                 snap_client = _snapshot_client(trainer, params,
-                                               external_host, transport)
+                                               external_host, transport,
+                                               external_directory,
+                                               retry_policy)
 
             def ckpt_pred(epoch):
                 return ckpt.should_checkpoint(
@@ -1132,10 +1199,13 @@ def run_async_training(trainer, ds, shuffle: bool):
                                            for w in workers):
             raise RuntimeError("a PS failover supervisor died while the "
                                "workers survived") from sup_err
+        if hosted is not None:
+            trainer.directory_stats_ = hosted.stats()
         if (resilient or supervisor is not None
                 or fault_plan is not None or coordinator is not None):
             trainer.resilience_stats_ = _resilience_stats(
-                clients, supervisor, fault_plan, failover_stats, coordinator)
+                clients, supervisor, fault_plan, failover_stats, coordinator,
+                trainer.directory_stats_)
         _raise_worker_errors(trainer, workers, supervisor, budget, surfaced)
         trainer.exchange_phases_ = aggregate_exchange_phases(workers)
         if ps is None:
@@ -1165,6 +1235,11 @@ def run_async_training(trainer, ds, shuffle: bool):
                 ps_supervisor.active if ps_supervisor else None)
                 if x is not None}.values():
             server.stop()
+        # the directory goes after the servers it describes
+        if hosted is not None:
+            hosted.stop()
+        if external_directory is not None:
+            external_directory.close()
         if trace_owner:
             _trace.disable()
     final_nt = next((w.final_nt for w in workers if hasattr(w, "final_nt")),
@@ -1300,11 +1375,18 @@ def _checkpointed_worker(ckpt_dir, i: int) -> dict | None:
     return saved[i] if i < len(saved) else None
 
 
-def _snapshot_client(trainer, params, host: str, transport: str):
+def _snapshot_client(trainer, params, host: str, transport: str,
+                     directory=None, retry_policy=None):
     """A client of the external PS under the sentinel worker id
     ``2**32 − 1`` (no commit ever uses it), for the barrier's center
-    pull."""
+    pull; minted from a lookup when the fleet is found through a
+    ``directory`` (a ``DirectoryClient``)."""
     sentinel = 2**32 - 1
+    if directory is not None:
+        from distkeras_tpu_torch.directory import build_ps_client
+
+        return build_ps_client(directory, params, sentinel,
+                               retry_policy=retry_policy)
     if transport == "native":
         from distkeras_tpu_torch.native_ps import FlatSpec, NativePSClient
 
@@ -1314,12 +1396,13 @@ def _snapshot_client(trainer, params, host: str, transport: str):
 
 
 def _start_failover(trainer, ps, params, rule, W, lease_timeout, resolver,
-                    kill_plan, failover_timeout):
+                    kill_plan, failover_timeout, publish=None):
     """The socket transport's failover wiring: the hot standby (with
     ``ps_standby``; its WAL under ``<ps_wal_dir>/standby``) attached to the
     primary, a restart-in-place factory (with ``ps_wal_dir``), the PS-kill
     chaos hook in the commit path (deterministic in commit count, tearing
-    in-flight ACKs like a real kill), and the started supervisor. Returns
+    in-flight ACKs like a real kill), and the started supervisor (which
+    writes the membership directory's entry through ``publish``). Returns
     ``(standby or None, supervisor)``."""
     from distkeras_tpu_torch.resilience.recovery import PSFailoverSupervisor
 
@@ -1357,7 +1440,8 @@ def _start_failover(trainer, ps, params, rule, W, lease_timeout, resolver,
         ps.post_commit_hook = kill_hook
     sup = PSFailoverSupervisor(resolver, ps, standby=standby,
                                restart_factory=restart_factory,
-                               failover_timeout=float(failover_timeout))
+                               failover_timeout=float(failover_timeout),
+                               publish=publish)
     sup.start()
     return standby, sup
 

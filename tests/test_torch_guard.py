@@ -53,7 +53,8 @@ _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "resilience.recovery", "sharding", "sharding.ring",
                 "sharding.client", "sharding.group", "checkpoint",
                 "observability.timeseries", "observability.watch",
-                "resilience.elastic"]
+                "resilience.elastic", "directory", "directory.service",
+                "directory.client", "directory.host", "directory.router"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

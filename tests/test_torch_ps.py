@@ -784,8 +784,29 @@ def test_four_worker_ps_run_matches_the_jax_package(name, window,
 ])
 def test_later_ps_kwargs_raise_naming_their_item(kwargs, item):
     """Later slices' knobs raise naming their item. Elastic membership's
-    (A7.8), once refused too, are accepted under ``elastic=True`` and
-    checked as the reference checks them without it."""
+    (A7.8) and the membership directory's (A7.9), once refused too, are
+    taken and checked as the reference checks them: the directory's get
+    the JAX trainer's verdict on the same arguments, on the in-process
+    transport and on the socket one."""
+    if item == "A7.9":
+        jspec = jax_mlp(input_shape=(16,), hidden=(32,), num_classes=4)
+        for kw in (kwargs, dict(kwargs, ps_transport="socket")):
+            try:
+                jt, jerr = jdk.DynSGD(jspec, backend="ps", **kw), None
+            except ValueError as e:
+                jerr = e
+            if jerr is not None:
+                assert "ps_transport='socket'" in str(jerr)
+                with pytest.raises(ValueError, match="ps_transport='socket'"):
+                    trainers.DynSGD(_spec(), backend="ps", device="cpu", **kw)
+                continue
+            t = trainers.DynSGD(_spec(), backend="ps", device="cpu", **kw)
+            for name in ("directory", "directory_standby", "ps_directory",
+                         "ps_transport"):
+                assert getattr(t, name) == getattr(jt, name)
+            for name, value in kw.items():
+                assert getattr(t, name) == value
+        return
     if item != "A7.8":
         with pytest.raises(NotImplementedError, match=item):
             trainers.DynSGD(_spec(), backend="ps", device="cpu", **kwargs)

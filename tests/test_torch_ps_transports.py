@@ -673,8 +673,35 @@ def test_transport_and_pipeline_validation_matrix():
         mk(ps_pipeline_depth=1, ps_fused_exchange=False)
     with pytest.raises(ValueError, match="native"):
         mk(ps_transport="native", ps_pipeline_depth=1, compression="int8")
-    with pytest.raises(NotImplementedError, match="A7.9"):
-        shm.set_rendezvous(None, None)
+    # the directory's segment rendezvous (once refused naming A7.9)
+    # installs and clears as the JAX package's does with the same
+    # arguments; its callbacks are best effort, so even callbacks that
+    # fail leave minting and unlinking working
+    import distkeras_tpu.shm as jshm
+
+    for mod in (jshm, shm):
+        mod.set_rendezvous(None, None)
+        assert mod._RENDEZVOUS == (None, None)
+        mod.clear_rendezvous()
+        assert mod._RENDEZVOUS is None
+    seen = []
+    publish = lambda name, size: seen.append(("publish", name, size))
+    shm.set_rendezvous(publish, lambda name: seen.append(("withdraw", name)))
+    shm.clear_rendezvous(lambda name, size: None)   # not ours: kept
+    assert shm._RENDEZVOUS[0] is publish
+    seg = shm.mint_segment("dktshm_rdv", 64)
+    seg.close()
+    seg.unlink()
+    shm.unregister_segment(seg.name)
+    shm.clear_rendezvous(publish)
+    assert shm._RENDEZVOUS is None
+    assert seen == [("publish", seg.name, seg.size), ("withdraw", seg.name)]
+    shm.set_rendezvous(None, None)
+    seg = shm.mint_segment("dktshm_rdv", 64)
+    seg.close()
+    seg.unlink()
+    shm.unregister_segment(seg.name)
+    shm.clear_rendezvous()
 
 
 def test_shm_attach_standby_and_eviction_work():

@@ -685,9 +685,9 @@ def test_resilient_training_inprocess_transport():
 
 def test_resilience_knob_validation():
     """The reference's checks on the A7.6 knobs; a plan with directory
-    events is refused (nothing would consult them), one with elastic events
-    unless ``elastic=True``; every later item still raises naming
-    itself."""
+    events is refused unless ``directory=True`` (else nothing would consult
+    them), one with elastic events unless ``elastic=True``; every later
+    item still raises naming itself."""
     with pytest.raises(ValueError, match="backend='ps' only"):
         trainers.ADAG(_spec(), device="cpu", retry_policy=tres.RetryPolicy())
     with pytest.raises(ValueError, match="backend='ps' only"):
@@ -702,7 +702,8 @@ def test_resilience_knob_validation():
                         kill_ps_after_commits=3), ps_transport="socket"),
                      "recovery path"),
                     (dict(fault_plan=tres.FaultPlan(
-                        kill_directory_after_ops=3)), "A7.9")):
+                        kill_directory_after_ops=3)),
+                     "directory=True is not set")):
         with pytest.raises(ValueError, match=msg):
             trainers.DynSGD(_spec(), backend="ps", device="cpu", **kw)
     t = trainers.DynSGD(_spec(), **dict(_KW, num_workers=1),
@@ -712,15 +713,19 @@ def test_resilience_knob_validation():
     # JAX package's message
     with pytest.raises(ValueError, match="join/preempt.*set elastic=True"):
         t.train(Dataset.from_arrays(*blobs(n=256)))
-    # the elastic knobs (once refused naming A7.8) take the reference's
-    # checks; the directory's still names its item
+    # the elastic knobs (once refused naming A7.8) and the directory's
+    # (once refused naming A7.9) take the reference's checks
     with pytest.raises(ValueError, match="max_pool_size requires"):
         trainers.DynSGD(_spec(), backend="ps", device="cpu",
                         max_pool_size=4)
     assert trainers.DynSGD(_spec(), backend="ps", device="cpu",
                            elastic=True).elastic
-    with pytest.raises(NotImplementedError, match="A7.9"):
+    with pytest.raises(ValueError, match="requires ps_transport='socket'"):
         trainers.DynSGD(_spec(), backend="ps", device="cpu", directory=True)
+    t = trainers.DynSGD(_spec(), backend="ps", device="cpu", directory=True,
+                        ps_transport="socket", fault_plan=tres.FaultPlan(
+                            kill_directory_after_ops=3))
+    assert t.directory and t.fault_plan.has_directory_events
     # checkpoints (once refused naming A8) are taken, with the
     # reference's check against the pipelined exchange
     t = trainers.DynSGD(_spec(), backend="ps", device="cpu",

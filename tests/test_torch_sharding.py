@@ -639,10 +639,12 @@ def test_sharded_stats_rollup_shapes():
 
 
 def test_sharded_group_refuses_later_items():
-    """The metrics registry (A13) and the directory (A7.9) name their
-    items; a sharded live join and drain, once refused naming A7.8, count
-    on every shard; the center's EMA, once refused naming A8, is the join
-    of the shards' EMAs (the center itself before any commit)."""
+    """The metrics registry (A13) names its item; the directory's
+    registration (once refused naming A7.9) registers both supervised
+    shards as the JAX package does, with leases their supervisors renew;
+    a sharded live join and drain, once refused naming A7.8, count on
+    every shard; the center's EMA, once refused naming A8, is the join of
+    the shards' EMAs (the center itself before any commit)."""
     tree = _model_tree()
     group = ShardedPSGroup(tree, tr.ADAGMerge(), 1, num_shards=2,
                            transport="socket", ema_decay=0.9)
@@ -656,8 +658,30 @@ def test_sharded_group_refuses_later_items():
             np.testing.assert_array_equal(a, b)
         with pytest.raises(NotImplementedError, match="A13"):
             group.metrics()
-        with pytest.raises(NotImplementedError, match="A7.9"):
-            group.start_supervision(directory=object())
+        from distkeras_tpu_torch.directory import HostedDirectory
+
+        hosted = HostedDirectory(standby=False, failover_timeout=0.5)
+        hosted.start()
+        try:
+            group.start_supervision(failover_timeout=0.5, directory=hosted)
+            view = hosted.membership()
+            assert [(e["key"], e["port"], e["epoch"], e["ttl"])
+                    for e in view["entries"]] == [
+                (f"shard-{sid:02d}", srv.port, 0, hosted.entry_ttl(True))
+                for sid, srv in enumerate(group.servers)]
+            meta = view["entries"][0]["meta"]
+            assert meta == {"num_shards": 2, "ring": group.plan.digest,
+                            "vnodes": group.plan.ring.vnodes,
+                            "bound": group.plan.bound}
+            # healthy pings renew both entries through the publish path
+            deadline = time.monotonic() + 10
+            while time.monotonic() < deadline and not all(
+                    sup.publishes for sup in group.supervisors):
+                time.sleep(0.02)
+            assert all(sup.publishes for sup in group.supervisors)
+        finally:
+            group.stop_supervision()
+            hosted.stop()
         # a sharded live join and drain (once refused naming A7.8) register
         # and drain on both shards
         c = group.make_client(0)

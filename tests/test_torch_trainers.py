@@ -227,15 +227,17 @@ def test_resident_and_streaming_paths_agree_unshuffled():
 
 def test_later_slice_kwargs_raise_naming_their_roadmap_item():
     spec = torch_mlp(input_shape=(8,), hidden=(4,), num_classes=2)
-    # elastic membership (A7.8, once refused) is taken, with the
-    # reference's check that it needs backend="ps"; the directory (A7.9)
-    # still names its item
+    # elastic membership (A7.8) and the membership directory (A7.9), once
+    # refused, are taken, each with the reference's check that it needs
+    # backend="ps"
     with pytest.raises(ValueError, match="backend='ps'"):
         trainers.ADAG(spec, elastic=True, device="cpu")
     assert trainers.ADAG(spec, elastic=True, backend="ps",
                          device="cpu").elastic
-    with pytest.raises(NotImplementedError, match="A7.9"):
+    with pytest.raises(ValueError, match="backend='ps' only"):
         trainers.ADAG(spec, directory=True, device="cpu")
+    assert trainers.ADAG(spec, directory=True, backend="ps",
+                         ps_transport="socket", device="cpu").directory
     # the checkpoint and EMA knobs (A8) are taken
     t = trainers.DynSGD(spec, checkpoint_dir="/nonexistent", resume=True,
                         checkpoint_async=True, ema_decay=0.5, device="cpu")
