@@ -23,8 +23,8 @@ Phases, in order; any failure exits non-zero and prints no result:
    in rank order), the served prefill lengths (``SERVED_LENGTHS``) and
    M=1024, with kernel, plain and library (``torch.matmul`` over a
    pre-dequantized bf16 weight) times and the card's bound, each row with
-   the launch plan (``quant.plan_q_matmul``); then ragged edges for every
-   kernel path;
+   the launch plan (``quant.plan_q_matmul``), and at the front door's
+   chunk rows (``CHUNK_ROWS``); then ragged edges for every kernel path;
 4. K2 flash-attention forward against its plain version at prefill shapes
    (B=4 and the served B=1 lengths; H=16, Hkv=1, D=128, bf16, causal) and
    at small cases for its edge tiles (ragged L, windows, masked keys
@@ -227,11 +227,32 @@ Phases, in order; any failure exits non-zero and prints no result:
     stream (and the same prompts served unrouted) tie-aware, "a" out of
     the directory within 3 TTLs, K1 and K2 launched on the routed traffic
     alone;
-19. print the ``kernels`` JSON line (K1 as one decode step and, as
+19. ``serve_frontdoor`` runs after ``serve_router_int8`` in phase 9's
+    serving block: ``GenerationEngine(prefix_cache=True,
+    prefill_chunk=FD_CHUNK, admission="slo", max_batch=FD_BATCH)`` driven
+    on this thread by ``_drive_frontdoor`` (a chat with a 384-token system
+    prompt stepped to its first token; five more sharing it, two
+    diverging mid-block; a 900-token document; two realtime requests, one
+    sampled, arriving one block short of the pool), int8 with a mid-run
+    refill swap to the seed-1 int8 weights, and bf16; gates: every
+    request completes, every stream tie-aware under the weights that
+    served it (the swapped-in ones through the engine's own module), the
+    shared prompt's hits (>= 5 x 384 tokens), a COW copy, a preemption,
+    the pool empty after ``flush_prefix_cache``, the tree and the pool
+    empty when the swap landed (its ``stats()["last_swap"]`` record), K1
+    launched at prefill and decode on the int8 traffic alone; each token
+    off the full forward's exact top k is probed against a full forward
+    whose attention rounds like the served path's (``attn_impl=
+    "reference"``: bf16 scores and probabilities) and against a replay of
+    the chunk program over its context (``probe_gaps``), information
+    only;
+    beside them a FIFO control (the same jobs, cache off) for tokens/s
+    and per-class latency;
+20. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
-    elastic phases and the directory phases, K6 and K7 with their G=1
-    times), read config 3's
+    elastic phases, the directory phases and the front door, K6 and K7
+    with their G=1 times), read config 3's
     gates (``ps3_failures``, the sharded run's too), then the result line
     ``{"ok": true, "device": {...}}`` last.
 
@@ -265,6 +286,26 @@ PROMPTS = (128, 77, 208, 333)
 SERVED_LENGTHS = (80, 128, 208, 336)   # the prompts padded to BLOCK
 NEW_TOKENS = 32
 BLOCK = 16
+# serve_frontdoor's traffic on the served config: a FD_SYSTEM-token system
+# prompt (24 full blocks) shared by six best-effort chats — the first with
+# a FD_FIRST-token suffix, stepped alone to its first token, then five
+# with FD_CHATS-token suffixes, those at FD_COW repeating the first's
+# first FD_COW_LEN suffix tokens and diverging mid-block — a FD_DOC-token
+# document (ceil(900/256) = 4 chunks), then FD_RT realtime prompts, the
+# second sampled; NEW_TOKENS each. The pool leaves the first realtime
+# request one block short, so it must preempt.
+FD_CHUNK, FD_SYSTEM, FD_FIRST = 256, 384, 56
+FD_BATCH = 8              # the front door engine's max_batch
+# the front door's chunk program at prefill_chunk=FD_CHUNK runs its Dense
+# layers at M = npad·FD_CHUNK, npad the prefilling rows rounded up to a
+# power of two (<= FD_BATCH): 256, 512, 1024, 2048; and 4·100, which no
+# token tile divides
+CHUNK_ROWS = tuple((1 << i) * FD_CHUNK
+                   for i in range(FD_BATCH.bit_length())) + (4 * 100,)
+FD_CHATS, FD_COW, FD_COW_LEN = (120, 40, 200, 72, 160), (1, 3), 8
+FD_DOC, FD_RT = 900, (64, 96)
+FD_RT_SAMPLING = dict(temperature=0.7, top_k=8, seed=3)
+FD_SWAP_AFTER = 4         # realtime tokens before the int8 run's swap
 # Dense shapes (K, N) of the config: qkv, attn_out, mlp_up, mlp_down, head
 DENSE = ((2048, 2304), (2048, 2048), (2048, 8192), (8192, 2048),
          (2048, 16384))
@@ -452,8 +493,9 @@ def rotating(items):
 def check_q_matmul(torch, quant):
     """Phase 3: K1 against its plain version at every Dense shape of the
     served config: decode (M=8, the served batch), the served prefill
-    lengths (SERVED_LENGTHS, one batched prefill per padded length) and
-    M=1024, with kernel, plain and library times and the card's bound; the
+    lengths (SERVED_LENGTHS, one batched prefill per padded length), the
+    front door's chunk program (CHUNK_ROWS) and M=1024, with kernel, plain
+    and library times and the card's bound; the
     split decode kernel twice for equal bits; then ragged edges."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows, max_err = [], 0.0
@@ -465,7 +507,8 @@ def check_q_matmul(torch, quant):
               for _ in range(nrot)]
         deq = [quant.dequantize(q_, axis=1, dtype=torch.bfloat16)
                for q_ in qs]
-        cases = [(m, torch.bfloat16) for m in (8, *SERVED_LENGTHS, 1024)]
+        cases = [(m, torch.bfloat16) for m in dict.fromkeys(
+            (8, *SERVED_LENGTHS, *CHUNK_ROWS, 1024))]
         if (k, n) == DENSE[0]:   # ragged decode rows, and the f32 kernel
             cases += [(13, torch.bfloat16), (8, torch.float32),
                       (1024, torch.float32)]
@@ -1230,9 +1273,11 @@ def serve(torch, model, label):
     return prompts, results, wall
 
 
-def tie_aware_check(torch, model, prompts, results, label):
+def tie_aware_check(torch, model, prompts, results, label, top_ks=None):
     """Every emitted token is the argmax of its context up to one bf16 ulp,
-    judged by one full forward over prompt + generated tokens.
+    judged by one full forward over prompt + generated tokens; a sampled
+    stream's (``top_ks[i]``, its ``top_k``) is among the ``top_k`` largest
+    logits up to the same bound.
 
     A random-init bf16 model ties logits, and the served path (paged decode:
     bf16 attention scores, the decode matmul kernel) and the full forward
@@ -1242,28 +1287,110 @@ def tie_aware_check(torch, model, prompts, results, label):
     output), each rounded by up to half an ulp: a gap of one ulp between the
     unrounded logits reads as up to two ulps between the rounded ones, so
     that is the bound. An emission bug gaps by whole units."""
-    worst, off_argmax = 0.0, 0
+    worst, off = 0.0, []
     for i, p in enumerate(prompts):
-        toks = results[i]
-        seq = torch.from_numpy(np.concatenate([p, toks[:-1]]).astype(
-            np.int64)).to(DEVICE)[None]
-        lg = model(seq)[0, len(p) - 1:].float()
-        emitted = torch.from_numpy(toks.astype(np.int64)).to(DEVICE)
-        mx = lg.max(dim=-1).values
-        got = lg.gather(1, emitted[:, None])[:, 0]
-        # bf16 ulp at the row max: 2^(exponent - 7)
-        ulp = torch.exp2(torch.floor(torch.log2(
-            mx.abs().clamp(min=2.0 ** -120))) - 7)
-        gap = (mx - got) / ulp
+        lg = _stream_logits(torch, model, p, results[i])
+        k = (top_ks[i] if top_ks is not None else None) or 1
+        gap, _ = _ulp_gaps(torch, lg, results[i], k)
         if not torch.isfinite(lg).all() or bool((gap > 2.0).any()):
             raise AssertionError(
                 f"{label}: stream {i} emits a token beyond one bf16 ulp of "
-                f"the full-forward argmax: max gap {gap.max().item()} ulp")
+                f"the full-forward top {k}: max gap {gap.max().item()} ulp")
         worst = max(worst, gap.max().item())
-        off_argmax += int((gap > 0).sum().item())
+        off += [(i, int(j), gap[j].item())
+                for j in torch.nonzero(gap > 0)[:, 0].tolist()]
     log(f"tie-aware check {label}: ok (worst gap {worst:.3f} ulp of the "
-        f"rounded logits, {off_argmax} of {NEW_TOKENS * len(prompts)} "
-        f"tokens not the exact argmax)")
+        f"rounded logits, {len(off)} of "
+        f"{sum(len(results[i]) for i in range(len(prompts)))} tokens not "
+        f"in the exact top k)")
+    return off
+
+
+def _stream_logits(torch, model, prompt, toks):
+    """One full forward over prompt + ``toks[:-1]``: the f32 logits that
+    pick each token of ``toks``, ``[len(toks), vocab]``."""
+    seq = torch.from_numpy(np.concatenate([prompt, toks[:-1]]).astype(
+        np.int64)).to(DEVICE)[None]
+    return model(seq)[0, len(prompt) - 1:].float()
+
+
+def _ulp_gaps(torch, lg, toks, k):
+    """Each emitted token's logit below the ``k``-th largest of its row,
+    in bf16 ulps at the row max (2^(exponent - 7)); and that ulp."""
+    emitted = torch.from_numpy(toks.astype(np.int64)).to(DEVICE)
+    mx = lg.max(dim=-1).values
+    kth = lg.topk(k, dim=-1).values[:, -1]
+    got = lg.gather(1, emitted[:, None])[:, 0]
+    ulp = torch.exp2(torch.floor(torch.log2(
+        mx.abs().clamp(min=2.0 ** -120))) - 7)
+    return (kth - got) / ulp, ulp
+
+
+def _chunk_logits(torch, model, ctx):
+    """The chunk program's f32 logits for the token after ``ctx``: the
+    whole context fed through ``paged_extend_rows`` in FD_CHUNK chunks,
+    one row, over a fresh pool (block 0 the scratch block)."""
+    from distkeras_tpu_torch.serving import PagedKVCache
+
+    nb = math.ceil(len(ctx) / BLOCK)
+    cache = PagedKVCache(model, nb + 1, BLOCK)
+    table = torch.arange(1, nb + 1, device=DEVICE)[None]
+    for c0 in range(0, len(ctx), FD_CHUNK):
+        pos = torch.arange(c0, min(c0 + FD_CHUNK, len(ctx)), device=DEVICE)
+        toks = torch.from_numpy(ctx[c0:c0 + FD_CHUNK].astype(np.int64)) \
+            .to(DEVICE)[None]
+        slots = (table[0, pos // BLOCK] * BLOCK + pos % BLOCK)[None]
+        logits, _, _ = model.paged_extend_rows(
+            toks, cache.k_pools, cache.v_pools, table, slots, pos[:1],
+            BLOCK)
+    return logits[0, -1].float()
+
+
+def probe_gaps(torch, model, prompts, results, off, label, top_ks=None):
+    """Where do ``tie_aware_check``'s off-top-k tokens (``off``: its
+    ``(stream, token, gap)`` list) come from? Each one's gap under the
+    flash full forward (f32 scores), under a full forward whose attention
+    rounds as the served path's einsums do (``attn_impl="reference"``:
+    bf16 QK scores, bf16 probabilities into PV) and under the chunk
+    program itself (``_chunk_logits`` over its context), with each one's
+    largest logit difference from the flash forward at that token and,
+    over the probed streams' tokens, the reference's median: gaps in bf16
+    ulps at their own row's max, differences at the flash row's.
+    Information only: prints and returns one record."""
+    from distkeras_tpu_torch.models.lm import TransformerLM
+
+    if not off:
+        return None
+    ref = TransformerLM(**{**model.config, "attn_impl": "reference"},
+                        device=DEVICE).eval()
+    ref.load_state_dict(model.state_dict())
+    rows, diffs = [], []
+    for i in sorted({i for i, _, _ in off}):
+        p, toks = prompts[i], results[i]
+        k = (top_ks[i] if top_ks is not None else None) or 1
+        lf = _stream_logits(torch, model, p, toks)
+        lr = _stream_logits(torch, ref, p, toks)
+        gf, ulp = _ulp_gaps(torch, lf, toks, k)
+        gr, _ = _ulp_gaps(torch, lr, toks, k)
+        diff = (lf - lr).abs().max(dim=-1).values / ulp
+        diffs.append(diff)
+        for _, j, _ in (x for x in off if x[0] == i):
+            lc = _chunk_logits(torch, model, np.concatenate([p, toks[:j]]))
+            gc, _ = _ulp_gaps(torch, lc[None], toks[j:j + 1], k)
+            rows.append(dict(
+                stream=i, token=j, context=len(p) + j,
+                program="chunk" if j == 0 else "decode",
+                gap_flash_ulp=gf[j].item(), gap_reference_ulp=gr[j].item(),
+                gap_chunk_ulp=gc[0].item(),
+                flash_minus_reference_ulp=diff[j].item(),
+                flash_minus_chunk_ulp=((lf[j] - lc).abs().max()
+                                       / ulp[j]).item()))
+    del ref
+    rec = dict(phase=f"gap_probe {label}", device=SMI, tokens=rows,
+               median_flash_minus_reference_ulp=torch.cat(diffs)
+               .median().item())
+    log(json.dumps(rec))
+    return rec
 
 
 def _err(got, ref):
@@ -2498,6 +2625,12 @@ def train_ps_lstm_native_wal(torch, train, serial):
 
         flat = None if state is None else FlatSpec(template).flatten(
             state["center"])
+        # a worker whose lease lapsed after its last commit (it waited on
+        # a slower peer) is evicted, and the core retires its dedup entry
+        # and logs the eviction: the recovered table rightly lacks it
+        dropped = _evicted_after_last_commit(wal_dir)
+        want_seq = {w: q for w, q in cap["last_seq"].items()
+                    if w not in dropped}
         equal = flat is not None and np.array_equal(flat, cap["center"])
         ema_equal = (state is not None and state.get("ema") is not None
                      and cap["ema"] is not None and np.array_equal(
@@ -2526,7 +2659,8 @@ def train_ps_lstm_native_wal(torch, train, serial):
             ema_moved=(cap["ema"] is not None and not np.array_equal(
                 cap["ema"], FlatSpec(template).flatten(template))),
             last_seq_equal=(state is not None
-                            and state["last_seq"] == cap["last_seq"]),
+                            and state["last_seq"] == want_seq),
+            evicted_after_last_commit=sorted(dropped),
             fence_epoch=cap["fence_epoch"], recovered_fence_epoch=(
                 None if state is None else state["fence_epoch"]),
             heartbeats=s["heartbeats"], lease_timeout_s=PS5_LEASE,
@@ -2540,6 +2674,10 @@ def train_ps_lstm_native_wal(torch, train, serial):
             fails.append(f"native_wal: the C++ log's EMA recovers bit-equal "
                          f"{ema_equal} (the live EMA moved from the init: "
                          f"{rec['ema_moved']})")
+        if s["evicted_workers"] != len(dropped):
+            fails.append(f"native_wal: the log evicts {sorted(dropped)} "
+                         f"after their last commits but the core counted "
+                         f"{s['evicted_workers']} evictions")
         if not (equal and rec["last_seq_equal"]
                 and rec["recovered_num_updates"] == cap["num_updates"]
                 and rec["recovered_fence_epoch"] == cap["fence_epoch"]
@@ -2555,6 +2693,39 @@ def train_ps_lstm_native_wal(torch, train, serial):
         return rec
     finally:
         shutil.rmtree(wal_dir, ignore_errors=True)
+
+
+def _evicted_after_last_commit(wal_dir: str) -> set:
+    """The workers whose eviction a PS log records after their last
+    commit, read from its records in order. The server publishes its base
+    snapshot at version 0 and the phase's commits stay under the snapshot
+    interval, so the segments hold every record of the run; a later
+    snapshot would have folded some away, and raises here."""
+    from distkeras_tpu_torch.resilience import wal
+
+    names = sorted(os.listdir(wal_dir))
+    later = [n for n in names if n.startswith(wal._SNAP_PREFIX)
+             and int(n[len(wal._SNAP_PREFIX):-len(wal._SNAP_SUFFIX)]) > 0]
+    if later:
+        raise AssertionError(f"{wal_dir} holds snapshots {later}: the "
+                             f"log's records before them are gone")
+    last_commit, evicted_at, i = {}, {}, 0
+    for name in names:
+        if not (name.startswith(wal._SEG_PREFIX)
+                and name.endswith(wal._SEG_SUFFIX)):
+            continue
+        with open(os.path.join(wal_dir, name), "rb") as f:
+            data = f.read()
+        for rec_type, body in wal.iter_records(data):
+            i += 1
+            kind = wal._REC_NAMES.get(rec_type)
+            if kind == "commit":
+                last_commit[int(body[0])] = i
+            elif kind == "evict":
+                for w in body[0]:
+                    evicted_at[int(w)] = i
+    return {w for w, at in evicted_at.items()
+            if at > last_commit.get(w, 0)}
 
 
 def _wal_verify(root: str) -> tuple[int, dict, str]:
@@ -4063,6 +4234,272 @@ def serve_router(torch, qmodel):
     return rec
 
 
+def _frontdoor_jobs():
+    """serve_frontdoor's requests in submission order, ``(name, prompt,
+    submit kwargs)``: the first chat, five chats, the document, two
+    realtime requests (FD_* above)."""
+    rng = np.random.default_rng(17)
+
+    def toks(n):
+        return rng.integers(0, VOCAB, (n,)).astype(np.int32)
+
+    system = toks(FD_SYSTEM)
+    first = toks(FD_FIRST)
+    jobs = [("chat0", np.concatenate([system, first]),
+             dict(slo_class="best_effort", tenant="a"))]
+    for i, n in enumerate(FD_CHATS):
+        tail = toks(n)
+        if i in FD_COW:
+            tail[:FD_COW_LEN] = first[:FD_COW_LEN]
+            tail[FD_COW_LEN] = (first[FD_COW_LEN] + 1) % VOCAB
+        jobs.append((f"chat{i + 1}", np.concatenate([system, tail]),
+                     dict(slo_class="best_effort", tenant="ab"[i % 2])))
+    jobs.append(("doc", toks(FD_DOC),
+                 dict(slo_class="best_effort", tenant="doc")))
+    for i, n in enumerate(FD_RT):
+        jobs.append((f"rt{i}", toks(n),
+                     dict(slo_class="realtime", tenant="rt",
+                          **(FD_RT_SAMPLING if i else {}))))
+    return jobs
+
+
+def _frontdoor_blocks(jobs) -> int:
+    """The pool for serve_frontdoor: every best-effort request's budget,
+    the five later chats' 24 shared system blocks counted once, plus the
+    scratch block and one block fewer than the first realtime request
+    needs."""
+    def need(p):
+        return math.ceil((len(p) + NEW_TOKENS) / BLOCK)
+
+    shared = FD_SYSTEM // BLOCK
+    best = sum(need(p) - (shared if name.startswith("chat")
+                          and name != "chat0" else 0)
+               for name, p, kw in jobs if kw["slo_class"] == "best_effort")
+    rt0 = next(need(p) for name, p, _ in jobs if name == "rt0")
+    return 1 + best + rt0 - 1
+
+
+def _drive_frontdoor(engine, jobs, swap=None):
+    """Submit ``jobs`` to ``engine`` on serve_frontdoor's schedule,
+    stepping it on this thread: the first chat alone to its first token;
+    the five chats, stepped until each decodes; the document, one step;
+    the realtime requests, stepped until each has FD_SWAP_AFTER tokens;
+    then (``swap``: a callable given the engine) the swap, and the engine
+    to idle. Returns ``({name: request}, wall seconds, swap's record)``."""
+    reqs, swapped = {}, None
+
+    def submit(name):
+        p, kw = next((p, kw) for n, p, kw in jobs if n == name)
+        reqs[name] = engine.submit(p, max_new_tokens=NEW_TOKENS, **kw)
+
+    def step_until(names, n):
+        while any(len(reqs[x].new_tokens) < n
+                  and reqs[x].state in ("queued", "running") for x in names):
+            engine.step()
+
+    t0 = time.perf_counter()
+    submit("chat0")
+    step_until(["chat0"], 1)
+    chats = [f"chat{i + 1}" for i in range(len(FD_CHATS))]
+    for name in chats:
+        submit(name)
+    step_until(chats, 1)
+    submit("doc")
+    engine.step()
+    rts = [f"rt{i}" for i in range(len(FD_RT))]
+    for name in rts:
+        submit(name)
+    step_until(rts, FD_SWAP_AFTER)
+    if swap is not None:
+        swapped = swap(engine)
+    engine.run_until_idle()   # every step ends in its host sync
+    return reqs, time.perf_counter() - t0, swapped
+
+
+def _timed_methods(engine, names):
+    """Wrap ``engine``'s device programs (each ends in its host sync) in a
+    host clock: ``{name: [ms, ...]}``."""
+    out = {}
+    for name in names:
+        fn = getattr(engine, name)
+        out[name] = []
+
+        def run(*a, _fn=fn, _sink=out[name], **kw):
+            t0 = time.perf_counter()
+            r = _fn(*a, **kw)
+            _sink.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        setattr(engine, name, run)
+    return out
+
+
+def _ms(vals):
+    return dict(steps=len(vals), mean_ms=float(np.mean(vals)) if vals
+                else None, p50_ms=float(np.median(vals)) if vals else None)
+
+
+def serve_frontdoor_run(torch, model, label, swap_weights=None):
+    """One front-door run of serve_frontdoor's traffic on ``model``:
+    ``GenerationEngine(prefix_cache=True, prefill_chunk=FD_CHUNK,
+    admission="slo", max_batch=FD_BATCH, block_size=BLOCK)`` over
+    ``_frontdoor_blocks`` blocks, driven by ``_drive_frontdoor``; with
+    ``swap_weights`` a refill swap to them (version 2) once the realtime
+    requests decode. Gates: every request completes, every stream passes
+    ``tie_aware_check`` under the weights of the version it was served
+    at, the five later chats' shared system prompt hit the cache
+    (``prefix_hit_tokens`` >= 5·FD_SYSTEM), a COW copy, a preemption,
+    ``blocks_in_use == prefix_cached_blocks`` before the flush and 0
+    after, the swap: the tree and the pool empty when it landed (its
+    ``stats()["last_swap"]`` record) and the new ``model_version``; the
+    swapped-in streams are judged through ``engine.model``, the module
+    the swap built (``model`` keeps its weights). Launches are counted
+    over the traffic alone; ``probe_gaps`` follows every tie-aware
+    check."""
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    jobs = _frontdoor_jobs()
+    engine = GenerationEngine(
+        model, max_batch=FD_BATCH, block_size=BLOCK,
+        num_blocks=_frontdoor_blocks(jobs), device=DEVICE,
+        prefix_cache=True, prefill_chunk=FD_CHUNK, admission="slo",
+        model_version=1)
+    times = _timed_methods(engine, ("_run_chunks", "_decode_step"))
+
+    def swap(eng):
+        eng.swap_params(swap_weights, 2, policy="refill")
+        eng.step()            # the swap lands at the top of the step
+        return eng.stats()["last_swap"]
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    reqs, wall, swapped = _drive_frontdoor(
+        engine, jobs, swap if swap_weights is not None else None)
+    launches = read_launches()
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if DEVICE == "cuda"
+            else None)
+    stats = engine.stats()
+    cached_before = (stats["blocks_in_use"], stats["prefix_cached_blocks"])
+    flushed = engine.flush_prefix_cache()
+    blocks_after = engine.stats()["blocks_in_use"]
+    n_tok = sum(len(r.new_tokens) for r in reqs.values())
+    rec = dict(
+        phase=f"serve_frontdoor_{label}", device=SMI, wall_s=wall,
+        tokens=n_tok, tokens_per_s=n_tok / wall,
+        latency=engine.latency_stats(),
+        prefix_hit_rate=stats["prefix_hit_rate"],
+        prefix_hit_tokens=stats["prefix_hit_tokens"],
+        prefix_prompt_tokens=stats["prefix_prompt_tokens"],
+        cow_copies=stats["cow_copies"], preemptions=stats["preemptions"],
+        prefills=stats["prefills"], steps=stats["steps"],
+        num_blocks=engine.allocator.num_blocks,
+        blocks_high_water=stats["blocks_high_water"],
+        pool_mib=engine.cache.nbytes / 2**20, peak_allocated_gib=peak,
+        chunk=_ms(times["_run_chunks"]), decode=_ms(times["_decode_step"]),
+        blocks_before_flush=cached_before, flushed=flushed,
+        blocks_after_flush=blocks_after, swap=swapped,
+        refilled=stats["refilled"], model_version=stats["model_version"],
+        completed=stats["completed"], submitted=stats["submitted"],
+        launches=dict(launches, q_matmul_decode=launches["q_matmul"]
+                      - launches["q_matmul_prefill"]),
+        versions={n: r.model_version for n, r in reqs.items()})
+    fails = []
+    if not stats["completed"] == stats["submitted"] == len(jobs):
+        fails.append(f"completed {stats['completed']} of "
+                     f"{stats['submitted']} submitted ({len(jobs)} jobs)")
+    if stats["prefix_hit_tokens"] < len(FD_CHATS) * FD_SYSTEM:
+        fails.append(f"prefix_hit_tokens {stats['prefix_hit_tokens']} < "
+                     f"{len(FD_CHATS) * FD_SYSTEM}")
+    if stats["cow_copies"] < 1 or stats["preemptions"] < 1:
+        fails.append(f"cow_copies {stats['cow_copies']}, preemptions "
+                     f"{stats['preemptions']}")
+    if cached_before[0] != cached_before[1] or blocks_after != 0:
+        fails.append(f"blocks_in_use / prefix_cached_blocks before the "
+                     f"flush {cached_before}, after {blocks_after}")
+    if swap_weights is not None and not (
+            swapped["version"] == 2 and stats["model_version"] == 2
+            and swapped["prefix_cached_blocks"] == 0
+            and swapped["blocks_in_use"] == 0 and swapped["refilled"] >= 1):
+        fails.append(f"the swap: {swapped}, after the run version "
+                     f"{stats['model_version']}")
+    if model.quant and (rec["launches"]["q_matmul_prefill"] < 1
+                        or rec["launches"]["q_matmul_decode"] < 1):
+        fails.append(f"K1 did not launch at prefill and decode: "
+                     f"{rec['launches']}")
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError(f"serve_frontdoor {label}: " + "; ".join(fails))
+    # each stream under the weights of the version that served it: the
+    # swap's through the module the engine built for them
+    probes = []
+    for version in sorted({r.model_version for r in reqs.values()}):
+        served = model if version == 1 else engine.model
+        sel = [(p, kw.get("top_k"), reqs[n].result(0))
+               for n, p, kw in jobs if reqs[n].model_version == version]
+        args = ([p for p, _, _ in sel], [t for _, _, t in sel])
+        top_ks = [k for _, k, _ in sel]
+        off = tie_aware_check(torch, served, *args,
+                              f"frontdoor {label} v{version}", top_ks=top_ks)
+        probes.append(probe_gaps(torch, served, *args, off,
+                                 f"frontdoor {label} v{version}", top_ks))
+    rec["gap_probe"] = probes
+    return rec
+
+
+def serve_fifo_control(torch, model):
+    """serve_frontdoor's control: the same jobs on the same schedule
+    through a FIFO engine with the cache off (the default pool), for its
+    tokens/s and per-class latency beside the front door's. Information
+    only: gated on completion and the tie-aware check."""
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    jobs = _frontdoor_jobs()
+    engine = GenerationEngine(model, max_batch=FD_BATCH, block_size=BLOCK,
+                              device=DEVICE)
+    times = _timed_methods(engine, ("_run_prefills", "_decode_step"))
+    reqs, wall, _ = _drive_frontdoor(engine, jobs)
+    stats = engine.stats()
+    n_tok = sum(len(r.new_tokens) for r in reqs.values())
+    rec = dict(phase="serve_fifo_control_int8", device=SMI, wall_s=wall,
+               tokens=n_tok, tokens_per_s=n_tok / wall,
+               latency=engine.latency_stats(), steps=stats["steps"],
+               prefill=_ms(times["_run_prefills"]),
+               decode=_ms(times["_decode_step"]))
+    log(json.dumps(rec))
+    if stats["completed"] != len(jobs) or stats["blocks_in_use"]:
+        raise AssertionError(f"FIFO control: {stats}")
+    tie_aware_check(torch, model, [p for _, p, _ in jobs],
+                    [reqs[n].result(0) for n, _, _ in jobs],
+                    "FIFO control int8",
+                    top_ks=[kw.get("top_k") for _, _, kw in jobs])
+    return rec
+
+
+def serve_frontdoor(torch, model, qmodel):
+    """``serve_frontdoor``: the front door on the served config — the FIFO
+    control (int8), the int8 run with a refill swap to the seed-1 int8
+    weights, the bf16 run — one JSON line with the three records."""
+    from distkeras_tpu_torch.models import quantize_lm, transformer_lm
+
+    t_phase = time.perf_counter()
+    control = serve_fifo_control(torch, qmodel)
+    other = transformer_lm(
+        vocab=VOCAB, maxlen=MAXLEN, dim=DIM, heads=HEADS, depth=DEPTH,
+        kv_heads=KV_HEADS, pos_embedding="rope", attn_impl="flash",
+        dtype=torch.bfloat16, device=DEVICE, seed=1)
+    w1 = quantize_lm(other).state_dict()
+    del other
+    int8 = serve_frontdoor_run(torch, qmodel, "int8", swap_weights=w1)
+    del w1
+    bf16 = serve_frontdoor_run(torch, model, "bf16")
+    rec = dict(phase="serve_frontdoor", device=SMI,
+               phase_wall_s=time.perf_counter() - t_phase,
+               int8=int8, bf16=bf16, fifo_control_int8=control)
+    log(json.dumps(rec))
+    return rec
+
+
 def run_mnist_twin():
     """The MNIST example's twin (``distkeras_tpu_torch.examples.mnist``)
     in this process, once a MNIST_RUNS entry, held to the JAX example's
@@ -4180,6 +4617,9 @@ def main() -> int:
         # the prefix-affine router over two int8 replicas registered in a
         # membership directory, one hard-killed mid-stream
         router_launches = serve_router(torch, qmodel)["launches"]
+        # the front door: prefix cache, chunked prefill, SLO admission
+        # with preemption, and a refill weight swap
+        frontdoor = serve_frontdoor(torch, model, qmodel)
     del model, qmodel
     torch.cuda.empty_cache()
 
@@ -4467,6 +4907,9 @@ def main() -> int:
                               for k, v in elastic.items()},
             directory_launches={k: v["launches"][name]
                                 for k, v in directory_runs.items()},
+            frontdoor_launches={f"serve_frontdoor_{k}":
+                                frontdoor[k]["launches"][name]
+                                for k in ("int8", "bf16")},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -328,9 +328,16 @@ class TransformerLM(nn.Module):
         x = self._tokens(tokens)
         if self.pos_embedding == "rope":
             return x
+        return x + self.pos_table[self._row_positions(positions, tokens)]
+
+    def _row_positions(self, positions, tokens):
+        """Positions ``[B, T]`` of a row-offset block, clamped to
+        ``maxlen - 1``: a padded chunk's trailing pad tokens may run past
+        the table (as the JAX package's clamped gather); their outputs
+        are never read."""
         T = tokens.shape[1]
         idx = positions[:, None] + torch.arange(T, device=tokens.device)
-        return x + self.pos_table[idx]
+        return idx.clamp_(max=self.maxlen - 1)
 
     def _head(self, h):
         """Output projection over post-``ln_head`` hiddens: model-dtype
@@ -382,9 +389,8 @@ class TransformerLM(nn.Module):
         x = self._embed_rows(tokens, positions)
         rope = None
         if self.pos_embedding == "rope":
-            T = tokens.shape[1]
-            idx = positions[:, None] + torch.arange(T, device=tokens.device)
-            rope = self._rope(self.rope_table[idx])
+            rope = self._rope(
+                self.rope_table[self._row_positions(positions, tokens)])
         for blk, kp, vp in zip(self.blocks, k_pools, v_pools):
             x, _, _ = blk.paged_extend(x, kp, vp, tables, write_slots,
                                        positions, block_size, rope)

@@ -8,7 +8,8 @@ admission is a host-side allocator decision. :class:`BlockAllocator` is the
 host free-list (block 0 is the scratch block free rows and unallocated
 table entries point at); :class:`PagedKVCache` holds the per-layer flat
 ``[num_blocks·block_size, Hkv, Dh]`` pools, updated in place by the model's
-``paged_extend`` (``index_copy_``, never a whole-pool copy).
+``paged_extend`` (``index_copy_``, never a whole-pool copy), and copied
+slot by slot for the prefix cache's copy-on-write (``copy_slots``).
 """
 
 from __future__ import annotations
@@ -90,6 +91,27 @@ class PagedKVCache:
                              for _ in range(module.depth))
         self.v_pools = tuple(torch.zeros(shape, **kw)
                              for _ in range(module.depth))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.numel() * p.element_size()
+                   for p in self.k_pools + self.v_pools)
+
+    def copy_slots(self, src_slots, dst_slots) -> None:
+        """Copy K/V from flat pool slots ``src_slots`` to ``dst_slots`` in
+        every layer, in place: the prefix cache's copy-on-write, where a
+        request diverging mid-block duplicates the shared block's common
+        positions into its own block instead of recomputing them. The
+        sources are gathered before the scatter (as the JAX package's
+        ``p.at[dst].set(p[src])``), so padding self-copies of the scratch
+        slot 0 are harmless; no pool is copied whole."""
+        idx = torch.from_numpy(np.stack([
+            np.asarray(src_slots, np.int64).reshape(-1),
+            np.asarray(dst_slots, np.int64).reshape(-1)])).to(
+                self.k_pools[0].device)
+        src, dst = idx[0], idx[1]
+        for p in self.k_pools + self.v_pools:
+            p.index_copy_(0, dst, p.index_select(0, src))
 
 
 def slot_map(tables: np.ndarray, block_size: int) -> np.ndarray:

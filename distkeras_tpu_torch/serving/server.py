@@ -26,7 +26,7 @@ from distkeras_tpu_torch.networking import ProtocolError, ServerBusyError
 from distkeras_tpu_torch.serving.scheduler import GenerationEngine
 
 _SAMPLING_KEYS = ("max_new_tokens", "temperature", "top_k", "top_p",
-                  "seed", "eos_id", "request_id", "slo_class")
+                  "seed", "eos_id", "request_id", "slo_class", "tenant")
 
 
 class GenerationServer:
@@ -291,7 +291,8 @@ class GenerationClient:
                  temperature: float = 0.0, top_k: int | None = None,
                  top_p: float | None = None, seed: int = 0,
                  eos_id: int | None = None, request_id: str | None = None,
-                 slo_class: str = "default") -> np.ndarray:
+                 slo_class: str = "default",
+                 tenant: str = "default") -> np.ndarray:
         networking.send_data(self._sock, {
             "action": "generate",
             "prompt": np.asarray(prompt, np.int32),
@@ -299,7 +300,7 @@ class GenerationClient:
             "temperature": float(temperature),
             "top_k": top_k, "top_p": top_p, "seed": int(seed),
             "eos_id": eos_id, "request_id": request_id,
-            "slo_class": str(slo_class),
+            "slo_class": str(slo_class), "tenant": str(tenant),
         })
         r = networking.recv_data(self._sock)
         if r.get("error") == "busy":
