@@ -23,8 +23,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    in rank order), the served prefill lengths (``SERVED_LENGTHS``) and
    M=1024, with kernel, plain and library (``torch.matmul`` over a
    pre-dequantized bf16 weight) times and the card's bound, each row with
-   the launch plan (``quant.plan_q_matmul``), and at the front door's
-   chunk rows (``CHUNK_ROWS``); then ragged edges for every kernel path;
+   the launch plan (``quant.plan_q_matmul``), at the front door's chunk
+   rows (``CHUNK_ROWS``) and at ``serve_decode``'s rows
+   (``DECODE_ROWS``: 4, 16, 20, 40); then ragged edges for every kernel
+   path;
 4. K2 flash-attention forward against its plain version at prefill shapes
    (B=4 and the served B=1 lengths; H=16, Hkv=1, D=128, bf16, causal) and
    at small cases for its edge tiles (ragged L, windows, masked keys
@@ -248,10 +250,32 @@ Phases, in order; any failure exits non-zero and prints no result:
     only;
     beside them a FIFO control (the same jobs, cache off) for tokens/s
     and per-class latency;
-20. print the ``kernels`` JSON line (K1 as one decode step and, as
+20. ``serve_decode`` runs after ``serve_frontdoor``, on the same models:
+    the dense-cache ``generate`` (greedy int8 and bf16, each held to the
+    engine's streams of the same 4 prompts of 128 tokens, split only at
+    a tie; sampled bf16 at top_k 8, one seed twice), ``beam_search`` at 4
+    beams on int8 (beams 1 equal to greedy up to a tie; the best beam's
+    score its full-forward log-prob within ``BEAM_TOL_ULP`` ulps a token,
+    greedy's beside it), greedy ``speculative_generate`` at K=4 (bf16
+    with the int8 twin as draft, and int8 drafting itself), the engine
+    with ``draft=``
+    behind the server on ``serve``'s traffic (int8 drafting itself, its
+    acceptance at least ``SPEC_SELF_FLOOR``; bf16 with the int8 draft),
+    a ``ResilientGenerationClient`` request across a server crash and a
+    restart on the same port (equal to the uncrashed stream, a
+    reconnect), and ``GeneratorPredictor`` greedy and at 2 beams, equal
+    to ``generate`` and ``beam_search``; every stream tie-aware, K1
+    launched at M = 4, 8, 16, 20 and 40 and K2 on every dense prefill;
+    after the classifier's training, ``ModelPredictor(quantize=True)`` on
+    it (argmax agreement with bf16 at least ``CLS_AGREE``; logits within
+    ``CLS_DEQ_TOL`` of the logit scale of a float forward over its own
+    dequantized weights; K1 held to its plain version at the classifier's
+    Dense shapes in phase 3);
+21. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
-    elastic phases, the directory phases and the front door, K6 and K7
+    elastic phases, the directory phases, the front door and
+    ``serve_decode``, K6 and K7
     with their G=1 times), read config 3's
     gates (``ps3_failures``, the sharded run's too), then the result line
     ``{"ok": true, "device": {...}}`` last.
@@ -306,6 +330,43 @@ FD_CHATS, FD_COW, FD_COW_LEN = (120, 40, 200, 72, 160), (1, 3), 8
 FD_DOC, FD_RT = 900, (64, 96)
 FD_RT_SAMPLING = dict(temperature=0.7, top_k=8, seed=3)
 FD_SWAP_AFTER = 4         # realtime tokens before the int8 run's swap
+# serve_decode on the served config: DECODE_B prompts of DECODE_LP tokens
+# through the dense-cache functions, NEW_TOKENS new; sampled at top_k
+# DECODE_TOP_K; BEAMS beams; speculation at K=SPEC_K. K1's rows there
+# (DECODE_ROWS): dense int8 decode B=4, beams 4 x 4, the dense int8
+# verify 4 x (K+1), the engine's int8 verify 8 x (K+1); its draft steps
+# run at the engine's 8 rows
+DECODE_B, DECODE_LP, DECODE_TOP_K, BEAMS, SPEC_K = 4, 128, 8, 4, 4
+DECODE_ROWS = (DECODE_B, DECODE_B * BEAMS, DECODE_B * (SPEC_K + 1),
+               8 * (SPEC_K + 1))
+# the beam gate: the best beam's score (summed on the decode path) equals
+# its full-forward log-prob within BEAM_TOL_ULP bf16 ulps (at each row's
+# max logit) summed over its tokens: the two paths round each token's
+# logits up to tie_aware_check's two ulps apart. Its log-prob against
+# greedy's is reported, not gated: beam search does not always beat
+# greedy (on a random-weight model some rows end below it, PERF.md)
+BEAM_TOL_ULP = 2.0
+# the int8 model drafting itself in the engine: its draft steps take K1's
+# decode plan (M=8) and its verify the prefill plan (M=40), which sum in
+# different orders, so bf16 near-ties flip; the floor is the prediction
+# written in PERF.md before the first run on the card
+SPEC_SELF_FLOOR = 0.8
+# the resilient client's request: RESILIENT_NEW new tokens, its server
+# crashed once the engine has run RESILIENT_CRASH_AT steps
+RESILIENT_NEW, RESILIENT_CRASH_AT = 128, 16
+# GeneratorPredictor: PRED_N prompts of PRED_LP tokens in one chunk
+PRED_N, PRED_LP, PRED_NEW = 16, 64, 16
+# the config 6 classifier served in int8: CLS_PRED_ROWS fresh rows in
+# chunks of CLS_PRED_BATCH, argmax agreement with bf16 at least CLS_AGREE
+CLS_PRED_ROWS, CLS_PRED_BATCH, CLS_AGREE = 64, 8, 0.98
+# the int8 classifier's logits against a plain forward over its own
+# dequantized weights on the same rows: max |difference| at most
+# CLS_DEQ_TOL of the plain logits' largest magnitude. The logits leave the
+# head in bf16, whose ulp is 2^-7 of a power of two below the scale, and
+# the plain forward rounds the dequantized weights to bf16 where the
+# kernel widens them exactly: 0.02 is about 2.6 ulps at a scale of 2, a
+# wrong kernel is off by the scale itself (prediction in PERF.md)
+CLS_DEQ_TOL = 0.02
 # Dense shapes (K, N) of the config: qkv, attn_out, mlp_up, mlp_down, head
 DENSE = ((2048, 2304), (2048, 2048), (2048, 8192), (8192, 2048),
          (2048, 16384))
@@ -325,6 +386,12 @@ LM_CMP_DEPTH = 2          # kernels-vs-plain window: plain attention holds
 # config 6 (bench.py:370-386): the encoder classifier under DOWNPOUR
 CLS_VOCAB, CLS_L, CLS_DIM, CLS_HEADS, CLS_DEPTH = 8192, 2048, 512, 8, 8
 CLS_W, CLS_BATCH, CLS_WINDOW, CLS_WINDOWS, CLS_LR = 2, 8, 5, 3, 1e-3
+# the classifier's Dense shapes (K, N) as quantize_serving serves them,
+# each with its rows M: qkv, attn_out, mlp_up, mlp_down at one predictor
+# batch's tokens, the 2-class head at the pooled batch
+CLS_DENSE = tuple(((k, n), (CLS_PRED_BATCH * CLS_L,)) for k, n in (
+    (CLS_DIM, 3 * CLS_DIM), (CLS_DIM, CLS_DIM), (CLS_DIM, 4 * CLS_DIM),
+    (4 * CLS_DIM, CLS_DIM))) + (((CLS_DIM, 2), (CLS_PRED_BATCH,)),)
 LOSS = "sparse_softmax_cross_entropy"
 # the parameter-server path (backend="ps"): config 3 (bench.py:316-324,
 # CIFAR-10 VGG-small under DOWNPOUR) through a socket PS this script
@@ -492,14 +559,18 @@ def rotating(items):
 
 def check_q_matmul(torch, quant):
     """Phase 3: K1 against its plain version at every Dense shape of the
-    served config: decode (M=8, the served batch), the served prefill
-    lengths (SERVED_LENGTHS, one batched prefill per padded length), the
-    front door's chunk program (CHUNK_ROWS) and M=1024, with kernel, plain
-    and library times and the card's bound; the
-    split decode kernel twice for equal bits; then ragged edges."""
+    served config: decode (M=8, the served batch), serve_decode's rows
+    (DECODE_ROWS: dense decode, beams, the dense and the engine's verify),
+    the served prefill lengths (SERVED_LENGTHS, one batched prefill per
+    padded length), the front door's chunk program (CHUNK_ROWS) and
+    M=1024; and at the int8 classifier's shapes (CLS_DENSE); with kernel,
+    plain and library times and the card's bound; the split decode
+    kernel twice for equal bits; then ragged edges."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows, max_err = [], 0.0
-    for (k, n) in DENSE:
+    served = tuple(dict.fromkeys(
+        (8, *DECODE_ROWS, *SERVED_LENGTHS, *CHUNK_ROWS, 1024)))
+    for (k, n), ms in tuple((kn, served) for kn in DENSE) + CLS_DENSE:
         w = torch.randn((n, k), generator=gen, device=DEVICE) * 0.02
         qt = quant.quantize(w, axis=1)
         nrot = max(1, min(48, math.ceil(200e6 / qt.q.numel())))
@@ -507,8 +578,7 @@ def check_q_matmul(torch, quant):
               for _ in range(nrot)]
         deq = [quant.dequantize(q_, axis=1, dtype=torch.bfloat16)
                for q_ in qs]
-        cases = [(m, torch.bfloat16) for m in dict.fromkeys(
-            (8, *SERVED_LENGTHS, *CHUNK_ROWS, 1024))]
+        cases = [(m, torch.bfloat16) for m in ms]
         if (k, n) == DENSE[0]:   # ragged decode rows, and the f32 kernel
             cases += [(13, torch.bfloat16), (8, torch.float32),
                       (1024, torch.float32)]
@@ -542,6 +612,7 @@ def check_q_matmul(torch, quant):
             esz = 2 if dt == torch.bfloat16 else 4
             nbytes = m * k * esz + k * n + n * 4 + m * n * esz
             row = dict(M=m, K=k, N=n, dtype=str(dt).split(".")[-1],
+                       model="lm" if (k, n) in PER_STEP else "classifier",
                        plan=dict(kernel=plan.kernel, tokens=plan.tokens,
                                  channels=plan.channels, splits=plan.splits,
                                  blocks=plan.blocks),
@@ -1214,10 +1285,13 @@ def train_classifier(torch):
         wall_s=wall, windows=len(losses), loss_first=losses[0],
         loss_last=losses[-1], samples_per_sec=m["samples_per_sec"],
         window_ms=1e3 * m["wall_time"] / CLS_WINDOWS)))
+    return t
 
 
-def serve(torch, model, label):
-    """Phases 5/6: the served path — server, 4 concurrent clients."""
+def serve(torch, model, label, draft=None):
+    """Phases 5/6: the served path — server, 4 concurrent clients; with
+    ``draft`` the engine serves speculatively at K=SPEC_K. Returns
+    ``(prompts, streams, wall seconds, the engine's stats)``."""
     from distkeras_tpu_torch.serving import (
         GenerationClient,
         GenerationEngine,
@@ -1227,8 +1301,9 @@ def serve(torch, model, label):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, VOCAB, (lp,)).astype(np.int32)
                for lp in PROMPTS]
+    spec = {} if draft is None else dict(draft=draft, spec_tokens=SPEC_K)
     engine = GenerationEngine(model, max_batch=8, block_size=BLOCK,
-                              device=DEVICE)
+                              device=DEVICE, **spec)
     server = GenerationServer(engine, poll_interval=0.01)
     server.start()
     results, errors = {}, []
@@ -1270,7 +1345,7 @@ def serve(torch, model, label):
         steps=stats["steps"], prefills=stats["prefills"],
         mean_batch_occupancy=stats["mean_batch_occupancy"],
         latency=stats["latency"])))
-    return prompts, results, wall
+    return prompts, results, wall, stats
 
 
 def tie_aware_check(torch, model, prompts, results, label, top_ks=None):
@@ -4500,6 +4575,395 @@ def serve_frontdoor(torch, model, qmodel):
     return rec
 
 
+def _decode_prompts(n, lp, seed):
+    return np.random.default_rng(seed).integers(0, VOCAB, (n, lp)) \
+        .astype(np.int32)
+
+
+def _zero_rows():
+    from distkeras_tpu_torch.ops import quant
+
+    zero_launches()
+    quant.q_matmul.launches_by_rows = {}
+
+
+def _read_rows():
+    """Every launch counter, K1's also by M (``q_matmul_rows``)."""
+    from distkeras_tpu_torch.ops import quant
+
+    return dict(read_launches(), q_matmul_rows=dict(sorted(
+        quant.q_matmul.launches_by_rows.items())))
+
+
+def _split_is_tie(torch, model, prompt, a, b, label):
+    """Streams ``a`` and ``b`` of one prompt are equal, or first differ at
+    a token where each is within two bf16 ulps of the full forward's top
+    (``tie_aware_check``'s bound): returns that index, or None when
+    equal."""
+    diff = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    if not diff.size:
+        return None
+    j = int(diff[0])
+    lg = _stream_logits(torch, model, prompt, a[:j + 1])[-1:]
+    gaps = [_ulp_gaps(torch, lg, t[j:j + 1], 1)[0].item() for t in (a, b)]
+    if max(gaps) > 2.0:
+        raise AssertionError(
+            f"{label}: the streams split at token {j} ({a[j]} / {b[j]}), "
+            f"{gaps} ulp below the full forward's top, beyond 2")
+    return j
+
+
+def _splits(torch, model, prompts, got, want, label):
+    return [_split_is_tie(torch, model, p, g, w, label)
+            for p, g, w in zip(prompts, got, want)]
+
+
+def _engine_streams(model, prompts, max_new, **kw):
+    """Greedy streams of ``prompts`` through a FIFO engine of 8 rows,
+    stepped on this thread."""
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    engine = GenerationEngine(model, max_batch=8, block_size=BLOCK,
+                              device=DEVICE, **kw)
+    reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    engine.run_until_idle()
+    return [r.result(0) for r in reqs], engine.stats()
+
+
+def _timed(torch, fn):
+    """``fn()`` under the launch counters, its host wall time ending in a
+    device sync: ``(result, seconds, launches)``."""
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    _zero_rows()
+    t0 = time.perf_counter()
+    out = fn()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _read_rows()
+
+
+def _log_probs(torch, model, prompt, toks):
+    """Each token's f32 log-probability under one full forward over
+    prompt + toks, and each row's bf16 ulp at its max logit."""
+    lg = _stream_logits(torch, model, prompt, toks)
+    lp = torch.log_softmax(lg, dim=-1)
+    idx = torch.from_numpy(np.asarray(toks, np.int64)).to(lg.device)
+    _, ulp = _ulp_gaps(torch, lg, np.asarray(toks), 1)
+    return lp.gather(1, idx[:, None])[:, 0], ulp
+
+
+def decode_dense_runs(torch, model, qmodel):
+    """serve_decode's dense-cache runs on DECODE_B prompts of DECODE_LP
+    tokens, NEW_TOKENS new: greedy ``generate`` int8 and bf16 (each held
+    to the engine's streams of the same prompts, split only at a tie, and
+    tie-aware); sampled bf16 at top_k=DECODE_TOP_K twice (equal per seed,
+    every token in the top k); ``beam_search`` beams=BEAMS on int8 (beams
+    1 equal to greedy up to a tie; scores best first, the best beam's
+    score its full-forward log-prob within BEAM_TOL_ULP ulps a token,
+    greedy's log-prob beside it); greedy
+    ``speculative_generate`` at K=SPEC_K, the bf16 target with the int8
+    twin as its draft and the int8 model as its own draft, tie-aware.
+    Returns one record a run."""
+    from distkeras_tpu_torch.models import (
+        beam_search,
+        generate,
+        speculative_generate,
+    )
+
+    prompts = _decode_prompts(DECODE_B, DECODE_LP, 23)
+    plist = list(prompts)
+    n_tok = DECODE_B * NEW_TOKENS
+    recs, greedy = {}, {}
+
+    def rec(name, wall, launches, **extra):
+        recs[name] = dict(wall_s=wall, tokens=n_tok, tokens_per_s=n_tok / wall,
+                          launches=launches, **extra)
+        log(f"serve_decode {name}: " + json.dumps(recs[name]))
+
+    for label, m in (("int8", qmodel), ("bf16", model)):
+        out, wall, launches = _timed(torch, lambda m=m: generate(
+            m, prompts, NEW_TOKENS))
+        new = out[:, DECODE_LP:]
+        greedy[label] = new
+        eng, _ = _engine_streams(m, plist, NEW_TOKENS)
+        splits = _splits(torch, m, plist, new, eng, f"generate {label} vs "
+                         f"the engine")
+        off = tie_aware_check(torch, m, plist, list(new),
+                              f"generate {label}")
+        rec(f"generate_{label}", wall, launches, engine_splits=splits,
+            off_top=len(off))
+    kw = dict(temperature=0.8, top_k=DECODE_TOP_K, seed=5)
+    out, wall, launches = _timed(torch, lambda: generate(
+        model, prompts, NEW_TOKENS, **kw))
+    again = generate(model, prompts, NEW_TOKENS, **kw)
+    if not np.array_equal(out, again):
+        raise AssertionError("sampled generate: one seed, two streams")
+    off = tie_aware_check(torch, model, plist, list(out[:, DECODE_LP:]),
+                          "generate bf16 sampled",
+                          top_ks=[DECODE_TOP_K] * DECODE_B)
+    rec("generate_bf16_sampled", wall, launches, same_seed_equal=True,
+        off_top=len(off))
+
+    (toks, scores), wall, launches = _timed(torch, lambda: beam_search(
+        qmodel, prompts, NEW_TOKENS, beams=BEAMS))
+    one, _ = beam_search(qmodel, prompts, NEW_TOKENS, beams=1)
+    splits = _splits(torch, qmodel, plist, one[:, 0, DECODE_LP:],
+                     greedy["int8"], "beams=1 vs greedy")
+    if not np.all(np.diff(scores, axis=1) <= 0):
+        raise AssertionError(f"beam_search: scores not best first {scores}")
+    margins = []
+    for i, p in enumerate(plist):
+        lb, ulp = _log_probs(torch, qmodel, p, toks[i, 0, DECODE_LP:])
+        lg_, _ = _log_probs(torch, qmodel, p, greedy["int8"][i])
+        tol = BEAM_TOL_ULP * ulp.sum().item()
+        margins.append(dict(beam_full=lb.sum().item(),
+                            beam_score=float(scores[i, 0]),
+                            greedy_full=lg_.sum().item(), tol=tol))
+        if abs(lb.sum().item() - scores[i, 0]) > tol:
+            raise AssertionError(
+                f"beam_search row {i}: the best beam's score "
+                f"{scores[i, 0]} is not its full-forward log-prob "
+                f"{lb.sum().item()} within {tol}")
+    rec("beam_search_int8", wall, launches, beams=BEAMS,
+        beams1_splits=splits, log_probs=margins,
+        scores=scores[:, 0].tolist())
+
+    for label, target, draft in (("bf16_int8_draft", model, qmodel),
+                                 ("int8_self_draft", qmodel, qmodel)):
+        (out, stats), wall, launches = _timed(
+            torch, lambda t=target, d=draft: speculative_generate(
+                t, d, prompts, NEW_TOKENS, spec_tokens=SPEC_K))
+        new = out[:, DECODE_LP:]
+        off = tie_aware_check(torch, target, plist, list(new),
+                              f"speculative_generate {label}")
+        base = greedy["bf16" if target is model else "int8"]
+        splits = _splits(torch, target, plist, new, base,
+                         f"speculative {label} vs generate")
+        rec(f"speculative_{label}", wall, launches, stats=stats,
+            generate_splits=splits, off_top=len(off))
+    return recs
+
+
+def decode_engine_runs(torch, model, qmodel, plain):
+    """serve_decode's speculative serving: ``serve``'s traffic (PROMPTS,
+    NEW_TOKENS, 4 clients, 8 rows) through an engine with ``draft=`` at
+    K=SPEC_K, the int8 model drafting itself (acceptance gated at
+    SPEC_SELF_FLOOR) and the bf16 model with the int8 twin as draft;
+    streams tie-aware, the pool empty after, tokens/s beside the plain
+    ``serve`` runs' (``plain``: label → its record)."""
+    recs = {}
+    for label, target, draft in (("int8_self_draft", qmodel, qmodel),
+                                 ("bf16_int8_draft", model, qmodel)):
+        (prompts, res, wall, stats), _, launches = _timed(
+            torch, lambda t=target, d=draft: serve(
+                torch, t, f"speculative {label}", draft=d))
+        off = tie_aware_check(torch, target, prompts, res,
+                              f"speculative serving {label}")
+        base = plain["int8" if target is qmodel else "bf16"]
+        recs[label] = dict(
+            wall_s=wall, tokens_per_s=NEW_TOKENS * len(prompts) / wall,
+            plain_tokens_per_s=base["tokens_per_s"],
+            spec_rounds=stats["spec_rounds"],
+            spec_proposed=stats["spec_proposed"],
+            spec_accepted=stats["spec_accepted"],
+            spec_acceptance=stats["spec_acceptance"],
+            steps=stats["steps"], plain_steps=base["steps"],
+            blocks_in_use=stats["blocks_in_use"], off_top=len(off),
+            launches=launches)
+        log(f"serve_decode engine {label}: " + json.dumps(recs[label]))
+    if recs["int8_self_draft"]["spec_acceptance"] < SPEC_SELF_FLOOR:
+        raise AssertionError(
+            f"int8 self-draft acceptance "
+            f"{recs['int8_self_draft']['spec_acceptance']} < "
+            f"{SPEC_SELF_FLOOR}")
+    return recs
+
+
+def decode_resilient_run(torch, qmodel):
+    """One int8 request of RESILIENT_NEW tokens through a
+    ``ResilientGenerationClient`` while its server is crashed
+    (``GenerationServer._crash``) mid-stream and a new server is started
+    on the same port: the stream completes, equal to the uncrashed one,
+    after at least one reconnect."""
+    from distkeras_tpu_torch.resilience.retry import RetryPolicy
+    from distkeras_tpu_torch.serving import (
+        GenerationClient,
+        GenerationEngine,
+        GenerationServer,
+        ResilientGenerationClient,
+    )
+
+    prompt = _decode_prompts(1, DECODE_LP, 29)[0]
+    (want,), _ = _engine_streams(qmodel, [prompt], RESILIENT_NEW)
+
+    def server(port=0):
+        srv = GenerationServer(GenerationEngine(
+            qmodel, max_batch=8, block_size=BLOCK, device=DEVICE),
+            port=port, poll_interval=0.01)
+        srv.start()
+        return srv
+
+    first = server()
+    port, second = first.port, None
+    client = ResilientGenerationClient(
+        lambda: GenerationClient("127.0.0.1", port, connect_timeout=2.0),
+        RetryPolicy(max_attempts=100, base_delay=0.02, max_delay=0.2,
+                    deadline=60.0, seed=0))
+    out, errors = {}, []
+
+    def call():
+        try:
+            out["tokens"] = client.generate(prompt,
+                                            max_new_tokens=RESILIENT_NEW)
+        except Exception as e:  # re-raised below
+            errors.append(repr(e))
+
+    th = threading.Thread(target=call)
+    try:
+        t0 = time.perf_counter()
+        th.start()
+        deadline = time.monotonic() + 60
+        while first.engine.stats()["steps"] < RESILIENT_CRASH_AT:
+            if time.monotonic() > deadline:
+                raise AssertionError("resilient run: the request never "
+                                     "reached its crash step")
+            time.sleep(0.001)
+        first._crash()
+        t_crash = time.perf_counter()
+        second = server(port)
+        th.join(120)
+        t_done = time.perf_counter()
+        if th.is_alive() or errors:
+            raise AssertionError(f"resilient run: {errors or 'hung'}")
+        rec = dict(wall_s=t_done - t0, crash_to_done_s=t_done - t_crash,
+                   retries=client.retries, reconnects=client.reconnects,
+                   equal=bool(np.array_equal(out["tokens"], want)),
+                   completed_on_restart=second.stats()["completed"])
+    finally:
+        client.close()
+        first.stop(drain=False, timeout=5)
+        if second is not None:
+            second.stop(drain=False, timeout=10)
+        th.join(10)
+    log("serve_decode resilient int8: " + json.dumps(rec))
+    if not rec["equal"] or rec["reconnects"] < 1:
+        raise AssertionError(f"resilient run: {rec}")
+    return rec
+
+
+def decode_predictor_runs(torch, qmodel):
+    """``GeneratorPredictor`` over PRED_N prompts of PRED_LP tokens in one
+    chunk, greedy and beams=2, equal to ``generate`` and ``beam_search``
+    on the same prompts row for row."""
+    from distkeras_tpu_torch.data import Dataset
+    from distkeras_tpu_torch.models import beam_search, generate
+    from distkeras_tpu_torch.predictors import GeneratorPredictor
+
+    prompts = _decode_prompts(PRED_N, PRED_LP, 31)
+    ds = Dataset({"features": prompts})
+    recs = {}
+    for beams in (1, 2):
+        pred = GeneratorPredictor(qmodel, max_new_tokens=PRED_NEW,
+                                  batch_size=PRED_N, beams=beams)
+        got, wall, launches = _timed(
+            torch, lambda p=pred: p.predict(ds)["generated"])
+        if beams == 1:
+            want = generate(qmodel, prompts, PRED_NEW)[:, PRED_LP:]
+        else:
+            want = beam_search(qmodel, prompts, PRED_NEW,
+                               beams=beams)[0][:, 0, PRED_LP:]
+        recs[f"beams{beams}"] = dict(
+            wall_s=wall, rows=PRED_N,
+            equal=bool(np.array_equal(got, want)), launches=launches)
+        log(f"serve_decode GeneratorPredictor beams={beams}: "
+            + json.dumps(recs[f"beams{beams}"]))
+        if not recs[f"beams{beams}"]["equal"]:
+            raise AssertionError(f"GeneratorPredictor beams={beams} "
+                                 f"differs from its decoding function")
+    return recs
+
+
+def serve_decode(torch, model, qmodel, plain):
+    """``serve_decode``: decoding beyond the paged engine on the served
+    config — dense-cache ``generate``, ``beam_search`` and
+    ``speculative_generate``, the engine with ``draft=`` behind the
+    server, ``ResilientGenerationClient`` across a crash and restart, and
+    ``GeneratorPredictor``; K1 launched at M = 4, 8, 16, 20 and 40 and
+    K2 on the dense prefills. One JSON line with every record."""
+    t_phase = time.perf_counter()
+    dense = decode_dense_runs(torch, model, qmodel)
+    engine = decode_engine_runs(torch, model, qmodel, plain)
+    resilient = decode_resilient_run(torch, qmodel)
+    predictor = decode_predictor_runs(torch, qmodel)
+    runs = {**{f"dense_{k}": v for k, v in dense.items()},
+            **{f"engine_{k}": v for k, v in engine.items()},
+            **{f"predictor_{k}": v for k, v in predictor.items()}}
+    rows: dict = {}
+    for r in runs.values():
+        for m, n in r["launches"]["q_matmul_rows"].items():
+            rows[m] = rows.get(m, 0) + n
+    fails = [f"K1 never launched at M={m}" for m in DECODE_ROWS + (8,)
+             if DEVICE == "cuda" and not rows.get(m)]
+    fails += [f"K2 never launched on {k}" for k, r in dense.items()
+              if DEVICE == "cuda" and r["launches"]["flash_attention"] < 1]
+    rec = dict(phase="serve_decode", device=SMI,
+               phase_wall_s=time.perf_counter() - t_phase,
+               dense=dense, engine=engine, resilient=resilient,
+               predictor=predictor, q_matmul_rows=dict(sorted(rows.items())))
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError("serve_decode: " + "; ".join(fails))
+    return rec
+
+
+def serve_quantized_classifier(torch, trainer):
+    """``ModelPredictor(quantize=True)`` on the config 6 classifier that
+    ``train_classifier`` trained, on CLS_PRED_ROWS fresh rows: against
+    its bf16 predictor, argmax agreement gated at CLS_AGREE and the
+    largest logit difference; against the float predictor over the int8
+    model's own dequantized weights (``q · scale``), the largest logit
+    difference gated at CLS_DEQ_TOL of that predictor's logit scale; K1's
+    launches (its Dense rows at M = batch · L, the head at the batch)."""
+    from distkeras_tpu_torch.predictors import ModelPredictor
+
+    ds = classifier_data(CLS_PRED_ROWS, seed=7)
+    kw = dict(features_col=["features", "mask"], batch_size=CLS_PRED_BATCH,
+              device=DEVICE)
+    params = trainer.trained_params_
+    ref = ModelPredictor(trainer.spec, params, trainer.trained_nt_,
+                         **kw).predict(ds)["prediction"]
+    pred = ModelPredictor(trainer.spec, params, trainer.trained_nt_,
+                          quantize=True, **kw)
+    got, wall, launches = _timed(torch, lambda: pred.predict(ds)["prediction"])
+    int8 = sorted(k[:-len(".kernel_q")] for k in pred.params
+                  if k.endswith(".kernel_q"))
+    deq_params = dict(params)
+    for name in int8:
+        w = params[f"{name}.weight"]
+        deq_params[f"{name}.weight"] = (
+            pred.params[f"{name}.kernel_q"].float()
+            * pred.params[f"{name}.scale"][:, None]).to(w.device, w.dtype)
+    deq = ModelPredictor(trainer.spec, deq_params, trainer.trained_nt_,
+                         **kw).predict(ds)["prediction"]
+    agree = float(np.mean(got.argmax(-1) == ref.argmax(-1)))
+    deq_err, deq_scale = float(np.abs(got - deq).max()), \
+        float(np.abs(deq).max())
+    rec = dict(phase="serve_decode_quantized_classifier", device=SMI,
+               rows=CLS_PRED_ROWS, wall_s=wall, argmax_agreement=agree,
+               max_logit_err=float(np.abs(got - ref).max()),
+               logit_scale=float(np.abs(ref).max()),
+               max_logit_err_vs_dequantized=deq_err,
+               dequantized_logit_scale=deq_scale,
+               int8_layers=int8, launches=launches)
+    log(json.dumps(rec))
+    if (agree < CLS_AGREE or not np.all(np.isfinite(got))
+            or not deq_err <= CLS_DEQ_TOL * deq_scale
+            or (DEVICE == "cuda" and launches["q_matmul"] < 1)):
+        raise AssertionError(f"quantized classifier: {rec}")
+    return rec
+
+
 def run_mnist_twin():
     """The MNIST example's twin (``distkeras_tpu_torch.examples.mnist``)
     in this process, once a MNIST_RUNS entry, held to the JAX example's
@@ -4602,8 +5066,8 @@ def main() -> int:
         quant.q_matmul.launches = 0
         quant.q_matmul.prefill_launches = 0
         fa._fa_forward.launches = 0
-        prompts, res16, _ = serve(torch, model, "bf16")
-        _, res8, _ = serve(torch, qmodel, "int8")
+        prompts, res16, wall16, st16 = serve(torch, model, "bf16")
+        _, res8, wall8, st8 = serve(torch, qmodel, "int8")
         launches = {"q_matmul": quant.q_matmul.launches,
                     "q_matmul_prefill": quant.q_matmul.prefill_launches,
                     "flash_attention": fa._fa_forward.launches}
@@ -4620,6 +5084,13 @@ def main() -> int:
         # the front door: prefix cache, chunked prefill, SLO admission
         # with preemption, and a refill weight swap
         frontdoor = serve_frontdoor(torch, model, qmodel)
+        # decoding beyond the paged engine: dense generate, beams,
+        # speculation (dense and in the engine), the resilient client,
+        # GeneratorPredictor
+        n_tok = NEW_TOKENS * len(PROMPTS)
+        decode = serve_decode(torch, model, qmodel, plain={
+            "bf16": dict(tokens_per_s=n_tok / wall16, steps=st16["steps"]),
+            "int8": dict(tokens_per_s=n_tok / wall8, steps=st8["steps"])})
     del model, qmodel
     torch.cuda.empty_cache()
 
@@ -4658,7 +5129,7 @@ def main() -> int:
 
     for fn in counters.values():
         fn.launches = 0
-    train_classifier(torch)
+    cls_trainer = train_classifier(torch)
     cls_launches = {k: counters[k].launches for k in (
         "flash_attention", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv")}
@@ -4667,6 +5138,10 @@ def main() -> int:
     if min(cls_launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on the classifier "
                              f"training path: {cls_launches}")
+    # serve_decode's last run: the trained classifier served in int8
+    quantized_cls = serve_quantized_classifier(torch, cls_trainer)
+    del cls_trainer
+    torch.cuda.empty_cache()
     log(f"training paths done at {time.perf_counter() - t0:.1f}s")
 
     # the parameter-server path (backend="ps"): each phase's launches are
@@ -4832,11 +5307,13 @@ def main() -> int:
 
     def decode_step(rows):    # one decode step's q_matmul calls at M=8
         return [(r, PER_STEP[(r["K"], r["N"])]) for r in rows
-                if r["M"] == 8 and r["dtype"] == "bfloat16"]
+                if r["M"] == 8 and r["dtype"] == "bfloat16"
+                and r["model"] == "lm"]
 
     def prefill_1024(rows):   # one 1024-token prefill's calls (8 layers, head)
         return [(r, PER_STEP[(r["K"], r["N"])]) for r in rows
-                if r["M"] == 1024 and r["dtype"] == "bfloat16"]
+                if r["M"] == 1024 and r["dtype"] == "bfloat16"
+                and r["model"] == "lm"]
 
     def served_prefill(rows):  # one layer's prefill attention, 4 prompts
         return [(r, 1) for r in rows if (r["B"], r["H"], r["Hkv"]) ==
@@ -4849,6 +5326,11 @@ def main() -> int:
         return [(r, 1) for r in rows
                 if (r["L"], r["D"]) == (LM_L, LM_DIM // LM_HEADS)]
 
+    decode_runs = {f"serve_decode_{kind}_{k}": v["launches"]
+                   for kind in ("dense", "engine", "predictor")
+                   for k, v in decode[kind].items()}
+    decode_runs["serve_decode_quantized_classifier"] = \
+        quantized_cls["launches"]
     sass_for = dict(sass, lstm_backward=dict(
         dwh=sass["lstm_backward"], scan=sass["lstm_backward_scan"],
         direct_scan=sass["lstm_backward_direct_scan"]))
@@ -4910,6 +5392,7 @@ def main() -> int:
             frontdoor_launches={f"serve_frontdoor_{k}":
                                 frontdoor[k]["launches"][name]
                                 for k in ("int8", "bf16")},
+            decode_launches={k: v[name] for k, v in decode_runs.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -11,9 +11,13 @@ asks for the CPU::
         --rows 2048
     python -m distkeras_tpu_torch.examples.mnist --frontend keras
     python -m distkeras_tpu_torch.examples.mnist --ema 0.99
+    python -m distkeras_tpu_torch.examples.mnist --int8-predict
 
-With ``--ema DECAY`` the Polyak average of the center is scored too. The
-last line printed is ``test accuracy: <fraction>``.
+With ``--ema DECAY`` the Polyak average of the center is scored too; with
+``--int8-predict`` the trained model is served with int8 Dense weights
+(``ModelPredictor(quantize=True)``) and scored so. The last line printed
+is ``test accuracy: <fraction>``, or ``test accuracy (int8 serving):
+<fraction>``.
 """
 
 from __future__ import annotations
@@ -44,12 +48,6 @@ TRAINERS = {
     "dynsgd": DynSGD,
 }
 
-#: flags of the JAX example whose machinery is a later slice of the port
-_LATER_FLAGS = {
-    "int8_predict": "A11.5 (quantize_serving)",
-}
-
-
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--trainer", choices=sorted(TRAINERS), default="adag")
@@ -73,15 +71,15 @@ def parse_args(argv=None):
     ap.add_argument("--ema", type=float, default=None, metavar="DECAY",
                     help="Polyak/EMA averaging of the center; the averaged "
                          "model is also scored at the end")
-    ap.add_argument("--int8-predict", action="store_true")
+    ap.add_argument("--int8-predict", action="store_true",
+                    help="serve the trained model with int8 weights "
+                         "(ModelPredictor(quantize=True))")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    for flag, item in _LATER_FLAGS.items():
-        value = getattr(args, flag)
-        if value not in (None, False):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet: "
-                     f"ROADMAP.md {item}")
+    if args.int8_predict and args.frontend == "keras":
+        ap.error("--int8-predict needs the port's model zoo (--frontend "
+                 "native); a Keras spec has no module to quantize")
     return args
 
 
@@ -157,9 +155,11 @@ def main(argv=None) -> float:
         print(f"EMA(decay={args.ema}) accuracy: "
               f"{AccuracyEvaluator().evaluate(ema_pred.predict(test)):.4f}")
     predictor = ModelPredictor(trainer.spec, trainer.trained_params_,
-                               trainer.trained_nt_, device=args.device)
+                               trainer.trained_nt_, device=args.device,
+                               quantize=args.int8_predict)
     acc = AccuracyEvaluator().evaluate(predictor.predict(test))
-    print(f"test accuracy: {acc:.4f}", flush=True)
+    tag = " (int8 serving)" if args.int8_predict else ""
+    print(f"test accuracy{tag}: {acc:.4f}", flush=True)
     return acc
 
 

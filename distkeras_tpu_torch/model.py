@@ -44,6 +44,11 @@ class ModelSpec:
     #: the template ``nn.Module`` when built by :func:`from_module`; the
     #: weight bridge (``convert``) reads its layer types and shapes
     module: Any = None
+    #: an example input (a tensor, or a tuple of them for several inputs)
+    #: of batch 1 on the CPU, where the zoo records one: what
+    #: ``ops.quant.quantize_serving`` runs one forward on to find the
+    #: layers the serving forward reaches; ``None`` when unknown
+    example: Any = None
     #: optional fused loss implementations, keyed by the trainer-facing loss
     #: name: ``{name: fn(params, state, x, y, training, mask=None) -> (loss,
     #: new_state)}``. A trainer built with ``loss=<name>`` calls the fused fn
@@ -76,10 +81,12 @@ def per_thread(template: nn.Module):
     return module_here
 
 
-def from_module(module: nn.Module, *, name: str | None = None) -> ModelSpec:
+def from_module(module: nn.Module, *, name: str | None = None,
+                example=None) -> ModelSpec:
     """Wrap an ``nn.Module`` whose ``reset_parameters(generator)`` draws
     its initial weights. ``init(seed)`` draws them on the CPU from a
-    ``torch.Generator`` seeded with ``seed``; buffers are the state."""
+    ``torch.Generator`` seeded with ``seed``; buffers are the state.
+    ``example`` is recorded as the spec's example input."""
     template = module
 
     def init(seed):
@@ -100,7 +107,8 @@ def from_module(module: nn.Module, *, name: str | None = None) -> ModelSpec:
         return out, state
 
     return ModelSpec(init=init, apply=apply,
-                     name=name or type(module).__name__, module=module)
+                     name=name or type(module).__name__, module=module,
+                     example=example)
 
 
 def _keras_keys(variables) -> list[str]:

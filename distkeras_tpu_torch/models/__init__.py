@@ -1,5 +1,7 @@
-"""The port's model zoo: the decoder-only LM the serving tier runs and its
-training spec (:func:`transformer_lm_spec`), the encoder classifier
+"""The port's model zoo: the decoder-only LM the serving tier runs, its
+dense-cache decoding (:func:`generate`, :func:`speculative_generate`,
+:func:`beam_search`) and its training spec (:func:`transformer_lm_spec`),
+the encoder classifier
 (:func:`transformer_classifier`, config 6), and the BASELINE training
 models — :func:`mlp` (configs 1 and 4), :func:`lenet` (config 2),
 :func:`vgg_small` (config 3) and :func:`lstm_classifier` (config 5)."""
@@ -7,7 +9,10 @@ models — :func:`mlp` (configs 1 and 4), :func:`lenet` (config 2),
 from distkeras_tpu_torch.models.cnn import LeNet, VGGSmall, lenet, vgg_small
 from distkeras_tpu_torch.models.lm import (
     TransformerLM,
+    beam_search,
+    generate,
     quantize_lm,
+    speculative_generate,
     transformer_lm,
     transformer_lm_spec,
 )
@@ -19,6 +24,7 @@ from distkeras_tpu_torch.models.transformer import (
 )
 
 __all__ = ["TransformerLM", "transformer_lm", "transformer_lm_spec",
-           "quantize_lm", "TransformerClassifier", "transformer_classifier",
+           "quantize_lm", "generate", "speculative_generate", "beam_search",
+           "TransformerClassifier", "transformer_classifier",
            "MLP", "mlp", "LeNet", "lenet", "VGGSmall", "vgg_small",
            "LSTMClassifier", "lstm_classifier"]

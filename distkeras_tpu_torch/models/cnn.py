@@ -71,13 +71,17 @@ class VGGSmall(_ConvNet):
                          dtype)
 
 
+def _image_example(input_shape):
+    return torch.zeros((1,) + tuple(input_shape), dtype=torch.float32)
+
+
 def lenet(input_shape=(28, 28, 1), num_classes=10,
           dtype=torch.bfloat16) -> ModelSpec:
     return from_module(LeNet(tuple(input_shape), num_classes, dtype),
-                       name="lenet")
+                       name="lenet", example=_image_example(input_shape))
 
 
 def vgg_small(input_shape=(32, 32, 3), num_classes=10,
               dtype=torch.bfloat16) -> ModelSpec:
     return from_module(VGGSmall(tuple(input_shape), num_classes, dtype=dtype),
-                       name="vgg_small")
+                       name="vgg_small", example=_image_example(input_shape))

@@ -2,18 +2,24 @@
 
 Port of ``distkeras_tpu/models/lm.py``: the pre-norm causal transformer
 (:class:`TransformerLM`, :class:`DecoderBlock`), its int8 weight-only
-serving form (:class:`QDense`, :func:`quantize_lm`), the block-paged
-entry points the serving engine drives (``prefill_raw``,
-``paged_extend_rows``, ``paged_decode_step``) and the training spec
-(:func:`transformer_lm_spec`, with the chunked fused cross-entropy).
+serving form (:func:`quantize_lm`, over ``ops.quant.QDense``), the dense and ring
+KV cache (``prefill``, ``decode_step``, ``extend``) and the decoding
+functions over it (:func:`generate`, :func:`speculative_generate`,
+:func:`beam_search`), the block-paged entry points the serving engine
+drives (``prefill_raw``, ``paged_extend_rows``, ``paged_decode_step``)
+and the training spec (:func:`transformer_lm_spec`, with the chunked
+fused cross-entropy). The served module carries its own weights, so the
+decoding functions take the module where the JAX package's take a spec
+and its params.
 
 The numerics follow the JAX package's dtype discipline: the residual stream
 and every LayerNorm (epsilon 1e-6) run in f32, the Dense layers in the
 model dtype, GELU is the tanh approximation, logits are f32. RoPE rotates
 interleaved feature pairs ``(x[2i], x[2i+1])`` and the cache holds rotated
-keys. Paged decode attention keeps its own order — q·k in the model dtype,
-then f32 scale and softmax, masked at -1e30, probabilities cast to v's
-dtype — and is plain torch, as it is plain einsum in the JAX package.
+keys. Cached decode attention (dense, ring and paged) keeps its own
+order — q·k in the model dtype, then f32 scale and softmax, masked at
+-1e30, probabilities cast to v's dtype — and is plain torch, as it is
+plain einsum in the JAX package.
 Prefill attention goes through ``ops.flash_attention`` (the hand-written
 kernel on the card) and every ``QDense`` through ``ops.quant.q_matmul``.
 
@@ -41,7 +47,7 @@ from distkeras_tpu_torch.ops.flash_attention import (
     attention_reference,
 )
 from distkeras_tpu_torch.ops.fused_ce import chunked_softmax_cross_entropy
-from distkeras_tpu_torch.ops.quant import QTensor, q_matmul, quantize
+from distkeras_tpu_torch.ops.quant import QDense, quantize
 from distkeras_tpu_torch.utils import resolve_device
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
@@ -91,44 +97,25 @@ class Dense(nn.Module):
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
-class QDense(nn.Module):
-    """Dense over an int8 weight-only-quantized kernel: ``kernel_q``
-    int8 ``[out, in]`` (the layout ``q_matmul``'s kernel streams),
-    per-output-channel ``scale`` f32, ``bias`` kept in ``param_dtype`` (the
-    model dtype unless given) and added in the activation dtype."""
-
-    def __init__(self, in_features: int, features: int, dtype, device,
-                 param_dtype=None):
-        super().__init__()
-        self.register_buffer("kernel_q", torch.zeros(
-            (features, in_features), dtype=torch.int8, device=device))
-        self.register_buffer("scale", torch.ones(
-            features, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(torch.zeros(
-            features, dtype=param_dtype or dtype, device=device))
-
-    def forward(self, x):
-        out = q_matmul(x, QTensor(self.kernel_q, self.scale),
-                       out_dtype=x.dtype)
-        return out + self.bias.to(out.dtype)
-
-
 def _layer_norm(dim, device):
     return nn.LayerNorm(dim, eps=_LN_EPS, dtype=torch.float32, device=device)
 
 
 class DecoderBlock(nn.Module):
     """Pre-norm causal block: ``forward`` (full forward), ``prefill`` (full
-    forward that also returns this block's K/V) and ``paged_extend`` (T
-    positions per row against the block-paged cache)."""
+    forward that also returns this block's K/V), ``step`` and ``extend``
+    (one or ``T`` decode positions against a dense or ring cache) and
+    ``paged_extend`` (T positions per row against the block-paged cache).
+    ``maxlen`` tells a full-length cache from a sliding window's ring."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: int = 4,
                  dtype=torch.bfloat16, attn_impl: str = "reference",
                  attn_window: int | None = None, kv_heads: int | None = None,
                  rope: bool = False, quant: bool = False, device="cuda",
-                 param_dtype=None):
+                 param_dtype=None, maxlen: int = 0):
         super().__init__()
         self.dim, self.heads = dim, heads
+        self.maxlen = int(maxlen)
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.attn_window = attn_window
@@ -212,22 +199,83 @@ class DecoderBlock(nn.Module):
             B, L, self.hkv, self.dh)
         v_seq = v_pool.view(-1, bs, self.hkv, self.dh)[tables].reshape(
             B, L, self.hkv, self.dh)
-        group = self.heads // self.hkv
-        qg = q.reshape(B, T, self.hkv, group, self.dh)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_seq) \
-            .to(torch.float32) * (self.dh ** -0.5)
         kp = torch.arange(L, device=x.device)[None, None, :]
         qp = (positions[:, None] + torch.arange(T, device=x.device)[None, :]
               )[:, :, None]
         valid = kp <= qp                      # per-row causal; unwritten
         if self.attn_window is not None:      # slots (kp > qp) masked too
             valid = valid & (qp - kp < self.attn_window)
+        return self._cached_attention(x, q, k_seq, v_seq, valid), \
+            k_pool, v_pool
+
+    def _cached_attention(self, x, q, k_seq, v_seq, valid):
+        """Attention of ``q [B, T, H, Dh]`` over cached ``k_seq``/``v_seq``
+        ``[B, L, Hkv, Dh]`` where ``valid`` ``[B or 1, T, L]`` holds, then
+        the residual and the MLP: q·k in the model dtype, f32 scale and
+        softmax (masked at -1e30), probabilities cast to v's dtype; the
+        ``[H]`` head axis factors as ``[Hkv, group]``."""
+        B, T = q.shape[:2]
+        group = self.heads // self.hkv
+        qg = q.reshape(B, T, self.hkv, group, self.dh)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_seq) \
+            .to(torch.float32) * (self.dh ** -0.5)
         s = s.masked_fill(~valid[:, None, None, :, :], -1e30)
         p = torch.softmax(s, dim=-1)
         att = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v_seq.dtype), v_seq)
         att = att.reshape(B, T, self.dim)
         x = x + self.attn_out(att.to(self.dtype)).to(torch.float32)
-        return self._mlp(x), k_pool, v_pool
+        return self._mlp(x)
+
+    def step(self, x_t, k_cache, v_cache, pos: int, rope=None):
+        """One decode position: ``x_t`` [B, 1, dim] at absolute position
+        ``pos`` against ``k_cache``/``v_cache`` [B, cache_len, Hkv, Dh],
+        written in place. ``cache_len`` is ``maxlen``, or the window of a
+        sliding-window model: then the cache is a ring, position ``p`` in
+        slot ``p % window``, and only never-written slots are masked (a
+        slot's position is causal and in the band by construction). The
+        non-ring step is :meth:`extend` at T=1: cached decode and the
+        speculative verify forward share one body."""
+        cache_len = k_cache.shape[1]
+        if cache_len >= self.maxlen:
+            return self.extend(x_t, k_cache, v_cache, pos, rope)
+        q, k, v = self._project_qkv(x_t)
+        if self.rope:
+            # the cache holds rotated keys
+            q, k = _rotate(q, *rope), _rotate(k, *rope)
+        slot = int(pos) % cache_len
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        kp = torch.arange(cache_len, device=x_t.device)
+        # slot s holds absolute position pos - ((pos - s) % window)
+        valid = (int(pos) - ((int(pos) - kp) % cache_len) >= 0)[None, None]
+        return self._cached_attention(x_t, q, k_cache, v_cache, valid), \
+            k_cache, v_cache
+
+    def extend(self, x, k_cache, v_cache, pos0: int, rope=None):
+        """``T`` consecutive decode positions in one pass: ``x`` [B, T, dim]
+        at absolute positions ``pos0 .. pos0+T-1``; their K/V are written
+        into the dense cache in place and each query attends causally to
+        every cached position up to its own (speculative decoding's verify
+        forward). A ring cache cannot take a contiguous span write."""
+        T = x.shape[1]
+        cache_len = k_cache.shape[1]
+        if cache_len < self.maxlen:
+            raise ValueError(
+                "extend() needs a full-length cache; sliding-window models "
+                "use a ring cache that cannot take a contiguous span write")
+        q, k, v = self._project_qkv(x)
+        if self.rope:
+            q, k = _rotate(q, *rope), _rotate(k, *rope)
+        pos0 = int(pos0)
+        k_cache[:, pos0:pos0 + T] = k.to(k_cache.dtype)
+        v_cache[:, pos0:pos0 + T] = v.to(v_cache.dtype)
+        kp = torch.arange(cache_len, device=x.device)[None, :]
+        qp = pos0 + torch.arange(T, device=x.device)[:, None]
+        valid = kp <= qp                          # causal: cache <= own pos
+        if self.attn_window is not None:
+            valid = valid & (qp - kp < self.attn_window)
+        return self._cached_attention(x, q, k_cache, v_cache, valid[None]), \
+            k_cache, v_cache
 
 
 class TransformerLM(nn.Module):
@@ -279,7 +327,8 @@ class TransformerLM(nn.Module):
             DecoderBlock(dim, heads, dtype=dtype, attn_impl=attn_impl,
                          attn_window=attn_window, kv_heads=kv_heads,
                          rope=pos_embedding == "rope", quant=quant,
-                         device=device, param_dtype=param_dtype)
+                         device=device, param_dtype=param_dtype,
+                         maxlen=maxlen)
             for _ in range(depth)
         ])
         self.ln_head = _layer_norm(dim, device)
@@ -361,19 +410,79 @@ class TransformerLM(nn.Module):
     def hidden(self, tokens, mask=None):
         """Final post-``ln_head`` hidden states ``[B, L, dim]`` (f32)."""
         x = self._embed_at(tokens)
-        rope = self._rope(self.rope_table[:tokens.shape[1]]) \
-            if self.pos_embedding == "rope" else None
+        rope = self._rope_at(0, tokens.shape[1])
         for blk in self.blocks:
             x = blk(x, mask, rope)
         return self.ln_head(x)
+
+    def _rope_at(self, pos0: int, T: int):
+        if self.pos_embedding != "rope":
+            return None
+        return self._rope(self.rope_table[pos0:pos0 + T])
+
+    def prefill(self, tokens):
+        """Full forward over the prompt: ``(logits, caches)`` with one dense
+        ``(k, v)`` buffer pair a block, ``[B, cache_len, Hkv, Dh]`` in the
+        model dtype, holding positions ``< L``. ``cache_len`` is
+        ``maxlen``, or ``attn_window`` for a sliding-window model: then
+        the buffer is a ring (slot ``p % window``) seeded with the last
+        ``window`` prompt positions; slots never written hold position 0's
+        K/V, which :meth:`DecoderBlock.step` masks."""
+        B, L = tokens.shape
+        hkv, dh = self.blocks[0].hkv, self.dim // self.heads
+        cache_len = self.maxlen
+        if self.attn_window is not None:
+            cache_len = min(self.maxlen, int(self.attn_window))
+        x = self._embed_at(tokens)
+        rope = self._rope_at(0, L)
+        ring_pos = None
+        if cache_len < self.maxlen:
+            slots = torch.arange(cache_len, device=tokens.device)
+            # the absolute position each slot holds after the prompt;
+            # negative: never written
+            ring_pos = ((L - 1) - ((L - 1 - slots) % cache_len)).clamp(min=0)
+        caches = []
+        for blk in self.blocks:
+            x, k, v = blk.prefill(x, None, rope)
+            if ring_pos is not None:
+                caches.append((k.index_select(1, ring_pos).to(self.dtype),
+                               v.index_select(1, ring_pos).to(self.dtype)))
+                continue
+            kc = torch.zeros((B, cache_len, hkv, dh), dtype=self.dtype,
+                             device=tokens.device)
+            vc = torch.zeros_like(kc)
+            kc[:, :L] = k.to(self.dtype)
+            vc[:, :L] = v.to(self.dtype)
+            caches.append((kc, vc))
+        return self._logits(x), tuple(caches)
+
+    def decode_step(self, tok, caches, pos: int):
+        """One decode step: ``tok`` [B] at absolute position ``pos`` →
+        ``(next-token logits [B, vocab], caches)``, the caches written in
+        place."""
+        x = self._embed_at(tok[:, None], pos)
+        rope = self._rope_at(pos, 1)
+        for blk, (kc, vc) in zip(self.blocks, caches):
+            x, _, _ = blk.step(x, kc, vc, pos, rope)
+        return self._logits(x)[:, 0], caches
+
+    def extend(self, tokens, caches, pos0: int):
+        """Multi-token cached decode: ``tokens`` [B, T] at absolute
+        positions ``pos0 .. pos0+T-1`` → ``(logits [B, T, vocab],
+        caches)``; ``logits[:, t]`` predicts position ``pos0+t+1``.
+        Speculative decoding's verify forward."""
+        x = self._embed_at(tokens, pos0)
+        rope = self._rope_at(pos0, tokens.shape[1])
+        for blk, (kc, vc) in zip(self.blocks, caches):
+            x, _, _ = blk.extend(x, kc, vc, pos0, rope)
+        return self._logits(x), caches
 
     def prefill_raw(self, tokens):
         """Full forward over the prompt: ``(logits, kvs)`` with per-block
         unpadded K/V ``[B, L, Hkv, Dh]`` (keys rotated under RoPE) — the
         serving engine scatters them into its block pools."""
         x = self._embed_at(tokens)
-        rope = self._rope(self.rope_table[:tokens.shape[1]]) \
-            if self.pos_embedding == "rope" else None
+        rope = self._rope_at(0, tokens.shape[1])
         kvs = []
         for blk in self.blocks:
             x, k, v = blk.prefill(x, None, rope)
@@ -405,6 +514,447 @@ class TransformerLM(nn.Module):
             tok[:, None], k_pools, v_pools, tables, write_slot[:, None],
             positions, block_size)
         return logits[:, 0], k_pools, v_pools
+
+
+def _check_decode_args(fn_name: str, model, prompt, max_new_tokens: int):
+    """Shared validation of the decoding functions: ``(model, prompt int32
+    [B, Lp] numpy)`` or raises."""
+    if not isinstance(model, TransformerLM):
+        raise TypeError(f"{fn_name}() needs a TransformerLM, got "
+                        f"{type(model)}")
+    prompt = np.asarray(prompt, np.int32)
+    if prompt.ndim != 2:
+        raise ValueError(f"prompt must be [batch, length], got {prompt.shape}")
+    if prompt.shape[1] + max_new_tokens > model.maxlen:
+        raise ValueError(
+            f"prompt length {prompt.shape[1]} + max_new_tokens "
+            f"{max_new_tokens} exceeds the model's maxlen {model.maxlen}")
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1")
+    return model, prompt
+
+
+def _warp_fn(temperature: float, top_k: int | None,
+             top_p: float | None = None):
+    """Logit warping for sampling: temperature scale, then top-k, then the
+    minimal nucleus (top-p); filtered tokens at -1e30, f32. Every token
+    whose warped logit equals a cutoff survives (strict ``scaled <
+    cutoff`` filters), so ties at a boundary widen the support. Requires
+    temperature > 0."""
+
+    def warp(logits):
+        scaled = logits.to(torch.float32) / temperature
+        if top_k is not None:
+            kth = torch.topk(scaled, int(top_k), dim=-1).values[..., -1:]
+            scaled = scaled.masked_fill(scaled < kth, -1e30)
+        if top_p is not None and top_p < 1.0:
+            desc = torch.sort(scaled, dim=-1, descending=True).values
+            probs = torch.softmax(desc, dim=-1)
+            # keep a token iff the mass strictly before it is < top_p
+            keep = torch.cumsum(probs, dim=-1) - probs < top_p
+            cutoff = torch.where(keep, desc, torch.full_like(desc, np.inf)) \
+                .amin(dim=-1, keepdim=True)
+            scaled = scaled.masked_fill(scaled < cutoff, -1e30)
+        return scaled
+
+    return warp
+
+
+def _categorical(logits, generator):
+    """One draw per row from ``softmax(logits)`` (-1e30 and -inf never
+    drawn) with ``generator``."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    shape = probs.shape
+    tok = torch.multinomial(probs.reshape(-1, shape[-1]), 1,
+                            generator=generator)
+    return tok.reshape(shape[:-1])
+
+
+def _sample_fn(temperature: float, top_k: int | None,
+               top_p: float | None = None):
+    """``sample(logits, generator)``: argmax for temperature 0, else a draw
+    from the warped distribution (:func:`_warp_fn`)."""
+    if temperature == 0.0:
+        def sample(logits, generator):
+            return torch.argmax(logits, dim=-1)
+
+        return sample
+    warp = _warp_fn(temperature, top_k, top_p)
+
+    def sample(logits, generator):
+        return _categorical(warp(logits), generator)
+
+    return sample
+
+
+def _generator(device, seed: int):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _as_tokens(prompt, device):
+    return torch.from_numpy(prompt.astype(np.int64)).to(device)
+
+
+def _with_prompt(prompt, new) -> np.ndarray:
+    return np.concatenate(
+        [prompt, new.cpu().numpy().astype(np.int32)], axis=-1)
+
+
+@torch.inference_mode()
+def generate(model, prompt, max_new_tokens: int, *,
+             temperature: float = 0.0, top_k: int | None = None,
+             top_p: float | None = None, seed: int = 0,
+             eos_id: int | None = None):
+    """Autoregressive decoding over the dense KV cache: ``prompt`` [B, Lp]
+    int32 → [B, Lp+new] int32 numpy. One batched prefill writes the caches
+    for the whole prompt, then one :meth:`TransformerLM.decode_step` a
+    token. ``temperature=0`` is greedy; otherwise a draw per token from the
+    temperature/top-k/top-p warped distribution (:func:`_warp_fn`) with a
+    ``torch.Generator`` seeded with ``seed`` on the model's device, so a
+    stream is deterministic per seed on a given device.
+
+    ``eos_id`` stops a row at its first end-of-sequence token: the row pads
+    with ``eos_id`` from there on, and decoding stops once every row has
+    finished (one host read a step). Rows draw from the same generator
+    with and without ``eos_id``, so a sampled stream equals the eos-free
+    one up to its first ``eos_id``. Count real tokens with
+    :func:`distkeras_tpu_torch.serving.per_row_new_token_counts`."""
+    module, prompt = _check_decode_args("generate", model, prompt,
+                                        max_new_tokens)
+    if top_k is not None and not 1 <= int(top_k) <= module.vocab:
+        raise ValueError(
+            f"top_k must be in [1, vocab={module.vocab}], got {top_k}")
+    if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if eos_id is not None and not 0 <= int(eos_id) < module.vocab:
+        raise ValueError(f"eos_id {eos_id} outside vocab {module.vocab}")
+    sample = _sample_fn(float(temperature), top_k,
+                        None if top_p is None else float(top_p))
+    dev = module.device
+    gen = _generator(dev, seed)
+    n_new = int(max_new_tokens)
+    lp = prompt.shape[1]
+    logits, caches = module.prefill(_as_tokens(prompt, dev))
+    tok = sample(logits[:, -1], gen)
+    if eos_id is None:
+        out = [tok]
+        for n in range(1, n_new):
+            logits, caches = module.decode_step(tok, caches, lp + n - 1)
+            tok = sample(logits, gen)
+            out.append(tok)
+        return _with_prompt(prompt, torch.stack(out, dim=1))
+    eos = int(eos_id)
+    out = torch.full((prompt.shape[0], n_new), eos, dtype=torch.int64,
+                     device=dev)
+    out[:, 0] = tok
+    done = tok == eos
+    n = 1
+    while n < n_new and not bool(done.all()):
+        logits, caches = module.decode_step(tok, caches, lp + n - 1)
+        tok = sample(logits, gen).masked_fill(done, eos)  # pad after EOS
+        out[:, n] = tok
+        done = done | (tok == eos)
+        n += 1
+    return _with_prompt(prompt, out)
+
+
+def _lockstep_emit(out, n: int, props, cut, a: int):
+    """Write one round's ``[B, K+1]`` block at column ``n``: the
+    proposals below the batch-minimum accepted length ``a``, each row's
+    cut token ``cut`` [B] at ``a``; columns past ``a`` are overwritten by
+    the next round or trimmed."""
+    B, K = props.shape
+    emit = torch.cat([props, torch.zeros_like(props[:, :1])], dim=1)
+    emit[:, a] = cut
+    out[:, n:n + K + 1] = emit
+
+
+def _spec_round_stats(a_row, n: int, max_new: int, K: int):
+    """(accepted, proposed) of one round summed over rows and clamped to
+    the emission budget: a final round's overhang never lands in the
+    output, so it does not count."""
+    room = max_new - n
+    return (int(torch.clamp(a_row, max=room).sum()),
+            a_row.shape[0] * min(K, room))
+
+
+def _draft_close(dm, tok, d_caches, pos: int):
+    """The round's (K+1)-th draft step: write the last proposal ``tok``
+    into the draft's cache at ``pos`` (its logits are not used). The
+    verify writes the target's cache through ``pos``; without this step a
+    fully accepted round would leave the draft's cache unwritten there for
+    the rest of the stream, as the engine's extra step also prevents."""
+    _, d_caches = dm.decode_step(tok, d_caches, pos)
+    return d_caches
+
+
+def _speculative_greedy(tm, dm, p, max_new: int, K: int):
+    B, lp = p.shape
+    t_logits, t_caches = tm.prefill(p)
+    _, d_caches = dm.prefill(p)
+    last = torch.argmax(t_logits[:, -1], dim=-1)
+    # the emission block of the last round may overhang the budget
+    out = torch.zeros((B, max_new + K + 1), dtype=torch.int64,
+                      device=p.device)
+    out[:, 0] = last
+    n, rounds, accepted, proposed = 1, 0, 0, 0
+    while n < max_new:
+        cur = lp + n - 1   # absolute position of `last`, not yet cached
+        tok, props = last, []
+        for i in range(K):
+            lg, d_caches = dm.decode_step(tok, d_caches, cur + i)
+            tok = torch.argmax(lg, dim=-1)
+            props.append(tok)
+        d_caches = _draft_close(dm, tok, d_caches, cur + K)
+        props = torch.stack(props, dim=1)          # [B, K]
+        # verify: logits[:, t] is the target's pick for position cur+t+1
+        t_logits, t_caches = tm.extend(
+            torch.cat([last[:, None], props], dim=1), t_caches, cur)
+        g = torch.argmax(t_logits, dim=-1)         # [B, K+1]
+        match = (props == g[:, :K]).to(torch.int64)
+        a_row = torch.cumprod(match, dim=1).sum(dim=1)
+        # lockstep on the batch minimum: every row's first `a` proposals
+        # are its own greedy tokens, so props[:, :a] + g[:, a] is exact
+        a = int(a_row.min())
+        last = g[:, a]
+        _lockstep_emit(out, n, props, last, a)
+        acc, prop = _spec_round_stats(a_row, n, max_new, K)
+        rounds, accepted, proposed = rounds + 1, accepted + acc, \
+            proposed + prop
+        n += a + 1
+    return out[:, :max_new], rounds, accepted, proposed
+
+
+def _speculative_sampled(tm, dm, p, max_new: int, K: int, warp, gen):
+    B, lp = p.shape
+    t_logits, t_caches = tm.prefill(p)
+    _, d_caches = dm.prefill(p)
+    last = _categorical(warp(t_logits[:, -1]), gen)
+    out = torch.zeros((B, max_new + K + 1), dtype=torch.int64,
+                      device=p.device)
+    out[:, 0] = last
+    rows = torch.arange(B, device=p.device)
+    n, rounds, accepted, proposed = 1, 0, 0, 0
+    while n < max_new:
+        cur = lp + n - 1
+        tok, props, q_lp = last, [], []
+        for i in range(K):
+            lg, d_caches = dm.decode_step(tok, d_caches, cur + i)
+            wl = warp(lg)
+            tok = _categorical(wl, gen)
+            props.append(tok)
+            q_lp.append(torch.log_softmax(wl, dim=-1))
+        d_caches = _draft_close(dm, tok, d_caches, cur + K)
+        props = torch.stack(props, dim=1)          # [B, K]
+        q_lp = torch.stack(q_lp, dim=1)            # [B, K, V]
+        t_logits, t_caches = tm.extend(
+            torch.cat([last[:, None], props], dim=1), t_caches, cur)
+        p_lp = torch.log_softmax(warp(t_logits), dim=-1)   # [B, K+1, V]
+        # accept x_i iff log u < log p(x_i) - log q(x_i)
+        idx = props[..., None]
+        p_at = torch.gather(p_lp[:, :K], 2, idx)[..., 0]
+        q_at = torch.gather(q_lp, 2, idx)[..., 0]
+        u = torch.rand((B, K), generator=gen, device=p.device)
+        accept = (torch.log(u.clamp(min=1e-37)) < p_at - q_at) \
+            .to(torch.int64)
+        a_row = torch.cumprod(accept, dim=1).sum(dim=1)
+        a = int(a_row.min())
+        # the cut position's token per row: a fresh p_K draw when every
+        # proposal stood (a == K); else the row's own proposal where it
+        # accepted position a, or a draw from the residual
+        # norm(max(p - q, 0)), falling back to p where it has no mass
+        a_k = min(a, K - 1)
+        p_cut, q_cut = p_lp[:, a_k], q_lp[:, a_k]
+        residual = torch.clamp(torch.exp(p_cut) - torch.exp(q_cut), min=0.0)
+        has_mass = residual.sum(dim=-1, keepdim=True) > 0
+        res_logits = torch.where(
+            has_mass,
+            torch.where(residual > 0, torch.log(residual),
+                        torch.full_like(residual, -np.inf)),
+            p_cut)
+        res_tok = _categorical(res_logits, gen)
+        p_k_tok = _categorical(p_lp[:, K], gen)
+        if a == K:
+            cut = p_k_tok
+        else:
+            cut = torch.where(accept[rows, a_k].bool(), props[rows, a_k],
+                              res_tok)
+        _lockstep_emit(out, n, props, cut, a)
+        last = cut
+        acc, prop = _spec_round_stats(a_row, n, max_new, K)
+        rounds, accepted, proposed = rounds + 1, accepted + acc, \
+            proposed + prop
+        n += a + 1
+    return out[:, :max_new], rounds, accepted, proposed
+
+
+@torch.inference_mode()
+def speculative_generate(target, draft, prompt, max_new_tokens: int, *,
+                         spec_tokens: int = 4, temperature: float = 0.0,
+                         top_k: int | None = None,
+                         top_p: float | None = None, seed: int = 0):
+    """Speculative decoding (Leviathan et al. 2023): the ``draft`` model
+    proposes ``spec_tokens`` tokens one cached step at a time, and the
+    ``target`` scores all of them in one :meth:`TransformerLM.extend` and
+    keeps an accepted prefix plus a correction token. The draft takes one
+    more step a round, which writes its last proposal into its own cache,
+    as the serving engine's draft does; the JAX package's dense path
+    skips it, so after a fully accepted round its draft attends to an
+    unwritten position and its ``rounds``/``accepted`` can differ from
+    these (never its tokens).
+
+    ``temperature=0`` is the greedy scheme: proposals stand while they
+    equal the target's own argmax, so the output is the target's greedy
+    :func:`generate` stream (the verify forward and plain decode share one
+    block body; in f32 they agree except at exact ties, in bf16 a tie may
+    round one ulp apart). ``temperature>0`` is rejection sampling: the
+    draft samples each proposal from its warped distribution ``q``, a
+    proposal ``x`` stands with probability ``min(1, p(x)/q(x))`` under the
+    target's warped ``p``, and the first rejection is replaced by a draw
+    from ``norm(max(p - q, 0))``; each emitted token is then distributed
+    as ``p``, the distribution plain sampled :func:`generate` draws from.
+    Deterministic for a fixed ``seed`` on a given device.
+
+    Batched prompts run in lockstep: each round every row advances by the
+    batch-minimum accepted length. Returns ``(tokens [B, Lp+new] int32,
+    stats)``: ``rounds`` (verify passes), ``proposed`` and ``accepted``
+    summed per row and clamped to the budget (a row past the batch
+    minimum re-proposes, and recounts, its overhang next round), and
+    ``acceptance = accepted / proposed``. Sliding-window models are
+    refused: a ring cache cannot take the verify block's span write."""
+    tm, prompt = _check_decode_args("speculative_generate", target, prompt,
+                                    max_new_tokens)
+    dm = draft
+    if not isinstance(dm, TransformerLM):
+        raise TypeError(f"speculative_generate() needs a TransformerLM "
+                        f"draft, got {type(dm)}")
+    if dm.vocab != tm.vocab:
+        raise ValueError(f"draft vocab {dm.vocab} != target vocab "
+                         f"{tm.vocab}")
+    if tm.attn_window is not None or dm.attn_window is not None:
+        raise ValueError(
+            "speculative_generate does not support sliding-window models "
+            "(ring caches cannot take the verify block's span write)")
+    K = int(spec_tokens)
+    if K < 1:
+        raise ValueError(f"spec_tokens must be >= 1, got {spec_tokens}")
+    need = prompt.shape[1] + int(max_new_tokens) + K - 1
+    for name, m in (("target", tm), ("draft", dm)):
+        if need > m.maxlen:
+            raise ValueError(
+                f"prompt {prompt.shape[1]} + max_new_tokens "
+                f"{max_new_tokens} + spec_tokens {K} - 1 = {need} exceeds "
+                f"the {name}'s maxlen {m.maxlen} (the verify block probes "
+                f"spec_tokens positions past the emitted stream)")
+    if temperature < 0.0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if top_k is not None and not 1 <= int(top_k) <= tm.vocab:
+        raise ValueError(
+            f"top_k must be in [1, vocab={tm.vocab}], got {top_k}")
+    if top_p is not None and not 0.0 < float(top_p) <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if dm.device != tm.device:
+        raise ValueError(f"the draft lives on {dm.device}, the target on "
+                         f"{tm.device}")
+    p = _as_tokens(prompt, tm.device)
+    if temperature == 0.0:
+        new, rounds, accepted, proposed = _speculative_greedy(
+            tm, dm, p, int(max_new_tokens), K)
+    else:
+        warp = _warp_fn(float(temperature), top_k,
+                        None if top_p is None else float(top_p))
+        new, rounds, accepted, proposed = _speculative_sampled(
+            tm, dm, p, int(max_new_tokens), K, warp,
+            _generator(tm.device, seed))
+    stats = {
+        "rounds": rounds,
+        "proposed": proposed,
+        "accepted": accepted,
+        "acceptance": accepted / proposed if proposed else 0.0,
+    }
+    return _with_prompt(prompt, new), stats
+
+
+@torch.inference_mode()
+def beam_search(model, prompt, max_new_tokens: int, *, beams: int = 4,
+                length_penalty: float = 0.0, eos_id: int | None = None):
+    """KV-cached beam search: ``prompt`` [B, Lp] int32 → ``(tokens [B,
+    beams, Lp+new] int32, scores [B, beams] f32)``, best beam first.
+
+    The dense caches are tiled to ``B·beams`` rows after the prefill and
+    gathered by surviving parent every step. ``scores`` are summed token
+    log-probabilities; with ``length_penalty`` α > 0 they are
+    GNMT-normalised (``score / ((5+len)/6)^α``, ``len`` up to and
+    including the first ``eos_id``). ``eos_id`` finishes a beam: its score
+    freezes and it pads with ``eos_id`` while staying a candidate.
+    ``beams=1`` is greedy :func:`generate`."""
+    module, prompt = _check_decode_args("beam_search", model, prompt,
+                                        max_new_tokens)
+    if not 1 <= int(beams) <= module.vocab:
+        raise ValueError(
+            f"beams must be in [1, vocab={module.vocab}], got {beams}")
+    if eos_id is not None and not 0 <= int(eos_id) < module.vocab:
+        raise ValueError(f"eos_id {eos_id} outside vocab {module.vocab}")
+    K, V = int(beams), module.vocab
+    n_new = int(max_new_tokens)
+    dev = module.device
+    B, lp = prompt.shape
+    logits, caches = module.prefill(_as_tokens(prompt, dev))
+    logp0 = torch.log_softmax(logits[:, -1].to(torch.float32), dim=-1)
+    # eos stays a legal first pick: it finishes that beam at once
+    scores, tok0 = torch.topk(logp0, K, dim=-1)            # [B, K]
+    caches = tuple((kc.repeat_interleave(K, dim=0),
+                    vc.repeat_interleave(K, dim=0)) for kc, vc in caches)
+    toks = torch.zeros((B, K, n_new), dtype=torch.int64, device=dev)
+    toks[:, :, 0] = tok0
+    if eos_id is not None:
+        finished = tok0 == int(eos_id)
+        # a finished beam emits only eos, at zero cost: its score freezes
+        only_eos = torch.full((V,), -1e30, device=dev)
+        only_eos[int(eos_id)] = 0.0
+    else:
+        finished = torch.zeros((B, K), dtype=torch.bool, device=dev)
+    row0 = torch.arange(B, device=dev)[:, None] * K
+    for i in range(1, n_new):
+        logits, caches = module.decode_step(toks[:, :, i - 1].reshape(B * K),
+                                            caches, lp + i - 1)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1) \
+            .reshape(B, K, V)
+        if eos_id is not None:
+            logp = torch.where(finished[:, :, None], only_eos, logp)
+        cand = scores[:, :, None] + logp                     # [B, K, V]
+        scores, flat = torch.topk(cand.reshape(B, K * V), K, dim=-1)
+        parent, tok_new = flat // V, flat % V                # [B, K]
+        # beam-major state follows the surviving parents
+        rows = (row0 + parent).reshape(-1)
+        caches = tuple((kc.index_select(0, rows), vc.index_select(0, rows))
+                       for kc, vc in caches)
+        toks = torch.gather(toks, 1, parent[:, :, None].expand(-1, -1, n_new))
+        toks[:, :, i] = tok_new
+        finished = torch.gather(finished, 1, parent)
+        if eos_id is not None:
+            finished = finished | (tok_new == int(eos_id))
+    ranked = scores
+    if length_penalty:
+        if eos_id is not None:
+            hit = toks == int(eos_id)
+            first = torch.argmax(hit.to(torch.int64), dim=2)
+            length = torch.where(hit.any(dim=2), first + 1,
+                                 torch.full_like(first, n_new))
+        else:
+            length = torch.full((B, K), n_new, device=dev)
+        norm = ((5.0 + length.to(torch.float32)) / 6.0) \
+            ** float(length_penalty)
+        ranked = scores / norm
+    order = torch.argsort(-ranked, dim=1, stable=True)
+    ranked = torch.gather(ranked, 1, order)
+    toks = torch.gather(toks, 1, order[:, :, None].expand(-1, -1, n_new))
+    full = np.concatenate(
+        [np.broadcast_to(prompt[:, None], (B, K, lp)),
+         toks.cpu().numpy().astype(np.int32)], axis=2)
+    return full, ranked.cpu().numpy()
 
 
 def _init_flax_defaults(model: TransformerLM, generator) -> None:
@@ -487,7 +1037,8 @@ def transformer_lm_spec(vocab=1024, maxlen=256, dim=128, heads=4, depth=2,
         kv_heads=kv_heads, pos_embedding=pos_embedding,
         tie_embeddings=tie_embeddings, device="cpu",
         param_dtype=torch.float32)
-    spec = from_module(module, name="transformer_lm")
+    spec = from_module(module, name="transformer_lm",
+                       example=torch.zeros((1, maxlen), dtype=torch.int64))
     if not fused_ce:
         return spec
     chunk = int(ce_chunk)

@@ -66,10 +66,11 @@ class LSTMClassifier(nn.Module):
 def lstm_classifier(vocab=20000, maxlen=200, embed_dim=128, hidden_dim=128,
                     num_classes=2, dtype=torch.bfloat16,
                     scan_impl="kernel") -> ModelSpec:
-    """``maxlen`` is the padded length of the inputs; the model itself
-    takes any length."""
-    del maxlen
+    """``maxlen`` is the padded length of the inputs, and the example
+    input's; the model itself takes any length."""
     module = LSTMClassifier(vocab=vocab, embed_dim=embed_dim,
                             hidden_dim=hidden_dim, num_classes=num_classes,
                             dtype=dtype, scan_impl=scan_impl)
-    return from_module(module, name="lstm_classifier")
+    example = (torch.zeros((1, maxlen), dtype=torch.int64),
+               torch.ones((1, maxlen), dtype=torch.float32))
+    return from_module(module, name="lstm_classifier", example=example)

@@ -40,4 +40,5 @@ class MLP(nn.Module):
 def mlp(input_shape=(28, 28, 1), hidden=(500, 300), num_classes=10,
         dtype=torch.bfloat16) -> ModelSpec:
     module = MLP(int(np.prod(input_shape)), tuple(hidden), num_classes, dtype)
-    return from_module(module, name="mlp")
+    example = torch.zeros((1,) + tuple(input_shape), dtype=torch.float32)
+    return from_module(module, name="mlp", example=example)

@@ -176,7 +176,10 @@ def transformer_classifier(vocab=20000, maxlen=200, dim=128, heads=4,
         vocab=vocab, maxlen=maxlen, dim=dim, heads=heads, depth=depth,
         num_classes=num_classes, causal=causal, dtype=dtype,
         attn_impl=attn_impl, attn_window=attn_window)
-    return from_module(module, name="transformer_classifier")
+    example = (torch.zeros((1, maxlen), dtype=torch.int64),
+               torch.ones((1, maxlen), dtype=torch.float32))
+    return from_module(module, name="transformer_classifier",
+                       example=example)
 
 
 def pipelined_transformer_forward(*args, **kwargs):

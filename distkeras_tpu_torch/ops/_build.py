@@ -131,6 +131,14 @@ def count_launch(fn, attr: str = "launches") -> None:
         setattr(fn, attr, getattr(fn, attr) + 1)
 
 
+def count_launch_at(fn, attr: str, key) -> None:
+    """Add one to entry ``key`` of a kernel wrapper's dict counter
+    (``fn.<attr>``), under the same lock."""
+    with _count_lock:
+        counts = getattr(fn, attr)
+        counts[key] = counts.get(key, 0) + 1
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a launcher."""
     if err != 0:

@@ -10,17 +10,25 @@ Layout differs from the JAX package on purpose: a :class:`QTensor` that
 feeds :func:`q_matmul` holds ``q [N, K]`` — one row per output channel, as
 ``nn.Linear.weight`` — which is the layout the kernel streams. The JAX
 package keeps ``[K, N]``; ``convert.params_from_jax`` transposes.
+
+:func:`quantize_serving` is the generic int8 serving door for any spec of
+the zoo: the ``models.layers.Dense`` modules its forward reaches are
+served through :func:`q_matmul` by a module swap.
 """
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import dataclasses
 import functools
 from collections.abc import Mapping
 from typing import NamedTuple
 
 import torch
+from torch import nn
 
+from distkeras_tpu_torch.model import per_thread
 from distkeras_tpu_torch.ops import _build
 
 
@@ -192,6 +200,7 @@ def _q_matmul_cuda(x2, q, scale, out_dtype):
     )
     _build.check(err, "q_matmul")
     _build.count_launch(q_matmul)
+    _build.count_launch_at(q_matmul, "launches_by_rows", m)
     if plan.kernel.startswith("prefill"):
         _build.count_launch(q_matmul, "prefill_launches")
     return out
@@ -204,7 +213,8 @@ def q_matmul(x, qt: QTensor, *, out_dtype=None):
     (``csrc/quant.cu``, the path of :func:`plan_q_matmul`) — any M, K and
     N, ragged edges masked in the kernel — or raises; on a CPU tensor it
     runs the plain version. ``launches`` counts kernel launches,
-    ``prefill_launches`` those of them with more than 16 rows."""
+    ``prefill_launches`` those of them with more than 16 rows and
+    ``launches_by_rows`` them by M, the rows of ``x``."""
     n, k = qt.q.shape
     if x.shape[-1] != k:
         raise ValueError(f"x trailing dim {x.shape[-1]} != weight columns {k}")
@@ -227,6 +237,125 @@ def q_matmul(x, qt: QTensor, *, out_dtype=None):
 
 q_matmul.launches = 0
 q_matmul.prefill_launches = 0
+q_matmul.launches_by_rows = {}
+
+
+class QDense(nn.Module):
+    """Dense over an int8 weight-only-quantized kernel: ``kernel_q`` int8
+    ``[out, in]`` (the layout :func:`q_matmul`'s kernel streams) and
+    per-output-channel ``scale`` f32 as buffers, ``bias`` in
+    ``param_dtype`` (``dtype`` unless given). The input is cast to the
+    compute ``dtype``, the product runs through :func:`q_matmul` in it and
+    the bias is added in it: the float Dense's dtypes, as the JAX package
+    keeps them. The LM's int8 form (``models.lm.quantize_lm``) and
+    :func:`quantize_serving` both serve through it."""
+
+    def __init__(self, in_features: int, features: int, dtype, device=None,
+                 param_dtype=None):
+        super().__init__()
+        self.dtype = dtype
+        self.register_buffer("kernel_q", torch.zeros(
+            (features, in_features), dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(
+            features, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            features, dtype=param_dtype or dtype, device=device))
+
+    def forward(self, x):
+        dt = self.dtype
+        out = q_matmul(x.to(dt), QTensor(self.kernel_q, self.scale),
+                       out_dtype=dt)
+        return out + self.bias.to(dt)
+
+
+def _dense_paths_reached(spec, params, state) -> set:
+    """Module names of the ``models.layers.Dense`` layers one forward of
+    ``spec.module`` on its example input reaches (forward hooks)."""
+    from distkeras_tpu_torch.models.layers import Dense
+
+    reached: set = set()
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out, name=name: reached.add(name))
+        for name, m in spec.module.named_modules() if type(m) is Dense]
+    device = next(iter(params.values())).device
+    x0 = spec.example if isinstance(spec.example, tuple) else (spec.example,)
+    try:
+        with torch.no_grad():
+            torch.func.functional_call(
+                spec.module, {**params, **state},
+                tuple(t.to(device) for t in x0))
+    finally:
+        for h in hooks:
+            h.remove()
+    return reached
+
+
+def quantize_serving(spec, params, state=None):
+    """Generic int8 weight-only serving for a spec built by
+    ``model.from_module`` (the zoo): ``(spec, trained params) → (int8 spec,
+    int8 params)``.
+
+    One forward on the spec's recorded example input finds the
+    ``models.layers.Dense`` modules the serving forward reaches; exactly
+    those are quantized (:func:`quantize_dense_tree` with their paths:
+    ``{name}.weight`` becomes ``{name}.kernel_q`` int8 ``[out, in]`` and
+    ``{name}.scale``), and the returned spec's ``apply`` runs a copy of the
+    module with each of them swapped for a :class:`QDense`, served by
+    :func:`q_matmul` (the kernel on the card). Anything else (embeddings,
+    convolutions, LayerNorms, the LSTM's scan) stays in float. The int8
+    spec serves only: its ``apply`` refuses ``training=True`` and it
+    carries no ``fused_losses``. ``models.quantize_lm`` stays the LM's
+    door (its ``QDense`` layers also serve the cached decode paths)."""
+    if getattr(spec, "module", None) is None:
+        raise ValueError(
+            "quantize_serving needs a spec built by model.from_module (the "
+            "models/ zoo); Keras and hand-written specs have no module to "
+            "swap layers in")
+    if getattr(spec, "example", None) is None:
+        raise ValueError(
+            "quantize_serving needs the spec's example input to run the "
+            "module once (ModelSpec.example, recorded by the zoo)")
+    state = {} if state is None else state
+    reached = _dense_paths_reached(spec, params, state)
+    qmodule = copy.deepcopy(spec.module)
+    tree: dict = {}
+    for name in sorted(reached):
+        mod = qmodule.get_submodule(name)
+        node = tree
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node.update(kernel=params[f"{name}.weight"].t(),
+                    bias=params[f"{name}.bias"])
+        parent, _, child = name.rpartition(".")
+        setattr(qmodule.get_submodule(parent) if parent else qmodule, child,
+                QDense(mod.weight.shape[1], mod.weight.shape[0], mod.dtype,
+                       param_dtype=mod.bias.dtype))
+    qtree = quantize_dense_tree(
+        tree, paths={tuple(name.split(".")) for name in reached})
+    qparams = {k: v for k, v in params.items()
+               if k.rpartition(".")[0] not in reached}
+    for name in reached:
+        node = qtree
+        for part in name.split("."):
+            node = node[part]
+        qparams[f"{name}.kernel_q"] = node["kernel_q"].t().contiguous()
+        qparams[f"{name}.scale"] = node["scale"]
+        qparams[f"{name}.bias"] = node["bias"]
+    module_here = per_thread(qmodule)
+
+    def apply(params, state, x, training):
+        if training:
+            raise ValueError(
+                "int8 weight-only quantization is a serving path; train "
+                "the float model and re-quantize")
+        inputs = x if isinstance(x, tuple) else (x,)
+        out = torch.func.functional_call(module_here(), {**params, **state},
+                                         inputs)
+        return out, state
+
+    qspec = dataclasses.replace(spec, apply=apply, name=spec.name + "_int8",
+                                module=qmodule, fused_losses=None)
+    return qspec, qparams
 
 
 def quantize_dense_tree(params, paths: set | None = None):

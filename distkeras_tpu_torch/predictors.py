@@ -1,11 +1,14 @@
 """Inference path: map a trained model over a Dataset.
 
 Port of ``distkeras_tpu/predictors.py`` (``ModelPredictor``,
-``LabelIndexPredictor``): ``predict(ds)`` appends a ``'prediction'`` column
-computed by one batched forward per fixed-size chunk under
-``torch.no_grad()`` on the predictor's device (the card unless the caller
-asks for the CPU). Rows are padded to a static batch
-(``data.padded_chunks``) and the pad rows trimmed on the host.
+``LabelIndexPredictor``, ``GeneratorPredictor``): ``predict(ds)`` appends a
+``'prediction'`` column computed by one batched forward per fixed-size
+chunk under ``torch.no_grad()`` on the predictor's device (the card unless
+the caller asks for the CPU); ``quantize=True`` serves the zoo's Dense
+layers in int8 (``ops.quant.quantize_serving``). Rows are padded to a
+static batch (``data.padded_chunks``) and the pad rows trimmed on the
+host. ``GeneratorPredictor`` maps the LM's dense-cache decoding over a
+column of prompts.
 """
 
 from __future__ import annotations
@@ -51,15 +54,18 @@ class ModelPredictor:
             raise NotImplementedError(
                 "mesh= is not ported yet: ROADMAP.md A12 (meshes across "
                 "cards)")
-        if quantize:
-            raise NotImplementedError(
-                "quantize=True is not ported yet: ROADMAP.md A11.5 "
-                "(quantize_serving)")
         self.device = resolve_device(device)
         self.spec = model
         self.params = _to_device(params, self.device)
         self.state = _to_device(state if state is not None else {},
                                 self.device)
+        if quantize:
+            # int8 weight-only serving: every Dense the forward reaches
+            # streams int8 weights through q_matmul; zoo specs only
+            from distkeras_tpu_torch.ops.quant import quantize_serving
+
+            self.spec, self.params = quantize_serving(
+                self.spec, self.params, state=self.state)
         self.features_col = (
             [features_col] if isinstance(features_col, str)
             else list(features_col))
@@ -88,3 +94,85 @@ class LabelIndexPredictor(ModelPredictor):
         return out.with_column(
             self.output_col,
             np.argmax(out[self.output_col], axis=-1).astype(np.int32))
+
+
+class GeneratorPredictor:
+    """Map dense-cache autoregressive decoding over a Dataset of prompts:
+    appends a column of newly generated tokens ``[N, max_new_tokens]``.
+    ``model`` is a :class:`~distkeras_tpu_torch.models.lm.TransformerLM`
+    carrying its weights, on its own device. Prompts go in fixed-size
+    chunks of ``batch_size`` rows; pad rows are generated and discarded.
+    ``beams > 1`` decodes with ``models.beam_search`` and keeps each row's
+    best beam (sampling arguments must stay at their greedy defaults).
+
+    ``eos_id`` stops rows at end-of-sequence on both paths (rows pad with
+    ``eos_id``); ``per_row_new_tokens=True`` adds an
+    ``{output_col}_new_tokens`` int32 column counting each row's real
+    tokens, by the serving tier's retire rule
+    (``serving.per_row_new_token_counts``)."""
+
+    def __init__(self, model, *, features_col: str = "features",
+                 output_col: str = "generated", max_new_tokens: int = 32,
+                 temperature: float = 0.0, top_k: int | None = None,
+                 top_p: float | None = None, seed: int = 0,
+                 batch_size: int = 64, beams: int = 1,
+                 length_penalty: float = 0.0, eos_id: int | None = None,
+                 per_row_new_tokens: bool = False):
+        from distkeras_tpu_torch.models.lm import TransformerLM
+
+        if not isinstance(model, TransformerLM):
+            raise TypeError(f"GeneratorPredictor needs a TransformerLM, "
+                            f"got {type(model)}")
+        self.model = model
+        self.features_col = features_col
+        self.output_col = output_col
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.top_p = top_p
+        self.seed = int(seed)
+        self.batch_size = int(batch_size)
+        self.beams = int(beams)
+        self.length_penalty = float(length_penalty)
+        self.eos_id = eos_id
+        self.per_row_new_tokens = bool(per_row_new_tokens)
+        if self.beams < 1:
+            raise ValueError(f"beams must be >= 1, got {beams}")
+        if self.beams > 1 and (self.temperature != 0.0 or top_k is not None
+                               or top_p is not None):
+            raise ValueError(
+                "beam search is deterministic: temperature/top_k/top_p "
+                "cannot be combined with beams > 1")
+        if self.beams == 1 and self.length_penalty:
+            raise ValueError(
+                "length_penalty is a beam-search option: sampling decode "
+                "(beams=1) would silently ignore it — set beams > 1")
+
+    def predict(self, ds: Dataset) -> Dataset:
+        from distkeras_tpu_torch.models.lm import beam_search, generate
+        from distkeras_tpu_torch.serving import per_row_new_token_counts
+
+        outs = []
+        for i, ((chunk,), real) in enumerate(padded_chunks(
+                [np.asarray(ds[self.features_col])], self.batch_size)):
+            if self.beams > 1:
+                toks, _ = beam_search(
+                    self.model, chunk, self.max_new_tokens,
+                    beams=self.beams, length_penalty=self.length_penalty,
+                    eos_id=self.eos_id)
+                full = toks[:, 0]   # the best beam a row
+            else:
+                full = generate(
+                    self.model, chunk, self.max_new_tokens,
+                    temperature=self.temperature, top_k=self.top_k,
+                    top_p=self.top_p, eos_id=self.eos_id,
+                    # a stream of its own a chunk: identical prompts in two
+                    # chunks must not draw identical samples
+                    seed=self.seed + i)
+            outs.append(full[:real, chunk.shape[1]:])
+        out = ds.with_column(self.output_col, np.concatenate(outs))
+        if self.per_row_new_tokens:
+            out = out.with_column(
+                f"{self.output_col}_new_tokens",
+                per_row_new_token_counts(out[self.output_col], self.eos_id))
+        return out

@@ -7,10 +7,12 @@
   copy-on-write) and :class:`TenantQueues` (SLO-class admission);
 - :mod:`~distkeras_tpu_torch.serving.scheduler` — :class:`GenerationEngine`,
   iteration-level continuous batching, FIFO or through the front door
-  (``prefix_cache``, ``prefill_chunk``, ``admission="slo"``), with the
-  ``swap_params`` weight-swap gate;
+  (``prefix_cache``, ``prefill_chunk``, ``admission="slo"``), speculative
+  with a ``draft`` model, with the ``swap_params`` weight-swap gate;
 - :mod:`~distkeras_tpu_torch.serving.server` — :class:`GenerationServer` /
-  :class:`GenerationClient` on the restricted-pickle framing.
+  :class:`GenerationClient` on the restricted-pickle framing, and
+  :class:`ResilientGenerationClient` (reconnect and replay under a
+  ``RetryPolicy``).
 """
 
 from distkeras_tpu_torch.serving.frontdoor import (
@@ -34,6 +36,7 @@ from distkeras_tpu_torch.serving.scheduler import (
 from distkeras_tpu_torch.serving.server import (
     GenerationClient,
     GenerationServer,
+    ResilientGenerationClient,
 )
 
 __all__ = [
@@ -51,4 +54,5 @@ __all__ = [
     "per_row_new_token_counts",
     "GenerationClient",
     "GenerationServer",
+    "ResilientGenerationClient",
 ]

@@ -27,6 +27,13 @@ preempted for a higher SLO class. ``swap_params`` stages a new weight set
 that lands only at the top of a step, on the scheduler thread: one decode
 step never sees two weight sets, and the radix tree is flushed with it.
 
+Speculative serving (``draft=``, ``spec_tokens``): a draft model with its
+own paged cache over the same block tables proposes ``spec_tokens`` greedy
+tokens a row with K+1 paged decode steps, the target verifies them in one
+``paged_extend_rows`` over ``[tok, proposals]``, and each row advances by
+its own accepted length plus one. Greedy only, and not beside the front
+door.
+
 The host reads the device once per program: the sampled tokens of the
 chunk program and of the decode step, as the JAX engine's ``device_get``.
 """
@@ -58,6 +65,14 @@ from distkeras_tpu_torch.serving.paged_cache import (
 from distkeras_tpu_torch.utils import resolve_device
 
 _req_ids = itertools.count()
+
+
+def _scatter(cache: PagedKVCache, kvs, slots) -> None:
+    """Write a prefill's per-block ``(k, v)`` into ``cache``'s pools at the
+    flat ``slots``, in place."""
+    for kp, vp, (k, v) in zip(cache.k_pools, cache.v_pools, kvs):
+        kp.index_copy_(0, slots, k.reshape(-1, *kp.shape[1:]))
+        vp.index_copy_(0, slots, v.reshape(-1, *vp.shape[1:]))
 
 
 def per_row_new_token_counts(new_tokens, eos_id: int | None):
@@ -201,6 +216,12 @@ class GenerationEngine:
     serving replica advertises in its directory registration;
     :meth:`swap_params` replaces it with the weights.
 
+    ``draft`` (a ``TransformerLM`` of the same vocab on the engine's
+    device) turns on speculative serving with ``spec_tokens`` proposals a
+    round; every request is then greedy, and a request's block budget and
+    maxlen check count ``spec_tokens`` positions past its last token (the
+    verify block probes them).
+
     The front door: ``prefix_cache`` shares full prompt blocks across
     requests through a radix tree; ``prefill_chunk`` feeds prompts in
     chunks of that many tokens between decode steps; ``admission="slo"``
@@ -213,7 +234,7 @@ class GenerationEngine:
                  device="cuda", model_version: int = 0,
                  prefix_cache: bool = False,
                  prefill_chunk: int | None = None,
-                 admission: str = "fifo"):
+                 admission: str = "fifo", draft=None, spec_tokens: int = 4):
         if not isinstance(model, TransformerLM):
             raise TypeError(f"GenerationEngine needs a TransformerLM, got "
                             f"{type(model)}")
@@ -260,9 +281,40 @@ class GenerationEngine:
         self._frontdoor = (self.prefix_cache
                            or self.prefill_chunk is not None
                            or self.admission == "slo")
+        if self._frontdoor and draft is not None:
+            raise ValueError(
+                "prefix_cache/prefill_chunk/admission='slo' cannot be "
+                "combined with a draft model: the draft's pools never hold "
+                "a cached prefix's K/V, so speculative verify would read "
+                "garbage")
         self._prefix = (RadixPrefixCache(self.block_size)
                         if self.prefix_cache else None)
         self._tq = TenantQueues() if self.admission == "slo" else None
+
+        self._draft: TransformerLM | None = None
+        self.spec_tokens = 0
+        if draft is not None:
+            if not isinstance(draft, TransformerLM):
+                raise TypeError(f"draft must be a TransformerLM, got "
+                                f"{type(draft)}")
+            if draft.vocab != model.vocab:
+                raise ValueError(f"draft vocab {draft.vocab} != target "
+                                 f"vocab {model.vocab}")
+            if int(spec_tokens) < 1:
+                raise ValueError(
+                    f"spec_tokens must be >= 1, got {spec_tokens}")
+            if model.attn_window is not None \
+                    or draft.attn_window is not None:
+                raise ValueError(
+                    "speculative serving does not support sliding-window "
+                    "models (the verify span crosses the window band)")
+            if draft.device != model.device:
+                raise ValueError(f"the draft lives on {draft.device} but "
+                                 f"the engine runs on {model.device}")
+            self._draft = draft
+            self.spec_tokens = int(spec_tokens)
+            self.draft_cache = PagedKVCache(draft, num_blocks,
+                                            self.block_size)
 
         self._tables = np.zeros((self.max_batch, self._nb_per_seq), np.int64)
         self._slots: list[_Slot | None] = [None] * self.max_batch
@@ -284,6 +336,7 @@ class GenerationEngine:
             "cancelled": 0, "rejected": 0, "failed": 0,
             "steps": 0, "prefills": 0, "tokens_generated": 0,
             "occupancy_sum": 0, "swaps": 0, "refilled": 0,
+            "spec_rounds": 0, "spec_proposed": 0, "spec_accepted": 0,
         }
         if self.admission == "slo":
             self.stats_["preemptions"] = 0
@@ -295,7 +348,8 @@ class GenerationEngine:
     # -- client surface ------------------------------------------------------
 
     def _blocks_needed(self, lp: int, max_new: int) -> int:
-        return math.ceil((lp + max_new) / self.block_size)
+        return math.ceil((lp + max_new + self.spec_tokens)
+                         / self.block_size)
 
     def submit(self, prompt, *, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int | None = None,
@@ -321,9 +375,12 @@ class GenerationEngine:
         max_new = int(max_new_tokens)
         if max_new < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        if lp + max_new > module.maxlen:
-            raise ValueError(f"prompt length {lp} + max_new_tokens {max_new} "
-                             f"exceeds the model's maxlen {module.maxlen}")
+        if lp + max_new + self.spec_tokens > module.maxlen:
+            raise ValueError(
+                f"prompt length {lp} + max_new_tokens {max_new}"
+                + (f" + spec_tokens {self.spec_tokens}"
+                   if self.spec_tokens else "")
+                + f" exceeds the model's maxlen {module.maxlen}")
         if self._blocks_needed(lp, max_new) > self.allocator.capacity:
             raise ValueError(
                 f"request needs {self._blocks_needed(lp, max_new)} blocks "
@@ -337,6 +394,11 @@ class GenerationEngine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if eos_id is not None and not 0 <= int(eos_id) < module.vocab:
             raise ValueError(f"eos_id {eos_id} outside vocab {module.vocab}")
+        if self.spec_tokens and (temperature != 0.0 or top_k is not None
+                                 or top_p is not None):
+            raise ValueError(
+                "speculative serving is greedy-only: temperature/top_k/"
+                "top_p cannot be combined with a draft model")
         req = Request(
             prompt, max_new_tokens=max_new, temperature=float(temperature),
             top_k=top_k, top_p=top_p, seed=int(seed),
@@ -402,8 +464,37 @@ class GenerationEngine:
         until a swap lands, then the module the swap built."""
         return self._module
 
-    def swap_params(self, weights, version: int,
-                    policy: str = "drain") -> None:
+    @property
+    def draft(self) -> TransformerLM | None:
+        """The draft module the engine speculates with now (None without
+        speculative serving)."""
+        return self._draft
+
+    def _module_from(self, cur: TransformerLM, weights, what: str):
+        """A new module of ``cur``'s config on the engine's device, loaded
+        from the state dict ``weights``, whose names and shapes must be
+        exactly ``cur``'s, else ``ValueError``."""
+        dest = cur.state_dict()
+        names = set(weights)
+        if names != set(dest):
+            raise ValueError(
+                f"{what} do not match the engine's model: missing "
+                f"{sorted(set(dest) - names)}, unknown "
+                f"{sorted(names - set(dest))}")
+        weights = {name: torch.as_tensor(t) for name, t in weights.items()}
+        for name, t in weights.items():
+            if tuple(t.shape) != tuple(dest[name].shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != the "
+                                 f"model's {tuple(dest[name].shape)}")
+        del dest
+        staged = TransformerLM(**cur.config, device=self.device)
+        with torch.no_grad():
+            staged.load_state_dict(weights)
+        staged.train(cur.training)
+        return staged
+
+    def swap_params(self, weights, version: int, policy: str = "drain",
+                    draft_weights=None) -> None:
         """Stage a weight swap; the scheduler applies it between steps,
         never inside one. ``weights`` is a state dict in the port's layout
         (``convert.tensors_from_jax`` or another model's ``state_dict()``)
@@ -420,30 +511,22 @@ class GenerationEngine:
         and position: the stream equals a fresh run at the new version).
         ``version`` need not increase (a rollback re-stages the old one);
         staging again replaces a swap not yet applied. ``stats()
-        ["last_swap"]`` records the swap once it lands."""
+        ["last_swap"]`` records the swap once it lands.
+
+        ``draft_weights`` (a speculative engine only) is the draft's state
+        dict, built into a draft module of the engine's own in the same
+        way and landed with the target's; without it the draft stays."""
         if policy not in ("drain", "refill"):
             raise ValueError(
                 f"policy must be 'drain' or 'refill', got {policy!r}")
-        cur = self._module
-        dest = cur.state_dict()
-        names = set(weights)
-        if names != set(dest):
-            raise ValueError(
-                f"weights do not match the engine's model: missing "
-                f"{sorted(set(dest) - names)}, unknown "
-                f"{sorted(names - set(dest))}")
-        weights = {name: torch.as_tensor(t) for name, t in weights.items()}
-        for name, t in weights.items():
-            if tuple(t.shape) != tuple(dest[name].shape):
-                raise ValueError(f"{name}: shape {tuple(t.shape)} != the "
-                                 f"model's {tuple(dest[name].shape)}")
-        del dest
-        staged = TransformerLM(**cur.config, device=self.device)
-        with torch.no_grad():
-            staged.load_state_dict(weights)
-        staged.train(cur.training)
+        if draft_weights is not None and self._draft is None:
+            raise ValueError("draft_weights given to an engine without a "
+                             "draft model")
+        staged = self._module_from(self._module, weights, "weights")
+        staged_draft = (None if draft_weights is None else self._module_from(
+            self._draft, draft_weights, "draft_weights"))
         with self._wake:
-            self._staged_swap = (staged, int(version), policy)
+            self._staged_swap = (staged, int(version), policy, staged_draft)
             self._wake.notify_all()
 
     def _apply_swap_locked(self) -> None:
@@ -452,7 +535,7 @@ class GenerationEngine:
         staged = self._staged_swap
         if staged is None:
             return
-        module, version, policy = staged
+        module, version, policy, draft = staged
         active = [b for b, s in enumerate(self._slots) if s is not None]
         if policy == "drain" and active:
             return  # admission is paused; the batch drains first
@@ -474,6 +557,8 @@ class GenerationEngine:
             if freed:
                 self.allocator.free(freed)
         self._module = module
+        if draft is not None:
+            self._draft = draft
         self.model_version = version
         self._staged_swap = None
         self.stats_["swaps"] += 1
@@ -776,10 +861,10 @@ class GenerationEngine:
             tokens_d = ints[:, :lpad]
             slots_d = ints[:, lpad:2 * lpad].reshape(-1)
             logits, kvs = self._module.prefill_raw(tokens_d)
-            c = self.cache
-            for kp, vp, (k, v) in zip(c.k_pools, c.v_pools, kvs):
-                kp.index_copy_(0, slots_d, k.reshape(-1, *kp.shape[1:]))
-                vp.index_copy_(0, slots_d, v.reshape(-1, *vp.shape[1:]))
+            _scatter(self.cache, kvs, slots_d)
+            if self._draft is not None:
+                _, dkvs = self._draft.prefill_raw(tokens_d)
+                _scatter(self.draft_cache, dkvs, slots_d)
             last = logits[torch.arange(npad, device=dev), ints[:, -1] - 1]
             tok = sample_rows(last, temp, top_k, top_p, greedy, seeds,
                               lp_arr).cpu().numpy()   # the one host sync
@@ -944,8 +1029,8 @@ class GenerationEngine:
     def step(self) -> bool:
         """One scheduler iteration: retire cancellations, apply a staged
         swap, admit, prefill (a chunk of each prefilling row under the
-        front door), one batched decode step. Returns whether any work
-        was done."""
+        front door), one batched decode step (a speculative round with a
+        draft). Returns whether any work was done."""
         with self._wake:
             for b, slot in enumerate(self._slots):
                 if slot is not None and slot.request._cancelled:
@@ -971,7 +1056,10 @@ class GenerationEngine:
                           if s is not None]
             if not active:
                 return worked
-            self._decode_step(active)
+            if self._draft is not None:
+                self._spec_step(active)
+            else:
+                self._decode_step(active)
         with self._wake:
             self.stats_["steps"] += 1
             self.stats_["occupancy_sum"] += len(active)
@@ -1015,8 +1103,7 @@ class GenerationEngine:
                 np.ascontiguousarray(self._tables[:, :nb])).to(self.device)
         return self._dev_tables_by_width[nb]
 
-    def _decode_step(self, active) -> None:
-        self._refresh_batch_cache()
+    def _tok_positions(self, active):
         B = self.max_batch
         tok = np.zeros((B,), np.int64)
         positions = np.zeros((B,), np.int64)
@@ -1024,6 +1111,12 @@ class GenerationEngine:
             s = self._slots[b]
             tok[b] = s.last_tok
             positions[b] = s.next_pos
+        return tok, positions
+
+    def _decode_step(self, active) -> None:
+        self._refresh_batch_cache()
+        B = self.max_batch
+        tok, positions = self._tok_positions(active)
         write_slot = self._np_slots[np.arange(B), positions]
         if self._frontdoor:
             # rows mid-prefill sit in the batch with real (possibly shared,
@@ -1048,6 +1141,55 @@ class GenerationEngine:
             slot.next_pos += 1
             slot.last_tok = int(nxt[b])
             self._emit(b, [slot.last_tok])
+
+    def _spec_step(self, active) -> None:
+        """One speculative round for every active row: K+1 greedy draft
+        steps (the extra one writes the last proposal's K/V: without it a
+        fully accepted round leaves a hole in the draft's cache at
+        position p+K, which the target's verify does write, and acceptance
+        erodes), one target ``paged_extend_rows`` over ``[tok,
+        proposals]``, then each row emits its accepted proposals and the
+        target's token after them and advances by that many."""
+        K = self.spec_tokens
+        self._refresh_batch_cache()
+        tok, positions = self._tok_positions(active)
+        idx = positions[:, None] + np.arange(K + 1)[None, :]
+        write_slots = np.take_along_axis(self._np_slots, idx, axis=1)
+        dev_tables = self._tables_for(int(positions.max()) + K + 1)
+        ints = torch.from_numpy(np.concatenate(
+            [tok[:, None], positions[:, None], write_slots], axis=1)) \
+            .to(self.device)
+        tok_d, pos_d, slots_d = ints[:, 0], ints[:, 1], ints[:, 2:]
+        dc, c, bs = self.draft_cache, self.cache, self.block_size
+        t, props = tok_d, []
+        for i in range(K + 1):
+            lg, _, _ = self._draft.paged_decode_step(
+                t, dc.k_pools, dc.v_pools, dev_tables, slots_d[:, i],
+                pos_d + i, bs)
+            t = torch.argmax(lg, dim=-1)
+            props.append(t)
+        props = torch.stack(props[:K], dim=1)                # [B, K]
+        t_logits, _, _ = self._module.paged_extend_rows(
+            torch.cat([tok_d[:, None], props], dim=1), c.k_pools, c.v_pools,
+            dev_tables, slots_d, pos_d, bs)
+        g = torch.argmax(t_logits, dim=-1)                   # [B, K+1]
+        match = (props == g[:, :K]).to(torch.int64)
+        a_row = torch.cumprod(match, dim=1).sum(dim=1)
+        host = torch.cat([props, g, a_row[:, None]], dim=1) \
+            .cpu().numpy()                                   # the one sync
+        props, g, a_row = host[:, :K], host[:, K:2 * K + 1], host[:, -1]
+        with self._wake:
+            self.stats_["spec_rounds"] += 1
+            self.stats_["spec_proposed"] += K * len(active)
+            self.stats_["spec_accepted"] += int(a_row[active].sum())
+        for b in active:
+            slot = self._slots[b]
+            a = int(a_row[b])
+            # each row advances by its own accepted length, whatever the
+            # rest of the batch accepted
+            slot.next_pos += a + 1
+            slot.last_tok = int(g[b, a])
+            self._emit(b, [int(x) for x in props[b, :a]] + [slot.last_tok])
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -1148,6 +1290,10 @@ class GenerationEngine:
             s["blocks_in_use"] = self.allocator.used_blocks
             s["blocks_free"] = self.allocator.free_blocks
             s["blocks_high_water"] = self.allocator.high_water
+            if self.spec_tokens:
+                s["spec_acceptance"] = (
+                    round(s["spec_accepted"] / s["spec_proposed"], 4)
+                    if s["spec_proposed"] else 0.0)
             s["mean_batch_occupancy"] = (
                 round(s["occupancy_sum"] / s["steps"], 3)
                 if s["steps"] else 0.0

@@ -10,7 +10,8 @@ is detected by its EOF, its request is cancelled, and the engine frees its
 cache blocks the next iteration. ``stop(drain=True)`` stops admission,
 lets in-flight requests finish, then closes. ``register_with`` publishes
 the replica into a membership directory (``directory/``) under a renewed
-lease, which ``stop`` withdraws.
+lease, which ``stop`` withdraws. :class:`ResilientGenerationClient`
+reconnects and replays a request across a server's death or restart.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from __future__ import annotations
 import select
 import socket
 import threading
+from typing import Callable
 
 import numpy as np
 
@@ -319,8 +321,58 @@ class GenerationClient:
         networking.send_data(self._sock, {"action": "stats"})
         return networking.recv_data(self._sock)["stats"]
 
+    def set_timeout(self, seconds: float | None) -> None:
+        self._sock.settimeout(seconds)
+
     def close(self) -> None:
         try:
             self._sock.close()
         except OSError:
             pass
+
+
+class ResilientGenerationClient:
+    """Reconnect-and-retry wrapper over a :class:`GenerationClient`
+    factory. A retryable failure (a server dead mid-frame, a connection
+    refused during a restart, :class:`ServerBusyError` backpressure)
+    backs off under the ``RetryPolicy`` and replays the request; a busy
+    server keeps its connection, any other failure gets a new one.
+    Generation is request/response, so a replay is safe without seqnos,
+    and a fixed ``seed`` a request keeps the replayed stream the same.
+    Each call salts the policy's jitter with its own count."""
+
+    def __init__(self, make_client: Callable[[], GenerationClient],
+                 policy=None):
+        from distkeras_tpu_torch.resilience.retry import RetryPolicy
+
+        self._make_client = make_client
+        self.policy = policy if policy is not None else RetryPolicy()
+        self._client = make_client()
+        self.retries = 0
+        self.reconnects = 0
+        self._calls = 0
+
+    def _reconnect(self, attempt: int, exc: BaseException) -> None:
+        self.retries += 1
+        if isinstance(exc, ServerBusyError):
+            return      # healthy, just full: keep the connection
+        self._client.close()
+        try:
+            self._client = self._make_client()
+            self.reconnects += 1
+        except Exception:  # noqa: BLE001
+            pass        # still down: the next attempt fails fast, backs off
+
+    def _run(self, fn):
+        self._calls += 1
+        return self.policy.run(fn, on_retry=self._reconnect,
+                               salt=self._calls)
+
+    def generate(self, prompt, **kw) -> np.ndarray:
+        return self._run(lambda: self._client.generate(prompt, **kw))
+
+    def stats(self) -> dict:
+        return self._run(lambda: self._client.stats())
+
+    def close(self) -> None:
+        self._client.close()

@@ -165,12 +165,29 @@ def test_predictors_match_the_jax_package(kind):
 
 
 def test_predictor_later_options_name_their_item():
+    """``mesh=`` still names its item (A12); ``quantize=True`` serves the
+    Dense layers in int8 and tracks the float predictor (argmax equal,
+    logits within the int8 weights' error on this f32 MLP)."""
     spec = torch_mlp(input_shape=(4,), hidden=(4,), num_classes=2)
     params, _ = spec.init(0)
     with pytest.raises(NotImplementedError, match="A12"):
         tpred.ModelPredictor(spec, params, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11.5"):
-        tpred.ModelPredictor(spec, params, quantize=True, device="cpu")
+    wide = torch_mlp(input_shape=(12,), hidden=(32, 16), num_classes=5,
+                     dtype=torch.float32)
+    wp, _ = wide.init(0)
+    ds = tdata.Dataset({"features": np.random.default_rng(1).uniform(
+        0, 1, (40, 12)).astype(np.float32)})
+    ref = tpred.ModelPredictor(wide, wp, {}, batch_size=16,
+                               device="cpu").predict(ds)["prediction"]
+    q = tpred.ModelPredictor(wide, wp, {}, batch_size=16, quantize=True,
+                             device="cpu")
+    assert q.spec.name == "mlp_int8"
+    assert q.params["Dense_0.kernel_q"].dtype == torch.int8
+    got = q.predict(ds)["prediction"]
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=0.02 * np.abs(ref).max())
+    np.testing.assert_array_equal(got.argmax(-1), ref.argmax(-1))
     with pytest.raises(TypeError, match="Keras 3 model or"):
         tpred.ModelPredictor(object(), params, device="cpu")
     with pytest.raises(ValueError, match="explicit params"):
