@@ -271,11 +271,31 @@ Phases, in order; any failure exits non-zero and prints no result:
     ``CLS_DEQ_TOL`` of the logit scale of a float forward over its own
     dequantized weights; K1 held to its plain version at the classifier's
     Dense shapes in phase 3);
-21. print the ``kernels`` JSON line (K1 as one decode step and, as
+21. the model families (A10), after the directory phases, each one JSON
+    line with the card's name and power limit, its wall time, launches
+    (counted alone) and gates: ``a10_resnet_adag_syncbn``
+    (``resnet_small(sync_bn=True)`` at widths 16/32/64 in bf16 under ADAG,
+    W=8 of batch 64, window 2, fused Adam, on the CIFAR-10 stand-in: one
+    window through K5 equal to its plain version, every worker's
+    ``bn_stem`` statistics equal and moved, the W-worker forward equal to
+    the flat batch's within A10_FWD_TOL, K5 once a step, the eval-mode
+    prediction finite with its accuracy), ``a10_resnet_ps`` (per-worker
+    BN through the in-process PS, 4 threads: ``trained_nt_`` moved, K5
+    once a step a worker, ``sync_bn`` refused), ``a10_sru_dynsgd``
+    (``sru_classifier()`` on config 5's data and trainer: ``assoc`` equal
+    to ``scan`` in f32 on the card, the loss falling, K5 once a step, its
+    window beside config 5's LSTM window), ``a10_moe_adag``
+    (``moe_transformer_classifier()`` under ADAG, W=2 of batch 16: the
+    K5 window parity, ``moe_aux_loss`` finite, K5 once a step, the
+    dropped slot share) and ``a10_config9_remat`` (one config 9 window
+    without and with ``remat=True``: centers within the LM window's
+    bound, bit-equality printed, the remat peak memory lower, K2 twice
+    as often, K3 and K4 as often);
+22. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
-    elastic phases, the directory phases, the front door and
-    ``serve_decode``, K6 and K7
+    elastic phases, the directory phases, the front door,
+    ``serve_decode`` and the model family phases, K6 and K7
     with their G=1 times), read config 3's
     gates (``ps3_failures``, the sharded run's too), then the result line
     ``{"ok": true, "device": {...}}`` last.
@@ -483,6 +503,24 @@ PS5_DIR_RETRY = dict(max_attempts=200, base_delay=0.01, max_delay=0.2,
 # the route key's prefix, the replicas' directory lease, the concurrent
 # requests of the kill
 ROUTER_PREFIX, ROUTER_TTL, ROUTER_REQUESTS = 16, 1.0, 10
+# the model families (A10), each phase at its family's full default width:
+# ResNet-8 (widths 16/32/64, one block a stage, bf16) with sync BN under
+# ADAG on the synthetic CIFAR-10 stand-in, W=8 of batch 64, window 2;
+# the same ResNet with per-worker BN through the in-process PS, 4
+# threads; the SRU classifier on config 5's data and trainer; the MoE
+# classifier (dim 128, 4 heads, depth 2, 8 experts, top-2, capacity
+# 2.0) under ADAG, W=2 of batch 16; config 9's spec with and without remat
+A10_RESNET_W, A10_RESNET_BATCH, A10_RESNET_WINDOW = 8, 64, 2
+A10_RESNET_WINDOWS, A10_RESNET_EPOCHS, A10_RESNET_LR = 6, 2, 1e-3
+A10_RESNET_TEST = 1024
+A10_FWD_TOL = 0.02        # W-worker sync-BN forward vs the flat batch's,
+#                           of the logit scale: bf16 convs read BN outputs
+#                           normalized with statistics summed in another
+#                           order, which may round one bf16 ulp apart
+A10_PS_W, A10_PS_WINDOWS = 4, 4
+A10_SRU_TOL = 1e-5        # f32 assoc vs scan, of max(1, |c|) and the logits
+A10_MOE_W, A10_MOE_BATCH, A10_MOE_WINDOW = 2, 16, 2
+A10_MOE_WINDOWS, A10_MOE_LR = 8, 1e-3
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -1137,13 +1175,13 @@ def check_flash_vmap(torch, fa):
         errs, launches=launched["kernel"])))
 
 
-def lm_spec(torch, depth, attn_impl):
+def lm_spec(torch, depth, attn_impl, remat=False):
     from distkeras_tpu_torch.models import transformer_lm_spec
 
     return transformer_lm_spec(
         vocab=LM_VOCAB, maxlen=LM_L, dim=LM_DIM, heads=LM_HEADS, depth=depth,
         dtype=torch.bfloat16, attn_impl=attn_impl, pos_embedding="rope",
-        fused_ce=True, ce_chunk=LM_CHUNK)
+        fused_ce=True, ce_chunk=LM_CHUNK, remat=remat)
 
 
 def lm_tokens(n, seed=0):
@@ -4983,6 +5021,482 @@ def run_mnist_twin():
     return recs
 
 
+def _adam_window_parity(torch, spec_fn, rule, batch, n_feat, workers,
+                        window, batch_size, lr):
+    """One window of ``spec_fn()``'s model through K5 and, from the same
+    init on the same superbatch, through its plain version on the card.
+    The forward and backward are the same code in both, but a gradient
+    may differ by float noise (atomics in a library backward), and Adam
+    moves an element by at most ~1.01 lr a step whatever its gradient's
+    size, in either direction for a noise-level gradient: ADAG's center
+    (the mean of the workers) agrees to 2.02 lr · window; the mean loss
+    to 1e-2. Bit-equality is printed."""
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.pallas_kernels import fused_adam
+    from distkeras_tpu_torch.parallel import LocalSGDEngine
+    from distkeras_tpu_torch.trainers import _make_loss_step
+
+    out = {}
+    for impl in ("kernel", "plain"):
+        spec = spec_fn()
+        engine = LocalSGDEngine(
+            spec, _make_loss_step(spec, get_loss(LOSS), n_feat, LOSS),
+            fused_adam(lr, impl=impl), rule, device=DEVICE,
+            num_workers=workers, window=window, batch_size=batch_size)
+        params, nt = spec.init(0)
+        state, loss = engine.run_window(engine.init_state(params, nt), batch)
+        out[impl] = (engine.center_params(state), loss.item())
+        del engine, state
+    (ck, lk), (cp, lp) = out["kernel"], out["plain"]
+    diff = max(_err(ck[k], cp[k]) for k in ck)
+    limit = 2.02 * lr * window
+    rec = dict(max_center_diff=diff, limit=limit,
+               bit_equal=all(torch.equal(ck[k], cp[k]) for k in ck),
+               loss_kernel=lk, loss_plain=lp)
+    if not (diff <= limit and abs(lk - lp) <= 1e-2
+            and all(torch.isfinite(v).all() for v in ck.values())):
+        raise AssertionError(f"window through K5 vs its plain version: "
+                             f"{json.dumps(rec)}")
+    return rec
+
+
+def _on_device(tree):
+    return {k: v.to(DEVICE) for k, v in tree.items()}
+
+
+def train_resnet_syncbn(torch):
+    """``a10_resnet_adag_syncbn``: ``resnet_small(sync_bn=True)`` (widths
+    16/32/64, one block a stage, bf16 convs, f32 BN) under ADAG with fused
+    Adam, A10_RESNET_W stacked workers of batch A10_RESNET_BATCH, window
+    A10_RESNET_WINDOW, on the synthetic CIFAR-10 stand-in at 32×32×3.
+    Gates: one window through K5 equal to its plain version
+    (``_adam_window_parity``); every worker's ``bn_stem`` statistics equal
+    across W and off their (0, 1) init; the W-worker training forward on
+    the trained center equal to the flat model's on the concatenated
+    W·batch rows (A10_FWD_TOL); K5 once a step; the eval-mode prediction
+    on the center with ``trained_nt_`` finite (its accuracy printed)."""
+    from distkeras_tpu_torch.datasets import cifar10
+    from distkeras_tpu_torch.models import resnet_small
+    from distkeras_tpu_torch.parallel import ADAGMerge
+    from distkeras_tpu_torch.trainers import ADAG
+
+    t_phase = time.perf_counter()
+    W, B, win = A10_RESNET_W, A10_RESNET_BATCH, A10_RESNET_WINDOW
+    train, test = cifar10(n_train=W * win * B * A10_RESNET_WINDOWS,
+                          n_test=A10_RESNET_TEST)
+    batch = next(train.superbatches(W, B, win, ["features", "label"]))
+    parity = _adam_window_parity(
+        torch, lambda: resnet_small(sync_bn=True), ADAGMerge(), batch, 1, W,
+        win, B, A10_RESNET_LR)
+    spec = resnet_small(sync_bn=True)
+    t = ADAG(spec, loss=LOSS, worker_optimizer="fused_adam",
+             learning_rate=A10_RESNET_LR, num_workers=W, batch_size=B,
+             communication_window=win, num_epoch=A10_RESNET_EPOCHS,
+             log_metrics=True, device=DEVICE)
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        center = t.train(train)
+        torch.cuda.synchronize()
+        return center, time.perf_counter() - t0
+
+    (center, wall), launches = counted(run)
+    peak = torch.cuda.max_memory_allocated()
+    fails = []
+    steps = A10_RESNET_EPOCHS * A10_RESNET_WINDOWS * win
+    if launches["fused_adam"] != steps:
+        fails.append(f"fused_adam launched {launches['fused_adam']} times, "
+                     f"expected {steps} (once a step)")
+    losses = t.history.losses()
+    if len(losses) != A10_RESNET_EPOCHS * A10_RESNET_WINDOWS \
+            or not np.all(np.isfinite(losses)):
+        fails.append(f"bad loss history {losses}")
+    stats = {k: t.state_.nt[f"bn_stem.{k}"] for k in ("mean", "var")}
+    spread = max(_err(v, v[:1].expand_as(v)) for v in stats.values())
+    moved = dict(mean=stats["mean"].abs().max().item(),
+                 var=(stats["var"] - 1).abs().max().item())
+    if spread != 0.0:
+        fails.append(f"bn_stem statistics differ across workers by {spread}")
+    if min(moved.values()) <= 1e-3:
+        fails.append(f"bn_stem statistics did not move off (0, 1): {moved}")
+    # the W-worker forward (sync BN over the stacked workers) against the
+    # flat model (per-batch BN) on the W·B rows, at the trained center
+    params, nt = _on_device(center), _on_device(t.trained_nt_)
+    flat = resnet_small()
+    x = torch.from_numpy(batch[0][:, 0]).to(DEVICE)
+    with torch.no_grad():
+        out_w, nt_w = torch.func.vmap(
+            lambda xs: spec.apply(params, nt, xs, True))(x)
+        out_f, nt_f = flat.apply(params, nt, x.reshape(W * B, *x.shape[2:]),
+                                 True)
+    fwd_err = _err(out_w.reshape(W * B, -1), out_f)
+    fwd_scale = max(1.0, out_f.abs().max().item())
+    stat_err = max(_err(nt_w[f"bn_stem.{k}"][0], nt_f[f"bn_stem.{k}"])
+                   for k in ("mean", "var"))
+    if not fwd_err <= A10_FWD_TOL * fwd_scale or stat_err > 1e-4:
+        fails.append(f"W-worker forward off the flat batch's by {fwd_err} "
+                     f"(limit {A10_FWD_TOL} x {fwd_scale}), statistics by "
+                     f"{stat_err}")
+    with torch.no_grad():
+        logits, _ = spec.apply(params, nt, torch.from_numpy(
+            test["features"]).to(DEVICE), False)
+    finite = bool(torch.isfinite(logits).all())
+    if not finite or logits.shape != (A10_RESNET_TEST, 10):
+        fails.append(f"eval logits {tuple(logits.shape)} finite={finite}")
+    acc = float((logits.argmax(-1).cpu().numpy() == test["label"]).mean())
+    epochs = [m for m in t.metrics_ if "samples_per_sec" in m]
+    rec = dict(
+        phase="a10_resnet_adag_syncbn", device=SMI, wall_s=wall,
+        workers=W, batch=B, window=win, steps=steps, launches=launches,
+        window_parity=parity, bn_stem_worker_spread=spread,
+        bn_stem_moved=moved, forward_vs_flat=dict(
+            max_abs_err=fwd_err, logit_scale=fwd_scale, limit=A10_FWD_TOL,
+            stats_err=stat_err),
+        loss_first=losses[0], loss_last=losses[-1], eval_finite=finite,
+        eval_accuracy=acc, peak_memory_gb=peak / 1e9,
+        epochs=[dict(epoch=m["epoch"], samples_per_sec=m["samples_per_sec"],
+                     window_ms=1e3 * m["wall_time"] / A10_RESNET_WINDOWS)
+                for m in epochs],
+        phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError("a10_resnet_adag_syncbn: " + "; ".join(fails))
+    return rec
+
+
+def train_resnet_ps(torch):
+    """``a10_resnet_ps``: ``resnet_small()`` with per-worker BN under
+    DOWNPOUR through the in-process PS, A10_PS_W threads of batch
+    A10_RESNET_BATCH, window A10_RESNET_WINDOW. Gates: ``trained_nt_``
+    moved off (0, 1), K5 once a step a worker, and the sync-BN spec
+    refused by the same trainer with the "stacked-worker axis" error."""
+    from distkeras_tpu_torch.datasets import cifar10
+    from distkeras_tpu_torch.models import resnet_small
+    from distkeras_tpu_torch.trainers import DOWNPOUR
+
+    t_phase = time.perf_counter()
+    B, win = A10_RESNET_BATCH, A10_RESNET_WINDOW
+    train, _ = cifar10(n_train=A10_PS_W * A10_PS_WINDOWS * win * B,
+                       n_test=16)
+    kw = dict(loss=LOSS, worker_optimizer="fused_adam",
+              learning_rate=A10_RESNET_LR, num_workers=A10_PS_W,
+              batch_size=B, communication_window=win, num_epoch=1,
+              backend="ps", ps_transport="inprocess", device=DEVICE)
+    t = DOWNPOUR(resnet_small(), **kw)
+
+    def run():
+        t0 = time.perf_counter()
+        t.train(train)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, launches = counted(run)
+    fails = []
+    windows = _windows_run(t.history.records)
+    steps = windows * win
+    if windows != A10_PS_W * A10_PS_WINDOWS or launches["fused_adam"] != steps:
+        fails.append(f"{windows} windows, fused_adam launched "
+                     f"{launches['fused_adam']} times, expected {steps} "
+                     f"(once a step a worker)")
+    nt = t.trained_nt_
+    moved = dict(mean=nt["bn_stem.mean"].abs().max().item(),
+                 var=(nt["bn_stem.var"] - 1).abs().max().item())
+    if min(moved.values()) <= 1e-3:
+        fails.append(f"trained_nt_ did not move off (0, 1): {moved}")
+    try:
+        DOWNPOUR(resnet_small(sync_bn=True), **kw).train(train)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    if refused is None or "stacked-worker axis" not in refused:
+        fails.append(f"sync_bn on backend='ps' was not refused: {refused}")
+    rec = dict(phase="a10_resnet_ps", device=SMI, wall_s=wall,
+               workers=A10_PS_W, windows=windows, steps=steps,
+               launches=launches, bn_stem_moved=moved,
+               sync_bn_refused=refused,
+               exchange_phases=_phase_summary(t.exchange_phases_),
+               phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError("a10_resnet_ps: " + "; ".join(fails))
+    return rec
+
+
+def train_sru_dynsgd(torch, train, dynsgd_rec):
+    """``a10_sru_dynsgd``: ``sru_classifier()`` at config 5's width (vocab
+    20000, maxlen 200, E=H=128, bf16) on config 5's data and trainer
+    (DynSGD, IMDB_W workers of batch IMDB_BATCH, window IMDB_WINDOW, fused
+    Adam, two epochs of IMDB_WINDOWS windows). Gates: ``assoc`` and
+    ``scan`` agree on one f32 batch on the card (the recurrence and the
+    logits, A10_SRU_TOL), the loss falls, K5 once a step. Its window ms
+    is printed beside config 5's LSTM window from this call
+    (``dynsgd_rec``, ``train_dynsgd``'s), not gated."""
+    from distkeras_tpu_torch.models import sru_classifier
+    from distkeras_tpu_torch.models.sru import sru_recurrence
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    t_phase = time.perf_counter()
+    cfg = dict(vocab=IMDB_VOCAB, maxlen=IMDB_T, embed_dim=IMDB_E,
+               hidden_dim=IMDB_H)
+    toks = torch.from_numpy(train["features"][:IMDB_BATCH]).to(DEVICE)
+    mask = torch.from_numpy(train["mask"][:IMDB_BATCH]).to(DEVICE)
+    f32 = {impl: sru_classifier(dtype=torch.float32, impl=impl, **cfg)
+           for impl in ("assoc", "scan")}
+    params = _on_device(f32["assoc"].init(0)[0])
+    with torch.no_grad():
+        # layer 0's gates, as the f32 model computes them
+        emb = torch.nn.functional.embedding(toks.long(),
+                                            params["Embed_0.weight"])
+        gates = torch.nn.functional.linear(emb, params["w_0.weight"],
+                                           params["w_0.bias"])
+        c_a, _ = sru_recurrence(gates, "assoc")
+        c_s, _ = sru_recurrence(gates, "scan")
+        logits = {impl: spec.apply(params, {}, (toks, mask), False)[0]
+                  for impl, spec in f32.items()}
+    c_err = _err(c_a, c_s) / max(1.0, c_s.abs().max().item())
+    l_err = _err(logits["assoc"], logits["scan"]) / max(
+        1.0, logits["scan"].abs().max().item())
+    spec = sru_classifier(**cfg)
+    t = DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
+               learning_rate=IMDB_LR, features_col=["features", "mask"],
+               num_workers=IMDB_W, batch_size=IMDB_BATCH,
+               communication_window=IMDB_WINDOW, num_epoch=2,
+               log_metrics=True, device=DEVICE)
+
+    def run():
+        t0 = time.perf_counter()
+        t.train(train)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, launches = counted(run)
+    fails = []
+    if not (c_err <= A10_SRU_TOL and l_err <= A10_SRU_TOL):
+        fails.append(f"assoc vs scan on the card: recurrence {c_err}, "
+                     f"logits {l_err} (limit {A10_SRU_TOL})")
+    losses = t.history.losses()
+    steps = 2 * IMDB_WINDOWS * IMDB_WINDOW
+    if len(losses) != 2 * IMDB_WINDOWS or not np.all(np.isfinite(losses)) \
+            or not np.mean(losses[-2:]) < np.mean(losses[:2]):
+        fails.append(f"the loss did not fall: {losses}")
+    if launches["fused_adam"] != steps:
+        fails.append(f"fused_adam launched {launches['fused_adam']} times, "
+                     f"expected {steps} (once a step)")
+    epochs = [m for m in t.metrics_ if "samples_per_sec" in m]
+    rec = dict(
+        phase="a10_sru_dynsgd", device=SMI, wall_s=wall, steps=steps,
+        launches=launches, assoc_vs_scan=dict(
+            recurrence_rel_err=c_err, logits_rel_err=l_err,
+            limit=A10_SRU_TOL),
+        loss_first=losses[0], loss_last=losses[-1],
+        epochs=[dict(epoch=m["epoch"], samples_per_sec=m["samples_per_sec"],
+                     window_ms=1e3 * m["wall_time"] / IMDB_WINDOWS)
+                for m in epochs],
+        lstm_config5_epochs=dynsgd_rec["epochs"],
+        phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError("a10_sru_dynsgd: " + "; ".join(fails))
+    return rec
+
+
+@contextlib.contextmanager
+def _dispatch_probe():
+    """Record each MoE layer's kept share of its ``T·k`` token-expert
+    assignments (``parallel.expert._dispatch_combine``'s dispatch sum)."""
+    from distkeras_tpu_torch.parallel import expert
+
+    real, kept = expert._dispatch_combine, []
+
+    def probe(logits, num_experts, capacity, top_k):
+        out = real(logits, num_experts, capacity, top_k)
+        kept.append(out[0].sum().item() / (logits.shape[0] * top_k))
+        return out
+
+    expert._dispatch_combine = probe
+    try:
+        yield kept
+    finally:
+        expert._dispatch_combine = real
+
+
+def train_moe_adag(torch, train):
+    """``a10_moe_adag``: ``moe_transformer_classifier()`` at its defaults
+    (vocab 20000, maxlen 200, dim 128, 4 heads, depth 2, 8 experts, top-2,
+    capacity factor 2.0, bf16 attention, f32 experts) under ADAG with
+    fused Adam, A10_MOE_W workers of batch A10_MOE_BATCH, window
+    A10_MOE_WINDOW, on config 5's data. Gates: one window through K5
+    equal to its plain version, ``moe_aux_loss`` finite, K5 once a step.
+    The dropped share of the token-expert slots is printed, at the init
+    and at the trained center (the trainer's loss has no aux term, as in
+    the JAX package, so nothing keeps the router balanced)."""
+    from distkeras_tpu_torch.models import (
+        moe_aux_loss,
+        moe_transformer_classifier,
+    )
+    from distkeras_tpu_torch.parallel import ADAGMerge
+    from distkeras_tpu_torch.trainers import ADAG
+
+    t_phase = time.perf_counter()
+    W, B, win = A10_MOE_W, A10_MOE_BATCH, A10_MOE_WINDOW
+    cols = ["features", "mask", "label"]
+    ds = train.gather(np.arange(W * win * B * A10_MOE_WINDOWS))
+    batch = next(ds.superbatches(W, B, win, cols))
+    parity = _adam_window_parity(torch, moe_transformer_classifier,
+                                 ADAGMerge(), batch, 2, W, win, B,
+                                 A10_MOE_LR)
+    spec = moe_transformer_classifier()
+    t = ADAG(spec, loss=LOSS, worker_optimizer="fused_adam",
+             learning_rate=A10_MOE_LR, features_col=["features", "mask"],
+             num_workers=W, batch_size=B, communication_window=win,
+             num_epoch=1, log_metrics=True, device=DEVICE)
+
+    def run():
+        t0 = time.perf_counter()
+        center = t.train(ds)
+        torch.cuda.synchronize()
+        return center, time.perf_counter() - t0
+
+    (center, wall), launches = counted(run)
+    fails = []
+    steps = A10_MOE_WINDOWS * win
+    losses = t.history.losses()
+    if launches["fused_adam"] != steps:
+        fails.append(f"fused_adam launched {launches['fused_adam']} times, "
+                     f"expected {steps} (once a step)")
+    if len(losses) != A10_MOE_WINDOWS or not np.all(np.isfinite(losses)):
+        fails.append(f"bad loss history {losses}")
+    toks = torch.from_numpy(ds["features"][:B]).to(DEVICE)
+    mask = torch.from_numpy(ds["mask"][:B]).to(DEVICE)
+    module = spec.module.to(DEVICE)
+    try:
+        with torch.no_grad(), _dispatch_probe() as kept_init:
+            moe_aux_loss(module, _on_device(spec.init(0)[0]), (toks, mask))
+        with torch.no_grad(), _dispatch_probe() as kept:
+            logits, aux = moe_aux_loss(module, _on_device(center),
+                                       (toks, mask))
+    finally:
+        spec.module.to("cpu")
+    aux = aux.item()
+    if not (np.isfinite(aux) and torch.isfinite(logits).all()):
+        fails.append(f"moe_aux_loss {aux} or its logits not finite")
+    epochs = [m for m in t.metrics_ if "samples_per_sec" in m]
+    rec = dict(
+        phase="a10_moe_adag", device=SMI, wall_s=wall, workers=W, batch=B,
+        window=win, steps=steps, launches=launches, window_parity=parity,
+        aux_loss=aux, dropped_slot_share=[1.0 - k for k in kept],
+        dropped_slot_share_init=[1.0 - k for k in kept_init],
+        tokens_per_layer=B * IMDB_T, loss_first=losses[0],
+        loss_last=losses[-1],
+        epochs=[dict(epoch=m["epoch"], samples_per_sec=m["samples_per_sec"],
+                     window_ms=1e3 * m["wall_time"] / A10_MOE_WINDOWS)
+                for m in epochs],
+        phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError("a10_moe_adag: " + "; ".join(fails))
+    return rec
+
+
+def compare_lm_remat(torch):
+    """``a10_config9_remat``: config 9's spec (``lm_spec`` as ``train_lm``
+    builds it) for two ADAG windows with fused Adam, without and then with
+    ``remat=True``, from the same init on the same superbatch; the second
+    window of each is timed and counted. Gates: the centers within
+    ``compare_lm_window``'s bound over two windows (bit-equality
+    printed), the peak of ``torch.cuda.max_memory_allocated`` (reset
+    before the second window) lower with remat, K2 launched exactly twice
+    as often with remat (the recompute), K3, K4 and K5 as often. Returns
+    the record; its ``launches`` are the remat window's."""
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.ops.pallas_kernels import fused_adam
+    from distkeras_tpu_torch.parallel import ADAGMerge, LocalSGDEngine
+    from distkeras_tpu_torch.trainers import _make_loss_step
+
+    t_phase = time.perf_counter()
+    toks = lm_tokens(LM_W * LM_WINDOW * LM_BATCH, seed=2).reshape(
+        LM_W, LM_WINDOW, LM_BATCH, LM_L + 1)
+    batch = (toks[..., :-1], toks[..., 1:])
+    runs = {}
+    for remat in (False, True):
+        spec = lm_spec(torch, LM_DEPTH, "flash", remat=remat)
+        engine = LocalSGDEngine(
+            spec, _make_loss_step(spec, get_loss(LOSS), 1, LOSS),
+            fused_adam(LM_LR), ADAGMerge(), device=DEVICE,
+            num_workers=LM_W, window=LM_WINDOW, batch_size=LM_BATCH)
+        params, nt = spec.init(0)
+        state = engine.init_state(params, nt)
+        placed = engine.place_batch(batch)
+        # a first window warms the libraries and the allocator up: the
+        # second, on the same superbatch, is the one timed and counted
+        state, _ = engine.run_window(state, placed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        state, loss = engine.run_window(state, placed)
+        loss = loss.item()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        runs[remat] = dict(center=engine.center_params(state), loss=loss,
+                           launches=launches, wall_s=wall,
+                           peak_bytes=torch.cuda.max_memory_allocated())
+        del engine, state, placed
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    diff = max(_err(a["center"][k], b["center"][k]) for k in a["center"])
+    limit = 2.02 * LM_LR * LM_WINDOW * 2       # two windows
+    bit_equal = all(torch.equal(a["center"][k], b["center"][k])
+                    for k in a["center"])
+    la, lb = a["launches"], b["launches"]
+    fails = []
+    if not (diff <= limit and abs(a["loss"] - b["loss"]) <= 1e-2):
+        fails.append(f"centers {diff} apart (limit {limit}), loss "
+                     f"{a['loss']} vs {b['loss']}")
+    if not b["peak_bytes"] < a["peak_bytes"]:
+        fails.append(f"peak memory {b['peak_bytes']} with remat, "
+                     f"{a['peak_bytes']} without")
+    if not (la["flash_attention"] > 0
+            and lb["flash_attention"] == 2 * la["flash_attention"]):
+        fails.append(f"flash_attention launched {lb['flash_attention']} "
+                     f"times with remat, {la['flash_attention']} without")
+    for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "fused_adam"):
+        if not (la[k] > 0 and lb[k] == la[k]):
+            fails.append(f"{k} launched {lb[k]} times with remat, {la[k]} "
+                         f"without")
+    rec = dict(
+        phase="a10_config9_remat", device=SMI, depth=LM_DEPTH,
+        workers=LM_W, batch=LM_BATCH, window=LM_WINDOW,
+        launches=lb, launches_no_remat=la, max_center_diff=diff,
+        limit=limit, bit_equal=bit_equal, loss=a["loss"],
+        loss_remat=b["loss"], peak_memory_gb=a["peak_bytes"] / 1e9,
+        peak_memory_gb_remat=b["peak_bytes"] / 1e9,
+        window_ms=1e3 * a["wall_s"], window_ms_remat=1e3 * b["wall_s"],
+        phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError("a10_config9_remat: " + "; ".join(fails))
+    return rec
+
+
+def run_a10(torch, train, dynsgd_rec) -> dict:
+    """The model families' phases in order, each counting its own
+    launches: ``{phase: record}``."""
+    out = {}
+    for name, fn in (
+            ("a10_resnet_adag_syncbn", lambda: train_resnet_syncbn(torch)),
+            ("a10_resnet_ps", lambda: train_resnet_ps(torch)),
+            ("a10_sru_dynsgd",
+             lambda: train_sru_dynsgd(torch, train, dynsgd_rec)),
+            ("a10_moe_adag", lambda: train_moe_adag(torch, train)),
+            ("a10_config9_remat", lambda: compare_lm_remat(torch))):
+        out[name] = fn()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _build_all(_build) -> dict:
     """Every kernel source with ``nvcc`` (``_build.build``) and, at the
     same time, the native parameter server's C++ core with ``g++``
@@ -5097,7 +5611,7 @@ def main() -> int:
     pk.fused_adam_step.launches = 0
     rec.lstm_forward.launches = 0
     rec.lstm_backward.launches = 0
-    train_dynsgd(torch, train, test)
+    dynsgd_rec = train_dynsgd(torch, train, test)
     trained = {"fused_adam": pk.fused_adam_step.launches,
                "lstm_forward": rec.lstm_forward.launches,
                "lstm_backward": rec.lstm_backward.launches}
@@ -5301,6 +5815,11 @@ def main() -> int:
     directory_runs["serve_router_int8"] = {"launches": router_launches}
     log(f"directory paths done at {time.perf_counter() - t0:.1f}s")
 
+    # the model families: ResNet with sync and per-worker BatchNorm, the
+    # SRU and MoE classifiers (K5 on each), config 9 with remat (K2-K5)
+    a10 = run_a10(torch, train, dynsgd_rec)
+    log(f"model family paths done at {time.perf_counter() - t0:.1f}s")
+
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
         return None if any(v is None for v in vals) else sum(vals)
@@ -5393,6 +5912,7 @@ def main() -> int:
                                 frontdoor[k]["launches"][name]
                                 for k in ("int8", "bf16")},
             decode_launches={k: v[name] for k, v in decode_runs.items()},
+            a10_launches={k: v["launches"][name] for k, v in a10.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -24,8 +24,12 @@ flax names map one to one onto module attribute names, ``blocks_i`` onto
   flattens NHWC (``models/cnn.py:31``), the port NCHW;
 - an Embed's ``embedding`` is ``weight``, a LayerNorm's ``scale`` is
   ``weight``;
-- a bare-array leaf (the LSTM's ``wh``) is a bare ``nn.Parameter`` of the
-  same name and layout.
+- a bare-array leaf (the LSTM's ``wh``, the MoE block's ``gate`` and
+  expert weights) is a bare ``nn.Parameter`` of the same name and layout;
+- a BatchNorm's ``scale`` is ``weight``, as a LayerNorm's; its
+  ``batch_stats`` (``mean``, ``var``) are the module's state buffers of
+  the same names, which :func:`state_from_jax` / :func:`state_to_jax` map
+  and the param functions leave out.
 
 Every destination tensor must be written exactly once, at its own shape,
 or the bridge raises. Values are cast to the destination's dtype (f32 →
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from distkeras_tpu_torch.models.layers import Embed
+from distkeras_tpu_torch.models.layers import BatchNorm, Embed
 
 
 def _part(key: str) -> str:
@@ -111,16 +115,22 @@ def _leaves(node, path, module):
             yield from _leaves(child, path + (_part(key),), module)
 
 
-def tensors_from_jax(tree, module) -> dict:
-    """The flax tree ``tree`` as ``{name: tensor}`` for ``module``'s
-    parameters and buffers (new tensors, each in the destination's dtype
-    and device); ``module`` is not modified."""
-    dest = module.state_dict()
+def _state_names(module) -> set:
+    """The buffers that are model state (BatchNorm statistics): flax keeps
+    them in ``batch_stats``, not in the param tree."""
+    return {f"{path}.{b}" if path else b
+            for path, sub in module.named_modules()
+            if isinstance(sub, BatchNorm) for b in ("mean", "var")}
+
+
+def _from_leaves(leaves, dest: dict, what: str) -> dict:
+    """``{name: tensor}`` from (name, array) pairs: every name of ``dest``
+    written exactly once at its own shape, in its dtype and device."""
     out = {}
-    for name, arr in _leaves(tree, (), module):
+    for name, arr in leaves:
         if name not in dest:
             raise KeyError(f"flax leaf {name!r} has no counterpart in "
-                           f"{type(module).__name__}")
+                           f"{what}")
         if name in out:
             raise KeyError(f"flax leaf {name!r} is written twice")
         t = dest[name]
@@ -133,6 +143,64 @@ def tensors_from_jax(tree, module) -> dict:
     if missing:
         raise KeyError(f"the flax tree does not provide {missing}")
     return out
+
+
+def tensors_from_jax(tree, module) -> dict:
+    """The flax tree ``tree`` as ``{name: tensor}`` for ``module``'s
+    parameters and persistent buffers other than BatchNorm statistics
+    (new tensors, each in the destination's dtype and device); ``module``
+    is not modified."""
+    skip = _state_names(module)
+    dest = {k: v for k, v in module.state_dict().items() if k not in skip}
+    return _from_leaves(_leaves(tree, (), module), dest,
+                        type(module).__name__)
+
+
+def _stat_leaves(node, path):
+    if not isinstance(node, Mapping):
+        yield ".".join(path), np.asarray(node)
+        return
+    for key, child in node.items():
+        yield from _stat_leaves(child, path + (_part(key),))
+
+
+def state_from_jax(batch_stats, module, stacked: bool = False) -> dict:
+    """flax's ``batch_stats`` collection (nested dicts of ``mean``/``var``
+    arrays) as ``{buffer name: tensor}`` for ``module``'s BatchNorm state,
+    every buffer written exactly once at its shape, or this raises. With
+    ``stacked`` every leaf carries a leading worker axis (the engine's
+    ``nt``), kept in the result."""
+    buffers = dict(module.named_buffers())
+    dest = {k: buffers[k] for k in _state_names(module)}
+    leaves = _stat_leaves(batch_stats, ())
+    if not stacked:
+        return _from_leaves(leaves, dest, f"{type(module).__name__}'s state")
+    leaves = list(leaves)
+    w = {arr.shape[0] for _, arr in leaves}
+    if len(w) > 1:
+        raise ValueError(f"stacked batch_stats disagree on the worker "
+                         f"count: {sorted(w)}")
+    n = w.pop() if w else 0
+    dest = {k: v.expand((n,) + tuple(v.shape)) for k, v in dest.items()}
+    return _from_leaves(leaves, dest, f"{type(module).__name__}'s state")
+
+
+def state_to_jax(state, module) -> dict:
+    """The BatchNorm entries of ``{buffer name: tensor}`` state → flax's
+    ``batch_stats`` collection, nested dicts of numpy arrays keyed by flax
+    names; other buffers (position tables) are not flax state and are
+    left out."""
+    names = _state_names(module)
+    tree: dict = {}
+    for name, t in state.items():
+        if name not in names:
+            continue
+        mod_path, _, attr = name.rpartition(".")
+        node = tree
+        for p in _flax_parts(mod_path):
+            node = node.setdefault(p, {})
+        node[attr] = np.ascontiguousarray(_to_numpy(t))
+    return tree
 
 
 def params_from_jax(tree, module):
@@ -156,7 +224,9 @@ def params_to_jax(params, module) -> dict:
     """``{name: tensor}`` params of ``module`` (or ``None`` for the
     module's own) → the flax param tree, nested dicts of numpy arrays."""
     if params is None:
-        params = module.state_dict()
+        skip = _state_names(module)
+        params = {k: v for k, v in module.state_dict().items()
+                  if k not in skip}
     tree: dict = {}
     for name, t in params.items():
         mod_path, _, attr = name.rpartition(".")
@@ -165,7 +235,7 @@ def params_to_jax(params, module) -> dict:
         parts = _flax_parts(mod_path)
         if isinstance(sub, (nn.Embedding, Embed)) and attr == "weight":
             leaf = {"embedding": arr}
-        elif isinstance(sub, nn.LayerNorm):
+        elif isinstance(sub, (nn.LayerNorm, BatchNorm)):
             leaf = {"scale" if attr == "weight" else attr: arr}
         elif attr == "kernel_q":
             leaf = {"kernel_q": arr.T}
@@ -207,3 +277,23 @@ def center_from_jax(tree, spec) -> dict:
         raise KeyError(f"the checkpoint's center maps onto {sorted(out)}, "
                        f"the spec's params are {sorted(names)}")
     return out
+
+
+def nt_from_jax(nt, spec) -> dict:
+    """The stacked non-trainable state of a checkpoint the JAX package
+    wrote (``{"batch_stats": tree}`` with a leading worker axis, or
+    ``{}`` for a stateless model) as ``spec``'s BatchNorm state,
+    ``{buffer name: tensor [W, ...]}`` on the CPU: the state counterpart
+    of :func:`center_from_jax`, under the same rule that a misread never
+    loads quietly."""
+    if spec.module is None:
+        raise ValueError(
+            f"spec {spec.name!r} has no template module, so a JAX-package "
+            f"checkpoint has nothing to map onto (build the spec with "
+            f"model.from_module)")
+    extra = sorted(set(nt) - {"batch_stats"})
+    if extra:
+        raise KeyError(f"the checkpoint's nt holds collections {extra} the "
+                       f"port has no state for")
+    return state_from_jax(nt.get("batch_stats", {}), spec.module,
+                          stacked=True)

@@ -11,6 +11,12 @@ state:
 - ``apply(params, state, x, training) -> (outputs, new_state)``: pure, and
   traceable by ``torch.func`` transforms.
 
+A module that owns non-trainable state (``ResNetSmall``'s BatchNorm
+statistics) sets ``returns_state = True``: its pure forward takes
+``training`` and returns ``(out, new_state)``, the new state keyed by the
+module's buffer names, which ``apply`` merges over the state it was given
+(flax's ``mutable=["batch_stats"]`` seam in the JAX package).
+
 :func:`from_module` wraps an ``nn.Module`` through
 ``torch.func.functional_call``: the module is a stateless template whose
 own tensors are never read once params are supplied. A tuple ``x`` unpacks
@@ -41,6 +47,11 @@ class ModelSpec:
     init: Callable[[int], tuple[dict, dict]]
     apply: Callable[[dict, dict, Any, bool], tuple[Any, dict]]
     name: str = "model"
+    #: the training-mode apply averages over the collective backend's
+    #: stacked-worker vmap dimension (sync BatchNorm through
+    #: ``parallel.local_sgd.worker_mean``), so it cannot train on the PS
+    #: backend's independent host threads
+    requires_worker_axis: bool = False
     #: the template ``nn.Module`` when built by :func:`from_module`; the
     #: weight bridge (``convert``) reads its layer types and shapes
     module: Any = None
@@ -85,7 +96,8 @@ def from_module(module: nn.Module, *, name: str | None = None,
                 example=None) -> ModelSpec:
     """Wrap an ``nn.Module`` whose ``reset_parameters(generator)`` draws
     its initial weights. ``init(seed)`` draws them on the CPU from a
-    ``torch.Generator`` seeded with ``seed``; buffers are the state.
+    ``torch.Generator`` seeded with ``seed``; buffers are the state (a
+    module's ``reset_parameters`` sets its own, as BatchNorm's 0 and 1).
     ``example`` is recorded as the spec's example input."""
     template = module
 
@@ -99,12 +111,18 @@ def from_module(module: nn.Module, *, name: str | None = None,
         return params, state
 
     module_here = per_thread(template)
+    stateful = getattr(module, "returns_state", False)
 
     def apply(params, state, x, training):
         inputs = x if isinstance(x, tuple) else (x,)
-        out = torch.func.functional_call(module_here(), {**params, **state},
-                                         inputs)
-        return out, state
+        if not stateful:
+            out = torch.func.functional_call(
+                module_here(), {**params, **state}, inputs)
+            return out, state
+        out, new_state = torch.func.functional_call(
+            module_here(), {**params, **state}, inputs,
+            {"training": bool(training)})
+        return out, {**state, **new_state}
 
     return ModelSpec(init=init, apply=apply,
                      name=name or type(module).__name__, module=module,

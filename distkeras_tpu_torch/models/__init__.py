@@ -2,9 +2,12 @@
 dense-cache decoding (:func:`generate`, :func:`speculative_generate`,
 :func:`beam_search`) and its training spec (:func:`transformer_lm_spec`),
 the encoder classifier
-(:func:`transformer_classifier`, config 6), and the BASELINE training
+(:func:`transformer_classifier`, config 6), the BASELINE training
 models — :func:`mlp` (configs 1 and 4), :func:`lenet` (config 2),
-:func:`vgg_small` (config 3) and :func:`lstm_classifier` (config 5)."""
+:func:`vgg_small` (config 3) and :func:`lstm_classifier` (config 5) — and
+the model families beyond them: :func:`resnet_small` (BatchNorm state,
+optionally synchronized over the stacked workers), :func:`sru_classifier`
+and :func:`moe_transformer_classifier` (with :func:`moe_aux_loss`)."""
 
 from distkeras_tpu_torch.models.cnn import LeNet, VGGSmall, lenet, vgg_small
 from distkeras_tpu_torch.models.lm import (
@@ -18,6 +21,13 @@ from distkeras_tpu_torch.models.lm import (
 )
 from distkeras_tpu_torch.models.lstm import LSTMClassifier, lstm_classifier
 from distkeras_tpu_torch.models.mlp import MLP, mlp
+from distkeras_tpu_torch.models.moe import (
+    MoETransformerClassifier,
+    moe_aux_loss,
+    moe_transformer_classifier,
+)
+from distkeras_tpu_torch.models.resnet import ResNetSmall, resnet_small
+from distkeras_tpu_torch.models.sru import SRUClassifier, sru_classifier
 from distkeras_tpu_torch.models.transformer import (
     TransformerClassifier,
     transformer_classifier,
@@ -27,4 +37,7 @@ __all__ = ["TransformerLM", "transformer_lm", "transformer_lm_spec",
            "quantize_lm", "generate", "speculative_generate", "beam_search",
            "TransformerClassifier", "transformer_classifier",
            "MLP", "mlp", "LeNet", "lenet", "VGGSmall", "vgg_small",
-           "LSTMClassifier", "lstm_classifier"]
+           "LSTMClassifier", "lstm_classifier", "ResNetSmall",
+           "resnet_small", "SRUClassifier", "sru_classifier",
+           "MoETransformerClassifier", "moe_transformer_classifier",
+           "moe_aux_loss"]

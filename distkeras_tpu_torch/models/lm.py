@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.model import ModelSpec, from_module, per_thread
+from distkeras_tpu_torch.models.layers import remat_block
 from distkeras_tpu_torch.models.transformer import sincos_positions
 from distkeras_tpu_torch.ops.flash_attention import (
     attention,
@@ -293,7 +294,7 @@ class TransformerLM(nn.Module):
                  attn_window: int | None = None,
                  kv_heads: int | None = None, pos_embedding: str = "sincos",
                  quant: bool = False, tie_embeddings: bool = False,
-                 device="cuda", param_dtype=None):
+                 device="cuda", param_dtype=None, remat: bool = False):
         super().__init__()
         device = resolve_device(device)
         if kv_heads is not None and heads % kv_heads:
@@ -313,7 +314,11 @@ class TransformerLM(nn.Module):
             dtype=dtype, attn_impl=attn_impl, attn_window=attn_window,
             kv_heads=kv_heads, pos_embedding=pos_embedding, quant=quant,
             tie_embeddings=tie_embeddings, param_dtype=param_dtype,
+            remat=remat,
         )
+        # the full forward (training, and the fused loss's hiddens) runs
+        # each block through remat_block; the serving methods never do
+        self.remat = bool(remat)
         self.vocab, self.maxlen, self.dim = vocab, maxlen, dim
         self.heads, self.depth, self.dtype = heads, depth, dtype
         self.kv_heads = kv_heads
@@ -412,7 +417,8 @@ class TransformerLM(nn.Module):
         x = self._embed_at(tokens)
         rope = self._rope_at(0, tokens.shape[1])
         for blk in self.blocks:
-            x = blk(x, mask, rope)
+            x = (remat_block(blk, x, mask, rope) if self.remat
+                 else blk(x, mask, rope))
         return self.ln_head(x)
 
     def _rope_at(self, pos0: int, T: int):
@@ -1025,18 +1031,18 @@ def transformer_lm_spec(vocab=1024, maxlen=256, dim=128, heads=4, depth=2,
     ``fused_ce=True`` adds a fused loss under that name: the chunked
     cross-entropy of ``ops/fused_ce.py`` over the hidden states and the
     head (``lm_head``, or the tied embedding), ``ce_chunk`` rows of logits
-    at a time, so the ``[B, L, vocab]`` logits never exist. The template
-    module lives on the CPU; the trainer places params and state on its
+    at a time, so the ``[B, L, vocab]`` logits never exist. ``remat=True``
+    recomputes each block's activations in the backward pass of the
+    training forward and the fused loss (flax's ``nn.remat`` on
+    ``__call__``); parameter names are unchanged. The template module
+    lives on the CPU; the trainer places params and state on its
     device."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet: ROADMAP.md A10 (remat)")
     module = TransformerLM(
         vocab=vocab, maxlen=maxlen, dim=dim, heads=heads, depth=depth,
         dtype=dtype, attn_impl=attn_impl, attn_window=attn_window,
         kv_heads=kv_heads, pos_embedding=pos_embedding,
         tie_embeddings=tie_embeddings, device="cpu",
-        param_dtype=torch.float32)
+        param_dtype=torch.float32, remat=remat)
     spec = from_module(module, name="transformer_lm",
                        example=torch.zeros((1, maxlen), dtype=torch.int64))
     if not fused_ce:

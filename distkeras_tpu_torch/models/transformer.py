@@ -14,6 +14,8 @@ Attention (``attn_impl``): "reference" (plain softmax attention),
 on the CPU) or "plain" (the flash path over the plain versions on any
 device). ``"ring"`` and the mesh forwards (pipeline, sequence parallel)
 belong to the parallelism portfolio and raise until it is ported.
+``remat=True`` recomputes each block's activations in the backward pass
+(``layers.remat_block``, flax's ``nn.remat``), parameter names unchanged.
 """
 
 from __future__ import annotations
@@ -24,7 +26,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from distkeras_tpu_torch.model import ModelSpec, from_module
-from distkeras_tpu_torch.models.layers import Dense, Embed, reset_children
+from distkeras_tpu_torch.models.layers import (
+    Dense,
+    Embed,
+    remat_block,
+    reset_children,
+)
 from distkeras_tpu_torch.ops.flash_attention import (
     attention,
     attention_reference,
@@ -110,14 +117,16 @@ class EncoderBlock(nn.Module):
 class TransformerClassifier(nn.Module):
     """``(tokens [B, L], mask [B, L]) → logits [B, num_classes]`` (f32).
     Parameters carry flax's names: ``embed``, ``blocks.i`` (flax
-    ``blocks_i``), ``ln_head``, ``head``."""
+    ``blocks_i``), ``ln_head``, ``head``. ``remat``: each block through
+    :func:`remat_block`."""
 
     def __init__(self, vocab: int = 20000, maxlen: int = 200, dim: int = 128,
                  heads: int = 4, depth: int = 2, num_classes: int = 2,
                  causal: bool = False, dtype=torch.bfloat16,
                  attn_impl: str = "reference",
-                 attn_window: int | None = None):
+                 attn_window: int | None = None, remat: bool = False):
         super().__init__()
+        self.remat = bool(remat)
         if attn_impl == "ring":
             raise NotImplementedError(
                 f"attn_impl='ring' (sequence-parallel ring attention) is not "
@@ -157,7 +166,7 @@ class TransformerClassifier(nn.Module):
                               device=tokens.device)
         x = self.embed_tokens(tokens)
         for blk in self.blocks:
-            x = blk(x, mask)
+            x = remat_block(blk, x, mask) if self.remat else blk(x, mask)
         return self.head_logits(x, mask)
 
 
@@ -168,14 +177,12 @@ def transformer_classifier(vocab=20000, maxlen=200, dim=128, heads=4,
     """The encoder classifier as a ``ModelSpec``: features ``(tokens,
     mask)`` (``features_col=["features", "mask"]``), f32 master params.
     The template module lives on the CPU; the trainer places params and
-    state on its device."""
-    if remat:
-        raise NotImplementedError(
-            "remat=True is not ported yet: ROADMAP.md A10 (remat)")
+    state on its device. ``remat=True`` rematerializes each block in the
+    backward pass: one more forward of it for activations not kept."""
     module = TransformerClassifier(
         vocab=vocab, maxlen=maxlen, dim=dim, heads=heads, depth=depth,
         num_classes=num_classes, causal=causal, dtype=dtype,
-        attn_impl=attn_impl, attn_window=attn_window)
+        attn_impl=attn_impl, attn_window=attn_window, remat=remat)
     example = (torch.zeros((1, maxlen), dtype=torch.int64),
                torch.ones((1, maxlen), dtype=torch.float32))
     return from_module(module, name="transformer_classifier",

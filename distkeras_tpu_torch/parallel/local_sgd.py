@@ -37,6 +37,41 @@ from distkeras_tpu_torch.utils import (
 LossStep = Callable[[dict, dict, tuple], tuple[torch.Tensor, dict]]
 
 
+class _WorkerMean(torch.autograd.Function):
+    """The mean over the stacked-worker dimension that ``torch.func.vmap``
+    batches (the engine's W axis), broadcast back to every worker: the
+    counterpart of ``lax.pmean`` over the JAX engine's named
+    ``WORKER_AXIS``. Its backward is the same mean of the cotangent, as
+    ``pmean``'s transpose, so under ``vmap(grad)`` worker i's gradient is
+    ∂(Σ_j loss_j)/∂θ_i, as in the JAX package, not ∂loss_i/∂θ_i."""
+
+    @staticmethod
+    def forward(x):
+        return x.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return _WorkerMean.apply(g)
+
+    @staticmethod
+    def vmap(info, in_dims, x):
+        d = in_dims[0]
+        if d is None:           # the same on every worker already
+            return x.clone(), None
+        return x.mean(dim=d, keepdim=True).expand_as(x).clone(), d
+
+
+def worker_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x`` averaged over the vmapped worker dimension (sync BatchNorm's
+    statistics); ``x`` itself outside ``vmap`` or when ``x`` is not
+    batched."""
+    return _WorkerMean.apply(x)
+
+
 @dataclasses.dataclass
 class TrainState:
     """Full training state, on the engine's device for the whole run."""

@@ -240,11 +240,7 @@ class GenerationServer:
         registration is withdrawn first."""
         self._withdraw_registration()
         self._running = False
-        if self._server_sock is not None:
-            try:
-                self._server_sock.close()
-            except OSError:
-                pass
+        self._close_listener()
         self.engine.stop(drain=drain, timeout=timeout)
         with self._conns_lock:
             conns = list(self._conns)
@@ -258,6 +254,25 @@ class GenerationServer:
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=2)
 
+    def _close_listener(self) -> None:
+        """Release the port at once. ``close()`` alone does not wake an
+        ``accept()`` blocked in the accept thread, and the socket stays
+        listening on the port until a connection arrives, so a server
+        restarted on it fails to bind; ``shutdown`` wakes the accept."""
+        if self._server_sock is None:
+            return
+        try:
+            self._server_sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self._server_sock.close()
+        except OSError:
+            pass
+        if self._accept_thread is not None \
+                and self._accept_thread is not threading.current_thread():
+            self._accept_thread.join(timeout=2)
+
     def _crash(self, timeout: float = 5.0) -> None:
         """Chaos seam: die like a killed process — no renewal and no
         withdrawal (the lease's expiry drops the entry), the engine
@@ -266,11 +281,7 @@ class GenerationServer:
         self._dir_stop.set()
         self._running = False
         self.engine.stop(drain=False, timeout=timeout)
-        if self._server_sock is not None:
-            try:
-                self._server_sock.close()
-            except OSError:
-                pass
+        self._close_listener()
         with self._conns_lock:
             conns = list(self._conns)
         for c in conns:

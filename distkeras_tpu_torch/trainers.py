@@ -181,6 +181,18 @@ def _make_loss_step(spec: ModelSpec, loss_fn: Callable, n_feat: int,
     return loss_step
 
 
+def _reject_worker_axis_model(spec, where: str) -> None:
+    """Engines without the stacked-worker vmap dimension refuse models
+    whose training-mode apply averages over it (sync BatchNorm): a clear
+    error instead of a model that quietly trains per worker."""
+    if getattr(spec, "requires_worker_axis", False):
+        raise ValueError(
+            f"model '{spec.name}' runs collectives over the stacked-worker "
+            f"axis (e.g. sync_bn=True) and cannot train on {where}; use the "
+            f"collective backend of the six distributed trainers, or a "
+            f"per-worker variant of the model")
+
+
 def _fits_device_budget(ds: Dataset, cols, budget_bytes: int) -> bool:
     row_bytes = sum(int(np.prod(ds[c].shape[1:])) * ds[c].dtype.itemsize
                     for c in cols)
@@ -910,11 +922,14 @@ class DistributedTrainer(Trainer):
 
     def train(self, dataset, shuffle: bool = False):
         ds = self._coerce_dataset(dataset)
-        if self.backend == "ps" and self.checkpoint_async:
-            raise ValueError(
-                "checkpoint_async is not supported on backend='ps' (the "
-                "hogwild workers checkpoint at a cross-thread barrier); use "
-                "the collective backend or synchronous checkpoints")
+        if self.backend == "ps":
+            if self.checkpoint_async:
+                raise ValueError(
+                    "checkpoint_async is not supported on backend='ps' (the "
+                    "hogwild workers checkpoint at a cross-thread barrier); "
+                    "use the collective backend or synchronous checkpoints")
+            _reject_worker_axis_model(
+                self.spec, "backend='ps' (independent hogwild host threads)")
         ctx, paths = _profile_ctx(self.profile_dir, self.device)
         try:
             with ctx:
@@ -1059,9 +1074,10 @@ class DistributedTrainer(Trainer):
         one. The same worker count resumes exactly (``init_state_from``);
         another count, or a checkpoint the JAX package wrote (its optax
         moments have no counterpart here), resumes elastically: the center
+        and worker 0's non-trainable state (BatchNorm statistics)
         re-broadcast to fresh workers, the window count kept."""
         from distkeras_tpu_torch import checkpoint as ckpt
-        from distkeras_tpu_torch.convert import center_from_jax
+        from distkeras_tpu_torch.convert import center_from_jax, nt_from_jax
 
         if ckpt.latest_step(self.checkpoint_dir) is None:
             return state, 0
@@ -1076,6 +1092,8 @@ class DistributedTrainer(Trainer):
             ckpt.warn_elastic_resume(ckpt_w, self.num_workers)
             if origin == "jax":
                 center = center_from_jax(saved["center"], self.spec)
+                stats = nt_from_jax(saved["nt"], self.spec)
+                nt = {**nt, **{k: v[0] for k, v in stats.items()}}
             else:
                 center = saved["center"]
                 nt = tree_map(lambda x: x[0], saved["nt"])

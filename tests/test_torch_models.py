@@ -19,8 +19,11 @@ from distkeras_tpu.ops import losses as jl
 from distkeras_tpu.ops import metrics as jmet
 from distkeras_tpu_torch import models as tm
 from distkeras_tpu_torch.convert import (
+    nt_from_jax,
     params_from_jax,
     params_to_jax,
+    state_from_jax,
+    state_to_jax,
     tensors_from_jax,
 )
 from distkeras_tpu_torch.ops import losses as tl
@@ -40,12 +43,35 @@ def _pair(name):
                 tm.mlp(hidden=(32, 16), dtype=torch.float32))
     if name == "lenet":
         return jm.lenet(dtype=jnp.float32), tm.lenet(dtype=torch.float32)
+    if name == "resnet":
+        kw = dict(widths=(4, 8), input_shape=(8, 8, 3))
+        return (jm.resnet_small(dtype=jnp.float32, **kw),
+                tm.resnet_small(dtype=torch.float32, **kw))
+    if name == "sru":
+        kw = dict(vocab=300, maxlen=12, embed_dim=16, hidden_dim=24,
+                  depth=2)
+        return (jm.sru_classifier(dtype=jnp.float32, **kw),
+                tm.sru_classifier(dtype=torch.float32, **kw))
+    if name == "moe":
+        kw = dict(vocab=300, maxlen=12, dim=16, heads=2, depth=2,
+                  num_experts=4)
+        return (jm.moe_transformer_classifier(dtype=jnp.float32, **kw),
+                tm.moe_transformer_classifier(dtype=torch.float32, **kw))
     return (jm.vgg_small(dtype=jnp.float32),
             tm.vgg_small(dtype=torch.float32))
 
 
+def _init_np(jspec):
+    """``jspec.init_np(0)``, jitted: flax's op-by-op init of the larger
+    families takes seconds on the CPU."""
+    return jax.tree_util.tree_map(
+        np.asarray, jax.jit(jspec.init)(jax.random.PRNGKey(0)))
+
+
 def _inputs(name, rng):
-    if name == "lstm":
+    if name == "resnet":
+        return rng.normal(size=(3, 8, 8, 3)).astype(np.float32)
+    if name in ("lstm", "sru", "moe"):
         toks = rng.integers(0, 300, (4, 12)).astype(np.int32)
         mask = np.ones((4, 12), np.float32)
         mask[:, 9:] = 0.0
@@ -62,24 +88,29 @@ def _torch_in(x):
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("name", ["lstm", "mlp", "lenet", "vgg"])
+FAMILIES = ["lstm", "mlp", "lenet", "vgg", "resnet", "sru", "moe"]
+
+
+@pytest.mark.parametrize("name", FAMILIES)
 def test_model_matches_flax_through_the_bridge(name):
     """vgg and lenet cover the conv HWIO → OIHW move and the NHWC flatten
-    permutation of the first Dense; lstm the bare ``wh`` leaf."""
+    permutation of the first Dense; lstm the bare ``wh`` leaf; resnet the
+    bias-less convs and BatchNorm's ``scale`` (eval mode at the init
+    statistics); moe the bare gate and expert leaves."""
     jspec, tspec = _pair(name)
-    p, nt = jspec.init_np(0)
+    p, nt = _init_np(jspec)
     x = _inputs(name, np.random.default_rng(1))
-    ref, _ = jspec.apply(p, nt, x, False)
+    ref, _ = jax.jit(lambda pp, xx: jspec.apply(pp, nt, xx, False))(p, x)
     got, _ = tspec.apply(tensors_from_jax(p, tspec.module), {}, _torch_in(x),
                          False)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("name", ["lstm", "mlp", "lenet", "vgg"])
+@pytest.mark.parametrize("name", FAMILIES)
 def test_params_to_jax_round_trips(name):
     jspec, tspec = _pair(name)
-    p, _ = jspec.init_np(0)
+    p, _ = _init_np(jspec)
     back = params_to_jax(tensors_from_jax(p, tspec.module), tspec.module)
     ref = jax.tree_util.tree_leaves_with_path(p)
     got = jax.tree_util.tree_leaves_with_path(back)
@@ -89,9 +120,37 @@ def test_params_to_jax_round_trips(name):
         np.testing.assert_array_equal(b, np.asarray(a))
 
 
+def test_batchnorm_state_round_trips_and_stays_out_of_the_params():
+    """``batch_stats`` ↔ the state buffers, exactly and with the same leaf
+    paths; the param bridge neither asks for nor writes them."""
+    jspec, tspec = _pair("resnet")
+    p, nt = _init_np(jspec)
+    bs = jax.tree_util.tree_map(
+        lambda a: a + np.arange(a.size, dtype=np.float32).reshape(a.shape),
+        nt["batch_stats"])
+    state = state_from_jax(bs, tspec.module)
+    assert set(state) == {k for k, _ in tspec.module.named_buffers()}
+    back = state_to_jax(state, tspec.module)
+    ref = jax.tree_util.tree_leaves_with_path(bs)
+    got = jax.tree_util.tree_leaves_with_path(back)
+    assert [k for k, _ in got] == [k for k, _ in ref]
+    for (_, a), (_, b) in zip(ref, got):
+        np.testing.assert_array_equal(b, np.asarray(a))
+    tp = tensors_from_jax(p, tspec.module)
+    assert not set(tp) & set(state)
+    assert "stem.bias" not in tp and "bn_stem.weight" in tp
+    with pytest.raises(KeyError, match="does not provide"):
+        state_from_jax({k: v for k, v in bs.items() if k != "bn_stem"},
+                       tspec.module)
+    stacked = jax.tree_util.tree_map(lambda a: np.stack([a, a + 1]), bs)
+    nts = nt_from_jax({"batch_stats": stacked}, tspec)
+    assert torch.equal(nts["bn_stem.var"][1], state["bn_stem.var"] + 1)
+    assert nt_from_jax({}, _pair("mlp")[1]) == {}
+
+
 def test_bridge_keeps_port_layouts_and_raises_on_mismatch():
     jspec, tspec = _pair("lenet")
-    p, _ = jspec.init_np(0)
+    p, _ = _init_np(jspec)
     t = tensors_from_jax(p, tspec.module)
     assert tuple(t["Conv_0.weight"].shape) == (32, 1, 5, 5)     # OIHW
     assert tuple(t["Dense_0.weight"].shape) == (256, 64 * 7 * 7)
@@ -113,7 +172,7 @@ def test_bridge_keeps_port_layouts_and_raises_on_mismatch():
 
 def test_params_from_jax_copies_a_bare_leaf_in_place():
     jspec, tspec = _pair("lstm")
-    p, _ = jspec.init_np(0)
+    p, _ = _init_np(jspec)
     module = tm.LSTMClassifier(vocab=300, embed_dim=16, hidden_dim=32,
                                dtype=torch.float32)
     params_from_jax(p, module)

@@ -158,6 +158,34 @@ class _SaltLog(RetryPolicy):
         return super().run(fn, on_retry=on_retry, salt=salt, **kw)
 
 
+def test_a_crashed_server_releases_its_port_at_once(lm):
+    """``_crash`` (and ``stop``) free the listening port before they
+    return, with no client reconnecting to wake the accept thread: a
+    server restarted on the same port binds."""
+    _, _, model = lm
+    servers = []
+    try:
+        for kill in ("_crash", "stop", None):
+            port = servers[-1].port if servers else 0
+            srv = GenerationServer(GenerationEngine(
+                model, max_batch=2, block_size=8, device="cpu"), port=port)
+            srv.start()
+            servers.append(srv)
+            if kill:
+                getattr(srv, kill)()
+        assert len({s.port for s in servers}) == 1
+        client = GenerationClient("127.0.0.1", servers[-1].port)
+        try:
+            want = _engine_stream(model, _prompt(3, 5), 2)
+            got = client.generate(_prompt(3, 5), max_new_tokens=2)
+            np.testing.assert_array_equal(got, want)
+        finally:
+            client.close()
+    finally:
+        for srv in servers:
+            srv.stop()
+
+
 def test_resilient_client_backs_off_on_busy_and_keeps_the_connection():
     """Backpressure is not a failure: the client backs off and replays on
     the same connection (no reconnect), counting each retry; every call

@@ -156,8 +156,9 @@ def test_params_round_trip_positions_and_later_options():
     assert set(state) == {"pos_table"}
     with pytest.raises(NotImplementedError, match="A12"):
         transformer_classifier(attn_impl="ring")
-    with pytest.raises(NotImplementedError, match="A10"):
-        transformer_classifier(remat=True)
+    # remat=True is ported (tests/test_torch_remat.py): same names
+    assert set(transformer_classifier(remat=True, **CFG).init(0)[0]) \
+        == set(params)
     with pytest.raises(NotImplementedError, match="A12"):
         ttr.pipelined_transformer_forward(None, None, None, None, None)
     with pytest.raises(NotImplementedError, match="A12"):
