@@ -143,7 +143,10 @@ Phases, in order; any failure exits non-zero and prints no result:
     retries, crash()ed after the last exchange: folds equal the logical
     commits, and the port's ``recover_ps_state`` gives the center last
     served bit for bit, with ``num_updates``, ``last_seq`` and
-    ``fence_epoch``); the WAL phases print the durability cost (window
+    ``fence_epoch``; the core's eviction count equal to the evict records
+    in its log, every commit of the log, those after a worker's eviction
+    too, folded once; a failing gate keeps the log and prints its path);
+    the WAL phases print the durability cost (window
     time, ``ps.wal_wait`` total, fsyncs, bytes, the temporary directory's
     filesystem) beside the in-process window;
 15. the sharded center (``sharding/``), each phase one JSON line, its
@@ -291,11 +294,28 @@ Phases, in order; any failure exits non-zero and prints no result:
     without and with ``remat=True``: centers within the LM window's
     bound, bit-equality printed, the remat peak memory lower, K2 twice
     as often, K3 and K4 as often);
-22. print the ``kernels`` JSON line (K1 as one decode step and, as
+22. one model over a mesh (A12), each phase in an NCCL world of one it
+    makes and destroys, one JSON line with the card, its launches
+    (counted alone) and gates: ``a12_config9_mesh`` (config 9 through
+    ``MeshTrainer(mesh_shape={"dp": 1}, input_mode="resident",
+    worker_optimizer="fused_adam")``, 2 epochs of A12_LM_STEPS steps: the
+    loss falling, K2–K4 depth × steps and K5 steps, two steps bit-equal
+    to a hand-written single-device step of the same module and kernels;
+    tokens/s and the peak memory beside the ADAG W=2 window's),
+    ``a12_config6_mesh`` (config 6 under
+    ``parameter_sharding="fsdp+megatron"`` on ``{"dp": 1, "tp": 1}``,
+    SGD: the same gates, but two steps' update within A12_SGD_GAP of the
+    hand-written step's, and a ``.dkc`` resume bit-equal to the
+    uninterrupted run) and ``a12_strategies`` (``"sequence"`` on config
+    6 with SGD, its update within A12_SGD_GAP of spmd's; ``"expert"`` on
+    the MoE classifier and ``"pipeline"`` on config 6 at depth 1 with
+    fused Adam, bit-equal to spmd's; each on a mesh of one rank against
+    ``"spmd"`` on the same model and rows);
+23. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
     elastic phases, the directory phases, the front door,
-    ``serve_decode`` and the model family phases, K6 and K7
+    ``serve_decode``, the model family and the mesh phases, K6 and K7
     with their G=1 times), read config 3's
     gates (``ps3_failures``, the sharded run's too), then the result line
     ``{"ok": true, "device": {...}}`` last.
@@ -521,6 +541,20 @@ A10_PS_W, A10_PS_WINDOWS = 4, 4
 A10_SRU_TOL = 1e-5        # f32 assoc vs scan, of max(1, |c|) and the logits
 A10_MOE_W, A10_MOE_BATCH, A10_MOE_WINDOW = 2, 16, 2
 A10_MOE_WINDOWS, A10_MOE_LR = 8, 1e-3
+# one model over a mesh (A12): MeshTrainer on an NCCL world of one, batch
+# A12_BATCH (bench.py's B for configs 6 and 9); 2 epochs over the same
+# steps' rows, so the second epoch's loss is read on rows already trained
+A12_BATCH, A12_LM_STEPS, A12_CLS_STEPS, A12_STRAT_STEPS = 8, 3, 3, 2
+A12_STRAT_LR = 1e-3
+# the largest relative gap of an SGD update from its reference's, per leaf
+# (_update_gap: a gradient scaled by 2 gives 1, one of flipped sign 2).
+# Read on an H100 80GB HBM3 at 700 W: config 6's fsdp+megatron steps
+# 1.48e-2 from the hand-written step's, the sequence strategy's 2.41e-2
+# from spmd's (the embedding's sparse rows both times)
+A12_SGD_GAP = 0.1
+# config 9's ADAG W=2 window peak of max_memory_allocated (H100 80GB HBM3,
+# 700 W; PERF.md §5), printed beside MeshTrainer's one-model peak
+ADAG_W2_WINDOW_PEAK_GB = 30.0
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -2738,10 +2772,13 @@ def train_ps_lstm_native_wal(torch, train, serial):
 
         flat = None if state is None else FlatSpec(template).flatten(
             state["center"])
-        # a worker whose lease lapsed after its last commit (it waited on
-        # a slower peer) is evicted, and the core retires its dedup entry
-        # and logs the eviction: the recovered table rightly lacks it
-        dropped = _evicted_after_last_commit(wal_dir)
+        # a worker whose lease lapsed is evicted, and the core retires its
+        # dedup entry and logs the eviction; one evicted after its last
+        # commit (it waited on a slower peer) stays out of the recovered
+        # table, one evicted mid-run (a long window) re-registers with its
+        # next commit
+        log_evictions = _wal_evictions(wal_dir)
+        dropped = log_evictions["dropped"]
         want_seq = {w: q for w, q in cap["last_seq"].items()
                     if w not in dropped}
         equal = flat is not None and np.array_equal(flat, cap["center"])
@@ -2774,6 +2811,10 @@ def train_ps_lstm_native_wal(torch, train, serial):
             last_seq_equal=(state is not None
                             and state["last_seq"] == want_seq),
             evicted_after_last_commit=sorted(dropped),
+            log_evictions=log_evictions["evictions"],
+            commits_after_evictions=log_evictions["commits_after"],
+            log_commits=log_evictions["commits"],
+            wal_dir_kept=None,
             fence_epoch=cap["fence_epoch"], recovered_fence_epoch=(
                 None if state is None else state["fence_epoch"]),
             heartbeats=s["heartbeats"], lease_timeout_s=PS5_LEASE,
@@ -2781,16 +2822,22 @@ def train_ps_lstm_native_wal(torch, train, serial):
             dup_commits=s["dup_commits"], commits=s["commits"],
             logical_commits=r["logical_commits"],
             launches=launches, exchange_phases=phases)
-        log(json.dumps(rec))
         fails = _phase_gates("native_wal", t, launches, extra=True)
         if not (ema_equal and rec["ema_moved"]):
             fails.append(f"native_wal: the C++ log's EMA recovers bit-equal "
                          f"{ema_equal} (the live EMA moved from the init: "
                          f"{rec['ema_moved']})")
-        if s["evicted_workers"] != len(dropped):
-            fails.append(f"native_wal: the log evicts {sorted(dropped)} "
-                         f"after their last commits but the core counted "
-                         f"{s['evicted_workers']} evictions")
+        if s["evicted_workers"] != log_evictions["evictions"]:
+            fails.append(f"native_wal: the log holds "
+                         f"{log_evictions['evictions']} evictions but the "
+                         f"core counted {s['evicted_workers']}")
+        if log_evictions["refolded"]:
+            fails.append(f"native_wal: commits folded twice after an "
+                         f"eviction: {log_evictions['refolded']}")
+        if log_evictions["commits"] != cap["num_updates"]:
+            fails.append(f"native_wal: the log folds "
+                         f"{log_evictions['commits']} commits, the core "
+                         f"acknowledged {cap['num_updates']}")
         if not (equal and rec["last_seq_equal"]
                 and rec["recovered_num_updates"] == cap["num_updates"]
                 and rec["recovered_fence_epoch"] == cap["fence_epoch"]
@@ -2802,16 +2849,29 @@ def train_ps_lstm_native_wal(torch, train, serial):
                          f"{rec['recovered_fence_epoch']} (live "
                          f"{cap['fence_epoch']})")
         if fails:
-            raise AssertionError("; ".join(fails))
-        return rec
-    finally:
+            # keep the log for a post-mortem: its path is in the record
+            rec["wal_dir_kept"] = wal_dir
+        log(json.dumps(rec))
+        if fails:
+            raise AssertionError("; ".join(fails) + f" (log kept in "
+                                 f"{wal_dir})")
         shutil.rmtree(wal_dir, ignore_errors=True)
+        return rec
+    except BaseException:
+        log(f"ps_config5_native_wal: the WAL directory is kept at {wal_dir}")
+        raise
 
 
-def _evicted_after_last_commit(wal_dir: str) -> set:
-    """The workers whose eviction a PS log records after their last
-    commit, read from its records in order. The server publishes its base
-    snapshot at version 0 and the phase's commits stay under the snapshot
+def _wal_evictions(wal_dir: str) -> dict:
+    """What a PS log records of evictions, read from its records in order:
+    ``evictions`` (worker ids over every evict record, the core's
+    ``evicted_workers`` count), ``dropped`` (workers whose last evict record
+    follows their last commit: no dedup entry recovers for them),
+    ``commits_after`` ({worker: commit records after its first eviction}),
+    ``commits`` (every commit record: one a fold) and ``refolded`` (a
+    worker's (worker, seq) folded twice, which must stay empty: a replay
+    after an eviction folds once). The server publishes its base snapshot
+    at version 0 and the phase's commits stay under the snapshot
     interval, so the segments hold every record of the run; a later
     snapshot would have folded some away, and raises here."""
     from distkeras_tpu_torch.resilience import wal
@@ -2822,7 +2882,9 @@ def _evicted_after_last_commit(wal_dir: str) -> set:
     if later:
         raise AssertionError(f"{wal_dir} holds snapshots {later}: the "
                              f"log's records before them are gone")
-    last_commit, evicted_at, i = {}, {}, 0
+    last_commit, evicted_at, first_evict, i = {}, {}, {}, 0
+    evictions, commits, seen, refolded = 0, 0, set(), []
+    commits_after: dict = {}
     for name in names:
         if not (name.startswith(wal._SEG_PREFIX)
                 and name.endswith(wal._SEG_SUFFIX)):
@@ -2833,12 +2895,25 @@ def _evicted_after_last_commit(wal_dir: str) -> set:
             i += 1
             kind = wal._REC_NAMES.get(rec_type)
             if kind == "commit":
-                last_commit[int(body[0])] = i
+                w, seq = int(body[0]), body[1]
+                commits += 1
+                last_commit[w] = i
+                if w in first_evict:
+                    commits_after[w] = commits_after.get(w, 0) + 1
+                if seq is not None:
+                    if (w, seq) in seen:
+                        refolded.append((w, seq))
+                    seen.add((w, seq))
             elif kind == "evict":
                 for w in body[0]:
+                    evictions += 1
                     evicted_at[int(w)] = i
-    return {w for w, at in evicted_at.items()
-            if at > last_commit.get(w, 0)}
+                    first_evict.setdefault(int(w), i)
+    dropped = {w for w, at in evicted_at.items()
+               if at > last_commit.get(w, 0)}
+    return dict(evictions=evictions, dropped=dropped, commits=commits,
+                commits_after={str(w): n for w, n in commits_after.items()},
+                refolded=refolded)
 
 
 def _wal_verify(root: str) -> tuple[int, dict, str]:
@@ -5497,6 +5572,385 @@ def run_a10(torch, train, dynsgd_rec) -> dict:
     return out
 
 
+def _world_of_one(torch):
+    """The NCCL world of one a phase runs its meshes in (on the card; gloo
+    on the CPU), made with an explicit device and destroyed by the
+    caller's ``close()`` at the phase's end."""
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh({"dp": 1}, device=DEVICE)
+
+
+def _mesh_trainer(torch, spec, mesh_shape, optimizer, lr, batch, epochs,
+                  **kw):
+    from distkeras_tpu_torch.trainers import MeshTrainer
+
+    return MeshTrainer(spec, loss=LOSS, worker_optimizer=optimizer,
+                       learning_rate=lr, mesh_shape=mesh_shape,
+                       batch_size=batch, num_epoch=epochs, device=DEVICE,
+                       **kw)
+
+
+def _hand_steps(torch, spec, batches, lr, n_feat, optimizer="fused_adam"):
+    """The hand-written single-device step: ``spec``'s loss step (the
+    fused loss where the spec has one) by plain autograd from
+    ``spec.init(0)``, then ``optimizer`` (fused Adam: K5), over
+    ``batches`` in order. Returns the params on the card."""
+    from distkeras_tpu_torch.ops.losses import get_loss
+    from distkeras_tpu_torch.trainers import _make_loss_step, resolve_optimizer
+
+    step = _make_loss_step(spec, get_loss(LOSS), n_feat, LOSS)
+    opt = resolve_optimizer(optimizer, lr)
+    p0, nt = spec.init(0)
+    params = {k: v.to(DEVICE).requires_grad_(True) for k, v in p0.items()}
+    nt = {k: v.to(DEVICE) for k, v in nt.items()}
+    state = opt.init({k: v.detach() for k, v in params.items()})
+    for b in batches:
+        b = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)
+                  for a in b)
+        loss, _ = step(params, nt, b)
+        loss.backward()
+        grads = {k: v.grad for k, v in params.items()}
+        with torch.no_grad():
+            upd, state = opt.update(grads, state, params)
+            for k, v in params.items():
+                v.add_(upd[k].to(v.dtype))
+                v.grad = None
+    return {k: v.detach() for k, v in params.items()}
+
+
+def _max_diff(torch, a: dict, b: dict) -> tuple[float, bool]:
+    diff = max(_err(a[k].to(DEVICE), b[k].to(DEVICE)) for k in a)
+    return diff, all(torch.equal(a[k].to(DEVICE), b[k].to(DEVICE))
+                     for k in a)
+
+
+def _update_gap(torch, p0: dict, ref: dict, got: dict) -> dict:
+    """How far ``got``'s update from ``p0`` lies from ``ref``'s, relative
+    to ``ref``'s: ``|got - ref| / |ref - p0|`` (2-norms), the largest over
+    the leaves (``leaf_max``, with its ``leaf``) and over all of them at
+    once (``all``). Under SGD the gap is the gradient's relative error:
+    a gradient scaled by 2 gives 1, a sign flipped gives 2."""
+    worst, name, num, den = 0.0, None, 0.0, 0.0
+    for k in ref:
+        r, g, z = (t[k].to(DEVICE, torch.float64) for t in (ref, got, p0))
+        n, d = float(torch.sum((g - r) ** 2)), float(torch.sum((r - z) ** 2))
+        gap = (n / d) ** 0.5 if d > 0 else (0.0 if n == 0 else float("inf"))
+        if gap >= worst:
+            worst, name = gap, k
+        num, den = num + n, den + d
+    return dict(leaf_max=worst, leaf=name, all=(num / den) ** 0.5)
+
+
+def _two_step_parity(torch, spec, ds, mesh_shape, n_feat, lr, optimizer,
+                     **kw):
+    """Two steps of ``MeshTrainer`` (``optimizer``, unshuffled, resident)
+    against :func:`_hand_steps` over the same two batches. Under fused
+    Adam (config 9's trainer and kernels on both sides) the params must
+    be equal bit for bit: Adam moves an element ~lr a step whatever its
+    gradient's error, so no looser bound catches a wrong gradient. Under
+    SGD the update's relative gap (:func:`_update_gap`) must stay within
+    A12_SGD_GAP."""
+    feats = ["features", "mask"][:n_feat]
+    B = A12_BATCH
+    rows = ds.gather(np.arange(2 * B))
+    t = _mesh_trainer(torch, spec, mesh_shape, optimizer, lr, B, 1,
+                      input_mode="resident", features_col=feats, **kw)
+    got = t.train(rows)
+    names = feats + ["label"]
+    hand = _hand_steps(torch, spec, [tuple(rows[c][i * B:(i + 1) * B]
+                                           for c in names)
+                                     for i in range(2)], lr, n_feat,
+                       optimizer)
+    diff, bit_equal = _max_diff(torch, got, hand)
+    rec = dict(optimizer=optimizer, max_param_diff=diff,
+               bit_equal=bit_equal, ok=bit_equal)
+    if optimizer == "sgd":
+        gap = _update_gap(torch, spec.init(0)[0], hand, got)
+        rec.update(update_gap=gap, limit=A12_SGD_GAP,
+                   ok=bool(gap["leaf_max"] <= A12_SGD_GAP))
+    return rec
+
+
+def _epoch_losses(t, steps):
+    losses = t.history.losses()
+    return [float(np.mean(losses[i * steps:(i + 1) * steps]))
+            for i in range(len(losses) // steps)], losses
+
+
+def train_a12_config9(torch):
+    """``a12_config9_mesh``: config 9 (``lm_spec`` at full width and depth:
+    flash, RoPE, fused CE in chunks of 512, bf16 compute, f32 params)
+    through ``MeshTrainer(mesh_shape={"dp": 1}, input_mode="resident",
+    worker_optimizer="fused_adam")``, 2 epochs of A12_LM_STEPS steps of
+    batch A12_BATCH, in an NCCL world of one. Gates: the loss finite and
+    its second epoch below the first (the epochs walk the same rows); K2,
+    K3, K4 launched depth × steps times and K5 steps times; two steps
+    equal ``_hand_steps`` bit for bit. Prints tokens/s (epoch 1)
+    and the step's peak memory beside the ADAG W=2 window's peak
+    (ADAG_W2_WINDOW_PEAK_GB)."""
+    from distkeras_tpu_torch.data import next_token_dataset
+
+    t_phase = time.perf_counter()
+    world = _world_of_one(torch)
+    try:
+        spec = lm_spec(torch, LM_DEPTH, "flash")
+        ds = next_token_dataset(lm_tokens(A12_LM_STEPS * A12_BATCH,
+                                          seed=3))
+        parity = _two_step_parity(torch, spec, ds, {"dp": 1}, 1, LM_LR,
+                                  "fused_adam")
+        torch.cuda.empty_cache()
+        t = _mesh_trainer(torch, spec, {"dp": 1}, "fused_adam", LM_LR,
+                          A12_BATCH, 2, input_mode="resident",
+                          log_metrics=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            t0 = time.perf_counter()
+            t.train(ds)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        wall, launches = counted(run)
+        peak = torch.cuda.max_memory_allocated()
+        steps = 2 * A12_LM_STEPS
+        by_epoch, losses = _epoch_losses(t, A12_LM_STEPS)
+        epochs = [m for m in t.metrics_ if "samples_per_sec" in m]
+        rec = dict(
+            phase="a12_config9_mesh", device=SMI, wall_s=wall,
+            mesh={"dp": 1}, batch=A12_BATCH, steps=steps, launches=launches,
+            losses=losses, epoch_losses=by_epoch,
+            tokens_per_s_epoch1=epochs[1]["samples_per_sec"] * LM_L,
+            step_ms_epoch1=1e3 * epochs[1]["wall_time"] / A12_LM_STEPS,
+            peak_memory_gb=peak / 1e9,
+            adag_w2_window_peak_gb=ADAG_W2_WINDOW_PEAK_GB,
+            parity=parity, phase_wall_s=time.perf_counter() - t_phase)
+        log(json.dumps(rec))
+        fails = _a12_gates(launches, steps, LM_DEPTH, by_epoch, losses,
+                           parity, flash=True)
+        if fails:
+            raise AssertionError("a12_config9_mesh: " + "; ".join(fails))
+        return rec
+    finally:
+        world.close()
+        torch.cuda.empty_cache()
+
+
+def _a12_gates(launches, steps, depth, by_epoch, losses, parity,
+               flash=True, adam=True):
+    fails = []
+    if not (np.all(np.isfinite(losses)) and len(by_epoch) == 2
+            and by_epoch[1] < by_epoch[0]):
+        fails.append(f"the loss is not finite or did not fall: epochs "
+                     f"{by_epoch}")
+    if flash:
+        for k in ("flash_attention", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv"):
+            if launches[k] != depth * steps:
+                fails.append(f"{k} launched {launches[k]} times, expected "
+                             f"{depth * steps} (depth × steps)")
+    if adam and launches["fused_adam"] != steps:
+        fails.append(f"fused_adam launched {launches['fused_adam']} times, "
+                     f"expected {steps}")
+    if not parity["ok"]:
+        fails.append(f"two steps differ from the hand-written step: "
+                     f"{parity}")
+    return fails
+
+
+def train_a12_config6(torch):
+    """``a12_config6_mesh``: config 6's classifier at full width (flash,
+    key mask, D=64) through ``MeshTrainer(parameter_sharding=
+    "fsdp+megatron", mesh_shape={"dp": 1, "tp": 1},
+    input_mode="resident")`` with SGD at bench.py's rate (CLS_LR), 2
+    epochs of A12_CLS_STEPS steps, checkpointing each epoch to a ``.dkc``.
+    Gates: the loss finite and falling (epoch means), K2/K3/K4 depth ×
+    steps; two SGD steps' update within A12_SGD_GAP of the hand-written
+    step's; a run of epoch 0 alone, then a resume for epoch 1 from its
+    ``.dkc``, ends bit-equal to the uninterrupted run."""
+    from distkeras_tpu_torch.models import transformer_classifier
+
+    t_phase = time.perf_counter()
+    world = _world_of_one(torch)
+    ck = tempfile.mkdtemp(prefix="dk-a12-ck-")
+    try:
+        spec = transformer_classifier(
+            vocab=CLS_VOCAB, maxlen=CLS_L, dim=CLS_DIM, heads=CLS_HEADS,
+            depth=CLS_DEPTH, dtype=torch.bfloat16, attn_impl="flash")
+        ds = classifier_data(A12_CLS_STEPS * A12_BATCH, seed=4)
+        kw = dict(parameter_sharding="fsdp+megatron",
+                  features_col=["features", "mask"])
+        shape = {"dp": 1, "tp": 1}
+        parity = _two_step_parity(torch, spec, ds, shape, 2, CLS_LR, "sgd",
+                                  parameter_sharding="fsdp+megatron")
+        t = _mesh_trainer(torch, spec, shape, "sgd", CLS_LR, A12_BATCH,
+                          2, input_mode="resident", log_metrics=True,
+                          **kw)
+
+        def run():
+            t0 = time.perf_counter()
+            out = t.train(ds)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        (full, wall), launches = counted(run)
+        first = _mesh_trainer(torch, spec, shape, "sgd", CLS_LR,
+                              A12_BATCH, 1, input_mode="resident",
+                              checkpoint_dir=ck, **kw)
+        first.train(ds)
+        files = sorted(os.listdir(ck))
+        resumed = _mesh_trainer(torch, spec, shape, "sgd", CLS_LR,
+                                A12_BATCH, 2, input_mode="resident",
+                                checkpoint_dir=ck, resume=True, **kw)
+        back = resumed.train(ds)
+        resume_diff, resume_equal = _max_diff(torch, back, full)
+        steps = 2 * A12_CLS_STEPS
+        by_epoch, losses = _epoch_losses(t, A12_CLS_STEPS)
+        epochs = [m for m in t.metrics_ if "samples_per_sec" in m]
+        rec = dict(
+            phase="a12_config6_mesh", device=SMI, wall_s=wall, mesh=shape,
+            parameter_sharding="fsdp+megatron", batch=A12_BATCH,
+            steps=steps, lr=CLS_LR, launches=launches, losses=losses,
+            epoch_losses=by_epoch,
+            samples_per_s_epoch1=epochs[1]["samples_per_sec"],
+            step_ms_epoch1=1e3 * epochs[1]["wall_time"] / A12_CLS_STEPS,
+            parity=parity, checkpoint_files=files,
+            checkpoint_ms=first.checkpoint_ms_,
+            resume_bit_equal=resume_equal, resume_max_diff=resume_diff,
+            resumed_losses=resumed.history.losses(),
+            phase_wall_s=time.perf_counter() - t_phase)
+        log(json.dumps(rec))
+        fails = _a12_gates(launches, steps, CLS_DEPTH, by_epoch, losses,
+                           parity, adam=False)
+        if not (resume_equal and any(f.endswith(".dkc") for f in files)):
+            fails.append(f"the resume from {files} ends {resume_diff} from "
+                         f"the uninterrupted run (bit-equal: "
+                         f"{resume_equal})")
+        if fails:
+            raise AssertionError("a12_config6_mesh: " + "; ".join(fails))
+        return rec
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+        world.close()
+        torch.cuda.empty_cache()
+
+
+def train_a12_strategies(torch, train):
+    """``a12_strategies``: each strategy on a mesh of one rank, A12_STRAT
+    _STEPS steps from one init, against ``strategy="spmd"`` on the same
+    model and rows: ``"sequence"`` (sp=1, the ring's f32 fold against the
+    flash kernels, so SGD) on config 6; ``"expert"`` (ep=1) on the MoE
+    classifier at its default width over config 5's rows and
+    ``"pipeline"`` (pp=1) on config 6 at depth 1, both with fused Adam
+    (the expert run with ``aux_weight=0``: the spmd objective has no
+    load-balancing term). Gates: the losses within 1e-2; the expert and
+    pipeline parameters equal spmd's bit for bit (the same kernels on the
+    same values), the sequence update within A12_SGD_GAP of spmd's
+    (``_update_gap``); K5 once a step of each Adam run; K2–K4 once a
+    layer a step on the flash runs (spmd, pipeline)."""
+    from distkeras_tpu_torch.models import (
+        moe_transformer_classifier,
+        transformer_classifier,
+    )
+
+    t_phase = time.perf_counter()
+    world = _world_of_one(torch)
+    try:
+        def cls(depth):
+            return transformer_classifier(
+                vocab=CLS_VOCAB, maxlen=CLS_L, dim=CLS_DIM, heads=CLS_HEADS,
+                depth=depth, dtype=torch.bfloat16, attn_impl="flash")
+
+        S, B = A12_STRAT_STEPS, A12_BATCH
+        cls_rows = classifier_data(S * B, seed=5)
+        moe_rows = train.gather(np.arange(S * B))
+        runs, fails = {}, []
+        for name, spec, rows, shape, depth, opt in (
+                ("sequence", cls(CLS_DEPTH), cls_rows, {"sp": 1}, None,
+                 "sgd"),
+                ("expert", moe_transformer_classifier(), moe_rows,
+                 {"ep": 1}, None, "fused_adam"),
+                ("pipeline", cls(1), cls_rows, {"pp": 1}, 1, "fused_adam")):
+            out = {}
+            for strategy in ("spmd", name):
+                # the spmd objective has no load-balancing term
+                extra = {"aux_weight": 0.0} if strategy == "expert" else {}
+                t = _mesh_trainer(torch, spec, shape, opt,
+                                  A12_STRAT_LR, B, 1, strategy=strategy,
+                                  input_mode="resident",
+                                  features_col=["features", "mask"], **extra)
+
+                def run():
+                    t0 = time.perf_counter()
+                    p = t.train(rows)
+                    torch.cuda.synchronize()
+                    return p, time.perf_counter() - t0
+
+                (params, wall), launches = counted(run)
+                out[strategy] = dict(params=params, wall_s=wall,
+                                     launches=launches,
+                                     losses=t.history.losses())
+                torch.cuda.empty_cache()
+            a, b = out["spmd"], out[name]
+            diff, bit_equal = _max_diff(torch, a["params"], b["params"])
+            loss_gap = float(np.max(np.abs(np.asarray(a["losses"])
+                                           - np.asarray(b["losses"]))))
+            runs[name] = dict(
+                mesh=shape, steps=S, optimizer=opt, losses_spmd=a["losses"],
+                losses=b["losses"], max_param_diff=diff,
+                bit_equal=bit_equal, loss_gap=loss_gap,
+                launches=b["launches"], launches_spmd=a["launches"],
+                wall_s=b["wall_s"], wall_s_spmd=a["wall_s"])
+            if opt == "sgd":
+                gap = _update_gap(torch, spec.init(0)[0], a["params"],
+                                  b["params"])
+                runs[name].update(update_gap=gap, limit=A12_SGD_GAP)
+                params_ok = gap["leaf_max"] <= A12_SGD_GAP
+            else:
+                params_ok = bit_equal
+            if not (params_ok and loss_gap <= 1e-2
+                    and np.all(np.isfinite(b["losses"]))):
+                fails.append(f"{name}: params {diff} from spmd (bit-equal "
+                             f"{bit_equal}, update gap "
+                             f"{runs[name].get('update_gap')}), losses "
+                             f"{loss_gap} apart")
+            for strategy, r in out.items() if opt == "fused_adam" else ():
+                if r["launches"]["fused_adam"] != S:
+                    fails.append(f"{name}/{strategy}: fused_adam launched "
+                                 f"{r['launches']['fused_adam']} times")
+            flash_runs = [("spmd", a)] + ([(name, b)] if name == "pipeline"
+                                          else [])
+            n_layers = depth or (CLS_DEPTH if name == "sequence" else 0)
+            for strategy, r in flash_runs if n_layers else []:
+                for k in ("flash_attention", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv"):
+                    if r["launches"][k] != n_layers * S:
+                        fails.append(f"{name}/{strategy}: {k} launched "
+                                     f"{r['launches'][k]} times, expected "
+                                     f"{n_layers * S}")
+        rec = dict(phase="a12_strategies", device=SMI, batch=B, runs=runs,
+                   launches={k: sum(r["launches"][k] + r["launches_spmd"][k]
+                                    for r in runs.values())
+                             for k in runs["sequence"]["launches"]},
+                   phase_wall_s=time.perf_counter() - t_phase)
+        log(json.dumps(rec))
+        if fails:
+            raise AssertionError("a12_strategies: " + "; ".join(fails))
+        return rec
+    finally:
+        world.close()
+        torch.cuda.empty_cache()
+
+
+def run_a12(torch, train) -> dict:
+    """One model over a mesh: the three phases in order, each counting
+    its own launches: ``{phase: record}``."""
+    return {"a12_config9_mesh": train_a12_config9(torch),
+            "a12_config6_mesh": train_a12_config6(torch),
+            "a12_strategies": train_a12_strategies(torch, train)}
+
+
 def _build_all(_build) -> dict:
     """Every kernel source with ``nvcc`` (``_build.build``) and, at the
     same time, the native parameter server's C++ core with ``g++``
@@ -5819,6 +6273,10 @@ def main() -> int:
     # SRU and MoE classifiers (K5 on each), config 9 with remat (K2-K5)
     a10 = run_a10(torch, train, dynsgd_rec)
     log(f"model family paths done at {time.perf_counter() - t0:.1f}s")
+    # one model over a mesh: MeshTrainer on config 9 and on config 6
+    # (fsdp+megatron, with a .dkc resume), the three strategies
+    a12 = run_a12(torch, train)
+    log(f"mesh paths done at {time.perf_counter() - t0:.1f}s")
 
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
@@ -5913,6 +6371,7 @@ def main() -> int:
                                 for k in ("int8", "bf16")},
             decode_launches={k: v[name] for k, v in decode_runs.items()},
             a10_launches={k: v["launches"][name] for k, v in a10.items()},
+            a12_launches={k: v["launches"][name] for k, v in a12.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -24,5 +24,25 @@ backend (:mod:`~distkeras_tpu_torch.parameter_servers`,
 (:mod:`~distkeras_tpu_torch.transformers`,
 :mod:`~distkeras_tpu_torch.evaluators`,
 :mod:`~distkeras_tpu_torch.predictors`, the MNIST example in
-``examples``).
+``examples``); and one model over a mesh of ranks
+(:class:`~distkeras_tpu_torch.trainers.MeshTrainer` over
+``parallel.{mesh,tensor,fsdp,pipeline,sequence,expert,strategies}``, the
+cluster launcher :mod:`~distkeras_tpu_torch.job_deployment` and the
+process-sharded checkpoint).
+
+The trainers are exported here as in the JAX package, imported on first
+use, so ``import distkeras_tpu_torch`` stays light.
 """
+
+_TRAINERS = ("ADAG", "AEASGD", "DOWNPOUR", "DynSGD", "EAMSGD", "MeshTrainer",
+             "SingleTrainer", "Trainer")
+
+__all__ = list(_TRAINERS)
+
+
+def __getattr__(name):
+    if name in _TRAINERS:
+        from distkeras_tpu_torch import trainers
+
+        return getattr(trainers, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -23,8 +23,17 @@ layout, so worker state restarts and the trainers resume the elastic way
 (:func:`warn_elastic_resume`). The port does not write files the JAX
 package reads (it cannot pickle a jax treedef).
 
-The process-sharded format of multi-process runs (``.dks``) waits for
-``ROADMAP.md`` A12: a step held only in it raises ``NotImplementedError``.
+The process-sharded format of multi-process runs (``.dks``, the JAX
+package's file layout): each rank writes one file ``ckpt_<step>.p<rank>of
+<world>.dks`` of ``{(leaf index, global starts): block}``, the blocks of
+the leaves it holds (:func:`save_sharded`; a leaf replicated over ranks
+is written once), and rank 0 writes the meta file ``ckpt_<step>.meta.dks``
+(shapes, dtypes, the tree's structure, the process count) after a barrier.
+:func:`load_checkpoint` pastes the blocks back into whole host arrays and
+checks that they cover every element. A ``.dks`` the JAX package wrote
+(its meta pickles a jax treedef) loads the same way, through the stubbing
+unpickler; the port writes its own structure instead, so the JAX package
+does not read the port's ``.dks``.
 """
 
 from __future__ import annotations
@@ -202,8 +211,8 @@ def restore_checkpoint(directory, step: int | None = None) -> tuple:
 
 
 def load_checkpoint(directory, step: int | None = None) -> Restored:
-    """:func:`restore_checkpoint` with the writer's package. A step held in
-    the process-sharded format raises ``NotImplementedError`` (A12)."""
+    """:func:`restore_checkpoint` with the writer's package, from either
+    format."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -213,10 +222,8 @@ def load_checkpoint(directory, step: int | None = None) -> Restored:
     meta = directory / f"{_PREFIX}{step:012d}.meta{_SHARD_SUFFIX}"
     if meta.exists() and (not plain.exists()
                           or _sharded_is_newer(directory, step, plain, meta)):
-        raise NotImplementedError(
-            f"checkpoint {step} under {directory} is in the process-sharded "
-            f"format (.dks), which is not ported yet: ROADMAP.md A12 "
-            f"(meshes across cards)")
+        tree, origin = _restore_sharded(directory, step)
+        return Restored(tree, step, origin)
     if not plain.exists():
         raise FileNotFoundError(f"no checkpoint {step} under {directory}")
     tree, origin = _read_checkpoint(plain.read_bytes())
@@ -327,6 +334,109 @@ def _reference_tree(treedef, leaves: list):
     return stack[0]
 
 
+# -- the process-sharded format ----------------------------------------------
+
+
+def _shard_file(directory: Path, step: int, pidx: int, pcount: int) -> Path:
+    return directory / (f"{_PREFIX}{step:012d}.p{pidx:05d}of{pcount:05d}"
+                        f"{_SHARD_SUFFIX}")
+
+
+def _meta_file(directory: Path, step: int) -> Path:
+    return directory / f"{_PREFIX}{step:012d}.meta{_SHARD_SUFFIX}"
+
+
+def save_sharded(directory, tree: Tree, step: int, keep: int = 3) -> Path:
+    """Write checkpoint ``step`` from every rank of the world (a
+    collective: each rank calls it with its own ``tree``). A leaf with
+    ``pieces``, ``shape``, ``dtype`` and ``write`` (``parallel.tensor.
+    ShardedLeaf``) contributes this rank's blocks when ``write`` is set;
+    any other leaf is whole and identical on every rank, written by rank
+    0. Rank 0 writes the meta file once every rank's file is in place."""
+    import torch.distributed as dist
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    pidx, pcount = dist.get_rank(), dist.get_world_size()
+    leaves, structure = utils.flatten(tree)
+    shards, shapes, dtypes = {}, [], []
+    for i, leaf in enumerate(leaves):
+        if hasattr(leaf, "pieces"):
+            shapes.append(tuple(leaf.shape))
+            dtypes.append(np.dtype(leaf.dtype))
+            if leaf.write:
+                for starts, block in leaf.pieces:
+                    shards[(i, tuple(starts))] = np.asarray(block)
+            continue
+        arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+               else np.asarray(leaf))
+        shapes.append(tuple(arr.shape))
+        dtypes.append(arr.dtype)
+        if pidx == 0:
+            shards[(i, (0,) * arr.ndim)] = arr
+    final = _shard_file(directory, step, pidx, pcount)
+    _atomic_write(final, pickle.dumps({"shards": shards}))
+    # every rank's file durable before the meta makes the step visible
+    dist.barrier()
+    if pidx == 0:
+        meta = {"structure": structure, "shapes": shapes, "dtypes": dtypes,
+                "step": step, "processes": pcount}
+        _atomic_write(_meta_file(directory, step), pickle.dumps(meta))
+        _atomic_write(directory / "latest.json", json.dumps(
+            {"step": step, "file": _meta_file(directory, step).name}
+        ).encode())
+        _prune_old_steps(directory, keep, current=step)
+    dist.barrier()
+    return final
+
+
+def _load_pickle(path: Path, what: str):
+    try:
+        return _StubbingUnpickler(io.BytesIO(path.read_bytes())).load()
+    except Exception as e:
+        raise ValueError(f"checkpoint {what} {path.name} is truncated or "
+                         f"corrupt ({type(e).__name__}: {e})") from e
+
+
+def _restore_sharded(directory: Path, step: int) -> tuple:
+    """``(tree, origin)`` of a ``.dks`` step: every process's blocks
+    pasted into whole host arrays, each element covered exactly."""
+    meta_path = _meta_file(directory, step)
+    meta = _load_pickle(meta_path, "meta file")
+    leaves = [np.zeros(s, d) for s, d in zip(meta["shapes"], meta["dtypes"])]
+    covered = [0] * len(leaves)
+    seen: set = set()
+    pcount = int(meta["processes"])
+    for pidx in range(pcount):
+        path = _shard_file(directory, step, pidx, pcount)
+        if not path.exists():
+            raise FileNotFoundError(
+                f"checkpoint {step} is missing shard file {path.name} "
+                f"(wrote from {pcount} processes)")
+        for (i, starts), data in _load_pickle(path, "shard file")[
+                "shards"].items():
+            if (i, starts) in seen:
+                continue  # replicated across processes
+            seen.add((i, starts))
+            data = np.asarray(data)
+            region = tuple(slice(st, st + sz)
+                           for st, sz in zip(starts, data.shape))
+            leaves[i][region] = data
+            covered[i] += data.size
+    for i, leaf in enumerate(leaves):
+        if covered[i] != leaf.size:
+            raise ValueError(
+                f"checkpoint {step} leaf {i}: shards cover {covered[i]} of "
+                f"{leaf.size} elements — corrupt or incomplete snapshot")
+    if "structure" in meta:
+        return utils.unflatten(meta["structure"], leaves), "port"
+    if "treedef" in meta:
+        return _reference_tree(meta["treedef"], leaves), "jax"
+    raise ValueError("sharded checkpoint meta carries neither a structure "
+                     "nor a treedef")
+
+
 __all__ = ["AsyncCheckpointer", "Restored", "host_copy", "latest_step",
            "load_checkpoint", "restore_checkpoint", "save_checkpoint",
+           "save_sharded",
            "should_checkpoint", "warn_elastic_resume"]

@@ -279,6 +279,30 @@ def center_from_jax(tree, spec) -> dict:
     return out
 
 
+def _tree_index(node, i):
+    if isinstance(node, Mapping):
+        return {k: _tree_index(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def stages_from_jax(split, module) -> dict:
+    """The JAX package's pipeline engine layout, ``{"stages": the block
+    tree with every leaf stacked on a leading [S], "rest": the other
+    leaves}`` (``parallel.strategies.split_pipeline_params`` there), as
+    the port's: ``{name: tensor}`` with the blocks' leaves under
+    ``stages.<leaf> [S, …]`` (the port's ``split_pipeline_params``)."""
+    from distkeras_tpu_torch.parallel.strategies import split_pipeline_params
+
+    first = split["stages"]
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    depth = int(np.shape(first)[0])
+    tree = dict(split["rest"])
+    for i in range(depth):
+        tree[f"blocks_{i}"] = _tree_index(split["stages"], i)
+    return split_pipeline_params(tensors_from_jax(tree, module), depth)
+
+
 def nt_from_jax(nt, spec) -> dict:
     """The stacked non-trainable state of a checkpoint the JAX package
     wrote (``{"batch_stats": tree}`` with a leading worker axis, or

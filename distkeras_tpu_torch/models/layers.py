@@ -20,7 +20,9 @@ import torch.nn.functional as F
 import torch.utils._pytree as pytree
 from torch import nn
 
+from distkeras_tpu_torch.parallel import mesh as mesh_mod
 from distkeras_tpu_torch.parallel.local_sgd import worker_mean
+from distkeras_tpu_torch.parallel.tensor import embed_lookup, parallel_linear
 
 _TRUNC = .87962566103423978   # stddev of a unit normal truncated at ±2
 
@@ -37,13 +39,16 @@ class Dense(nn.Module):
     """flax ``nn.Dense``: ``weight [out, in]`` and ``bias`` in f32, the
     product in ``dtype``. ``nhwc_from = (C, H, W)`` marks a Dense that
     reads a flattened conv feature map: the port flattens NCHW, flax NHWC,
-    so the weight bridge permutes its columns."""
+    so the weight bridge permutes its columns. ``parallel`` is the layer's
+    Megatron role ("column", "row" or None), applied while a
+    tensor-parallel context is active (``parallel/tensor.py``)."""
 
     def __init__(self, in_features: int, features: int, dtype=torch.float32,
-                 nhwc_from: tuple | None = None):
+                 nhwc_from: tuple | None = None, parallel: str | None = None):
         super().__init__()
         self.dtype = dtype
         self.nhwc_from = nhwc_from
+        self.parallel = parallel
         self.weight = nn.Parameter(torch.empty((features, in_features)))
         self.bias = nn.Parameter(torch.zeros(features))
 
@@ -52,8 +57,8 @@ class Dense(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return parallel_linear(x, self.weight, self.bias, self.parallel,
+                               self.dtype)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -159,7 +164,8 @@ def prefixed(prefix: str, state: dict) -> dict:
 class Embed(nn.Module):
     """flax ``nn.Embed``: an f32 table ``weight [vocab, dim]`` whose rows
     are gathered and then cast to ``dtype`` (the same values as casting
-    the table first)."""
+    the table first); vocab-parallel under a tensor-parallel context
+    (``parallel.tensor.embed_lookup``)."""
 
     def __init__(self, vocab: int, dim: int, dtype=torch.float32):
         super().__init__()
@@ -171,7 +177,7 @@ class Embed(nn.Module):
                             generator=generator)
 
     def forward(self, tokens):
-        return F.embedding(tokens.to(torch.int64), self.weight).to(self.dtype)
+        return embed_lookup(self.weight, tokens).to(self.dtype)
 
 
 def reset_children(module: nn.Module, generator) -> None:
@@ -217,8 +223,10 @@ def remat_block(block: nn.Module, *args):
     pass: activations inside the block are not kept, and the backward
     pays one more forward of it. The block's parameters are explicit
     inputs of the Function and keep their names; ``args`` may hold
-    ``None`` and tuples of tensors (a RoPE table)."""
+    ``None`` and tuples of tensors (a RoPE table). The recompute runs
+    under the mesh context of the forward (a strategy's groups)."""
     names, params = zip(*block.named_parameters())
+    ctx = mesh_mod.context()
     flat, spec = pytree.tree_flatten(args)
     where = [i for i, a in enumerate(flat) if isinstance(a, torch.Tensor)]
     n = len(names)
@@ -227,8 +235,9 @@ def remat_block(block: nn.Module, *args):
         leaves = list(flat)
         for i, t in zip(where, tensors[n:]):
             leaves[i] = t
-        return torch.func.functional_call(
-            block, dict(zip(names, tensors[:n])),
-            tuple(pytree.tree_unflatten(leaves, spec)))
+        with mesh_mod.using(ctx):
+            return torch.func.functional_call(
+                block, dict(zip(names, tensors[:n])),
+                tuple(pytree.tree_unflatten(leaves, spec)))
 
     return _Remat.apply(run, *params, *(flat[i] for i in where))

@@ -49,6 +49,11 @@ from distkeras_tpu_torch.ops.flash_attention import (
 )
 from distkeras_tpu_torch.ops.fused_ce import chunked_softmax_cross_entropy
 from distkeras_tpu_torch.ops.quant import QDense, quantize
+from distkeras_tpu_torch.parallel.tensor import (
+    embed_lookup,
+    parallel_linear,
+    tp_heads,
+)
 from distkeras_tpu_torch.utils import resolve_device
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm's default (torch's is 1e-5)
@@ -87,6 +92,7 @@ class Dense(nn.Module):
                  param_dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.parallel = None    # a Megatron role, set by DecoderBlock
         pdt = param_dtype or dtype
         self.weight = nn.Parameter(torch.empty(
             (features, in_features), dtype=pdt, device=device))
@@ -94,8 +100,8 @@ class Dense(nn.Module):
                                              device=device))
 
     def forward(self, x):
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return parallel_linear(x, self.weight, self.bias, self.parallel,
+                               self.dtype)
 
 
 def _layer_norm(dim, device):
@@ -132,16 +138,25 @@ class DecoderBlock(nn.Module):
         self.ln_mlp = _layer_norm(dim, device)
         self.mlp_up = dense(dim, mlp_ratio * dim, **kw)
         self.mlp_down = dense(mlp_ratio * dim, dim, **kw)
+        if not quant:
+            # Megatron roles, applied under a tensor-parallel context
+            for name, role in (("qkv", "column"), ("attn_out", "row"),
+                               ("mlp_up", "column"), ("mlp_down", "row")):
+                getattr(self, name).parallel = role
 
     def _project_qkv(self, x):
         """→ q [B, L, H, Dh], k/v [B, L, Hkv, Dh]."""
         B, L, _ = x.shape
         h = self.ln_attn(x)
         qkv = self.qkv(h.to(self.dtype))
-        hd, kd = self.heads * self.dh, self.hkv * self.dh
-        q = qkv[..., :hd].reshape(B, L, self.heads, self.dh)
-        k = qkv[..., hd:hd + kd].reshape(B, L, self.hkv, self.dh)
-        v = qkv[..., hd + kd:].reshape(B, L, self.hkv, self.dh)
+        # this rank's heads under a tensor-parallel context (QDense, the
+        # served int8 layer, has no role)
+        role = getattr(self.qkv, "parallel", None)
+        heads, hkv = tp_heads(self.heads, role), tp_heads(self.hkv, role)
+        hd, kd = heads * self.dh, hkv * self.dh
+        q = qkv[..., :hd].reshape(B, L, heads, self.dh)
+        k = qkv[..., hd:hd + kd].reshape(B, L, hkv, self.dh)
+        v = qkv[..., hd + kd:].reshape(B, L, hkv, self.dh)
         return q, k, v
 
     def _mlp(self, x):
@@ -162,7 +177,7 @@ class DecoderBlock(nn.Module):
         else:
             att = attention(q, k, v, causal=True, key_mask=mask,
                             impl=self.attn_impl, window=self.attn_window)
-        att = att.reshape(B, L, self.dim)
+        att = att.reshape(B, L, -1)
         x = x + self.attn_out(att.to(self.dtype)).to(torch.float32)
         return x, k, v
 
@@ -366,7 +381,7 @@ class TransformerLM(nn.Module):
     def _tokens(self, tokens):
         """Embedding rows in the model dtype, widened to f32 (flax's
         ``nn.Embed(dtype=...)`` then ``astype(f32)``)."""
-        return self.embed(tokens.to(torch.int64)).to(self.dtype) \
+        return embed_lookup(self.embed.weight, tokens).to(self.dtype) \
             .to(torch.float32)
 
     def _embed_at(self, tokens, pos0: int = 0):

@@ -2,10 +2,11 @@
 ``distkeras_tpu/models/moe.py``.
 
 Encoder blocks whose feed-forward is the GShard-style MoE layer of
-:mod:`distkeras_tpu_torch.parallel.expert`, run on one device
-(``moe_mlp_reference``); the expert-parallel placement over an ``ep``
-mesh axis (``mesh=``) belongs to the parallelism portfolio and raises
-until it is ported.
+:mod:`distkeras_tpu_torch.parallel.expert`: on one device
+(``moe_mlp_reference``), or expert-parallel over an ``ep`` axis
+(``moe_mlp_shard``) while an expert-parallel context is active, which
+``moe_transformer_classifier(mesh=...)`` and ``MeshTrainer(strategy=
+"expert")`` set around the forward.
 
 The gating auxiliary (load-balancing) loss: flax ``sow``s it into a
 ``moe_aux`` collection, but a forward under ``torch.func.vmap`` cannot
@@ -17,18 +18,23 @@ params.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
 from distkeras_tpu_torch.model import ModelSpec, from_module
 from distkeras_tpu_torch.models.layers import Dense, Embed
 from distkeras_tpu_torch.models.transformer import (
-    _MESH,
     LayerNorm,
     attention_sublayer,
     sincos_positions,
 )
-from distkeras_tpu_torch.parallel.expert import moe_mlp_reference
+from distkeras_tpu_torch.parallel import mesh as mesh_mod
+from distkeras_tpu_torch.parallel.expert import (
+    moe_mlp_reference,
+    moe_mlp_shard,
+)
 
 
 class MoEEncoderBlock(nn.Module):
@@ -48,8 +54,8 @@ class MoEEncoderBlock(nn.Module):
         self.top_k, self.capacity_factor = top_k, capacity_factor
         E, D, Hd = num_experts, dim, mlp_ratio * dim
         self.ln_attn = LayerNorm(dim)
-        self.qkv = Dense(dim, 3 * dim, dtype)
-        self.attn_out = Dense(dim, dim, dtype)
+        self.qkv = Dense(dim, 3 * dim, dtype, parallel="column")
+        self.attn_out = Dense(dim, dim, dtype, parallel="row")
         self.ln_moe = LayerNorm(dim)
         self.gate = nn.Parameter(torch.empty((D, E)))
         self.w1 = nn.Parameter(torch.empty((E, D, Hd)))
@@ -73,9 +79,15 @@ class MoEEncoderBlock(nn.Module):
         h = self.ln_moe(x)
         params = {"gate": self.gate, "w1": self.w1, "b1": self.b1,
                   "w2": self.w2, "b2": self.b2}
-        y, aux = moe_mlp_reference(
-            params, h.reshape(B * L, D).to(torch.float32), top_k=self.top_k,
-            capacity_factor=self.capacity_factor)
+        tokens = h.reshape(B * L, D).to(torch.float32)
+        ep = mesh_mod.context().ep_group
+        if ep is not None:
+            y, aux = moe_mlp_shard(params, tokens, ep, top_k=self.top_k,
+                                   capacity_factor=self.capacity_factor)
+        else:
+            y, aux = moe_mlp_reference(
+                params, tokens, top_k=self.top_k,
+                capacity_factor=self.capacity_factor)
         return x + y.reshape(B, L, D), aux
 
 
@@ -90,7 +102,7 @@ class MoETransformerClassifier(nn.Module):
                  num_classes: int = 2, causal: bool = False,
                  dtype=torch.bfloat16):
         super().__init__()
-        self.depth = depth
+        self.depth, self.num_experts = depth, num_experts
         self.embed = Embed(vocab, dim, dtype)
         for i in range(depth):
             self.add_module(f"block_{i}", MoEEncoderBlock(
@@ -147,12 +159,12 @@ def moe_transformer_classifier(vocab=20000, maxlen=200, dim=128, heads=4,
                                causal=False, dtype=torch.bfloat16,
                                mesh=None, ep_axis="ep") -> ModelSpec:
     """The MoE classifier as a ``ModelSpec``: features ``(tokens, mask)``
-    (``features_col=["features", "mask"]``), f32 master params. ``mesh``
-    (expert parallelism over ``ep_axis``) raises until A12 is ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"moe_transformer_classifier(mesh=...) (experts sharded over "
-            f"the {ep_axis!r} axis) is not ported yet: {_MESH}")
+    (``features_col=["features", "mask"]``), f32 master params. With
+    ``mesh`` its apply runs the MoE layers expert-parallel over
+    ``ep_axis``: every rank passes the whole params and batch, routes its
+    slice of the tokens and computes with its ``E/N`` experts (sliced from
+    the whole ``[E, …]`` leaves); the logits are the same on every
+    rank."""
     module = MoETransformerClassifier(
         vocab=vocab, maxlen=maxlen, dim=dim, heads=heads, depth=depth,
         num_experts=num_experts, top_k=top_k,
@@ -160,5 +172,24 @@ def moe_transformer_classifier(vocab=20000, maxlen=200, dim=128, heads=4,
         causal=causal, dtype=dtype)
     example = (torch.zeros((1, maxlen), dtype=torch.int64),
                torch.ones((1, maxlen), dtype=torch.float32))
-    return from_module(module, name="moe_transformer_classifier",
+    spec = from_module(module, name="moe_transformer_classifier",
                        example=example)
+    if mesh is None:
+        return spec
+    if num_experts % mesh.size(ep_axis):
+        raise ValueError(f"{num_experts} experts not divisible by mesh "
+                         f"axis '{ep_axis}' of size {mesh.size(ep_axis)}")
+    group, inner = mesh.group(ep_axis), spec.apply
+
+    def apply(params, state, x, training):
+        params = {k: (mesh_mod.split_to(v, group, 0)
+                      if k.rsplit(".", 1)[-1] in _EXPERT_LEAVES else v)
+                  for k, v in params.items()}
+        with mesh_mod.using(mesh_mod.MeshContext(ep_group=group)):
+            return inner(params, state, x, training)
+
+    return dataclasses.replace(spec, apply=apply)
+
+
+#: the expert-stacked leaves (``[E, …]``) of a MoE block
+_EXPERT_LEAVES = ("w1", "b1", "w2", "b2")

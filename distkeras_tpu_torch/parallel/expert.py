@@ -1,5 +1,5 @@
-"""Mixture of experts: the GShard-style MoE MLP on one device. Port of the
-single-device part of ``distkeras_tpu/parallel/expert.py``.
+"""Mixture of experts: the GShard-style MoE MLP, on one device and over an
+``ep`` mesh axis. Port of ``distkeras_tpu/parallel/expert.py``.
 
 A learned gate picks ``top_k`` experts a token; tokens are packed into
 per-expert capacity slots through one-hot dispatch and combine tensors
@@ -9,9 +9,13 @@ they contribute zero, and the residual around the layer carries them.
 Everything is differentiable through the combine weights (the softmax
 probabilities).
 
-The expert-parallel :func:`moe_mlp` (tokens and experts exchanged with an
-``all_to_all`` over an ``ep`` mesh axis) belongs to the parallelism
-portfolio and raises until it is ported.
+Over an ``ep`` axis (:func:`moe_mlp`, :func:`moe_mlp_shard`) each rank
+routes its own slice of the tokens and holds ``E/N`` of the experts; the
+dispatched slots travel to their experts' rank and back with a
+differentiable ``all_to_all_single``, capacity counted a rank (the GShard
+convention), and the aux loss is the mean of the ranks'. Every replicated
+input (the tokens, the gate) enters through a conjugate operator, so its
+gradient comes back whole on every rank.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-_MESH = "ROADMAP.md A12 (parallelism portfolio)"
+from distkeras_tpu_torch.parallel import mesh as mesh_mod
 
 
 def init_moe_params(rng: np.random.Generator, d_model: int, d_hidden: int,
@@ -112,10 +116,55 @@ def moe_mlp_reference(params, x, top_k: int = 1,
     return torch.einsum("tec,ecd->td", combine, out).to(x.dtype), aux
 
 
+def moe_mlp_shard(params, x, group, top_k: int = 1,
+                  capacity_factor: float = 2.0):
+    """The expert-parallel MoE MLP on one rank of ``group``: ``x [T, d]``
+    the tokens every rank holds alike, ``params["gate"] [d, E]`` whole,
+    the expert leaves this rank's ``[E/N, …]``. The rank routes tokens
+    ``r·T/N …``; returns ``(y [T, d], aux)``, the same on every rank."""
+    N = mesh_mod._gsize(group)
+    E = params["gate"].shape[1]
+    T = x.shape[0]
+    if E % N:
+        raise ValueError(f"{E} experts not divisible by the ep axis of "
+                         f"size {N}")
+    if T % N:
+        raise ValueError(f"{T} tokens not divisible by the ep axis of "
+                         f"size {N}")
+    capacity = max(1, int(capacity_factor * (T // N) * top_k / E))
+    xl = mesh_mod.split_to(x.to(torch.float32), group, 0)
+    gate = mesh_mod.copy_to(params["gate"], group)
+    dispatch, combine, aux = _dispatch_combine(xl @ gate, E, capacity, top_k)
+    xin = torch.einsum("tec,td->ecd", dispatch, xl)
+    # [E, C, d] → each rank its expert group: [E/N, N·C, d]
+    xin = mesh_mod.all_to_all(xin, group, 0, 1)
+    out = _expert_mlp(params["w1"], params["b1"], params["w2"], params["b2"],
+                      xin)
+    out = mesh_mod.all_to_all(out, group, 1, 0)
+    y = torch.einsum("tec,ecd->td", combine, out).to(x.dtype)
+    return (mesh_mod.gather_from(y, group, 0),
+            mesh_mod.reduce_from(aux, group) / N)
+
+
 def moe_mlp(params, x, mesh, axis: str = "ep", top_k: int = 1,
             capacity_factor: float = 2.0):
-    """The expert-parallel MoE MLP over a mesh axis: not ported yet."""
-    raise NotImplementedError(
-        f"moe_mlp (experts sharded over an {axis!r} mesh axis, all_to_all "
-        f"exchange) is not ported yet: {_MESH}; moe_mlp_reference runs the "
-        f"same math on one device")
+    """Expert-parallel MoE MLP: tokens AND experts split over ``axis``.
+    Every rank passes the whole ``params`` (:func:`init_moe_params`, as
+    tensors; ``E`` divisible by the axis size) and the whole ``x [T,
+    d]`` (``T`` divisible too); capacity a rank is ``capacity_factor ·
+    (T/N) · top_k / E``. Returns ``(y [T, d], aux)`` on every rank, ``y``
+    equal to :func:`moe_mlp_reference` when no token overflows; the
+    gradients of ``params`` and ``x`` come back whole on every rank."""
+    N = mesh.size(axis)
+    E = params["gate"].shape[1]
+    if E % N:
+        raise ValueError(f"{E} experts not divisible by mesh axis "
+                         f"'{axis}' of size {N}")
+    if x.shape[0] % N:
+        raise ValueError(f"{x.shape[0]} tokens not divisible by mesh axis "
+                         f"'{axis}' of size {N}")
+    g = mesh.group(axis)
+    local = {k: (v if k == "gate" else mesh_mod.split_to(v, g, 0))
+             for k, v in params.items()}
+    return moe_mlp_shard(local, x, g, top_k=top_k,
+                         capacity_factor=capacity_factor)

@@ -52,8 +52,8 @@ class ModelPredictor:
                 f"distkeras_tpu_torch ModelSpec, got {type(model)}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= is not ported yet: ROADMAP.md A12 (meshes across "
-                "cards)")
+                "mesh= is not ported yet: ROADMAP.md A12.2 (W workers over "
+                "processes, one card each)")
         self.device = resolve_device(device)
         self.spec = model
         self.params = _to_device(params, self.device)

@@ -36,9 +36,15 @@ of the workers), also from a checkpoint the JAX package wrote (its center
 carries over); ``ema_decay`` keeps a Polyak average of the center,
 ``ema_params_``, per window on the collective backend and per commit on
 the PS. Kwargs whose machinery belongs to a later slice of the port (the
-PS backend's observability knobs, meshes) are accepted by
-name and raise ``NotImplementedError`` naming their ``ROADMAP.md`` item
-when set to anything but their default: nothing is silently ignored.
+PS backend's observability knobs, ``mesh=`` of W workers over
+processes) are accepted by name and raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item when set to anything but their default:
+nothing is silently ignored.
+
+:class:`MeshTrainer` trains ONE model over a mesh of ranks (one process
+a device, ``torch.distributed``): data × Megatron tensor parallelism,
+FSDP, and the pipeline, sequence and expert strategies of
+``parallel/strategies.py``, with the JAX class's kwargs and checks.
 """
 
 from __future__ import annotations
@@ -83,7 +89,7 @@ from distkeras_tpu_torch.utils import tree_map
 
 #: reference kwargs of later slices: name → (default, ROADMAP item)
 _LATER = {
-    "mesh": (None, "A12 (meshes across cards)"),
+    "mesh": (None, "A12.2 (W workers over processes, one card each)"),
     "deploy_streamer": (None, "A13 (deploy streaming)"),
 }
 for _item, _knobs in {
@@ -411,6 +417,43 @@ class Trainer:
             return Dataset.from_arrays(*dataset)
         raise TypeError(f"expected Dataset or (features, labels), got "
                         f"{type(dataset)}")
+
+    def _dispatch_checkpoint(self, payload, epoch: int) -> None:
+        """One checkpoint write, on a background thread with
+        ``checkpoint_async`` (its host copy on this one), else here."""
+        from distkeras_tpu_torch import checkpoint as ckpt
+
+        if self.checkpoint_async:
+            if self._async_ckpt is None:
+                self._async_ckpt = ckpt.AsyncCheckpointer()
+            self._async_ckpt.save(self.checkpoint_dir, payload, step=epoch)
+        else:
+            ckpt.save_checkpoint(self.checkpoint_dir, payload, step=epoch)
+
+    def _finish_checkpoints(self) -> None:
+        """Join an in-flight async save and re-raise its failure (from a
+        ``finally``: an aborted run neither drops nor hides one)."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+
+    def _make_validator(self):
+        """The ``validation_data`` evaluator, or None; built before training
+        starts, so a malformed set fails fast."""
+        if self.validation_data is None:
+            return None
+        return _Validator(
+            self.spec, self.loss_fn,
+            self._coerce_dataset(self.validation_data), self.features_col,
+            self.label_col, self.batch_size, self.device,
+            fused_loss=(self.spec.fused_losses or {}).get(self.loss))
+
+    def _validate_epoch(self, validator, params, nt, epoch):
+        rec = validator(params, nt)
+        rec = {"epoch": epoch, **rec} if epoch is not None else dict(rec)
+        self.metrics_.append(rec)
+        self.history.append(**rec)
+        if self.log_metrics:
+            print(json.dumps({"metric": "validation", **rec}), flush=True)
 
     def _finalize(self, params, nt):
         """Keep the trained trees; a Keras model gets them written back and
@@ -879,24 +922,6 @@ class DistributedTrainer(Trainer):
     def allocate_merge_rule(self) -> MergeRule:
         raise NotImplementedError
 
-    def _dispatch_checkpoint(self, payload, epoch: int) -> None:
-        """One checkpoint write, on a background thread with
-        ``checkpoint_async`` (its host copy on this one), else here."""
-        from distkeras_tpu_torch import checkpoint as ckpt
-
-        if self.checkpoint_async:
-            if self._async_ckpt is None:
-                self._async_ckpt = ckpt.AsyncCheckpointer()
-            self._async_ckpt.save(self.checkpoint_dir, payload, step=epoch)
-        else:
-            ckpt.save_checkpoint(self.checkpoint_dir, payload, step=epoch)
-
-    def _finish_checkpoints(self) -> None:
-        """Join an in-flight async save and re-raise its failure (from a
-        ``finally``: an aborted run neither drops nor hides one)."""
-        if self._async_ckpt is not None:
-            self._async_ckpt.wait()
-
     def _maybe_checkpoint(self, state, epoch: int) -> None:
         """The epoch's checkpoint when the cadence calls for one; its time
         on this thread (the whole save, or the async host copy) lands in
@@ -942,25 +967,6 @@ class DistributedTrainer(Trainer):
             # an aborted run neither drops an in-flight save nor hides its
             # failure
             self._finish_checkpoints()
-
-    def _make_validator(self):
-        """The ``validation_data`` evaluator, or None; built before training
-        starts, so a malformed set fails fast."""
-        if self.validation_data is None:
-            return None
-        return _Validator(
-            self.spec, self.loss_fn,
-            self._coerce_dataset(self.validation_data), self.features_col,
-            self.label_col, self.batch_size, self.device,
-            fused_loss=(self.spec.fused_losses or {}).get(self.loss))
-
-    def _validate_epoch(self, validator, params, nt, epoch):
-        rec = validator(params, nt)
-        rec = {"epoch": epoch, **rec} if epoch is not None else dict(rec)
-        self.metrics_.append(rec)
-        self.history.append(**rec)
-        if self.log_metrics:
-            print(json.dumps({"metric": "validation", **rec}), flush=True)
 
     def _train_ps(self, ds: Dataset, shuffle: bool):
         """``backend="ps"``: worker threads against a parameter server; the
@@ -1192,6 +1198,318 @@ class DynSGD(AsynchronousDistributedTrainer):
         return DynSGDMerge()
 
 
+class MeshTrainer(Trainer):
+    """Synchronous training of ONE model over a mesh of ranks, the
+    parallelism portfolio, selected by ``strategy``:
+
+    - ``"spmd"`` (default): data parallelism over ``dp`` × Megatron tensor
+      parallelism over ``tp``; ``parameter_sharding`` picks the layout
+      (``"megatron"``, ``"fsdp"`` (ZeRO-3), ``"fsdp+megatron"``). The math
+      equals single-device training on the global batch.
+    - ``"pipeline"``: GPipe, the classifier's blocks as stages over ``pp``
+      (``depth == mesh.size('pp')``), each rank storing its stage; an
+      optional ``dp`` axis; ``microbatches`` sets the bubble.
+    - ``"sequence"``: ring attention, activations split along L over
+      ``sp``; an optional ``dp`` axis.
+    - ``"expert"``: GShard MoE over ``ep``: experts split, tokens exchanged
+      with ``all_to_all``, the gating aux loss (weight ``aux_weight``) in
+      the objective; needs ``moe_transformer_classifier``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``) or ``mesh_shape`` (e.g. ``{"dp":
+    2, "tp": 2}``; default: every rank of the world on ``dp``) place it;
+    one rank needs no launcher (the mesh makes a world of one, NCCL on
+    the card, gloo on the CPU; :meth:`close` destroys it). Every rank runs
+    ``train`` over the same dataset and seed. ``param_specs`` overrides
+    the layout with explicit specs; ``grad_accum=A`` accumulates the
+    gradients of A equal microbatches a step; ``input_mode`` "resident"
+    keeps the dataset on the device ("auto": when it fits
+    ``device_data_budget_bytes``), "stream" feeds each step from the host
+    (``prefetch`` deep); ``ema_decay`` keeps a Polyak average of the
+    parameters a step (``ema_params_``; streaming only); ``clipnorm``
+    clips the global norm over every shard. ``checkpoint_dir`` /
+    ``checkpoint_every`` / ``resume`` / ``checkpoint_async`` snapshot the
+    parameters and optimizer state in the global layout at epoch
+    boundaries: a ``.dkc`` from one rank, the process-sharded ``.dks``
+    from several (each rank writes its shards); a resume re-shards them
+    onto the mesh. ``profile_dir`` records a ``torch.profiler`` trace. A
+    Keras model trains data-parallel and gets its weights written back.
+    """
+
+    device_data_budget_bytes = 1 << 30
+
+    def __init__(self, keras_model, loss="sparse_softmax_cross_entropy",
+                 worker_optimizer="adam", learning_rate: float = 1e-3,
+                 mesh=None, mesh_shape: dict | None = None, param_specs=None,
+                 strategy: str = "spmd",
+                 parameter_sharding: str = "megatron",
+                 grad_accum: int = 1, microbatches: int | None = None,
+                 aux_weight: float = 1e-2,
+                 batch_size: int = 32, features_col="features",
+                 label_col: str = "label", num_epoch: int = 1, seed: int = 0,
+                 log_metrics: bool = False,
+                 checkpoint_dir=None, checkpoint_every: int = 1,
+                 resume: bool = False, checkpoint_async: bool = False,
+                 profile_dir=None,
+                 input_mode: str = "auto", prefetch: int = 1,
+                 ema_decay: float | None = None,
+                 clipnorm=None, clipvalue=None, validation_data=None,
+                 device="cuda"):
+        from distkeras_tpu_torch.parallel.strategies import STRATEGIES
+        from distkeras_tpu_torch.parallel.tensor import get_mesh_nd
+
+        super().__init__(keras_model, loss, worker_optimizer,
+                         learning_rate=learning_rate, seed=seed,
+                         clipnorm=clipnorm, clipvalue=clipvalue)
+        self.validation_data = validation_data
+        self.param_specs = param_specs
+        if strategy not in ("spmd",) + tuple(STRATEGIES):
+            raise ValueError(
+                f"strategy={strategy!r}: expected 'spmd', "
+                f"{', '.join(repr(s) for s in STRATEGIES)}")
+        self.strategy = strategy
+        if parameter_sharding not in ("megatron", "fsdp", "fsdp+megatron"):
+            raise ValueError(
+                f"parameter_sharding={parameter_sharding!r}: expected "
+                f"'megatron', 'fsdp', or 'fsdp+megatron'")
+        if strategy != "spmd" and parameter_sharding != "megatron":
+            raise ValueError(
+                f"parameter_sharding={parameter_sharding!r} only applies to "
+                f"strategy='spmd'; {strategy!r} fixes its own layout")
+        self.parameter_sharding = parameter_sharding
+        self.grad_accum = int(grad_accum)
+        self.microbatches = microbatches
+        self.aux_weight = float(aux_weight)
+        self.batch_size = int(batch_size)
+        self.features_col: list[str] = _as_cols(features_col)
+        self.label_col = label_col
+        self.num_epoch = int(num_epoch)
+        self.log_metrics = bool(log_metrics)
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
+        self.resume = bool(resume)
+        self.checkpoint_async = bool(checkpoint_async)
+        self._async_ckpt = None
+        self.checkpoint_ms_: list[float] = []
+        self.profile_dir = profile_dir
+        self.profile_path_ = None
+        if input_mode not in ("auto", "stream", "resident"):
+            raise ValueError(
+                f"input_mode={input_mode!r}: expected 'auto', 'stream', or "
+                f"'resident'")
+        self.input_mode = input_mode
+        self.prefetch = int(prefetch)
+        self.ema_decay = validate_ema_decay(ema_decay)
+        self.ema_params_ = None
+        if mesh is None:
+            import torch.distributed as dist
+
+            world = dist.get_world_size() if dist.is_initialized() else 1
+            mesh = get_mesh_nd(mesh_shape or {"dp": world}, device=device)
+        self.mesh = mesh
+        self.device = mesh.device
+
+    def close(self) -> None:
+        """Destroy the world of one the trainer's mesh made, if it did."""
+        self.mesh.close()
+
+    def _build_engine(self):
+        """The strategy's engine and its params re-layout callables."""
+        from distkeras_tpu_torch.parallel.fsdp import FSDPEngine
+        from distkeras_tpu_torch.parallel.strategies import (
+            STRATEGIES,
+            SUM_AXES,
+        )
+        from distkeras_tpu_torch.parallel.tensor import SPMDEngine
+
+        # global-norm clipping is the engine's: the norm spans every shard
+        optimizer = resolve_optimizer(self.worker_optimizer,
+                                      self.learning_rate,
+                                      clipvalue=self.clipvalue)
+        ident = lambda p: p
+        if self.strategy == "spmd":
+            loss_step = _make_loss_step(
+                self.spec, self.loss_fn, len(self.features_col),
+                self.loss if isinstance(self.loss, str) else None)
+            if self.parameter_sharding == "megatron":
+                engine = SPMDEngine(
+                    self.spec, loss_step, optimizer, self.mesh,
+                    param_specs=self.param_specs,
+                    grad_accum=self.grad_accum, clipnorm=self.clipnorm)
+            else:
+                engine = FSDPEngine(
+                    self.spec, loss_step, optimizer, self.mesh,
+                    tensor_parallel=(
+                        self.parameter_sharding == "fsdp+megatron"),
+                    param_specs=self.param_specs,
+                    grad_accum=self.grad_accum, clipnorm=self.clipnorm)
+            return engine, ident, ident
+
+        kwargs = {}
+        if self.strategy == "pipeline":
+            kwargs = dict(microbatches=self.microbatches)
+        elif self.strategy == "expert":
+            kwargs = dict(aux_weight=self.aux_weight)
+        if (self.spec.fused_losses or {}).get(self.loss) is not None:
+            warnings.warn(
+                f"strategy={self.strategy!r} trains with the unfused "
+                f"{self.loss!r} loss (the model's fused implementation — "
+                f"e.g. transformer_lm_spec(fused_ce=True) — only applies "
+                f"under strategy='spmd' and the collective/ps trainers); "
+                f"expect full-logits memory")
+        loss_step, specs_for, to_engine, from_engine = STRATEGIES[
+            self.strategy](self.spec, self.loss_fn, self.mesh, **kwargs)
+        self._init_cache = self.spec.init(self.seed)
+        specs = (self.param_specs if self.param_specs is not None
+                 else specs_for(to_engine(self._init_cache[0])))
+        engine = SPMDEngine(
+            self.spec, loss_step, optimizer, self.mesh, param_specs=specs,
+            grad_accum=self.grad_accum, clipnorm=self.clipnorm,
+            sum_axes=SUM_AXES[self.strategy])
+        return engine, to_engine, from_engine
+
+    def train(self, dataset, shuffle: bool = False):
+        ctx, paths = _profile_ctx(self.profile_dir, self.device)
+        try:
+            with ctx:
+                return self._train_impl(dataset, shuffle)
+        finally:
+            if paths:
+                self.profile_path_ = paths[-1]
+            # an aborted run neither drops an in-flight save nor hides its
+            # failure
+            self._finish_checkpoints()
+
+    def _restore(self, engine):
+        """``(params, nt, opt, start_epoch)`` from the newest checkpoint,
+        or None. A checkpoint the JAX package wrote holds optax moments in
+        its mesh layout, which map onto no state here: read it with
+        ``checkpoint.load_checkpoint`` and ``convert.center_from_jax``
+        (``stages_from_jax`` for the pipeline's layout) instead."""
+        from distkeras_tpu_torch import checkpoint as ckpt
+
+        if ckpt.latest_step(self.checkpoint_dir) is None:
+            return None
+        payload, _, origin = ckpt.load_checkpoint(self.checkpoint_dir)
+        if origin != "port":
+            raise ValueError(
+                f"checkpoint under {self.checkpoint_dir} was written by the "
+                f"JAX package: MeshTrainer resumes the port's own")
+        params, nt, opt = engine.place_state(
+            payload["params"], payload["nt"], payload["opt"])
+        return params, nt, opt, int(np.asarray(payload["epoch"])) + 1
+
+    def _train_impl(self, dataset, shuffle: bool):
+        _reject_worker_axis_model(
+            self.spec, "MeshTrainer (one model, no worker axis)")
+        ds = self._coerce_dataset(dataset)
+        cols = self.features_col + [self.label_col]
+        engine, to_engine, from_engine = self._build_engine()
+        validator = self._make_validator()
+
+        def host_params(p):
+            return from_engine({k: torch.from_numpy(v) for k, v in
+                                engine.gather_params(p).items()})
+
+        restored = None
+        if self.checkpoint_dir and self.resume:
+            restored = self._restore(engine)
+        if restored is not None:
+            params, nt, opt, start_epoch = restored
+        else:
+            p0, nt0 = (self._init_cache
+                       if getattr(self, "_init_cache", None)
+                       else self.spec.init(self.seed))
+            params, nt, opt = engine.init_state(to_engine(p0), nt0)
+            start_epoch = 0
+        self._init_cache = None
+        self.checkpoint_ms_ = []
+
+        use_resident = {
+            "stream": False, "resident": True,
+            "auto": _fits_device_budget(ds, cols,
+                                        self.device_data_budget_bytes),
+        }[self.input_mode]
+        ema = ema_step = None
+        if self.ema_decay is not None:
+            # the average lives in the engine layout, shard by shard
+            use_resident, ema, ema_step = _ema_tracking(
+                params, self.ema_decay, use_resident)
+
+        def epoch_end(epoch, rows, steps, t0):
+            if self.log_metrics and steps:
+                _synchronize(self.device)
+                self._epoch_metrics(epoch, rows, steps,
+                                    time.perf_counter() - t0)
+            if validator is not None:
+                self._validate_epoch(validator, host_params(params),
+                                     _host_nt(nt), epoch)
+            self._maybe_checkpoint(engine, params, nt, opt, epoch)
+
+        self.record_training_start()
+        if use_resident:
+            staged = engine.stage_epoch(tuple(ds[c] for c in cols))
+            steps = staged[0].shape[0] // self.batch_size
+            for epoch in range(start_epoch, self.num_epoch):
+                seed = (self.seed + epoch) if shuffle else None
+                t0 = time.perf_counter()
+                params, nt, opt, losses = engine.run_epoch_resident(
+                    params, nt, opt, staged, self.batch_size, seed)
+                self.history.append(losses=losses, epoch=epoch)
+                epoch_end(epoch, steps * self.batch_size, steps, t0)
+        else:
+            for epoch in range(start_epoch, self.num_epoch):
+                seed = (self.seed + epoch) if shuffle else None
+                t0 = time.perf_counter()
+                steps = 0
+                batch_iter = ds.batches(self.batch_size, cols, seed=seed)
+                if self.prefetch:
+                    batch_iter = prefetch_to_device(
+                        batch_iter, engine.place_batch, depth=self.prefetch)
+                for b in batch_iter:
+                    params, nt, opt, loss = engine.run_step(params, nt, opt,
+                                                            b)
+                    if ema_step is not None:
+                        with torch.no_grad():
+                            ema = ema_step(ema, params)
+                    self.history.append(loss=loss, epoch=epoch)
+                    steps += 1
+                epoch_end(epoch, steps * self.batch_size, steps, t0)
+        _synchronize(self.device)
+        self._finish_checkpoints()
+        self.record_training_end()
+        self._materialize_history()
+        if ema is not None:
+            self.ema_params_ = host_params(ema)
+        return self._finalize(host_params(params), _host_nt(nt))
+
+    def _maybe_checkpoint(self, engine, params, nt, opt, epoch: int):
+        """The epoch's checkpoint in the global layout: a ``.dkc`` from a
+        world of one, the process-sharded ``.dks`` from several."""
+        import torch.distributed as dist
+
+        from distkeras_tpu_torch import checkpoint as ckpt
+
+        if not (self.checkpoint_dir and ckpt.should_checkpoint(
+                epoch, self.checkpoint_every, self.num_epoch)):
+            return
+        t0 = time.perf_counter()
+        payload = {"params": params, "nt": nt, "opt": opt, "epoch": epoch}
+        if dist.get_world_size() > 1:
+            if self.checkpoint_async:
+                raise ValueError(
+                    "checkpoint_async with several ranks: the sharded save "
+                    "is a collective; use synchronous checkpoints")
+            ckpt.save_sharded(self.checkpoint_dir,
+                              engine.sharded_tree(payload), step=epoch)
+        else:
+            self._dispatch_checkpoint(engine.gather_tree(payload), epoch)
+        self.checkpoint_ms_.append(1e3 * (time.perf_counter() - t0))
+
+
+def _host_nt(nt: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in nt.items()}
+
+
 __all__ = ["Trainer", "DistributedTrainer", "AsynchronousDistributedTrainer",
            "SingleTrainer", "ADAG", "DOWNPOUR", "AEASGD", "EAMSGD", "DynSGD",
-           "resolve_optimizer"]
+           "MeshTrainer", "resolve_optimizer"]

@@ -144,15 +144,16 @@ def test_checkpoint_rollback_truncates_abandoned_future(tmp_path):
 
 def test_checkpoint_cross_format_step_collision(tmp_path):
     """Both formats at one step (a directory reused across a topology
-    change): the newer write decides, and a sharded one names A12; pruning
-    removes old steps of both formats."""
+    change): the newer write decides (a sharded one is read as the
+    process-sharded format, and this one's bytes are no meta file);
+    pruning removes old steps of both formats."""
     ckpt.save_checkpoint(tmp_path, {"w": np.zeros(4)}, step=3)
     meta = tmp_path / "ckpt_000000000003.meta.dks"
     time.sleep(0.05)
     meta.write_bytes(b"written by a multi-process run")
     (tmp_path / "latest.json").write_text(json.dumps(
         {"step": 3, "file": meta.name}))
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="meta file .* corrupt"):
         ckpt.restore_checkpoint(tmp_path, step=3)
     (tmp_path / "latest.json").write_text(json.dumps(
         {"step": 3, "file": "ckpt_000000000003.dkc"}))
@@ -167,9 +168,20 @@ def test_checkpoint_cross_format_step_collision(tmp_path):
 
 
 def test_sharded_only_step_names_a12(tmp_path):
+    """A step held only in the process-sharded format is read as one: a
+    torn meta file names itself, a meta without its shard files names the
+    missing file (``tests/test_torch_multiprocess.py`` round-trips real
+    ones)."""
     (tmp_path / "ckpt_000000000002.meta.dks").write_bytes(b"x")
     assert ckpt.latest_step(tmp_path) == 2
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="meta file .* corrupt"):
+        ckpt.restore_checkpoint(tmp_path)
+    import pickle
+
+    (tmp_path / "ckpt_000000000002.meta.dks").write_bytes(pickle.dumps(
+        {"structure": None, "shapes": [(2,)], "dtypes": [np.float32],
+         "step": 2, "processes": 2}))
+    with pytest.raises(FileNotFoundError, match="p00000of00002"):
         ckpt.restore_checkpoint(tmp_path)
     with pytest.raises(FileNotFoundError):
         ckpt.restore_checkpoint(tmp_path / "empty")

@@ -174,10 +174,45 @@ def test_moe_aux_loss_matches_jax():
 
 
 def test_the_expert_parallel_paths_name_their_item():
-    with pytest.raises(NotImplementedError, match="A12"):
-        moe_transformer_classifier(mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        expert.moe_mlp({}, torch.zeros(4, 2), mesh=object())
+    """The expert-parallel paths are ported (A12): over an ``ep`` mesh of
+    one rank ``moe_mlp`` is the single-device layer and
+    ``moe_transformer_classifier(mesh=...)`` the mesh-less model, to f32
+    rounding (multi-rank meshes: ``tests/test_torch_mesh_strategies.py``);
+    experts that do not divide over the axis raise."""
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    params = {k: torch.from_numpy(v) for k, v in _moe_params().items()}
+    x = torch.from_numpy(_tokens())
+    with Mesh({"ep": 1}, device="cpu") as mesh:
+        y, aux = expert.moe_mlp(params, x, mesh, top_k=2)
+        ry, raux = moe_mlp_reference(params, x, top_k=2,
+                                     capacity_factor=2.0)
+        np.testing.assert_allclose(y.numpy(), ry.numpy(), atol=1e-6)
+        np.testing.assert_allclose(float(aux), float(raux), rtol=1e-6)
+        kw = dict(vocab=30, maxlen=8, dim=8, heads=2, depth=1,
+                  num_experts=4, dtype=torch.float32)
+        plain, sharded = (moe_transformer_classifier(**kw),
+                          moe_transformer_classifier(mesh=mesh, **kw))
+        p, nt = plain.init(0)
+        toks = torch.from_numpy(np.arange(16).reshape(2, 8) % 30)
+        feats = (toks, torch.ones(2, 8))
+        np.testing.assert_allclose(
+            sharded.apply(p, nt, feats, False)[0].detach().numpy(),
+            plain.apply(p, nt, feats, False)[0].detach().numpy(), atol=1e-6)
+        with pytest.raises(ValueError, match="experts"):
+            expert.moe_mlp({**params, "gate": params["gate"][:, :3]}, x,
+                           _TwoRanks(), top_k=2)
+
+
+class _TwoRanks:
+    """A two-rank ep axis as ``moe_mlp`` reads it (size only: the check
+    fires before any collective)."""
+
+    def size(self, axis):
+        return 2
+
+    def group(self, axis):
+        return None
 
 
 def test_moe_trains_through_adag():

@@ -346,3 +346,22 @@ def test_row_helpers_match_the_jax_package():
     out = tutils.tree_to_numpy(tree)
     assert isinstance(out["a"], np.ndarray) and \
         isinstance(out["b"]["c"], np.ndarray)
+
+
+def test_the_package_exports_the_jax_packages_trainers():
+    """``distkeras_tpu_torch`` exports every trainer class the JAX package
+    exports, ``MeshTrainer`` included, each the class of ``trainers``
+    (imported on first use)."""
+    import distkeras_tpu
+    import distkeras_tpu_torch
+
+    names = {n for n in distkeras_tpu.__all__
+             if isinstance(getattr(distkeras_tpu, n), type)
+             and issubclass(getattr(distkeras_tpu, n),
+                            distkeras_tpu.Trainer)}
+    assert "MeshTrainer" in names
+    assert names <= set(distkeras_tpu_torch.__all__)
+    for n in names:
+        assert getattr(distkeras_tpu_torch, n) is getattr(trainers, n)
+    with pytest.raises(AttributeError):
+        distkeras_tpu_torch.NoSuchTrainer

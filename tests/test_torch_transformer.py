@@ -154,14 +154,33 @@ def test_params_round_trip_positions_and_later_options():
     params, state = transformer_classifier(**CFG).init(0)
     assert all(v.dtype == torch.float32 for v in params.values())
     assert set(state) == {"pos_table"}
-    with pytest.raises(NotImplementedError, match="A12"):
-        transformer_classifier(attn_impl="ring")
     # remat=True is ported (tests/test_torch_remat.py): same names
     assert set(transformer_classifier(remat=True, **CFG).init(0)[0]) \
         == set(params)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttr.pipelined_transformer_forward(None, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttr.sequence_parallel_transformer_forward(None, None, None, None)
+    # the mesh paths are ported (A12; multi-rank meshes in
+    # tests/test_torch_mesh_strategies.py): over meshes of one rank the
+    # pipelined and sequence-parallel forwards are the plain forward, and
+    # attn_impl="ring" runs inside the latter only
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    ring = transformer_classifier(attn_impl="ring", **CFG)
+    assert set(ring.init(0)[0]) == set(params)
+    one = transformer_classifier(**{**CFG, "depth": 1,
+                                    "dtype": torch.float32})
+    p1, nt1 = one.init(0)
+    full = {**p1, **nt1}
+    toks = torch.from_numpy(np.arange(2 * CFG["maxlen"]).reshape(
+        2, -1) % CFG["vocab"])
+    mask = torch.ones(toks.shape)
+    want = one.apply(p1, nt1, (toks, mask), False)[0]
+    with pytest.raises(ValueError, match="ring"):
+        ring.apply(*ring.init(0), (toks, mask), False)
+    with Mesh({"pp": 1, "sp": 1}, device="cpu") as mesh:
+        for got in (ttr.pipelined_transformer_forward(
+                        one.module, full, toks, mask, mesh, axis="pp"),
+                    ttr.sequence_parallel_transformer_forward(
+                        one.module, full, toks, mask, mesh, axis="sp")):
+            np.testing.assert_allclose(got.detach().numpy(),
+                                       want.detach().numpy(), atol=1e-5)
     with pytest.raises(ValueError, match="attn_impl"):
         transformer_classifier(attn_impl="xla")
