@@ -311,11 +311,36 @@ Phases, in order; any failure exits non-zero and prints no result:
     the MoE classifier and ``"pipeline"`` on config 6 at depth 1 with
     fused Adam, bit-equal to spmd's; each on a mesh of one rank against
     ``"spmd"`` on the same model and rows);
-23. print the ``kernels`` JSON line (K1 as one decode step and, as
+23. W workers over processes (A12.2), each phase counting its own
+    launches: ``a12_dp_mesh_config5`` (config 5 under DynSGD, W=8, for
+    A122_IMDB_WINDOWS windows with ``mesh=None`` and through
+    ``mesh=Mesh({"dp": 1})`` in an NCCL world of one: centers and losses
+    bit-equal, K5, K6 and K7 once a step in both), ``a12_dp_mesh_config9``
+    (two one-window epochs of config 9 under ADAG W=2 both ways:
+    bit-equal, K2–K4 depth × steps and K5 steps; the second window's ms
+    and the peak memory beside ``train_lm``'s) and ``a12_ps_two_process`` (two processes of this
+    script, ``--ps-rank``, started by ``job_deployment.LocalRunner`` in a
+    gloo world on the one card: config 5 under DynSGD through the
+    multi-process ``backend="ps"`` over socket and native, 4 + 4 worker
+    threads, rank 0 hosting the PS; commits = updates = acknowledged
+    windows, both ranks' centers equal, the loss falling, K5–K7 summed
+    over the ranks equal to the workers' steps);
+24. deploy streaming (A13), ``a13_deploy_stream``: config 9's LM at full
+    width and depth A13_DEPTH trains under ADAG through the in-process PS
+    with a ``WeightStreamer`` attached (``deploy_streamer=``); a bf16 and
+    an int8 ``GenerationServer`` in a ``DirectoryServer`` serve its
+    versions; a ``RolloutController`` canaries and promotes the second,
+    canaries the third and rolls it back when its ``health`` reports the
+    SLO firing; every stream equals a fresh engine's at its version, the
+    streamer reaches the last fold, the PS's deploy lag at training's end
+    stays within the fold count, the journal holds
+    the four transitions, and K1–K5 launch;
+25. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
     elastic phases, the directory phases, the front door,
-    ``serve_decode``, the model family and the mesh phases, K6 and K7
+    ``serve_decode``, the model family, the mesh, the W-over-processes
+    and the deploy phases, K6 and K7
     with their G=1 times), read config 3's
     gates (``ps3_failures``, the sharded run's too), then the result line
     ``{"ok": true, "device": {...}}`` last.
@@ -555,6 +580,14 @@ A12_SGD_GAP = 0.1
 # config 9's ADAG W=2 window peak of max_memory_allocated (H100 80GB HBM3,
 # 700 W; PERF.md §5), printed beside MeshTrainer's one-model peak
 ADAG_W2_WINDOW_PEAK_GB = 30.0
+A122_IMDB_WINDOWS = 3     # config 5 windows of the dp-mesh phase
+A122_PS_WINDOWS = 3       # windows a worker an epoch, two-process PS
+A122_RANK_TIMEOUT = 420.0  # seconds the two ranks get, socket and native
+A13_DEPTH = 2             # config 9's depth in the deploy phase
+A13_WINDOWS = 4           # windows a worker (2 PS workers)
+A13_SNAPSHOT_EVERY = 2    # folds between streamed versions
+A13_PROMPTS = (96, 160)   # prompt lengths each stream check sends
+A13_NEW = 16              # greedy new tokens a stream
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -5951,6 +5984,553 @@ def run_a12(torch, train) -> dict:
             "a12_strategies": train_a12_strategies(torch, train)}
 
 
+# -- W workers over processes (A12.2) and deploy streaming (A13) ------------
+
+def _bit_equal(torch, a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _checksum(tree: dict) -> float:
+    """A position-weighted sum of every leaf in f64: equal centers give
+    equal sums on every rank."""
+    return float(sum(np.dot(np.asarray(v.float(), np.float64).ravel(),
+                            np.arange(1, v.numel() + 1, dtype=np.float64))
+                     for _, v in sorted(tree.items())))
+
+
+def train_a122_config5(torch, train):
+    """``a12_dp_mesh_config5``: config 5 (the IMDB LSTM at full width,
+    DynSGD, W=IMDB_W, B=IMDB_BATCH, window IMDB_WINDOW, fused Adam) for
+    A122_IMDB_WINDOWS windows with ``mesh=None``, then the same windows
+    through ``DynSGD(..., mesh=Mesh({"dp": 1}))`` in an NCCL world of one
+    the phase makes and destroys (the merge and the loss all-reduced over
+    ``dp``), each run's launches counted alone. Gates: the centers and the
+    loss records bit-equal; K5, K6 and K7 launched once a step in both."""
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    t_phase = time.perf_counter()
+    rows = IMDB_W * IMDB_BATCH * IMDB_WINDOW * A122_IMDB_WINDOWS
+    ds = train.gather(np.arange(rows))
+    spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T, embed_dim=IMDB_E,
+                           hidden_dim=IMDB_H)
+
+    def run(mesh):
+        t = DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
+                   learning_rate=IMDB_LR, features_col=["features", "mask"],
+                   num_workers=IMDB_W, batch_size=IMDB_BATCH,
+                   communication_window=IMDB_WINDOW, num_epoch=1,
+                   device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        center = t.train(ds)
+        torch.cuda.synchronize()
+        return center, t.history.losses(), time.perf_counter() - t0
+
+    (c0, l0, w0), plain = counted(lambda: run(None))
+    world = _world_of_one(torch)
+    try:
+        (c1, l1, w1), launches = counted(lambda: run(world))
+    finally:
+        world.close()
+        torch.cuda.empty_cache()
+    steps = A122_IMDB_WINDOWS * IMDB_WINDOW
+    equal = _bit_equal(torch, c0, c1) and list(l0) == list(l1)
+    rec = dict(phase="a12_dp_mesh_config5", device=SMI, mesh={"dp": 1},
+               workers=IMDB_W, windows=A122_IMDB_WINDOWS, steps=steps,
+               launches=launches, launches_mesh_none=plain,
+               bit_equal=equal, losses=l1, wall_s=w1, wall_s_mesh_none=w0,
+               phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    fails = []
+    if not equal:
+        diff = max(_err(c0[k], c1[k]) for k in c0)
+        fails.append(f"mesh= differs from mesh=None: max |center diff| "
+                     f"{diff}, losses {l0} vs {l1}")
+    for k in ("fused_adam", "lstm_forward", "lstm_backward"):
+        if not launches[k] == plain[k] == steps:
+            fails.append(f"{k} launched {launches[k]} times over the mesh "
+                         f"and {plain[k]} without, expected {steps}")
+    if not np.all(np.isfinite(l1)):
+        fails.append(f"the loss is not finite: {l1}")
+    if fails:
+        raise AssertionError("a12_dp_mesh_config5: " + "; ".join(fails))
+    return rec
+
+
+def train_a122_config9(torch, lm_rec):
+    """``a12_dp_mesh_config9``: config 9 (the 134 M LM at full width and
+    depth, L=2048, fused CE, fused Adam) under ADAG W=LM_W, one window an
+    epoch for two epochs (the first warms the transforms up), with
+    ``mesh=None``, then through ``ADAG(..., mesh=Mesh({"dp": 1}))`` in an
+    NCCL world of one. Gates: the centers and losses bit-equal; K2, K3,
+    K4 launched depth × window × 2 times and K5 window × 2 times in both.
+    Prints each run's second window's ms and peak memory beside
+    ``train_lm``'s window (epoch 1) and peak."""
+    from distkeras_tpu_torch.data import next_token_dataset
+    from distkeras_tpu_torch.trainers import ADAG
+
+    t_phase = time.perf_counter()
+    spec = lm_spec(torch, LM_DEPTH, "flash")
+    ds = next_token_dataset(lm_tokens(LM_W * LM_WINDOW * LM_BATCH, seed=2))
+
+    def run(mesh):
+        t = ADAG(spec, loss=LOSS, worker_optimizer="fused_adam",
+                 learning_rate=LM_LR, num_workers=LM_W, batch_size=LM_BATCH,
+                 communication_window=LM_WINDOW, num_epoch=2, device=DEVICE,
+                 log_metrics=True, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        center = t.train(ds)
+        torch.cuda.synchronize()
+        epoch1 = [m for m in t.metrics_ if m.get("epoch") == 1]
+        return (center, t.history.losses(), epoch1[0]["wall_time"],
+                torch.cuda.max_memory_allocated())
+
+    (c0, l0, w0, peak0), plain = counted(lambda: run(None))
+    torch.cuda.empty_cache()
+    world = _world_of_one(torch)
+    try:
+        (c1, l1, w1, peak1), launches = counted(lambda: run(world))
+    finally:
+        world.close()
+        torch.cuda.empty_cache()
+    equal = _bit_equal(torch, c0, c1) and list(l0) == list(l1)
+    adag = [e for e in lm_rec["epochs"] if e["epoch"] == 1]
+    rec = dict(phase="a12_dp_mesh_config9", device=SMI, mesh={"dp": 1},
+               workers=LM_W, window=LM_WINDOW, batch=LM_BATCH,
+               launches=launches, launches_mesh_none=plain, bit_equal=equal,
+               losses=l1, window_ms=1e3 * w1, window_ms_mesh_none=1e3 * w0,
+               peak_memory_gb=peak1 / 1e9,
+               peak_memory_gb_mesh_none=peak0 / 1e9,
+               adag_window_ms_epoch1=adag[0]["window_ms"] if adag else None,
+               adag_peak_memory_gb=lm_rec["peak_memory_gb"],
+               phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    fails = []
+    if not equal:
+        diff = max(_err(c0[k], c1[k]) for k in c0)
+        fails.append(f"mesh= differs from mesh=None: max |center diff| "
+                     f"{diff}, losses {l0} vs {l1}")
+    steps = 2 * LM_WINDOW
+    want = {"flash_attention": LM_DEPTH * steps,
+            "flash_attention_bwd_dq": LM_DEPTH * steps,
+            "flash_attention_bwd_dkv": LM_DEPTH * steps,
+            "fused_adam": steps}
+    for k, n in want.items():
+        if not launches[k] == plain[k] == n:
+            fails.append(f"{k} launched {launches[k]} times over the mesh "
+                         f"and {plain[k]} without, expected {n}")
+    if not np.all(np.isfinite(l1)):
+        fails.append(f"the loss is not finite: {l1}")
+    if fails:
+        raise AssertionError("a12_dp_mesh_config9: " + "; ".join(fails))
+    return rec
+
+
+def ps_rank_main(workdir: str) -> int:
+    """One rank of ``a12_ps_two_process`` (``python3 chip_smoke.py
+    --ps-rank WORKDIR``, started by ``job_deployment.LocalRunner`` with
+    the ``DISTKERAS_*`` environment): joins a gloo world of two, runs
+    config 5 under DynSGD with ``backend="ps"`` over the socket and then
+    the native transport (the multi-process path: rank 0 hosts the PS,
+    each rank runs PS5_W / 2 worker threads on the card), counting its
+    own launches, and writes every rank's record to
+    ``WORKDIR/result.json`` from rank 0."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from distkeras_tpu_torch.job_deployment import cluster_args_from_env
+    from distkeras_tpu_torch.models import lstm_classifier
+    from distkeras_tpu_torch.trainers import DynSGD
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = cluster_args_from_env()
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{env['coordinator_address']}",
+        world_size=env["num_processes"], rank=env["process_id"],
+        timeout=datetime.timedelta(seconds=A122_RANK_TIMEOUT))
+    rank = dist.get_rank()
+    train, _ = imdb_data()
+    rows = PS5_W * IMDB_BATCH * IMDB_WINDOW * A122_PS_WINDOWS
+    ds = train.gather(np.arange(rows))
+    out = {}
+    for transport in ("socket", "native"):
+        spec = lstm_classifier(vocab=IMDB_VOCAB, maxlen=IMDB_T,
+                               embed_dim=IMDB_E, hidden_dim=IMDB_H)
+        t = DynSGD(spec, loss=LOSS, worker_optimizer="fused_adam",
+                   learning_rate=IMDB_LR, features_col=["features", "mask"],
+                   num_workers=PS5_W, batch_size=IMDB_BATCH,
+                   communication_window=IMDB_WINDOW, num_epoch=PS5_EPOCHS,
+                   backend="ps", ps_transport=transport, device=DEVICE)
+        dist.barrier()
+        t0 = time.perf_counter()
+        center, launches = counted(lambda: t.train(ds))
+        wall = time.perf_counter() - t0
+        windows = sum(1 for r in t.history.records if "loss" in r)
+        fell, means = _worker_loss_fell(t.history, PS5_W // 2, PS5_EPOCHS)
+        stats = t.ps_stats_ or {}
+        mine = dict(rank=rank, launches=launches, windows=windows,
+                    steps=windows * IMDB_WINDOW, checksum=_checksum(center),
+                    loss_fell=fell, epoch_mean_loss=means, wall_s=wall,
+                    commits=stats.get("commits"),
+                    num_updates=stats.get("num_updates"))
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, mine)
+        out[transport] = everyone
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(workdir, "result.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def train_a122_ps_two_process(torch):
+    """``a12_ps_two_process``: two processes (``job_deployment.
+    LocalRunner``, a gloo world) on the one card run config 5 under
+    DynSGD through the multi-process ``backend="ps"``, over the socket
+    and the native transports (``ps_rank_main``). Gates, each transport:
+    rank 0's server folded every commit (commits = updates = the windows
+    both ranks' workers report, each acknowledged); both ranks returned
+    the same center (checksums compared); each rank's loss fell; K5, K6
+    and K7, each rank counting its own, sum to the local steps the eight
+    workers report."""
+    from distkeras_tpu_torch.job_deployment import Job, LocalRunner, Punchcard
+
+    t_phase = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="dk_ps2_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with contextlib.closing(__import__("socket").socket()) as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    runner = LocalRunner()
+    job = Job(Punchcard(script=os.path.abspath(__file__),
+                        hosts=["localhost"] * 2, coordinator_port=port,
+                        env={"PYTHONPATH": root},
+                        args=["--ps-rank", workdir]), runner=runner)
+    try:
+        job.run()
+        rcs = runner.wait(timeout=A122_RANK_TIMEOUT)
+    finally:
+        for p in runner.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    if any(rcs):
+        errs = "\n".join(getattr(p, "captured_stderr", "")[-4000:]
+                         for p in runner.procs)
+        raise AssertionError(f"a12_ps_two_process: ranks exited {rcs}:\n"
+                             f"{errs}")
+    with open(os.path.join(workdir, "result.json")) as f:
+        res = json.load(f)
+    shutil.rmtree(workdir, ignore_errors=True)
+    fails, runs = [], {}
+    for transport, ranks in res.items():
+        launches = {k: sum(r["launches"][k] for r in ranks)
+                    for k in ranks[0]["launches"]}
+        steps = sum(r["steps"] for r in ranks)
+        windows = sum(r["windows"] for r in ranks)
+        host = ranks[0]
+        runs[transport] = dict(
+            launches=launches, steps=steps, windows=windows,
+            commits=host["commits"], num_updates=host["num_updates"],
+            checksums=[r["checksum"] for r in ranks],
+            epoch_mean_loss=[r["epoch_mean_loss"] for r in ranks],
+            wall_s=[r["wall_s"] for r in ranks],
+            launches_by_rank=[r["launches"] for r in ranks])
+        if not host["commits"] == host["num_updates"] == windows:
+            fails.append(f"{transport}: {host['commits']} commits and "
+                         f"{host['num_updates']} updates, {windows} "
+                         f"acknowledged windows")
+        if len({r["checksum"] for r in ranks}) != 1:
+            fails.append(f"{transport}: the ranks returned different "
+                         f"centers {runs[transport]['checksums']}")
+        if not all(r["loss_fell"] for r in ranks):
+            fails.append(f"{transport}: the loss did not fall: "
+                         f"{runs[transport]['epoch_mean_loss']}")
+        for k in ("fused_adam", "lstm_forward", "lstm_backward"):
+            if launches[k] != steps:
+                fails.append(f"{transport}: {k} launched {launches[k]} "
+                             f"times over both ranks, the workers took "
+                             f"{steps} steps")
+    launches = {k: sum(r["launches"][k] for r in res["socket"]) +
+                sum(r["launches"][k] for r in res["native"])
+                for k in res["socket"][0]["launches"]}
+    rec = dict(phase="a12_ps_two_process", device=SMI, ranks=2,
+               workers=PS5_W, launches=launches, runs=runs,
+               phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    if fails:
+        raise AssertionError("a12_ps_two_process: " + "; ".join(fails))
+    return rec
+
+
+def run_a122(torch, train, lm_rec) -> dict:
+    """W workers over processes: the three phases in order, each counting
+    its own launches: ``{phase: record}``."""
+    return {"a12_dp_mesh_config5": train_a122_config5(torch, train),
+            "a12_dp_mesh_config9": train_a122_config9(torch, lm_rec),
+            "a12_ps_two_process": train_a122_ps_two_process(torch)}
+
+
+def _served_lm(torch, kind, tree):
+    """The served config-9 LM at depth A13_DEPTH (bf16, flash prefill,
+    RoPE) carrying the training center ``tree``; ``kind="int8"`` is that
+    float model through ``quantize_lm``, made apart from the server's
+    ``quantize_state_dict`` of a swap."""
+    from distkeras_tpu_torch.models import quantize_lm, transformer_lm
+
+    m = transformer_lm(vocab=LM_VOCAB, maxlen=LM_L, dim=LM_DIM,
+                       heads=LM_HEADS, depth=A13_DEPTH, pos_embedding="rope",
+                       attn_impl="flash", dtype=torch.bfloat16, device=DEVICE)
+    with torch.no_grad():
+        m.load_state_dict({k: torch.as_tensor(v) for k, v in tree.items()})
+    m = m.eval()
+    return quantize_lm(m) if kind == "int8" else m
+
+
+def _a13_engine(model, version):
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    return GenerationEngine(model, max_batch=2, block_size=BLOCK,
+                            model_version=version, device=DEVICE)
+
+
+def train_a13_deploy_stream(torch):
+    """``a13_deploy_stream``: config 9's LM at full width (depth cut to
+    A13_DEPTH) trains under ADAG with ``backend="ps"`` (in-process), 2
+    worker threads of batch LM_BATCH and window LM_WINDOW, A13_WINDOWS
+    windows each, fused Adam, with ``deploy_streamer=WeightStreamer(
+    ADAGMerge(), 2, snapshot_every=A13_SNAPSHOT_EVERY)``: read replicas of
+    the center cut a version every A13_SNAPSHOT_EVERY folds. Two
+    ``GenerationServer`` replicas, one bf16 and one int8, serve the
+    first version from the streamer's store, registered in a
+    ``DirectoryServer`` and reached through ``RoutedGenerationClient``; a
+    ``RolloutController`` with a ``health`` closure canaries the second
+    version on one replica and promotes it, then canaries the third and,
+    with ``health`` reporting the serving SLO firing, rolls it back.
+    Gates: every greedy stream (sent alone, to each replica after each
+    transition and through the router at the end) is token-for-token the
+    stream of a fresh engine of the same kind at the replica's version;
+    the streamer publishes the last fold's version; the PS's deploy
+    lag, read when training ends, within the fold count; the journal
+    holds canary, promote, canary, rollback, every activation
+    acknowledged; K1 (the int8 replica), K2 (training and prefill), K3,
+    K4 and K5 (training) launched."""
+    from distkeras_tpu_torch.data import next_token_dataset
+    from distkeras_tpu_torch.deploy import (
+        RolloutController,
+        RolloutPolicy,
+        WeightStreamer,
+    )
+    from distkeras_tpu_torch.directory import DirectoryServer
+    from distkeras_tpu_torch.directory.router import RoutedGenerationClient
+    from distkeras_tpu_torch.parallel import ADAGMerge
+    from distkeras_tpu_torch.serving import GenerationClient, GenerationServer
+    from distkeras_tpu_torch.trainers import ADAG
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    folds = 2 * A13_WINDOWS
+    st = WeightStreamer(ADAGMerge(), 2, snapshot_every=A13_SNAPSHOT_EVERY)
+    dsrv = router = None
+    servers: dict = {}
+    try:
+        spec = lm_spec(torch, A13_DEPTH, "flash")
+        t = ADAG(spec, loss=LOSS, worker_optimizer="fused_adam",
+                 learning_rate=LM_LR, num_workers=2, batch_size=LM_BATCH,
+                 communication_window=LM_WINDOW, num_epoch=1, backend="ps",
+                 deploy_streamer=st, device=DEVICE)
+        ds = next_token_dataset(lm_tokens(
+            2 * LM_WINDOW * LM_BATCH * A13_WINDOWS, seed=4))
+        t0 = time.perf_counter()
+        t.train(ds)
+        train_s = time.perf_counter() - t0
+        stats = t.ps_stats_
+        deadline = time.monotonic() + 120
+        while st.stats()["latest_version"] < folds \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        versions = st.store.versions()
+        streamed = st.stats()["latest_version"]
+        if len(versions) < 3 or streamed != folds:
+            raise AssertionError(f"a13_deploy_stream: the streamer "
+                                 f"published {versions} of {folds} folds")
+        va, vb, vc = versions[:3]
+        torch.cuda.empty_cache()
+
+        oracles: dict = {}
+
+        def oracle(kind, version, prompt):
+            """The fresh engine's stream; its launches are not the
+            phase's (the counters are put back)."""
+            key = (kind, version, tuple(prompt.tolist()))
+            if key not in oracles:
+                saved = read_launches()
+                eng = _a13_engine(_served_lm(torch, kind,
+                                             st.store.get(version).tree),
+                                  version)
+                with torch.inference_mode():
+                    req = eng.submit(prompt, max_new_tokens=A13_NEW)
+                    eng.run_until_idle()
+                oracles[key] = req.result(0).tolist()
+                del eng
+                for k, (fn, attr) in _ps_launch_counters().items():
+                    setattr(fn, attr, saved[k])
+            return oracles[key]
+
+        dsrv = DirectoryServer(default_ttl=5.0)
+        dsrv.initialize()
+        dsrv.start()
+        seeds = [(dsrv.host, dsrv.port)]
+        base = st.store.get(va).tree
+        for kind in ("bf16", "int8"):
+            srv = GenerationServer(
+                _a13_engine(_served_lm(torch, kind, base), va),
+                poll_interval=0.02)
+            srv.snapshots = st.store
+            srv.start()
+            srv.register_with(seeds, key=kind, ttl=5.0)
+            servers[kind] = srv
+        router = RoutedGenerationClient(directory=seeds,
+                                        refresh_interval=0.2)
+        rng = np.random.default_rng(7)
+        prompts = [rng.integers(0, LM_VOCAB, (n,)).astype(np.int32)
+                   for n in A13_PROMPTS]
+        mismatches: list = []
+        streams = 0
+
+        def wait_fleet(want):
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                router.refresh(force=True)
+                if router.replica_versions() == want:
+                    return
+                time.sleep(0.1)
+            raise AssertionError(f"a13_deploy_stream: the fleet never "
+                                 f"advertised {want}: "
+                                 f"{router.replica_versions()}")
+
+        def check_replicas(label):
+            nonlocal streams
+            for kind, srv in servers.items():
+                c = GenerationClient(srv.host, srv.port)
+                try:
+                    v = c.deploy_status()["model_version"]
+                    for p in prompts:
+                        got = c.generate(p, max_new_tokens=A13_NEW).tolist()
+                        streams += 1
+                        if got != oracle(kind, v, p):
+                            mismatches.append((label, kind, v, len(p)))
+                finally:
+                    c.close()
+
+        swap_ms: list = []
+
+        def activate(key, version):
+            c = GenerationClient(servers[key].host, servers[key].port)
+            try:
+                t1 = time.perf_counter()
+                ok = bool(c.deploy_activate(version, policy="drain")["ok"])
+                c.wait_for_swap(timeout=120.0)
+                swap_ms.append(1e3 * (time.perf_counter() - t1))
+                return ok
+            finally:
+                c.close()
+
+        health = {"green": True, "slo": False}
+        ctrl = RolloutController(
+            router, activate, lambda: (health["green"], health["slo"]),
+            policy=RolloutPolicy(canary_fraction=0.5, bake_s=0.0,
+                                 green_checks=1, red_checks=1,
+                                 cooldown_s=0.0))
+        wait_fleet({"bf16": va, "int8": va})
+        check_replicas("base")
+        ctrl.begin(vb)
+        legs = [[a["action"] for a in ctrl.step(1.0)]]
+        canary, = ctrl.canary_keys
+        rest, = set(servers) - {canary}
+        wait_fleet({canary: vb, rest: va})
+        check_replicas("canary")
+        legs.append([a["action"] for a in ctrl.step(2.0)])
+        wait_fleet({"bf16": vb, "int8": vb})
+        check_replicas("promoted")
+        ctrl.begin(vc)
+        legs.append([a["action"] for a in ctrl.step(3.0)])
+        check_replicas("canary2")
+        health.update(green=False, slo=True)
+        legs.append([a["action"] for a in ctrl.step(4.0)])
+        wait_fleet({"bf16": vb, "int8": vb})
+        check_replicas("rolled_back")
+        routed = {}
+        for p in prompts:
+            before = dict(router.stats()["routed"])
+            got = router.generate(p, max_new_tokens=A13_NEW).tolist()
+            after = router.stats()["routed"]
+            kind = next(k for k in after if after[k] != before.get(k, 0))
+            routed[kind] = routed.get(kind, 0) + 1
+            streams += 1
+            if got != oracle(kind, vb, p):
+                mismatches.append(("routed", kind, vb, len(p)))
+        journal = [dict(action=j["action"], version=j.get("version"),
+                        keys=j["keys"], activated=j["activated"])
+                   for j in ctrl.journal]
+    finally:
+        if router is not None:
+            router.close()
+        for srv in servers.values():
+            srv.stop(drain=False)
+        st.close()
+        if dsrv is not None:
+            dsrv.stop()
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    rec = dict(phase="a13_deploy_stream", device=SMI, depth=A13_DEPTH,
+               width=dict(vocab=LM_VOCAB, dim=LM_DIM, heads=LM_HEADS,
+                          maxlen=LM_L),
+               reduced=dict(depth=f"{LM_DEPTH} -> {A13_DEPTH}"),
+               workers=2, folds=stats["num_updates"], train_s=train_s,
+               snapshot_every=A13_SNAPSHOT_EVERY, versions=versions,
+               candidates=[va, vb, vc],
+               streamed_version=streamed,
+               deploy_version=stats["deploy_version"],
+               deploy_lag_folds=stats["deploy_lag_folds"], legs=legs,
+               journal=journal, streams=streams, routed=routed,
+               mismatches=mismatches, swap_ms=swap_ms, launches=launches,
+               phase_wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    fails = []
+    if mismatches:
+        fails.append(f"streams off their version's fresh engine: "
+                     f"{mismatches}")
+    if legs != [["canary"], ["promote"], ["canary"], ["rollback"]]:
+        fails.append(f"transitions {legs}")
+    if [j["action"] for j in journal] != ["canary", "promote", "canary",
+                                          "rollback"] \
+            or any(j["activated"] != len(j["keys"]) for j in journal):
+        fails.append(f"journal {journal}")
+    # the PS's lag is read when training ends, while the publisher may
+    # still be reporting: bounded by the folds, whatever has landed
+    if stats["num_updates"] != folds or not (
+            stats["deploy_version"] + stats["deploy_lag_folds"] == folds
+            and 0 <= stats["deploy_lag_folds"] <= folds):
+        fails.append(f"{stats['num_updates']} folds (expected {folds}), "
+                     f"deploy version {stats['deploy_version']}, lag "
+                     f"{stats['deploy_lag_folds']}")
+    for k in ("q_matmul", "flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "fused_adam"):
+        if launches[k] < 1:
+            fails.append(f"{k} never launched")
+    if fails:
+        raise AssertionError("a13_deploy_stream: " + "; ".join(fails))
+    return rec
+
+
 def _build_all(_build) -> dict:
     """Every kernel source with ``nvcc`` (``_build.build``) and, at the
     same time, the native parameter server's C++ core with ``g++``
@@ -5983,6 +6563,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    if len(sys.argv) > 2 and sys.argv[1] == "--ps-rank":
+        # a rank of a12_ps_two_process, started by that phase
+        return ps_rank_main(sys.argv[2])
     from distkeras_tpu_torch.models import quantize_lm, transformer_lm
     from distkeras_tpu_torch.ops import _build
     from distkeras_tpu_torch.ops import flash_attention as fa
@@ -6085,7 +6668,7 @@ def main() -> int:
                 "fused_adam": pk.fused_adam_step}
     for fn in counters.values():
         fn.launches = 0
-    train_lm(torch)
+    lm_rec = train_lm(torch)
     lm_launches = {k: fn.launches for k, fn in counters.items()}
     log(f"launches on the LM training path: {json.dumps(lm_launches)}")
     if min(lm_launches.values()) < 1:
@@ -6277,6 +6860,13 @@ def main() -> int:
     # (fsdp+megatron, with a .dkc resume), the three strategies
     a12 = run_a12(torch, train)
     log(f"mesh paths done at {time.perf_counter() - t0:.1f}s")
+    # W workers over processes: config 5 and config 9 through mesh=
+    # against mesh=None, the multi-process PS in two processes
+    a122 = run_a122(torch, train, lm_rec)
+    log(f"W-over-processes paths done at {time.perf_counter() - t0:.1f}s")
+    # deploy streaming: train, stream versions, canary, promote, roll back
+    a13 = {"a13_deploy_stream": train_a13_deploy_stream(torch)}
+    log(f"deploy path done at {time.perf_counter() - t0:.1f}s")
 
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
@@ -6372,6 +6962,9 @@ def main() -> int:
             decode_launches={k: v[name] for k, v in decode_runs.items()},
             a10_launches={k: v["launches"][name] for k, v in a10.items()},
             a12_launches={k: v["launches"][name] for k, v in a12.items()},
+            a12_2_launches={k: v["launches"][name]
+                            for k, v in a122.items()},
+            a13_launches={k: v["launches"][name] for k, v in a13.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -15,6 +15,7 @@ from distkeras_tpu_torch.models.lm import (
     beam_search,
     generate,
     quantize_lm,
+    quantize_state_dict,
     speculative_generate,
     transformer_lm,
     transformer_lm_spec,
@@ -34,7 +35,7 @@ from distkeras_tpu_torch.models.transformer import (
 )
 
 __all__ = ["TransformerLM", "transformer_lm", "transformer_lm_spec",
-           "quantize_lm", "generate", "speculative_generate", "beam_search",
+           "quantize_lm", "quantize_state_dict", "generate", "speculative_generate", "beam_search",
            "TransformerClassifier", "transformer_classifier",
            "MLP", "mlp", "LeNet", "lenet", "VGGSmall", "vgg_small",
            "LSTMClassifier", "lstm_classifier", "ResNetSmall",

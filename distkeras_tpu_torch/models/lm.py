@@ -1117,3 +1117,24 @@ def quantize_lm(model: TransformerLM) -> TransformerLM:
             elif isinstance(mod, (nn.LayerNorm, nn.Embedding)):
                 mod.load_state_dict(src[name].state_dict())
     return qmodel.eval()
+
+
+def quantize_state_dict(qmodel: TransformerLM, tree: dict) -> dict:
+    """The state dict of the int8 ``qmodel`` (``quant=True``) that carries
+    the float LM weights ``tree`` (a float model's names, numpy arrays or
+    tensors): each QDense's ``weight`` is cast to its float dtype on
+    ``qmodel``'s device and quantized as :func:`quantize_lm` does;
+    embeddings, LayerNorms and biases pass through. Bit-equal to
+    ``quantize_lm`` of a float model loaded from ``tree``."""
+    if not getattr(qmodel, "quant", False):
+        raise ValueError("quantize_state_dict() needs an int8 model "
+                         "(quant=True)")
+    out = {k: torch.as_tensor(v) for k, v in tree.items()}
+    with torch.no_grad():
+        for name, mod in qmodel.named_modules():
+            if isinstance(mod, QDense):
+                w = out.pop(f"{name}.weight").to(
+                    device=mod.kernel_q.device, dtype=mod.bias.dtype)
+                qt = quantize(w, axis=1)
+                out[f"{name}.kernel_q"], out[f"{name}.scale"] = qt.q, qt.scale
+    return out

@@ -149,6 +149,35 @@ def get_mesh(num_workers: int | None = None, device="cuda",
     return Mesh({axis: int(num_workers)}, device=device)
 
 
+def worker_slice(mesh: Mesh, num_workers: int) -> slice:
+    """This rank's workers of the global ``num_workers`` when W workers
+    run over the ranks of the ``"dp"`` axis (one card a rank): the
+    contiguous ``[index · W/dp, (index + 1) · W/dp)``. W must be a multiple
+    of the axis size and at least it (the JAX package builds a sub-mesh
+    when W is smaller; a mesh here takes every rank), and the mesh may
+    have no other axis of more than one rank (W workers are data parallel
+    only)."""
+    W, dp = int(num_workers), mesh.size("dp")
+    extra = {a: n for a, n in mesh.shape.items() if a != "dp" and n > 1}
+    if extra:
+        raise ValueError(
+            f"W workers over processes run on a 'dp'-only mesh; this mesh "
+            f"also has {extra} (use MeshTrainer for one model over tensor, "
+            f"pipeline, sequence or expert axes)")
+    if W < dp:
+        raise ValueError(
+            f"num_workers={W} is smaller than the mesh axis 'dp' of {dp} "
+            f"ranks: every rank holds at least one worker (a mesh takes "
+            f"every rank; start fewer processes)")
+    if W % dp:
+        raise ValueError(
+            f"num_workers={W} is not a multiple of the mesh axis 'dp' of "
+            f"{dp} ranks: each rank holds an equal share of the workers")
+    n = W // dp
+    lo = mesh.index("dp") * n
+    return slice(lo, lo + n)
+
+
 def mesh_info(mesh: Mesh) -> dict:
     dev = mesh.device
     kind = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -495,4 +524,4 @@ def using(ctx: MeshContext | None):
 __all__ = ["LeafLayout", "Mesh", "MeshContext", "all_reduce_", "all_to_all",
            "context", "copy_to", "full_spec", "gather_from", "gather_shards",
            "get_mesh", "mesh_info", "put_global", "reduce_from", "shift",
-           "split_to", "using"]
+           "split_to", "using", "worker_slice"]

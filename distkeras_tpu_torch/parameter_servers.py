@@ -81,9 +81,13 @@ links, so each counts once per membership flip of a worker id (a lost-ACK
 replay counts nothing); an eviction retires a worker's records. The
 ``join`` and ``drain`` wire actions serve them.
 
-Deploy streaming and the metrics registry belong to a later slice
-(``ROADMAP.md`` A13): their wire actions answer with an error frame naming
-the item, and the deploy counters stay 0.
+**Deploy streaming** (``deploy/``): ``mark_epoch`` logs a training-epoch
+boundary (``REC_EPOCH``) into the WAL and the replication stream, where
+a read replica cuts its epoch snapshot; ``report_deploy_version`` (the
+``deploy_report`` wire action) records the newest version the serving
+tier published, which ``stats()`` prices as ``deploy_lag_folds``. The
+metrics registry belongs to a later slice (``ROADMAP.md`` A13): its wire
+action answers with an error frame naming the item.
 """
 
 from __future__ import annotations
@@ -116,7 +120,6 @@ Tree = Any
 
 #: wire actions of later slices → the ROADMAP item that ports them
 _LATER_ACTIONS = {
-    "deploy_report": "A13 (deploy streaming)",
     "metrics": "A13 (observability: metrics)",
 }
 
@@ -299,6 +302,9 @@ class ParameterServer:
         self._n_joined = 0
         self._n_preempted = 0
         self._n_drain_timeouts = 0
+        # the newest center version the serving tier published (0: none
+        # yet, and deploy_lag_folds then reads 0, not num_updates)
+        self._deploy_version = 0
         self._joined_wids: set[int] = set()
         self._drained_wids: set[int] = set()
         self._t_start = time.monotonic()
@@ -898,6 +904,12 @@ class ParameterServer:
                 self._log_locked(_wal.encode_record(_wal.REC_EPOCH,
                                                     (int(epoch),)))
 
+    def report_deploy_version(self, version: int) -> None:
+        """A read replica published a serving snapshot at center version
+        ``version`` (monotone max; ``deploy/stream.py``)."""
+        with self._stats_lock:
+            self._deploy_version = max(self._deploy_version, int(version))
+
     def attach_standby(self, host: str, port: int,
                        timeout: float = 10.0) -> None:
         """Open the hot-standby replication stream: send the replica the
@@ -997,8 +1009,8 @@ class ParameterServer:
         ``heartbeats`` / ``worker_retries``, the WAL's records, fsyncs and
         largest group, and the membership's ``pool_size`` (the configured
         workers plus joins minus drains), ``joined_workers``,
-        ``preempted_workers`` and ``drain_timeouts``; the deploy counters
-        stay 0 until their slice."""
+        ``preempted_workers`` and ``drain_timeouts``, and the deployed
+        version with its lag (``deploy_version``, ``deploy_lag_folds``)."""
         if settle:
             self._settle_stats()
         elapsed = time.monotonic() - self._t_start
@@ -1009,6 +1021,7 @@ class ParameterServer:
             dups = self._n_dup_commits
             pool, joined = self._pool_size, self._n_joined
             preempted, drain_to = self._n_preempted, self._n_drain_timeouts
+            deploy_v = self._deploy_version
         hb = self._registry.stats()
         wal = self._wal
         return build_ps_stats(
@@ -1026,7 +1039,7 @@ class ParameterServer:
             pool_size=pool, joined_workers=joined,
             preempted_workers=preempted, drain_timeouts=drain_to,
             fused_exchanges=fusedx,
-            batched_folds=batched)
+            batched_folds=batched, deploy_version=deploy_v)
 
 
 class _EncodedLeaf:
@@ -1217,6 +1230,10 @@ class SocketParameterServer(ParameterServer):
                 "ok": True, "epoch": self.fence(int(msg["epoch"]))})
         elif action == "mark_epoch":
             self.mark_epoch(int(msg["epoch"]))
+            networking.send_data(conn, {"ok": True})
+        elif action == "deploy_report":
+            # a read replica published a serving snapshot at this version
+            self.report_deploy_version(int(msg["version"]))
             networking.send_data(conn, {"ok": True})
         elif action == "heartbeat":
             known = self.heartbeat(msg["worker_id"],
@@ -1678,6 +1695,11 @@ class ParameterServerClient:
         """Log a training-epoch boundary into the server's WAL and
         replication stream."""
         self._request({"action": "mark_epoch", "epoch": int(epoch)})
+
+    def report_deploy_version(self, version: int) -> None:
+        """Report the newest center version published to the serving tier
+        (the server's ``deploy_lag_folds``)."""
+        self._request({"action": "deploy_report", "version": int(version)})
 
     def heartbeat(self, retries: int = 0) -> bool:
         """Renew this worker's lease (auto-registering); ``retries`` is the

@@ -7,8 +7,11 @@ chunk under ``torch.no_grad()`` on the predictor's device (the card unless
 the caller asks for the CPU); ``quantize=True`` serves the zoo's Dense
 layers in int8 (``ops.quant.quantize_serving``). Rows are padded to a
 static batch (``data.padded_chunks``) and the pad rows trimmed on the
-host. ``GeneratorPredictor`` maps the LM's dense-cache decoding over a
-column of prompts.
+host. ``mesh=`` (a ``parallel.mesh.Mesh``, one process a card) spreads
+each chunk's rows over the ranks of ``dp_axis``: every rank applies its
+``batch_size / dp`` rows and the outputs are all-gathered, so every rank
+returns the whole column. ``GeneratorPredictor`` maps the LM's
+dense-cache decoding over a column of prompts.
 """
 
 from __future__ import annotations
@@ -33,13 +36,13 @@ class ModelPredictor:
     """Append a prediction column computed by a trained model: a Keras 3
     model (torch backend) with its weights already trained, or a
     ``ModelSpec`` plus explicit ``(params, state)`` trees, e.g. a trainer's
-    ``trained_params_`` / ``trained_nt_``."""
+    ``trained_params_`` / ``trained_nt_``. With ``mesh`` every rank of the
+    mesh calls ``predict`` on the same dataset (on the mesh's device)."""
 
     def __init__(self, model, params=None, state=None,
                  features_col="features", output_col: str = "prediction",
                  batch_size: int = 512, mesh=None, dp_axis: str = "dp",
                  quantize: bool = False, device="cuda"):
-        del dp_axis
         if isinstance(model, ModelSpec):
             if params is None:
                 raise ValueError("ModelSpec predictor needs explicit params")
@@ -51,9 +54,12 @@ class ModelPredictor:
                 f"ModelPredictor takes a Keras 3 model or a "
                 f"distkeras_tpu_torch ModelSpec, got {type(model)}")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= is not ported yet: ROADMAP.md A12.2 (W workers over "
-                "processes, one card each)")
+            from distkeras_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a distkeras_tpu_torch."
+                                f"parallel.mesh.Mesh, got {type(mesh)}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.spec = model
         self.params = _to_device(params, self.device)
@@ -71,17 +77,39 @@ class ModelPredictor:
             else list(features_col))
         self.output_col = output_col
         self.batch_size = int(batch_size)
+        # data-parallel inference: each chunk's rows split over dp_axis,
+        # the params replicated on every rank
+        self.mesh, self._group, self._rows = mesh, None, None
+        if mesh is not None:
+            if dp_axis not in mesh.shape:
+                raise ValueError(
+                    f"dp_axis {dp_axis!r} not in mesh axes "
+                    f"{tuple(mesh.shape.keys())}")
+            dp = mesh.shape[dp_axis]
+            if self.batch_size % dp:
+                raise ValueError(
+                    f"batch_size {self.batch_size} not divisible by mesh "
+                    f"axis '{dp_axis}' of size {dp}")
+            n = self.batch_size // dp
+            lo = mesh.index(dp_axis) * n
+            self._group, self._rows = mesh.group(dp_axis), slice(lo, lo + n)
 
     def predict(self, ds: Dataset) -> Dataset:
+        from distkeras_tpu_torch.parallel.mesh import _all_gather
+
         cols = [ds[c] for c in self.features_col]
         outs = []
         with torch.no_grad():
             for chunk, real in padded_chunks(cols, self.batch_size):
+                if self._rows is not None:
+                    chunk = [c[self._rows] for c in chunk]
                 xs = tuple(torch.tensor(c, device=self.device) for c in chunk)
                 x = xs[0] if len(xs) == 1 else xs
                 out, _ = self.spec.apply(self.params, self.state, x, False)
                 if out.dtype == torch.bfloat16:
                     out = out.float()
+                if self._group is not None:
+                    out = _all_gather(out, self._group, 0)
                 outs.append(out[:real].cpu().numpy())
         return ds.with_column(self.output_col, np.concatenate(outs))
 

@@ -12,6 +12,15 @@ lets in-flight requests finish, then closes. ``register_with`` publishes
 the replica into a membership directory (``directory/``) under a renewed
 lease, which ``stop`` withdraws. :class:`ResilientGenerationClient`
 reconnects and replays a request across a server's death or restart.
+
+Live deployment (``deploy/``): with a ``SnapshotStore`` of streamed model
+versions in ``server.snapshots``, the ``deploy_activate`` action stages a
+stored version onto the engine (``swap_params``: applied between decode
+steps) and ``deploy_status`` reports the current, the staged and the
+stored versions; the registration meta carries the current
+``model_version``. A snapshot is the training center (the float params
+by name); an int8 engine's model gets it quantized by
+``models.lm.quantize_state_dict`` first.
 """
 
 from __future__ import annotations
@@ -59,6 +68,9 @@ class GenerationServer:
         self._dir_reg: tuple | None = None   # (client, key, ttl, epoch)
         self._dir_renewer: threading.Thread | None = None
         self._dir_stop = threading.Event()
+        # live deployment: a deploy.SnapshotStore of streamed versions,
+        # which the deploy_activate action swaps the engine to
+        self.snapshots = None
 
     def initialize(self) -> None:
         self._server_sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -155,6 +167,12 @@ class GenerationServer:
                 elif action == "stats":
                     networking.send_data(conn, {"ok": True,
                                                 "stats": self.stats()})
+                elif action == "deploy_activate":
+                    # the rollout controller's activation: stage a stored
+                    # snapshot, applied between decode steps
+                    networking.send_data(conn, self._deploy_activate(msg))
+                elif action == "deploy_status":
+                    networking.send_data(conn, self._deploy_status())
                 else:
                     networking.send_data(conn, {
                         "error": "bad_request",
@@ -170,6 +188,42 @@ class GenerationServer:
             with self._conns_lock:
                 if conn in self._conns:
                     self._conns.remove(conn)
+
+    def _deploy_activate(self, msg: dict) -> dict:
+        version = int(msg["version"])
+        policy = msg.get("policy", "drain")
+        store = self.snapshots
+        if store is None:
+            return {"ok": False, "error": "no snapshot store attached"}
+        snap = store.get(version)
+        if snap is None:
+            return {"ok": False, "error": f"unknown version {version}",
+                    "versions": store.versions()}
+        try:
+            self.engine.swap_params(self._weights(snap.tree),
+                                    snap.version, policy=policy)
+        except ValueError as e:
+            return {"ok": False, "error": str(e)}
+        return {"ok": True, "version": snap.version, "policy": policy}
+
+    def _weights(self, tree: dict) -> dict:
+        """The engine model's state dict carrying a snapshot's float
+        ``tree``: as is for a float model, quantized for an int8 one."""
+        import torch
+
+        model = self.engine.model
+        if getattr(model, "quant", False):
+            from distkeras_tpu_torch.models.lm import quantize_state_dict
+
+            return quantize_state_dict(model, tree)
+        return {k: torch.as_tensor(v) for k, v in tree.items()}
+
+    def _deploy_status(self) -> dict:
+        staged = self.engine._staged_swap
+        store = self.snapshots
+        return {"ok": True, "model_version": self.engine.model_version,
+                "staged_version": staged[1] if staged else None,
+                "versions": store.versions() if store is not None else []}
 
     def register_with(self, directory, key: str | None = None,
                       ttl: float = 5.0, epoch: int = 0) -> str:
@@ -331,6 +385,38 @@ class GenerationClient:
     def stats(self) -> dict:
         networking.send_data(self._sock, {"action": "stats"})
         return networking.recv_data(self._sock)["stats"]
+
+    def deploy_activate(self, version: int, policy: str = "drain") -> dict:
+        """Hot-swap the server to its stored snapshot ``version`` (the
+        rollout controller's activation). Returns the server's reply
+        (``ok=False`` with the stored versions on a miss)."""
+        networking.send_data(self._sock, {
+            "action": "deploy_activate", "version": int(version),
+            "policy": str(policy)})
+        return networking.recv_data(self._sock)
+
+    def deploy_status(self) -> dict:
+        """The current and staged model versions and the stored ones."""
+        networking.send_data(self._sock, {"action": "deploy_status"})
+        return networking.recv_data(self._sock)
+
+    def wait_for_swap(self, timeout: float = 10.0,
+                      poll: float = 0.02) -> dict:
+        """Block until no swap is staged (a drain landed, a refill
+        applied) and return the final status; ``TimeoutError`` with the
+        stuck status when ``timeout`` passes first (a drain behind a
+        request that never finishes)."""
+        import time
+
+        deadline = time.monotonic() + float(timeout)
+        while True:
+            status = self.deploy_status()
+            if status.get("staged_version") is None:
+                return status
+            if time.monotonic() >= deadline:
+                raise TimeoutError(
+                    f"swap still staged after {timeout}s: {status}")
+            time.sleep(poll)
 
     def set_timeout(self, seconds: float | None) -> None:
         self._sock.settimeout(seconds)

@@ -331,6 +331,15 @@ class ShardedPSGroup:
             if mark is not None:
                 mark(int(epoch))
 
+    def report_deploy_version(self, version: int) -> None:
+        """Fan a read replica's published version to every shard (each
+        prices its own ``deploy_lag_folds``; the roll-up takes the min
+        version and the worst lag)."""
+        for s in self.active_servers:
+            report = getattr(s, "report_deploy_version", None)
+            if report is not None:
+                report(int(version))
+
     def stats(self) -> dict:
         per = []
         for sid, s in enumerate(self.active_servers):

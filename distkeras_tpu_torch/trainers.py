@@ -15,10 +15,22 @@ server at ``ps_host``. A Keras 3 model (torch backend) may stand in for a
 ``ModelSpec``: the trained weights are written back into it and ``train``
 returns the same model.
 
-``device="cuda"`` (the default) replaces the JAX package's ``mesh``: one
-card holds all ``num_workers`` workers. ``validation_data`` scores a
+``device="cuda"`` (the default): one card holds all ``num_workers``
+workers. ``mesh=`` (a ``parallel.mesh.Mesh`` over the ranks of an
+initialized world, one process a card) spreads them over the ranks of its
+``dp`` axis instead, ``W / dp`` a rank, the merge rules' reductions
+finished by ``all_reduce`` over ``dp`` (``num_workers=None`` then means
+one worker a rank); every rank calls ``train`` on the same dataset and
+seed and returns the same center. With ``backend="ps"`` in an initialized
+world of more than one rank, rank 0 hosts a socket (or native) parameter
+server and every rank runs ``num_workers / world`` hogwild worker threads
+against it over a strided row split (:meth:`DistributedTrainer.
+_train_ps_multiprocess`). ``validation_data`` scores a
 held-out set after every epoch (after the run on the PS backend);
-``profile_dir`` records a ``torch.profiler`` trace of the run. The PS
+``profile_dir`` records a ``torch.profiler`` trace of the run (into
+``process{i}/`` under a world of several ranks). ``deploy_streamer``
+(a ``deploy.WeightStreamer``) attaches the serving tier's read replicas
+to the PS this trainer hosts before any worker folds. The PS
 backend's resilience knobs (``retry_policy``, ``heartbeat_interval``,
 ``lease_timeout``, ``fault_plan``, ``worker_restart_budget``,
 ``worker_restart_delay``, ``tolerate_worker_failures``, ``ps_wal_dir``,
@@ -36,10 +48,9 @@ of the workers), also from a checkpoint the JAX package wrote (its center
 carries over); ``ema_decay`` keeps a Polyak average of the center,
 ``ema_params_``, per window on the collective backend and per commit on
 the PS. Kwargs whose machinery belongs to a later slice of the port (the
-PS backend's observability knobs, ``mesh=`` of W workers over
-processes) are accepted by name and raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item when set to anything but their default:
-nothing is silently ignored.
+PS backend's observability knobs) are accepted by name and raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item when set to
+anything but their default: nothing is silently ignored.
 
 :class:`MeshTrainer` trains ONE model over a mesh of ranks (one process
 a device, ``torch.distributed``): data × Megatron tensor parallelism,
@@ -88,10 +99,7 @@ from distkeras_tpu_torch.parameter_servers import validate_ema_decay
 from distkeras_tpu_torch.utils import tree_map
 
 #: reference kwargs of later slices: name → (default, ROADMAP item)
-_LATER = {
-    "mesh": (None, "A12.2 (W workers over processes, one card each)"),
-    "deploy_streamer": (None, "A13 (deploy streaming)"),
-}
+_LATER: dict = {}
 for _item, _knobs in {
         "A13 (observability: analyze and watch)": {
             "analyze": False, "watch": False, "watch_rules": None,
@@ -251,12 +259,20 @@ def _synchronize(device: torch.device) -> None:
 def _profile_ctx(profile_dir, device: torch.device):
     """A ``torch.profiler`` context recording CPU (and, on the card, CUDA)
     activity for a training run, which writes a Chrome trace into
-    ``profile_dir`` on exit; a no-op without a directory. The trace's path
-    is in ``paths`` once the run ends."""
+    ``profile_dir`` (``profile_dir/process{i}`` under a world of several
+    ranks) on exit; a no-op without a directory. The trace's path is in
+    ``paths`` once the run ends."""
     if not profile_dir:
         return contextlib.nullcontext(), []
     from torch.profiler import ProfilerActivity, profile
 
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        # one trace directory a process: two ranks writing one directory
+        # would interleave their files
+        profile_dir = os.path.join(str(profile_dir),
+                                   f"process{dist.get_rank()}")
     os.makedirs(str(profile_dir), exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -507,12 +523,27 @@ class DistributedTrainer(Trainer):
                  autoscale_target=None, preempt_drain_timeout: float = 5.0,
                  max_pool_size: int | None = None, directory: bool = False,
                  directory_standby: bool = True, ps_directory=None,
-                 **later):
+                 mesh=None, deploy_streamer=None, **later):
         _check_later(later)
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
                          clipnorm=clipnorm, clipvalue=clipvalue)
-        self.device = utils.resolve_device(device)
+        # mesh=: W workers over the ranks of its dp axis, one card a rank
+        self.mesh = mesh
+        if mesh is not None:
+            from distkeras_tpu_torch.parallel.mesh import worker_slice
+
+            if backend != "collective":
+                raise ValueError(
+                    "mesh= places the collective backend's workers; with "
+                    "backend='ps' every rank of an initialized world runs "
+                    "its share of the hogwild workers against rank 0's PS")
+            if num_workers is None:
+                num_workers = mesh.size("dp")
+            worker_slice(mesh, int(num_workers))   # W % dp, W < dp
+            self.device = mesh.device
+        else:
+            self.device = utils.resolve_device(device)
         self.num_workers = int(num_workers) if num_workers is not None else 1
         self.batch_size = int(batch_size)
         self.features_col: list[str] = _as_cols(features_col)
@@ -633,6 +664,19 @@ class DistributedTrainer(Trainer):
                 "with one window still un-exchanged; drop checkpoint_dir or "
                 "run depth 0")
         self.ps_stats_ = None
+        # deploy_streamer=: a deploy.WeightStreamer attached to the
+        # trainer-hosted center before any worker folds, so the serving
+        # tier streams every fold; the caller owns its lifecycle
+        self.deploy_streamer = deploy_streamer
+        if deploy_streamer is not None and ps_host is not None:
+            raise ValueError(
+                "deploy_streamer= streams from the PS this trainer hosts; "
+                "with an external ps_host, attach the streamer on the PS "
+                "owner's side instead")
+        if deploy_streamer is not None and backend != "ps":
+            raise ValueError(
+                "deploy_streamer= streams the folds of a parameter server: "
+                "it applies to backend='ps' only")
         self._init_directory(backend, ps_transport, ps_host, directory,
                              directory_standby, ps_directory,
                              ps_num_shards > 1 or ps_chain_length > 1
@@ -931,8 +975,20 @@ class DistributedTrainer(Trainer):
         if self.checkpoint_dir and ckpt.should_checkpoint(
                 epoch, self.checkpoint_every, self.num_epoch):
             t0 = time.perf_counter()
-            self._dispatch_checkpoint({"state": state, "epoch": epoch},
-                                      epoch)
+            if _world_size() > 1:
+                # W workers over processes: each rank writes its workers'
+                # rows of the stacked state, rank 0 the center (.dks)
+                if self.checkpoint_async:
+                    raise ValueError(
+                        "checkpoint_async with several ranks: the sharded "
+                        "save is a collective; use synchronous checkpoints")
+                ckpt.save_sharded(
+                    self.checkpoint_dir,
+                    {"state": self._engine.sharded_state(state),
+                     "epoch": epoch}, step=epoch)
+            else:
+                self._dispatch_checkpoint({"state": state, "epoch": epoch},
+                                          epoch)
             self.checkpoint_ms_.append(1e3 * (time.perf_counter() - t0))
 
     def allocate_optimizer(self):
@@ -959,6 +1015,10 @@ class DistributedTrainer(Trainer):
         try:
             with ctx:
                 if self.backend == "ps":
+                    if _world_size() > 1:
+                        # rank 0 hosts the PS, every rank runs its share
+                        # of the hogwild workers against it
+                        return self._train_ps_multiprocess(ds, shuffle)
                     return self._train_ps(ds, shuffle)
                 return self._train_collective(ds, shuffle)
         finally:
@@ -968,15 +1028,17 @@ class DistributedTrainer(Trainer):
             # failure
             self._finish_checkpoints()
 
-    def _train_ps(self, ds: Dataset, shuffle: bool):
+    def _train_ps(self, ds: Dataset, shuffle: bool, runner=None):
         """``backend="ps"``: worker threads against a parameter server; the
-        history holds one record per worker window."""
+        history holds one record per worker window. ``runner`` (a copy of
+        this trainer with other wiring: the multi-process path's) drives
+        the workers in its place."""
         from distkeras_tpu_torch.workers import run_async_training
 
         validator = self._make_validator()
         self.record_training_start()
         t0 = time.perf_counter()
-        center, nt, history = run_async_training(self, ds, shuffle)
+        center, nt, history = run_async_training(runner or self, ds, shuffle)
         elapsed = time.perf_counter() - t0
         self.record_training_end()
         for rec in history:
@@ -995,13 +1057,151 @@ class DistributedTrainer(Trainer):
             self._validate_epoch(validator, params, nt, None)
         return self._finalize(params, nt)
 
+    def _train_ps_multiprocess(self, ds: Dataset, shuffle: bool):
+        """``backend="ps"`` across the ranks of an initialized world: rank
+        0 hosts the PS (socket, or the native C++ server with
+        ``ps_transport="native"``), every rank runs ``num_workers /
+        world`` hogwild worker threads on its own card against it with
+        worker ids offset by ``rank · W_local``, and a pull after a
+        barrier hands every rank the same trained center; rank 0's
+        non-trainable state is broadcast. Rows split strided (rank ``i``
+        takes rows ``i::world``), so a label-sorted dataset still gives
+        every rank every class and no tail row is dropped. The broadcasts
+        and barriers run over a gloo group of their own, so the path also
+        works with several processes on one card. History and metrics
+        stay this rank's view of the free-running run; with
+        ``validation_data`` the last record scores the returned center.
+
+        Not supported here, as in the JAX package: ``checkpoint_dir``,
+        ``ema_decay``, ``ps_host``, a sharded or chained center and the
+        membership directory. Rank 0 keeps its server's ``stats()`` in
+        ``ps_stats_`` (None on the other ranks)."""
+        import copy
+
+        import torch.distributed as dist
+
+        pc, pi = dist.get_world_size(), dist.get_rank()
+        if self.num_workers % pc:
+            raise ValueError(
+                f"num_workers {self.num_workers} must be divisible by "
+                f"process_count {pc} (each controller runs an equal share "
+                f"of hogwild workers)")
+        if self.checkpoint_dir:
+            raise NotImplementedError(
+                "checkpoint_dir under multi-process backend='ps' is not "
+                "supported (controllers would collide in one directory); "
+                "checkpoint the PS owner's center instead")
+        if self.ema_decay is not None:
+            raise NotImplementedError(
+                "ema_decay under multi-process backend='ps' is not "
+                "supported (the averaged center would live only with "
+                "process 0's server)")
+        if self.ps_host is not None:
+            raise ValueError(
+                "ps_host is incompatible with multi-process backend='ps' "
+                "(process 0 hosts the server automatically)")
+        if self.ps_num_shards > 1 or self.ps_chain_length > 1:
+            raise NotImplementedError(
+                "ps_num_shards/ps_chain_length under multi-process "
+                "backend='ps' are not supported yet (the shim points every "
+                "controller at ONE process-0 server; a sharded group needs "
+                "per-shard endpoint broadcast)")
+        if self.directory or self.ps_directory is not None:
+            raise NotImplementedError(
+                "directory/ps_directory under the multi-process shim are "
+                "not supported yet (the shim broadcasts process 0's one "
+                "endpoint; the directory is the mechanism that would "
+                "replace that broadcast)")
+        W_local = self.num_workers // pc
+        transport = "native" if self.ps_transport == "native" else "socket"
+        # the control plane: gloo, whatever the world's backend (several
+        # processes may share one card, which NCCL refuses)
+        ctl = dist.new_group(backend="gloo")
+        params0, _ = self.spec.init_np(self.seed)
+        ps = None
+        host, port = "", 0
+        if pi == 0:
+            rule = self.allocate_merge_rule()
+            if transport == "native":
+                from distkeras_tpu_torch.native_ps import (
+                    NativeSocketParameterServer,
+                )
+
+                ps = NativeSocketParameterServer(
+                    params0, rule, self.num_workers, host="0.0.0.0",
+                    port=self.ps_port)
+            else:
+                from distkeras_tpu_torch.parameter_servers import (
+                    SocketParameterServer,
+                )
+
+                ps = SocketParameterServer(
+                    params0, rule, self.num_workers, host="0.0.0.0",
+                    port=self.ps_port)
+            ps.initialize()
+            ps.start()
+            host = _rank0_address()
+            port = ps.port
+        box = [(host, port)]
+        dist.broadcast_object_list(box, src=0, group=ctl)
+        host, port = box[0]
+        # strided per-rank row split: disjoint, covers every row, every
+        # class on every rank of a label-sorted dataset
+        shard = Dataset({c: ds[c][pi::pc] for c in ds.columns})
+        shim = copy.copy(self)   # shares spec and history; own wiring
+        shim.num_workers = W_local
+        shim.ps_transport = transport
+        shim.ps_host = host
+        shim.ps_port = port
+        shim.worker_id_offset = pi * W_local
+        try:
+            self._train_ps(shard, shuffle, runner=shim)
+            # every rank's commits land before anyone reads the center,
+            # and the server outlives every reader
+            dist.barrier(group=ctl)
+            if transport == "native":
+                from distkeras_tpu_torch.native_ps import (
+                    FlatSpec,
+                    NativePSClient,
+                )
+
+                client = NativePSClient(host, port, 2**32 - 2,
+                                        FlatSpec(params0))
+            else:
+                from distkeras_tpu_torch.parameter_servers import (
+                    ParameterServerClient,
+                )
+
+                client = ParameterServerClient(host, port, 2**32 - 2)
+            final = client.pull()
+            client.close()
+            dist.barrier(group=ctl)
+            # the server's counters, on the rank that hosts it
+            self.ps_stats_ = ps.stats() if ps is not None else None
+        finally:
+            if ps is not None:
+                ps.stop()
+        self.exchange_phases_ = getattr(shim, "exchange_phases_", None)
+        # the non-trainables trained on each rank's own rows: rank 0's go
+        # to every rank, so all return the same (center, nt)
+        box = [tree_map(lambda x: np.asarray(x), self.trained_nt_)]
+        dist.broadcast_object_list(box, src=0, group=ctl)
+        dist.destroy_process_group(ctl)
+        nt = tree_map(lambda x: torch.from_numpy(np.array(x)), box[0])
+        final = tree_map(lambda c: torch.from_numpy(np.asarray(c)), final)
+        validator = self._make_validator()
+        if validator is not None:
+            self._validate_epoch(validator, final, nt, None)
+        return self._finalize(final, nt)
+
     def _train_collective(self, ds: Dataset, shuffle: bool):
         engine = LocalSGDEngine(
             spec=self.spec, loss_step=self._loss_step(),
             optimizer=self.allocate_optimizer(),
             rule=self.allocate_merge_rule(), device=self.device,
             num_workers=self.num_workers, window=self.communication_window,
-            batch_size=self.batch_size)
+            batch_size=self.batch_size, mesh=self.mesh)
+        self._engine = engine
         params, nt = self.spec.init(self.seed)
         state = engine.init_state(params, nt)
         self.checkpoint_ms_ = []
@@ -1021,7 +1221,9 @@ class DistributedTrainer(Trainer):
         W, win, B = self.num_workers, self.communication_window, \
             self.batch_size
         validator = self._make_validator()
-        worker0 = lambda st: tree_map(lambda x: x[0], st.nt)
+        # worker 0's BatchNorm statistics score the center; over a mesh
+        # the rank that holds worker 0 broadcasts them
+        worker0 = lambda st: engine.worker_nt_device(st, 0)
         self.record_training_start()
         if use_resident:
             staged = engine.stage_dataset(ds.worker_shards(
@@ -1070,6 +1272,7 @@ class DistributedTrainer(Trainer):
         self._finish_checkpoints()
         self.record_training_end()
         self.state_ = state
+        self._engine = None
         self._materialize_history()
         return self._finalize(engine.center_params(state),
                               engine.worker_nt(state, 0))
@@ -1108,6 +1311,21 @@ class DistributedTrainer(Trainer):
         return state, int(np.asarray(payload["epoch"])) + 1
 
 
+def _rank0_address() -> str:
+    """The address the other ranks reach rank 0 at: the coordinator's
+    host (``job_deployment`` starts rank 0 on the coordinator, which every
+    rank already reached), else loopback."""
+    coord = os.environ.get("DISTKERAS_COORDINATOR", "")
+    host = coord.rsplit(":", 1)[0].strip("[]") if coord else ""
+    return host if host and host != "localhost" else "127.0.0.1"
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 class AsynchronousDistributedTrainer(DistributedTrainer):
     """Parity alias: the reference's base class of the five asynchronous
     algorithms."""
@@ -1123,13 +1341,13 @@ class SingleTrainer(DistributedTrainer):
                  features_col="features", label_col: str = "label",
                  num_epoch: int = 1, seed: int = 0, device="cuda",
                  prefetch: int = 1, ema_decay: float | None = None,
-                 clipnorm=None, clipvalue=None, **later):
+                 clipnorm=None, clipvalue=None, mesh=None, **later):
         super().__init__(
             keras_model, loss, worker_optimizer, learning_rate=learning_rate,
             num_workers=1, batch_size=batch_size, features_col=features_col,
             label_col=label_col, num_epoch=num_epoch, communication_window=1,
             seed=seed, device=device, prefetch=prefetch, ema_decay=ema_decay,
-            clipnorm=clipnorm, clipvalue=clipvalue, **later)
+            clipnorm=clipnorm, clipvalue=clipvalue, mesh=mesh, **later)
 
     def allocate_merge_rule(self) -> MergeRule:
         return ADAGMerge()  # with W=1 the merge is the identity fold

@@ -1040,6 +1040,20 @@ def run_async_training(trainer, ds, shuffle: bool):
             for sid, srv in enumerate(group.servers):
                 hosted.register_shard(sid, srv, group.plan,
                                       supervised=False)
+        streamer = getattr(trainer, "deploy_streamer", None)
+        if streamer is not None:
+            # the serving tier's read replicas hook onto the live center
+            # before any worker folds, so snapshots stream from fold 1;
+            # with a hot standby the replica slot is taken and the
+            # streamer rides the chain's tail (the standby forwards)
+            target = group if group is not None else (
+                standby if standby is not None else ps)
+            if target is None:
+                raise ValueError(
+                    "deploy_streamer= needs a trainer-hosted PS to stream "
+                    "from (external ps_host / directory-only runs attach "
+                    "the streamer on the PS owner's side)")
+            streamer.attach_to(target)
 
         def build_client(i):
             # any id: the elastic coordinator mints joiners' clients here.

@@ -54,7 +54,8 @@ _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "sharding.client", "sharding.group", "checkpoint",
                 "observability.timeseries", "observability.watch",
                 "resilience.elastic", "directory", "directory.service",
-                "directory.client", "directory.host", "directory.router"]
+                "directory.client", "directory.host", "directory.router",
+                "deploy", "deploy.stream", "deploy.rollout"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():

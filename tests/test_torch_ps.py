@@ -250,20 +250,22 @@ def test_socket_ps_stats_served_over_wire():
 
 
 def test_socket_ps_later_actions_name_their_roadmap_item():
-    """The metrics and deploy actions (A13) answer with an error naming
-    their item; the elastic ``join`` and ``drain`` actions, once refused
-    naming A7.8, answer: the pool grows by the joiner and shrinks by the
-    drain."""
+    """The metrics action (A13's second half) answers with an error naming
+    its item; the deploy report (A13's first half), once refused too, sets
+    the deployed version; the elastic ``join`` and ``drain`` actions, once
+    refused naming A7.8, answer: the pool grows by the joiner and shrinks
+    by the drain."""
     ps = _socket_ps({"w": np.zeros(2, np.float32)}, tr.ADAGMerge(), 1)
     try:
         s = networking.connect("127.0.0.1", ps.port, timeout=TIMEOUT)
         try:
-            for action, item in (("metrics", "A13"),
-                                 ("deploy_report", "A13")):
-                networking.send_data(s, {"action": action, "worker_id": 0,
-                                         "epoch": 1, "version": 1})
-                reply = networking.recv_data(s)
-                assert not reply["ok"] and item in reply["error"], reply
+            networking.send_data(s, {"action": "metrics", "worker_id": 0})
+            reply = networking.recv_data(s)
+            assert not reply["ok"] and "A13" in reply["error"], reply
+            networking.send_data(s, {"action": "deploy_report",
+                                     "version": 1})
+            assert networking.recv_data(s) == {"ok": True}
+            assert ps.stats()["deploy_version"] == 1
             networking.send_data(s, {"action": "join", "worker_id": 3})
             assert networking.recv_data(s) == {"ok": True, "pool_size": 2,
                                                "num_updates": 0}

@@ -165,12 +165,13 @@ def test_predictors_match_the_jax_package(kind):
 
 
 def test_predictor_later_options_name_their_item():
-    """``mesh=`` still names its item (A12); ``quantize=True`` serves the
-    Dense layers in int8 and tracks the float predictor (argmax equal,
-    logits within the int8 weights' error on this f32 MLP)."""
+    """``mesh=`` is taken (A12.2) and wants a port ``Mesh``
+    (``tests/test_torch_dp_mesh.py`` runs it over ranks); ``quantize=True``
+    serves the Dense layers in int8 and tracks the float predictor (argmax
+    equal, logits within the int8 weights' error on this f32 MLP)."""
     spec = torch_mlp(input_shape=(4,), hidden=(4,), num_classes=2)
     params, _ = spec.init(0)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(TypeError, match="Mesh"):
         tpred.ModelPredictor(spec, params, mesh=object(), device="cpu")
     wide = torch_mlp(input_shape=(12,), hidden=(32, 16), num_classes=5,
                      dtype=torch.float32)

@@ -243,8 +243,12 @@ def test_later_slice_kwargs_raise_naming_their_roadmap_item():
                         checkpoint_async=True, ema_decay=0.5, device="cpu")
     assert (t.checkpoint_dir, t.resume, t.checkpoint_async, t.ema_decay) \
         == ("/nonexistent", True, True, 0.5)
-    with pytest.raises(NotImplementedError, match="A12"):
-        trainers.SingleTrainer(spec, mesh=object(), device="cpu")
+    # W workers over processes (A12.2) and the deploy streamer (A13's
+    # first half) are taken; the observability knobs still name A13
+    with pytest.raises(NotImplementedError, match="A13"):
+        trainers.SingleTrainer(spec, analyze=True, device="cpu")
+    with pytest.raises(ValueError, match="backend='ps' only"):
+        trainers.ADAG(spec, deploy_streamer=object(), device="cpu")
     with pytest.raises(TypeError, match="unexpected keyword"):
         trainers.ADAG(spec, not_a_kwarg=1, device="cpu")
     t = trainers.ADAG(spec, backend="collective", ps_port=0, elastic=False,

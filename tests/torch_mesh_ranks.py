@@ -12,7 +12,14 @@ Case kinds: ``train`` (a ``MeshTrainer`` run: trained params and the loss
 history; ``resume`` splits it at an epoch through a checkpoint), ``ring``
 (``ring_attention``: output and input gradients), ``moe`` (``moe_mlp``:
 output, aux and gradients) and ``pipeline_apply`` (a pipelined MLP
-against ``sequential_apply``).
+against ``sequential_apply``). W workers over processes: ``dp_train`` (a
+``DistributedTrainer(mesh=)`` run of one of the five algorithms: center,
+losses, validation records, EMA, worker 0's non-trainable state, every
+rank's center checksum), ``worker_grads`` (sync BN's per-worker
+gradients under the engine's vmap, gathered from every rank),
+``predict`` (``ModelPredictor(mesh=)``), ``ps_train`` (the multi-process
+``backend="ps"``) and ``refuse`` (the error a trainer or predictor
+raises on every rank).
 """
 
 import dataclasses
@@ -172,6 +179,222 @@ def run_mesh_size(case, data, workdir):
     return out
 
 
+def _dp_spec(case, data):
+    """The case's model (``mlp`` or ``resnet``) with the JAX init stored
+    under ``case["init"]``."""
+    from distkeras_tpu_torch.models import mlp, resnet_small
+
+    cfg = dict(case["model"])
+    kind = cfg.pop("kind")
+    if "input_shape" in cfg:
+        cfg["input_shape"] = tuple(cfg["input_shape"])
+    if "hidden" in cfg:
+        cfg["hidden"] = tuple(cfg["hidden"])
+    if "widths" in cfg:
+        cfg["widths"] = tuple(cfg["widths"])
+    fn = {"mlp": mlp, "resnet": resnet_small}[kind]
+    return _with_init(fn(dtype=torch.float32, **cfg), data,
+                      case["init"] + "/")
+
+
+def _xy(data, case):
+    from distkeras_tpu_torch.data import Dataset
+
+    x, y = data[case.get("x", "x")], data[case.get("y", "y")]
+    if case.get("sorted"):
+        order = np.argsort(y, kind="stable")
+        x, y = x[order], y[order]
+    return Dataset({"features": x, "label": y})
+
+
+def _checksum(params) -> float:
+    return float(sum(np.dot(np.asarray(v, np.float64).ravel(),
+                            np.arange(1, v.numel() + 1, dtype=np.float64))
+                     for _, v in sorted(params.items())))
+
+
+def _everyone(value):
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def _dp_trainer(case, data, workdir, **extra):
+    from distkeras_tpu_torch import trainers
+    from distkeras_tpu_torch.parallel.mesh import get_mesh
+
+    kw = dict(case.get("trainer", {}))
+    for k in ("checkpoint_dir",):
+        if k in kw:
+            kw[k] = os.path.join(workdir, kw[k]) \
+                if not os.path.isabs(kw[k]) else kw[k]
+    if case.get("validation"):
+        kw["validation_data"] = _xy(data, {"x": "vx", "y": "vy"})
+    kw.update(extra)
+    cls = getattr(trainers, case["algo"])
+    mesh = get_mesh(device="cpu") if case.get("mesh", True) else None
+    return cls(_dp_spec(case, data), device="cpu", mesh=mesh,
+               loss="sparse_softmax_cross_entropy", **kw)
+
+
+def run_dp_train(case, data, workdir):
+    import warnings
+
+    shuffle = case.get("shuffle", False)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if case.get("resume_at"):
+            # the same run split at an epoch through its checkpoint
+            _dp_trainer(case, data, workdir,
+                        num_epoch=case["resume_at"]).train(
+                _xy(data, case), shuffle=shuffle)
+            t = _dp_trainer(case, data, workdir, resume=True)
+        else:
+            t = _dp_trainer(case, data, workdir)
+        params = t.train(_xy(data, case), shuffle=shuffle)
+    out = {f"p/{k}": v.detach().numpy() for k, v in params.items()}
+    out["losses"] = np.array(t.history.losses(), np.float64)
+    out["checksums"] = np.array(_everyone(_checksum(params)))
+    out["nt_checksums"] = np.array(_everyone(_checksum(t.trained_nt_)))
+    for k, v in t.trained_nt_.items():
+        out[f"nt/{k}"] = v.numpy()
+    vals = [r for r in t.history.records if "val_loss" in r]
+    out["val_loss"] = np.array([r["val_loss"] for r in vals])
+    out["val_accuracy"] = np.array([r.get("val_accuracy", -1.0)
+                                    for r in vals])
+    out["val_everyone"] = np.array(_everyone([r["val_loss"] for r in vals]))
+    if t.ema_params_ is not None:
+        for k, v in t.ema_params_.items():
+            out[f"ema/{k}"] = v.numpy()
+    out["warnings"] = np.array([str(w.message) for w in caught] or [""])
+    ck = case.get("trainer", {}).get("checkpoint_dir")
+    out["files"] = np.array(sorted(os.listdir(os.path.join(workdir, ck)))
+                            if ck and not os.path.isabs(ck) else [])
+    return out
+
+
+def run_worker_grads(case, data, workdir):
+    """Every worker's gradient of ``sum(out * cot)`` for W stacked
+    workers spread over the ranks (``W / dp`` a rank), under the engine's
+    ``dp`` context, as ``jax.vmap(grad, axis_name=WORKER_AXIS)`` takes
+    them over all W at once."""
+    from distkeras_tpu_torch.parallel import local_sgd
+    from distkeras_tpu_torch.parallel.mesh import get_mesh, worker_slice
+
+    spec = _dp_spec(case, data)
+    mesh = get_mesh(device="cpu")
+    sl = worker_slice(mesh, case["workers"])
+    ps = {k[3:]: torch.from_numpy(np.array(data[k]))[sl]
+          for k in data.files if k.startswith("gp/")}
+    _, st = spec.init(0)
+    nts = {k: v[None].expand(sl.stop - sl.start, *v.shape).clone()
+           for k, v in st.items()}
+    x = torch.from_numpy(np.array(data["gx"]))[sl]
+    cot = torch.from_numpy(np.array(data["gcot"]))[sl]
+
+    def f(params, nt_, xx, cc):
+        def obj(p):
+            out, new = spec.apply(p, nt_, xx, True)
+            return torch.sum(out * cc), (out, new)
+
+        return torch.func.grad(obj, has_aux=True)(params)
+
+    with local_sgd._over_ranks(mesh.group("dp")):
+        grads, (out, new) = torch.func.vmap(f)(ps, nts, x, cot)
+    res = {}
+    for name, tree in (("g", grads), ("nt", new)):
+        for k, v in tree.items():
+            parts = _everyone(v.detach().numpy())
+            res[f"{name}/{k}"] = np.concatenate(parts)
+    res["out"] = np.concatenate(_everyone(out.detach().numpy()))
+    return res
+
+
+def run_predict(case, data, workdir):
+    from distkeras_tpu_torch.predictors import ModelPredictor
+    from distkeras_tpu_torch.parallel.mesh import get_mesh
+
+    spec = _dp_spec(case, data)
+    params, state = spec.init(0)
+    pred = ModelPredictor(spec, params, state, batch_size=case["batch"],
+                          mesh=get_mesh(device="cpu"), device="cpu")
+    out = pred.predict(_xy(data, case))["prediction"]
+    return {"prediction": out,
+            "everyone": np.array(_everyone(float(np.sum(out))))}
+
+
+def run_ps_train(case, data, workdir):
+    """The multi-process PS: DOWNPOUR over label-sorted rows; every
+    rank's center checksum, its worker ids and losses."""
+    from distkeras_tpu_torch import native_ps, trainers, workers
+
+    ids = set()
+
+    def recording(cls, pos):
+        class Client(cls):
+            def __init__(self, *args, **kw):
+                ids.add(int(args[pos]))
+                super().__init__(*args, **kw)
+
+        return Client
+
+    # the worker ids this rank's clients speak to the server under
+    workers.ParameterServerClient = recording(
+        workers.ParameterServerClient, 2)
+    native_ps.NativePSClient = recording(native_ps.NativePSClient, 2)
+    kw = dict(case["trainer"])
+    t = trainers.DOWNPOUR(_dp_spec(case, data), device="cpu",
+                          loss="sparse_softmax_cross_entropy",
+                          backend="ps", **kw)
+    try:
+        params = t.train(_xy(data, case), shuffle=True)
+    finally:
+        workers.ParameterServerClient = workers.ParameterServerClient.__base__
+        native_ps.NativePSClient = native_ps.NativePSClient.__base__
+    losses = [r["loss"] for r in t.history.records if "loss" in r]
+    ids = sorted(i for i in ids if i < 2**31)   # not the final pull's
+    return {"checksums": np.array(_everyone(_checksum(params))),
+            "losses": np.array(losses, np.float64),
+            "ids": np.array(_everyone(ids)),
+            "labels": np.array(_everyone(sorted(set(
+                np.asarray(_xy(data, case)["label"])[
+                    int(os.environ["DISTKERAS_PROCESS_ID"])::
+                    int(os.environ["DISTKERAS_NUM_PROCESSES"])].tolist()))))}
+
+
+def run_refuse(case, data, workdir):
+    """The error (type: message) each named construction or run raises."""
+    from distkeras_tpu_torch import trainers
+    from distkeras_tpu_torch.parallel.mesh import get_mesh
+    from distkeras_tpu_torch.predictors import ModelPredictor
+
+    spec = _dp_spec(case, data)
+    ds = _xy(data, case)
+    out = {}
+    for name, kw in case["trials"].items():
+        kw = dict(kw)
+        what = kw.pop("what")
+        try:
+            if what == "predictor":
+                params, state = spec.init(0)
+                ModelPredictor(spec, params, state, device="cpu",
+                               mesh=get_mesh(device="cpu"), **kw)
+            elif what == "collective":
+                trainers.ADAG(spec, device="cpu", mesh=get_mesh(device="cpu"),
+                              **kw)
+            else:
+                trainers.DOWNPOUR(spec, device="cpu", backend="ps",
+                                  loss="sparse_softmax_cross_entropy",
+                                  batch_size=8, communication_window=1,
+                                  **kw).train(ds)
+            out[name] = np.array("")
+        except Exception as e:  # noqa: BLE001
+            out[name] = np.array(f"{type(e).__name__}: {e}")
+    return out
+
+
 def main() -> int:
     torch.set_num_threads(1)
     import torch.distributed as dist
@@ -185,7 +408,9 @@ def main() -> int:
     data = np.load(os.path.join(workdir, "inputs.npz"))
     runners = {"train": run_train, "ring": run_ring, "moe": run_moe,
                "pipeline_apply": run_pipeline_apply,
-               "mesh_size": run_mesh_size}
+               "mesh_size": run_mesh_size, "dp_train": run_dp_train,
+               "worker_grads": run_worker_grads, "predict": run_predict,
+               "ps_train": run_ps_train, "refuse": run_refuse}
     for case in plan["cases"]:
         out = runners[case["kind"]](case, data, workdir)
         if info["process_index"] == 0:
