@@ -143,8 +143,8 @@ Phases, in order; any failure exits non-zero and prints no result:
     retries, crash()ed after the last exchange: folds equal the logical
     commits, and the port's ``recover_ps_state`` gives the center last
     served bit for bit, with ``num_updates``, ``last_seq`` and
-    ``fence_epoch``; the core's eviction count equal to the evict records
-    in its log, every commit of the log, those after a worker's eviction
+    ``fence_epoch``; the core's eviction count at the crash, once the
+    log has drained, equal to the evict records in its log, every commit of the log, those after a worker's eviction
     too, folded once; a failing gate keeps the log and prints its path);
     the WAL phases print the durability cost (window
     time, ``ps.wal_wait`` total, fsyncs, bytes, the temporary directory's
@@ -335,7 +335,22 @@ Phases, in order; any failure exits non-zero and prints no result:
     streamer reaches the last fold, the PS's deploy lag at training's end
     stays within the fold count, the journal holds
     the four transitions, and K1–K5 launch;
-25. print the ``kernels`` JSON line (K1 as one decode step and, as
+25. observability (A13), each phase counting its own launches:
+    ``a13_observe_ps_config5`` (config 5 through the socket PS with a WAL,
+    ``analyze=True`` and the watchtower; the CLI scrapes the live server
+    — ``dump --prom``, ``health --watch`` — and analyzes the saved trace
+    and series: the regime, ``host_busy_fraction``, each worker's
+    critical path and window ms, the overlap; every window assembled, no
+    span dropped, K5–K7 as in the in-process phase),
+    ``a13_observe_native_config5`` (the same on the native PS with the
+    C++ WAL: one "dkps" ``ps.fold`` span a fold, each commit decomposed
+    against them), ``a13_watch_serving`` (the int8 400M decoder served
+    traced with a serving watchtower: the ``metrics`` reply, the serving
+    report's queue/prefill/decode split over every request, tie-aware
+    streams, K1 and K2) and ``a13_watch_rollout`` (``a13_deploy_stream``
+    with the trainer's DeployLagRule and ``health`` from a serving
+    watchtower whose SLO rule an injected latency fault fires);
+26. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
     elastic phases, the directory phases, the front door,
@@ -588,6 +603,13 @@ A13_WINDOWS = 4           # windows a worker (2 PS workers)
 A13_SNAPSHOT_EVERY = 2    # folds between streamed versions
 A13_PROMPTS = (96, 160)   # prompt lengths each stream check sends
 A13_NEW = 16              # greedy new tokens a stream
+# observability (A13's second half): the watchtower's scrape interval in the
+# observe phases, the deploy lag (folds) the watched rollout's
+# DeployLagRule allows (three snapshot intervals), and its served p99 SLO
+# (the injected fault reads ten times it)
+A13_SCRAPE = 0.25
+A13_LAG_BOUND = 3 * A13_SNAPSHOT_EVERY
+A13_SLO_P99_MS = 1000.0
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -1393,10 +1415,14 @@ def train_classifier(torch):
     return t
 
 
-def serve(torch, model, label, draft=None):
+def serve(torch, model, label, draft=None, tower=None):
     """Phases 5/6: the served path — server, 4 concurrent clients; with
-    ``draft`` the engine serves speculatively at K=SPEC_K. Returns
-    ``(prompts, streams, wall seconds, the engine's stats)``."""
+    ``draft`` the engine serves speculatively at K=SPEC_K. With ``tower``
+    (an observability ``Watchtower``) the server carries it and it
+    samples the engine while the clients run; its last scrape lands when
+    they are done, and the server's ``metrics`` action's reply is in the
+    stats under ``metrics_reply``. Returns ``(prompts, streams, wall
+    seconds, the engine's stats)``."""
     from distkeras_tpu_torch.serving import (
         GenerationClient,
         GenerationEngine,
@@ -1411,6 +1437,11 @@ def serve(torch, model, label, draft=None):
                               device=DEVICE, **spec)
     server = GenerationServer(engine, poll_interval=0.01)
     server.start()
+    watching = tower is not None
+    if watching:
+        tower.add_serving(engine)
+        server.watchtower = tower
+        tower.start()
     results, errors = {}, []
 
     def client(i):
@@ -1434,7 +1465,13 @@ def serve(torch, model, label, draft=None):
             t.join(600)
         wall = time.perf_counter() - t0
         stats = server.stats()
+        if watching:
+            tower.stop()    # its last scrape, with every request retired
+            watching = False
+            stats["metrics_reply"] = _metrics_action(server.port)
     finally:
+        if watching:
+            tower.stop()
         server.stop()
     if errors or len(results) != len(prompts):
         raise AssertionError(f"{label}: clients failed: {errors}")
@@ -2719,10 +2756,16 @@ def train_ps_lstm_failover(torch, train):
 def _crash_at_first_close():
     """The native server the trainer builds inside the block, with its C++
     span ring armed, crash()ed at the first client close (every worker
-    done, none deregistered yet). Just before the crash, the live state is
+    done, none deregistered yet). Every commit is ACKed, so durable, by
+    then; the crash waits for the flusher to drain the log's other records
+    (an eviction a worker's last heartbeat made), so that every eviction
+    the core counted is on disk. Just before the crash, the live state is
     read into the yielded dict: ``center``, ``ema`` (None without
     ``ema_decay``), ``num_updates``, ``fence_epoch``, ``last_seq`` (each
-    worker's last sent seqno, from its client) and the ring's ``spans``."""
+    worker's last sent seqno, from its client), ``evicted`` (the core's
+    evictions, read without an expiry pass: a lease that lapses after
+    the crash is evicted by the next ``stats()`` alone, with no log to
+    hold it) and the ring's ``spans``."""
     from distkeras_tpu_torch import native_ps
     from distkeras_tpu_torch.resilience import retry
 
@@ -2746,6 +2789,9 @@ def _crash_at_first_close():
         def close(self):
             if not cap:
                 ps = servers[0]
+                deadline = time.monotonic() + 20 * ps.wal_group_interval
+                while ps.wal_pending() and time.monotonic() < deadline:
+                    time.sleep(0.01)
                 ema = ps.get_ema()
                 cap.update(
                     center=ps.spec.flatten(ps.get_model()),
@@ -2753,6 +2799,8 @@ def _crash_at_first_close():
                     num_updates=ps.num_updates, fence_epoch=ps.fence_epoch,
                     last_seq={c.worker_id: c._seq_epoch + c._wire_seq
                               for c in clients if c.seq},
+                    wal_pending=ps.wal_pending(),
+                    evicted=ps.evicted_count(),
                     spans=ps.scrape_trace_events())
                 ps.crash()
             super().close()
@@ -2845,6 +2893,7 @@ def train_ps_lstm_native_wal(torch, train, serial):
                             and state["last_seq"] == want_seq),
             evicted_after_last_commit=sorted(dropped),
             log_evictions=log_evictions["evictions"],
+            evicted_by_crash=cap["evicted"],
             commits_after_evictions=log_evictions["commits_after"],
             log_commits=log_evictions["commits"],
             wal_dir_kept=None,
@@ -2860,10 +2909,15 @@ def train_ps_lstm_native_wal(torch, train, serial):
             fails.append(f"native_wal: the C++ log's EMA recovers bit-equal "
                          f"{ema_equal} (the live EMA moved from the init: "
                          f"{rec['ema_moved']})")
-        if s["evicted_workers"] != log_evictions["evictions"]:
+        if cap["wal_pending"]:
+            fails.append(f"native_wal: {cap['wal_pending']} log records "
+                         f"were still unsynced at the crash")
+        if (cap["evicted"] != log_evictions["evictions"]
+                or s["evicted_workers"] < cap["evicted"]):
             fails.append(f"native_wal: the log holds "
                          f"{log_evictions['evictions']} evictions but the "
-                         f"core counted {s['evicted_workers']}")
+                         f"core counted {cap['evicted']} by the crash "
+                         f"({s['evicted_workers']} after it)")
         if log_evictions["refolded"]:
             fails.append(f"native_wal: commits folded twice after an "
                          f"eviction: {log_evictions['refolded']}")
@@ -6301,7 +6355,7 @@ def _a13_engine(model, version):
                             model_version=version, device=DEVICE)
 
 
-def train_a13_deploy_stream(torch):
+def train_a13_deploy_stream(torch, watched: bool = False):
     """``a13_deploy_stream``: config 9's LM at full width (depth cut to
     A13_DEPTH) trains under ADAG with ``backend="ps"`` (in-process), 2
     worker threads of batch LM_BATCH and window LM_WINDOW, A13_WINDOWS
@@ -6321,19 +6375,39 @@ def train_a13_deploy_stream(torch):
     lag, read when training ends, within the fold count; the journal
     holds canary, promote, canary, rollback, every activation
     acknowledged; K1 (the int8 replica), K2 (training and prefill), K3,
-    K4 and K5 (training) launched."""
+    K4 and K5 (training) launched.
+
+    ``watched=True`` is ``a13_watch_rollout``: the same setup with the
+    trainer's watchtower (``watch_rules=[DeployLagRule(A13_LAG_BOUND)]``,
+    scraping every A13_SCRAPE s) and the rollout's ``health`` read off a
+    serving ``Watchtower`` (``watchtower_health``) that samples the bf16
+    replica's engine on an injected clock, with a ``ServingSLORule`` at
+    A13_SLO_P99_MS. The tower is green at the promotion; a latency fault
+    injected into ``serve.lat.default.p99_ms`` (ten times the bound, as
+    ``examples/train_while_serving.py`` injects it) fires the rule, and
+    the next canary is rolled back. Further gates: the tower green before
+    the promotion and firing only the SLO before the rollback; the
+    trainer's DeployLagRule never fired."""
     from distkeras_tpu_torch.data import next_token_dataset
     from distkeras_tpu_torch.deploy import (
         RolloutController,
         RolloutPolicy,
         WeightStreamer,
+        watchtower_health,
     )
     from distkeras_tpu_torch.directory import DirectoryServer
     from distkeras_tpu_torch.directory.router import RoutedGenerationClient
+    from distkeras_tpu_torch.observability.watch import (
+        DeployLagRule,
+        ServingSLORule,
+        SLOClass,
+        Watchtower,
+    )
     from distkeras_tpu_torch.parallel import ADAGMerge
     from distkeras_tpu_torch.serving import GenerationClient, GenerationServer
     from distkeras_tpu_torch.trainers import ADAG
 
+    name = "a13_watch_rollout" if watched else "a13_deploy_stream"
     t_phase = time.perf_counter()
     zero_launches()
     folds = 2 * A13_WINDOWS
@@ -6345,7 +6419,9 @@ def train_a13_deploy_stream(torch):
         t = ADAG(spec, loss=LOSS, worker_optimizer="fused_adam",
                  learning_rate=LM_LR, num_workers=2, batch_size=LM_BATCH,
                  communication_window=LM_WINDOW, num_epoch=1, backend="ps",
-                 deploy_streamer=st, device=DEVICE)
+                 deploy_streamer=st, device=DEVICE,
+                 **(dict(watch_rules=[DeployLagRule(bound=A13_LAG_BOUND)],
+                         scrape_interval=A13_SCRAPE) if watched else {}))
         ds = next_token_dataset(lm_tokens(
             2 * LM_WINDOW * LM_BATCH * A13_WINDOWS, seed=4))
         t0 = time.perf_counter()
@@ -6359,7 +6435,7 @@ def train_a13_deploy_stream(torch):
         versions = st.store.versions()
         streamed = st.stats()["latest_version"]
         if len(versions) < 3 or streamed != folds:
-            raise AssertionError(f"a13_deploy_stream: the streamer "
+            raise AssertionError(f"{name}: the streamer "
                                  f"published {versions} of {folds} folds")
         va, vb, vc = versions[:3]
         torch.cuda.empty_cache()
@@ -6412,7 +6488,7 @@ def train_a13_deploy_stream(torch):
                 if router.replica_versions() == want:
                     return
                 time.sleep(0.1)
-            raise AssertionError(f"a13_deploy_stream: the fleet never "
+            raise AssertionError(f"{name}: the fleet never "
                                  f"advertised {want}: "
                                  f"{router.replica_versions()}")
 
@@ -6444,26 +6520,55 @@ def train_a13_deploy_stream(torch):
                 c.close()
 
         health = {"green": True, "slo": False}
+        tower = None
+        seen_health: list = []
+        if watched:
+            # the serving tower on an injected clock: each observation is
+            # one scrape of the bf16 replica's engine, then the rules
+            tower = Watchtower(rules=[ServingSLORule(
+                slo={"default": SLOClass(p99_ms=A13_SLO_P99_MS)})])
+            tower.add_serving(servers["bf16"].engine)
+
+            def read_health():
+                return watchtower_health(tower)
+        else:
+            def read_health():
+                return health["green"], health["slo"]
+
+        def observe(now, fault=False):
+            if tower is None:
+                return
+            tower.tick(now=now)
+            if fault:
+                tower.store.sample("serve.lat.default.p99_ms", now,
+                                   10.0 * A13_SLO_P99_MS)
+                tower.watchdog.evaluate(now=now)
+            seen_health.append(read_health())
+
         ctrl = RolloutController(
-            router, activate, lambda: (health["green"], health["slo"]),
+            router, activate, read_health,
             policy=RolloutPolicy(canary_fraction=0.5, bake_s=0.0,
                                  green_checks=1, red_checks=1,
                                  cooldown_s=0.0))
         wait_fleet({"bf16": va, "int8": va})
         check_replicas("base")
         ctrl.begin(vb)
+        observe(1.0)
         legs = [[a["action"] for a in ctrl.step(1.0)]]
         canary, = ctrl.canary_keys
         rest, = set(servers) - {canary}
         wait_fleet({canary: vb, rest: va})
         check_replicas("canary")
+        observe(2.0)
         legs.append([a["action"] for a in ctrl.step(2.0)])
         wait_fleet({"bf16": vb, "int8": vb})
         check_replicas("promoted")
         ctrl.begin(vc)
+        observe(3.0)
         legs.append([a["action"] for a in ctrl.step(3.0)])
         check_replicas("canary2")
         health.update(green=False, slo=True)
+        observe(4.0, fault=True)
         legs.append([a["action"] for a in ctrl.step(4.0)])
         wait_fleet({"bf16": vb, "int8": vb})
         check_replicas("rolled_back")
@@ -6490,7 +6595,17 @@ def train_a13_deploy_stream(torch):
             dsrv.stop()
         torch.cuda.empty_cache()
     launches = read_launches()
-    rec = dict(phase="a13_deploy_stream", device=SMI, depth=A13_DEPTH,
+    watch = None
+    if watched:
+        lag = t.watchtower_.store.get("ps.deploy_lag_folds")
+        watch = dict(
+            lag_bound=A13_LAG_BOUND,
+            max_deploy_lag_folds=(max(v for _, v in lag.points())
+                                  if lag is not None else None),
+            trainer_alerts=t.watch_alerts_, health=seen_health,
+            serving_alerts=tower.alerts_json(),
+            served_p99_ms=tower.store.last("serve.lat.default.p99_ms"))
+    rec = dict(phase=name, device=SMI, depth=A13_DEPTH,
                width=dict(vocab=LM_VOCAB, dim=LM_DIM, heads=LM_HEADS,
                           maxlen=LM_L),
                reduced=dict(depth=f"{LM_DEPTH} -> {A13_DEPTH}"),
@@ -6502,6 +6617,7 @@ def train_a13_deploy_stream(torch):
                deploy_lag_folds=stats["deploy_lag_folds"], legs=legs,
                journal=journal, streams=streams, routed=routed,
                mismatches=mismatches, swap_ms=swap_ms, launches=launches,
+               **({"watch": watch} if watched else {}),
                phase_wall_s=time.perf_counter() - t_phase)
     log(json.dumps(rec))
     fails = []
@@ -6526,8 +6642,419 @@ def train_a13_deploy_stream(torch):
               "flash_attention_bwd_dkv", "fused_adam"):
         if launches[k] < 1:
             fails.append(f"{k} never launched")
+    if watched:
+        fired = [a for a in watch["trainer_alerts"]["log"]
+                 if a["state"] == "firing"]
+        if any(a["kind"] == "deploy_lag" for a in fired):
+            fails.append(f"DeployLagRule fired over {A13_LAG_BOUND} folds: "
+                         f"{fired}")
+        if watch["max_deploy_lag_folds"] is None:
+            fails.append("the trainer's tower never sampled the deploy lag")
+        if seen_health[:3] != [(True, False)] * 3 \
+                or seen_health[3:] != [(False, True)]:
+            fails.append(f"the serving tower's health {seen_health}: green "
+                         f"through the promotion, the SLO alone at the "
+                         f"fault")
     if fails:
-        raise AssertionError("a13_deploy_stream: " + "; ".join(fails))
+        raise AssertionError(f"{name}: " + "; ".join(fails))
+    return rec
+
+
+def _metrics_action(port: int) -> dict:
+    """One ``metrics`` wire action against the server at ``port``."""
+    from distkeras_tpu_torch import networking
+
+    sock = networking.connect("127.0.0.1", port, timeout=30.0)
+    try:
+        networking.send_data(sock, {"action": "metrics"})
+        return networking.recv_data(sock)
+    finally:
+        sock.close()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _observability_cli(*args) -> dict:
+    """``python -m distkeras_tpu_torch.observability *args`` from the
+    checkout's root: its exit code, stdout, stderr's tail and seconds."""
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "distkeras_tpu_torch.observability", *args],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return dict(rc=cli.returncode, stdout=cli.stdout,
+                stderr=cli.stderr[-2000:], s=time.perf_counter() - t0)
+
+
+def _scrape_live(port: int, done: threading.Event, out: dict) -> None:
+    """The observe phase's side thread: once the PS at ``port`` has folded
+    a window of every worker (read through its ``metrics`` action), the
+    CLI scrapes it while the run goes on, ``dump --prom`` then ``health
+    --watch --count 2``; the results land in ``out``."""
+    deadline = time.monotonic() + 300
+    while not done.is_set() and time.monotonic() < deadline:
+        try:
+            m = _metrics_action(port)["metrics"]
+            if m["dk_ps_commits_total"]["samples"][0]["value"] >= PS5_W:
+                break
+        except (OSError, EOFError, KeyError):
+            pass
+        time.sleep(0.05)
+    out["dump"] = _observability_cli("dump", "--port", str(port), "--prom")
+    out["dump"]["run_still_going"] = not done.is_set()
+    out["watch"] = _observability_cli(
+        "health", "--watch", "--host", "127.0.0.1", "--port", str(port),
+        "--count", "2", "--interval", str(A13_SCRAPE))
+
+
+def _prom_value(text: str, name: str):
+    """The unlabeled sample of ``name`` in a Prometheus exposition."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def _windows_by_worker(history) -> dict:
+    out: dict = {}
+    for r in history:
+        if "loss" in r:
+            w = str(r["worker"])
+            out[w] = out.get(w, 0) + 1
+    return out
+
+
+_BUCKETS = ("compute", "compress", "wire", "decode", "lock_wait", "fold",
+            "wal", "pull")
+
+
+def _analysis_summary(a: dict) -> dict:
+    """What an observe phase prints of the analyzer's report: the host's
+    busy share, the regime with its fractions and recommendations, each
+    worker's critical-path buckets and window ms, and the overlap."""
+    tr = a["training"] or {}
+    return dict(
+        host_busy_fraction=a["host_busy_fraction"],
+        host_cores=a["host_cores"], wall_s=a["wall_s"],
+        regime=a["verdict"]["regime"],
+        fractions=a["verdict"]["fractions"],
+        recommendations=a["verdict"]["recommendations"],
+        dropped_spans=a["dropped_spans"],
+        skipped_windows=a["skipped_windows"],
+        overlap=tr.get("overlap"),
+        critical_path_ms={w: {k: v[f"{k}_ms"] for k in _BUCKETS}
+                          for w, v in (tr.get("workers") or {}).items()},
+        window_ms={w: dict(mean=v["mean_window_ms"], p50=v["p50_window_ms"],
+                           cycle=v["mean_cycle_ms"], stall=v["stall_ms"])
+                   for w, v in (tr.get("workers") or {}).items()},
+        windows={w: v["windows"]
+                 for w, v in (tr.get("workers") or {}).items()},
+        totals_ms=tr.get("totals_ms"), union_ms=tr.get("union_ms"),
+        stragglers=tr.get("stragglers"),
+        counters=a.get("counters"))
+
+
+def _analysis_gates(name, t, ps_steps, launches) -> list:
+    """The gates both observe phases share: the analysis exists, names a
+    regime (not idle), lost no span and skipped no window, assembled as
+    many windows for each worker as it ran, with an overlap in [0, 1];
+    K5, K6 and K7 launched as often as in ``ps_config5_inprocess``."""
+    from distkeras_tpu_torch.observability.analyze import REGIMES
+
+    fails = []
+    a = t.analysis_
+    if a is None:
+        return [f"{name}: no analysis_ (the post-run analysis failed)"]
+    regime = a["verdict"]["regime"]
+    if regime not in REGIMES or regime == "idle":
+        fails.append(f"{name}: regime {regime!r}")
+    if a["dropped_spans"] != 0 or a["skipped_windows"] != 0:
+        fails.append(f"{name}: {a['dropped_spans']} dropped spans, "
+                     f"{a['skipped_windows']} skipped windows")
+    ran = _windows_by_worker(t.history.records)
+    got = {w: v["windows"] for w, v in
+           ((a["training"] or {}).get("workers") or {}).items()}
+    if got != ran:
+        fails.append(f"{name}: windows assembled {got}, run {ran}")
+    frac = ((a["training"] or {}).get("overlap") or {}).get("fraction")
+    if not isinstance(frac, float) or not 0.0 <= frac <= 1.0:
+        fails.append(f"{name}: overlap fraction {frac!r}")
+    for k in ("fused_adam", "lstm_forward", "lstm_backward"):
+        if launches[k] != ps_steps:
+            fails.append(f"{name}: {k} launched {launches[k]} times, "
+                         f"expected {ps_steps} as in ps_config5_inprocess")
+    return fails
+
+
+def train_a13_observe_ps(torch, train, ps_steps):
+    """``a13_observe_ps_config5``: config 5 at its published width under
+    DynSGD through the socket PS (``_config5``: PS5_W workers of batch
+    IMDB_BATCH, window IMDB_WINDOW, PS5_EPOCHS epochs, fused Adam) with a
+    WAL and ``analyze=True, watch=True, trace_dir=, watch_dir=,
+    scrape_interval=A13_SCRAPE``. While it runs, the CLI scrapes the live
+    server's ``metrics`` action (``dump --prom``, then ``health --watch
+    --count 2``); after it, ``analyze <trace> --series <dump> --json``
+    reads the saved files. Gates: ``_analysis_gates``; the CLI's dump
+    answered while the run went on; its ``dk_ps_commits_total`` at most
+    the final commits, which ``ps_metrics`` of the final stats carries
+    equal; the CLI's regime equal to ``analysis_``'s and its fractions
+    within 1e-3 (the file keeps µs floats); the watch dump loads back
+    with ``ps.tau_p95``, ``ps.wal_fsync_p95_ms``, ``train.loss`` and
+    every worker's ``worker.<wid>.windows``; no scraper source disabled;
+    the alert ledger's log a list (printed whole)."""
+    from distkeras_tpu_torch.observability.metrics import ps_metrics
+    from distkeras_tpu_torch.observability.timeseries import TimeSeriesStore
+
+    name = "a13_observe_ps_config5"
+    work = tempfile.mkdtemp(prefix="dk-a13-observe-")
+    port = _free_port()
+    cli: dict = {}
+    done = threading.Event()
+    try:
+        t, rows = _config5(
+            "socket", ps_port=port, ps_wal_dir=os.path.join(work, "wal"),
+            analyze=True, watch=True, trace_dir=os.path.join(work, "trace"),
+            watch_dir=os.path.join(work, "watch"),
+            scrape_interval=A13_SCRAPE)
+        scraper = threading.Thread(target=_scrape_live,
+                                   args=(port, done, cli), daemon=True)
+
+        def run():
+            scraper.start()
+            t0 = time.perf_counter()
+            try:
+                t.train(train.gather(np.arange(rows)))
+            finally:
+                done.set()
+            return time.perf_counter() - t0
+
+        wall, launches = counted(run)
+        scraper.join(300)
+        stats = t.ps_stats_
+        analyzed = _observability_cli("analyze", t.trace_path_, "--series",
+                                      t.watch_path_, "--json")
+        report = (json.loads(analyzed["stdout"]) if analyzed["rc"] == 0
+                  else None)
+        store = TimeSeriesStore.load(t.watch_path_)
+        series = store.names()
+        dead = sorted(t.watchtower_.scraper._dead)
+        dump = cli.get("dump", {})
+        scraped = _prom_value(dump.get("stdout", ""), "dk_ps_commits_total")
+        final_metric = ps_metrics(stats).to_json()[
+            "dk_ps_commits_total"]["samples"][0]["value"]
+        watch_lines = [json.loads(ln) for ln in
+                       cli.get("watch", {}).get("stdout", "").splitlines()
+                       if ln.strip()]
+    finally:
+        done.set()
+        torch.cuda.empty_cache()
+    a = t.analysis_
+    frac_diff = None
+    if report is not None and a is not None:
+        fa, fb = a["verdict"]["fractions"], report["verdict"]["fractions"]
+        frac_diff = (max(abs(fa[k] - fb[k]) for k in fa)
+                     if set(fa) == set(fb) and fa else
+                     (0.0 if fa == fb else float("inf")))
+    rec = dict(phase=name, device=SMI, transport="socket", workers=PS5_W,
+               wall_s=wall, commits=stats["commits"],
+               window_wall_ms=1e3 * wall / (PS5_WINDOWS * PS5_EPOCHS),
+               analysis=_analysis_summary(a) if a is not None else None,
+               cli=dict(dump_rc=dump.get("rc"),
+                        dump_during_run=dump.get("run_still_going"),
+                        dump_s=dump.get("s"),
+                        scraped_commits=scraped, final_commits=stats["commits"],
+                        final_metric_commits=final_metric,
+                        watch_rc=cli.get("watch", {}).get("rc"),
+                        watch_transitions=watch_lines,
+                        analyze_rc=analyzed["rc"],
+                        analyze_regime=(report or {}).get("verdict", {}).get(
+                            "regime"),
+                        fraction_max_diff=frac_diff),
+               series=len(series), disabled_sources=dead,
+               watch_alerts=t.watch_alerts_, launches=launches)
+    log(json.dumps(rec))
+    fails = _analysis_gates(name, t, ps_steps, launches)
+    if dump.get("rc") != 0 or scraped is None:
+        fails.append(f"{name}: the live dump failed: rc {dump.get('rc')} "
+                     f"{dump.get('stderr', '')[-500:]}")
+    elif not scraped <= stats["commits"] == final_metric:
+        fails.append(f"{name}: scraped {scraped} commits, final "
+                     f"{stats['commits']}, ps_metrics {final_metric}")
+    if cli.get("watch", {}).get("rc") not in (0, 1):
+        fails.append(f"{name}: health --watch rc {cli.get('watch')}")
+    if report is None or a is None \
+            or report["verdict"]["regime"] != a["verdict"]["regime"] \
+            or frac_diff is None or frac_diff > 1e-3:
+        fails.append(f"{name}: the CLI's analysis (rc {analyzed['rc']}, "
+                     f"{analyzed['stderr'][-500:]}) differs from analysis_: "
+                     f"fractions {frac_diff}")
+    want = {"ps.tau_p95", "ps.wal_fsync_p95_ms", "train.loss"} | {
+        f"worker.{w}.windows" for w in range(PS5_W)}
+    if not want <= set(series):
+        fails.append(f"{name}: the watch dump lacks "
+                     f"{sorted(want - set(series))}")
+    if dead:
+        fails.append(f"{name}: scraper sources disabled: {dead}")
+    if not isinstance((t.watch_alerts_ or {}).get("log"), list):
+        fails.append(f"{name}: watch_alerts_ {t.watch_alerts_!r}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def train_a13_observe_native(torch, train, ps_steps):
+    """``a13_observe_native_config5``: the same run on the native PS with
+    the C++ WAL, ``RetryPolicy(seed=0)`` (the resilient clients stamp
+    ``w<id>:s<seq>`` on their commits, as the C++ ring records them) and
+    ``analyze=True``; the run scrapes the C++ span ring into its trace
+    before the server stops. Gates: ``_analysis_gates``; the trace holds
+    one ``ps.fold`` span of ``cat`` "dkps" for each of the server's folds,
+    each with a ``w<id>:s<seq>`` corr; every worker's commits decomposed
+    against them (its critical-path fold time above 0)."""
+    import re
+
+    from distkeras_tpu_torch.observability.analyze import load_trace
+    from distkeras_tpu_torch.resilience import RetryPolicy
+
+    name = "a13_observe_native_config5"
+    work = tempfile.mkdtemp(prefix="dk-a13-native-")
+    try:
+        t, rows = _config5(
+            "native", ps_wal_dir=os.path.join(work, "wal"),
+            retry_policy=RetryPolicy(seed=0, max_attempts=PS5_ATTEMPTS),
+            analyze=True, trace_dir=os.path.join(work, "trace"))
+
+        def run():
+            t0 = time.perf_counter()
+            t.train(train.gather(np.arange(rows)))
+            return time.perf_counter() - t0
+
+        wall, launches = counted(run)
+        stats = t.ps_stats_
+        events, _ = load_trace(t.trace_path_)
+    finally:
+        torch.cuda.empty_cache()
+    folds = [e for e in events if e["name"] == "ps.fold"
+             and e["cat"] == "dkps"]
+    bad_corr = [e["corr"] for e in folds
+                if not re.fullmatch(r"w\d+:s\d+", str(e["corr"]))]
+    a = t.analysis_
+    rec = dict(phase=name, device=SMI, transport="native", workers=PS5_W,
+               wall_s=wall, folds=stats["num_updates"],
+               commits=stats["commits"], dup_commits=stats["dup_commits"],
+               window_wall_ms=1e3 * wall / (PS5_WINDOWS * PS5_EPOCHS),
+               dkps_spans={n: sum(1 for e in events if e["cat"] == "dkps"
+                                  and e["name"] == n)
+                           for n in ("ps.fold", "ps.wal_wait", "wal.fsync")},
+               analysis=_analysis_summary(a) if a is not None else None,
+               launches=launches)
+    log(json.dumps(rec))
+    fails = _analysis_gates(name, t, ps_steps, launches)
+    if len(folds) != stats["num_updates"] or bad_corr:
+        fails.append(f"{name}: {len(folds)} dkps fold spans for "
+                     f"{stats['num_updates']} folds; corr not w<id>:s<seq>: "
+                     f"{bad_corr[:5]}")
+    if a is not None and not all(
+            v["fold_ms"] > 0 for v in a["training"]["workers"].values()):
+        fails.append(f"{name}: a worker's commits were not decomposed "
+                     f"against the C++ folds: "
+                     f"{_analysis_summary(a)['critical_path_ms']}")
+    if fails:
+        raise AssertionError("; ".join(fails))
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def serve_a13_watched(torch):
+    """``a13_watch_serving``: the served 400M MQA decoder (VOCAB, DIM,
+    HEADS, KV_HEADS, DEPTH: phase 9's config) in int8 (``quantize_lm``)
+    through ``GenerationServer`` with tracing on and a ``Watchtower``
+    (``add_serving(engine)``; ``ServingSLORule`` and
+    ``PrefixHitRateRule``) attached as the server's ``watchtower``, the
+    same 4 clients and prompts as phase 9 (``serve``). Gates: K1 (decode
+    and prefill) and K2 launched; the ``metrics`` action's reply carries
+    the ``dk_serve_*`` metrics, the completed count and the alert ledger;
+    ``analyze_events`` over the trace gives a serving report counting
+    every request served; every stream tie-aware equal to a full forward,
+    as phase 9 holds it. Prints the report's queue, prefill and decode
+    split."""
+    from distkeras_tpu_torch.models import quantize_lm, transformer_lm
+    from distkeras_tpu_torch.observability.analyze import analyze_events
+    from distkeras_tpu_torch.observability.watch import (
+        PrefixHitRateRule,
+        ServingSLORule,
+        Watchtower,
+    )
+
+    name = "a13_watch_serving"
+    model = transformer_lm(
+        vocab=VOCAB, maxlen=MAXLEN, dim=DIM, heads=HEADS, depth=DEPTH,
+        kv_heads=KV_HEADS, pos_embedding="rope", attn_impl="flash",
+        dtype=torch.bfloat16, device=DEVICE, seed=0)
+    qmodel = quantize_lm(model)
+    del model
+    tower = Watchtower(rules=[ServingSLORule(), PrefixHitRateRule()],
+                       interval=A13_SCRAPE)
+    zero_launches()
+    with contextlib.ExitStack() as stack:
+        events = stack.enter_context(_traced())
+        stack.enter_context(torch.inference_mode())
+        prompts, res, wall, stats = serve(torch, qmodel, "int8 watched",
+                                          tower=tower)
+    launches = read_launches()
+    with torch.inference_mode():
+        tie_aware_check(torch, qmodel, prompts, res, "int8 watched")
+    del qmodel
+    torch.cuda.empty_cache()
+    report = analyze_events(events)
+    reply = stats.pop("metrics_reply")
+    metrics = reply.get("metrics") or {}
+    completed = (metrics.get("dk_serve_completed_total") or {}).get(
+        "samples", [{}])[0].get("value")
+    sv = report["serving"] or {}
+    rec = dict(phase=name, device=SMI, config=dict(
+                   vocab=VOCAB, dim=DIM, heads=HEADS, kv_heads=KV_HEADS,
+                   depth=DEPTH, dtype="int8"),
+               requests=len(prompts), new_tokens=NEW_TOKENS, wall_s=wall,
+               serving=sv, regime=report["verdict"]["regime"],
+               fractions=report["verdict"]["fractions"],
+               host_busy_fraction=report["host_busy_fraction"],
+               latency=stats.get("latency"),
+               serve_metrics=sorted(k for k in metrics
+                                    if k.startswith("dk_serve_")),
+               alerts=reply.get("alerts"),
+               series=len(tower.store.names()),
+               disabled_sources=sorted(tower.scraper._dead),
+               spans={n: sum(1 for e in events if e["name"] == n)
+                      for n in ("serve.enqueue", "serve.queued",
+                                "serve.prefill", "serve.decode_step",
+                                "serve.request")},
+               launches=launches)
+    log(json.dumps(rec))
+    fails = []
+    for k in ("q_matmul", "q_matmul_prefill", "flash_attention"):
+        if launches[k] < 1:
+            fails.append(f"{k} never launched")
+    if not reply.get("ok") or completed != len(prompts) \
+            or not rec["serve_metrics"] \
+            or set(reply.get("alerts") or {}) < {"active", "log", "counts"}:
+        fails.append(f"metrics reply: completed {completed}, "
+                     f"{rec['serve_metrics']}, alerts {reply.get('alerts')}")
+    if sv.get("requests") != len(prompts) \
+            or stats["completed"] != len(prompts):
+        fails.append(f"the serving report counts {sv.get('requests')} of "
+                     f"{len(prompts)} requests")
+    if rec["disabled_sources"]:
+        fails.append(f"scraper sources disabled: {rec['disabled_sources']}")
+    if fails:
+        raise AssertionError(f"{name}: " + "; ".join(fails))
     return rec
 
 
@@ -6867,6 +7394,26 @@ def main() -> int:
     # deploy streaming: train, stream versions, canary, promote, roll back
     a13 = {"a13_deploy_stream": train_a13_deploy_stream(torch)}
     log(f"deploy path done at {time.perf_counter() - t0:.1f}s")
+    # observability: config 5's PS path analyzed and watched (socket, with
+    # the CLI scraping it live; native, with the C++ span ring), the
+    # served decoder traced and watched, the rollout on a watchtower
+    t_obs = time.perf_counter()
+    for name, fn in (
+            ("a13_observe_ps_config5",
+             lambda: train_a13_observe_ps(torch, train, ps5_steps)),
+            ("a13_observe_native_config5",
+             lambda: train_a13_observe_native(torch, train, ps5_steps)),
+            ("a13_watch_serving", lambda: serve_a13_watched(torch)),
+            ("a13_watch_rollout",
+             lambda: train_a13_deploy_stream(torch, watched=True))):
+        t_ps = time.perf_counter()
+        a13[name] = fn()
+        log(json.dumps({"phase": name,
+                        "wall_s": time.perf_counter() - t_ps}))
+        torch.cuda.empty_cache()
+    log(json.dumps({"phase": "a13_observability",
+                    "wall_s": time.perf_counter() - t_obs}))
+    log(f"observability paths done at {time.perf_counter() - t0:.1f}s")
 
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]

@@ -20,7 +20,7 @@ Adam and LSTM-scan kernels — with the weight bridge
 (:mod:`~distkeras_tpu_torch.convert`); the asynchronous parameter-server
 backend (:mod:`~distkeras_tpu_torch.parameter_servers`,
 :mod:`~distkeras_tpu_torch.workers`, ``parallel.compression``,
-``observability.trace``); and the paper's user surface
+``observability``); and the paper's user surface
 (:mod:`~distkeras_tpu_torch.transformers`,
 :mod:`~distkeras_tpu_torch.evaluators`,
 :mod:`~distkeras_tpu_torch.predictors`, the MNIST example in

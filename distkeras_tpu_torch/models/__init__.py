@@ -1,6 +1,7 @@
 """The port's model zoo: the decoder-only LM the serving tier runs, its
 dense-cache decoding (:func:`generate`, :func:`speculative_generate`,
-:func:`beam_search`) and its training spec (:func:`transformer_lm_spec`),
+:func:`beam_search`) and its training spec (:func:`transformer_lm_spec`,
+with :func:`next_token_dataset` for its columns),
 the encoder classifier
 (:func:`transformer_classifier`, config 6), the BASELINE training
 models — :func:`mlp` (configs 1 and 4), :func:`lenet` (config 2),
@@ -14,6 +15,7 @@ from distkeras_tpu_torch.models.lm import (
     TransformerLM,
     beam_search,
     generate,
+    next_token_dataset,
     quantize_lm,
     quantize_state_dict,
     speculative_generate,
@@ -35,7 +37,8 @@ from distkeras_tpu_torch.models.transformer import (
 )
 
 __all__ = ["TransformerLM", "transformer_lm", "transformer_lm_spec",
-           "quantize_lm", "quantize_state_dict", "generate", "speculative_generate", "beam_search",
+           "quantize_lm", "quantize_state_dict", "generate",
+           "speculative_generate", "beam_search", "next_token_dataset",
            "TransformerClassifier", "transformer_classifier",
            "MLP", "mlp", "LeNet", "lenet", "VGGSmall", "vgg_small",
            "LSTMClassifier", "lstm_classifier", "ResNetSmall",

@@ -1138,3 +1138,14 @@ def quantize_state_dict(qmodel: TransformerLM, tree: dict) -> dict:
                 qt = quantize(w, axis=1)
                 out[f"{name}.kernel_q"], out[f"{name}.scale"] = qt.q, qt.scale
     return out
+
+
+
+def next_token_dataset(tokens: np.ndarray):
+    """``[N, L+1]`` token rows → a Dataset with ``features`` ``[N, L]`` and
+    the next-token ``label`` ``[N, L]``: the LM's training columns, where
+    the JAX package's LM examples find them
+    (:func:`distkeras_tpu_torch.data.next_token_dataset`)."""
+    from distkeras_tpu_torch.data import next_token_dataset as columns
+
+    return columns(tokens)

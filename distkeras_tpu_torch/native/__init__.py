@@ -80,6 +80,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_server_wal_open": (ctypes.c_int, [vp, ctypes.c_char_p, u64,
                                                 ctypes.c_double]),
         "dkps_server_set_num_updates": (None, [vp, u64]),
+        "dkps_server_evicted": (u64, [vp]),
+        "dkps_server_wal_pending": (u64, [vp]),
         "dkps_server_restore_worker": (None, [vp, u32, i64, i64, i64]),
         "dkps_server_fence": (u64, [vp, u64]),
         "dkps_server_fence_epoch": (u64, [vp]),

@@ -2014,6 +2014,22 @@ void dkps_server_set_num_updates(void* h, uint64_t v) {
   s->num_updates = v;
 }
 
+// Evictions counted so far, WITHOUT the forced expiry pass that
+// dkps_server_stats runs first: a lease that lapsed since the last
+// heartbeat's pass is not evicted (nor logged) by this read.
+uint64_t dkps_server_evicted(void* h) {
+  return static_cast<Server*>(h)->st_evicted.load();
+}
+
+// WAL records appended but not yet fsync'd (0 without a log, and 0 once
+// the flusher's quiet-period bound has drained the queue).
+uint64_t dkps_server_wal_pending(void* h) {
+  auto* s = static_cast<Server*>(h);
+  if (!s->wal_on) return 0;
+  std::lock_guard<std::mutex> g(s->wal.wmu);
+  return s->wal.appended - s->wal.durable;
+}
+
 void dkps_server_get_center(void* h, float* out) {
   auto* s = static_cast<Server*>(h);
   std::lock_guard<std::mutex> g(s->mu);

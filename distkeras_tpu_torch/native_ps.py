@@ -312,6 +312,18 @@ class NativeSocketParameterServer:
     def num_updates(self, v: int) -> None:
         self._lib.dkps_server_set_num_updates(self._handle, int(v))
 
+    def evicted_count(self) -> int:
+        """Evictions the core has made so far. Unlike ``stats()``, which
+        first evicts (and logs) every lapsed lease, this read changes
+        nothing: a lease that lapsed since the last heartbeat's expiry
+        pass is not counted yet."""
+        return int(self._lib.dkps_server_evicted(self._handle))
+
+    def wal_pending(self) -> int:
+        """WAL records appended but not yet fsync'd (0 without a log). The
+        group-commit flusher drains them within ``wal_group_interval``."""
+        return int(self._lib.dkps_server_wal_pending(self._handle))
+
     def get_model(self) -> Tree:
         out = np.empty(self.spec.n, dtype=np.float32)
         self._lib.dkps_server_get_center(self._handle, _f32p(out))
@@ -364,9 +376,14 @@ class NativeSocketParameterServer:
         self._lib.dkps_server_set_trace(self._handle, 1 if on else 0)
 
     def scrape_trace_events(self, max_records: int = 8192) -> list[dict]:
-        """Drain the span ring over the wire (TRACE, action 15): one dict a
-        span, ``{"name", "worker", "seq", "t0_ns", "dur_ns"}`` (``worker``
-        None for the flusher's fsyncs)."""
+        """Drain the span ring over the wire (TRACE, action 15) into
+        tracer-shaped event dicts (the ``observability.trace.add_events``
+        contract): ``cat`` ``"dkps"``, a thread of its own per server
+        (``tid`` ``1 + (port & 0xFFFF)``, ``tname`` ``"dkps:<port>"``) and
+        the correlation id rebuilt from the wire-carried worker id and
+        seqno, ``w<id>:s<seq>``, as the resilient client stamps it on the
+        worker's side. A span without a seqno (a plain commit) carries
+        ``w<id>``, and the flusher's fsyncs no corr at all."""
         client = NativePSClient("127.0.0.1", self.port, 2**32 - 2, self.spec)
         try:
             buf = (ctypes.c_uint64 * (5 * max_records))()
@@ -379,10 +396,16 @@ class NativeSocketParameterServer:
         out = []
         for i in range(n):
             kind, wid, seq, t0, dur = buf[5 * i:5 * i + 5]
+            if wid == 0xFFFFFFFF:
+                corr = None          # server-internal (the flusher's fsync)
+            elif seq:
+                corr = f"w{wid}:s{seq}"
+            else:
+                corr = f"w{wid}"
             out.append({"name": self._TRACE_KINDS.get(kind, f"ps.kind{kind}"),
-                        "worker": None if wid == 0xFFFFFFFF else int(wid),
-                        "seq": int(seq), "t0_ns": int(t0),
-                        "dur_ns": int(dur)})
+                        "cat": "dkps", "corr": corr, "t0_ns": int(t0),
+                        "dur_ns": int(dur), "tid": 1 + (self.port & 0xFFFF),
+                        "tname": f"dkps:{self.port}"})
         return out
 
     def stats(self) -> dict:

@@ -1,49 +1,78 @@
 """Flight-recorder tracing: zero-cost-when-off spans → Chrome trace JSON.
 
 The port's own copy of ``distkeras_tpu/observability/trace.py`` (pure
-Python). The parameter server and the worker threads open spans here; a
-run with tracing on writes one Chrome trace-event JSON file loadable in
-Perfetto (https://ui.perfetto.dev), where one exchange stitches across the
-worker thread and the PS handler by its correlation id.
+Python, the same event shapes and file format). Every interesting section of the
+PS exchange, WAL, elastic-membership, and serving stacks opens a *span*
+here, and a run with tracing enabled writes one Chrome-trace-event JSON
+file loadable in Perfetto (https://ui.perfetto.dev) where a single fused
+EXCHANGE stitches across the worker thread, the PS handler, the WAL
+flusher, the chain replica, and the C++ native server into one timeline.
 
-1. **Zero cost when off.** ``span()`` returns a shared no-op context
-   manager, ``record``/``set_corr``/``instant`` return at once: one
-   module-global read, no allocation, no lock, no clock read.
-2. **Cheap when on.** Events land in per-thread ring buffers as plain
-   tuples (no lock on the record path); overflow drops the oldest.
-   Timestamps are ``time.perf_counter_ns()``.
-3. **Correlation.** A span records the correlation id in effect on its
-   thread when it closes (or an explicit ``corr=``). The worker loop sets
-   ``w<id>:x<n>`` per window, the socket client stamps it into the request
-   frame and the PS handler adopts it.
+Design constraints, in order:
+
+1. **Zero cost when off.** Tracing is off by default and the hot paths
+   (worker window loop, PS fold, serving decode step) call into this
+   module unconditionally — so the off path must be one module-global
+   read plus a no-op. ``span()`` returns a shared no-op context manager
+   singleton, ``record``/``set_corr``/``instant`` return immediately:
+   no allocation, no locks, no clock reads (the off-mode
+   allocation-freeness is pinned by test).
+2. **Cheap when on.** Events land in per-thread ring buffers (no lock on
+   the record path; the only lock is one registration per thread) as
+   plain tuples; ring overflow drops the OLDEST events (a flight
+   recorder keeps the recent past). Timestamps are
+   ``time.perf_counter_ns()`` — CLOCK_MONOTONIC on Linux, the SAME clock
+   the native ``dkps.cpp`` span ring uses (``clock_gettime(
+   CLOCK_MONOTONIC)``), so scraped C++ spans and Python spans share one
+   timebase within a host without any offset arithmetic.
+3. **Correlation.** A span records the *correlation id* in effect on its
+   thread when it CLOSES (or an explicit ``corr=``). The worker loop
+   sets ``w<id>:x<n>`` per window, the resilient client overrides with
+   ``w<id>:s<seq>`` when it assigns the commit seqno (the id the wire
+   actually carries), the socket client stamps the current corr into the
+   request frame, and the PS handler adopts the frame's corr — so the
+   worker-side exchange span and the PS-side fold/WAL-append spans share
+   one id across threads, processes, and (via the seqno) the C++ wire.
 
 Sampling: ``enable(sample=0.1)`` keeps a deterministic ~10% of spans
-(counter-based, per thread). Correlation is never sampled out.
+(counter-based, per thread — no RNG on the hot path). ``corr``
+propagation is never sampled out, only span recording is.
 """
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
 import threading
 import time
 from typing import Any
 
-__all__ = ["enable", "disable", "enabled", "span", "record", "instant",
-           "counter", "set_corr", "current_corr", "events", "save"]
+__all__ = [
+    "enable", "disable", "enabled", "span", "record", "instant",
+    "counter", "set_corr", "current_corr", "add_events", "events",
+    "save", "rotate_files", "dropped_spans", "live_dropped",
+]
 
-#: category marking a ring entry as a sampled counter value rather than a
-#: span; ``save()`` renders these as Chrome ``ph: "C"`` counter tracks
+#: category marking a ring entry as a sampled counter value rather than
+#: a span — ``save()`` renders these as Chrome ``ph: "C"`` counter
+#: tracks (Perfetto draws them as graphs alongside the spans)
 COUNTER_CAT = "__counter__"
 
-#: the module-global tracer; ``None`` = disabled (the one read every
-#: call site pays when tracing is off)
+#: module-global tracer; ``None`` = disabled (the one read every
+#: call-site pays when tracing is off)
 _tracer = None
+
+#: spans lost to ring overflow by recorders that have since been
+#: disabled — ``dropped_spans()`` stays a process-lifetime counter so
+#: the metrics surface never un-counts an overflow by turning tracing
+#: off (the overflow being SILENT was the bug)
+_dropped_retired = 0
 
 
 class _NoopSpan:
     """Shared do-nothing context manager returned while tracing is off
-    (and for sampled-out spans): entering and exiting allocate nothing."""
+    (and for sampled-out spans): entering/exiting allocates nothing."""
 
     __slots__ = ()
 
@@ -58,9 +87,10 @@ _NOOP_SPAN = _NoopSpan()
 
 
 class _Span:
-    """One live span: records ``(t_enter, t_exit)`` into the thread's ring
-    on exit, with an explicit ``corr=`` or else the thread's corr at close
-    time (a span around a wire call inherits the id assigned inside it)."""
+    """One live span: records ``(t_enter, t_exit)`` into the thread's
+    ring on exit. Corr resolution: an explicit ``corr=`` wins; otherwise
+    the thread's corr at CLOSE time — a span that wraps a wire call
+    inherits the id the client assigned inside it (see module doc)."""
 
     __slots__ = ("_tr", "name", "cat", "corr", "args", "t0")
 
@@ -86,13 +116,13 @@ class _Span:
 
 
 class _ThreadState:
-    """Per-thread recorder state (ring, corr, sampling counter)."""
+    """Per-thread recorder state (ring + corr + sampling counter)."""
 
     __slots__ = ("ring", "idx", "corr", "n_seen", "tid", "tname")
 
     def __init__(self, cap: int):
         self.ring: list = [None] * cap
-        self.idx = 0          # events recorded (ring head = idx - 1)
+        self.idx = 0          # total events recorded (ring head = idx-1)
         self.corr: str | None = None
         self.n_seen = 0       # sampling counter (spans offered)
         self.tid = threading.get_native_id()
@@ -100,7 +130,8 @@ class _ThreadState:
 
 
 class Tracer:
-    """The enabled-state recorder. Use the module functions."""
+    """The enabled-state recorder. Use the module functions; this class
+    is public only so tests can poke at ring internals."""
 
     def __init__(self, ring_size: int = 65536, sample: float = 1.0):
         if ring_size < 16:
@@ -112,6 +143,9 @@ class Tracer:
         self._tls = threading.local()
         self._states: list[_ThreadState] = []
         self._reg_lock = threading.Lock()
+        # foreign events merged in by scrapers (the native dkps ring, a
+        # peer process's snapshot): already-shaped dicts, see add_events
+        self._foreign: list[dict] = []
 
     def _state(self) -> _ThreadState:
         st = getattr(self._tls, "st", None)
@@ -125,35 +159,59 @@ class Tracer:
                 sampled: bool = True):
         if sampled and self.sample < 1.0:
             st.n_seen += 1
-            # deterministic counter sampling: record iff the scaled counter
-            # crossed an integer (no RNG, no per-thread drift)
+            # deterministic counter sampling: record iff the scaled
+            # counter crossed an integer — exactly ~sample of spans,
+            # no RNG, no per-thread drift
             if int(st.n_seen * self.sample) == int(
                     (st.n_seen - 1) * self.sample):
                 return
         st.ring[st.idx % self.ring_size] = (name, cat, corr, t0, dur, args)
         st.idx += 1
 
-    def events(self) -> list[dict]:
-        """Every recorded event (oldest first per thread), merged across
-        threads and sorted by start: dicts with name, cat, corr, t0_ns,
-        dur_ns, tid, tname, args."""
+    def add_events(self, evs: list[dict]) -> None:
+        with self._reg_lock:
+            self._foreign.extend(evs)
+
+    def events(self, min_end_ns: int | None = None) -> list[dict]:
+        """Every recorded event as a list of dicts (oldest first per
+        thread), merged across threads + foreign sources and sorted by
+        start time. Keys: name, cat, corr, t0_ns, dur_ns, tid, tname,
+        args. ``min_end_ns`` keeps only events that END after it — the
+        incremental-consumer filter (RegimeTracker): entries land in
+        the ring at span CLOSE, so an end-time cursor never permanently
+        misses a long span whose START predates shorter spans already
+        observed, and stale entries are skipped as raw tuples (no dict
+        built, nothing sorted for them)."""
+        out = []
         with self._reg_lock:
             states = list(self._states)
-        out = []
+            foreign = list(self._foreign)
         for st in states:
-            for k in range(st.idx - min(st.idx, self.ring_size), st.idx):
+            n = min(st.idx, self.ring_size)
+            start = st.idx - n
+            for k in range(start, st.idx):
                 ev = st.ring[k % self.ring_size]
                 if ev is None:
                     continue
                 name, cat, corr, t0, dur, args = ev
-                out.append({"name": name, "cat": cat, "corr": corr,
-                            "t0_ns": t0, "dur_ns": dur, "tid": st.tid,
-                            "tname": st.tname, "args": args})
+                if min_end_ns is not None and t0 + dur <= min_end_ns:
+                    continue
+                out.append({
+                    "name": name, "cat": cat, "corr": corr,
+                    "t0_ns": t0, "dur_ns": dur,
+                    "tid": st.tid, "tname": st.tname, "args": args,
+                })
+        if min_end_ns is not None:
+            out.extend(e for e in foreign
+                       if e["t0_ns"] + e["dur_ns"] > min_end_ns)
+        else:
+            out.extend(foreign)
         out.sort(key=lambda e: e["t0_ns"])
         return out
 
     def dropped(self) -> int:
-        """Events lost to ring overflow (oldest dropped first)."""
+        """Events lost to ring overflow (flight-recorder semantics:
+        oldest dropped first), totalled across threads."""
         with self._reg_lock:
             states = list(self._states)
         return sum(max(0, st.idx - self.ring_size) for st in states)
@@ -164,7 +222,9 @@ def enabled() -> bool:
 
 
 def enable(ring_size: int = 65536, sample: float = 1.0) -> Tracer:
-    """Turn tracing on (idempotent: an enabled tracer is kept)."""
+    """Turn tracing on (idempotent: an already-enabled tracer is kept —
+    nested enables from a caller inside a traced trainer must not
+    discard the outer recorder's rings)."""
     global _tracer
     if _tracer is None:
         _tracer = Tracer(ring_size=ring_size, sample=sample)
@@ -172,15 +232,38 @@ def enable(ring_size: int = 65536, sample: float = 1.0) -> Tracer:
 
 
 def disable() -> None:
-    """Turn tracing off and discard the recorder."""
-    global _tracer
+    """Turn tracing off and discard the recorder (hot paths return to
+    the one-global-read no-op). The recorder's overflow count retires
+    into the process-lifetime ``dropped_spans()`` counter first."""
+    global _tracer, _dropped_retired
+    if _tracer is not None:
+        _dropped_retired += _tracer.dropped()
     _tracer = None
+
+
+def dropped_spans() -> int:
+    """Process-lifetime spans lost to ring overflow (drop-oldest),
+    across every recorder this process has run — the
+    ``trace_dropped_spans`` counter on the metrics surface. 0 while
+    nothing ever overflowed; monotone otherwise."""
+    tr = _tracer
+    live = tr.dropped() if tr is not None else 0
+    return _dropped_retired + live
+
+
+def live_dropped() -> int:
+    """Spans the CURRENT recorder lost to overflow (0 when off) — the
+    analyzer's degraded-verdict input: a past run's retired overflow
+    must not degrade this run's analysis."""
+    tr = _tracer
+    return tr.dropped() if tr is not None else 0
 
 
 def span(name: str, cat: str = "", corr: str | None = None,
          args: dict | None = None):
-    """Open a span: ``with trace.span("ps.fold"): ...``. The shared no-op
-    singleton when tracing is off."""
+    """Open a span: ``with trace.span("ps.fold"): ...``. Returns the
+    shared no-op singleton when tracing is off — the off-mode call is
+    allocation-free."""
     tr = _tracer
     if tr is None:
         return _NOOP_SPAN
@@ -189,8 +272,10 @@ def span(name: str, cat: str = "", corr: str | None = None,
 
 def record(name: str, t0_ns: int, t1_ns: int, cat: str = "",
            corr: str | None = None, args: dict | None = None) -> None:
-    """Record a completed span from two timestamps the caller took (the
-    worker's phase timings: tracing adds no clock read). No-op when off."""
+    """Record a completed span retroactively from two timestamps the
+    caller already took (the worker phase histograms' path: they clock
+    with ``perf_counter`` anyway, so tracing adds no extra clock reads).
+    No-op when off."""
     tr = _tracer
     if tr is None:
         return
@@ -201,18 +286,23 @@ def record(name: str, t0_ns: int, t1_ns: int, cat: str = "",
 
 def instant(name: str, cat: str = "", corr: str | None = None,
             args: dict | None = None) -> None:
-    """Record a point event (a zero-duration span). No-op when off."""
+    """Record a point event (zero-duration span). No-op when off."""
     tr = _tracer
     if tr is None:
         return
     st = tr._state()
+    t = time.perf_counter_ns()
     tr._record(st, name, cat, corr if corr is not None else st.corr,
-               time.perf_counter_ns(), 0, args)
+               t, 0, args)
 
 
 def counter(name: str, value, t_ns: int | None = None) -> None:
-    """Record one counter sample, saved as a Chrome ``ph: "C"`` counter
-    track. Never sampled out; no-op when off."""
+    """Record one counter sample: ``save()`` emits
+    these as Chrome ``ph: "C"`` counter-track records so sampled gauges
+    — DynSGD τ p95, shm ring occupancy, serving rows in flight — render
+    as graphs alongside the spans in Perfetto. Never sampled out
+    (a decimated counter track lies about its own shape); no-op when
+    tracing is off."""
     tr = _tracer
     if tr is None:
         return
@@ -224,7 +314,8 @@ def counter(name: str, value, t_ns: int | None = None) -> None:
 
 def set_corr(corr: str | None) -> None:
     """Set this thread's correlation id; spans without an explicit
-    ``corr=`` record the one in effect when they close. No-op when off."""
+    ``corr=`` record whatever is in effect when they close. No-op when
+    off (corr is only consumed by recording)."""
     tr = _tracer
     if tr is None:
         return
@@ -232,56 +323,137 @@ def set_corr(corr: str | None) -> None:
 
 
 def current_corr() -> str | None:
-    """This thread's correlation id (None when off or unset): the socket
-    client stamps it into outgoing commit and exchange frames."""
+    """This thread's correlation id (None when off/unset) — the socket
+    client reads it to stamp outgoing commit/exchange frames."""
     tr = _tracer
     if tr is None:
         return None
     return tr._state().corr
 
 
-def events() -> list[dict]:
-    """All recorded events (:meth:`Tracer.events`); ``[]`` when off."""
+def add_events(evs: list[dict]) -> None:
+    """Merge foreign pre-shaped events (the native dkps span ring, a
+    peer process's ``events()`` snapshot). Each dict needs ``name``,
+    ``t0_ns``, ``dur_ns``; ``cat``/``corr``/``tid``/``tname``/``args``
+    are optional. No-op when off."""
+    tr = _tracer
+    if tr is None:
+        return
+    shaped = []
+    for e in evs:
+        shaped.append({
+            "name": e["name"], "cat": e.get("cat", ""),
+            "corr": e.get("corr"), "t0_ns": int(e["t0_ns"]),
+            "dur_ns": int(e.get("dur_ns", 0)),
+            "tid": e.get("tid", 0),
+            "tname": e.get("tname", "foreign"), "args": e.get("args"),
+        })
+    tr.add_events(shaped)
+
+
+def events(min_end_ns: int | None = None) -> list[dict]:
+    """All recorded events (see :meth:`Tracer.events`); ``[]`` when
+    off. ``min_end_ns`` is the incremental consumer's cursor filter."""
     tr = _tracer
     if tr is None:
         return []
-    return tr.events()
+    return tr.events(min_end_ns)
 
 
-def save(path: str) -> str:
+def open_maybe_gz(path: str):
+    """Open a JSON document that may be gzipped — sniffed by magic
+    bytes, not suffix, so rotated/renamed files read transparently.
+    Shared by every observability reader (trace analysis, the
+    timeseries store, the CLI)."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic == b"\x1f\x8b":
+        return gzip.open(path, "rt")
+    return open(path)
+
+
+def load_json_maybe_gz(path: str) -> dict:
+    with open_maybe_gz(path) as f:
+        return json.load(f)
+
+
+def rotate_files(path: str, max_bytes: int, keep: int = 3) -> None:
+    """Size-capped rotation: when ``path`` already
+    holds ``max_bytes`` or more, shift ``path`` → ``path.1`` →
+    ``path.2`` … keeping at most ``keep`` rotated generations — a long
+    watched run re-saving its timeline keeps bounded history instead of
+    growing one file forever (or silently overwriting it)."""
+    if keep < 1 or not os.path.exists(path) \
+            or os.path.getsize(path) < max_bytes:
+        return
+    oldest = f"{path}.{keep}"
+    if os.path.exists(oldest):
+        os.remove(oldest)
+    for k in range(keep - 1, 0, -1):
+        src = f"{path}.{k}"
+        if os.path.exists(src):
+            os.replace(src, f"{path}.{k + 1}")
+    os.replace(path, f"{path}.1")
+
+
+def save(path: str, max_bytes: int | None = None, keep: int = 3) -> str:
     """Write everything recorded so far as Chrome trace-event JSON
-    (``{"traceEvents": [...]}``: ``ph: "X"`` spans with µs timestamps,
-    counter samples as ``ph: "C"`` tracks, thread names as metadata), for
-    https://ui.perfetto.dev or ``chrome://tracing``. ``otherData`` carries
-    the dropped-event count. Parent directories are created. Raises when
-    tracing is off (an empty file would read as "traced, nothing
-    happened")."""
+    (``{"traceEvents": [...]}``, complete-event ``ph: "X"`` records with
+    µs timestamps, counter samples as ``ph: "C"`` tracks) — drag the
+    file into https://ui.perfetto.dev or ``chrome://tracing``. A path
+    ending in ``.gz`` is gzip-compressed (the long-run growth fix;
+    ``dump``/``analyze`` read both formats transparently), and
+    ``max_bytes`` rotates an existing file first (see
+    :func:`rotate_files`). ``otherData`` carries the dropped-span count
+    and this host's core count — the analyzer's host-honest
+    denominator. Parent directories are created. Returns ``path``.
+    Raises RuntimeError when tracing is off (nothing to save — a silent
+    empty file would read as "traced, nothing happened")."""
     tr = _tracer
     if tr is None:
         raise RuntimeError("tracing is not enabled: nothing to save")
+    evs = tr.events()
     pid = os.getpid()
     out: list[dict[str, Any]] = [{
         "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
-        "args": {"name": "distkeras_tpu_torch"}}]
+        "args": {"name": "distkeras_tpu_torch"},
+    }]
     seen_tids: set = set()
-    for e in tr.events():
+    for e in evs:
         if e["tid"] not in seen_tids:
             seen_tids.add(e["tid"])
-            out.append({"name": "thread_name", "ph": "M", "pid": pid,
-                        "tid": e["tid"], "args": {"name": e["tname"]}})
+            out.append({
+                "name": "thread_name", "ph": "M", "pid": pid,
+                "tid": e["tid"], "args": {"name": e["tname"]},
+            })
         if e["cat"] == COUNTER_CAT:
-            out.append({"name": e["name"], "ph": "C",
-                        "ts": e["t0_ns"] / 1e3, "pid": pid, "tid": e["tid"],
-                        "args": {"value": e["args"]}})
+            out.append({
+                "name": e["name"], "ph": "C", "ts": e["t0_ns"] / 1e3,
+                "pid": pid, "tid": e["tid"],
+                "args": {"value": e["args"]},
+            })
             continue
         args = dict(e["args"]) if e["args"] else {}
         if e["corr"] is not None:
             args["corr"] = e["corr"]
-        out.append({"name": e["name"], "cat": e["cat"] or "dk", "ph": "X",
-                    "ts": e["t0_ns"] / 1e3, "dur": e["dur_ns"] / 1e3,
-                    "pid": pid, "tid": e["tid"], "args": args})
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        json.dump({"traceEvents": out, "displayTimeUnit": "ms",
-                   "otherData": {"dropped_events": tr.dropped()}}, f)
+        out.append({
+            "name": e["name"], "cat": e["cat"] or "dk", "ph": "X",
+            "ts": e["t0_ns"] / 1e3, "dur": e["dur_ns"] / 1e3,
+            "pid": pid, "tid": e["tid"], "args": args,
+        })
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    if max_bytes is not None:
+        rotate_files(path, int(max_bytes), keep=keep)
+    doc = {
+        "traceEvents": out,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "dropped_events": tr.dropped(),
+            "host_cores": os.cpu_count() or 1,
+        },
+    }
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wt") as f:
+        json.dump(doc, f)
     return path

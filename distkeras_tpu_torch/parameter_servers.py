@@ -118,11 +118,6 @@ from distkeras_tpu_torch.resilience.heartbeat import WorkerRegistry
 
 Tree = Any
 
-#: wire actions of later slices → the ROADMAP item that ports them
-_LATER_ACTIONS = {
-    "metrics": "A13 (observability: metrics)",
-}
-
 #: follower wake/retry slice of the batched fold drain (seconds)
 _FOLD_WAIT_SLICE = 0.0005
 
@@ -310,7 +305,12 @@ class ParameterServer:
         self._t_start = time.monotonic()
         self._center_nbytes = sum(
             np.asarray(leaf).nbytes for leaf in utils.flatten(self.center)[0])
+        # per-commit DynSGD τ samples (one O(1) append per fold), read by
+        # the watchtower's scraper into the ps.tau_p95 series; and the
+        # watchtower itself when a trainer or operator attaches one: the
+        # `metrics` wire action then carries its alert ledger
         self._tau_recent: collections.deque = collections.deque(maxlen=512)
+        self.watchtower = None
         # durability: the write-ahead log and the hot-standby stream get
         # the same framed records, inside the center lock (durable order
         # is fold order) and before the ACK; a commit's payload is
@@ -1254,11 +1254,18 @@ class SocketParameterServer(ParameterServer):
             return self._serve_replication(conn, msg)
         elif action in ("stop", "bye"):
             return True
-        elif action in _LATER_ACTIONS:
-            networking.send_data(conn, {
-                "ok": False,
-                "error": f"action {action!r} is not ported yet: "
-                         f"ROADMAP.md {_LATER_ACTIONS[action]}"})
+        elif action == "metrics":
+            # the unified metrics surface: the settled counters as typed
+            # metrics (JSON snapshot and Prometheus text), the flight
+            # recorder's overflow counter, and with a watchtower attached
+            # its alert ledger
+            from distkeras_tpu_torch.observability.metrics import (
+                metrics_reply,
+                ps_metrics,
+            )
+
+            networking.send_data(conn, metrics_reply(
+                ps_metrics(self.stats()), self.watchtower))
         else:
             networking.send_data(conn, {"error": f"bad action {action}"})
         return False

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch.models.lm import TransformerLM
+from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.networking import ServerBusyError
 from distkeras_tpu_torch.serving.frontdoor import (
     RadixPrefixCache,
@@ -417,6 +418,11 @@ class GenerationEngine:
             self.stats_["submitted"] += 1
             self._q_push(req)
             self._wake.notify_all()
+        # flight recorder: the request id is the serving tier's
+        # correlation id, so this enqueue mark, the queued and prefill
+        # spans and the final serve.request span stitch one request
+        # across threads
+        _trace.instant("serve.enqueue", corr=req.id)
         return req
 
     def cancel(self, request: Request) -> None:
@@ -562,6 +568,8 @@ class GenerationEngine:
         self.model_version = version
         self._staged_swap = None
         self.stats_["swaps"] += 1
+        _trace.instant("serve.swap", cat="deploy",
+                       args={"version": version, "policy": policy})
         self._last_swap = {
             "version": version, "policy": policy,
             "refilled": len(active),   # a drain lands on an empty batch
@@ -596,6 +604,13 @@ class GenerationEngine:
             "prefill_s": req.prefill_s, "decode_s": decode_s,
             "new_tokens": len(req.new_tokens),
         })
+        if _trace.enabled():
+            # the whole lifetime (submit → retire); time.monotonic and the
+            # tracer's perf_counter share CLOCK_MONOTONIC on Linux
+            _trace.record("serve.request", int(req.t_submit * 1e9),
+                          int(req.t_done * 1e9), corr=req.id,
+                          args={"state": state,
+                                "new_tokens": len(req.new_tokens)})
         req._event.set()
 
     def _retire(self, b: int, state: str, error: str | None = None) -> None:
@@ -676,6 +691,10 @@ class GenerationEngine:
             head.t_admit = time.monotonic()
             head.model_version = self.model_version
             self.stats_["admitted"] += 1
+            if _trace.enabled():
+                # the admission wait, submit → admit
+                _trace.record("serve.queued", int(head.t_submit * 1e9),
+                              int(head.t_admit * 1e9), corr=head.id)
             admitted.append((b, head))
         return admitted
 
@@ -773,8 +792,11 @@ class GenerationEngine:
         if not victims:
             return False
         b = max(victims, key=lambda x: self._slots[x].request.t_admit)
+        victim_id = self._slots[b].request.id
         self._evacuate_row(b, reset_tokens=False)
         self.stats_["preemptions"] += 1
+        _trace.instant("serve.preempt", corr=victim_id,
+                       args={"for": req.id})
         return True
 
     def _install_row(self, b: int, req: Request, res) -> None:
@@ -813,6 +835,9 @@ class GenerationEngine:
         req.t_admit = time.monotonic()
         req.model_version = self.model_version
         self.stats_["admitted"] += 1
+        if _trace.enabled():
+            _trace.record("serve.queued", int(req.t_submit * 1e9),
+                          int(req.t_admit * 1e9), corr=req.id)
 
     # -- device programs -----------------------------------------------------
 
@@ -870,7 +895,13 @@ class GenerationEngine:
                               lp_arr).cpu().numpy()   # the one host sync
             t1_pf = time.perf_counter_ns()
             for _, req in grp:
+                # the group forward, attributed to every request it
+                # prefilled (the same interval, each with its own corr)
                 req.prefill_s = (t1_pf - t_pf) / 1e9
+                if _trace.enabled():
+                    _trace.record("serve.prefill", t_pf, t1_pf,
+                                  corr=req.id,
+                                  args={"rows": n, "lpad": lpad})
             self.stats_["prefills"] += n
             for i, (b, req) in enumerate(grp):
                 slot = self._slots[b]
@@ -985,6 +1016,11 @@ class GenerationEngine:
                 s = self._slots[b]
                 r = s.request
                 r.prefill_s = (r.prefill_s or 0.0) + (t1_pf - t_pf) / 1e9
+                if _trace.enabled():
+                    _trace.record("serve.prefill", t_pf, t1_pf, corr=r.id,
+                                  args={"rows": len(rows),
+                                        "chunk": int(t_real[i]),
+                                        "pos": int(s.next_pos)})
                 s.next_pos += t_real[i]
                 if s.next_pos < s.feed_len:
                     continue
@@ -1056,10 +1092,15 @@ class GenerationEngine:
                           if s is not None]
             if not active:
                 return worked
-            if self._draft is not None:
-                self._spec_step(active)
-            else:
-                self._decode_step(active)
+            # rows in flight ride the span: the analyzer's batch occupancy
+            # ("batch" kept for older readers)
+            args = ({"batch": len(active), "rows": len(active)}
+                    if _trace.enabled() else None)
+            with _trace.span("serve.decode_step", args=args):
+                if self._draft is not None:
+                    self._spec_step(active)
+                else:
+                    self._decode_step(active)
         with self._wake:
             self.stats_["steps"] += 1
             self.stats_["occupancy_sum"] += len(active)

@@ -71,6 +71,9 @@ class GenerationServer:
         # live deployment: a deploy.SnapshotStore of streamed versions,
         # which the deploy_activate action swaps the engine to
         self.snapshots = None
+        # an attached observability Watchtower: the `metrics` action then
+        # carries its alert ledger
+        self.watchtower = None
 
     def initialize(self) -> None:
         self._server_sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -173,6 +176,17 @@ class GenerationServer:
                     networking.send_data(conn, self._deploy_activate(msg))
                 elif action == "deploy_status":
                     networking.send_data(conn, self._deploy_status())
+                elif action == "metrics":
+                    # the serving counters and the per-class latency
+                    # summary as typed metrics: the one metrics_reply
+                    # shape every server sends
+                    from distkeras_tpu_torch.observability.metrics import (
+                        metrics_reply,
+                        serving_metrics,
+                    )
+
+                    networking.send_data(conn, metrics_reply(
+                        serving_metrics(self.stats()), self.watchtower))
                 else:
                     networking.send_data(conn, {
                         "error": "bad_request",

@@ -353,9 +353,13 @@ class ShardedPSGroup:
         return out
 
     def metrics(self):
-        raise NotImplementedError(
-            "the metrics registry is not ported yet: ROADMAP.md A13 "
-            "(observability: metrics)")
+        """The group's unified metrics surface: the aggregate roll-up plus
+        per-shard ``shard``-labeled series, as a
+        :class:`~distkeras_tpu_torch.observability.metrics.MetricsRegistry`
+        ready for Prometheus/JSON export."""
+        from distkeras_tpu_torch.observability.metrics import ps_metrics
+
+        return ps_metrics(self.stats())
 
     def make_client(self, worker_id: int,
                     pull_compression: str | None = None,

@@ -787,6 +787,35 @@ class ShmParameterServer(SocketParameterServer):
         for rec in recs:
             self._release_segment(rec)
 
+    def ring_occupancy(self) -> list[dict]:
+        """Per-connection ring occupancy read straight off the mapped
+        headers (no locks taken on the rings, no syscalls): the used bytes
+        of each direction's ring and the fuller direction's used fraction.
+        The watchtower's scraper samples the max across connections into
+        ``shm.ring_occupancy_frac``; near 1.0 a writer is about to block
+        on a stalled reader (or the ring is undersized)."""
+        with self._conns_lock:
+            recs = list(self._segments)
+        out = []
+        for rec in recs:
+            seg = rec["seg"]
+            try:
+                buf = seg.buf
+                cap = _WORD.unpack_from(buf, _OFF_CAP)[0]
+                c2s = (_WORD.unpack_from(buf, _OFF_C2S_HEAD)[0]
+                       - _WORD.unpack_from(buf, _OFF_C2S_TAIL)[0])
+                s2c = (_WORD.unpack_from(buf, _OFF_S2C_HEAD)[0]
+                       - _WORD.unpack_from(buf, _OFF_S2C_TAIL)[0])
+            except (ValueError, TypeError):
+                continue   # racing a release: this segment is going away
+            if cap <= 0:
+                continue
+            out.append({"name": seg.name, "worker_id": rec["wid"],
+                        "cap": int(cap), "c2s_used": int(c2s),
+                        "s2c_used": int(s2c),
+                        "frac": max(int(c2s), int(s2c)) / int(cap)})
+        return out
+
     def stop(self) -> None:
         if not self._running:
             self._close_durability()

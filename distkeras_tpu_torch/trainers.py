@@ -47,10 +47,12 @@ resume from it (``checkpoint.py``; on the PS backend at an epoch barrier
 of the workers), also from a checkpoint the JAX package wrote (its center
 carries over); ``ema_decay`` keeps a Polyak average of the center,
 ``ema_params_``, per window on the collective backend and per commit on
-the PS. Kwargs whose machinery belongs to a later slice of the port (the
-PS backend's observability knobs) are accepted by name and raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item when set to
-anything but their default: nothing is silently ignored.
+the PS. The PS backend's observability knobs are the reference's too:
+``trace`` / ``trace_dir`` / ``trace_sample`` record the flight recorder's
+spans, ``analyze=True`` runs the post-run analyzer into ``analysis_``, and
+``watch`` / ``watch_rules`` / ``watch_dir`` / ``watch_hook`` /
+``scrape_interval`` run the watchtower over the run (``watch_alerts_``,
+``watch_path_``, ``watchtower_``).
 
 :class:`MeshTrainer` trains ONE model over a mesh of ranks (one process
 a device, ``torch.distributed``): data × Megatron tensor parallelism,
@@ -97,28 +99,6 @@ from distkeras_tpu_torch.parallel.merge_rules import (
 )
 from distkeras_tpu_torch.parameter_servers import validate_ema_decay
 from distkeras_tpu_torch.utils import tree_map
-
-#: reference kwargs of later slices: name → (default, ROADMAP item)
-_LATER: dict = {}
-for _item, _knobs in {
-        "A13 (observability: analyze and watch)": {
-            "analyze": False, "watch": False, "watch_rules": None,
-            "watch_dir": None, "watch_hook": None,
-            "scrape_interval": 0.5}}.items():
-    for _name, _default in _knobs.items():
-        _LATER[_name] = (_default, _item)
-
-
-def _check_later(kwargs: dict) -> None:
-    for name, value in kwargs.items():
-        if name not in _LATER:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-        default, item = _LATER[name]
-        changed = value is not None if default is None else value != default
-        if changed:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported yet: ROADMAP.md {item}")
-
 
 def _with_clipping(base, clipnorm, clipvalue):
     """Keras-style clipping in front of an optimizer: ``clipnorm`` is a
@@ -523,8 +503,9 @@ class DistributedTrainer(Trainer):
                  autoscale_target=None, preempt_drain_timeout: float = 5.0,
                  max_pool_size: int | None = None, directory: bool = False,
                  directory_standby: bool = True, ps_directory=None,
-                 mesh=None, deploy_streamer=None, **later):
-        _check_later(later)
+                 mesh=None, deploy_streamer=None, analyze: bool = False,
+                 watch: bool = False, watch_rules=None, watch_dir=None,
+                 watch_hook=None, scrape_interval: float = 0.5):
         super().__init__(keras_model, loss, worker_optimizer,
                          learning_rate=learning_rate, seed=seed,
                          clipnorm=clipnorm, clipvalue=clipvalue)
@@ -601,10 +582,49 @@ class DistributedTrainer(Trainer):
                 raise ValueError("pull_compression applies to backend='ps' "
                                  "only (collective merges cross no wire)")
         self.pull_compression = pull_compression
-        self.trace = bool(trace)
+        # the flight recorder (PS backend): trace=True records spans,
+        # trace_dir= also writes the Chrome trace JSON (trace_path_),
+        # trace_sample keeps a deterministic fraction of them. analyze=True
+        # runs the post-hoc analyzer over them after the run (analysis_)
+        # and implies trace
+        self.analyze = bool(analyze)
+        self.trace = bool(trace) or trace_dir is not None or self.analyze
         self.trace_dir = trace_dir
         self.trace_sample = float(trace_sample)
+        if self.trace and backend != "ps":
+            raise ValueError(
+                "trace/trace_dir/analyze apply to backend='ps' only "
+                "(use profile_dir for the collective backend's timeline)")
+        if not 0.0 < self.trace_sample <= 1.0:
+            raise ValueError(
+                f"trace_sample must be in (0, 1], got {trace_sample}")
         self.trace_path_ = None
+        self.analysis_ = None
+        # the watchtower (PS backend): a background scraper over the PS
+        # stats surface, per-worker progress and the loss curve every
+        # scrape_interval seconds, with watch_rules (None: default_rules())
+        # evaluated after each scrape; alert transitions land in
+        # watch_alerts_, fire watch_hook and ride the `metrics` wire
+        # action; watch_dir= dumps the series and the ledger (watch_path_)
+        self.watch = (bool(watch) or watch_dir is not None
+                      or watch_rules is not None or watch_hook is not None)
+        self.watch_rules = watch_rules
+        self.watch_dir = watch_dir
+        self.watch_hook = watch_hook
+        self.scrape_interval = float(scrape_interval)
+        if self.watch and backend != "ps":
+            raise ValueError(
+                "watch/watch_dir/watch_rules apply to backend='ps' only "
+                "(the watchtower scrapes the PS stats surface; the "
+                "collective backend exposes none)")
+        if watch_hook is not None and not callable(watch_hook):
+            raise ValueError("watch_hook must be callable")
+        if self.scrape_interval <= 0:
+            raise ValueError(
+                f"scrape_interval must be positive, got {scrape_interval}")
+        self.watch_alerts_ = None
+        self.watch_path_ = None
+        self.watchtower_ = None
         # ps_fused_exchange: each window's commit + pull in one EXCHANGE
         # round trip. ps_pipeline_depth: 0 the serial loop; 1 launches
         # window N+1 on the card, then exchanges window N on the host while
@@ -1038,7 +1058,19 @@ class DistributedTrainer(Trainer):
         validator = self._make_validator()
         self.record_training_start()
         t0 = time.perf_counter()
-        center, nt, history = run_async_training(runner or self, ds, shuffle)
+        tgt = runner or self
+        try:
+            center, nt, history = run_async_training(tgt, ds, shuffle)
+        except BaseException:
+            # a run that dies mid-flight must not leave its scraper
+            # polling a stopped server for the rest of the process
+            tower = getattr(tgt, "_watchtower_active_", None)
+            if tower is not None:
+                try:
+                    tower.stop()
+                finally:
+                    tgt._watchtower_active_ = None
+            raise
         elapsed = time.perf_counter() - t0
         self.record_training_end()
         for rec in history:
@@ -1156,6 +1188,10 @@ class DistributedTrainer(Trainer):
         shim.worker_id_offset = pi * W_local
         try:
             self._train_ps(shard, shuffle, runner=shim)
+            # this rank's view of the run's trace, analysis and alerts
+            for name in ("trace_path_", "analysis_", "watch_alerts_",
+                         "watch_path_", "watchtower_"):
+                setattr(self, name, getattr(shim, name))
             # every rank's commits land before anyone reads the center,
             # and the server outlives every reader
             dist.barrier(group=ctl)
@@ -1341,13 +1377,13 @@ class SingleTrainer(DistributedTrainer):
                  features_col="features", label_col: str = "label",
                  num_epoch: int = 1, seed: int = 0, device="cuda",
                  prefetch: int = 1, ema_decay: float | None = None,
-                 clipnorm=None, clipvalue=None, mesh=None, **later):
+                 clipnorm=None, clipvalue=None, mesh=None, **kw):
         super().__init__(
             keras_model, loss, worker_optimizer, learning_rate=learning_rate,
             num_workers=1, batch_size=batch_size, features_col=features_col,
             label_col=label_col, num_epoch=num_epoch, communication_window=1,
             seed=seed, device=device, prefetch=prefetch, ema_decay=ema_decay,
-            clipnorm=clipnorm, clipvalue=clipvalue, mesh=mesh, **later)
+            clipnorm=clipnorm, clipvalue=clipvalue, mesh=mesh, **kw)
 
     def allocate_merge_rule(self) -> MergeRule:
         return ADAGMerge()  # with W=1 the merge is the identity fold

@@ -262,12 +262,19 @@ class AsyncWorker:
                                 self._resid, tree, sent)
         return blob, sent
 
-    def _phase(self, name: str, t0: float) -> float:
-        """Record one exchange-phase sample (ms since ``t0``, a span too
-        when tracing); returns a fresh ``perf_counter`` for the next."""
+    def _phase(self, name: str, t0: float,
+                span_t0: float | None = None) -> float:
+        """Record one exchange-phase sample (ms since ``t0``); returns a
+        fresh ``perf_counter`` for the next. With tracing on it is a
+        ``worker.<name>`` span too, from ``span_t0`` when given: the fetch
+        span starts where the host begins waiting on the card (the loss),
+        as the JAX package's blocking fetch does. The ``compute`` phase
+        records no span of its own: its span is :meth:`_record_compute`'s."""
         t1 = time.perf_counter()
-        if _trace.enabled():
-            _trace.record("worker." + name, int(t0 * 1e9), int(t1 * 1e9))
+        if _trace.enabled() and name != "compute":
+            _trace.record("worker." + name,
+                          int((t0 if span_t0 is None else span_t0) * 1e9),
+                          int(t1 * 1e9))
         ms = (t1 - t0) * 1e3
         rec = self._phases.get(name)
         if rec is None:
@@ -279,6 +286,16 @@ class AsyncWorker:
         rec["max_ms"] = max(rec["max_ms"], ms)
         rec["hist"][bisect.bisect_left(_PHASE_BUCKETS, ms)] += 1
         return t1
+
+    @staticmethod
+    def _record_compute(t_launch: float, t_end: float) -> None:
+        """The window's ``worker.compute`` span, from its launch to the
+        return of its fetch: the stretch the card had the window's work
+        outstanding (in the pipelined loop the previous window's exchange
+        hides inside it, which is what the analyzer measures). Call only
+        while tracing, so the path with tracing off allocates nothing."""
+        _trace.record("worker.compute", int(t_launch * 1e9),
+                      int(t_end * 1e9))
 
     def _window_delta(self, params, base):
         """``params − base`` on the host: one copy of the params off the
@@ -400,19 +417,24 @@ class AsyncWorker:
                 if pending is not None:
                     center = self._flush(pending, lag=True)
                     pending = None
+                t_wait = None
                 if _trace.enabled():
                     self._next_corr()
+                    t_wait = time.perf_counter()
                 loss = float(loss)   # waits for this window on the card
                 t0 = self._phase("compute", t_launch)
                 if elastic:
-                    params, center = self._elastic_exchange(params, t0)
+                    params, center = self._elastic_exchange(params, t0,
+                                                            t_launch)
                     self._window_done(loss, epoch)
                     self._windows_done += 1
                     if maybe_heartbeat is not None:
                         maybe_heartbeat()
                     continue
                 delta = self._window_delta(params, base)
-                t0 = self._phase("fetch", t0)
+                t0 = self._phase("fetch", t0, t_wait)
+                if t_wait is not None:
+                    self._record_compute(t_launch, t0)
                 blob, sent = self._compress(delta, owned=True)
                 self._phase("compress", t0)
                 pending = (blob, loss, epoch,
@@ -504,15 +526,20 @@ class AsyncWorker:
                 t_launch = time.perf_counter()
                 params, nt, opt, loss = self.window_fn(params, nt, opt,
                                                        batches)
+                t_wait = None
                 if _trace.enabled():
                     self._next_corr()
+                    t_wait = time.perf_counter()
                 loss = float(loss)   # waits for this window on the card
                 t0 = self._phase("compute", t_launch)
                 if elastic_rule:
-                    params, center = self._elastic_exchange(params, t0)
+                    params, center = self._elastic_exchange(params, t0,
+                                                            t_launch)
                 else:
                     delta = self._window_delta(params, center)
-                    t0 = self._phase("fetch", t0)
+                    t0 = self._phase("fetch", t0, t_wait)
+                    if t_wait is not None:
+                        self._record_compute(t_launch, t0)
                     blob, _ = self._compress(delta, owned=True)
                     self._phase("compress", t0)
                     center = self._do_exchange(blob)
@@ -577,12 +604,16 @@ class AsyncWorker:
                 if pending is not None:
                     center = self._flush_elastic(pending, maybe_heartbeat)
                     pending = None
+                t_wait = None
                 if _trace.enabled():
                     self._next_corr()
+                    t_wait = time.perf_counter()
                 loss = float(loss)
                 t0 = self._phase("compute", t_launch)
                 delta = self._window_delta(params, base)
-                t0 = self._phase("fetch", t0)
+                t0 = self._phase("fetch", t0, t_wait)
+                if t_wait is not None:
+                    self._record_compute(t_launch, t0)
                 blob, sent = self._compress(delta, owned=True)
                 self._phase("compress", t0)
                 base = self._rebase_host(center, sent)
@@ -631,16 +662,19 @@ class AsyncWorker:
             (self.window, self.batch_size) + c.shape[1:])).to(self.device)
             for c in shard_cols)
 
-    def _elastic_exchange(self, params, t0: float):
+    def _elastic_exchange(self, params, t0: float, t_launch: float):
         """An elastic rule's exchange: a fresh center at exchange time
         (EASGD), the elastic difference committed, and the worker moved by
         the transmitted difference (symmetric under lossy compression).
-        The commit depends on the pull, so it cannot be fused. Returns the
-        moved ``(params, center)``."""
+        The commit depends on the pull, so it cannot be fused; the pull
+        lies inside the window's ``worker.compute`` span, as in the JAX
+        package. Returns the moved ``(params, center)``."""
         center = self.ps.pull(self.worker_id)
         t0 = self._phase("pull", t0)
         host_params = utils.tree_to_numpy(params)
         t0 = self._phase("fetch", t0)
+        if _trace.enabled():
+            self._record_compute(t_launch, t0)
         diff = self.rule.worker_commit(host_params, center)
         blob, sent = self._compress(diff)
         t0 = self._phase("compress", t0)
@@ -905,6 +939,11 @@ def run_async_training(trainer, ds, shuffle: bool):
     trainer.directory_stats_ = None
     trainer.ema_params_ = None
     trainer.checkpoint_ms_ = []
+    trainer.analysis_ = None
+    trainer.watch_alerts_ = None
+    trainer.watch_path_ = None
+    trainer.watchtower_ = None
+    trainer._watchtower_active_ = None
 
     ps = None
     resolver = None
@@ -1040,6 +1079,14 @@ def run_async_training(trainer, ds, shuffle: bool):
             for sid, srv in enumerate(group.servers):
                 hosted.register_shard(sid, srv, group.plan,
                                       supervised=False)
+        if trace_on:
+            # native servers keep their span ring in C++: arm it (the
+            # Python servers' spans record directly)
+            for srv in (group.servers if group is not None
+                        else [ps] if ps is not None else []):
+                arm = getattr(srv, "set_trace", None)
+                if arm is not None:
+                    arm(True)
         streamer = getattr(trainer, "deploy_streamer", None)
         if streamer is not None:
             # the serving tier's read replicas hook onto the live center
@@ -1099,6 +1146,8 @@ def run_async_training(trainer, ds, shuffle: bool):
                                         trainer.allocate_optimizer())
         history: list[dict] = []
         hlock = threading.Lock()
+        watchtower = _watchtower_for(trainer, ps, group, ps_supervisor,
+                                     history, hlock, trace_on)
         barrier = ckpt_pred = None
         if ckpt_dir and not elastic_mode:
             if ps is None:
@@ -1146,7 +1195,7 @@ def run_async_training(trainer, ds, shuffle: bool):
                 trainer, ds, cols, shuffle, start_epoch, build_client,
                 window_fn, rule, nt, history, hlock, codec, fault_plan,
                 lambda: (ps_supervisor.active if ps_supervisor is not None
-                         else ps))
+                         else ps), watchtower)
             workers = coordinator.all_workers()
             clients = coordinator.all_clients()
         else:
@@ -1159,6 +1208,20 @@ def run_async_training(trainer, ds, shuffle: bool):
                 restore=restores[i], start_epoch=start_epoch,
                 tolerant=trainer.tolerate_worker_failures)
                 for i in range(W)]
+            if watchtower is not None:
+                from distkeras_tpu_torch.observability.timeseries import (
+                    progress_source,
+                )
+
+                # fixed pool: the scraper samples the progress of workers
+                # still training only (a finished worker's flat counter
+                # would read as a rate-0 straggler; a dead one stops)
+                watchtower.add_source("progress", progress_source(
+                    lambda: {w.worker_id: int(w._windows_done)
+                             for w in workers
+                             if w.error is None
+                             and not hasattr(w, "final_nt")}))
+                watchtower.start()
 
         def args_of(i):
             return (i, tuple(col[i] for col in shards), trainer.num_epoch,
@@ -1213,6 +1276,8 @@ def run_async_training(trainer, ds, shuffle: bool):
                                            for w in workers):
             raise RuntimeError("a PS failover supervisor died while the "
                                "workers survived") from sup_err
+        if watchtower is not None:
+            _finish_watchtower(trainer, watchtower)
         if hosted is not None:
             trainer.directory_stats_ = hosted.stats()
         if (resilient or supervisor is not None
@@ -1235,9 +1300,14 @@ def run_async_training(trainer, ds, shuffle: bool):
                 trainer.ema_params_ = active.get_ema()
             trainer.ps_stats_ = active.stats()
             trainer.ps_stats_["exchange_phases"] = trainer.exchange_phases_
+        if trace_on:
+            _scrape_native_rings(group.active_servers if group is not None
+                                 else [active] if active is not None else [])
         if trace_dir is not None:
             trainer.trace_path_ = _trace.save(os.path.join(
                 trace_dir, f"ps-trace-{os.getpid()}-{time.time_ns()}.json"))
+        if trace_on and getattr(trainer, "analyze", False):
+            trainer.analysis_ = _post_run_analysis(watchtower)
     finally:
         if ps_supervisor is not None:
             ps_supervisor.stop()
@@ -1261,9 +1331,95 @@ def run_async_training(trainer, ds, shuffle: bool):
     return center, final_nt, history
 
 
+def _watchtower_for(trainer, ps, group, supervisor, history, hlock,
+                    trace_on: bool):
+    """The run's watchtower when the trainer's ``watch`` is on (any of
+    ``watch``, ``watch_dir``, ``watch_rules`` and ``watch_hook`` turns it
+    on), else None: a background scraper over
+    the PS stats surface (the ACTIVE server across a failover, read off
+    the failover ``supervisor`` at each scrape), the
+    training loss and, when tracing, the analyzer's live regime series,
+    with the watchdog's rules evaluated after every scrape. Every
+    Python-served server carries it as ``watchtower``, so the ``metrics``
+    wire action carries its alert ledger (the native C++ server has no
+    Python handler loop). Not started here: the caller starts it once
+    the workers exist. ``trainer._watchtower_active_`` holds it until the
+    run stops it, so a run that dies stops its scraper."""
+    if not getattr(trainer, "watch", False):
+        return None
+    from distkeras_tpu_torch.observability.timeseries import ps_source
+    from distkeras_tpu_torch.observability.watch import Watchtower
+
+    tower = Watchtower(rules=trainer.watch_rules,
+                       interval=float(trainer.scrape_interval),
+                       hook=trainer.watch_hook)
+    if ps is not None:
+        def live(_ps=ps):
+            active = getattr(supervisor, "active", None)
+            return active if active is not None else _ps
+
+        tower.add_source("ps", ps_source(live))
+        for srv in (group.servers if group is not None else [ps]):
+            if hasattr(srv, "watchtower"):
+                srv.watchtower = tower
+    tower.add_history(history, hlock)
+    if trace_on:
+        from distkeras_tpu_torch.observability.analyze import regime_source
+
+        tower.add_source("regime", regime_source())
+    trainer._watchtower_active_ = tower
+    return tower
+
+
+def _finish_watchtower(trainer, tower) -> None:
+    """Stop the run's watchtower (one last synchronous scrape, so the
+    end-of-run counters land in the series) and publish its alert ledger
+    (``watch_alerts_``), the tower (``watchtower_``) and, with
+    ``watch_dir``, the dump of every series and the ledger
+    (``watch_path_``)."""
+    tower.stop()
+    trainer._watchtower_active_ = None
+    trainer.watchtower_ = tower
+    trainer.watch_alerts_ = tower.alerts_json()
+    if trainer.watch_dir is not None:
+        trainer.watch_path_ = tower.dump(os.path.join(
+            trainer.watch_dir,
+            f"ps-watch-{os.getpid()}-{time.time_ns()}.json"))
+
+
+def _scrape_native_rings(servers) -> None:
+    """Pull each live native server's C++ span ring into the recorder
+    while the server is still up (the scrape rides the wire); a Python
+    server has no ring, a crashed native one keeps none."""
+    for srv in servers:
+        scrape = getattr(srv, "scrape_trace_events", None)
+        if scrape is not None:
+            try:
+                _trace.add_events(scrape())
+            except (OSError, ConnectionError):
+                pass
+
+
+def _post_run_analysis(tower):
+    """The analyzer over everything the recorder holds once the run is
+    over (the native rings scraped in), with the watchtower's counter
+    series when there is one. Post-hoc only; a failed diagnosis warns
+    and never fails the run it describes."""
+    from distkeras_tpu_torch.observability import analyze as _analyze
+
+    try:
+        return _analyze.analyze_events(
+            _trace.events(), dropped=_trace.live_dropped(),
+            store=tower.store if tower is not None else None)
+    except Exception as e:  # noqa: BLE001 — diagnosis is best-effort
+        warnings.warn(f"post-run trace analysis failed "
+                      f"({type(e).__name__}: {e})", stacklevel=3)
+        return None
+
+
 def _run_elastic(trainer, ds, cols, shuffle, start_epoch, build_client,
                  window_fn, rule, nt, history, hlock, codec, fault_plan,
-                 live_server):
+                 live_server, watchtower=None):
     """Drive an ``elastic=True`` run to its end and return its
     :class:`~distkeras_tpu_torch.resilience.elastic.ElasticCoordinator`.
 
@@ -1276,7 +1432,10 @@ def _run_elastic(trainer, ds, cols, shuffle, start_epoch, build_client,
     trains once an epoch across any clean membership schedule. When the
     last block of an epoch is confirmed, the live server (``live_server()``)
     marks the epoch in its log. Every worker, joiners included, runs on
-    the trainer's device."""
+    the trainer's device. With a ``watchtower`` the coordinator samples
+    every worker's progress into its store (the one progress record the
+    policy and the commit-skew rule both read) and the tower's scraper
+    runs beside it."""
     from distkeras_tpu_torch.resilience.elastic import (
         ElasticCoordinator,
         ElasticPolicy,
@@ -1332,8 +1491,11 @@ def _run_elastic(trainer, ds, cols, shuffle, start_epoch, build_client,
         assigner, spawn, make_drain_client=build_client,
         fault_plan=fault_plan, policy=policy,
         drain_timeout=trainer.preempt_drain_timeout,
-        max_pool_size=int(max_pool))
+        max_pool_size=int(max_pool),
+        store=watchtower.store if watchtower is not None else None)
     try:
+        if watchtower is not None:
+            watchtower.start()
         coordinator.start(list(range(W)))
         coordinator.run()
     except BaseException:

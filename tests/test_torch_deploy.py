@@ -2,8 +2,8 @@
 ``deploy_report`` and ``mark_epoch``, the serving server's
 ``deploy_activate`` / ``deploy_status``), held against the JAX package's
 ``distkeras_tpu/deploy`` case by case (``tests/test_deploy.py``), on the
-same inputs, except the cases that need the watchtower's rules or the
-metrics registry (A13's second half).
+same inputs, the watchtower's deploy-lag rule and the metrics gauges
+included.
 
 - The epoch record, the deploy-lag counters, the snapshot store and the
   rollout policy are host code in both packages: the port's answers equal
@@ -16,8 +16,10 @@ metrics registry (A13's second half).
 - Serving: a replica hard-killed with a refill swap staged loses no
   routed request (each stream equals the greedy oracle of one version
   whole) and leaks no KV block; the canary → promote → rollback rollout
-  runs over two directory-registered replicas with a ``health`` closure
-  and an injected clock (``ctrl.step(now)``), every stream equal to the
+  runs over two directory-registered replicas with ``health`` read off a
+  watchdog (``watchtower_health``) whose ``ServingSLORule`` fires on an
+  injected latency fault, and an injected clock (``ctrl.step(now)``),
+  every stream equal to the
   oracle of its replica's version, the deploy lag bounded and every
   transition journaled. The oracle is the port's dense ``generate`` at
   the snapshot's weights, which equals the JAX package's ``generate`` at
@@ -358,6 +360,39 @@ def test_rollout_policy_validates():
                 pkg.RolloutPolicy(**kw)
 
 
+def test_deploy_lag_rule_and_metrics_gauge():
+    """``tests/test_deploy.py:128`` in both packages: the deploy-lag rule
+    abstains with no deploy data and fires over its bound, with equal
+    transitions; the metrics schema exports both deploy gauges."""
+    from distkeras_tpu.observability import metrics as jm
+    from distkeras_tpu.observability import timeseries as jts
+    from distkeras_tpu.observability import watch as jw
+    from distkeras_tpu_torch.observability import metrics as tm
+    from distkeras_tpu_torch.observability import timeseries as tts
+    from distkeras_tpu_torch.observability import watch as tw
+
+    logs = []
+    for m, ts, w in ((jm, jts, jw), (tm, tts, tw)):
+        keys = [k for k, _, _, _ in m._PS_SCHEMA]
+        assert "deploy_lag_folds" in keys and "deploy_version" in keys
+        assert any(r.kind == "deploy_lag" for r in w.default_rules())
+        store = ts.TimeSeriesStore()
+        wd = w.Watchdog(store, rules=[w.DeployLagRule(bound=100.0)])
+        wd.evaluate(now=1.0)
+        assert not wd.active                   # no data: abstain
+        store.sample("ps.deploy_lag_folds", 2.0, 500.0, "gauge")
+        wd.evaluate(now=2.0)
+        assert not wd.active                   # lag, no deploy version yet
+        store.sample("ps.deploy_version", 3.0, 7.0, "gauge")
+        wd.evaluate(now=3.0)
+        assert any(a["kind"] == "deploy_lag" for a in wd.active.values())
+        store.sample("ps.deploy_lag_folds", 4.0, 10.0, "gauge")
+        wd.evaluate(now=4.0)
+        assert not wd.active                   # caught up: resolves
+        logs.append(wd.alerts_json())
+    assert logs[1] == logs[0]
+
+
 def test_watchtower_health_adapter():
     class FakeDog:
         active = {}
@@ -613,11 +648,19 @@ def test_chaos_hard_kill_replica_mid_swap(lm):
 def test_e2e_stream_canary_promote_then_rollback(lm):
     """Two workers fold live into an ADAG PS while a streamer cuts
     versions; two directory-registered replicas serve; a canary of the
-    next version is promoted on a green ``health``, a third is rolled
-    back when ``health`` reports the serving SLO firing. The controller
-    runs on an injected clock."""
+    next version is promoted while the watchdog stays green, a third is
+    rolled back when an injected latency fault fires its
+    ``ServingSLORule`` (``health`` is ``watchtower_health`` of the
+    watchdog, as in the JAX package's acceptance test). The controller
+    and the watchdog run on an injected clock."""
     from distkeras_tpu_torch.directory import DirectoryServer
     from distkeras_tpu_torch.directory.router import RoutedGenerationClient
+    from distkeras_tpu_torch.observability.timeseries import TimeSeriesStore
+    from distkeras_tpu_torch.observability.watch import (
+        ServingSLORule,
+        SLOClass,
+        Watchdog,
+    )
     from distkeras_tpu_torch.serving import GenerationClient
 
     ps = tps.ParameterServer(lm[0], trules.ADAGMerge(), 2)
@@ -657,7 +700,15 @@ def test_e2e_stream_canary_promote_then_rollback(lm):
                                         refresh_interval=0.2)
         _wait_fleet(router, {"rep-0": va, "rep-1": va})
         by_key = {f"rep-{i}": srv for i, srv in enumerate(servers)}
-        health = {"green": True, "slo": False}
+        # the serving SLO is the rollback trigger; feeding its series by
+        # hand makes green and red deterministic
+        tstore = TimeSeriesStore()
+        wd = Watchdog(tstore, rules=[
+            ServingSLORule(slo={"default": SLOClass(p99_ms=500.0)})])
+
+        def observe(p99_ms, now):
+            tstore.sample("serve.lat.default.p99_ms", now, p99_ms)
+            wd.evaluate(now=now)
 
         def activate(key, version):
             c = GenerationClient(by_key[key].host, by_key[key].port)
@@ -669,7 +720,7 @@ def test_e2e_stream_canary_promote_then_rollback(lm):
                 c.close()
 
         ctrl = tdeploy.RolloutController(
-            router, activate, lambda: (health["green"], health["slo"]),
+            router, activate, lambda: tdeploy.watchtower_health(wd),
             policy=tdeploy.RolloutPolicy(canary_fraction=0.5, bake_s=0.0,
                                          green_checks=1, red_checks=1,
                                          cooldown_s=0.0))
@@ -693,12 +744,14 @@ def test_e2e_stream_canary_promote_then_rollback(lm):
         vb = st.store.versions()[-1]
         assert vb > va
         ctrl.begin(vb)
+        observe(50.0, 1.0)                        # healthy latency: green
         assert [a["action"] for a in ctrl.step(1.0)] == ["canary"]
         assert len(ctrl.canary_keys) == 1
         canary, = ctrl.canary_keys
         rest, = set(by_key) - {canary}
         _wait_fleet(router, {canary: vb, rest: va})
         served_bit_identical()
+        observe(60.0, 2.0)
         assert [a["action"] for a in ctrl.step(2.0)] == ["promote"]
         _wait_fleet(router, {"rep-0": vb, "rep-1": vb})
         served_bit_identical()
@@ -708,8 +761,10 @@ def test_e2e_stream_canary_promote_then_rollback(lm):
         vc = st.store.versions()[-1]
         assert vc > vb
         ctrl.begin(vc)
+        observe(55.0, 3.0)
         assert [a["action"] for a in ctrl.step(3.0)] == ["canary"]
-        health.update(green=False, slo=True)      # the SLO fires
+        observe(5000.0, 4.0)                      # the injected fault
+        assert tdeploy.watchtower_health(wd) == (False, True)
         assert [a["action"] for a in ctrl.step(4.0)] == ["rollback"]
         _wait_fleet(router, {"rep-0": vb, "rep-1": vb})
         served_bit_identical()

@@ -250,18 +250,38 @@ def test_socket_ps_stats_served_over_wire():
 
 
 def test_socket_ps_later_actions_name_their_roadmap_item():
-    """The metrics action (A13's second half) answers with an error naming
-    its item; the deploy report (A13's first half), once refused too, sets
-    the deployed version; the elastic ``join`` and ``drain`` actions, once
-    refused naming A7.8, answer: the pool grows by the joiner and shrinks
-    by the drain."""
+    """The actions of later slices, once refused, answer: the metrics
+    action (A13's second half) with the reply the JAX package's
+    ``metrics_reply`` builds from the same stats (the flight recorder's
+    two metrics aside: each package counts its own recorder); the deploy
+    report (A13's first half) sets the deployed version; the elastic
+    ``join`` and ``drain`` actions (A7.8) grow the pool by the joiner and
+    shrink it by the drain."""
+    from distkeras_tpu.observability import metrics as jmetrics
+
     ps = _socket_ps({"w": np.zeros(2, np.float32)}, tr.ADAGMerge(), 1)
+    seen = []
+    stats = ps.stats
+    ps.stats = lambda *a, **kw: seen.append(stats(*a, **kw)) or seen[-1]
     try:
         s = networking.connect("127.0.0.1", ps.port, timeout=TIMEOUT)
         try:
             networking.send_data(s, {"action": "metrics", "worker_id": 0})
             reply = networking.recv_data(s)
-            assert not reply["ok"] and "A13" in reply["error"], reply
+            want = jmetrics.metrics_reply(jmetrics.ps_metrics(seen[-1]))
+            assert set(reply) == set(want) == {"ok", "metrics", "prom"}
+            assert reply["ok"]
+
+            def strip(r):
+                return ({k: v for k, v in r["metrics"].items()
+                         if not k.startswith("dk_trace_")},
+                        [ln for ln in r["prom"].splitlines()
+                         if "dk_trace_" not in ln])
+
+            assert strip(reply) == strip(want)
+            assert reply["metrics"]["dk_ps_num_updates"]["samples"][0][
+                "value"] == 0
+            ps.stats = stats
             networking.send_data(s, {"action": "deploy_report",
                                      "version": 1})
             assert networking.recv_data(s) == {"ok": True}
@@ -783,6 +803,8 @@ def test_four_worker_ps_run_matches_the_jax_package(name, window,
     (dict(elastic=True), "A7.8"),
     (dict(directory=True), "A7.9"),
     (dict(watch=True), "A13"),
+    (dict(analyze=True), "A13"),
+    (dict(scrape_interval=0.0), "A13"),
 ])
 def test_later_ps_kwargs_raise_naming_their_item(kwargs, item):
     """Later slices' knobs raise naming their item. Elastic membership's
@@ -809,9 +831,29 @@ def test_later_ps_kwargs_raise_naming_their_item(kwargs, item):
             for name, value in kw.items():
                 assert getattr(t, name) == value
         return
-    if item != "A7.8":
-        with pytest.raises(NotImplementedError, match=item):
-            trainers.DynSGD(_spec(), backend="ps", device="cpu", **kwargs)
+    if item == "A13":
+        # the observability knobs (A13's second half), once refused, are
+        # taken with the JAX trainer's checks: its verdict on the same
+        # arguments, on the PS backend and on the collective one
+        jspec = jax_mlp(input_shape=(16,), hidden=(32,), num_classes=4)
+        for backend in ("ps", "collective"):
+            try:
+                jt, jerr = jdk.DynSGD(jspec, backend=backend,
+                                      **kwargs), None
+            except ValueError as e:
+                jerr = e
+            if jerr is not None:
+                with pytest.raises(ValueError) as err:
+                    trainers.DynSGD(_spec(), backend=backend, device="cpu",
+                                    **kwargs)
+                assert str(err.value) .split(" (")[0] == \
+                    str(jerr).split(" (")[0]
+                continue
+            t = trainers.DynSGD(_spec(), backend=backend, device="cpu",
+                                **kwargs)
+            for name in ("analyze", "trace", "watch", "scrape_interval",
+                         "watch_dir", "watch_rules", "watch_hook"):
+                assert getattr(t, name) == getattr(jt, name), name
         return
     if "elastic" not in kwargs:
         with pytest.raises(ValueError, match="requires elastic=True"):

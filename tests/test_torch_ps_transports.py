@@ -156,6 +156,75 @@ def test_native_dynsgd_staleness_over_the_wire(tnative):
         ps.stop()
 
 
+def _ring_script(mod, jax_side: bool, wal_dir: str):
+    """Exchanges with seqnos, a pull and a plain commit against an armed
+    native server with a WAL; returns ``(port, scraped spans)``."""
+    rule = (jr if jax_side else tr).DynSGDMerge()
+    ps = mod.NativeSocketParameterServer({"w": np.zeros(4, np.float32)},
+                                         rule, 2, wal_dir=wal_dir,
+                                         wal_group_window=1)
+    ps.initialize()
+    ps.start()
+    try:
+        ps.set_trace(True)
+        cs = [_client(mod, ps, i) for i in range(2)]
+        for k in range(1, 4):
+            for i, c in enumerate(cs):
+                c.exchange(i, {"w": np.full(4, k, np.float32)}, seq=k)
+        cs[0].exchange(0, {"w": np.ones(4, np.float32)})   # no seqno
+        cs[1].pull()
+        cs[1].commit(1, {"w": np.ones(4, np.float32)})
+        for c in cs:
+            c.close()
+        return ps.port, ps.scrape_trace_events()
+    finally:
+        ps.stop()
+
+
+def test_native_span_ring_scrapes_tracer_shaped_events(tnative, tmp_path):
+    """The C++ span ring's scrape has the JAX package's shape: tracer
+    dicts with ``cat`` "dkps", ``tid`` ``1 + (port & 0xFFFF)``, ``tname``
+    ``dkps:<port>`` and the corr rebuilt from the wire's worker id and
+    seqno (``w<id>:s<seq>``, ``w<id>`` without a seqno, none for the
+    flusher's fsyncs), and the same spans as the JAX server's for the
+    same requests."""
+    import re
+
+    from distkeras_tpu_torch.observability import trace as ttrace
+
+    out = {}
+    for side, mod in (("port", tnative), ("jax", _jax_native())):
+        port, evs = _ring_script(mod, side == "jax",
+                                 str(tmp_path / side))
+        assert evs, side
+        for e in evs:
+            assert set(e) == {"name", "cat", "corr", "t0_ns", "dur_ns",
+                              "tid", "tname"}, e
+            assert e["cat"] == "dkps" and e["dur_ns"] >= 0
+            assert e["tid"] == 1 + (port & 0xFFFF)
+            assert e["tname"] == f"dkps:{port}"
+            if e["name"] == "wal.fsync":
+                assert e["corr"] is None
+            else:
+                assert re.fullmatch(r"w\d+(:s\d+)?", e["corr"]), e
+        # the flusher's fsync count is the timing's: compared apart
+        assert any(e["name"] == "wal.fsync" for e in evs), side
+        out[side] = sorted((e["name"], e["corr"]) for e in evs
+                           if e["name"] != "wal.fsync")
+    assert out["port"] == out["jax"]
+    folds = [c for n, c in out["port"] if n == "ps.fold"]
+    assert sorted(folds) == sorted(
+        [f"w{i}:s{k}" for i in range(2) for k in range(1, 4)] + ["w0"])
+    # the dicts are add_events' contract: they land in the recorder as is
+    ttrace.enable()
+    try:
+        ttrace.add_events(evs)
+        got = [e for e in ttrace.events() if e["cat"] == "dkps"]
+        assert len(got) == len(evs)
+    finally:
+        ttrace.disable()
+
+
 # -- native wire compatibility with the JAX package ---------------------------
 
 
@@ -404,6 +473,35 @@ def test_native_lease_renews_on_every_request(tnative):
     assert _native_lease_script(tnative, tr) == (0, True, 0)
     evicted, leased, extra = _native_lease_script(_jax_native(), jr)
     assert evicted >= 1 and not leased and extra == 1
+
+
+def test_native_evicted_count_runs_no_expiry_pass(tnative, tmp_path):
+    """``evicted_count()`` reads the core's evictions without the forced
+    expiry pass of ``stats()``: a lapsed lease stays uncounted (and
+    unlogged) until a pass runs, then counts once, and its evict record
+    drains from ``wal_pending()`` within the flusher's interval."""
+    ps = tnative.NativeSocketParameterServer(
+        {"w": np.zeros(2, np.float32)}, tr.DownpourMerge(), 1,
+        lease_timeout=0.2, wal_dir=str(tmp_path), wal_group_interval=0.05)
+    ps.initialize()
+    ps.start()
+    try:
+        c = _client(tnative, ps, 0)
+        c.set_timeout(TIMEOUT)
+        c.heartbeat()
+        c.commit(0, {"w": np.ones(2, np.float32)}, seq=1)
+        assert ps.wal_pending() == 0     # the commit's ACK waited on fsync
+        time.sleep(0.3)                  # the lease lapses; no pass runs
+        before = ps.evicted_count()
+        after = ps.stats()["evicted_workers"]
+        counted = ps.evicted_count()
+        deadline = time.monotonic() + 5.0
+        while ps.wal_pending() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert (before, after, counted, ps.wal_pending()) == (0, 1, 1, 0)
+        c.close()
+    finally:
+        ps.stop()
 
 
 def test_native_trainer_equals_the_socket_trainer(tnative):
@@ -748,3 +846,43 @@ def test_shm_attach_standby_and_eviction_work():
     finally:
         sb.stop()
         ps.stop()
+
+
+def test_shm_ring_occupancy_reads_every_connection():
+    """``ShmParameterServer.ring_occupancy`` (the JAX server's
+    ``distkeras_tpu/shm.py:889``): one record a connection, read off the
+    mapped headers, each direction's used bytes within the capacity; the
+    watchtower's PS source samples its max into
+    ``shm.ring_occupancy_frac`` and the count into ``shm.segments``."""
+    from distkeras_tpu_torch.observability.timeseries import (
+        TimeSeriesStore,
+        ps_source,
+    )
+
+    ps = ShmParameterServer({"w": np.zeros(64, np.float32)}, tr.ADAGMerge(),
+                            2)
+    ps.initialize()
+    ps.start()
+    try:
+        cs = [ShmPSClient(ps, i) for i in range(2)]
+        cs[0].pull()
+        cs[1].commit(1, {"w": np.ones(64, np.float32)})
+        occ = ps.ring_occupancy()
+        assert sorted(r["worker_id"] for r in occ) == [0, 1]
+        for r in occ:
+            assert set(r) == {"name", "worker_id", "cap", "c2s_used",
+                              "s2c_used", "frac"}
+            assert r["cap"] == ps.ring_bytes
+            assert 0 <= r["c2s_used"] <= r["cap"]
+            assert 0 <= r["s2c_used"] <= r["cap"]
+            assert r["frac"] == max(r["c2s_used"], r["s2c_used"]) / r["cap"]
+        store = TimeSeriesStore()
+        ps_source(ps)(store, 1.0)
+        assert store.last("shm.segments") == 2
+        assert store.last("shm.ring_occupancy_frac") == max(
+            r["frac"] for r in ps.ring_occupancy())
+        for c in cs:
+            c.close()
+    finally:
+        ps.stop()
+    assert ps.ring_occupancy() == []

@@ -639,7 +639,9 @@ def test_sharded_stats_rollup_shapes():
 
 
 def test_sharded_group_refuses_later_items():
-    """The metrics registry (A13) names its item; the directory's
+    """The metrics registry (A13), once refused naming its item, is the
+    JAX package's ``ps_metrics`` of the same roll-up (aggregate and
+    ``shard``-labeled series); the directory's
     registration (once refused naming A7.9) registers both supervised
     shards as the JAX package does, with leases their supervisors renew;
     a sharded live join and drain, once refused naming A7.8, count on
@@ -656,8 +658,18 @@ def test_sharded_group_refuses_later_items():
                                     utils.flatten_with_paths(tree)[0]):
             assert pa == pb
             np.testing.assert_array_equal(a, b)
-        with pytest.raises(NotImplementedError, match="A13"):
-            group.metrics()
+        from distkeras_tpu.observability.metrics import ps_metrics
+
+        seen = []
+        stats = group.stats
+        group.stats = lambda: seen.append(stats()) or seen[-1]
+        reg = group.metrics()
+        group.stats = stats
+        want = ps_metrics(seen[-1])
+        assert reg.to_json() == want.to_json()
+        assert reg.to_prometheus() == want.to_prometheus()
+        assert [s_["labels"]["shard"] for s_ in reg.to_json()[
+            "dk_ps_commits_total"]["samples"][1:]] == ["0", "1"]
         from distkeras_tpu_torch.directory import HostedDirectory
 
         hosted = HostedDirectory(standby=False, failover_timeout=0.5)

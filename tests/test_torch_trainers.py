@@ -243,10 +243,13 @@ def test_later_slice_kwargs_raise_naming_their_roadmap_item():
                         checkpoint_async=True, ema_decay=0.5, device="cpu")
     assert (t.checkpoint_dir, t.resume, t.checkpoint_async, t.ema_decay) \
         == ("/nonexistent", True, True, 0.5)
-    # W workers over processes (A12.2) and the deploy streamer (A13's
-    # first half) are taken; the observability knobs still name A13
-    with pytest.raises(NotImplementedError, match="A13"):
+    # W workers over processes (A12.2), the deploy streamer (A13's first
+    # half) and the observability knobs (its second half) are taken, each
+    # with the reference's check that it needs backend="ps"
+    with pytest.raises(ValueError, match="backend='ps' only"):
         trainers.SingleTrainer(spec, analyze=True, device="cpu")
+    assert trainers.SingleTrainer(spec, analyze=True, backend="ps",
+                                  device="cpu").trace
     with pytest.raises(ValueError, match="backend='ps' only"):
         trainers.ADAG(spec, deploy_streamer=object(), device="cpu")
     with pytest.raises(TypeError, match="unexpected keyword"):
