@@ -350,12 +350,30 @@ Phases, in order; any failure exits non-zero and prints no result:
     streams, K1 and K2) and ``a13_watch_rollout`` (``a13_deploy_stream``
     with the trainer's DeployLagRule and ``health`` from a serving
     watchtower whose SLO rule an injected latency fault fires);
-26. print the ``kernels`` JSON line (K1 as one decode step and, as
+26. the example twins (``distkeras_tpu_torch/examples``) at their own
+    defaults, each phase one JSON line with the card, its wall time and
+    its launches (counted alone, K1's also by rows): ``examples_lm`` (the
+    cyclic LM trained under ADAG in bf16 through K2-K4, then greedy,
+    beam-4 and int8 decodes, each at 0.9 continuation accuracy; K3 and K4
+    once a block a step, K2 as often plus the decodes' prefills, K1 at
+    M=4 and M=32), ``examples_longcontext`` (one fwd+bwd+Adam step of the
+    rematted classifier at L=4096: K2 twice a block, K3 and K4 once; the
+    sequence-parallel leg on one rank), ``examples_parallelism`` (dp, tp,
+    fsdp, pp, sp and ep in a world of one, every MeshTrainer loss
+    falling), ``examples_serve_lm`` and ``examples_serve_lm_spec`` (every
+    served stream equal to ``generate()``, the eos stream stopping at the
+    oracle's first eos), ``examples_train_while_serving`` (promote, then
+    roll back; every stream equal to the oracle at its version),
+    ``examples_workflow`` (the notebook's cells, read with ``json``: AEASGD
+    and EAMSGD above 0.70) and ``examples_alias`` (``distkeras_torch``'s
+    ADAG is the port's, no JAX loaded); K1-K4 are also held to their plain
+    versions at these shapes in phases 3, 4 and 7;
+27. print the ``kernels`` JSON line (K1 as one decode step and, as
     ``q_matmul_prefill``, one 1024-token prefill; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
     elastic phases, the directory phases, the front door,
-    ``serve_decode``, the model family, the mesh, the W-over-processes
-    and the deploy phases, K6 and K7
+    ``serve_decode``, the model family, the mesh, the W-over-processes,
+    the deploy and the example phases, K6 and K7
     with their G=1 times), read config 3's
     gates (``ps3_failures``, the sharded run's too), then the result line
     ``{"ok": true, "device": {...}}`` last.
@@ -610,6 +628,24 @@ A13_NEW = 16              # greedy new tokens a stream
 A13_SCRAPE = 0.25
 A13_LAG_BOUND = 3 * A13_SNAPSHOT_EVERY
 A13_SLO_P99_MS = 1000.0
+# the example twins (distkeras_tpu_torch/examples), each driven at its own
+# defaults. The LM twin: vocab 64, dim 64, 4 heads (D=16), depth 2,
+# training rows of EX_LM_L tokens under ADAG with W=2 workers of batch 64
+# (B'=128 at the flash kernels, causal, bf16), window 2; its decodes run 4
+# prompts of 8 tokens (K2's prefill at B=4, L=8; K1's prefill plan at M=32
+# and its decode plan at M=4, at the model's Dense shapes K=64 and 256).
+# The long-context twin's flash+remat leg: dim 512, 8 heads (D=64), depth
+# 8, L=4096, B=8, an all-ones key mask, non-causal, bf16
+EX_LM_VOCAB, EX_LM_DIM, EX_LM_HEADS, EX_LM_DEPTH, EX_LM_L = 64, 64, 4, 2, 128
+EX_LM_W, EX_LM_BATCH, EX_LM_WINDOW = 2, 64, 2
+EX_LM_PROMPTS, EX_LM_PROMPT_LEN = 4, 8
+EX_LM_DENSE = tuple(((k, n), (EX_LM_PROMPTS,
+                              EX_LM_PROMPTS * EX_LM_PROMPT_LEN))
+                    for k, n in ((EX_LM_DIM, 3 * EX_LM_DIM),
+                                 (EX_LM_DIM, EX_LM_DIM),
+                                 (EX_LM_DIM, 4 * EX_LM_DIM),
+                                 (4 * EX_LM_DIM, EX_LM_DIM)))
+EX_LC_L, EX_LC_B, EX_LC_DIM, EX_LC_HEADS, EX_LC_DEPTH = 4096, 8, 512, 8, 8
 MNIST_RUNS = (["--trainer", "adag"],
               # DOWNPOUR sums 4 workers' Adam windows: window 1 (the
               # paper's push-every-step) is where it learns reliably
@@ -690,14 +726,18 @@ def check_q_matmul(torch, quant):
     (DECODE_ROWS: dense decode, beams, the dense and the engine's verify),
     the served prefill lengths (SERVED_LENGTHS, one batched prefill per
     padded length), the front door's chunk program (CHUNK_ROWS) and
-    M=1024; and at the int8 classifier's shapes (CLS_DENSE); with kernel,
+    M=1024; at the int8 classifier's shapes (CLS_DENSE) and the LM
+    twin's int8 decode (EX_LM_DENSE, K=64 and 256); with kernel,
     plain and library times and the card's bound; the split decode
     kernel twice for equal bits; then ragged edges."""
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows, max_err = [], 0.0
     served = tuple(dict.fromkeys(
         (8, *DECODE_ROWS, *SERVED_LENGTHS, *CHUNK_ROWS, 1024)))
-    for (k, n), ms in tuple((kn, served) for kn in DENSE) + CLS_DENSE:
+    for (k, n), ms, model in (
+            tuple((kn, served, "lm") for kn in DENSE)
+            + tuple((kn, m, "classifier") for kn, m in CLS_DENSE)
+            + tuple((kn, m, "lm_twin") for kn, m in EX_LM_DENSE)):
         w = torch.randn((n, k), generator=gen, device=DEVICE) * 0.02
         qt = quant.quantize(w, axis=1)
         nrot = max(1, min(48, math.ceil(200e6 / qt.q.numel())))
@@ -739,7 +779,7 @@ def check_q_matmul(torch, quant):
             esz = 2 if dt == torch.bfloat16 else 4
             nbytes = m * k * esz + k * n + n * 4 + m * n * esz
             row = dict(M=m, K=k, N=n, dtype=str(dt).split(".")[-1],
-                       model="lm" if (k, n) in PER_STEP else "classifier",
+                       model=model,
                        plan=dict(kernel=plan.kernel, tokens=plan.tokens,
                                  channels=plan.channels, splits=plan.splits,
                                  blocks=plan.blocks),
@@ -804,6 +844,10 @@ def check_flash(torch, fa):
         (2, 333, 8, 2, 64, bf, True, None, "half"),
         (1, 512, 4, 4, 128, bf, False, None, "holes"),
         (2, 100, 4, 2, 64, torch.float32, True, 24, "half"),
+        # the LM twin's decode prefill: 4 prompts of 8 tokens, D=16 (the
+        # bf16 FMA kernel: D is neither 64 nor 128)
+        (EX_LM_PROMPTS, EX_LM_PROMPT_LEN, EX_LM_HEADS, EX_LM_HEADS,
+         EX_LM_DIM // EX_LM_HEADS, bf, True, None, None),
     ]
     for B, L, H, Hkv, D, dt, causal, window, mkind in cases:
         q = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
@@ -870,12 +914,15 @@ def _pairs(torch, fa, B, L, causal, window, km):
 
 
 def _key_mask(torch, kind, B, L, gen):
-    """None; "half": row 0 attends a prefix, row 1 nothing (every query
+    """None; "ones": every key valid (a mask the model passes all the
+    same); "half": row 0 attends a prefix, row 1 nothing (every query
     of row 1 fully masked); "ragged": each row a prefix of its own
     length, L/4 .. L; "holes": every key but one in 37 (offset by the
     row), so masked keys fall inside tiles that are otherwise whole."""
     if kind is None:
         return None
+    if kind == "ones":
+        return torch.ones((B, L), device=DEVICE)
     km = torch.zeros((B, L), device=DEVICE)
     if kind == "half":
         km[0, : L - L // 3] = 1.0
@@ -892,8 +939,10 @@ def _key_mask(torch, kind, B, L, gen):
 def check_flash_bwd(torch, fa):
     """K2's forward, K3 (dq) and K4 (dk/dv) against their plain versions
     at the LM's training shape (B'=16 = 2 workers x 8, L=2048, H=8, D=128,
-    bf16, causal), the classifier's (D=64, non-causal, ragged key mask)
-    and small cases (GQA 2 and 1, window with and without causal, a window
+    bf16, causal), the classifier's (D=64, non-causal, ragged key mask),
+    the example twins' (the LM twin's B'=128, L=128, H=4, D=16, causal;
+    the long-context twin's B=8, L=4096, H=8, D=64 with an all-ones key
+    mask) and small cases (GQA 2 and 1, window with and without causal, a window
     narrower than a warp's rows, ragged L, masked keys inside whole tiles,
     f32, the bf16 FMA path at D=32, fully masked rows). The forward is
     held to the tolerances of ``check_flash``; the backward kernels and
@@ -905,7 +954,7 @@ def check_flash_bwd(torch, fa):
     through exp). Fully masked rows must give exact zeros. Kernel, plain
     and library (``scaled_dot_product_attention``'s forward, and its
     backward, which computes dq, dk and dv in one call, at the same shapes
-    without the key mask) are timed at the two training shapes."""
+    without the key mask) are timed at the four training shapes."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -917,6 +966,13 @@ def check_flash_bwd(torch, fa):
          None, True),
         (Bp, CLS_L, CLS_HEADS, CLS_HEADS, CLS_DIM // CLS_HEADS, bf, False,
          None, "ragged", True),
+        # the example twins' training shapes: the LM twin's (B'=128, D=16,
+        # causal: the bf16 FMA kernels) and the long-context twin's
+        # flash+remat leg (L=4096, D=64, all-ones key mask)
+        (EX_LM_W * EX_LM_BATCH, EX_LM_L, EX_LM_HEADS, EX_LM_HEADS,
+         EX_LM_DIM // EX_LM_HEADS, bf, True, None, None, True),
+        (EX_LC_B, EX_LC_L, EX_LC_HEADS, EX_LC_HEADS,
+         EX_LC_DIM // EX_LC_HEADS, bf, False, None, "ones", True),
         (2, 100, 4, 2, 64, bf, False, 24, "half", False),
         (2, 150, 4, 1, 128, bf, True, 40, "half", False),
         (2, 77, 4, 4, 128, bf, True, None, None, False),
@@ -7058,6 +7114,194 @@ def serve_a13_watched(torch):
     return rec
 
 
+def _example_phase(torch, name, run):
+    """``run()`` (an example twin) under the launch counters, K1's also
+    by rows: ``(its result, its record)``; the record, with the card's
+    name and power limit, its wall time and launches, printed as one JSON
+    line."""
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    _zero_rows()
+    t0 = time.perf_counter()
+    out = run()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    rec = dict(phase=name, card=SMI, wall_s=time.perf_counter() - t0,
+               launches=_read_rows())
+    log(json.dumps(rec))
+    return out, rec
+
+
+def _losses_fall(losses) -> bool:
+    """Finite step losses whose second half's mean is below their first
+    half's (a single step at batch 32 is noisy)."""
+    losses = np.asarray(losses, np.float64)
+    half = len(losses) // 2
+    return bool(np.all(np.isfinite(losses)) and half > 0
+                and losses[half:].mean() < losses[:half].mean())
+
+
+def run_example_lm(torch):
+    """``examples_lm``: the LM twin at its defaults, gated on its own
+    self-check (greedy, beam-4 and int8 decodes each at 0.9 continuation
+    accuracy, rc 0); K3 and K4 once a block a training step (one launch
+    serves both stacked workers), K2 as often plus the three decodes'
+    prefills, and on the card K1 at its decode plan (M=4) and its prefill
+    plan (M=32)."""
+    from distkeras_tpu_torch.examples import lm as twin
+
+    argv = ["--device", DEVICE]
+    args = twin.parse_args(argv)
+    if (args.vocab, args.dim, args.heads, args.depth, args.seq_len,
+            args.workers, args.batch_size) != (
+            EX_LM_VOCAB, EX_LM_DIM, EX_LM_HEADS, EX_LM_DEPTH, EX_LM_L,
+            EX_LM_W, EX_LM_BATCH):
+        raise AssertionError(f"examples_lm: the twin's defaults {args} are "
+                             f"not the shapes checked above")
+    rc, rec = _example_phase(torch, "examples_lm", lambda: twin.main(argv))
+    steps = args.epochs * EX_LM_WINDOW * (
+        args.rows // (args.workers * args.batch_size * EX_LM_WINDOW))
+    n = rec["launches"]
+    fails = [] if rc == 0 else [f"the twin's self-check failed (rc {rc})"]
+    fails += [f"{k} launched {n[k]} times, expected {args.depth * steps}"
+              for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+              if n[k] != args.depth * steps]
+    if n["flash_attention"] < args.depth * (steps + 3):
+        fails.append(f"flash_attention launched {n['flash_attention']} "
+                     f"times, expected at least {args.depth * (steps + 3)}")
+    rows = n["q_matmul_rows"]
+    if DEVICE == "cuda" and not (
+            rows.get(EX_LM_PROMPTS) and rows.get(
+                EX_LM_PROMPTS * EX_LM_PROMPT_LEN)
+            and n["q_matmul_prefill"] >= 1):
+        fails.append(f"K1 not launched at M={EX_LM_PROMPTS} and "
+                     f"M={EX_LM_PROMPTS * EX_LM_PROMPT_LEN}: {rows}")
+    if fails:
+        raise AssertionError("examples_lm: " + "; ".join(fails))
+    return dict(rec, steps=steps)
+
+
+def run_example_longcontext(torch):
+    """``examples_longcontext``: the long-context twin at its defaults
+    (one rank): the flash+remat step's loss finite, K2 twice a block (the
+    forward and remat's recompute), K3 and K4 once a block; the
+    sequence-parallel leg's loss and gradient norm finite."""
+    from distkeras_tpu_torch.examples import longcontext as twin
+
+    out, rec = _example_phase(torch, "examples_longcontext",
+                              lambda: twin.main(["--device", DEVICE]))
+    fr, sp = out["flash_remat"], out["sp"]
+    want = {"flash_attention": 2 * EX_LC_DEPTH,
+            "flash_attention_bwd_dq": EX_LC_DEPTH,
+            "flash_attention_bwd_dkv": EX_LC_DEPTH}
+    n = rec["launches"]
+    fails = [f"{k} launched {n[k]} times, expected {v}"
+             for k, v in want.items() if n[k] != v]
+    if (fr["L"], fr["B"], fr["dim"], fr["heads"], fr["depth"]) != (
+            EX_LC_L, EX_LC_B, EX_LC_DIM, EX_LC_HEADS, EX_LC_DEPTH):
+        fails.append(f"the flash+remat leg ran {fr}, not the checked shape")
+    if not (np.isfinite(fr["loss"]) and np.isfinite(sp["loss"])
+            and np.isfinite(sp["grad_norm2"])):
+        fails.append(f"non-finite results {out}")
+    if fails:
+        raise AssertionError("examples_longcontext: " + "; ".join(fails))
+    return dict(rec, flash_remat=fr, sp=sp)
+
+
+def run_example_parallelism(torch):
+    """``examples_parallelism``: the six demos in a world of one (the
+    meshes the twin derives for one rank), each MeshTrainer's loss
+    falling, the dp demo's test accuracy printed."""
+    from distkeras_tpu_torch.examples import parallelism as twin
+
+    recs, rec = _example_phase(torch, "examples_parallelism",
+                               lambda: twin.main(["--device", DEVICE]))
+    bad = [k for k in ("tp", "fsdp", "pp", "sp", "ep")
+           if not _losses_fall(recs[k]["losses"])]
+    if list(recs) != ["dp", "tp", "fsdp", "pp", "sp", "ep"] or bad:
+        raise AssertionError(f"examples_parallelism: the loss of {bad} did "
+                             f"not fall: {json.dumps(recs)}")
+    return dict(rec, dp_acc=recs["dp"]["acc"],
+                losses={k: [v["losses"][0], v["losses"][-1]]
+                        for k, v in recs.items()})
+
+
+def run_example_rc(torch, name, module, argv):
+    """An example twin whose ``main`` returns its self-check's exit code
+    (``serve_lm``, ``train_while_serving``): gated on 0."""
+    import importlib
+
+    twin = importlib.import_module(f"distkeras_tpu_torch.examples.{module}")
+    rc, rec = _example_phase(torch, name, lambda: twin.main(
+        argv + ["--device", DEVICE]))
+    if rc != 0:
+        raise AssertionError(f"{name}: the twin's self-check failed (rc "
+                             f"{rc})")
+    return rec
+
+
+def run_example_workflow(torch):
+    """``examples_workflow``: the workflow notebook's cells read with
+    ``json`` and executed in one namespace on DEVICE at its default rows;
+    its last cell asserts both trainers above 0.70 test accuracy."""
+    from distkeras_tpu_torch.examples import run_notebook
+
+    old = os.environ.get("DISTKERAS_WORKFLOW_DEVICE")
+    os.environ["DISTKERAS_WORKFLOW_DEVICE"] = DEVICE
+    try:
+        ns, rec = _example_phase(torch, "examples_workflow", run_notebook)
+    finally:
+        if old is None:
+            os.environ.pop("DISTKERAS_WORKFLOW_DEVICE")
+        else:
+            os.environ["DISTKERAS_WORKFLOW_DEVICE"] = old
+    if ns["DEVICE"] != DEVICE or not all(
+            v > 0.70 for v in ns["results"].values()):
+        raise AssertionError(f"examples_workflow: {ns['results']} on "
+                             f"{ns['DEVICE']}")
+    return dict(rec, accuracy=ns["results"])
+
+
+def run_example_alias(torch):
+    """``examples_alias``: ``import distkeras_torch`` registers the
+    port's modules under the reference's import form; its ADAG is the
+    port's, and nothing of JAX is loaded."""
+    def check():
+        import distkeras_torch
+        from distkeras_torch.trainers import ADAG
+        from distkeras_tpu_torch import trainers
+
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "flax", "optax", "distkeras_tpu", "distkeras"))
+        if not (ADAG is trainers.ADAG and distkeras_torch.ADAG is ADAG
+                and distkeras_torch.trainers is trainers) or bad:
+            raise AssertionError(f"examples_alias: ADAG is not the port's, "
+                                 f"or {bad} loaded")
+        return ADAG.__module__
+
+    mod, rec = _example_phase(torch, "examples_alias", check)
+    return dict(rec, adag_module=mod)
+
+
+def run_examples(torch) -> dict:
+    """The example twins at their defaults on DEVICE, each phase counting
+    its own launches: ``{phase: record}``."""
+    out = {"examples_lm": run_example_lm(torch)}
+    torch.cuda.empty_cache()
+    out["examples_longcontext"] = run_example_longcontext(torch)
+    torch.cuda.empty_cache()
+    out["examples_parallelism"] = run_example_parallelism(torch)
+    for name, module, argv in (
+            ("examples_serve_lm", "serve_lm", []),
+            ("examples_serve_lm_spec", "serve_lm", ["--spec"]),
+            ("examples_train_while_serving", "train_while_serving", [])):
+        out[name] = run_example_rc(torch, name, module, argv)
+    out["examples_workflow"] = run_example_workflow(torch)
+    out["examples_alias"] = run_example_alias(torch)
+    torch.cuda.empty_cache()
+    return out
+
+
 def _build_all(_build) -> dict:
     """Every kernel source with ``nvcc`` (``_build.build``) and, at the
     same time, the native parameter server's C++ core with ``g++``
@@ -7414,6 +7658,15 @@ def main() -> int:
     log(json.dumps({"phase": "a13_observability",
                     "wall_s": time.perf_counter() - t_obs}))
     log(f"observability paths done at {time.perf_counter() - t0:.1f}s")
+    # the example twins at their own defaults: the LM (K1-K4), long
+    # context (K2-K4 at L=4096), the parallelism portfolio in a world of
+    # one, serving with and without speculation, train-while-serving, the
+    # workflow notebook and the distkeras_torch alias
+    t_ex = time.perf_counter()
+    examples = run_examples(torch)
+    log(json.dumps({"phase": "examples",
+                    "wall_s": time.perf_counter() - t_ex}))
+    log(f"example paths done at {time.perf_counter() - t0:.1f}s")
 
     def total(rows, pick, key):
         vals = [r[key] * w for r, w in pick(rows)]
@@ -7512,6 +7765,8 @@ def main() -> int:
             a12_2_launches={k: v["launches"][name]
                             for k, v in a122.items()},
             a13_launches={k: v["launches"][name] for k, v in a13.items()},
+            examples_launches={k: v["launches"][name]
+                               for k, v in examples.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,

@@ -55,7 +55,28 @@ _NEW_MODULES = ["transformers", "evaluators", "predictors",
                 "observability.timeseries", "observability.watch",
                 "resilience.elastic", "directory", "directory.service",
                 "directory.client", "directory.host", "directory.router",
-                "deploy", "deploy.stream", "deploy.rollout"]
+                "deploy", "deploy.stream", "deploy.rollout",
+                "examples.lm", "examples.longcontext",
+                "examples.parallelism", "examples.serve_lm",
+                "examples.train_while_serving"]
+
+#: the JAX package's names no module, twin or notebook of the port may
+#: import
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "keras",
+              "distkeras_tpu", "distkeras")
+
+_ALIAS_PROBE = r"""
+import sys
+import distkeras_torch
+from distkeras_torch.trainers import ADAG
+from distkeras_torch.evaluators import AccuracyEvaluator
+import distkeras_tpu_torch
+import distkeras_tpu_torch.evaluators as evaluators
+assert ADAG is distkeras_tpu_torch.trainers.ADAG is distkeras_torch.ADAG
+assert AccuracyEvaluator is evaluators.AccuracyEvaluator
+assert distkeras_torch.trainers is distkeras_tpu_torch.trainers
+print(sorted(m for m in sys.modules if m.split(".")[0] in %r))
+""" % (_FORBIDDEN,)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -74,6 +95,49 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert int(n) >= 45, out.stdout          # every module was imported
     assert missing == "[", f"modules not found: {missing}]"
     assert bad == "[]", f"forbidden modules imported: {bad}"
+
+
+def test_distkeras_torch_alias_is_the_port_without_jax():
+    """``import distkeras_torch`` (the reference's ``distkeras`` import
+    form on the port) registers the port's modules under its name and
+    loads no JAX in a fresh process."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _ALIAS_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_workflow_notebook_imports_no_jax():
+    """No cell of the port's notebook imports JAX or the JAX package."""
+    import json
+    import re
+
+    from distkeras_tpu_torch.examples import WORKFLOW
+
+    names = "|".join(_FORBIDDEN)
+    pat = re.compile(rf"^\s*(?:import|from)\s+(?:{names})\b", re.M)
+    cells = json.loads(WORKFLOW.read_text())["cells"]
+    code = ["".join(c["source"]) for c in cells if c["cell_type"] == "code"]
+    assert code and "distkeras_tpu_torch" in code[0]
+    for src in code:
+        assert not pat.search(src), src
+
+
+@pytest.mark.parametrize("name", ["lm", "longcontext", "parallelism",
+                                  "serve_lm", "train_while_serving"])
+def test_example_twins_default_to_cuda(name):
+    """Each example twin runs on the card unless given ``--device cpu``;
+    without a card it raises instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is satisfiable")
+    import importlib
+
+    twin = importlib.import_module(f"distkeras_tpu_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        twin.main(["--quick"])
 
 
 def test_entry_points_default_to_cuda():
