@@ -13,9 +13,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    ``nvcc`` per source, started together) and, beside them, the native
    parameter server's C++ core (``native/dkps.cpp``, ``g++``), then show
    that the kernels
-   redesigned on wgmma (K2's, K3's and K4's bf16 paths, K7's dwh product
-   and every instantiation of K1's prefill kernel) issue ``HGMMA`` and
-   ``UTMALDG`` (TMA) instructions and spill nothing, and that K6's cluster
+   redesigned on wgmma (K2's, K3's and K4's bf16 paths, the small-D flash
+   forward and fused backward at D = 16 and 32, K7's dwh product and every
+   instantiation of K1's prefill kernel) issue ``HGMMA`` and ``UTMALDG``
+   (TMA) instructions and spill nothing, and that K6's cluster
    scan, K7's two scans and K1's split decode kernel spill nothing
    (``check_sass``);
 3. K1 ``q_matmul`` against its plain version at every Dense shape of the
@@ -30,9 +31,12 @@ Phases, in order; any failure exits non-zero and prints no result:
 4. K2 flash-attention forward against its plain version at prefill shapes
    (B=4 and the served B=1 lengths; H=16, Hkv=1, D=128, bf16, causal) and
    at small cases for its edge tiles (ragged L, windows, masked keys
-   inside whole tiles, GQA 2 and MQA, fully masked rows, f32), with
+   inside whole tiles, GQA 2 and MQA, fully masked rows, f32), and the
+   small-D forward (bf16 at D = 16 and 32) at the LM twin's decode prefill
+   and the same edges at both head dims, L past one key tile, with
    kernel, plain and library (``scaled_dot_product_attention``) times and
-   the bound;
+   the bound (the small-D rows also with the FMA kernel's time and their
+   persistent grid);
 5. K5 fused Adam against its plain version over the 8-worker stack of the
    IMDB LSTM's leaves (21.5 M f32 elements), bf16 gradients and misaligned
    leaves, with kernel, plain and library (``torch.optim.Adam(fused=True)``
@@ -51,8 +55,10 @@ Phases, in order; any failure exits non-zero and prints no result:
 7. K2, K3 and K4, the flash-attention forward and backward (dq, dk/dv),
    against their plain versions at the LM's and the classifier's training
    shapes and at small GQA / window / ragged / masked-key / f32 /
-   fully-masked cases (see ``check_flash_bwd``), with kernel, plain and
-   library (SDPA's forward and backward) times and the bounds; then the
+   fully-masked cases, and the small-D forward and fused backward at the
+   LM twin's shape, at D=32 and L=2048 and at their edges (see
+   ``check_flash_bwd``), with kernel, plain and library (SDPA's forward
+   and backward, on the device) times and the bounds; then the
    flash Function under ``torch.func.vmap(grad)`` at W=2, through the
    kernels and the plain versions (one launch of K2, K3 and K4 for the
    step); then the fused cross-entropy in bf16 under ``vmap(grad)`` at the
@@ -353,10 +359,11 @@ Phases, in order; any failure exits non-zero and prints no result:
 26. the example twins (``distkeras_tpu_torch/examples``) at their own
     defaults, each phase one JSON line with the card, its wall time and
     its launches (counted alone, K1's also by rows): ``examples_lm`` (the
-    cyclic LM trained under ADAG in bf16 through K2-K4, then greedy,
-    beam-4 and int8 decodes, each at 0.9 continuation accuracy; K3 and K4
-    once a block a step, K2 as often plus the decodes' prefills, K1 at
-    M=4 and M=32), ``examples_longcontext`` (one fwd+bwd+Adam step of the
+    cyclic LM trained under ADAG in bf16 through the small-D flash
+    kernels, then greedy, beam-4 and int8 decodes, each at 0.9
+    continuation accuracy; the fused backward once a block a step and K3
+    and K4 never, the small-D forward as often plus the decodes'
+    prefills, K1 at M=4 and M=32), ``examples_longcontext`` (one fwd+bwd+Adam step of the
     rematted classifier at L=4096: K2 twice a block, K3 and K4 once; the
     sequence-parallel leg on one rank), ``examples_parallelism`` (dp, tp,
     fsdp, pp, sp and ep in a world of one, every MeshTrainer loss
@@ -369,7 +376,9 @@ Phases, in order; any failure exits non-zero and prints no result:
     ADAG is the port's, no JAX loaded); K1-K4 are also held to their plain
     versions at these shapes in phases 3, 4 and 7;
 27. print the ``kernels`` JSON line (K1 as one decode step and, as
-    ``q_matmul_prefill``, one 1024-token prefill; every row with its
+    ``q_matmul_prefill``, one 1024-token prefill; the small-D flash
+    kernels at the LM twin's training shape, with their launches on
+    ``examples_lm``; every row with its
     launches on the PS phases, the checkpoint and EMA phases, the
     elastic phases, the directory phases, the front door,
     ``serve_decode``, the model family, the mesh, the W-over-processes,
@@ -845,10 +854,22 @@ def check_flash(torch, fa):
         (1, 512, 4, 4, 128, bf, False, None, "holes"),
         (2, 100, 4, 2, 64, torch.float32, True, 24, "half"),
         # the LM twin's decode prefill: 4 prompts of 8 tokens, D=16 (the
-        # bf16 FMA kernel: D is neither 64 nor 128)
+        # small-D kernel)
         (EX_LM_PROMPTS, EX_LM_PROMPT_LEN, EX_LM_HEADS, EX_LM_HEADS,
          EX_LM_DIM // EX_LM_HEADS, bf, True, None, None),
+        # the small-D kernel's edges at D = 16 and 32: ragged L, masked
+        # keys inside whole tiles, a window narrower than a warp's 16 rows,
+        # GQA 2 and MQA, fully masked rows, L past one 128-key tile, and
+        # bf16 at D = 24 (the FMA kernel)
+        *[(2, 77, 4, 2, d, bf, True, None, "holes") for d in (16, 32)],
+        *[(2, 333, 4, 1, d, bf, False, 5, "half") for d in (16, 32)],
+        *[(2, 333, 8, 2, d, bf, True, None, "holes") for d in (16, 32)],
+        *[(2, 100, 4, 2, d, bf, False, 24, "half") for d in (16, 32)],
+        *[(1, 512, 4, 4, d, bf, False, None, "ragged") for d in (16, 32)],
+        (2, 100, 4, 2, 24, bf, True, None, "half"),
     ]
+    occupancy = {d: fa.small_occupancy(d) for d in (16, 32)}
+    log("flash_attention small-D occupancy " + json.dumps(occupancy))
     for B, L, H, Hkv, D, dt, causal, window, mkind in cases:
         q = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
         k = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
@@ -871,10 +892,16 @@ def check_flash(torch, fa):
         if mkind == "half" and o[1].abs().max().item() != 0.0:
             raise AssertionError("flash: fully masked rows must give 0")
         max_err = max(max_err, err)
+        route = fa.flash_route(dt, D, True)
         kernel_ms = cuda_ms(torch, lambda: fa._fa_forward(q, k, v, km, **kw))
         call_ms = eager_ms(torch, lambda: fa._fa_forward(q, k, v, km, **kw))
         plain_ms = cuda_ms(torch, lambda: fa._fa_forward_plain(
             q, k, v, km, **kw), iters=10)
+        extra = {}
+        if route == "small":   # the FMA kernel it replaces, and its grid
+            extra = dict(fma_ms=cuda_ms(torch, lambda: fa._fa_forward_cuda(
+                q, k, v, km, route="fma", **kw)), **_small_grid(
+                    occupancy[D], B * H * -(-L // 128)))
         library_ms = None
         if window is None and not masked:
             qt = q.transpose(1, 2).contiguous()
@@ -889,15 +916,23 @@ def check_flash(torch, fa):
         nbytes = (2 * B * L * H * D + 2 * B * L * Hkv * D) * esz \
             + B * H * L * 4
         row = dict(B=B, L=L, H=H, Hkv=Hkv, D=D, dtype=str(dt).split(".")[-1],
-                   causal=causal, window=window, key_mask=mkind,
+                   causal=causal, window=window, key_mask=mkind, route=route,
                    max_abs_err=err, lse_err=lse_err, kernel_ms=kernel_ms,
                    eager_ms=call_ms, plain_ms=plain_ms,
-                   library_ms=library_ms,
+                   library_ms=library_ms, **extra,
                    **bound(nbytes, 4.0 * pairs * H * D,
                            PEAK_BF16 if esz == 2 else PEAK_F32))
         rows.append(row)
         log("flash_attention " + json.dumps(row))
     return rows, max_err
+
+
+def _small_grid(occ, items):
+    """The small-D forward's launch: its persistent grid (one block an
+    item, at most the resident blocks) and what bounds it."""
+    resident = occ["fwd_blocks_per_sm"] * occ["sms"]
+    return dict(grid_blocks=min(items, resident), items=items,
+                resident_blocks=resident, **occ)
 
 
 def _pairs(torch, fa, B, L, causal, window, km):
@@ -937,24 +972,32 @@ def _key_mask(torch, kind, B, L, gen):
 
 
 def check_flash_bwd(torch, fa):
-    """K2's forward, K3 (dq) and K4 (dk/dv) against their plain versions
-    at the LM's training shape (B'=16 = 2 workers x 8, L=2048, H=8, D=128,
-    bf16, causal), the classifier's (D=64, non-causal, ragged key mask),
-    the example twins' (the LM twin's B'=128, L=128, H=4, D=16, causal;
-    the long-context twin's B=8, L=4096, H=8, D=64 with an all-ones key
-    mask) and small cases (GQA 2 and 1, window with and without causal, a window
+    """K2's forward and the backward kernels against their plain versions:
+    K3 (dq) and K4 (dk/dv) at the LM's training shape (B'=16 = 2 workers
+    x 8, L=2048, H=8, D=128, bf16, causal), the classifier's (D=64,
+    non-causal, ragged key mask) and the long-context twin's (B=8, L=4096,
+    H=8, D=64 with an all-ones key mask); the fused small-D backward (dq,
+    dk and dv in one launch, bf16 at D = 16 and 32) at the LM twin's
+    training shape (B'=128, L=128, H=4, D=16, causal: one key tile, dq
+    stored directly) and at the zoo's default width at config 9's length
+    (B'=16, L=2048, H=4, D=32, causal: dq added into an f32 buffer); and
+    small cases (GQA 2 and 1, window with and without causal, a window
     narrower than a warp's rows, ragged L, masked keys inside whole tiles,
-    f32, the bf16 FMA path at D=32, fully masked rows). The forward is
-    held to the tolerances of ``check_flash``; the backward kernels and
-    their plain version read the same q, k, v, dO and the kernel forward's
-    O and lse. Tolerance: the kernels round p and ds to bf16 as operands
-    of their second products (as FA2) where the plain version keeps f32,
-    so bf16 outputs agree to 2^-6 of the plain output's largest magnitude
-    (two bf16 ulps); f32 to 1e-4 of it (summation order over up to L terms
+    f32, bf16 at D=24 on the FMA kernels, fully masked rows, L past one
+    key tile at both small head dims). The forward is held to the
+    tolerances of ``check_flash``; the backward kernels and their plain
+    version read the same q, k, v, dO and the kernel forward's O and lse.
+    Tolerance: the kernels round p and ds to bf16 as operands of their
+    second products (as FA2) where the plain version keeps f32, so bf16
+    outputs agree to 2^-6 of the plain output's largest magnitude (two
+    bf16 ulps); f32 to 1e-4 of it (summation order over up to L terms
     through exp). Fully masked rows must give exact zeros. Kernel, plain
     and library (``scaled_dot_product_attention``'s forward, and its
     backward, which computes dq, dk and dv in one call, at the same shapes
-    without the key mask) are timed at the four training shapes."""
+    without the key mask: on the device from CUDA graphs of the forward
+    and of forward + backward, their difference, and eagerly with the
+    host, ``library_eager_ms``) are timed at the training shapes, and
+    beside the small-D kernels the FMA kernels they replace."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device=DEVICE).manual_seed(3)
@@ -967,25 +1010,42 @@ def check_flash_bwd(torch, fa):
         (Bp, CLS_L, CLS_HEADS, CLS_HEADS, CLS_DIM // CLS_HEADS, bf, False,
          None, "ragged", True),
         # the example twins' training shapes: the LM twin's (B'=128, D=16,
-        # causal: the bf16 FMA kernels) and the long-context twin's
+        # causal: the small-D kernels) and the long-context twin's
         # flash+remat leg (L=4096, D=64, all-ones key mask)
         (EX_LM_W * EX_LM_BATCH, EX_LM_L, EX_LM_HEADS, EX_LM_HEADS,
          EX_LM_DIM // EX_LM_HEADS, bf, True, None, None, True),
         (EX_LC_B, EX_LC_L, EX_LC_HEADS, EX_LC_HEADS,
          EX_LC_DIM // EX_LC_HEADS, bf, False, None, "ones", True),
+        # the zoo's default width (dim 128, 4 heads: D=32) at config 9's
+        # length under causal masking
+        (Bp, LM_L, 4, 4, 32, bf, True, None, None, True),
         (2, 100, 4, 2, 64, bf, False, 24, "half", False),
         (2, 150, 4, 1, 128, bf, True, 40, "half", False),
         (2, 77, 4, 4, 128, bf, True, None, None, False),
         (2, 130, 8, 2, 64, bf, False, None, "half", False),
-        (2, 77, 4, 2, 32, bf, True, None, "half", False),
         (2, 333, 4, 1, 128, bf, False, 5, "half", False),
         (2, 333, 8, 2, 64, bf, True, None, "holes", False),
         (1, 512, 4, 4, 128, bf, False, None, "holes", False),
         (2, 100, 4, 2, 64, f32, True, 24, "half", False),
         (2, 77, 4, 1, 128, f32, False, None, None, False),
+        (2, 77, 4, 2, 24, bf, True, None, "half", False),
+        # the small-D kernels' edges at D = 16 and 32: ragged L, masked
+        # keys inside whole tiles, a window narrower than a warp's rows,
+        # GQA 2 and MQA, fully masked rows, L past one 128-key tile (dq
+        # added into an f32 buffer)
+        *[(2, 77, 4, 2, d, bf, True, None, "half", False) for d in (16, 32)],
+        *[(2, 77, 4, 2, d, bf, True, None, "holes", False)
+          for d in (16, 32)],
+        *[(2, 333, 4, 1, d, bf, False, 5, "half", False) for d in (16, 32)],
+        *[(2, 333, 8, 2, d, bf, True, None, "holes", False)
+          for d in (16, 32)],
+        *[(2, 100, 4, 1, d, bf, False, 24, "half", False) for d in (16, 32)],
+        *[(2, 300, 8, 8, d, bf, True, 40, "ragged", False)
+          for d in (16, 32)],
     ]
-    fwd_rows, dq_rows, dkv_rows = [], [], []
-    dq_err = dkv_err = 0.0
+    fwd_rows, dq_rows, dkv_rows, small_rows = [], [], [], []
+    dq_err = dkv_err = small_err = 0.0
+    occupancy = {d: fa.small_occupancy(d) for d in (16, 32)}
     for B, L, H, Hkv, D, dt, causal, window, mkind, timed in cases:
         q = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
         k = torch.randn((B, L, Hkv, D), generator=gen, device=DEVICE).to(dt)
@@ -993,11 +1053,13 @@ def check_flash_bwd(torch, fa):
         g = torch.randn((B, L, H, D), generator=gen, device=DEVICE).to(dt)
         km = _key_mask(torch, mkind, B, L, gen)
         kw = dict(scale=D ** -0.5, causal=causal, window=window)
+        route = fa.flash_route(dt, D, True)
         out, lse = fa._fa_forward(q, k, v, km, **kw)
         ro, rlse = fa._fa_forward_plain(q, k, v, km, **kw)
         torch.cuda.synchronize()
         label = (f"B={B} L={L} H={H}/{Hkv} D={D} {str(dt).split('.')[-1]} "
-                 f"causal={causal} window={window} mask={mkind}")
+                 f"causal={causal} window={window} mask={mkind} "
+                 f"route={route}")
         o_atol = 2e-2 if dt == bf else 1e-4
         errs = {"o": _err(out, ro), "lse": _err(lse, rlse)}
         if not (errs["o"] <= o_atol and errs["lse"] <= 1e-3
@@ -1011,8 +1073,11 @@ def check_flash_bwd(torch, fa):
         del ro, rlse
         delta = fa._delta(out, g)
         args = (q, k, v, km, lse, delta, g)
-        dq = fa._fa_bwd_dq(*args, **kw)
-        dk, dv = fa._fa_bwd_dkv(*args, **kw)
+        if route == "small":
+            dq, dk, dv = fa._fa_bwd_small(*args, **kw)
+        else:
+            dq = fa._fa_bwd_dq(*args, **kw)
+            dk, dv = fa._fa_bwd_dkv(*args, **kw)
         rq, rk, rv = fa._fa_bwd_plain(*args, **kw)
         torch.cuda.synchronize()
         rel = 2.0 ** -6 if dt == bf else 1e-4
@@ -1030,29 +1095,30 @@ def check_flash_bwd(torch, fa):
             raise AssertionError(f"flash backward {label}: fully masked "
                                  f"rows must give zero gradients")
         log(f"flash backward {label}: ok " + json.dumps(errs))
-        dq_err = max(dq_err, errs["dq"])
-        dkv_err = max(dkv_err, errs["dk"], errs["dv"])
+        if route == "small":
+            small_err = max(small_err, errs["dq"], errs["dk"], errs["dv"])
+        else:
+            dq_err = max(dq_err, errs["dq"])
+            dkv_err = max(dkv_err, errs["dk"], errs["dv"])
         del rq, rk, rv
         if not timed:
             continue
         pairs = _pairs(torch, fa, B, L, causal, window, km)
         esz = 2 if dt == bf else 4
+        peak = PEAK_BF16 if esz == 2 else PEAK_F32
         qb, kvb = B * L * H * D * esz, B * L * Hkv * D * esz
         rowb = 2 * B * H * L * 4 + (0 if km is None else B * L * 4)
         shape = dict(B=B, L=L, H=H, Hkv=Hkv, D=D,
                      dtype=str(dt).split(".")[-1], causal=causal,
-                     window=window, key_mask=mkind)
-        # library: SDPA (flash backend) forward and its backward alone
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
-        gt = g.transpose(1, 2).contiguous()
-        with torch.enable_grad():
-            lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-            lib_bwd = eager_ms(torch, lambda: torch.autograd.grad(
-                lo, (qt, kt, vt), gt, retain_graph=True), iters=10)
-        lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt.detach(), kt.detach(), vt.detach(), is_causal=causal))
-        del lo, qt, kt, vt, gt
+                     window=window, key_mask=mkind, route=route)
+        lib_fwd, lib_bwd, lib_bwd_eager = _sdpa_ms(torch, F, q, k, v, g,
+                                                   causal)
+        small = route == "small"
+        fma = {}
+        if small:   # the FMA kernels the small-D kernels replace
+            fma = dict(fma_ms=cuda_ms(torch, lambda: fa._fa_forward_cuda(
+                q, k, v, km, route="fma", **kw), iters=5),
+                **_small_grid(occupancy[D], B * H * -(-L // 128)))
         fwd_rows.append(dict(
             **shape, max_abs_err=errs["o"], lse_err=errs["lse"],
             kernel_ms=cuda_ms(torch, lambda: fa._fa_forward(
@@ -1061,10 +1127,31 @@ def check_flash_bwd(torch, fa):
                 q, k, v, km, **kw), iters=5),
             plain_ms=cuda_ms(torch, lambda: fa._fa_forward_plain(
                 q, k, v, km, **kw), iters=1, replays=2),
-            library_ms=lib_fwd,
+            library_ms=lib_fwd, **fma,
             **bound(2 * qb + 2 * kvb + B * H * L * 4, 4.0 * pairs * H * D,
-                    PEAK_BF16 if esz == 2 else PEAK_F32)))
+                    peak)))
         log("flash_attention training shape " + json.dumps(fwd_rows[-1]))
+        plain = dict(plain_ms=cuda_ms(torch, lambda: fa._fa_bwd_plain(
+            *args, **kw), iters=1, replays=2))
+        if small:
+            dq_fma = cuda_ms(torch, lambda: fa._fa_bwd_dq(*args, **kw),
+                             iters=5)
+            dkv_fma = cuda_ms(torch, lambda: fa._fa_bwd_dkv(*args, **kw),
+                              iters=5)
+            small_rows.append(dict(
+                **shape, max_abs_err=max(errs["dq"], errs["dk"], errs["dv"]),
+                kernel_ms=cuda_ms(torch, lambda: fa._fa_bwd_small(
+                    *args, **kw), iters=5),
+                eager_ms=eager_ms(torch, lambda: fa._fa_bwd_small(
+                    *args, **kw), iters=5),
+                **plain, fma_dq_ms=dq_fma, fma_dkv_ms=dkv_fma,
+                fma_ms=dq_fma + dkv_fma, library_ms=lib_bwd,
+                library_eager_ms=lib_bwd_eager,
+                blocks=B * Hkv * -(-L // 128), **occupancy[D],
+                **bound(3 * qb + 4 * kvb + rowb, 10.0 * pairs * H * D,
+                        peak)))
+            log("flash_attention_bwd_small " + json.dumps(small_rows[-1]))
+            continue
         dq_rows.append(dict(
             **shape, max_abs_err=errs["dq"],
             kernel_ms=cuda_ms(torch, lambda: fa._fa_bwd_dq(*args, **kw),
@@ -1073,9 +1160,8 @@ def check_flash_bwd(torch, fa):
                               iters=5),
             plain_ms=cuda_ms(torch, lambda: fa._fa_bwd_plain(
                 *args, **kw, parts=("dq",)), iters=1, replays=2),
-            library_ms=lib_bwd,
-            **bound(3 * qb + 2 * kvb + rowb, 6.0 * pairs * H * D,
-                    PEAK_BF16 if esz == 2 else PEAK_F32)))
+            library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
+            **bound(3 * qb + 2 * kvb + rowb, 6.0 * pairs * H * D, peak)))
         log("flash_attention_bwd_dq " + json.dumps(dq_rows[-1]))
         dkv_rows.append(dict(
             **shape, max_abs_err=max(errs["dk"], errs["dv"]),
@@ -1085,12 +1171,39 @@ def check_flash_bwd(torch, fa):
                               iters=5),
             plain_ms=cuda_ms(torch, lambda: fa._fa_bwd_plain(
                 *args, **kw, parts=("dkv",)), iters=1, replays=2),
-            library_ms=lib_bwd,
-            **bound(2 * qb + 4 * kvb + rowb, 8.0 * pairs * H * D,
-                    PEAK_BF16 if esz == 2 else PEAK_F32)))
+            library_ms=lib_bwd, library_eager_ms=lib_bwd_eager,
+            **bound(2 * qb + 4 * kvb + rowb, 8.0 * pairs * H * D, peak)))
         log("flash_attention_bwd_dkv " + json.dumps(dkv_rows[-1]))
     torch.cuda.empty_cache()
-    return fwd_rows, dq_rows, dkv_rows, dq_err, dkv_err
+    return (fwd_rows, dq_rows, dkv_rows, small_rows, dq_err, dkv_err,
+            small_err)
+
+
+def _sdpa_ms(torch, F, q, k, v, g, causal):
+    """SDPA (flash backend) at these shapes, without the key mask: its
+    forward on the device (a CUDA graph), its backward on the device (a
+    graph of forward + backward less the forward's) and its backward
+    issued eagerly, host included."""
+    rep = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.repeat_interleave(r, dim=2).transpose(1, 2).contiguous()
+                  .requires_grad_() for t, r in ((q, 1), (k, rep), (v, rep)))
+    gt = g.transpose(1, 2).contiguous()
+    with torch.enable_grad():
+        lo = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        eager = eager_ms(torch, lambda: torch.autograd.grad(
+            lo, (qt, kt, vt), gt, retain_graph=True), iters=10)
+    del lo
+    fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt.detach(), kt.detach(), vt.detach(), is_causal=causal))
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            return torch.autograd.grad(o, (qt, kt, vt), gt)
+
+    both = cuda_ms(torch, fwd_bwd, iters=5)
+    torch.cuda.empty_cache()
+    return fwd, both - fwd, eager
 
 
 # the kernels redesigned on wgmma: kernels-line entry → (library, function)
@@ -1100,6 +1213,15 @@ WGMMA_KERNELS = {
                                "fa_bwd_dq_wgmma_kernel"),
     "flash_attention_bwd_dkv": ("flash_attention_bwd",
                                 "fa_bwd_dkv_wgmma_kernel"),
+}
+
+
+# the small-D flash kernels (bf16, D = 16 and 32): the same check at both
+# head dims
+SMALL_KERNELS = {
+    "flash_attention_small": ("flash_attention", "fa_fwd_small_kernel"),
+    "flash_attention_bwd_small": ("flash_attention_bwd",
+                                  "fa_bwd_small_kernel"),
 }
 
 
@@ -1185,16 +1307,20 @@ def _sass_row(lib, fn, tag, report, sass):
 
 def check_sass(_build):
     """Each kernel redesigned on wgmma (the flash kernels at both head
-    dims, the LSTM's dwh product, K1's prefill kernel at every token tile
-    and warpgroup count) issues ``HGMMA`` and ``UTMALDG`` (TMA)
-    instructions in its SASS (``cuobjdump -sass`` of the built library),
-    spills nothing (``ptxas -v``), and ``setmaxnreg`` was not ignored;
-    the scans and K1's decode kernel (``NO_SPILL_KERNELS``) spill nothing.
-    Registers are the launch count; the flash kernels' consumer
-    warpgroups raise theirs with ``setmaxnreg``."""
+    dims, the small-D flash kernels at D = 16 and 32, the LSTM's dwh
+    product, K1's prefill kernel at every token tile and warpgroup count)
+    issues ``HGMMA`` and ``UTMALDG`` (TMA) instructions in its SASS
+    (``cuobjdump -sass`` of the built library), spills nothing (``ptxas
+    -v``), and ``setmaxnreg`` was not ignored; the scans and K1's decode
+    kernel (``NO_SPILL_KERNELS``) spill nothing. Registers are the launch
+    count; the flash kernels' consumer warpgroups raise theirs with
+    ``setmaxnreg`` (the small-D kernels have no producer warpgroup and
+    run at most 128)."""
     out = {}
-    kernels = [(entry, lib, fn, {f"D={d}": f"{fn}ILi{d}E" for d in (64, 128)})
-               for entry, (lib, fn) in WGMMA_KERNELS.items()]
+    kernels = [(entry, lib, fn, {f"D={d}": f"{fn}ILi{d}E" for d in dims})
+               for table, dims in ((WGMMA_KERNELS, (64, 128)),
+                                   (SMALL_KERNELS, (16, 32)))
+               for entry, (lib, fn) in table.items()]
     for entry, lib, fn, tags in kernels:
         text = _build.build_log(lib)
         if "setmaxnreg ignored" in text:
@@ -2015,6 +2141,8 @@ def _ps_launch_counters():
             "flash_attention": (fa._fa_forward, "launches"),
             "flash_attention_bwd_dq": (fa._fa_bwd_dq, "launches"),
             "flash_attention_bwd_dkv": (fa._fa_bwd_dkv, "launches"),
+            "flash_attention_small": (fa._fa_forward, "small_launches"),
+            "flash_attention_bwd_small": (fa._fa_bwd_small, "launches"),
             "fused_adam": (pk.fused_adam_step, "launches"),
             "lstm_forward": (rec.lstm_forward, "launches"),
             "lstm_backward": (rec.lstm_backward, "launches")}
@@ -7144,10 +7272,11 @@ def _losses_fall(losses) -> bool:
 def run_example_lm(torch):
     """``examples_lm``: the LM twin at its defaults, gated on its own
     self-check (greedy, beam-4 and int8 decodes each at 0.9 continuation
-    accuracy, rc 0); K3 and K4 once a block a training step (one launch
-    serves both stacked workers), K2 as often plus the three decodes'
-    prefills, and on the card K1 at its decode plan (M=4) and its prefill
-    plan (M=32)."""
+    accuracy, rc 0); at its head dim (16, bf16) the small-D kernels: the
+    fused backward once a block a training step (one launch serves both
+    stacked workers) and K3 and K4 never, the small-D forward as often
+    plus the three decodes' prefills and K2's other kernels never; and on
+    the card K1 at its decode plan (M=4) and its prefill plan (M=32)."""
     from distkeras_tpu_torch.examples import lm as twin
 
     argv = ["--device", DEVICE]
@@ -7163,12 +7292,15 @@ def run_example_lm(torch):
         args.rows // (args.workers * args.batch_size * EX_LM_WINDOW))
     n = rec["launches"]
     fails = [] if rc == 0 else [f"the twin's self-check failed (rc {rc})"]
-    fails += [f"{k} launched {n[k]} times, expected {args.depth * steps}"
-              for k in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
-              if n[k] != args.depth * steps]
-    if n["flash_attention"] < args.depth * (steps + 3):
-        fails.append(f"flash_attention launched {n['flash_attention']} "
-                     f"times, expected at least {args.depth * (steps + 3)}")
+    want = {"flash_attention_bwd_small": args.depth * steps,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention": 0}
+    fails += [f"{k} launched {n[k]} times, expected {v}"
+              for k, v in want.items() if n[k] != v]
+    if n["flash_attention_small"] < args.depth * (steps + 3):
+        fails.append(f"flash_attention_small launched "
+                     f"{n['flash_attention_small']} times, expected at "
+                     f"least {args.depth * (steps + 3)}")
     rows = n["q_matmul_rows"]
     if DEVICE == "cuda" and not (
             rows.get(EX_LM_PROMPTS) and rows.get(
@@ -7369,8 +7501,8 @@ def main() -> int:
         arows, a_err = check_adam(torch, pk)
     fwd_rows, bwd_rows, l_err = check_lstm(torch, rec)
     with torch.no_grad():
-        (fa_train_rows, dq_rows, dkv_rows, dq_err,
-         dkv_err) = check_flash_bwd(torch, fa)
+        (fa_train_rows, dq_rows, dkv_rows, small_rows, dq_err, dkv_err,
+         small_err) = check_flash_bwd(torch, fa)
     check_flash_vmap(torch, fa)
     check_fused_ce(torch)
     log(f"kernel checks done at {time.perf_counter() - t0:.1f}s")
@@ -7693,6 +7825,18 @@ def main() -> int:
         return [(r, 1) for r in rows
                 if (r["L"], r["D"]) == (LM_L, LM_DIM // LM_HEADS)]
 
+    def twin_shape(rows):      # one launch at the LM twin's training shape
+        return [(r, 1) for r in rows if r.get("route") == "small" and (
+            r["B"], r["L"], r["D"]) == (EX_LM_W * EX_LM_BATCH, EX_LM_L,
+                                        EX_LM_DIM // EX_LM_HEADS)]
+
+    # the small-D kernels run on the LM twin's path (examples_lm)
+    for name in ("flash_attention_small", "flash_attention_bwd_small"):
+        launches[name] = examples["examples_lm"]["launches"][name]
+    small_fwd_rows = [r for r in frows + fa_train_rows
+                      if r.get("route") == "small"]
+    small_fwd_err = max(r["max_abs_err"] for r in small_fwd_rows)
+
     decode_runs = {f"serve_decode_{kind}_{k}": v["launches"]
                    for kind in ("dense", "engine", "predictor")
                    for k, v in decode[kind].items()}
@@ -7726,7 +7870,15 @@ def main() -> int:
             ("flash_attention_bwd_dkv",
              "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
              "distkeras_tpu/ops/flash_attention.py:426", dkv_rows, lm_shape,
-             dkv_err)):
+             dkv_err),
+            ("flash_attention_small",
+             "distkeras_tpu_torch/csrc/flash_attention.cu",
+             "distkeras_tpu/ops/flash_attention.py:146", small_fwd_rows,
+             twin_shape, small_fwd_err),
+            ("flash_attention_bwd_small",
+             "distkeras_tpu_torch/csrc/flash_attention_bwd.cu",
+             "distkeras_tpu/ops/flash_attention.py:336", small_rows,
+             twin_shape, small_err)):
         by_bytes = sum(r["bound_ms"] * w for r, w in pick(rows)
                        if r["bound_by"] == "bytes")
         bound_ms = total(rows, pick, "bound_ms")
@@ -7768,6 +7920,8 @@ def main() -> int:
             examples_launches={k: v["launches"][name]
                                for k, v in examples.items()},
             **({"ps_shape": ps_rows[0]} if ps_rows else {}),
+            **({"replaces_also": "distkeras_tpu/ops/flash_attention.py:426"}
+               if name == "flash_attention_bwd_small" else {}),
             shapes=[r for r, _ in pick(rows)] if name == "q_matmul_prefill"
             else rows,
             **({"sass": sass_for[name]} if name in sass_for else {})))

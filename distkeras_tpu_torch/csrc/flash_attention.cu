@@ -20,8 +20,9 @@
 // What bounds it on an H100: at training and prefill lengths the work is
 // operations (4*L*L*D per head, half that causal) against a few MB of
 // Q/K/V, so the tensor cores are the roof; the softmax's exponentials (one
-// per score against 4*D tensor-core operations) are the next limit. Two
-// kernels, chosen by dtype and head dim:
+// per score against 4*D tensor-core operations) are the next limit. Three
+// kernels; ops/flash_attention.py::flash_route picks by dtype, head dim and
+// alignment, and the small-D kernel has an entry point of its own:
 //  * fa_fwd_wgmma_kernel (bfloat16, D = 64 or 128, 16-byte aligned inputs:
 //    the served prefill and both training configs). One block per (b*h,
 //    128-row q tile) on a 1-D grid whose consecutive blocks are the q tiles
@@ -63,13 +64,58 @@
 //    ptxas (CUDA 12.9): 168 registers at launch (setmaxnreg moves them to
 //    the consumers), no spills; SASS: 24 HGMMA and 6 UTMALDG at D = 128,
 //    12 and 3 at D = 64 (chip_smoke.py's check_sass).
-//  * fa_fwd_kernel (float32, or any other D <= 128): one block per (b*h,
-//    64-row q tile) over the k tiles of its band, plain f32 FMAs from
-//    shared memory (4x4 register tiles for S = QK^T, 4x8 for O += PV),
-//    ~114 KB of f32 tiles, m and l per row in shared memory.
+//  * fa_fwd_small_kernel (bfloat16, D = 16 or 32, 16-byte aligned inputs:
+//    the LM twin's D=16, the zoo's default widths' D=32), through
+//    dk_flash_attention_fwd_small, which refuses anything else (no fallback
+//    to the FMA kernel).
+//    - What bounds it: at the twin's L=128, latency (B*H items of one q
+//      tile and one k tile, a few us of work each); at L=2048 the softmax
+//      (exponentials, and each warpgroup's serial S -> softmax -> P V
+//      chain), not the tensor cores: at D = 32 it sits at 5.9x the
+//      operations bound (chip_smoke.py, H100 80GB HBM3, 700 W).
+//    - Tensor cores: wgmma at the row width's swizzle. A 16- or 32-column
+//      head is a 32- or 64-byte row: TMA boxes the whole head with
+//      CU_TENSOR_MAP_SWIZZLE_32B / _64B, and wgmma reads it through
+//      descriptors of layout types 3 / 2 (hopper.cuh: sw32_desc,
+//      sw64_desc). S = Q K^T is m64n128k16, one k16 step at D = 16 and two
+//      at 32 (+32 bytes inside the row); O += P V is m64n16k16 / m64n32k16
+//      with P as the register A operand and V MN-major through the
+//      transpose flag (+16 rows a k16 step). This is the first choice for
+//      these head dims (mma.sync with ldmatrix was the fallback); it came
+//      right on the first call on the card.
+//    - Occupancy: shared memory sized by D (Q double-buffered, a 2-stage
+//      K/V ring of 128-key tiles: ~26 KB at D = 16, ~50 KB at 32); 256
+//      threads, two warpgroups of 64 q rows, both computing;
+//      __launch_bounds__(256, 2): 128 registers, two blocks an SM. No
+//      producer warpgroup (its registers are what the consumers lack):
+//      warp 0 issues the TMA loads itself, two elements ahead, and keeps
+//      its walk's state in shared memory.
+//    - Work per block: a persistent grid of min(items, resident blocks)
+//      blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), each
+//      walking (b*h, 128-row q tile) items, q tiles from the last (under
+//      causal masking the longest bands first) and handed out in snake
+//      order (small_item_index), as one stream of (item, k tile)
+//      elements: the next item's Q, K and V load during this item's last
+//      tile and epilogue.
+//    - Softmax, lse and fully masked rows as in fa_fwd_wgmma_kernel; an
+//      edge tile masks each row by the range of the tile's columns its
+//      band holds (band_predicate solved once a tile), and reads the key
+//      mask only where the tile has a masked key or the sequence end
+//      (the per-entry predicate it replaced was most of an edge tile's
+//      cost).
+//    - Tried and not kept (A/B on the H100): a 3-stage ring (no gain);
+//      64-key tiles at three blocks an SM (a faster decode prefill, but a
+//      slower L=2048, and it spills).
+//    ptxas: 127 registers at D = 16 and 32, no spills; SASS: 9 / 10
+//    HGMMA and 6 UTMALDG (chip_smoke.py's check_sass).
+//  * fa_fwd_kernel (float32, or bfloat16 at any other D <= 128): one block
+//    per (b*h, 64-row q tile) over the k tiles of its band, plain f32 FMAs
+//    from shared memory (4x4 register tiles for S = QK^T, 4x8 for O +=
+//    PV), ~114 KB of f32 tiles, m and l per row in shared memory.
 //
-// Plain C interface (bound with ctypes): dk_flash_attention_fwd returns the
-// cudaGetLastError() of its launch, 0 on success.
+// Plain C interface (bound with ctypes): dk_flash_attention_fwd and
+// dk_flash_attention_fwd_small return the cudaGetLastError() of their
+// launch, 0 on success.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -580,6 +626,366 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* key_ma
   return (int)cudaGetLastError();
 }
 
+// -- bfloat16 at D = 16 and 32: wgmma at the row width's swizzle, persistent --
+
+constexpr int kSQ = 128;           // q rows an item: two warpgroups of 64
+constexpr int kSK = 128;           // keys a k tile
+constexpr int kSThreads = 256;     // both warpgroups compute; warp 0 also loads
+constexpr int kSBlocksPerSM = 2;   // caps registers at 128 a thread
+
+// Shared memory of the small-D kernel, offsets from a 1024-byte aligned base.
+template <int D>
+struct SmallFwdSmem {
+  static constexpr uint32_t row = 2 * D;                   // bytes of a tile row
+  static constexpr uint32_t q_bytes = kSQ * row;           // one Q tile
+  static constexpr uint32_t kv_bytes = kSK * row;          // one K or V tile
+  static constexpr uint32_t k_off = 2 * q_bytes;           // Q double-buffered by item
+  static constexpr uint32_t v_off = k_off + kStages * kv_bytes;
+  static constexpr uint32_t mask_off = v_off + kStages * kv_bytes;  // [kStages][kSK] f32
+  static constexpr uint32_t flag_off = mask_off + kStages * kSK * 4;
+  static constexpr uint32_t prod_off = flag_off + 16;      // the producer's walk
+  static constexpr uint32_t bar_off = flag_off + 64;
+  static constexpr uint32_t bytes = bar_off + 8 * (4 + 3 * kStages) + 1024;  // + alignment
+};
+
+// One work item of the persistent grid: a (b*h, 128-row q tile) pair and its
+// k tiles. Items run q tile by q tile from the last, so under causal masking
+// the longest bands start first; the heads of one q tile are consecutive.
+struct SmallItem {
+  int bh, q0, first, last;
+};
+
+// Where warp 0's walk over the block's (item, k tile) stream stands: the
+// item (local index), its tile, the element, whether there is one, the item.
+struct SmallProducer {
+  int m, i, n, more;
+  SmallItem it;
+};
+
+// The block's m-th item of the persistent grid, in snake order: even
+// rounds hand out items by block, odd rounds in reverse, so each block's
+// long and short causal items pair up. Round-robin would leave the
+// slowest block 21% above the mean at L=2048 (16 q tiles), snake 3%: a
+// count of tiles, not a timing.
+__device__ __forceinline__ int small_item_index(int m) {
+  const int G = (int)gridDim.x, b = (int)blockIdx.x;
+  return m * G + ((m & 1) ? G - 1 - b : b);
+}
+
+__device__ __forceinline__ SmallItem small_item(int j, int BH, int nqt, int L, int causal,
+                                                int window) {
+  SmallItem it;
+  it.bh = j % BH;
+  it.q0 = (nqt - 1 - j / BH) * kSQ;
+  band_tiles(it.q0, kSQ, kSK, L, causal, window, it.first, it.last);
+  return it;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kSThreads, kSBlocksPerSM)
+fa_fwd_small_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const float* __restrict__ key_mask,
+                    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int B, int L, int H,
+                    int Hkv, float scale_log2, int causal, int window) {
+  using S = SmallFwdSmem<D>;
+  constexpr int R = S::row;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  float* maskS = reinterpret_cast<float*>(base + S::mask_off);
+  int* flagS = reinterpret_cast<int*>(base + S::flag_off);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + S::bar_off);  // [2] the item's Q landed
+  uint64_t* q_empty = q_full + 2;        // [2] every warp is done with the item's Q
+  uint64_t* k_full = q_empty + 2;        // K tile landed, key mask tile written
+  uint64_t* v_full = k_full + kStages;   // V tile landed
+  uint64_t* empty = v_full + kStages;    // every warp is done with the stage
+
+  // The loads: warp 0 walks the block's stream of (item, k tile) elements
+  // two elements ahead of the consumers (all eight warps, itself included),
+  // so the next item's Q, K and V are in flight during this item's last
+  // tile and epilogue. Each element's key validity (mask and sequence end)
+  // is read once; a tile with no valid key is not loaded. The walk's state
+  // lives in shared memory: in registers every thread would carry it.
+  SmallProducer* ps = reinterpret_cast<SmallProducer*>(base + S::prod_off);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int BH = B * H, nqt = (L + kSQ - 1) / kSQ, nitems = BH * nqt, group = H / Hkv;
+
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      hopper::mbar_init(&q_full[i], 1);
+      hopper::mbar_init(&q_empty[i], 8);
+    }
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&k_full[s], 32);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+    *ps = SmallProducer{0, 0, 0, (int)blockIdx.x < nitems,
+                        small_item(blockIdx.x, BH, nqt, L, causal, window)};
+  }
+  __syncthreads();
+  auto produce = [&]() {
+    const SmallProducer st = *ps;
+    const int s = st.n % kStages, b = st.it.bh / H, h = st.it.bh % H;
+    if (st.n >= kStages) hopper::mbar_wait(&empty[s], (st.n / kStages - 1) & 1);
+    if (st.i == 0) {  // the item's first tile brings its Q
+      const int qb = st.m & 1;
+      if (st.m >= 2) hopper::mbar_wait(&q_empty[qb], ((st.m >> 1) - 1) & 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&q_full[qb], S::q_bytes);
+        hopper::tma_load_4d(base + qb * S::q_bytes, &tq, &q_full[qb], 0, h, st.it.q0, b);
+      }
+    }
+    const int k0 = (st.it.last - st.i) * kSK;
+    const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
+    bool all = true, any = false;
+    for (int c = lane; c < kSK; c += 32) {
+      const int kp = k0 + c;
+      const float mv = (kp < L && (km == nullptr || km[kp] > 0.5f)) ? 1.f : 0.f;
+      maskS[s * kSK + c] = mv;
+      all = all && mv > 0.f;
+      any = any || mv > 0.f;
+    }
+    all = __all_sync(0xffffffffu, all);
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0 && !any) {
+      flagS[s] = -1;
+      hopper::mbar_arrive(&k_full[s]);
+      hopper::mbar_arrive(&v_full[s]);
+    } else if (lane == 0) {
+      flagS[s] = all ? 1 : 0;
+      const int hk = h / group;
+      hopper::mbar_arrive_expect_tx(&k_full[s], S::kv_bytes);
+      hopper::tma_load_4d(base + S::k_off + s * S::kv_bytes, &tk, &k_full[s], 0, hk, k0, b);
+      hopper::mbar_arrive_expect_tx(&v_full[s], S::kv_bytes);
+      hopper::tma_load_4d(base + S::v_off + s * S::kv_bytes, &tv, &v_full[s], 0, hk, k0, b);
+    } else {
+      hopper::mbar_arrive(&k_full[s]);
+    }
+    SmallProducer nx = st;
+    ++nx.n;
+    if (++nx.i > st.it.last - st.it.first) {
+      nx.i = 0;
+      const int j = small_item_index(++nx.m);
+      nx.more = j < nitems;
+      if (nx.more) nx.it = small_item(j, BH, nqt, L, causal, window);
+    }
+    __syncwarp();
+    if (lane == 0) *ps = nx;
+    __syncwarp();
+  };
+  if (warp == 0)
+    for (int e = 0; e < kStages && ps->more; ++e) produce();
+
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  int n = 0;  // the consumers' stream element
+  for (int m = 0;; ++m) {
+    const int j = small_item_index(m);
+    if (j >= nitems) break;
+    const SmallItem it = small_item(j, BH, nqt, L, causal, window);
+    const int qb = m & 1, ntiles = it.last - it.first + 1;
+    const uint8_t* Qw = base + qb * S::q_bytes + 64 * wg * R;
+    const int wr0 = it.q0 + 64 * wg + 16 * (warp % 4);  // this warp's first row
+    const int row_a = wr0 + g, row_b = row_a + 8;        // the thread's two rows
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.f;
+    // running max in the log2 domain (scale * log2(e) folded in) and the
+    // thread's partial row sums
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+    hopper::mbar_wait(&q_full[qb], (m >> 1) & 1);
+
+    for (int i = 0; i < ntiles; ++i, ++n) {
+      const int s = n % kStages, k0 = (it.last - i) * kSK;
+      const uint32_t parity = (n / kStages) & 1;
+      const uint8_t* Ks = base + S::k_off + s * S::kv_bytes;
+      const uint8_t* Vs = base + S::v_off + s * S::kv_bytes;
+      hopper::mbar_wait(&k_full[s], parity);
+      const int flag = flagS[s];
+      if (flag < 0) {  // no valid key: p = 0 throughout
+        if (i == ntiles - 1) {
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&q_empty[qb]);
+        }
+      } else {
+        // S = Q K^T: 64 rows x 128 keys, Q and K K-major (one k16 step at
+        // D = 16, two at 32: +32 bytes inside the swizzled row)
+        float sc[kSK / 2];
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          hopper::wgmma_ss_m64n128(sc, hopper::sw_desc<R>(Qw + 32 * kk),
+                                   hopper::sw_desc<R>(Ks + 32 * kk), kk > 0);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(sc);
+        if (i == ntiles - 1) {  // the item's Q is read for the last time
+          __syncwarp();
+          if (lane == 0) hopper::mbar_arrive(&q_empty[qb]);
+        }
+
+        // Only an edge tile evaluates the predicate per entry: one that
+        // holds the sequence end or a masked key, or crosses the diagonal
+        // or a window edge for this warp's rows. Invalid entries get -inf.
+        const bool interior =
+            flag > 0 && (!causal || k0 + kSK - 1 <= wr0) &&
+            (window <= 0 || (wr0 + 15 - k0 < window && (causal || k0 + kSK - 1 - wr0 < window)));
+        if (!interior) {
+          // the band as a range of the tile's columns a row sees, lo..hi
+          // (band_predicate), and the key mask only where the tile has a
+          // masked key or the sequence end
+          const int big = 1 << 30, d_a = row_a - k0, d_b = row_b - k0;
+          const int hi_a = causal ? d_a : (window > 0 ? d_a + window - 1 : big);
+          const int hi_b = causal ? d_b : (window > 0 ? d_b + window - 1 : big);
+          const int lo_a = window > 0 ? d_a - window + 1 : -big;
+          const int lo_b = window > 0 ? d_b - window + 1 : -big;
+          const float* mk = maskS + s * kSK;
+#pragma unroll
+          for (int jj = 0; jj < kSK / 8; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * jj + 2 * t + e;
+              const bool mv = flag > 0 || mk[c] > 0.f;
+              if (!(mv && c >= lo_a && c <= hi_a)) sc[4 * jj + e] = -INFINITY;
+              if (!(mv && c >= lo_b && c <= hi_b)) sc[4 * jj + 2 + e] = -INFINITY;
+            }
+          }
+        }
+
+        // online softmax: one FFMA and one ex2 per entry
+        float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < kSK / 8; ++jj) {
+          mx_a = fmaxf(mx_a, fmaxf(sc[4 * jj], sc[4 * jj + 1]));
+          mx_b = fmaxf(mx_b, fmaxf(sc[4 * jj + 2], sc[4 * jj + 3]));
+        }
+        const float mn_a = fmaxf(m_a, quad_max(mx_a) * scale_log2);
+        const float mn_b = fmaxf(m_b, quad_max(mx_b) * scale_log2);
+        const float mu_a = mn_a == -INFINITY ? 0.f : mn_a;  // a row with nothing valid yet
+        const float mu_b = mn_b == -INFINITY ? 0.f : mn_b;
+        const float c_a = hopper::exp2_approx(m_a - mu_a), c_b = hopper::exp2_approx(m_b - mu_b);
+        m_a = mn_a;
+        m_b = mn_b;
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < kSK / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[4 * jj + e] = hopper::exp2_approx(fmaf(sc[4 * jj + e], scale_log2, -mu_a));
+            sc[4 * jj + 2 + e] = hopper::exp2_approx(fmaf(sc[4 * jj + 2 + e], scale_log2, -mu_b));
+            sum_a += sc[4 * jj + e];
+            sum_b += sc[4 * jj + 2 + e];
+          }
+        }
+        l_a = l_a * c_a + sum_a;
+        l_b = l_b * c_b + sum_b;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          o[4 * jj] *= c_a;
+          o[4 * jj + 1] *= c_a;
+          o[4 * jj + 2] *= c_b;
+          o[4 * jj + 3] *= c_b;
+        }
+
+        // O += P V: P packed to bf16 from the S registers (the register-A
+        // layout); V read MN-major through the transpose flag, one swizzle
+        // atom wide (N = D), 16 keys a k16 step
+        uint32_t pa[kSK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kSK / 16; ++kk) {
+          pa[kk][0] = hopper::pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = hopper::pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = hopper::pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = hopper::pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        hopper::mbar_wait(&v_full[s], parity);
+        hopper::fence_regs(o);
+        hopper::fence_regs(pa);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSK / 16; ++kk)
+          hopper::wgmma_rs_tb(o, pa[kk], hopper::sw_desc<R>(Vs + kk * 16 * R));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      if (warp == 0 && ps->more) produce();
+    }
+
+    l_a = quad_sum(l_a);
+    l_b = quad_sum(l_b);
+    const float f_a = 1.f / fmaxf(l_a, 1e-30f), f_b = 1.f / fmaxf(l_b, 1e-30f);
+    const int b = it.bh / H, h = it.bh % H;
+    const size_t qs = (size_t)H * D;
+    __nv_bfloat16* orow_a = out + (size_t)b * L * qs + (size_t)row_a * qs + (size_t)h * D;
+    __nv_bfloat16* orow_b = orow_a + 8 * qs;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int d = 8 * jj + 2 * t;
+      if (row_a < L)
+        *reinterpret_cast<__nv_bfloat162*>(orow_a + d) =
+            __floats2bfloat162_rn(o[4 * jj] * f_a, o[4 * jj + 1] * f_a);
+      if (row_b < L)
+        *reinterpret_cast<__nv_bfloat162*>(orow_b + d) =
+            __floats2bfloat162_rn(o[4 * jj + 2] * f_b, o[4 * jj + 3] * f_b);
+    }
+    // natural-log lse; a fully masked row has l = 0 and the plain version's
+    // -1e9 + log(1e-30)
+    if (t == 0) {
+      const float dead = kNeg + logf(1e-30f);
+      if (row_a < L) lse[(size_t)it.bh * L + row_a] = l_a > 0.f ? (m_a + log2f(l_a)) * kLn2 : dead;
+      if (row_b < L) lse[(size_t)it.bh * L + row_b] = l_b > 0.f ? (m_b + log2f(l_b)) * kLn2 : dead;
+    }
+  }
+}
+
+// Raise the small kernel's shared-memory cap and read how many blocks stay
+// resident on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor), once.
+template <int D>
+int small_resident(int* per_sm, int* sms) {
+  static int blocks = 0, count = 0;
+  if (blocks == 0) {
+    cudaError_t e = cudaFuncSetAttribute(fa_fwd_small_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SmallFwdSmem<D>::bytes);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fa_fwd_small_kernel<D>, kSThreads,
+                                                      SmallFwdSmem<D>::bytes);
+    if (e != cudaSuccess) return (int)e;
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  *per_sm = blocks;
+  *sms = count;
+  return 0;
+}
+
+template <int D>
+int launch_small(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+                 void* lse, int B, int L, int H, int Hkv, float scale, int causal, int window,
+                 cudaStream_t s) {
+  int per_sm = 0, sms = 0;
+  const int err = small_resident<D>(&per_sm, &sms);
+  if (err != 0) return err;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::bf16_head_map(&tq, q, B, L, H, D, kSQ) ||
+      !hopper::bf16_head_map(&tk, k, B, L, Hkv, D, kSK) ||
+      !hopper::bf16_head_map(&tv, v, B, L, Hkv, D, kSK))
+    return (int)cudaErrorInvalidValue;
+  // persistent: as many blocks as stay resident, or one an item
+  const long long items = (long long)B * H * ((L + kSQ - 1) / kSQ);
+  const unsigned blocks = (unsigned)(items < (long long)per_sm * sms ? items : per_sm * sms);
+  fa_fwd_small_kernel<D><<<blocks, kSThreads, SmallFwdSmem<D>::bytes, s>>>(
+      tq, tk, tv, static_cast<const float*>(key_mask), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), B, L, H, Hkv, scale * kLog2e, causal, window);
+  return (int)cudaGetLastError();
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <typename T>
@@ -627,5 +1033,29 @@ extern "C" int dk_flash_attention_fwd(const void* q, const void* k, const void* 
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, key_mask, out, lse, B, L, H, Hkv, D, scale, causal,
                                  window, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The small-D kernel (fa_fwd_small_kernel): bfloat16, D = 16 or 32, 16-byte
+// aligned q/k/v. Anything else is refused (the caller routes it elsewhere).
+extern "C" int dk_flash_attention_fwd_small(const void* q, const void* k, const void* v,
+                                            const void* key_mask, void* out, void* lse, int B,
+                                            int L, int H, int Hkv, int D, float scale,
+                                            int causal, int window, void* stream) {
+  if (B < 1 || L < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || (D != 16 && D != 32) ||
+      !aligned16(q) || !aligned16(k) || !aligned16(v))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 16
+             ? launch_small<16>(q, k, v, key_mask, out, lse, B, L, H, Hkv, scale, causal, window, s)
+             : launch_small<32>(q, k, v, key_mask, out, lse, B, L, H, Hkv, scale, causal, window,
+                                s);
+}
+
+// Blocks of the small-D kernel resident on one SM, and the SM count (its
+// persistent grid is their product); 0 on success.
+extern "C" int dk_flash_attention_fwd_small_occupancy(int D, int* per_sm, int* sms) {
+  if (D == 16) return small_resident<16>(per_sm, sms);
+  if (D == 32) return small_resident<32>(per_sm, sms);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,7 +34,9 @@
 // What bounds them on an H100: at training shapes (L = 2048, D = 64 or 128)
 // each kernel does three (K3) or four (K4) L x L x D products per head, half
 // that causal, against a few reads of q/k/v/dO: operations, so the tensor
-// cores are the roof. Two kernels each, chosen by dtype and head dim:
+// cores are the roof. Two kernels each, and one fused kernel for small
+// head dims; ops/flash_attention.py::flash_route picks by dtype, head dim
+// and alignment:
 //  * fa_bwd_dq_wgmma_kernel (K3: bfloat16, D = 64 or 128, 16-byte aligned
 //    inputs). 128 q rows a block, 384 threads in three warpgroups, on a 1-D
 //    grid whose consecutive blocks are the q tiles of one head (and the
@@ -96,8 +98,47 @@
 //    ptxas (CUDA 12.9): 168 registers at launch (setmaxnreg moves them to
 //    the consumers), no spills; SASS: 32 HGMMA and 8 UTMALDG at D = 128,
 //    16 and 4 at D = 64 (chip_smoke.py's check_sass).
-//  * fa_bwd_*_kernel (float32, or any other D <= 128): plain f32 FMAs over
-//    shared-memory tiles, one score tile entry per thread at a time.
+//  * fa_bwd_small_kernel (K3 and K4 in one launch: bfloat16, D = 16 or 32,
+//    16-byte aligned inputs), through dk_flash_attention_bwd_small, which
+//    refuses anything else (no fallback to the FMA kernels). One block per
+//    (b*hkv, 128-key tile), 256 threads: two warpgroups of 64 keys, both
+//    computing; __launch_bounds__(256, 2): 128 registers, two blocks an SM;
+//    the grid runs key tile major, longest causal bands first.
+//    - Loads: warp 0 brings K and V once, then each (head, 64-row q
+//      tile)'s q and dO into a 2-stage ring by TMA (the whole head a box,
+//      32- or 64-byte swizzle), and writes the tile's lse (times log2 e;
+//      +inf past L) and delta beside it; it reads those from global memory
+//      one tile early, so their latency hides behind a tile's products.
+//    - Masking: only an edge half (the sequence end, a masked key, the
+//      diagonal or a window edge for the warp's keys) masks, setting S^T
+//      to -inf (so p = 0) outside the range of the half's queries each
+//      key's band holds (band_predicate solved once a half).
+//    - Products, per q tile in two halves of 32 queries (at 64, S^T and
+//      dP^T would spill): S^T = K Q^T and dP^T = V dO^T at m64n32k16, all
+//      K-major; dV += P^T dO and dK += dS^T Q with P^T and dS^T as the
+//      register A operands and dO and q MN-major; dS^T also goes to shared
+//      memory in the 128-byte swizzle (conflict-free from the accumulator
+//      layout), and dQ = dS K reads it and K both MN-major, over the
+//      warpgroup's 64 keys. dK and dV stay in registers, summed over the
+//      GQA group and the in-band q tiles.
+//    - dq: the warpgroups' parts meet in shared memory (double-buffered,
+//      one named barrier each); warpgroup 0 adds them and, with L <= 128
+//      (one key tile: the LM twin's L=128), stores dq in bf16, one writer
+//      an element, deterministic; past that it adds them into an f32
+//      buffer the caller zeroed, one 8-byte atomicAdd a pair, so dq is NOT
+//      bit-reproducible from run to run there (the adds' order varies).
+//    - What bounds it: at the twin's shape latency (512 blocks of two q
+//      tiles); at L=2048 each q tile's serial chain of waits and the dq
+//      adds (8-byte adds beat 4-byte ones; each warpgroup adding its own
+//      part, twice the adds, was slower).
+//    - Tried and not kept (A/B on the H100): the first half's dV/dK
+//      overlapping the second half's S^T/dP^T, and a 3-stage ring: both
+//      slower.
+//    ptxas: 116 / 128 registers at D = 16 / 32, no spills; SASS: 10 / 12
+//    HGMMA and 6 UTMALDG (chip_smoke.py's check_sass).
+//  * fa_bwd_*_kernel (float32, or bfloat16 at any other D <= 128): plain
+//    f32 FMAs over shared-memory tiles, one score tile entry per thread at
+//    a time.
 //
 // Plain C interface (bound with ctypes): each launcher returns the
 // cudaGetLastError() of its launch, 0 on success.
@@ -870,6 +911,353 @@ fa_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// -- bfloat16 at D = 16 and 32: dq, dk and dv in one launch ----------------
+
+constexpr int kSKV = 128;          // keys a block: two warpgroups of 64
+constexpr int kSQ4 = 64;           // q rows a q tile
+constexpr int kSThreads = 256;     // both warpgroups compute; warp 0 also loads
+constexpr int kSBlocksPerSM = 2;   // caps registers at 128 a thread
+
+// Shared memory of the small-D backward, offsets from a 1024-byte aligned base.
+template <int D>
+struct SmallBwdSmem {
+  static constexpr uint32_t row = 2 * D;                     // bytes of a tile row
+  static constexpr uint32_t kv_bytes = kSKV * row;           // the K (or V) tile
+  static constexpr uint32_t q_bytes = kSQ4 * row;            // one q (or dO) tile
+  static constexpr uint32_t v_off = kv_bytes;
+  static constexpr uint32_t q_off = 2 * kv_bytes;            // [kStages] q tiles
+  static constexpr uint32_t g_off = q_off + kStages * q_bytes;    // [kStages] dO tiles
+  static constexpr uint32_t ds_off = g_off + kStages * q_bytes;   // [2 warpgroups] dS^T
+  static constexpr uint32_t ds_bytes = 64 * kSQ4 * 2;        // 64 keys x 64 q bf16, 128-byte rows
+  static constexpr uint32_t red_off = ds_off + 2 * ds_bytes;  // [2] warpgroup 1's dq partials
+  static constexpr uint32_t red_floats = 128 * (D / 2);
+  static constexpr uint32_t lse_off = red_off + 2 * red_floats * 4;  // [kStages][kSQ4] lse*log2e
+  static constexpr uint32_t delta_off = lse_off + kStages * kSQ4 * 4;
+  static constexpr uint32_t bar_off = delta_off + kStages * kSQ4 * 4;
+  static constexpr uint32_t bytes = bar_off + 8 * (1 + 2 * kStages) + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kSThreads, kSBlocksPerSM)
+fa_bwd_small_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    const float* __restrict__ key_mask, __nv_bfloat16* __restrict__ dq,
+                    float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
+                    __nv_bfloat16* __restrict__ dv, int L, int H, int Hkv, float scale,
+                    int causal, int window) {
+  using S = SmallBwdSmem<D>;
+  constexpr int R = S::row;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Ks = base;
+  uint8_t* Vs = base + S::v_off;
+  float* red = reinterpret_cast<float*>(base + S::red_off);
+  float* lseS = reinterpret_cast<float*>(base + S::lse_off);
+  float* deltaS = reinterpret_cast<float*>(base + S::delta_off);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + S::bar_off);
+  uint64_t* full = kv_full + 1;        // q, dO tiles landed, lse and delta written
+  uint64_t* empty = full + kStages;    // every warp is done with the stage
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // One block per (b*hkv, 128-key tile), key tile major: every head's
+  // first key tile comes first (under causal masking the longest bands),
+  // so the in-order dispatch of blocks runs the longest first. At these D
+  // q and dO are small (all heads' 16 MB at B'=16, L=2048, D=32: within
+  // L2), so a head's tiles need not run together (head-major was slower
+  // at that shape in an A/B on the H100).
+  const int nkt = (L + kSKV - 1) / kSKV;
+  const int nbkv = (int)gridDim.x / nkt;
+  const int bkv = (int)blockIdx.x % nbkv, b = bkv / Hkv, hk = bkv % Hkv;
+  const int group = H / Hkv;
+  const int k0 = ((int)blockIdx.x / nbkv) * kSKV;
+  // One key tile holds all of L: each dq element has this block as its one
+  // writer, and dq is stored directly. Otherwise the blocks add into dq_acc.
+  const bool direct = nkt == 1;
+  const float* km = key_mask != nullptr ? key_mask + (size_t)b * L : nullptr;
+  int first, last;
+  q_band(k0, kSKV, kSQ4, L, causal, window, first, last);
+  const int nq = last - first + 1;
+  const size_t qs = (size_t)H * D;
+
+  if (tid == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  // A block whose keys are all masked (a padded tail) has dk = dv = 0 and
+  // walks no q tile; if it is dq's one writer, dq is 0 as well.
+  const int kp = k0 + tid % kSKV;
+  const int live = __syncthreads_or(kp < L && (km == nullptr || km[kp] > 0.5f));
+  const int ntiles = live ? group * nq : 0;  // (head, q tile) pairs
+  if (!live && direct) {
+    for (int e = tid; e < group * L * (D / 2); e += kSThreads) {
+      const int d2 = e % (D / 2), r = (e / (D / 2)) % L, gi = e / ((D / 2) * L);
+      *reinterpret_cast<uint32_t*>(dq + (size_t)b * L * qs + (size_t)r * qs +
+                                   (size_t)(hk * group + gi) * D + 2 * d2) = 0u;
+    }
+  }
+
+  // The loads: warp 0 brings the block's K and V once, then each (head, q
+  // tile)'s q and dO into a 2-stage ring, writing the tile's lse (times
+  // log2 e; +inf past L, so p = 0 there) and delta beside them.
+  auto rows = [&](int i, float (&l)[2], float (&d)[2]) {
+    const int h = hk * group + i / nq, q0 = (first + i % nq) * kSQ4;
+    const size_t lrow = (size_t)(b * H + h) * L;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qp = q0 + lane + 32 * e;
+      l[e] = qp < L ? lse[lrow + qp] * kLog2e : INFINITY;
+      d[e] = qp < L ? delta[lrow + qp] : 0.f;
+    }
+  };
+  auto produce = [&](int i, const float (&l)[2], const float (&d)[2]) {
+    const int s = i % kStages, h = hk * group + i / nq, q0 = (first + i % nq) * kSQ4;
+    if (i >= kStages) hopper::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      lseS[s * kSQ4 + lane + 32 * e] = l[e];
+      deltaS[s * kSQ4 + lane + 32 * e] = d[e];
+    }
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&full[s], 2 * S::q_bytes);
+      hopper::tma_load_4d(base + S::q_off + s * S::q_bytes, &tq, &full[s], 0, h, q0, b);
+      hopper::tma_load_4d(base + S::g_off + s * S::q_bytes, &tg, &full[s], 0, h, q0, b);
+    } else {
+      hopper::mbar_arrive(&full[s]);
+    }
+  };
+  if (warp == 0 && ntiles > 0) {
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * S::kv_bytes);
+      hopper::tma_load_4d(Ks, &tk, kv_full, 0, hk, k0, b);
+      hopper::tma_load_4d(Vs, &tv, kv_full, 0, hk, k0, b);
+    }
+    for (int i = 0; i < kStages && i < ntiles; ++i) {
+      float l[2], d[2];
+      rows(i, l, d);
+      produce(i, l, d);
+    }
+  }
+
+  const int wg = warp / 4, g = lane / 4, t = lane % 4;
+  const int kw0 = k0 + 64 * wg + 16 * (warp % 4);  // this warp's first key
+  const int key_a = kw0 + g, key_b = key_a + 8;    // the thread's two keys
+  const uint8_t* Kw = Ks + 64 * wg * R;
+  const uint8_t* Vw = Vs + 64 * wg * R;
+  uint8_t* dsw = base + S::ds_off + wg * S::ds_bytes;  // this warpgroup's dS^T
+  // the key mask of the thread's keys, read once; keys past L are invalid
+  const bool kv_a = key_a < L && (km == nullptr || km[key_a] > 0.5f);
+  const bool kv_b = key_b < L && (km == nullptr || km[key_b] > 0.5f);
+  const bool keys_valid = __all_sync(0xffffffffu, kv_a && kv_b);
+  const float scale_log2 = scale * kLog2e;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.f;
+  if (ntiles > 0) hopper::mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kStages, h = hk * group + i / nq, q0 = (first + i % nq) * kSQ4;
+    const uint8_t* Qs = base + S::q_off + s * S::q_bytes;
+    const uint8_t* Gs = base + S::g_off + s * S::q_bytes;
+    hopper::mbar_wait(&full[s], (i / kStages) & 1);
+    // warp 0 reads the lse and delta of the pair it loads after this one
+    // now, so their latency hides behind this pair's products
+    const bool ahead = warp == 0 && i + kStages < ntiles;
+    float next_l[2], next_d[2];
+    if (ahead) rows(i + kStages, next_l, next_d);
+
+    // The tile in two halves of 32 queries (keeps the accumulators within
+    // the register cap): S^T = K Q^T and dP^T = V dO^T, 64 keys x 32
+    // queries, all K-major; p^T = exp2(s scale log2e - lse log2e) and
+    // ds^T = p^T (dp^T - delta), with only an edge half (the sequence end,
+    // a masked key, the diagonal or a window edge for this warp's keys)
+    // evaluating the predicate per entry, p = 0 off the valid set; then
+    // dV += P^T dO and dK += dS^T Q with P^T and dS^T as the register A
+    // operands and dO and q read MN-major through the transpose flag; dS^T
+    // also goes to this warpgroup's tile for dQ.
+#pragma unroll 1
+    for (int hf = 0; hf < 2; ++hf) {
+      const int qh = q0 + 32 * hf;  // the half's first query
+      float st[16], dpt[16];
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_m64n32(st, hopper::sw_desc<R>(Kw + 32 * kk),
+                                hopper::sw_desc<R>(Qs + 32 * hf * R + 32 * kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss_m64n32(dpt, hopper::sw_desc<R>(Vw + 32 * kk),
+                                hopper::sw_desc<R>(Gs + 32 * hf * R + 32 * kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      hopper::fence_regs(dpt);
+
+      const bool interior =
+          keys_valid && qh + 32 <= L && (!causal || kw0 + 15 <= qh) &&
+          (window <= 0 || (qh + 31 - kw0 < window && (causal || kw0 + 15 - qh < window)));
+      if (!interior) {
+        // an edge half: s = -inf off the band, so p = 0 there. The band as
+        // the range of the half's query columns a key sees, lo..hi
+        // (band_predicate solved once); a masked key sees none
+        const int big = 1 << 30, d_a = key_a - qh, d_b = key_b - qh;
+        const int lo_a = !kv_a ? big : causal ? d_a : (window > 0 ? d_a - window + 1 : -big);
+        const int lo_b = !kv_b ? big : causal ? d_b : (window > 0 ? d_b - window + 1 : -big);
+        const int hi_a = window > 0 ? d_a + window - 1 : big;
+        const int hi_b = window > 0 ? d_b + window - 1 : big;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cq = 8 * j + 2 * t + e;
+            if (!(cq >= lo_a && cq <= hi_a)) st[4 * j + e] = -INFINITY;
+            if (!(cq >= lo_b && cq <= hi_b)) st[4 * j + 2 + e] = -INFINITY;
+          }
+      }
+      const float* ls = lseS + s * kSQ4 + 32 * hf;
+      const float* dl = deltaS + s * kSQ4 + 32 * hf;
+      uint32_t pa[2][4], sa[2][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + c);
+        float p[2][2], ds[2][2];  // [key a / b][query c / c + 1]
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float lq = e ? l2.y : l2.x, dq_ = e ? d2.y : d2.x;
+          const float p0 = hopper::exp2_approx(fmaf(st[4 * j + e], scale_log2, -lq));
+          const float p1 = hopper::exp2_approx(fmaf(st[4 * j + 2 + e], scale_log2, -lq));
+          p[0][e] = p0;
+          p[1][e] = p1;
+          ds[0][e] = p0 * (dpt[4 * j + e] - dq_);
+          ds[1][e] = p1 * (dpt[4 * j + 2 + e] - dq_);
+        }
+        // the register-A layout of k16 step j / 2: pairs 0 and 1 for the
+        // first eight queries, 2 and 3 for the next
+        const int kk = j / 2, r = 2 * (j % 2);
+        pa[kk][r] = hopper::pack_bf16x2(p[0][0], p[0][1]);
+        pa[kk][r + 1] = hopper::pack_bf16x2(p[1][0], p[1][1]);
+        sa[kk][r] = hopper::pack_bf16x2(ds[0][0], ds[0][1]);
+        sa[kk][r + 1] = hopper::pack_bf16x2(ds[1][0], ds[1][1]);
+      }
+
+      // dS^T into the tile: 64 key rows of 64 queries (128 bytes), the
+      // 16-byte chunks of row r permuted by r % 8 (the 128-byte swizzle);
+      // conflict-free, the eight rows of a lane group land in eight chunks
+      const int kr = 16 * (warp % 4) + g;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hb = 0; hb < 2; ++hb) {
+          const int rr = kr + 8 * hb, chunk = 4 * hf + j;
+          *reinterpret_cast<uint32_t*>(dsw + rr * 128 + ((chunk ^ (rr & 7)) << 4) + 4 * t) =
+              sa[j / 2][2 * (j % 2) + hb];
+        }
+
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+      hopper::fence_regs(pa);
+      hopper::fence_regs(sa);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        hopper::wgmma_rs_tb(dva, pa[kk], hopper::sw_desc<R>(Gs + (32 * hf + 16 * kk) * R));
+        hopper::wgmma_rs_tb(dka, sa[kk], hopper::sw_desc<R>(Qs + (32 * hf + 16 * kk) * R));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dva);
+      hopper::fence_regs(dka);
+    }
+
+    // this warpgroup's part of dQ = dS K (dS^T from shared memory and K,
+    // both MN-major), 64 queries x D over its 64 keys
+    hopper::fence_proxy_async();
+    hopper::named_sync<128>(1 + wg);
+    float dqa[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) dqa[e] = 0.f;
+    hopper::fence_regs(dqa);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_ss_tt(dqa, hopper::sw128_desc(dsw + kk * 2048),
+                          hopper::sw_desc<R>(Kw + kk * 16 * R), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dqa);
+    // dq of the tile: warpgroup 1 hands its part to warpgroup 0 through
+    // shared memory (double-buffered by tile, one named barrier each, so
+    // the two parts meet in one writer); warpgroup 0 adds its own, scales
+    // and stores (one key tile) or adds into dq_acc. Warpgroup 0 frees the
+    // stage only after reading the buffer, so warpgroup 1 cannot overwrite
+    // it two tiles later before it is read.
+    float* rb = red + (i & 1) * S::red_floats;
+    const int tw = tid % 128;
+    if (wg == 1) {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) rb[e * 128 + tw] = dqa[e];
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      hopper::named_arrive<256>(3 + (i & 1));
+    } else {
+      hopper::named_sync<256>(3 + (i & 1));
+      const int qr_a = q0 + 16 * warp + g, qr_b = qr_a + 8;
+      const size_t off_a = (size_t)b * L * qs + (size_t)qr_a * qs + (size_t)h * D;
+      const size_t off_b = off_a + 8 * qs;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int d = 8 * j + 2 * t;
+        const float a0 = (dqa[4 * j] + rb[(4 * j) * 128 + tw]) * scale;
+        const float a1 = (dqa[4 * j + 1] + rb[(4 * j + 1) * 128 + tw]) * scale;
+        const float b0 = (dqa[4 * j + 2] + rb[(4 * j + 2) * 128 + tw]) * scale;
+        const float b1 = (dqa[4 * j + 3] + rb[(4 * j + 3) * 128 + tw]) * scale;
+        if (direct) {
+          if (qr_a < L)
+            *reinterpret_cast<__nv_bfloat162*>(dq + off_a + d) = __floats2bfloat162_rn(a0, a1);
+          if (qr_b < L)
+            *reinterpret_cast<__nv_bfloat162*>(dq + off_b + d) = __floats2bfloat162_rn(b0, b1);
+        } else {
+          // one 8-byte add a pair (sm_90's vector atomics; faster than
+          // two 4-byte adds)
+          if (qr_a < L)
+            atomicAdd(reinterpret_cast<float2*>(dq_acc + off_a + d), make_float2(a0, a1));
+          if (qr_b < L)
+            atomicAdd(reinterpret_cast<float2*>(dq_acc + off_b + d), make_float2(b0, b1));
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);
+      if (ahead) produce(i + kStages, next_l, next_d);
+    }
+  }
+
+  const size_t ks = (size_t)Hkv * D;
+  const size_t off_a = (size_t)b * L * ks + (size_t)key_a * ks + (size_t)hk * D;
+  const size_t off_b = off_a + 8 * ks;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int d = 8 * j + 2 * t;
+    if (key_a < L) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off_a + d) =
+          __floats2bfloat162_rn(dka[4 * j] * scale, dka[4 * j + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off_a + d) =
+          __floats2bfloat162_rn(dva[4 * j], dva[4 * j + 1]);
+    }
+    if (key_b < L) {
+      *reinterpret_cast<__nv_bfloat162*>(dk + off_b + d) =
+          __floats2bfloat162_rn(dka[4 * j + 2] * scale, dka[4 * j + 3] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off_b + d) =
+          __floats2bfloat162_rn(dva[4 * j + 2], dva[4 * j + 3]);
+    }
+  }
+}
+
 // Raise a kernel's dynamic shared-memory cap once per process.
 template <typename K>
 cudaError_t configure(K kernel, size_t bytes, bool& done) {
@@ -959,6 +1347,38 @@ int launch_dkv(const Args& a, void* dk, void* dv) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_small(const Args& a, void* dq, void* dq_acc, void* dk, void* dv) {
+  static bool done = false;
+  constexpr uint32_t bytes = SmallBwdSmem<D>::bytes;
+  cudaError_t e = configure(fa_bwd_small_kernel<D>, bytes, done);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap tq, tk, tv, tg;
+  if (!hopper::bf16_head_map(&tq, a.q, a.B, a.L, a.H, D, kSQ4) ||
+      !hopper::bf16_head_map(&tg, a.dout, a.B, a.L, a.H, D, kSQ4) ||
+      !hopper::bf16_head_map(&tk, a.k, a.B, a.L, a.Hkv, D, kSKV) ||
+      !hopper::bf16_head_map(&tv, a.v, a.B, a.L, a.Hkv, D, kSKV))
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)(a.B * a.Hkv) * (unsigned)((a.L + kSKV - 1) / kSKV);
+  fa_bwd_small_kernel<D><<<blocks, kSThreads, bytes, a.s>>>(
+      tq, tk, tv, tg, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.key_mask), static_cast<__nv_bfloat16*>(dq),
+      static_cast<float*>(dq_acc), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), a.L, a.H, a.Hkv, a.scale, a.causal, a.window);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int small_per_sm(int* per_sm) {
+  static bool done = false;
+  constexpr uint32_t bytes = SmallBwdSmem<D>::bytes;
+  cudaError_t e = configure(fa_bwd_small_kernel<D>, bytes, done);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fa_bwd_small_kernel<D>, kSThreads,
+                                                      bytes);
+  return (int)e;
+}
+
 bool valid_args(const Args& a) {
   return a.B >= 1 && a.L >= 1 && a.H >= 1 && a.Hkv >= 1 && a.H % a.Hkv == 0 && a.D >= 1 &&
          a.D <= kDMax;
@@ -1003,5 +1423,32 @@ extern "C" int dk_flash_attention_bwd_dkv(const void* q, const void* k, const vo
     return D == 128 ? launch_dkv_wgmma<128>(a, dk, dv) : launch_dkv_wgmma<64>(a, dk, dv);
   if (dtype == 0) return launch_dkv<float>(a, dk, dv);
   if (dtype == 1) return launch_dkv<__nv_bfloat16>(a, dk, dv);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The fused small-D backward (fa_bwd_small_kernel): bfloat16, D = 16 or 32,
+// 16-byte aligned q/k/v/dO. With L <= 128 (one key tile) it stores dq (bf16)
+// and takes no dq_acc; past that each key tile's blocks add their part of dq
+// into dq_acc (f32, zeroed by the caller) and it takes no dq. Anything else
+// is refused.
+extern "C" int dk_flash_attention_bwd_small(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse,
+                                            const void* delta, const void* key_mask, void* dq,
+                                            void* dq_acc, void* dk, void* dv, int B, int L, int H,
+                                            int Hkv, int D, float scale, int causal, int window,
+                                            void* stream) {
+  const Args a{q, k, v, dout, lse, delta, key_mask, B, L, H, Hkv, D, scale, causal, window,
+               static_cast<cudaStream_t>(stream)};
+  const bool direct = L <= kSKV;
+  if (!valid_args(a) || (D != 16 && D != 32) || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(dout) || (direct ? dq == nullptr : dq_acc == nullptr))
+    return (int)cudaErrorInvalidValue;
+  return D == 16 ? launch_small<16>(a, dq, dq_acc, dk, dv) : launch_small<32>(a, dq, dq_acc, dk, dv);
+}
+
+// Blocks of the small-D backward resident on one SM; 0 on success.
+extern "C" int dk_flash_attention_bwd_small_occupancy(int D, int* per_sm) {
+  if (D == 16) return small_per_sm<16>(per_sm);
+  if (D == 32) return small_per_sm<32>(per_sm);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels, the
 // LSTM scans and the int8 matmul: mbarriers, TMA tile loads through tensor
 // maps, warpgroup matrix multiplies (wgmma) with shared-memory descriptors for
-// the 128-byte swizzle, register reallocation between warpgroups, thread-block
-// cluster barriers and distributed shared memory, and the host-side
-// tensor-map encoders.
+// the 128-byte swizzle (and the 64- and 32-byte ones of the small-D flash
+// kernels, below), register reallocation between warpgroups, named barriers
+// and the async-proxy fence, thread-block cluster barriers and distributed
+// shared memory, and the host-side tensor-map encoders.
 //
 // Tiles in shared memory: a TMA box of 64 bf16 columns (128 bytes) by R rows
 // lands with CU_TENSOR_MAP_SWIZZLE_128B as R rows of 128 bytes, the 16-byte
@@ -168,6 +169,48 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
          (uint64_t(1) << 62);
 }
 
+// Shared-memory matrix descriptors for tiles of 64-byte rows (32 bf16: the
+// 64-byte swizzle, layout type 2) and 32-byte rows (16 bf16: the 32-byte
+// swizzle, layout type 3), as TMA writes them with CU_TENSOR_MAP_SWIZZLE_64B
+// / _32B: the 16-byte chunks of row r permuted by (r / 2) % 4, or swapped
+// when r % 8 >= 4, eight rows (512 or 256 bytes) one swizzle atom, so a tile
+// starts aligned to its atom. Stride byte offset: eight rows. K-major, a k16
+// step is +32 bytes inside the row; MN-major (the transpose flag), the tile
+// is one atom wide (N = 32 or 16 columns) and a k16 step is +16 rows.
+__device__ __forceinline__ uint64_t sw64_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(512 >> 4) << 32) |
+         (uint64_t(2) << 62);
+}
+__device__ __forceinline__ uint64_t sw32_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(256 >> 4) << 32) |
+         (uint64_t(3) << 62);
+}
+
+// The descriptor for a tile of `RowBytes`-byte rows with the matching swizzle.
+template <int RowBytes> __device__ __forceinline__ uint64_t sw_desc(const void* p) {
+  static_assert(RowBytes == 32 || RowBytes == 64 || RowBytes == 128, "no such swizzle");
+  if constexpr (RowBytes == 32) return sw32_desc(p);
+  else if constexpr (RowBytes == 64) return sw64_desc(p);
+  else return sw128_desc(p);
+}
+
+// Make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (a wgmma that reads them through a descriptor).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barriers: `threads` threads (a multiple of 32) meet at barrier `id`
+// (1..15; 0 is __syncthreads); arrive does not wait.
+template <int Threads> __device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(Threads) : "memory");
+}
+template <int Threads> __device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(Threads) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -294,6 +337,62 @@ __device__ __forceinline__ void wgmma_rs_kb(float (&d)[128], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64 x n32, f32) = A B (+ d when accumulate != 0), k16; A and B from shared memory,
+// both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Narrow products for head dims 16 and 32 (N = D), overloaded on the
+// accumulator's size (N / 2 floats a thread).
+//
+// d (m64 x n16 / n32, f32) += A B, k16; A from registers (four bf16 pairs per thread in
+// the accumulator layout), B from shared memory MN-major (the transpose flag).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n16 / n32, f32) = A B (+ d when accumulate != 0), k16; A and B from shared
+// memory, both MN-major (the transpose flags): A 16 rows along the contraction by 64
+// columns of M (one 128-byte swizzle atom wide), B 16 rows by N columns.
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[8], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[16], uint64_t da, uint64_t db,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // -- host: tensor maps ------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -333,6 +432,25 @@ inline bool bf16_rows_map(CUtensorMap* map, const void* base, int B, int L, int 
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 [B, L, heads, D] tensor with D = 16 or 32 as a 4-D map whose box is
+// the whole head (D columns: 32- or 64-byte rows, swizzled to that width) by
+// `rows` rows of one batch row; rows past L read as zeros. Returns false if
+// the encoder refuses.
+inline bool bf16_head_map(CUtensorMap* map, const void* base, int B, int L, int heads, int D,
+                          int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr || (D != 16 && D != 32)) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)L * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)D, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

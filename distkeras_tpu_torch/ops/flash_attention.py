@@ -16,6 +16,14 @@ padded to a block multiple, not a 128 multiple) runs them too:
   from the saved lse; K4 sums dk/dv over each GQA group inside one block.
   ``delta = rowsum(dO · O)`` is computed here in f32 beforehand.
 
+Which kernel runs is :func:`flash_route`'s choice from the dtype, the head
+dim and the inputs' 16-byte alignment: ``"wgmma"`` (bf16 at D = 64 or 128:
+K2, K3 and K4 on the tensor cores), ``"small"`` (bf16 at D = 16 or 32: the
+small-D forward and one fused backward launch for dq, dk and dv, also on
+the tensor cores) or ``"fma"`` (f32, and bf16 at any other head dim: f32
+FMA kernels). The route is taken, never fallen back from: a kernel that
+does not build or launch raises.
+
 :func:`flash_attention` goes through a ``torch.autograd.Function`` whose
 ``vmap`` rule folds a vmapped worker axis into B, so the training engine's
 ``torch.func.vmap(grad)`` over W stacked workers launches each kernel once
@@ -191,6 +199,26 @@ def _fa_bwd_plain(q, k, v, key_mask, lse, delta, g, *, scale, causal,
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_WGMMA_DIMS, _SMALL_DIMS = (64, 128), (16, 32)
+_SMALL_KEY_TILE = 128   # keys a block of the fused small-D backward
+
+
+def flash_route(dtype, head_dim: int, aligned: bool) -> str:
+    """The flash kernels' path for ``dtype`` at ``head_dim``: ``"wgmma"``
+    (bf16, D = 64 or 128), ``"small"`` (bf16, D = 16 or 32) or ``"fma"``
+    (everything else). The two tensor-core paths read q/k/v (and dO) by
+    TMA, so they need every input 16-byte aligned (``aligned``); unaligned
+    inputs take the FMA kernels."""
+    if dtype == torch.bfloat16 and aligned:
+        if head_dim in _WGMMA_DIMS:
+            return "wgmma"
+        if head_dim in _SMALL_DIMS:
+            return "small"
+    return "fma"
+
+
+def _aligned(*ts):
+    return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
 def _bind(lib):
@@ -200,6 +228,12 @@ def _bind(lib):
     lib.dk_flash_attention_fwd.restype = i
     lib.dk_flash_attention_max_head_dim.argtypes = []
     lib.dk_flash_attention_max_head_dim.restype = i
+    lib.dk_flash_attention_fwd_small.argtypes = [
+        vp, vp, vp, vp, vp, vp, i, i, i, i, i, ctypes.c_float, i, i, vp]
+    lib.dk_flash_attention_fwd_small.restype = i
+    lib.dk_flash_attention_fwd_small_occupancy.argtypes = [
+        i, ctypes.POINTER(i), ctypes.POINTER(i)]
+    lib.dk_flash_attention_fwd_small_occupancy.restype = i
 
 
 def _bind_bwd(lib):
@@ -214,6 +248,13 @@ def _bind_bwd(lib):
     lib.dk_flash_attention_bwd_dkv.restype = i
     lib.dk_flash_attention_bwd_max_head_dim.argtypes = []
     lib.dk_flash_attention_bwd_max_head_dim.restype = i
+    lib.dk_flash_attention_bwd_small.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+        ctypes.c_float, i, i, vp]
+    lib.dk_flash_attention_bwd_small.restype = i
+    lib.dk_flash_attention_bwd_small_occupancy.argtypes = [
+        i, ctypes.POINTER(i)]
+    lib.dk_flash_attention_bwd_small_occupancy.restype = i
 
 
 def _check_cuda(q, k, v, key_mask, *rest):
@@ -247,23 +288,52 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _fa_forward_cuda(q, k, v, key_mask, *, scale, causal, window):
+def _fa_forward_cuda(q, k, v, key_mask, *, scale, causal, window,
+                     route=None):
+    """K2 on CUDA tensors along ``route`` (default :func:`flash_route`'s;
+    ``"fma"`` forces the FMA kernel, which the bf16 dispatch in C takes at
+    any head dim but 64 and 128). The small-D kernel counts its launches
+    in ``_fa_forward.small_launches``, the others in ``.launches``."""
     B, L, H, D = q.shape
     Hkv = k.shape[2]
     (q, k, v), km = _check_cuda(q, k, v, key_mask)
     lib = _build.load("flash_attention", _bind)
     _check_head_dim(D, lib.dk_flash_attention_max_head_dim())
+    if route is None:
+        route = flash_route(q.dtype, D, _aligned(q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B * H, L), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.dk_flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(km), out.data_ptr(),
-        lse.data_ptr(), B, L, H, Hkv, D, float(scale), int(bool(causal)),
-        0 if window is None else int(window), _DTYPE_CODE[q.dtype], stream,
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(km),
+            out.data_ptr(), lse.data_ptr(), B, L, H, Hkv, D, float(scale),
+            int(bool(causal)), 0 if window is None else int(window))
+    if route == "small":
+        err = lib.dk_flash_attention_fwd_small(*ptrs, stream)
+        _build.check(err, "flash_attention_small")
+        _build.count_launch(_fa_forward, "small_launches")
+        return out, lse
+    err = lib.dk_flash_attention_fwd(*ptrs, _DTYPE_CODE[q.dtype], stream)
     _build.check(err, "flash_attention")
     _build.count_launch(_fa_forward)
     return out, lse
+
+
+def small_occupancy(head_dim: int) -> dict:
+    """Blocks of the small-D forward and backward resident on one SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the SM count
+    (the forward's persistent grid is their product). Needs the card."""
+    i = ctypes.c_int
+    fwd, sms, bwd = i(0), i(0), i(0)
+    lib = _build.load("flash_attention", _bind)
+    _build.check(lib.dk_flash_attention_fwd_small_occupancy(
+        int(head_dim), ctypes.byref(fwd), ctypes.byref(sms)),
+        "flash_attention_small occupancy")
+    lib = _build.load("flash_attention_bwd", _bind_bwd)
+    _build.check(lib.dk_flash_attention_bwd_small_occupancy(
+        int(head_dim), ctypes.byref(bwd)),
+        "flash_attention_bwd_small occupancy")
+    return dict(fwd_blocks_per_sm=fwd.value, bwd_blocks_per_sm=bwd.value,
+                sms=sms.value)
 
 
 def _on_device(q, impl):
@@ -283,7 +353,8 @@ def _fa_forward(q, k, v, key_mask, *, scale, causal, window=None,
                 impl="kernel"):
     """(out ``[B, L, H, D]``, lse ``[B·H, L]``): K2 on a CUDA tensor (or
     raise), the plain version on a CPU tensor or with ``impl="plain"``.
-    ``launches`` counts kernel launches."""
+    ``launches`` counts launches of the wgmma and FMA kernels,
+    ``small_launches`` those of the small-D kernel."""
     _gqa_groups(q, k)
     if _on_device(q, impl) == "plain":
         return _fa_forward_plain(q, k, v, key_mask, scale=scale,
@@ -293,6 +364,7 @@ def _fa_forward(q, k, v, key_mask, *, scale, causal, window=None,
 
 
 _fa_forward.launches = 0
+_fa_forward.small_launches = 0
 
 
 def _bwd_args(q, k, v, key_mask, lse, delta, g):
@@ -350,8 +422,36 @@ def _fa_bwd_dkv(q, k, v, key_mask, lse, delta, g, *, scale, causal,
     return dk, dv
 
 
+def _fa_bwd_small(q, k, v, key_mask, lse, delta, g, *, scale, causal,
+                  window=None):
+    """K3 and K4 fused for bf16 at D = 16 or 32: (dq, dk, dv) in one
+    launch. Up to L = 128 (one key tile) dq has one writer and the kernel
+    stores it; past that the key tiles' blocks add theirs into an f32
+    buffer (atomic adds in no fixed order: dq is not bit-reproducible
+    there) that is cast to q's dtype. CUDA tensors only; ``launches``
+    counts kernel launches."""
+    B, L, H, D = q.shape
+    lib, (q, k, v, g, lse, delta), km = _bwd_args(q, k, v, key_mask, lse,
+                                                  delta, g)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    direct = L <= _SMALL_KEY_TILE
+    dq = torch.empty_like(q) if direct else None
+    dq_acc = None if direct else torch.zeros(q.shape, dtype=torch.float32,
+                                             device=q.device)
+    err = lib.dk_flash_attention_bwd_small(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), _ptr(km), _ptr(dq), _ptr(dq_acc),
+        dk.data_ptr(), dv.data_ptr(), B, L, H, k.shape[2], D, float(scale),
+        int(bool(causal)), 0 if window is None else int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd_small")
+    _build.count_launch(_fa_bwd_small)
+    return (dq if direct else dq_acc.to(q.dtype)), dk, dv
+
+
 _fa_bwd_dq.launches = 0
 _fa_bwd_dkv.launches = 0
+_fa_bwd_small.launches = 0
 
 
 def _delta(out, g):
@@ -363,23 +463,28 @@ def _delta(out, g):
 
 def _fa_backward(q, k, v, key_mask, out, lse, g, *, scale, causal,
                  window=None, impl="kernel"):
-    """(dq, dk, dv) from the forward's saved ``out`` and ``lse``: K3 and K4
-    on CUDA tensors (or raise), the plain version on CPU tensors or with
+    """(dq, dk, dv) from the forward's saved ``out`` and ``lse``: on CUDA
+    tensors the fused small-D kernel or K3 and K4, as :func:`flash_route`
+    says (or raise), the plain version on CPU tensors or with
     ``impl="plain"``."""
     _gqa_groups(q, k)
     delta = _delta(out, g)
     kw = dict(scale=scale, causal=causal, window=window)
     if _on_device(q, impl) == "plain":
         return _fa_bwd_plain(q, k, v, key_mask, lse, delta, g, **kw)
-    g = g.to(q.dtype)
+    g = g.to(q.dtype).contiguous()
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if flash_route(q.dtype, q.shape[-1], _aligned(q, k, v, g)) == "small":
+        return _fa_bwd_small(q, k, v, key_mask, lse, delta, g, **kw)
     dq = _fa_bwd_dq(q, k, v, key_mask, lse, delta, g, **kw)
     dk, dv = _fa_bwd_dkv(q, k, v, key_mask, lse, delta, g, **kw)
     return dq, dk, dv
 
 
 class _FlashBackward(torch.autograd.Function):
-    """K3 + K4 as a Function, so ``torch.func`` can batch them (its own
-    backward, a second derivative, is not provided)."""
+    """The backward kernels (K3 + K4, or the fused small-D kernel) as a
+    Function, so ``torch.func`` can batch them (its own backward, a second
+    derivative, is not provided)."""
 
     @staticmethod
     def forward(q, k, v, key_mask, out, lse, g, scale, causal, window, impl):
@@ -407,9 +512,9 @@ class _FlashBackward(torch.autograd.Function):
 
 
 class _Flash(torch.autograd.Function):
-    """K2 as a Function whose backward launches K3 and K4 — the counterpart
-    of the JAX package's ``_flash_core`` custom VJP. Saves q, k, v, the key
-    mask, O and lse; the mask gets no gradient."""
+    """K2 as a Function whose backward launches the backward kernels — the
+    counterpart of the JAX package's ``_flash_core`` custom VJP. Saves q,
+    k, v, the key mask, O and lse; the mask gets no gradient."""
 
     @staticmethod
     def forward(q, k, v, key_mask, scale, causal, window, impl):

@@ -10,8 +10,9 @@ compiler's and the disassembler's reports are read.
   of a ``cuobjdump -sass`` listing, predicated ones included (the check
   that a kernel issues ``HGMMA`` and ``UTMALDG``).
 - ``chip_smoke.check_sass`` holds every kernel redesigned on wgmma (K3's
-  dq kernel and every instantiation of K1's prefill among them) and the
-  scans to those reports; it is imported here without a card and fed
+  dq kernel, the small-D flash kernels at D = 16 and 32 and every
+  instantiation of K1's prefill among them) and the scans to those
+  reports; it is imported here without a card and fed
   made-up reports.
 """
 
@@ -114,6 +115,10 @@ def test_wgmma_kernels_name_the_dq_kernel():
         "quant", "qmm_prefill_wgmma_kernel")
     assert cs.NO_SPILL_KERNELS["lstm_forward"] == (
         "lstm", "lstm_fwd_cluster_kernel")
+    assert cs.SMALL_KERNELS == {
+        "flash_attention_small": ("flash_attention", "fa_fwd_small_kernel"),
+        "flash_attention_bwd_small": ("flash_attention_bwd",
+                                      "fa_bwd_small_kernel")}
 
 
 # template arguments of the made-up instantiations of each templated kernel
@@ -130,10 +135,12 @@ def _fake_build(cs, spilled=None, hgmma=4, no_hgmma_in=None):
     ``spilled`` names one that spills, ``no_hgmma_in`` one whose SASS has
     no HGMMA."""
     funcs = {}
-    for lib, fn in cs.WGMMA_KERNELS.values():
-        for d in (64, 128):
-            funcs.setdefault(lib, []).append(
-                f"_ZN12_GLOBAL__N_1{len(fn) + 7}{fn}ILi{d}EEEvv")
+    for table, dims in ((cs.WGMMA_KERNELS, (64, 128)),
+                        (cs.SMALL_KERNELS, (16, 32))):
+        for lib, fn in table.values():
+            for d in dims:
+                funcs.setdefault(lib, []).append(
+                    f"_ZN12_GLOBAL__N_1{len(fn) + 7}{fn}ILi{d}EEEvv")
     for lib, fn in [*cs.WGMMA_KERNELS_ONE.values(),
                     *cs.NO_SPILL_KERNELS.values()]:
         for args in _INSTANCES.get(fn, ("",)):
@@ -164,18 +171,26 @@ def _fake_build(cs, spilled=None, hgmma=4, no_hgmma_in=None):
                                    "lstm_dwh_wgmma_kernel", "no_hgmma",
                                    "qmm_prefill_wgmma_kernelILi256E",
                                    "no_hgmma_qmm", "lstm_fwd_cluster_kernel",
-                                   "lstm_bwd_kernel"])
+                                   "lstm_bwd_kernel",
+                                   "fa_fwd_small_kernelILi32E",
+                                   "fa_bwd_small_kernelILi16E",
+                                   "no_hgmma_small"])
 def test_check_sass_holds_each_wgmma_kernel(fault):
     """``check_sass`` passes clean reports and fails on a spill in any
     checked kernel (K3 at D=128, the dwh product, one instantiation of
-    K1's wgmma prefill, K6's cluster scan, K7's staged scan) and on a
-    wgmma kernel with no HGMMA (all of them, or K1's prefill alone)."""
+    K1's wgmma prefill, K6's cluster scan, K7's staged scan, the small-D
+    forward at D=32 and the fused small-D backward at D=16) and on a
+    wgmma kernel with no HGMMA (all of them, K1's prefill alone, or the
+    small-D forward alone)."""
     cs = _chip_smoke()
     cs.log = lambda msg: None
     if fault is None:
         out = cs.check_sass(_fake_build(cs))
         assert set(out["flash_attention_bwd_dq"]) == {"D=64", "D=128"}
         assert out["flash_attention_bwd_dq"]["D=128"]["hgmma"] == 4
+        for name in ("flash_attention_small", "flash_attention_bwd_small"):
+            assert set(out[name]) == {"D=16", "D=32"}
+            assert out[name]["D=16"]["hgmma"] == 4
         assert out["lstm_backward"]["spill_stores"] == 0
         assert set(out["q_matmul_prefill"]) == {"<256,2>", "<64,1>"}
         assert out["q_matmul_prefill"]["<256,2>"]["hgmma"] == 4
@@ -187,6 +202,8 @@ def test_check_sass_holds_each_wgmma_kernel(fault):
         fake = _fake_build(cs, hgmma=0)
     elif fault == "no_hgmma_qmm":
         fake = _fake_build(cs, no_hgmma_in="qmm_prefill_wgmma_kernel")
+    elif fault == "no_hgmma_small":
+        fake = _fake_build(cs, no_hgmma_in="fa_fwd_small_kernel")
     else:
         fake = _fake_build(cs, spilled=fault)
     with pytest.raises(AssertionError):

@@ -2,8 +2,11 @@
 flash_attention.py) held against the JAX package on the same numpy inputs:
 the plain version against the Pallas kernel in interpret mode at L = 128
 (output and log-sum-exp), and against ``attention_reference`` at ragged
-lengths, which the Pallas kernel does not take. f32 throughout; 1e-5
-absolute is f32 summation-order noise at these magnitudes.
+lengths, which the Pallas kernel does not take, each at the head dims of
+the small-D kernels (16 and 32). f32 throughout; 1e-5 absolute is f32
+summation-order noise at these magnitudes. Also pins which kernel path
+(dtype, head dim, alignment) takes, and that CPU tensors never reach a
+kernel wrapper.
 """
 
 import jax.numpy as jnp
@@ -18,11 +21,11 @@ from distkeras_tpu_torch.ops import flash_attention as tfa
 B, H, D = 2, 4, 16
 
 
-def _qkv(L, hkv, seed=0):
+def _qkv(L, hkv, seed=0, d=D):
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, L, H, D)).astype(np.float32)
-    k = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
+    q = rng.normal(size=(B, L, H, d)).astype(np.float32)
+    k = rng.normal(size=(B, L, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(B, L, hkv, d)).astype(np.float32)
     return q, k, v
 
 
@@ -47,16 +50,26 @@ CASES = [
 ]
 
 
+def with_head_dims(cases):
+    """Each case at D = 16 (under the case's own id) and at D = 32."""
+    out = []
+    for case in cases:
+        name = "-".join(str(x) for x in case)
+        out += [pytest.param(16, *case, id=name),
+                pytest.param(32, *case, id=f"{name}-D32")]
+    return out
+
+
 def _torch(*arrs):
     return [None if a is None else torch.from_numpy(a) for a in arrs]
 
 
-@pytest.mark.parametrize("hkv,causal,window,masked", CASES)
-def test_plain_vs_jax_flash_interpret(hkv, causal, window, masked):
+@pytest.mark.parametrize("d,hkv,causal,window,masked", with_head_dims(CASES))
+def test_plain_vs_jax_flash_interpret(d, hkv, causal, window, masked):
     L = 128
-    q, k, v = _qkv(L, hkv)
+    q, k, v = _qkv(L, hkv, d=d)
     km = _mask(L) if masked else None
-    scale = D ** -0.5
+    scale = d ** -0.5
     ref_o, ref_lse = jfa._fa_forward(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         None if km is None else jnp.asarray(km), scale=scale, causal=causal,
@@ -73,9 +86,9 @@ def test_plain_vs_jax_flash_interpret(hkv, causal, window, masked):
 
 
 @pytest.mark.parametrize("L", [40, 77])
-@pytest.mark.parametrize("hkv,causal,window,masked", CASES)
-def test_plain_vs_jax_reference_ragged(L, hkv, causal, window, masked):
-    q, k, v = _qkv(L, hkv, seed=L)
+@pytest.mark.parametrize("d,hkv,causal,window,masked", with_head_dims(CASES))
+def test_plain_vs_jax_reference_ragged(L, d, hkv, causal, window, masked):
+    q, k, v = _qkv(L, hkv, seed=L, d=d)
     km = _mask(L) if masked else None
     ref = jref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
                key_mask=None if km is None else jnp.asarray(km),
@@ -122,3 +135,68 @@ def test_cpu_runs_plain_version_without_launching():
     out = tfa.flash_attention(*_torch(q, k, v), causal=True)
     assert out.shape == (B, 32, H, D)
     assert tfa._fa_forward.launches == launches
+
+
+ROUTES = [
+    # (dtype, head dim, 16-byte aligned, path)
+    (torch.bfloat16, 16, True, "small"),
+    (torch.bfloat16, 32, True, "small"),
+    (torch.bfloat16, 64, True, "wgmma"),
+    (torch.bfloat16, 128, True, "wgmma"),
+    (torch.float32, 16, True, "fma"),
+    (torch.float32, 32, True, "fma"),
+    (torch.float32, 64, True, "fma"),
+    (torch.float32, 128, True, "fma"),
+    (torch.bfloat16, 24, True, "fma"),
+    (torch.bfloat16, 8, True, "fma"),
+    (torch.bfloat16, 16, False, "fma"),
+    (torch.bfloat16, 32, False, "fma"),
+    (torch.bfloat16, 64, False, "fma"),
+    (torch.bfloat16, 128, False, "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype,d,aligned,path", ROUTES)
+def test_flash_route_pins_the_kernel_paths(dtype, d, aligned, path):
+    """bf16 at D = 16 and 32 takes the small-D kernels, at 64 and 128 the
+    wgmma kernels; f32, other head dims and unaligned inputs (which TMA
+    cannot read) the FMA kernels."""
+    assert tfa.flash_route(dtype, d, aligned) == path
+
+
+def test_alignment_is_read_from_the_pointers():
+    whole = torch.zeros(64, dtype=torch.bfloat16)
+    assert tfa._aligned(whole, whole[8:])      # 16 bytes in: still aligned
+    assert not tfa._aligned(whole, whole[1:])  # 2 bytes in
+    assert tfa.flash_route(torch.bfloat16, 16,
+                           tfa._aligned(whole[1:])) == "fma"
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a kernel wrapper was reached with CPU tensors")
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_cpu_small_dims_never_reach_the_kernel_wrappers(d, monkeypatch):
+    """bf16 at the small-D kernels' head dims on CPU tensors: forward and
+    backward run the plain versions (equal to ``impl="plain"``), no
+    wrapper is called and no counter moves."""
+    counters = ((tfa._fa_forward, "launches"),
+                (tfa._fa_forward, "small_launches"),
+                (tfa._fa_bwd_small, "launches"), (tfa._fa_bwd_dq, "launches"),
+                (tfa._fa_bwd_dkv, "launches"))
+    counts = [getattr(fn, attr) for fn, attr in counters]
+    for name in ("_fa_forward_cuda", "_fa_bwd_small", "_fa_bwd_dq",
+                 "_fa_bwd_dkv"):
+        monkeypatch.setattr(tfa, name, _refuse)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(48, 2, seed=d, d=d))
+    grads = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = tfa.flash_attention(*leaves, causal=True, impl=impl)
+        o.float().sum().backward()
+        grads[impl] = [o] + [t.grad for t in leaves]
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert [getattr(fn, attr) for fn, attr in counters] == counts

@@ -3,8 +3,10 @@ flash_attention.py: the plain version of K3/K4 and the autograd Function
 around K2) held against the JAX package on the same numpy inputs.
 
 f32 throughout. The plain backward against the Pallas backward in
-interpret mode at L = 128, and the Function's gradients against
-``jax.grad`` of the Pallas ``flash_attention``: 1e-5 absolute, f32
+interpret mode at L = 128 and against the JAX math at ragged lengths, at
+D = 16 and 32 (the small-D kernels' head dims), and the Function's
+gradients against ``jax.grad`` of the Pallas ``flash_attention``: 1e-5
+absolute, f32
 summation-order noise at these magnitudes (measured ≤ 2e-6). Under
 ``torch.func.vmap`` the same arithmetic runs batched: equal to a loop over
 workers within 1e-6.
@@ -18,6 +20,7 @@ import torch
 
 import distkeras_tpu.ops.flash_attention as jfa
 from distkeras_tpu_torch.ops import flash_attention as tfa
+from tests.test_torch_flash_attention import with_head_dims
 
 B, H, D = 2, 4, 16
 ATOL = 1e-5
@@ -35,12 +38,12 @@ CASES = [
 ]
 
 
-def _inputs(L, hkv, seed=0):
+def _inputs(L, hkv, seed=0, d=D):
     rng = np.random.default_rng(seed)
-    q = rng.normal(size=(B, L, H, D)).astype(np.float32)
-    k = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, L, hkv, D)).astype(np.float32)
-    g = rng.normal(size=(B, L, H, D)).astype(np.float32)
+    q = rng.normal(size=(B, L, H, d)).astype(np.float32)
+    k = rng.normal(size=(B, L, hkv, d)).astype(np.float32)
+    v = rng.normal(size=(B, L, hkv, d)).astype(np.float32)
+    g = rng.normal(size=(B, L, H, d)).astype(np.float32)
     return q, k, v, g
 
 
@@ -60,12 +63,13 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
-@pytest.mark.parametrize("hkv,causal,window,masked", CASES)
-def test_plain_backward_vs_jax_pallas_interpret(hkv, causal, window, masked):
+@pytest.mark.parametrize("d,hkv,causal,window,masked", with_head_dims(CASES))
+def test_plain_backward_vs_jax_pallas_interpret(d, hkv, causal, window,
+                                                masked):
     L = 128
-    q, k, v, g = _inputs(L, hkv)
+    q, k, v, g = _inputs(L, hkv, d=d)
     km = _mask(L) if masked else None
-    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
     jo, jl = jfa._fa_forward(_j(q), _j(k), _j(v), _j(km), interpret=True,
                              **kw)
     ref = jfa._fa_backward(_j(q), _j(k), _j(v), _j(km), jo, jl, _j(g),
@@ -80,13 +84,15 @@ def test_plain_backward_vs_jax_pallas_interpret(hkv, causal, window, masked):
 
 
 @pytest.mark.parametrize("L", [40, 77])
-@pytest.mark.parametrize("hkv,causal,window,masked", CASES[1::2])
-def test_plain_backward_vs_jax_math_ragged(L, hkv, causal, window, masked):
+@pytest.mark.parametrize("d,hkv,causal,window,masked",
+                         with_head_dims(CASES[1::2]))
+def test_plain_backward_vs_jax_math_ragged(L, d, hkv, causal, window,
+                                           masked):
     """Lengths the Pallas kernels do not take, against the JAX package's
     ``_attention_bwd_math`` oracle."""
-    q, k, v, g = _inputs(L, hkv, seed=L)
+    q, k, v, g = _inputs(L, hkv, seed=L, d=d)
     km = _mask(L) if masked else None
-    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    kw = dict(scale=d ** -0.5, causal=causal, window=window)
     out, lse = tfa._fa_forward(_t(q), _t(k), _t(v), _t(km), **kw)
     ref = jfa._attention_bwd_math(_j(q), _j(k), _j(v), _j(km),
                                   jnp.asarray(lse.numpy()), _j(g), **kw)
