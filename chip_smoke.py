@@ -353,9 +353,19 @@ Phases, in order; any failure exits non-zero and prints no result:
     against them), ``a13_watch_serving`` (the int8 400M decoder served
     traced with a serving watchtower: the ``metrics`` reply, the serving
     report's queue/prefill/decode split over every request, tie-aware
-    streams, K1 and K2) and ``a13_watch_rollout`` (``a13_deploy_stream``
+    streams, K1 and K2; the server's flight recorder writes its timeline
+    to a temporary ``trace_dir``, whose file holds one ``serve.request``
+    span a request, as many as in memory, and gives the analyzer the same
+    served count) and ``a13_watch_rollout`` (``a13_deploy_stream``
     with the trainer's DeployLagRule and ``health`` from a serving
     watchtower whose SLO rule an injected latency fault fires);
+    ``a22_native_shm_lane`` (host code, no kernel: the native PS's shm
+    ring lane at config 5's center under DynSGD with 8 workers: 8 lane
+    clients and 8 TCP clients of two servers fold the same seeded
+    exchanges bit-equal, a TCP client pulls what a lane client pulls, the
+    int8 pull streams agree, ``set_model`` reads back bit-equal, 8 lane
+    threads exchange at once with commits = folds, no segment survives
+    ``stop()``; the median and min–max ms of one exchange over each);
 26. the example twins (``distkeras_tpu_torch/examples``) at their own
     defaults, each phase one JSON line with the card, its wall time and
     its launches (counted alone, K1's also by rows): ``examples_lm`` (the
@@ -392,6 +402,7 @@ The library calls are yardsticks only; the port never calls them.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -637,6 +648,8 @@ A13_NEW = 16              # greedy new tokens a stream
 A13_SCRAPE = 0.25
 A13_LAG_BOUND = 3 * A13_SNAPSHOT_EVERY
 A13_SLO_P99_MS = 1000.0
+A22_EXCHANGES = 6         # exchanges a worker in a22_native_shm_lane
+A22_INT8_PULLS = 3        # int8 pulls a lane in its stream comparison
 # the example twins (distkeras_tpu_torch/examples), each driven at its own
 # defaults. The LM twin: vocab 64, dim 64, 4 heads (D=16), depth 2,
 # training rows of EX_LM_L tokens under ADAG with W=2 workers of batch 64
@@ -1597,13 +1610,15 @@ def train_classifier(torch):
     return t
 
 
-def serve(torch, model, label, draft=None, tower=None):
+def serve(torch, model, label, draft=None, tower=None, trace_dir=None):
     """Phases 5/6: the served path — server, 4 concurrent clients; with
     ``draft`` the engine serves speculatively at K=SPEC_K. With ``tower``
     (an observability ``Watchtower``) the server carries it and it
     samples the engine while the clients run; its last scrape lands when
     they are done, and the server's ``metrics`` action's reply is in the
-    stats under ``metrics_reply``. Returns ``(prompts, streams, wall
+    stats under ``metrics_reply``. With ``trace_dir`` the server's flight
+    recorder writes its timeline there at stop, and its ``trace_path_`` is
+    in the stats under ``trace_path``. Returns ``(prompts, streams, wall
     seconds, the engine's stats)``."""
     from distkeras_tpu_torch.serving import (
         GenerationClient,
@@ -1617,7 +1632,8 @@ def serve(torch, model, label, draft=None, tower=None):
     spec = {} if draft is None else dict(draft=draft, spec_tokens=SPEC_K)
     engine = GenerationEngine(model, max_batch=8, block_size=BLOCK,
                               device=DEVICE, **spec)
-    server = GenerationServer(engine, poll_interval=0.01)
+    server = GenerationServer(engine, poll_interval=0.01,
+                              trace_dir=trace_dir)
     server.start()
     watching = tower is not None
     if watching:
@@ -1655,6 +1671,8 @@ def serve(torch, model, label, draft=None, tower=None):
         if watching:
             tower.stop()
         server.stop()
+    if trace_dir is not None:
+        stats["trace_path"] = server.trace_path_
     if errors or len(results) != len(prompts):
         raise AssertionError(f"{label}: clients failed: {errors}")
     for i, toks in results.items():
@@ -7167,10 +7185,17 @@ def serve_a13_watched(torch):
     the ``dk_serve_*`` metrics, the completed count and the alert ledger;
     ``analyze_events`` over the trace gives a serving report counting
     every request served; every stream tie-aware equal to a full forward,
-    as phase 9 holds it. Prints the report's queue, prefill and decode
-    split."""
+    as phase 9 holds it. The server's flight recorder (``trace_dir=``, a
+    temporary directory) writes its timeline at stop: ``trace_path_`` is
+    set and the file exists, ``load_trace`` of it counts one
+    ``serve.request`` span a request, as many as the in-memory events, and
+    ``analyze_events`` over the file's events counts the same requests
+    served. Prints the report's queue, prefill and decode split."""
     from distkeras_tpu_torch.models import quantize_lm, transformer_lm
-    from distkeras_tpu_torch.observability.analyze import analyze_events
+    from distkeras_tpu_torch.observability.analyze import (
+        analyze_events,
+        load_trace,
+    )
     from distkeras_tpu_torch.observability.watch import (
         PrefixHitRateRule,
         ServingSLORule,
@@ -7190,8 +7215,13 @@ def serve_a13_watched(torch):
     with contextlib.ExitStack() as stack:
         events = stack.enter_context(_traced())
         stack.enter_context(torch.inference_mode())
+        trace_dir = stack.enter_context(tempfile.TemporaryDirectory())
         prompts, res, wall, stats = serve(torch, qmodel, "int8 watched",
-                                          tower=tower)
+                                          tower=tower, trace_dir=trace_dir)
+        # the recorder's file, read before its directory goes
+        path = stats.pop("trace_path")
+        file_events = load_trace(path)[0] if path and os.path.exists(path) \
+            else None
     launches = read_launches()
     with torch.inference_mode():
         tie_aware_check(torch, qmodel, prompts, res, "int8 watched")
@@ -7221,8 +7251,30 @@ def serve_a13_watched(torch):
                                 "serve.prefill", "serve.decode_step",
                                 "serve.request")},
                launches=launches)
+    file_requests = None
+    if file_events is not None:
+        file_requests = (analyze_events(file_events)["serving"]
+                         or {}).get("requests")
+        per_req = collections.Counter(
+            e["corr"] for e in file_events if e["name"] == "serve.request")
+        rec["flight_recorder"] = dict(
+            file=os.path.basename(path), events=len(file_events),
+            serve_request_spans=sum(per_req.values()),
+            requests_with_one_span=sum(1 for v in per_req.values()
+                                       if v == 1),
+            analyzed_requests=file_requests)
     log(json.dumps(rec))
     fails = []
+    fr = rec.get("flight_recorder")
+    if fr is None:
+        fails.append(f"the flight recorder wrote no file: trace_path_ "
+                     f"{path!r}")
+    elif not (fr["serve_request_spans"] == len(prompts)
+              == fr["requests_with_one_span"]
+              == rec["spans"]["serve.request"]
+              and file_requests == sv.get("requests") == len(prompts)):
+        fails.append(f"the flight recorder's file: {fr}, in memory "
+                     f"{rec['spans']['serve.request']} serve.request spans")
     for k in ("q_matmul", "q_matmul_prefill", "flash_attention"):
         if launches[k] < 1:
             fails.append(f"{k} never launched")
@@ -7239,6 +7291,179 @@ def serve_a13_watched(torch):
         fails.append(f"scraper sources disabled: {rec['disabled_sources']}")
     if fails:
         raise AssertionError(f"{name}: " + "; ".join(fails))
+    return rec
+
+
+def _a22_delta(init, worker: int, step: int) -> dict:
+    """One seeded DynSGD delta of config 5's center: every leaf
+    N(0, 1e-3) in f32."""
+    rng = np.random.default_rng(1000 * worker + step)
+    return {k: (rng.standard_normal(np.shape(v), dtype=np.float32)
+                * np.float32(1e-3)) for k, v in init.items()}
+
+
+def _lane_segments() -> list:
+    from distkeras_tpu_torch import shm
+
+    prefix = f"{shm.SEGMENT_PREFIX}_native"
+    return sorted(s["name"] for s in shm.segment_inventory()["segments"]
+                  if s["name"].startswith(prefix))
+
+
+def native_shm_lane(torch):
+    """``a22_native_shm_lane``: the native PS's shm ring lane at config
+    5's center (``_config5_init()``, ~10.8 MB in f32, larger than the 8 MiB
+    ring, so every frame streams through it) under DynSGD with IMDB_W
+    workers. Host code only: no kernel runs here. Gates: (a) serial, IMDB_W
+    lane clients x A22_EXCHANGES exchanges on server A and the same seeded
+    deltas over TCP on server B from the same center leave bit-equal
+    replies and centers, A22_EXCHANGES * IMDB_W folds on each; (b) a TCP
+    client of A pulls what a lane client of A pulls; (c) the lane's int8
+    pull stream equals TCP's; (d) after ``set_model`` a lane pull returns
+    the new center bit-equal; (e) IMDB_W lane clients exchanging at once on
+    a third server: commits = folds = A22_EXCHANGES * IMDB_W; (f) after
+    ``stop()`` no ``dktshm_native*`` segment is left. Prints the median and
+    min-max ms of one exchange over the lane and over TCP (host time)."""
+    from distkeras_tpu_torch.native_ps import (
+        NativePSClient,
+        NativeSocketParameterServer,
+    )
+    from distkeras_tpu_torch.parallel.merge_rules import DynSGDMerge
+
+    name = "a22_native_shm_lane"
+    t_phase = time.perf_counter()
+    init = _config5_init()
+    W, E = IMDB_W, A22_EXCHANGES
+    before = _lane_segments()
+
+    def server():
+        ps = NativeSocketParameterServer(init, DynSGDMerge(), W)
+        ps.initialize()
+        ps.run()
+        return ps
+
+    def drive(clients, ms):
+        replies = [c.pull() for c in clients]
+        for step in range(E):
+            for w, c in enumerate(clients):
+                d = _a22_delta(init, w, step)
+                t0 = time.perf_counter()
+                replies.append(c.exchange(w, d, seq=step + 1))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return replies
+
+    def equal(a, b):
+        return a.keys() == b.keys() and all(
+            np.array_equal(a[k], b[k]) for k in a)
+
+    gates, timing = {}, {"lane": [], "tcp": []}
+    servers, clients = [], []
+    try:
+        a, b = server(), server()
+        servers += [a, b]
+        lane = [NativePSClient.connect_shm(a, w) for w in range(W)]
+        tcp = [NativePSClient("127.0.0.1", b.port, w, b.spec)
+               for w in range(W)]
+        clients += lane + tcp
+        seg_bytes = int(lane[0]._seg.size)   # the header and two rings
+        lane_replies = drive(lane, timing["lane"])
+        tcp_replies = drive(tcp, timing["tcp"])
+        gates["a_serial_bit_equal"] = (
+            all(equal(x, y) for x, y in zip(lane_replies, tcp_replies))
+            and equal(a.get_model(), b.get_model())
+            and a.num_updates == b.num_updates == W * E)
+        del lane_replies, tcp_replies
+        # (b): each probe pull is mirrored on b, which keeps the servers'
+        # pull versions (DynSGD's staleness bases) equal for (c)
+        probes = [NativePSClient("127.0.0.1", s.port, W, s.spec)
+                  for s in (a, b)]
+        clients += probes
+        gates["b_one_center_two_lanes"] = equal(probes[0].pull(),
+                                                lane[0].pull())
+        probes[1].pull()
+        tcp[0].pull()
+        qa = NativePSClient.connect_shm(a, W + 1, pull_compression="int8")
+        qb = NativePSClient("127.0.0.1", b.port, W + 1, b.spec,
+                            pull_compression="int8")
+        clients += [qa, qb]
+        same = []
+        for k in range(A22_INT8_PULLS):
+            d = _a22_delta(init, 0, E + k)
+            lane[0].commit(0, d)
+            tcp[0].commit(0, d)
+            same.append(equal(qa.pull(), qb.pull()))
+        gates["c_int8_pull_stream_equal"] = all(same)
+        fresh = {k: v + np.float32(1.0) for k, v in init.items()}
+        a.set_model(fresh)
+        gates["d_set_model_bit_equal"] = equal(lane[1].pull(), fresh)
+        lane_live = len(_lane_segments()) - len(before)
+        for c in clients:
+            c.close()
+        clients = []
+        a.stop()
+        b.stop()
+        servers = []
+        c = server()
+        servers = [c]
+        threaded = [NativePSClient.connect_shm(c, w) for w in range(W)]
+        clients = list(threaded)
+        errors = []
+
+        def work(w):
+            try:
+                threaded[w].pull()
+                for step in range(E):
+                    threaded[w].exchange(w, _a22_delta(init, w, step),
+                                         seq=step + 1)
+            except BaseException as e:  # noqa: BLE001
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=work, args=(w,))
+                   for w in range(W)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        st = c.stats()
+        center = c.get_model()
+        gates["e_threaded_commits_equal_folds"] = (
+            not errors and st["commits"] == c.num_updates == W * E
+            and all(np.isfinite(v).all() for v in center.values()))
+        threaded_counts = dict(commits=st["commits"],
+                               folds=c.num_updates, errors=errors)
+    finally:
+        for cl in clients:
+            cl.close()
+        for srv in servers:
+            srv.stop()
+    left = sorted(set(_lane_segments()) - set(before))
+    gates["f_no_segment_left"] = not left
+    shm_df = shutil.disk_usage("/dev/shm") if os.path.isdir("/dev/shm") \
+        else None
+    rec = dict(phase=name, device=SMI, host_path=True,
+               center_floats=int(sum(np.size(v) for v in init.values())),
+               center_mb=sum(np.asarray(v).nbytes
+                             for v in init.values()) / 1e6,
+               workers=W, exchanges_per_worker=E, segment_bytes=seg_bytes,
+               lane_segments_live=lane_live, threaded=threaded_counts,
+               left=left, gates=gates,
+               dev_shm_total_mb=None if shm_df is None
+               else shm_df.total / 1e6,
+               exchange_ms={k: dict(n=len(v), median_ms=float(np.median(v)),
+                                    min_ms=min(v), max_ms=max(v))
+                             for k, v in timing.items()},
+               wall_s=time.perf_counter() - t_phase)
+    log(json.dumps(rec))
+    log(f"{name}: one exchange at config 5's center (host time, "
+        f"{SMI}): lane median {rec['exchange_ms']['lane']['median_ms']:.3f}"
+        f" ms (min {rec['exchange_ms']['lane']['min_ms']:.3f}, max "
+        f"{rec['exchange_ms']['lane']['max_ms']:.3f}); TCP median "
+        f"{rec['exchange_ms']['tcp']['median_ms']:.3f} ms (min "
+        f"{rec['exchange_ms']['tcp']['min_ms']:.3f}, max "
+        f"{rec['exchange_ms']['tcp']['max_ms']:.3f})")
+    fails = [k for k, ok in gates.items() if not ok]
+    if fails:
+        raise AssertionError(f"{name}: gates failed: {fails}")
     return rec
 
 
@@ -7790,6 +8015,10 @@ def main() -> int:
     log(json.dumps({"phase": "a13_observability",
                     "wall_s": time.perf_counter() - t_obs}))
     log(f"observability paths done at {time.perf_counter() - t0:.1f}s")
+    # the native PS's shm ring lane at config 5's center (host code: no
+    # kernel runs there, so no launch is counted)
+    native_shm_lane(torch)
+    log(f"shm lane path done at {time.perf_counter() - t0:.1f}s")
     # the example twins at their own defaults: the LM (K1-K4), long
     # context (K2-K4 at L=4096), the parallelism portfolio in a world of
     # one, serving with and without speculation, train-while-serving, the

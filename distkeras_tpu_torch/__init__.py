@@ -30,19 +30,31 @@ backend (:mod:`~distkeras_tpu_torch.parameter_servers`,
 cluster launcher :mod:`~distkeras_tpu_torch.job_deployment` and the
 process-sharded checkpoint).
 
-The trainers are exported here as in the JAX package, imported on first
-use, so ``import distkeras_tpu_torch`` stays light.
+The trainers, ``FaultPlan``, ``RetryPolicy`` and ``utils`` are exported
+here as in the JAX package, imported on first use, so ``import
+distkeras_tpu_torch`` stays light.
 """
 
-_TRAINERS = ("ADAG", "AEASGD", "DOWNPOUR", "DynSGD", "EAMSGD", "MeshTrainer",
-             "SingleTrainer", "Trainer")
+__version__ = "0.1.0"
 
-__all__ = list(_TRAINERS)
+#: the lazy exports: a name and the module it is imported from
+_LAZY = {
+    **{n: "trainers" for n in ("ADAG", "AEASGD", "DOWNPOUR", "DynSGD",
+                               "EAMSGD", "MeshTrainer", "SingleTrainer",
+                               "Trainer")},
+    "FaultPlan": "resilience",
+    "RetryPolicy": "resilience",
+}
+
+__all__ = sorted(_LAZY) + ["utils", "__version__"]
 
 
 def __getattr__(name):
-    if name in _TRAINERS:
-        from distkeras_tpu_torch import trainers
+    import importlib
 
-        return getattr(trainers, name)
+    if name == "utils":
+        return importlib.import_module(f"{__name__}.utils")
+    if name in _LAZY:
+        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"),
+                       name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

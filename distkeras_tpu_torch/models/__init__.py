@@ -8,7 +8,9 @@ models — :func:`mlp` (configs 1 and 4), :func:`lenet` (config 2),
 :func:`vgg_small` (config 3) and :func:`lstm_classifier` (config 5) — and
 the model families beyond them: :func:`resnet_small` (BatchNorm state,
 optionally synchronized over the stacked workers), :func:`sru_classifier`
-and :func:`moe_transformer_classifier` (with :func:`moe_aux_loss`)."""
+and :func:`moe_transformer_classifier` (with :func:`moe_aux_loss`); the
+classifier's forwards over a mesh (:func:`pipelined_transformer_forward`,
+:func:`sequence_parallel_transformer_forward`)."""
 
 from distkeras_tpu_torch.models.cnn import LeNet, VGGSmall, lenet, vgg_small
 from distkeras_tpu_torch.models.lm import (
@@ -33,6 +35,8 @@ from distkeras_tpu_torch.models.resnet import ResNetSmall, resnet_small
 from distkeras_tpu_torch.models.sru import SRUClassifier, sru_classifier
 from distkeras_tpu_torch.models.transformer import (
     TransformerClassifier,
+    pipelined_transformer_forward,
+    sequence_parallel_transformer_forward,
     transformer_classifier,
 )
 
@@ -40,6 +44,8 @@ __all__ = ["TransformerLM", "transformer_lm", "transformer_lm_spec",
            "quantize_lm", "quantize_state_dict", "generate",
            "speculative_generate", "beam_search", "next_token_dataset",
            "TransformerClassifier", "transformer_classifier",
+           "pipelined_transformer_forward",
+           "sequence_parallel_transformer_forward",
            "MLP", "mlp", "LeNet", "lenet", "VGGSmall", "vgg_small",
            "LSTMClassifier", "lstm_classifier", "ResNetSmall",
            "resnet_small", "SRUClassifier", "sru_classifier",

@@ -74,6 +74,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_server_destroy": (None, [vp]),
         "dkps_server_num_updates": (u64, [vp]),
         "dkps_server_get_center": (None, [vp, f32p]),
+        "dkps_server_set_center": (None, [vp, f32p]),
         "dkps_server_set_pool_size": (None, [vp, i64]),
         "dkps_server_stats": (None, [vp, u64p]),
         "dkps_server_crash": (None, [vp]),
@@ -90,6 +91,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "dkps_server_get_ema": (ctypes.c_int, [vp, f32p]),
         "dkps_server_set_ema": (ctypes.c_int, [vp, f32p]),
         "dkps_client_from_fd": (vp, [ctypes.c_int, u32, u64]),
+        # the shm ring lane: Python maps the segment and both endpoints
+        # attach by its base address (dkps.cpp "Shared-memory ring lane")
+        "dkps_server_attach_shm": (ctypes.c_int, [vp, vp, u64]),
+        "dkps_client_connect_shm": (vp, [vp, u64, u32, u64]),
         "dkps_client_set_timeout_ms": (ctypes.c_int, [vp, ctypes.c_int]),
         "dkps_client_pull": (i64, [vp, f32p]),
         "dkps_client_pull_int8": (i64, [vp, f32p]),

@@ -39,6 +39,15 @@ folded by the C++ core after every commit, ``e = d·e + (1−d)·c`` in f32
 under the center mutex; ``get_ema()`` reads it (``dkps_server_get_ema``),
 a recovered WAL state restores it (``dkps_server_set_ema``), and the WAL
 replays it with the same f32 arithmetic.
+
+The shm ring lane serves a colocated client without a syscall a frame:
+``attach_shm`` mints a segment through ``shm.mint_segment`` (the header
+of the shm transport) and starts a C++ handler on it;
+``NativePSClient.connect_shm`` handshakes through the rings, and every
+client operation then runs over them unchanged, the wire's framing riding
+the rings as a byte pipe (a frame larger than a ring streams through it).
+The server unlinks its segments at ``stop()`` and ``crash()``, after the
+C++ side has joined every handler.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from typing import Any
 
 import numpy as np
 
-from distkeras_tpu_torch import networking, utils
+from distkeras_tpu_torch import networking, shm, utils
 from distkeras_tpu_torch.native import load_dkps
 from distkeras_tpu_torch.parallel.compression import (
     _MARK,
@@ -178,6 +187,7 @@ class NativeSocketParameterServer:
         self._init_vec = self.spec.flatten(center)
         # the shard-map record, mirrored from set_shard_info
         self.shard_info: dict | None = None
+        self._shm_segments: list = []
 
     def initialize(self) -> None:
         state = self._recover_wal_state()
@@ -287,13 +297,49 @@ class NativeSocketParameterServer:
         if self._handle is not None:
             self._lib.dkps_server_crash(self._handle)
         self.crashed_ = True
+        self._release_shm_segments()  # the crash joined the handlers
 
     def start(self) -> None:
         self._lib.dkps_server_start(self._handle)
 
+    def run(self) -> None:
+        """``SocketParameterServer``'s surface: the accept loop is a C++
+        thread, so this starts it and returns."""
+        self.start()
+
     def stop(self) -> None:
         if self._handle is not None:
             self._lib.dkps_server_stop(self._handle)
+        # stop joined every handler thread, so no ring is in use: the
+        # /dev/shm names can go
+        self._release_shm_segments()
+
+    # -- the shm ring lane ----------------------------------------------------
+
+    def attach_shm(self, ring_bytes: int | None = None):
+        """Mint one ring-pair segment and attach a C++ handler thread to
+        it; returns the ``SharedMemory`` segment a colocated client
+        connects through (:meth:`NativePSClient.connect_shm`). The default
+        ring holds one f32 frame and some slack, up to the shm transport's
+        ``DEFAULT_RING_BYTES``."""
+        if ring_bytes is None:
+            ring_bytes = min(shm.DEFAULT_RING_BYTES,
+                             max(1 << 16, int(self.spec.n) * 4 + 8192))
+        seg = shm.mint_segment(f"{shm.SEGMENT_PREFIX}_native", ring_bytes)
+        addr = ctypes.addressof(ctypes.c_char.from_buffer(seg.buf))
+        rc = int(self._lib.dkps_server_attach_shm(
+            self._handle, ctypes.c_void_p(addr), seg.size))
+        if rc == 0:
+            shm._unlink_segment(seg)
+            raise OSError("dkps_server_attach_shm failed (server stopped "
+                          "or channel table full)")
+        self._shm_segments.append(seg)
+        return seg
+
+    def _release_shm_segments(self) -> None:
+        segs, self._shm_segments = self._shm_segments, []
+        for seg in segs:
+            shm._unlink_segment(seg)   # a client's pin keeps its mapping
 
     def __del__(self):
         if getattr(self, "_handle", None) is not None:
@@ -328,6 +374,12 @@ class NativeSocketParameterServer:
         out = np.empty(self.spec.n, dtype=np.float32)
         self._lib.dkps_server_get_center(self._handle, _f32p(out))
         return self.spec.unflatten(out)
+
+    def set_model(self, tree: Tree) -> None:
+        """Replace the center. The C++ core restarts the EMA from the new
+        center, so a restored EMA (``dkps_server_set_ema``) comes after."""
+        vec = np.ascontiguousarray(self.spec.flatten(tree))
+        self._lib.dkps_server_set_center(self._handle, _f32p(vec))
 
     def get_ema(self) -> Tree | None:
         """The Polyak-averaged center (None unless ``ema_decay`` was
@@ -470,6 +522,40 @@ class NativePSClient:
                 f"server, and does its vector length match {spec.n}?)")
         # round trips block by default, as ParameterServerClient's do
         self.set_timeout(None)
+
+    @classmethod
+    def connect_shm(cls, server: NativeSocketParameterServer,
+                    worker_id: int, pull_compression: str | None = None,
+                    epoch: int | None = None,
+                    ring_bytes: int | None = None) -> "NativePSClient":
+        """A shm ring-lane client of a colocated native server: the server
+        attaches a fresh segment and handler, and this side handshakes
+        through the rings. The server owns the segment's name and unlinks
+        it at stop; the client keeps the mapping until :meth:`close`."""
+        seg = server.attach_shm(ring_bytes)
+        self = cls.__new__(cls)
+        self.epoch = None if epoch is None else int(epoch)
+        self.pull_compression = validate_pull_compression(pull_compression)
+        self._lib = load_dkps()
+        self.worker_id = int(worker_id)
+        self.spec = server.spec
+        self._seg = seg
+        # the pin: a live export of the mapping. The C++ endpoints hold
+        # raw pointers into it, and the server's seg.close() at stop would
+        # otherwise unmap the pages under them (a segfault, not an
+        # exception); with the export alive that close() raises
+        # BufferError, the name still unlinks, and the mapping lasts until
+        # close() drops the pin
+        self._shm_pin = ctypes.c_char.from_buffer(seg.buf)
+        self._handle = self._lib.dkps_client_connect_shm(
+            ctypes.c_void_p(ctypes.addressof(self._shm_pin)), seg.size,
+            self.worker_id, server.spec.n)
+        if not self._handle:
+            self._shm_pin = None
+            raise ConnectionError("dkps shm handshake failed (vector-length "
+                                  "mismatch or channel table full)")
+        self.set_timeout(None)
+        return self
 
     def pull(self, worker_id: int | None = None) -> Tree:
         out = np.empty(self.spec.n, dtype=np.float32)
@@ -656,6 +742,9 @@ class NativePSClient:
         if self._handle is not None:
             self._lib.dkps_client_close(self._handle)
             self._handle = None
+        # the lane's pin and mapping go after the C++ endpoint has let go
+        # of the rings
+        self._shm_pin = self._seg = None
 
     def __del__(self):
         try:

@@ -83,11 +83,14 @@ class ShardMapMismatchError(ProtocolError):
 
 class ServerBusyError(ProtocolError):
     """The serving tier's bounded admission queue is full — backpressure,
-    not failure; retryable by design."""
+    not failure; retryable by design. ``retry_after`` is the server's hint
+    in seconds, when it has one."""
 
     def __init__(self, message: str = "server busy: admission queue full",
-                 *, peer: str | None = None):
+                 *, retry_after: float | None = None,
+                 peer: str | None = None):
         super().__init__(message, peer=peer, retryable=True)
+        self.retry_after = retry_after
 
 
 def _peer_of(sock: socket.socket) -> str | None:

@@ -86,8 +86,9 @@ boundary (``REC_EPOCH``) into the WAL and the replication stream, where
 a read replica cuts its epoch snapshot; ``report_deploy_version`` (the
 ``deploy_report`` wire action) records the newest version the serving
 tier published, which ``stats()`` prices as ``deploy_lag_folds``. The
-metrics registry belongs to a later slice (``ROADMAP.md`` A13): its wire
-action answers with an error frame naming the item.
+``metrics`` wire action answers with the settled counters as typed metrics
+(``observability.metrics``: a JSON snapshot and Prometheus text), with an
+attached watchtower's alerts beside them.
 """
 
 from __future__ import annotations

@@ -162,6 +162,13 @@ class Request:
         self._event = threading.Event()
 
     @property
+    def latency_s(self) -> float | None:
+        """Seconds from submission to retirement (None until retired)."""
+        if self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
+
+    @property
     def greedy(self) -> bool:
         return self.temperature == 0.0
 

@@ -13,6 +13,14 @@ the replica into a membership directory (``directory/``) under a renewed
 lease, which ``stop`` withdraws. :class:`ResilientGenerationClient`
 reconnects and replays a request across a server's death or restart.
 
+The flight recorder: ``trace=True`` or ``trace_dir=`` arms the span
+recorder (``observability.trace``) for the server's lifetime, so every
+request leaves its lifecycle spans (``serve.enqueue``, ``serve.queued``,
+``serve.prefill``, the decode steps and ``serve.request``) stitched by
+request id; ``stop()`` writes the timeline to ``trace_dir`` and sets
+``trace_path_``. Only an enable the server made is undone at stop: a
+recorder that was already on stays on.
+
 Live deployment (``deploy/``): with a ``SnapshotStore`` of streamed model
 versions in ``server.snapshots``, the ``deploy_activate`` action stages a
 stored version onto the engine (``swap_params``: applied between decode
@@ -25,15 +33,18 @@ by name); an int8 engine's model gets it quantized by
 
 from __future__ import annotations
 
+import os
 import select
 import socket
 import threading
+import time
 from typing import Callable
 
 import numpy as np
 
 from distkeras_tpu_torch import networking
 from distkeras_tpu_torch.networking import ProtocolError, ServerBusyError
+from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.serving.scheduler import GenerationEngine
 
 _SAMPLING_KEYS = ("max_new_tokens", "temperature", "top_k", "top_p",
@@ -48,11 +59,20 @@ class GenerationServer:
     drains gracefully by default."""
 
     def __init__(self, engine: GenerationEngine, host: str = "127.0.0.1",
-                 port: int = 0, poll_interval: float = 0.05):
+                 port: int = 0, poll_interval: float = 0.05,
+                 trace: bool = False, trace_dir: str | None = None,
+                 trace_sample: float = 1.0):
         self.engine = engine
         self.host = host
         self.port = int(port)
         self.poll_interval = float(poll_interval)
+        # the flight recorder (see the module docstring); _trace_owner
+        # marks an enable this server made, the only one stop() undoes
+        self.trace = bool(trace) or trace_dir is not None
+        self.trace_dir = trace_dir
+        self.trace_sample = float(trace_sample)
+        self.trace_path_: str | None = None
+        self._trace_owner = False
         self._server_sock: socket.socket | None = None
         self._accept_thread: threading.Thread | None = None
         self._handlers: list[threading.Thread] = []
@@ -87,6 +107,9 @@ class GenerationServer:
     def start(self) -> None:
         if self._server_sock is None:
             self.initialize()
+        if self.trace and not _trace.enabled():
+            _trace.enable(sample=self.trace_sample)
+            self._trace_owner = True
         self.engine.start()
         self._accept_thread = threading.Thread(target=self._accept_loop,
                                                daemon=True)
@@ -321,6 +344,14 @@ class GenerationServer:
             t.join(timeout=2)
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=2)
+        if self.trace:
+            if self.trace_dir is not None and _trace.enabled():
+                self.trace_path_ = _trace.save(os.path.join(
+                    self.trace_dir,
+                    f"serve-trace-{os.getpid()}-{time.time_ns()}.json"))
+            if self._trace_owner:
+                _trace.disable()
+                self._trace_owner = False
 
     def _close_listener(self) -> None:
         """Release the port at once. ``close()`` alone does not wake an

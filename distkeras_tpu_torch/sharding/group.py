@@ -31,8 +31,8 @@ server (a promoted replica, not the corpse it replaced). With
 commit (a replica through ``replay_record``, so a promoted link carries
 it); a fold is leafwise, so the joined EMA is the single server's. With
 a membership directory, ``start_supervision(directory=)`` registers every
-shard primary there. The metrics registry is ``ROADMAP.md`` A13 and
-refuses naming its item.
+shard primary there. ``metrics()`` exports the roll-up and the
+per-shard series as one metrics registry.
 """
 
 from __future__ import annotations
@@ -73,7 +73,8 @@ class ShardedPSGroup:
                  wal_root: str | None = None, snapshot_every: int = 100,
                  wal_group_window: int = 8,
                  wal_group_interval: float = 0.25,
-                 chain_length: int = 1):
+                 chain_length: int = 1,
+                 vnodes: int = 64, bound: float = 1.25):
         if transport not in ("inprocess", "socket", "native", "shm"):
             raise ValueError(
                 f"transport must be 'inprocess', 'socket', 'native', or "
@@ -86,7 +87,7 @@ class ShardedPSGroup:
                 "socket servers; the in-process PS shares the trainer's fate "
                 "and the native PS has no replication stream)")
         center = utils.tree_to_numpy(center)
-        self.plan = ShardPlan(center, num_shards)
+        self.plan = ShardPlan(center, num_shards, vnodes=vnodes, bound=bound)
         self.rule = rule
         self.num_workers = int(num_workers)
         self.transport = transport
@@ -340,10 +341,16 @@ class ShardedPSGroup:
             if report is not None:
                 report(int(version))
 
-    def stats(self) -> dict:
+    def stats(self, settle: bool = True) -> dict:
+        """The shards' ``stats()`` rolled up (:func:`aggregate_ps_stats`);
+        ``settle`` passes to each Python server's settling wait (the
+        native server's counters are atomics and have none)."""
+        from distkeras_tpu_torch.native_ps import NativeSocketParameterServer
+
         per = []
         for sid, s in enumerate(self.active_servers):
-            d = dict(s.stats())
+            d = dict(s.stats() if isinstance(s, NativeSocketParameterServer)
+                     else s.stats(settle=settle))
             d["shard_id"] = sid
             d["shard_nbytes"] = self.plan.shard_nbytes[sid]
             per.append(d)
@@ -365,13 +372,14 @@ class ShardedPSGroup:
                     pull_compression: str | None = None,
                     retry_policy=None,
                     heartbeat_interval: float | None = None,
-                    resilient: bool = False) -> ShardedPSClient:
+                    resilient: bool = False,
+                    verify: bool = True) -> ShardedPSClient:
         """One worker's fan-out client: a transport client a shard
         (resolver-aware under supervision), each wrapped, when
         ``resilient``, in a ``ResilientPSClient`` with its OWN seqno
-        stream (exactly-once is a per-shard property). The shard-map
-        handshake runs before first use (every transport but the
-        in-process one, which has no wiring to get wrong)."""
+        stream (exactly-once is a per-shard property). With ``verify``
+        the shard-map handshake runs before first use (every transport
+        but the in-process one, which has no wiring to get wrong)."""
         subs = []
         for sid in range(self.plan.num_shards):
             mk = self._client_factory(sid, worker_id, pull_compression)
@@ -388,7 +396,7 @@ class ShardedPSGroup:
             else:
                 subs.append(mk())
         client = ShardedPSClient(subs, self.plan, worker_id)
-        if self.transport != "inprocess":
+        if verify and self.transport != "inprocess":
             try:
                 client.verify_shard_map()
             except BaseException:
@@ -444,6 +452,12 @@ class ShardedPSGroup:
                 srv.stop()
             except OSError:
                 pass
+
+    def initialize_and_start(self) -> None:
+        """``initialize()`` then ``start()``, as a single server is
+        brought up."""
+        self.initialize()
+        self.start()
 
 
 def aggregate_ps_stats(per_shard: list[dict]) -> dict:

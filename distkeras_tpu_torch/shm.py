@@ -176,6 +176,22 @@ def unregister_segment(name: str) -> None:
             pass   # best effort: the directory's lease is the backstop
 
 
+def _unlink_segment(seg: shared_memory.SharedMemory) -> None:
+    """Close this process's mapping of ``seg`` and remove its name: the
+    one place a segment leaves /dev/shm and the registry. A live export of
+    the mapping (a client's views, the native lane's pin) keeps the pages
+    until it goes; the name goes at once."""
+    try:
+        seg.close()
+    except BufferError:
+        pass
+    try:
+        seg.unlink()
+    except FileNotFoundError:
+        pass
+    unregister_segment(seg.name)
+
+
 def segment_inventory() -> dict:
     """The port's live segments (``dktshm*``): names and sizes from a
     /dev/shm scan where the OS has one (segments of other processes on the
@@ -682,8 +698,8 @@ class ShmParameterServer(SocketParameterServer):
     :meth:`connect_shm` creates a connection's segment and its handler
     thread; the segment is unlinked when the handler exits (client close,
     server stop or crash, or the lease eviction of an abandoned worker),
-    so /dev/shm never leaks. ``attach_standby`` is the base server's: the
-    replication stream is a TCP connection to a socket standby. A shard
+    so /dev/shm never leaks. ``attach_standby`` refuses: the transport is
+    colocated-only, and replication streams are the socket server's. A shard
     server of a sharded center (``sharding/``) answers the ``shard_map``
     handshake through the same dispatch, so each (worker, shard) ring pair
     is checked against the plan."""
@@ -721,6 +737,14 @@ class ShmParameterServer(SocketParameterServer):
 
     def run(self) -> None:
         pass
+
+    def attach_standby(self, host: str, port: int,
+                       timeout: float = 10.0) -> None:
+        raise NotImplementedError(
+            "the shm transport is colocated-only; replication streams "
+            "(standby/chain) are the socket transport's job: the trainers "
+            "refuse ps_standby and ps_chain_length > 1 unless "
+            "ps_transport='socket'")
 
     def connect_shm(self, worker_id: int) -> tuple[_ShmConn, dict]:
         """One worker↔PS connection: create the segment, start its handler
@@ -771,15 +795,7 @@ class ShmParameterServer(SocketParameterServer):
         with cond:
             cond.notify_all()
         _waker_drop(seg.name)
-        try:
-            seg.close()
-        except BufferError:
-            pass  # live views into the mapping: the pages unmap at GC
-        try:
-            seg.unlink()
-        except FileNotFoundError:
-            pass
-        unregister_segment(seg.name)
+        _unlink_segment(seg)
 
     def _release_all(self) -> None:
         with self._conns_lock:

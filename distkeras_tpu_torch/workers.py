@@ -29,9 +29,10 @@ hand plus this window's own transmitted update, and exchange N carries
 nothing off the card between launching window N+1 and finishing exchange
 N: window N's loss came to the host with its params, before N+1 launched.
 
-Every worker runs on the trainer's one device, each launching its own
-kernels (``G = 1``) on the current stream; placing workers across cards is
-``ROADMAP.md`` A12. Every host→device copy is a real copy, so a worker's
+Every worker of a process runs on that process's one device, each
+launching its own kernels (``G = 1``) on the current stream; across cards,
+``DistributedTrainer(mesh=)`` and the multi-process PS run one process a
+card. Every host→device copy is a real copy, so a worker's
 params never share memory with a PS snapshot or a staging buffer.
 
 The resilience layer (``resilience/``) hooks in here as in the reference:

@@ -803,23 +803,18 @@ def test_transport_and_pipeline_validation_matrix():
 
 
 def test_shm_attach_standby_and_eviction_work():
-    """``ShmParameterServer.attach_standby`` and ``_on_evict``, once
-    refused, work: the shm primary streams its folds to a socket standby,
-    which promotes to the primary's center bit for bit; a worker whose
-    lease lapses is evicted and its ring segment unlinked."""
-    from distkeras_tpu_torch.parameter_servers import (
-        StandbySocketParameterServer,
-    )
-
+    """``ShmParameterServer.attach_standby`` refuses a replication stream
+    as the JAX server does (``distkeras_tpu/shm.py:814-820``: the shm
+    transport is colocated-only), before it connects anywhere, and
+    ``_on_evict`` works: a worker whose lease lapses is evicted and its
+    ring segment unlinked while the other worker's stays."""
     center = {"w": np.zeros(64, np.float32), "b": np.zeros(3, np.float32)}
     ps = ShmParameterServer(center, tr.DynSGDMerge(), 2, lease_timeout=0.2)
     ps.initialize()
-    sb = StandbySocketParameterServer(center, tr.DynSGDMerge(), 2)
-    sb.initialize()
-    sb.start()
     rng = np.random.default_rng(0)
     try:
-        ps.attach_standby("127.0.0.1", sb.port)
+        with pytest.raises(NotImplementedError, match="colocated-only"):
+            ps.attach_standby("127.0.0.1", 1)
         clients = [ShmPSClient(ps, i) for i in range(2)]
         for k in range(6):
             c = clients[k % 2]
@@ -828,11 +823,7 @@ def test_shm_attach_standby_and_eviction_work():
                              "b": rng.standard_normal(3).astype(np.float32)},
                      seq=k + 1)
         clients[1].heartbeat()
-        sb.promote(epoch=1)
-        got, want = sb.get_model(), ps.get_model()
-        for k in want:
-            np.testing.assert_array_equal(got[k], want[k])
-        assert sb.num_updates == 6 and sb._last_seq == ps._last_seq
+        assert ps.num_updates == 6
         seg1 = next(r["seg"].name for r in ps._segments if r["wid"] == 1)
         deadline = time.monotonic() + TIMEOUT
         while ps.stats()["evicted_workers"] == 0:
@@ -844,7 +835,6 @@ def test_shm_attach_standby_and_eviction_work():
         for c in clients:
             c.close()
     finally:
-        sb.stop()
         ps.stop()
 
 

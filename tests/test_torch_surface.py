@@ -9,8 +9,11 @@ weights (``convert.tensors_from_jax``) within 1e-5 absolute; validation
 scores of the same W=1 unshuffled run within 1e-5 relative.
 """
 
+import ast
 import dataclasses
+import functools
 import os
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -437,3 +440,293 @@ def test_next_token_dataset_matches_the_jax_package():
         np.testing.assert_array_equal(t[col], np.asarray(j[col]))
         assert t[col].dtype == np.int32 and t[col].shape == (6, 8)
     np.testing.assert_array_equal(t["label"][:, :-1], t["features"][:, 1:])
+
+
+# -- the surface at the method, keyword and __all__ level ---------------------
+#
+# Read with ``ast`` like the module-level check above: no module is
+# imported. Each check is one case a JAX module; each has an allowlist of
+# deliberate differences with their reasons, and an entry that is no longer
+# a difference fails its case.
+
+_FLAX_SETUP = "flax's submodule hook; a torch module builds its layers in " \
+    "__init__"
+_MODULE_NOT_PARAMS = "the port takes a torch module or a state dict, not a " \
+    "params pytree (ROADMAP.md, deliberate differences)"
+_PALLAS_INTERPRET = "Pallas interpret mode; a port wrapper runs its plain " \
+    "version on a CPU tensor"
+
+#: ``{module: {Class: {method: reason}}}``: public methods of a JAX class
+#: that its port counterpart neither defines nor inherits
+_METHODS_ALLOWED = {
+    "models/lm.py": {"DecoderBlock": {"setup": _FLAX_SETUP},
+                     "TransformerLM": {"setup": _FLAX_SETUP}},
+    "models/transformer.py": {
+        "TransformerClassifier": {"setup": _FLAX_SETUP}},
+}
+
+#: ``{module: {callable: {parameter: reason}}}``: parameter names of a
+#: public JAX function or method (``Class.method``) that the port's
+#: counterpart accepts neither by name nor through ``**kw``
+_PARAMS_ALLOWED = {
+    "models/lm.py": {
+        "generate": {"params": _MODULE_NOT_PARAMS},
+        "beam_search": {"params": _MODULE_NOT_PARAMS},
+        "quantize_lm": {"params": _MODULE_NOT_PARAMS},
+        "speculative_generate": {"target_params": _MODULE_NOT_PARAMS,
+                                 "draft_params": _MODULE_NOT_PARAMS},
+        "TransformerLM.hidden": {
+            "training": "flax's train flag; a torch module's mode is "
+                        "train()/eval(), and the LM has no dropout"},
+        **{"transformer_lm": {k: "the port's transformer_lm returns the "
+                                 "served module; the training spec's knobs "
+                                 "are transformer_lm_spec's"
+                              for k in ("fused_ce", "ce_chunk", "remat")}},
+    },
+    "models/transformer.py": {"attention_sublayer": {
+        **{k: "flax builds the layers in the call from dim and dtype; the "
+              "port passes the block's layers (ln_attn, qkv, attn_out)"
+           for k in ("dim", "dtype")},
+        **{k: "the in-shard_map ring of attn_impl='ring'; the port's ring "
+              "is sequence_parallel_transformer_forward's"
+           for k in ("sp_axis", "sp_size")}}},
+    "predictors.py": {"GeneratorPredictor.__init__": {
+        "params": _MODULE_NOT_PARAMS}},
+    "serving/scheduler.py": {
+        "GenerationEngine.__init__": {"params": _MODULE_NOT_PARAMS,
+                                      "draft_params": _MODULE_NOT_PARAMS},
+        "GenerationEngine.swap_params": {
+            "params": "a state dict, named weights",
+            "draft_params": "a state dict, named draft_weights"}},
+    "serving/paged_cache.py": {"sample_rows": {
+        "keys": "jax PRNG keys; the port draws from a torch.Generator "
+                "seeded per row (seeds, positions)"}},
+    "ops/flash_attention.py": {"flash_attention": {
+        "interpret": _PALLAS_INTERPRET}},
+    "ops/pallas_kernels.py": {"fused_adam": {"interpret": _PALLAS_INTERPRET}},
+    "ops/recurrent.py": {"lstm_scan": {"interpret": _PALLAS_INTERPRET}},
+    "ops/quant.py": {"q_matmul": {
+        "interpret": _PALLAS_INTERPRET,
+        "impl": "picks the Pallas or the XLA path; the port's plan "
+                "(plan_q_matmul) picks the kernel's"}},
+    "parallel/mesh.py": {
+        "get_mesh": {"devices": "a list of jax devices; a port rank is one "
+                                "process and one card"},
+        "put_global": {"sharding": "a GSPMD sharding; the port's ranks hold "
+                                   "their own parts"}},
+    "parallel/tensor.py": {"get_mesh_nd": {
+        "devices": "a list of jax devices; a port rank is one process and "
+                   "one card"}},
+    "parallel/strategies.py": {
+        **{f"{s}_strategy": {"dp_axis": "the port's engine splits the batch "
+                                        "over dp itself (dp x sp, pp x dp)"}
+           for s in ("pipeline", "sequence")}},
+    "workers.py": {"AsyncWorker.__init__": {
+        "optimizer": "the optimizer is held by window_fn"}},
+    "native/__init__.py": {"load_dkps": {
+        "required": "the port raises and never returns None, so a missing "
+                    "build cannot pass unseen"}},
+}
+
+#: ``{subpackage: {name: reason}}``: names of a JAX package's ``__all__``
+#: that the port's package does not bind
+_EXPORTS_ALLOWED: dict = {}
+
+_ROOT = pathlib.Path(__file__).resolve().parents[1]
+_JROOT, _TROOT = _ROOT / "distkeras_tpu", _ROOT / "distkeras_tpu_torch"
+_JAX_MODULES = sorted(p.relative_to(_JROOT).as_posix()
+                      for p in _JROOT.rglob("*.py"))
+_FN = (ast.FunctionDef, ast.AsyncFunctionDef)
+
+
+@functools.lru_cache(maxsize=None)
+def _ast(root, rel):
+    return ast.parse((root / rel).read_text())
+
+
+def _top(tree, kinds):
+    return {n.name: n for n in tree.body if isinstance(n, kinds)}
+
+
+def _port_module_of(rel, name):
+    """Where the port's module ``rel`` takes ``name`` from: itself, or the
+    port module a ``from distkeras_tpu_torch... import`` names."""
+    for n in _ast(_TROOT, rel).body:
+        if isinstance(n, ast.ImportFrom) and n.module and \
+                n.module.startswith("distkeras_tpu_torch"):
+            for a in n.names:
+                if (a.asname or a.name) == name:
+                    sub = n.module.split(".")[1:]
+                    path = "/".join(sub)
+                    if (_TROOT / f"{path}.py").exists():
+                        return f"{path}.py", a.name
+                    return f"{path}/__init__.py", a.name
+    return rel, name
+
+
+def _port_class_methods(rel, name, depth=0):
+    """The methods of the port's class ``name`` in ``rel`` by name, its
+    bases' (resolved through the port's own modules) beneath its own."""
+    rel, name = _port_module_of(rel, name)
+    cls = _top(_ast(_TROOT, rel), ast.ClassDef).get(name)
+    if cls is None or depth > 8:
+        return {}
+    out = {}
+    for base in cls.bases:
+        if isinstance(base, ast.Name):
+            out.update(_port_class_methods(rel, base.id, depth + 1))
+    out.update({n.name: n for n in cls.body if isinstance(n, _FN)})
+    for n in cls.body:   # `name = other_method` aliases
+        if isinstance(n, ast.Assign):
+            for t in n.targets:
+                if isinstance(t, ast.Name) and isinstance(n.value, ast.Name) \
+                        and n.value.id in out:
+                    out[t.id] = out[n.value.id]
+    return out
+
+
+def _jax_public_methods(cls):
+    return {n.name: n for n in cls.body if isinstance(n, _FN)
+            and (not n.name.startswith("_") or n.name == "__init__")}
+
+
+def _accepts(fn):
+    """The parameter names ``fn`` takes by name (``self``/``cls`` aside),
+    and whether it takes ``**kw``."""
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    if names and names[0] in ("self", "cls"):
+        names = names[1:]
+    return names, a.kwarg is not None
+
+
+def _jax_public_classes(rel):
+    port = _top(_ast(_TROOT, rel), ast.ClassDef)
+    return {n: c for n, c in _top(_ast(_JROOT, rel), ast.ClassDef).items()
+            if not n.startswith("_") and n in port}
+
+
+@pytest.mark.parametrize("rel", _JAX_MODULES)
+def test_every_jax_method_has_a_port_counterpart(rel):
+    """Every public method (``__init__`` included) of every public JAX
+    class in ``rel`` is defined on, or inherited by, the port's class of
+    the same name in the port's module of the same path, apart from
+    ``_METHODS_ALLOWED``, whose entries must still be missing."""
+    missing = {}
+    for name, cls in _jax_public_classes(rel).items():
+        port = _port_class_methods(rel, name)
+        gone = {m for m in _jax_public_methods(cls) if m not in port}
+        if gone:
+            missing[name] = gone
+    allowed = {c: set(ms) for c, ms in _METHODS_ALLOWED.get(rel, {}).items()}
+    assert missing == allowed
+
+
+def _jax_callables(rel):
+    """``{qualname: (jax def, port def or None)}`` for the public functions
+    of ``rel`` and the public methods of its public classes; a JAX
+    function that the port defines as a class meets that class's
+    ``__init__``."""
+    jtree, ttree = _ast(_JROOT, rel), _ast(_TROOT, rel)
+    out = {}
+    tfns, tcls = _top(ttree, _FN), _top(ttree, ast.ClassDef)
+    for name, fn in _top(jtree, _FN).items():
+        if name.startswith("_"):
+            continue
+        if name in tfns:
+            out[name] = (fn, tfns[name])
+        elif name in tcls:
+            out[name] = (fn, _port_class_methods(rel, name).get("__init__"))
+    for cname, cls in _jax_public_classes(rel).items():
+        port = _port_class_methods(rel, cname)
+        for m, fn in _jax_public_methods(cls).items():
+            if m in port:
+                out[f"{cname}.{m}"] = (fn, port[m])
+    return out
+
+
+@pytest.mark.parametrize("rel", _JAX_MODULES)
+def test_every_jax_keyword_is_accepted_by_the_port(rel):
+    """Every parameter name of every public JAX function and method in
+    ``rel`` is accepted by the port's counterpart, by name or through
+    ``**kw``, apart from ``_PARAMS_ALLOWED``, whose entries must still be
+    refused."""
+    refused = {}
+    for qual, (jfn, tfn) in _jax_callables(rel).items():
+        if tfn is None:
+            continue
+        tnames, tkw = _accepts(tfn)
+        gone = set() if tkw else set(_accepts(jfn)[0]) - set(tnames)
+        if gone:
+            refused[qual] = gone
+    allowed = {q: set(ps) for q, ps in _PARAMS_ALLOWED.get(rel, {}).items()}
+    assert refused == allowed
+
+
+def _module_all(tree):
+    for n in tree.body:
+        if isinstance(n, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in n.targets):
+            return n.value
+    return None
+
+
+def _port_exports(rel):
+    """Names the port's package ``rel`` binds at module level (imports,
+    definitions, assignments), plus those its module ``__getattr__``
+    serves: string constants in its body and in the module-level
+    assignments it reads."""
+    tree = _ast(_TROOT, rel)
+    bound, assigned = set(), {}
+    for n in tree.body:
+        if isinstance(n, (ast.Import, ast.ImportFrom)):
+            bound |= {(a.asname or a.name).split(".")[0] for a in n.names}
+        elif isinstance(n, (*_FN, ast.ClassDef)):
+            bound.add(n.name)
+        elif isinstance(n, ast.Assign):
+            for t in n.targets:
+                if isinstance(t, ast.Name):
+                    bound.add(t.id)
+                    assigned[t.id] = n.value
+    lazy = _top(tree, _FN).get("__getattr__")
+    if lazy is not None:
+        reads = {x.id for x in ast.walk(lazy) if isinstance(x, ast.Name)}
+        for node in [lazy] + [v for k, v in assigned.items() if k in reads]:
+            bound |= {c.value for c in ast.walk(node)
+                      if isinstance(c, ast.Constant)
+                      and isinstance(c.value, str)}
+    return bound
+
+
+_JAX_PACKAGES = [r for r in _JAX_MODULES if r.endswith("__init__.py")
+                 and _module_all(_ast(_JROOT, r)) is not None]
+
+
+@pytest.mark.parametrize("rel", _JAX_PACKAGES)
+def test_every_jax_export_is_importable_from_the_port(rel):
+    """Every name in the ``__all__`` of a JAX package (the top level and
+    each subpackage) is bound by the port's package of the same path, apart
+    from ``_EXPORTS_ALLOWED``, whose entries must still be unbound."""
+    names = ast.literal_eval(_module_all(_ast(_JROOT, rel)))
+    missing = set(names) - _port_exports(rel)
+    assert missing == set(_EXPORTS_ALLOWED.get(rel, {}))
+
+
+def test_every_surface_allowlist_entry_names_a_jax_definition():
+    """An allowlist key that names no JAX module, class or callable (a
+    rename, a typo) would pass unseen; every entry carries a reason."""
+    for rel, classes in _METHODS_ALLOWED.items():
+        jcls = _jax_public_classes(rel)
+        for c, ms in classes.items():
+            assert c in jcls, (rel, c)
+            assert all(isinstance(r, str) and r for r in ms.values())
+    for rel, quals in _PARAMS_ALLOWED.items():
+        calls = _jax_callables(rel)
+        for q, ps in quals.items():
+            assert q in calls, (rel, q)
+            assert set(ps) <= set(_accepts(calls[q][0])[0]), (rel, q)
+            assert all(isinstance(r, str) and r for r in ps.values())
+    for rel, names in _EXPORTS_ALLOWED.items():
+        assert rel in _JAX_PACKAGES, rel
+        assert all(isinstance(r, str) and r for r in names.values())
