@@ -29,6 +29,11 @@ module with weights in the model dtype (serving never trains);
 master params and casts them to the model dtype per call, as flax's
 ``nn.Dense(dtype=...)`` and ``nn.Embed`` do. Load a JAX param tree with
 :func:`distkeras_tpu_torch.convert.params_from_jax`.
+
+With ``observability.trace`` on, the full forward records ``lm.embed``
+(the embedding), ``lm.attn`` and ``lm.mlp`` (each block's attention and
+MLP halves, residual adds included) and ``lm.head`` (the final
+LayerNorm, and the head's projection where the logits are made here).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from torch import nn
 from distkeras_tpu_torch.model import ModelSpec, from_module, per_thread
 from distkeras_tpu_torch.models.layers import remat_block
 from distkeras_tpu_torch.models.transformer import sincos_positions
+from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.ops.flash_attention import (
     attention,
     attention_reference,
@@ -160,26 +166,30 @@ class DecoderBlock(nn.Module):
         return q, k, v
 
     def _mlp(self, x):
-        h = self.ln_mlp(x)
-        h = self.mlp_up(h.to(self.dtype))
-        h = F.gelu(h, approximate="tanh")
-        h = self.mlp_down(h)
-        return x + h.to(torch.float32)
+        with _trace.span("lm.mlp"):
+            h = self.ln_mlp(x)
+            h = self.mlp_up(h.to(self.dtype))
+            h = F.gelu(h, approximate="tanh")
+            h = self.mlp_down(h)
+            return x + h.to(torch.float32)
 
     def _attn_full(self, x, mask, rope):
-        B, L, _ = x.shape
-        q, k, v = self._project_qkv(x)
-        if self.rope:
-            q, k = _rotate(q, *rope), _rotate(k, *rope)  # k rotated BEFORE caching
-        if self.attn_impl == "reference":
-            att = attention_reference(q, k, v, causal=True, key_mask=mask,
-                                      window=self.attn_window)
-        else:
-            att = attention(q, k, v, causal=True, key_mask=mask,
-                            impl=self.attn_impl, window=self.attn_window)
-        att = att.reshape(B, L, -1)
-        x = x + self.attn_out(att.to(self.dtype)).to(torch.float32)
-        return x, k, v
+        with _trace.span("lm.attn"):
+            B, L, _ = x.shape
+            q, k, v = self._project_qkv(x)
+            if self.rope:
+                # k rotated BEFORE caching
+                q, k = _rotate(q, *rope), _rotate(k, *rope)
+            if self.attn_impl == "reference":
+                att = attention_reference(q, k, v, causal=True,
+                                          key_mask=mask,
+                                          window=self.attn_window)
+            else:
+                att = attention(q, k, v, causal=True, key_mask=mask,
+                                impl=self.attn_impl, window=self.attn_window)
+            att = att.reshape(B, L, -1)
+            x = x + self.attn_out(att.to(self.dtype)).to(torch.float32)
+            return x, k, v
 
     def forward(self, x, mask=None, rope=None):
         x, _, _ = self._attn_full(x, mask, rope)
@@ -386,10 +396,11 @@ class TransformerLM(nn.Module):
 
     def _embed_at(self, tokens, pos0: int = 0):
         """Embed ``tokens`` occupying positions ``pos0 .. pos0+L``."""
-        x = self._tokens(tokens)
-        if self.pos_embedding == "rope":
-            return x
-        return x + self.pos_table[pos0:pos0 + tokens.shape[1]][None]
+        with _trace.span("lm.embed"):
+            x = self._tokens(tokens)
+            if self.pos_embedding == "rope":
+                return x
+            return x + self.pos_table[pos0:pos0 + tokens.shape[1]][None]
 
     def _embed_rows(self, tokens, positions):
         """Embed ``tokens`` [B, T] where row ``b`` occupies positions
@@ -418,14 +429,18 @@ class TransformerLM(nn.Module):
         return self.lm_head(h16).to(torch.float32)
 
     def _logits(self, x):
-        return self._head(self.ln_head(x))
+        with _trace.span("lm.head"):
+            return self._head(self.ln_head(x))
 
     def forward(self, tokens, mask=None, return_hidden: bool = False):
         """Logits ``[B, L, vocab]``, or with ``return_hidden`` the hidden
         states :meth:`hidden` gives (the fused loss's input, reachable
         through ``torch.func.functional_call``)."""
         h = self.hidden(tokens, mask)
-        return h if return_hidden else self._head(h)
+        if return_hidden:
+            return h
+        with _trace.span("lm.head"):
+            return self._head(h)
 
     def hidden(self, tokens, mask=None):
         """Final post-``ln_head`` hidden states ``[B, L, dim]`` (f32)."""
@@ -434,7 +449,8 @@ class TransformerLM(nn.Module):
         for blk in self.blocks:
             x = (remat_block(blk, x, mask, rope) if self.remat
                  else blk(x, mask, rope))
-        return self.ln_head(x)
+        with _trace.span("lm.head"):
+            return self.ln_head(x)
 
     def _rope_at(self, pos0: int, T: int):
         if self.pos_embedding != "rope":

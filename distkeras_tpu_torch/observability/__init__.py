@@ -37,12 +37,19 @@ numpy; the same metric names, wire replies, dump documents and reports):
   --watch`` a live server's alert transitions, or ``analyze`` a saved
   trace into the bottleneck report.
 
-Trainer knobs (``backend="ps"``): ``trace=True`` (enable), ``trace_dir=``
-(write the timeline file, path in ``trainer.trace_path_``),
-``trace_sample=`` (deterministic span sampling), ``analyze=True``;
+Trainer knobs: ``trace=True`` (enable), ``trace_dir=`` (write the
+timeline file, path in ``trainer.trace_path_``) and ``trace_sample=``
+(deterministic span sampling) on either backend; on the collective one
+they record the engine's window (``engine.window``, ``engine.grads``,
+``engine.forward``, ``engine.update``, ``engine.merge``) and the model's
+parts (``lm.*``, ``flash.*``, ``fused_ce.*``). ``analyze=True`` and
 ``watch=True`` / ``watch_rules=`` / ``watch_dir=`` / ``scrape_interval=``
-/ ``watch_hook=`` run the watchtower over a training run (alerts in
-``trainer.watch_alerts_``, the dump path in ``trainer.watch_path_``).
+/ ``watch_hook=`` (the watchtower over a training run: alerts in
+``trainer.watch_alerts_``, the dump path in ``trainer.watch_path_``)
+need ``backend="ps"``. Spans are stamped on ``perf_counter_ns``;
+``trace.unix_minus_monotonic_ns()`` (also in a saved file's
+``otherData``) maps them onto the Unix time of ``torch.profiler``'s
+traces, so a timeline lines up with a ``profile_dir`` trace.
 """
 
 from distkeras_tpu_torch.observability import analyze, timeseries, trace, watch

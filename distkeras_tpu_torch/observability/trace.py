@@ -33,6 +33,14 @@ Design constraints, in order:
    request frame, and the PS handler adopts the frame's corr — so the
    worker-side exchange span and the PS-side fold/WAL-append spans share
    one id across threads, processes, and (via the seqno) the C++ wire.
+4. **One clock with the device trace.** ``torch.profiler``'s Chrome
+   traces stamp events on Unix time (``ts`` µs + ``baseTimeNanoseconds``).
+   ``enable()`` reads ``time.time_ns()`` against ``perf_counter_ns()``
+   back to back and keeps the difference,
+   :func:`unix_minus_monotonic_ns`; a span's ``t0_ns`` plus it is Unix
+   time, and :func:`clock_drift_ns` reads the difference again, so that
+   drift between the two clocks shows. ``save()`` writes both into
+   ``otherData``, so a timeline file lines up with a profiler trace.
 
 Sampling: ``enable(sample=0.1)`` keeps a deterministic ~10% of spans
 (counter-based, per thread — no RNG on the hot path). ``corr``
@@ -52,6 +60,7 @@ __all__ = [
     "enable", "disable", "enabled", "span", "record", "instant",
     "counter", "set_corr", "current_corr", "add_events", "events",
     "save", "rotate_files", "dropped_spans", "live_dropped",
+    "unix_minus_monotonic_ns", "clock_drift_ns",
 ]
 
 #: category marking a ring entry as a sampled counter value rather than
@@ -79,7 +88,11 @@ class _NoopSpan:
     def __enter__(self):
         return self
 
-    def __exit__(self, exc_type, exc, tb):
+    # a staticmethod: ``with`` holds the looked-up ``__exit__`` for the
+    # whole block, and a plain method would be a bound-method object
+    # allocated at every call site
+    @staticmethod
+    def __exit__(exc_type, exc, tb):
         return False
 
 
@@ -146,6 +159,7 @@ class Tracer:
         # foreign events merged in by scrapers (the native dkps ring, a
         # peer process's snapshot): already-shaped dicts, see add_events
         self._foreign: list[dict] = []
+        self.unix_offset_ns = _unix_minus_monotonic()
 
     def _state(self) -> _ThreadState:
         st = getattr(self._tls, "st", None)
@@ -215,6 +229,32 @@ class Tracer:
         with self._reg_lock:
             states = list(self._states)
         return sum(max(0, st.idx - self.ring_size) for st in states)
+
+
+def _unix_minus_monotonic() -> int:
+    """``time.time_ns()`` less ``perf_counter_ns()``, the monotonic read
+    taken as the mean of the two around the wall-clock one."""
+    a = time.perf_counter_ns()
+    u = time.time_ns()
+    b = time.perf_counter_ns()
+    return u - (a + b) // 2
+
+
+def unix_minus_monotonic_ns() -> int | None:
+    """What to add to a span's ``t0_ns`` for Unix time in ns, the clock
+    of ``torch.profiler``'s traces: read at ``enable()``. None when
+    off."""
+    tr = _tracer
+    return None if tr is None else tr.unix_offset_ns
+
+
+def clock_drift_ns() -> int | None:
+    """How far the Unix-minus-monotonic difference has moved since
+    ``enable()``, read now (NTP slews the wall clock). None when off."""
+    tr = _tracer
+    if tr is None:
+        return None
+    return _unix_minus_monotonic() - tr.unix_offset_ns
 
 
 def enabled() -> bool:
@@ -404,9 +444,11 @@ def save(path: str, max_bytes: int | None = None, keep: int = 3) -> str:
     ending in ``.gz`` is gzip-compressed (the long-run growth fix;
     ``dump``/``analyze`` read both formats transparently), and
     ``max_bytes`` rotates an existing file first (see
-    :func:`rotate_files`). ``otherData`` carries the dropped-span count
-    and this host's core count — the analyzer's host-honest
-    denominator. Parent directories are created. Returns ``path``.
+    :func:`rotate_files`). ``otherData`` carries the dropped-span count,
+    this host's core count — the analyzer's host-honest denominator —
+    and the clocks' difference at ``enable()``
+    (``unix_minus_monotonic_ns``) with its drift since, read at the save
+    (``clock_drift_ns``). Parent directories are created. Returns ``path``.
     Raises RuntimeError when tracing is off (nothing to save — a silent
     empty file would read as "traced, nothing happened")."""
     tr = _tracer
@@ -451,6 +493,8 @@ def save(path: str, max_bytes: int | None = None, keep: int = 3) -> str:
         "otherData": {
             "dropped_events": tr.dropped(),
             "host_cores": os.cpu_count() or 1,
+            "unix_minus_monotonic_ns": tr.unix_offset_ns,
+            "clock_drift_ns": clock_drift_ns(),
         },
     }
     opener = gzip.open if path.endswith(".gz") else open

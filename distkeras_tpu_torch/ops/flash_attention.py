@@ -29,7 +29,9 @@ does not build or launch raises.
 ``torch.func.vmap(grad)`` over W stacked workers launches each kernel once
 for all workers (inside ``vmap`` the tensors are batched wrappers with no
 ``data_ptr``: the rule, not the body, meets the kernel). On CPU tensors the
-same Function runs the kernels' plain versions.
+same Function runs the kernels' plain versions. With
+``observability.trace`` on, the forward records ``flash.forward`` and the
+backward ``flash.backward``, whichever route they take.
 
 Layouts follow the JAX package: q ``[B, L, H, D]``, k/v ``[B, L, Hkv, D]``,
 lse and delta ``[B·H, L]``.
@@ -41,6 +43,7 @@ import ctypes
 
 import torch
 
+from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.ops import _build
 from distkeras_tpu_torch.utils import fold_vmapped as _fold
 from distkeras_tpu_torch.utils import unfold_vmapped as _unfold
@@ -488,8 +491,9 @@ class _FlashBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, key_mask, out, lse, g, scale, causal, window, impl):
-        return _fa_backward(q, k, v, key_mask, out, lse, g, scale=scale,
-                            causal=causal, window=window, impl=impl)
+        with _trace.span("flash.backward"):
+            return _fa_backward(q, k, v, key_mask, out, lse, g, scale=scale,
+                                causal=causal, window=window, impl=impl)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -518,8 +522,9 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, key_mask, scale, causal, window, impl):
-        return _fa_forward(q, k, v, key_mask, scale=scale, causal=causal,
-                           window=window, impl=impl)
+        with _trace.span("flash.forward"):
+            return _fa_forward(q, k, v, key_mask, scale=scale, causal=causal,
+                               window=window, impl=impl)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

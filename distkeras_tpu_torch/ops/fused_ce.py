@@ -25,12 +25,17 @@ training engine's ``torch.func.vmap(grad)`` over stacked workers runs one
 batched product per chunk for all workers in both passes (the f32-output
 product has no batching rule of its own, and would fall back to a loop
 over workers).
+
+With ``observability.trace`` on, the forward records ``fused_ce.forward``
+and the backward ``fused_ce.backward`` (on the thread autograd runs it
+on), around the chunks' products and their f32 work.
 """
 
 from __future__ import annotations
 
 import torch
 
+from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.utils import fold_vmapped as _fold
 from distkeras_tpu_torch.utils import unfold_vmapped as _unfold
 
@@ -134,13 +139,15 @@ class _FusedCE(torch.autograd.Function):
 
     @staticmethod
     def forward(hidden, kernel, bias, labels, mask, chunk):
-        total = hidden.new_zeros((hidden.shape[0],), dtype=torch.float32)
-        for i in range(0, hidden.shape[1], chunk):
-            logits = _chunk_logits(hidden[:, i:i + chunk], kernel, bias)
-            total = total + torch.sum(_nll(logits, labels[:, i:i + chunk])
-                                      * mask[:, i:i + chunk], dim=1)
-        msum = torch.sum(mask, dim=1)
-        return total / torch.clamp(msum, min=1.0), total, msum
+        with _trace.span("fused_ce.forward"):
+            total = hidden.new_zeros((hidden.shape[0],), dtype=torch.float32)
+            for i in range(0, hidden.shape[1], chunk):
+                logits = _chunk_logits(hidden[:, i:i + chunk], kernel, bias)
+                total = total + torch.sum(
+                    _nll(logits, labels[:, i:i + chunk])
+                    * mask[:, i:i + chunk], dim=1)
+            msum = torch.sum(mask, dim=1)
+            return total / torch.clamp(msum, min=1.0), total, msum
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -153,9 +160,10 @@ class _FusedCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g, _dtotal, _dmsum):
         hidden, kernel, bias, labels, mask, total, msum = ctx.saved_tensors
-        dh, dk, db, dmask = _FusedCEGrad.apply(hidden, kernel, bias, labels,
-                                               mask, total, msum, g,
-                                               ctx.chunk)
+        with _trace.span("fused_ce.backward"):
+            dh, dk, db, dmask = _FusedCEGrad.apply(
+                hidden, kernel, bias, labels, mask, total, msum, g,
+                ctx.chunk)
         return (dh, dk, None if bias is None else db, None, dmask, None)
 
     @staticmethod

@@ -20,6 +20,13 @@ The host feeds superbatches ``[W, window, B, …]`` (``Dataset.superbatches``
 through ``data.prefetch_to_device``), or uploads each worker's row shard
 once and walks the epoch on the device (:meth:`run_epoch_resident`).
 Losses stay on the device until the trainer reads them at the end.
+
+With ``observability.trace`` on, a window records ``engine.window`` and,
+inside it, ``engine.grads`` around each local step's vmapped forward and
+backward, ``engine.forward`` inside the differentiated function (so
+``engine.grads`` less it is the backward), ``engine.update`` around the
+optimizer and the parameter add, and ``engine.merge`` around the rule's
+fold; off, each is the tracer's shared no-op.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch.distributed as dist
 
 from distkeras_tpu_torch.data import place_on
 from distkeras_tpu_torch.model import ModelSpec
+from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.optim import GradientTransformation
 from distkeras_tpu_torch.parallel.merge_rules import MergeRule, WorkerAxis
 from distkeras_tpu_torch.utils import (
@@ -163,10 +171,15 @@ class LocalSGDEngine:
         self.window = int(window)
         self.batch_size = int(batch_size) if batch_size else None
         self._place = place_on(self.device)
+
+        def forward(params, nt, batch):
+            with _trace.span("engine.forward"):
+                return loss_step(params, nt, batch)
+
         # randomness="different": a model that draws inside its step (a
         # Keras Dropout) draws each worker's own numbers
         self._worker_grads = torch.func.vmap(
-            torch.func.grad_and_value(loss_step, has_aux=True),
+            torch.func.grad_and_value(forward, has_aux=True),
             randomness="different")
 
     # -- init ----------------------------------------------------------------
@@ -216,28 +229,48 @@ class LocalSGDEngine:
 
     # -- the window ------------------------------------------------------------
 
+    def _window_span(self, state: TrainState, batch: tuple):
+        """The window's ``engine.window`` span. While tracing is on, the
+        window's step becomes this thread's corr, so that every span the
+        window closes here carries it, and the args say what the window
+        trains: ``rows`` (W·window·B) and ``tokens`` (the first column's
+        elements where it holds integer ids, else the rows)."""
+        if not _trace.enabled():
+            return _trace.span("engine.window")
+        _trace.set_corr(f"x{state.step}")
+        first = batch[0]
+        rows = first.shape[0] * first.shape[1] * first.shape[2]
+        tokens = first.numel() if not first.is_floating_point() else rows
+        return _trace.span("engine.window",
+                           args={"rows": int(rows), "tokens": int(tokens)})
+
     def _window_fn(self, state: TrainState, batch: tuple):
         """``window`` vmapped local steps + one merge → (state, mean loss)."""
         workers, nt, opt = state.workers, state.nt, state.opt_state
         losses = []
         group = None if self.axis is None else self.axis.group
-        with _over_ranks(group):
-            for k in range(self.window):
-                step_batch = tuple(a[:, k] for a in batch)
-                grads, (loss, nt) = self._worker_grads(workers, nt,
-                                                       step_batch)
-                updates, opt = self.optimizer.update(grads, opt, workers)
-                workers = tree_map(lambda p, u: p + u.to(p.dtype), workers,
-                                   updates)
-                losses.append(loss)
-        center, workers = self.rule.merge(state.center, workers,
-                                          axis=self.axis)
-        loss = torch.stack(losses).mean(dim=0).mean()
-        if self.axis is not None:
-            # the global mean: this rank's, weighted by its share of W
-            loss = loss * (self.local_workers / self.num_workers)
-            loss = loss.contiguous()
-            dist.all_reduce(loss, group=group)
+        with self._window_span(state, batch):
+            with _over_ranks(group):
+                for k in range(self.window):
+                    step_batch = tuple(a[:, k] for a in batch)
+                    with _trace.span("engine.grads"):
+                        grads, (loss, nt) = self._worker_grads(
+                            workers, nt, step_batch)
+                    with _trace.span("engine.update"):
+                        updates, opt = self.optimizer.update(grads, opt,
+                                                             workers)
+                        workers = tree_map(lambda p, u: p + u.to(p.dtype),
+                                           workers, updates)
+                    losses.append(loss)
+            with _trace.span("engine.merge"):
+                center, workers = self.rule.merge(state.center, workers,
+                                                  axis=self.axis)
+            loss = torch.stack(losses).mean(dim=0).mean()
+            if self.axis is not None:
+                # the global mean: this rank's, weighted by its share of W
+                loss = loss * (self.local_workers / self.num_workers)
+                loss = loss.contiguous()
+                dist.all_reduce(loss, group=group)
         return TrainState(center=center, workers=workers, nt=nt,
                           opt_state=opt, step=state.step + 1), loss
 

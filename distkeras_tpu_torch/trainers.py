@@ -52,7 +52,13 @@ the PS. The PS backend's observability knobs are the reference's too:
 spans, ``analyze=True`` runs the post-run analyzer into ``analysis_``, and
 ``watch`` / ``watch_rules`` / ``watch_dir`` / ``watch_hook`` /
 ``scrape_interval`` run the watchtower over the run (``watch_alerts_``,
-``watch_path_``, ``watchtower_``).
+``watch_path_``, ``watchtower_``). ``trace`` / ``trace_dir`` /
+``trace_sample`` are taken on the collective backend too, where the JAX
+package refuses them: they record the engine's and the model's spans
+(``engine.*``, ``lm.*``, ``flash.*``, ``fused_ce.*``) and ``trace_dir``
+writes the timeline (``trace_path_``), on the clock of a ``profile_dir``
+trace; ``analyze`` and ``watch`` read the PS and stay ``backend="ps"``
+only.
 
 :class:`MeshTrainer` trains ONE model over a mesh of ranks (one process
 a device, ``torch.distributed``): data × Megatron tensor parallelism,
@@ -83,6 +89,7 @@ from distkeras_tpu_torch.model import (
     from_keras,
     keras_weights_to_model,
 )
+from distkeras_tpu_torch.observability import trace as _trace
 from distkeras_tpu_torch.ops.losses import get_loss
 from distkeras_tpu_torch.parallel.local_sgd import LocalSGDEngine
 from distkeras_tpu_torch.parallel.compression import (
@@ -582,19 +589,19 @@ class DistributedTrainer(Trainer):
                 raise ValueError("pull_compression applies to backend='ps' "
                                  "only (collective merges cross no wire)")
         self.pull_compression = pull_compression
-        # the flight recorder (PS backend): trace=True records spans,
+        # the flight recorder (either backend): trace=True records spans,
         # trace_dir= also writes the Chrome trace JSON (trace_path_),
         # trace_sample keeps a deterministic fraction of them. analyze=True
-        # runs the post-hoc analyzer over them after the run (analysis_)
-        # and implies trace
+        # (PS backend) runs the post-hoc analyzer over them after the run
+        # (analysis_) and implies trace
         self.analyze = bool(analyze)
         self.trace = bool(trace) or trace_dir is not None or self.analyze
         self.trace_dir = trace_dir
         self.trace_sample = float(trace_sample)
-        if self.trace and backend != "ps":
+        if self.analyze and backend != "ps":
             raise ValueError(
-                "trace/trace_dir/analyze apply to backend='ps' only "
-                "(use profile_dir for the collective backend's timeline)")
+                "analyze applies to backend='ps' only (the analyzer reads "
+                "the PS exchange's spans)")
         if not 0.0 < self.trace_sample <= 1.0:
             raise ValueError(
                 f"trace_sample must be in (0, 1], got {trace_sample}")
@@ -1040,13 +1047,36 @@ class DistributedTrainer(Trainer):
                         # of the hogwild workers against it
                         return self._train_ps_multiprocess(ds, shuffle)
                     return self._train_ps(ds, shuffle)
-                return self._train_collective(ds, shuffle)
+                with self._collective_trace():
+                    return self._train_collective(ds, shuffle)
         finally:
             if paths:
                 self.profile_path_ = paths[-1]
             # an aborted run neither drops an in-flight save nor hides its
             # failure
             self._finish_checkpoints()
+
+    @contextlib.contextmanager
+    def _collective_trace(self):
+        """The flight recorder around a collective run: enabled for it
+        unless a caller already has it on (that caller keeps it), the
+        timeline written into ``trace_dir`` once the run returns."""
+        self.trace_path_ = None
+        if not self.trace:
+            yield
+            return
+        owner = not _trace.enabled()
+        if owner:
+            _trace.enable(sample=self.trace_sample)
+        try:
+            yield
+            if self.trace_dir is not None:
+                self.trace_path_ = _trace.save(os.path.join(
+                    str(self.trace_dir),
+                    f"collective-trace-{os.getpid()}-{time.time_ns()}.json"))
+        finally:
+            if owner:
+                _trace.disable()
 
     def _train_ps(self, ds: Dataset, shuffle: bool, runner=None):
         """``backend="ps"``: worker threads against a parameter server; the

@@ -496,3 +496,164 @@ def test_a_failed_watched_run_stops_its_scraper():
     assert t._watchtower_active_ is None
     assert not [th for th in threading.enumerate()
                 if th.name == "dk-watch-scraper" and th.is_alive()]
+
+
+# -- spans inside the collective engine, the LM and the fused CE -------------
+
+def _lm_engine():
+    """A tiny fused-CE LM under ADAG (W=2, window 2, 2 rows a worker) on
+    the CPU, its engine, its state and one epoch of two windows staged."""
+    from distkeras_tpu_torch.models.lm import transformer_lm_spec
+    from distkeras_tpu_torch.parallel.local_sgd import LocalSGDEngine
+
+    spec = transformer_lm_spec(vocab=64, maxlen=16, dim=32, heads=2,
+                               depth=2, dtype=torch.float32,
+                               attn_impl="flash", pos_embedding="rope",
+                               fused_ce=True, ce_chunk=8)
+    t = trainers.ADAG(spec, loss="sparse_softmax_cross_entropy",
+                      worker_optimizer="adam", learning_rate=1e-3,
+                      num_workers=2, batch_size=2, communication_window=2,
+                      device="cpu")
+    eng = LocalSGDEngine(spec=t.spec, loss_step=t._loss_step(),
+                         optimizer=t.allocate_optimizer(),
+                         rule=t.allocate_merge_rule(), device="cpu",
+                         num_workers=2, window=2, batch_size=2)
+    params, nt = spec.init(0)
+    gen = torch.Generator().manual_seed(0)
+    tok = torch.randint(0, 64, (2, 8, 17), generator=gen)
+    staged = (tok[..., :16].contiguous(), tok[..., 1:].contiguous())
+    return eng, eng.init_state(params, nt), staged
+
+
+def _inside(inner, outer):
+    return (outer["t0_ns"] <= inner["t0_ns"] and inner["t0_ns"]
+            + inner["dur_ns"] <= outer["t0_ns"] + outer["dur_ns"])
+
+
+def test_engine_spans_nest_as_a_window_runs():
+    """Each window records one ``engine.window`` (corr its step, args its
+    rows and tokens) holding ``window`` × ``engine.grads`` (each holding
+    one ``engine.forward``) and ``engine.update``, then one
+    ``engine.merge``; the model's parts and the fused CE's forward lie
+    inside the forward, its backward inside ``engine.grads``."""
+    eng, state, staged = _lm_engine()
+    ttrace.enable()
+    try:
+        eng.run_epoch_resident(state, staged, None)
+        evs = ttrace.events()
+    finally:
+        ttrace.disable()
+    named = lambda n: [e for e in evs if e["name"] == n]
+    windows = named("engine.window")
+    assert [w["corr"] for w in windows] == ["x0", "x1"]
+    assert all(w["args"] == {"rows": 8, "tokens": 128} for w in windows)
+    for w in windows:
+        inside = lambda n: [e for e in named(n) if _inside(e, w)]
+        grads, fwd = inside("engine.grads"), inside("engine.forward")
+        assert len(grads) == len(fwd) == len(inside("engine.update")) == 2
+        assert len(inside("engine.merge")) == 1
+        assert all(_inside(f, g) for f, g in zip(fwd, grads))
+        assert all(e["corr"] == w["corr"] for e in evs if _inside(e, w))
+        for f, g in zip(fwd, grads):
+            parts = [e for e in evs if _inside(e, f)]
+            assert [e["name"] for e in parts].count("lm.attn") == 2
+            assert {"lm.embed", "lm.mlp", "lm.head", "flash.forward",
+                    "fused_ce.forward"} <= {e["name"] for e in parts}
+            back = [e for e in evs if _inside(e, g) and not _inside(e, f)
+                    and not e["name"].startswith("engine.")]
+            assert {e["name"] for e in back} == {"fused_ce.backward",
+                                                 "flash.backward"}
+        merge = inside("engine.merge")[0]
+        assert grads[-1]["t0_ns"] < merge["t0_ns"]
+
+
+def test_engine_spans_leave_the_arithmetic_alone():
+    """The center and the losses are bit-equal with tracing on and off;
+    off, nothing is recorded."""
+    out = {}
+    for on in (False, True):
+        eng, state, staged = _lm_engine()
+        if on:
+            ttrace.enable()
+        try:
+            state, losses = eng.run_epoch_resident(state, staged, None)
+            out[on] = (state.center, losses, ttrace.events())
+        finally:
+            ttrace.disable()
+    assert out[False][2] == [] and out[True][2]
+    torch.testing.assert_close(out[True][1], out[False][1], rtol=0, atol=0)
+    for k, v in out[False][0].items():
+        torch.testing.assert_close(out[True][0][k], v, rtol=0, atol=0)
+
+
+def test_span_call_sites_allocate_nothing_when_off():
+    """With tracing off, no block allocated at a span's call site in the
+    engine, the LM, the fused CE or flash, nor in the tracer, is alive
+    when a span is opened (what a call site builds for it), inside the
+    deepest open spans (the forward's flash, the fused CE's forward and
+    backward, the update, the merge), nor left over after a window
+    (``tracemalloc``)."""
+    import inspect
+    import re
+    import tracemalloc
+
+    from distkeras_tpu_torch.models import lm
+    from distkeras_tpu_torch.ops import flash_attention, fused_ce
+    from distkeras_tpu_torch.parallel import local_sgd
+
+    sites = [tracemalloc.Filter(True, ttrace.__file__)]
+    for mod in (local_sgd, lm, fused_ce, flash_attention):
+        lines = inspect.getsource(mod).splitlines()
+        hits = [i + 1 for i, ln in enumerate(lines)
+                if re.search(r"_trace\.|self\._window_span\(", ln)]
+        assert hits, mod.__name__
+        sites += [tracemalloc.Filter(True, mod.__file__, lineno=n)
+                  for n in hits]
+    eng, state, staged = _lm_engine()
+    eng.run_epoch_resident(state, staged, None)      # warm every path
+    assert not ttrace.enabled()
+    snaps = []
+    take = lambda: snaps.append(tracemalloc.take_snapshot())
+
+    def around(fn):
+        def wrapped(*a, **k):
+            take()
+            return fn(*a, **k)
+        return wrapped
+
+    import unittest.mock as mock
+
+    span = ttrace.span
+
+    def opening(name, cat="", corr=None, args=None):
+        # span's own signature: a *args wrapper would pack a tuple at
+        # the call site
+        take()
+        return span(name, cat, corr, args)
+
+    patches = [mock.patch.object(flash_attention, "_fa_forward",
+                                 around(flash_attention._fa_forward)),
+               mock.patch.object(fused_ce, "_chunk_logits",
+                                 around(fused_ce._chunk_logits)),
+               mock.patch.object(local_sgd, "tree_map",
+                                 around(local_sgd.tree_map)),
+               mock.patch.object(ttrace, "span", opening)]
+    merge = eng.rule.merge
+    eng.rule.merge = around(merge)
+    tracemalloc.start()
+    try:
+        with patches[0], patches[1], patches[2], patches[3]:
+            before = tracemalloc.take_snapshot()
+            eng._window_fn(state, tuple(c[:, :4].reshape(
+                2, 2, 2, 16) for c in staged))
+            after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+        eng.rule.merge = merge
+    assert len(snaps) > 40
+    for snap in snaps:
+        held = snap.filter_traces(sites).statistics("lineno")
+        assert held == [], held
+    grew = [d for d in after.filter_traces(sites).compare_to(
+        before.filter_traces(sites), "lineno") if d.size_diff > 0]
+    assert grew == [], grew

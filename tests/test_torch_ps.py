@@ -846,6 +846,13 @@ def test_later_ps_kwargs_raise_naming_their_item(kwargs, item):
                 with pytest.raises(ValueError) as err:
                     trainers.DynSGD(_spec(), backend=backend, device="cpu",
                                     **kwargs)
+                if "analyze" in kwargs:
+                    # the port takes trace/trace_dir on the collective
+                    # backend, so its refusal names analyze alone
+                    assert str(err.value).startswith(
+                        "analyze applies to backend='ps' only")
+                    assert "backend='ps' only" in str(jerr)
+                    continue
                 assert str(err.value) .split(" (")[0] == \
                     str(jerr).split(" (")[0]
                 continue

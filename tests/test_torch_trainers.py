@@ -225,7 +225,7 @@ def test_resident_and_streaming_paths_agree_unshuffled():
         torch.testing.assert_close(pa[k], pb[k], rtol=0, atol=0)
 
 
-def test_later_slice_kwargs_raise_naming_their_roadmap_item():
+def test_later_slice_kwargs_raise_naming_their_roadmap_item(tmp_path):
     spec = torch_mlp(input_shape=(8,), hidden=(4,), num_classes=2)
     # elastic membership (A7.8) and the membership directory (A7.9), once
     # refused, are taken, each with the reference's check that it needs
@@ -250,6 +250,27 @@ def test_later_slice_kwargs_raise_naming_their_roadmap_item():
         trainers.SingleTrainer(spec, analyze=True, device="cpu")
     assert trainers.SingleTrainer(spec, analyze=True, backend="ps",
                                   device="cpu").trace
+    # the flight recorder is taken on the collective backend too: it
+    # records the engine's spans and writes the timeline
+    import json
+
+    from distkeras_tpu_torch.observability import trace as ttrace
+
+    t = trainers.ADAG(torch_mlp(input_shape=(8,), hidden=(4,),
+                                num_classes=4),
+                      loss="sparse_softmax_cross_entropy",
+                      trace_dir=str(tmp_path), num_workers=2,
+                      batch_size=16, communication_window=2, num_epoch=1,
+                      device="cpu")
+    t.train(_blobs(n=128))
+    assert t.trace_path_ and not ttrace.enabled()
+    with open(t.trace_path_) as f:
+        doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"]}
+    assert {"engine.window", "engine.grads", "engine.forward",
+            "engine.update", "engine.merge"} <= names
+    assert isinstance(doc["otherData"]["unix_minus_monotonic_ns"], int)
+    assert trainers.ADAG(spec, trace=True, device="cpu").trace
     with pytest.raises(ValueError, match="backend='ps' only"):
         trainers.ADAG(spec, deploy_streamer=object(), device="cpu")
     with pytest.raises(TypeError, match="unexpected keyword"):
