@@ -61,9 +61,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    and backward, on the device) times and the bounds; then the
    flash Function under ``torch.func.vmap(grad)`` at W=2, through the
    kernels and the plain versions (one launch of K2, K3 and K4 for the
-   step); then the fused cross-entropy in bf16 under ``vmap(grad)`` at the
-   LM's head width: f32 logits and no per-worker loop
-   (``check_fused_ce``);
+   step); then the fused cross-entropy: its row kernels (``ce_fwd_rows``,
+   ``ce_bwd_rows``) against their plain versions at config 9's head chunk
+   with and without the bias, a ragged vocabulary and f32, db twice for
+   equal bits, with kernel, plain and library (``F.cross_entropy``) times
+   and the bounds; then the op in bf16 under ``vmap(grad)`` at the LM's
+   head width: f32 logits, one row-kernel launch a chunk for both workers
+   and no per-worker loop (``check_fused_ce``);
 8. one DynSGD window at full width through the kernels and the same window
    through their plain versions on the card: the centers must agree within
    the stated bf16 tolerance (see ``compare_window``);
@@ -94,12 +98,12 @@ Phases, in order; any failure exits non-zero and prints no result:
     ``ADAG(worker_optimizer="fused_adam", learning_rate=1e-4,
     num_workers=2, batch_size=8, communication_window=2)`` for two epochs
     of 3 windows on a learnable synthetic stream (``lm_tokens``), random
-    init from seed 0; K2, K3, K4 and K5's launch counters, reset just
-    before, must all show launches, no ``vmap`` may fall back to a loop
-    over workers, and the last window's loss must be below the first's;
-    then config 6's encoder classifier (``transformer_classifier(vocab
-    8192, maxlen 2048, dim 512, heads 8, depth 8, attn_impl="flash")``)
-    under ``DOWNPOUR(worker_optimizer="sgd",
+    init from seed 0; K2, K3, K4, K5 and the fused CE's row kernels'
+    launch counters, reset just before, must all show launches, no
+    ``vmap`` may fall back to a loop over workers, and the last window's
+    loss must be below the first's; then config 6's encoder classifier
+    (``transformer_classifier(vocab 8192, maxlen 2048, dim 512, heads 8,
+    depth 8, attn_impl="flash")``) under ``DOWNPOUR(worker_optimizer="sgd",
     learning_rate=1e-3, num_workers=2, batch_size=8)`` for 3 windows on
     ragged rows; K2, K3 and K4 must have launched and the loss be finite;
 13. the parameter-server backend (``backend="ps"``), every launch counter
@@ -1358,58 +1362,177 @@ def check_sass(_build):
     return out
 
 
+def check_ce_rows(torch, fce):
+    """The fused cross-entropy's row kernels (``csrc/fused_ce.cu``) against
+    their plain versions in ``ops/fused_ce.py``, on the same f32 logits:
+    config 9's head chunk (W=2 groups of LM_CHUNK rows, V=16384) with and
+    without the bias and bf16 dlogits, a ragged vocabulary (16383: the
+    one-element path) and an f32 run with a ragged row count. The backward
+    takes the plain forward's lse, so its dlogits repeat the plain ones
+    operation by operation (expf, products and sums rounded one by one):
+    within one ulp of the output type at the largest magnitude (measured:
+    ``dl_equal``). lse and nll are online sums in another order: within
+    4e-6 of the largest |lse|. db sums in another order: within 1e-5 of
+    the largest column sum of |dlogits|, and bit-equal between two
+    launches (the partials are added in a fixed order, no atomics on
+    sums). Launch counters count every launch. Times at config 9's chunk
+    with the bias: kernel, plain and ``F.cross_entropy`` (the library
+    yardstick the port never calls: forward, and forward + backward less
+    forward) over the same f32 logits, beside the bytes bound."""
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    V = LM_VOCAB
+    cases = (("lm9 bf16 bias", LM_W, LM_CHUNK, V, bf, True),
+             ("lm9 bf16", LM_W, LM_CHUNK, V, bf, False),
+             ("ragged V bf16 bias", LM_W, LM_CHUNK, V - 1, bf, True),
+             ("f32 ragged rows bias", 1, 300, V, f32, True))
+    rows, timed = [], None
+    for label, G, c, v, dt, with_bias in cases:
+        x = torch.randn((G, c, v), generator=gen, device=DEVICE) * 4.0
+        b = (torch.randn((G, v), generator=gen, device=DEVICE)
+             if with_bias else None)
+        y = torch.randint(0, v, (G, c), generator=gen, device=DEVICE)
+        m = torch.rand((G, c), generator=gen, device=DEVICE) * 2.0
+        sc = torch.rand((G,), generator=gen, device=DEVICE) + 0.5
+        lse = torch.empty((G, c), device=DEVICE)
+        nll = torch.empty_like(lse)
+        fce.ce_fwd_rows.launches = fce.ce_bwd_rows.launches = 0
+        fce.ce_fwd_rows(x, b, y, lse, nll)
+        p_lse, p_nll = fce._rows_fwd_plain(x, b, y)
+        tickets = fce.bwd_tickets(G, v, x.device)
+        outs = []
+        for _ in range(2):
+            dl = torch.empty((G, c, v), dtype=dt, device=DEVICE)
+            db = torch.zeros((G, v), device=DEVICE)
+            fce.ce_bwd_rows(x, b, y, p_lse, m, sc, dl, db, tickets)
+            outs.append((dl, db))
+        p_dl, p_db = fce._rows_bwd_plain(x, b, y, p_lse, m, sc, dt)
+        torch.cuda.synchronize()
+        (dl, db), (dl2, db2) = outs
+        tol_l = 4e-6 * p_lse.abs().max().item()
+        ulp = 2.0 ** -8 if dt == bf else 2.0 ** -23
+        tol_d = ulp * p_dl.float().abs().max().item()
+        col = (p_dl.float().abs().sum(1).max().item())
+        row = dict(case=label, G=G, rows=c, V=v, dtype=str(dt),
+                   lse_err=_err(lse, p_lse), nll_err=_err(nll, p_nll),
+                   dl_err=_err(dl, p_dl),
+                   dl_equal=bool(torch.equal(dl, p_dl)),
+                   db_err=_err(db, p_db),
+                   db_repeat_equal=bool(torch.equal(db, db2)
+                                        and torch.equal(dl, dl2)),
+                   fwd_launches=fce.ce_fwd_rows.launches,
+                   bwd_launches=fce.ce_bwd_rows.launches,
+                   splits=fce.bwd_splits(
+                       G, v, c, torch.cuda.get_device_properties(0)
+                       .multi_processor_count, 128))
+        if not (row["lse_err"] <= tol_l and row["nll_err"] <= tol_l
+                and row["dl_err"] <= tol_d and row["db_err"] <= 1e-5 * col
+                and row["db_repeat_equal"] and row["fwd_launches"] == 1
+                and row["bwd_launches"] == 2):
+            raise AssertionError(f"fused CE rows {label}: {json.dumps(row)} "
+                                 f"(tolerances lse/nll {tol_l}, dl {tol_d}, "
+                                 f"db {1e-5 * col})")
+        rows.append(row)
+        log("fused_ce rows " + json.dumps(row))
+        if timed is None:
+            timed = (x, b, y, lse, nll, m, sc, dl, db, tickets)
+    x, b, y, lse, nll, m, sc, dl, db, tickets = timed
+    G, c, v = x.shape
+    fwd_ms = cuda_ms(torch, lambda: fce.ce_fwd_rows(x, b, y, lse, nll))
+    bwd_ms = cuda_ms(torch, lambda: fce.ce_bwd_rows(
+        x, b, y, lse, m, sc, dl, db, tickets))
+    fwd_plain_ms = cuda_ms(torch, lambda: fce._rows_fwd_plain(x, b, y),
+                           iters=5)
+    bwd_plain_ms = cuda_ms(torch, lambda: fce._rows_bwd_plain(
+        x, b, y, lse, m, sc, bf), iters=5)
+    xl = (x + b[:, None, :]).reshape(G * c, v).requires_grad_()
+    yl = y.reshape(G * c)
+    f = torch.nn.functional.cross_entropy
+    lib_fwd_ms = cuda_ms(torch, lambda: f(xl.detach(), yl), iters=5)
+    lib_fb_ms = cuda_ms(torch, lambda: torch.autograd.grad(f(xl, yl), xl),
+                        iters=5)
+    n = G * c * v
+    out = dict(shape=[G, c, v], fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+               fwd_eager_ms=eager_ms(torch, lambda: fce.ce_fwd_rows(
+                   x, b, y, lse, nll)),
+               bwd_eager_ms=eager_ms(torch, lambda: fce.ce_bwd_rows(
+                   x, b, y, lse, m, sc, dl, db, tickets)),
+               fwd_plain_ms=fwd_plain_ms, bwd_plain_ms=bwd_plain_ms,
+               library_fwd_ms=lib_fwd_ms,
+               library_bwd_ms=lib_fb_ms - lib_fwd_ms,
+               fwd_bound=bound(4.0 * n, 0.0, PEAK_F32),
+               bwd_bound=bound(6.0 * n, 0.0, PEAK_F32))
+    log("fused_ce rows timed " + json.dumps(out))
+    del xl, timed
+    return rows, out
+
+
 def check_fused_ce(torch):
-    """The fused cross-entropy (``ops/fused_ce.py``) on the card in bf16 at
-    the LM's head (D=1024, V=16384, chunk 512), 2 workers of 1024 rows.
-    Each worker's loss equals the plain f32-logit reference (the same bf16
-    operands multiplied in f32) to 1e-5 relative, as the JAX op keeps its
-    logits f32 (summation order only; bf16 logits would move it ~1e-4).
-    ``vmap(grad)`` over the workers raises no vmap-fallback warning (a
-    per-worker loop) and matches a loop over workers: the loss to 1e-5
-    relative, dh and dkernel to 2^-7 of their largest magnitude (one bf16
-    ulp there: batched and single products may sum in another order, and
-    a last-bit f32 difference can flip a bf16 rounding)."""
+    """The fused cross-entropy (``ops/fused_ce.py``) on the card: first its
+    row kernels against their plain versions (``check_ce_rows``), then in
+    bf16 at the LM's head (D=1024, V=16384, chunk 512, bias), 2 workers of
+    1024 rows. Each worker's loss equals the plain f32-logit reference (the
+    same bf16 operands multiplied in f32) to 1e-5 relative, as the JAX op
+    keeps its logits f32 (summation order only; bf16 logits would move it
+    ~1e-4). ``vmap(grad)`` over the workers raises no vmap-fallback warning
+    (a per-worker loop), launches each row kernel once a chunk for both
+    workers, and matches a loop over workers: the loss to 1e-5 relative,
+    dh and dkernel to 2^-7 of their largest magnitude (one bf16 ulp there:
+    batched and single products may sum in another order, and a last-bit
+    f32 difference can flip a bf16 rounding), dbias (f32 sums in another
+    order: one worker's launch splits its rows otherwise) to 1e-5 of its
+    largest magnitude."""
     import warnings
 
-    from distkeras_tpu_torch.ops.fused_ce import chunked_softmax_cross_entropy
+    from distkeras_tpu_torch.ops import fused_ce as fce
 
+    rows, timed = check_ce_rows(torch, fce)
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     W, N, D, V = 2, 1024, LM_DIM, LM_VOCAB
     bf = torch.bfloat16
     hs = torch.randn((W, N, D), generator=gen, device=DEVICE).to(bf)
     ks = (torch.randn((W, D, V), generator=gen, device=DEVICE)
           * D ** -0.5).to(bf)
+    bs = torch.randn((W, V), generator=gen, device=DEVICE)
     ys = torch.randint(0, V, (W, N), generator=gen, device=DEVICE)
 
-    def loss(h, k, y):
-        return chunked_softmax_cross_entropy(h, y, k, chunk=LM_CHUNK)
+    def loss(h, k, b, y):
+        return fce.chunked_softmax_cross_entropy(h, y, k, b, chunk=LM_CHUNK)
 
-    grad = torch.func.grad_and_value(loss, argnums=(0, 1))
+    grad = torch.func.grad_and_value(loss, argnums=(0, 1, 2))
+    fce.ce_fwd_rows.launches = fce.ce_bwd_rows.launches = 0
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        (dh, dk), vals = torch.func.vmap(grad)(hs, ks, ys)
+        (dh, dk, db), vals = torch.func.vmap(grad)(hs, ks, bs, ys)
         torch.cuda.synchronize()
     fallback = [str(w.message) for w in caught if "batching rule"
                 in str(w.message)]
     if fallback:
         raise AssertionError(f"fused CE under vmap(grad) fell back to a "
                              f"per-worker loop: {fallback[:2]}")
-    errs = dict(loss=0.0, dh=0.0, dk=0.0)
+    launches = (fce.ce_fwd_rows.launches, fce.ce_bwd_rows.launches)
+    if launches != (N // LM_CHUNK, N // LM_CHUNK):
+        raise AssertionError(f"fused CE under vmap(grad): row kernel "
+                             f"launches {launches}, expected one a chunk "
+                             f"({N // LM_CHUNK}) a pass")
+    errs = dict(loss=0.0, dh=0.0, dk=0.0, db=0.0)
     for w in range(W):
         ref = torch.nn.functional.cross_entropy(
-            hs[w].float() @ ks[w].float(), ys[w])
-        (rh, rk), rv = grad(hs[w], ks[w], ys[w])
+            hs[w].float() @ ks[w].float() + bs[w], ys[w])
+        (rh, rk, rb), rv = grad(hs[w], ks[w], bs[w], ys[w])
         for name, got, want, tol in (
                 ("loss", vals[w], ref, 1e-5 * ref.abs().item()),
                 ("loss", vals[w], rv, 1e-5 * rv.abs().item()),
                 ("dh", dh[w], rh, 2.0 ** -7 * rh.float().abs().max().item()),
-                ("dk", dk[w], rk, 2.0 ** -7 * rk.float().abs().max().item())):
+                ("dk", dk[w], rk, 2.0 ** -7 * rk.float().abs().max().item()),
+                ("db", db[w], rb, 1e-5 * rb.abs().max().item())):
             e = _err(got, want)
             errs[name] = max(errs[name], e)
             if not e <= tol:
                 raise AssertionError(f"fused CE worker {w} {name}: |got - "
                                      f"want| = {e} beyond {tol}")
     log("fused_ce bf16 vmap(grad) W=2: ok " + json.dumps(errs))
+    return rows, timed
 
 
 def check_flash_vmap(torch, fa):
@@ -7790,14 +7913,18 @@ def main() -> int:
     log(f"slice 1-2 paths done at {time.perf_counter() - t0:.1f}s")
 
     compare_lm_window(torch)
+    from distkeras_tpu_torch.ops import fused_ce as fce
     counters = {"flash_attention": fa._fa_forward,
                 "flash_attention_bwd_dq": fa._fa_bwd_dq,
                 "flash_attention_bwd_dkv": fa._fa_bwd_dkv,
                 "fused_adam": pk.fused_adam_step}
-    for fn in counters.values():
+    ce_counters = {"ce_fwd_rows": fce.ce_fwd_rows,
+                   "ce_bwd_rows": fce.ce_bwd_rows}
+    for fn in (*counters.values(), *ce_counters.values()):
         fn.launches = 0
     lm_rec = train_lm(torch)
-    lm_launches = {k: fn.launches for k, fn in counters.items()}
+    lm_launches = {k: fn.launches for k, fn in
+                   {**counters, **ce_counters}.items()}
     log(f"launches on the LM training path: {json.dumps(lm_launches)}")
     if min(lm_launches.values()) < 1:
         raise AssertionError(f"a kernel never launched on the LM training "

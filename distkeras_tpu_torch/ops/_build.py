@@ -34,7 +34,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("quant", "flash_attention", "flash_attention_bwd", "adam", "lstm")
+KERNELS = ("quant", "flash_attention", "flash_attention_bwd", "adam", "lstm",
+           "fused_ce")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

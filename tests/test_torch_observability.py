@@ -633,8 +633,8 @@ def test_span_call_sites_allocate_nothing_when_off():
 
     patches = [mock.patch.object(flash_attention, "_fa_forward",
                                  around(flash_attention._fa_forward)),
-               mock.patch.object(fused_ce, "_chunk_logits",
-                                 around(fused_ce._chunk_logits)),
+               mock.patch.object(fused_ce, "_mm_f32",
+                                 around(fused_ce._mm_f32)),
                mock.patch.object(local_sgd, "tree_map",
                                  around(local_sgd.tree_map)),
                mock.patch.object(ttrace, "span", opening)]
