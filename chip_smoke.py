@@ -1535,6 +1535,160 @@ def check_fused_ce(torch):
     return rows, timed
 
 
+MOE_W, MOE_E, MOE_ROWS = 2, 16, 512   # the Trinity cell: workers, held
+MOE_D, MOE_F = 2048, 1024              # experts, rows a group; widths
+MOE_STATIC = MOE_W * 8192 * 8          # the layer's static rows (W·T·k)
+
+
+def _moe_offsets(torch, counts):
+    c = torch.tensor([0, *counts], dtype=torch.int64).cumsum(0)
+    return c.to(torch.int32).to(DEVICE)
+
+
+def _check_moe_swiglu(torch, mg, h, off, held, gen):
+    """The SwiGLU kernels between the products against their plain
+    versions on the held rows of ``h [R, 2F]`` (the gate|up product): the
+    same f32 arithmetic but ``__expf``, so within one bf16 ulp of the
+    largest output; ``dws`` within 1e-5 of its row's Σ|da·act|, zero in
+    rows of no group."""
+    R, f = h.shape[0], h.shape[1] // 2
+    ws = torch.rand((R,), generator=gen, device=DEVICE) * 2.0
+    da = torch.randn((R, f), generator=gen, device=DEVICE).to(h.dtype)
+    mg.swiglu_weighted.launches = mg.swiglu_weighted_grad.launches = 0
+    a = mg.swiglu_weighted(h, ws, off)[:held]
+    dh, a_w, dws = mg.swiglu_weighted_grad(h, ws, da, off)
+    pa = mg.swiglu_weighted_plain(h[:held], ws[:held])
+    pdh, pa_w, pdws = mg.swiglu_weighted_grad_plain(h[:held], ws[:held],
+                                                     da[:held])
+    g, u = h[:held].float().chunk(2, dim=1)
+    scale = (da[:held].float() * g * torch.sigmoid(g) * u).abs().sum(1)
+    out = dict(act_err=_err(a, pa), dh_err=_err(dh[:held], pdh),
+               a_w_err=_err(a_w[:held], pa_w),
+               dws_err=((dws[:held] - pdws).abs() / scale.clamp(min=1e-30))
+               .max().item(),
+               dws_tail_zero=bool((dws[held:] == 0).all().item()),
+               act_launches=[mg.swiglu_weighted.launches,
+                             mg.swiglu_weighted_grad.launches])
+    ok = (out["act_err"] <= 2.0 ** -7 * pa.float().abs().max().item()
+          and out["dh_err"] <= 2.0 ** -7 * pdh.float().abs().max().item()
+          and out["a_w_err"] <= 2.0 ** -7 * pa_w.float().abs().max().item()
+          and out["dws_err"] <= 1e-5 and out["dws_tail_zero"]
+          and out["act_launches"] == [1, 1])
+    if not ok:
+        raise AssertionError(f"moe_swiglu: {json.dumps(out)}")
+    return out
+
+
+def check_moe_gemm(torch, mg):
+    """The expert layer's grouped products (``csrc/moe_gemm.cu``) against
+    their plain versions in ``ops/moe_gemm.py``: at the Trinity cell's
+    shapes (W·E = 32 groups of about ``MOE_ROWS`` rows, one of them empty,
+    in ``MOE_STATIC`` static rows; K = 2048 for gate|up, 1024 for down),
+    and with one group holding every row. The kernel and the plain version
+    take the same bf16 operands and accumulate in f32, in other orders:
+    within one bf16 ulp of the largest output; rows of no group exactly
+    zero. Times at the cell's shapes: kernel, plain and
+    ``torch._grouped_mm`` (the library yardstick the port never calls,
+    where torch has it), beside the bound of ``portbench/flops/afmoe.py``'s
+    counts."""
+    from portbench.flops import afmoe as fl
+
+    gen = torch.Generator(device=DEVICE).manual_seed(27)
+    bf = torch.bfloat16
+    G = MOE_W * MOE_E
+    sizes = torch.randint(MOE_ROWS // 2, 3 * MOE_ROWS // 2, (G,),
+                          generator=torch.Generator().manual_seed(27))
+    sizes[3] = 0
+    cases = (("cell", [int(v) for v in sizes], MOE_STATIC),
+             ("one group", [0] * 5 + [4 * MOE_ROWS] + [0] * (G - 6),
+              8 * MOE_ROWS))
+    rows_out, timed = [], None
+    for label, counts, R in cases:
+        off = _moe_offsets(torch, counts)
+        held = sum(counts)
+        for name, (n, k) in (("gate_up", (2 * MOE_F, MOE_D)),
+                             ("down", (MOE_D, MOE_F))):
+            x = torch.randn((R, k), generator=gen, device=DEVICE).to(bf)
+            w = (torch.randn((G, n, k), generator=gen, device=DEVICE)
+                 * k ** -0.5).to(bf)
+            dy = torch.randn((R, n), generator=gen, device=DEVICE).to(bf)
+            for fn in (mg.grouped_mm, mg.grouped_mm_dx, mg.grouped_mm_dw):
+                fn.launches = 0
+            got = (mg.grouped_mm(x, w, off), mg.grouped_mm_dx(dy, w, off),
+                   mg.grouped_mm_dw(x, dy, off))
+            ref = (mg.grouped_mm_plain(x, w, off),
+                   mg.grouped_mm_dx_plain(dy, w, off),
+                   mg.grouped_mm_dw_plain(x, dy, off))
+            torch.cuda.synchronize()
+            row = dict(case=label, product=name, groups=G, rows=held,
+                       static_rows=R, n=n, k=k)
+            ok = True
+            for tag, a, b in zip(("fwd", "dx", "dw"), got, ref):
+                row[f"{tag}_err"] = _err(a, b)
+                row[f"{tag}_tol"] = 2.0 ** -7 * b.float().abs().max().item()
+                ok = ok and row[f"{tag}_err"] <= row[f"{tag}_tol"]
+            row["tail_zero"] = bool((got[0][held:] == 0).all().item()
+                                    and (got[1][held:] == 0).all().item())
+            row["launches"] = [mg.grouped_mm.launches,
+                               mg.grouped_mm_dx.launches,
+                               mg.grouped_mm_dw.launches]
+            if not (ok and row["tail_zero"] and row["launches"] == [1, 1, 1]):
+                raise AssertionError(f"moe_gemm {label} {name}: "
+                                     f"{json.dumps(row)}")
+            if name == "gate_up":
+                row.update(_check_moe_swiglu(torch, mg, got[0], off, held,
+                                             gen))
+            log("moe_gemm " + json.dumps(row))
+            rows_out.append(row)
+            if label == "cell":
+                timed = timed or []
+                timed.append((name, x, w, dy, off, held, n, k))
+    out = []
+    for name, x, w, dy, off, held, n, k in timed:
+        rec = dict(product=name, rows=held, static_rows=x.shape[0], n=n, k=k)
+        runs = (("fwd", lambda: mg.grouped_mm(x, w, off),
+                 lambda: mg.grouped_mm_plain(x, w, off)),
+                ("dx", lambda: mg.grouped_mm_dx(dy, w, off),
+                 lambda: mg.grouped_mm_dx_plain(dy, w, off)),
+                ("dw", lambda: mg.grouped_mm_dw(x, dy, off),
+                 lambda: mg.grouped_mm_dw_plain(x, dy, off)))
+        work = fl.grouped_products(held, w.shape[0], MOE_D, MOE_F)
+        work = work[:3] if name == "gate_up" else work[3:]
+        for (tag, kern, plain), (ops, nbytes) in zip(runs, work):
+            rec[f"{tag}_ms"] = cuda_ms(torch, kern)
+            rec[f"{tag}_plain_ms"] = cuda_ms(torch, plain, iters=2,
+                                             replays=2)
+            rec[f"{tag}_bound"] = bound(nbytes, ops, PEAK_BF16)
+        lib = getattr(torch, "_grouped_mm", None)
+        ends = off[1:]
+        try:
+            rec["library_fwd_ms"] = cuda_ms(torch, lambda: lib(
+                x, w.transpose(1, 2), offs=ends, out_dtype=torch.bfloat16))
+        except Exception as e:   # the yardstick only: record why not
+            rec["library_fwd_ms"] = f"{type(e).__name__}: {str(e)[:160]}"
+        if name == "gate_up":
+            h = mg.grouped_mm(x, w, off)
+            ws = torch.rand((x.shape[0],), generator=gen, device=DEVICE)
+            da = dy[:, :MOE_F].contiguous()
+            rec["swiglu_fwd_ms"] = cuda_ms(torch, lambda: mg.swiglu_weighted(
+                h, ws, off))
+            rec["swiglu_bwd_ms"] = cuda_ms(
+                torch, lambda: mg.swiglu_weighted_grad(h, ws, da, off))
+            rec["swiglu_fwd_plain_ms"] = cuda_ms(
+                torch, lambda: mg.swiglu_weighted_plain(h, ws), iters=5)
+            rec["swiglu_bwd_plain_ms"] = cuda_ms(
+                torch, lambda: mg.swiglu_weighted_grad_plain(h, ws, da),
+                iters=5)
+            # bytes of the held rows: h read (and da, then dh, a_w written)
+            rec["swiglu_fwd_bound"] = bound(held * (6 * MOE_F + 4), 0.0,
+                                            PEAK_BF16)
+            rec["swiglu_bwd_bound"] = bound(held * (12 * MOE_F + 8), 0.0,
+                                            PEAK_BF16)
+        log("moe_gemm timed " + json.dumps(rec))
+        out.append(rec)
+    return rows_out, out
+
+
 def check_flash_vmap(torch, fa):
     """The flash Function under ``torch.func.vmap(grad)`` at W=2: the
     gradients through K2–K4 equal those through the plain versions
@@ -7853,6 +8007,9 @@ def main() -> int:
          small_err) = check_flash_bwd(torch, fa)
     check_flash_vmap(torch, fa)
     check_fused_ce(torch)
+    from distkeras_tpu_torch.ops import moe_gemm
+    with torch.no_grad():
+        check_moe_gemm(torch, moe_gemm)
     log(f"kernel checks done at {time.perf_counter() - t0:.1f}s")
     train, test = imdb_data()
     compare_window(torch, train)

@@ -10,8 +10,11 @@ the model families beyond them: :func:`resnet_small` (BatchNorm state,
 optionally synchronized over the stacked workers), :func:`sru_classifier`
 and :func:`moe_transformer_classifier` (with :func:`moe_aux_loss`); the
 classifier's forwards over a mesh (:func:`pipelined_transformer_forward`,
-:func:`sequence_parallel_transformer_forward`)."""
+:func:`sequence_parallel_transformer_forward`); and the AFMoE LM
+(:class:`AfmoeLM`, :func:`afmoe_lm_spec`: windowed and full gated GQA,
+dropless sigmoid-routed experts)."""
 
+from distkeras_tpu_torch.models.afmoe import AfmoeLM, afmoe_lm_spec
 from distkeras_tpu_torch.models.cnn import LeNet, VGGSmall, lenet, vgg_small
 from distkeras_tpu_torch.models.lm import (
     TransformerLM,
@@ -50,4 +53,4 @@ __all__ = ["TransformerLM", "transformer_lm", "transformer_lm_spec",
            "LSTMClassifier", "lstm_classifier", "ResNetSmall",
            "resnet_small", "SRUClassifier", "sru_classifier",
            "MoETransformerClassifier", "moe_transformer_classifier",
-           "moe_aux_loss"]
+           "moe_aux_loss", "AfmoeLM", "afmoe_lm_spec"]

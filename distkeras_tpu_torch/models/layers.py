@@ -221,11 +221,14 @@ class _Remat(torch.autograd.Function):
 def remat_block(block: nn.Module, *args):
     """``block(*args)`` (one tensor out) rematerialized in the backward
     pass: activations inside the block are not kept, and the backward
-    pays one more forward of it. The block's parameters are explicit
-    inputs of the Function and keep their names; ``args`` may hold
-    ``None`` and tuples of tensors (a RoPE table). The recompute runs
-    under the mesh context of the forward (a strategy's groups)."""
-    names, params = zip(*block.named_parameters())
+    pays one more forward of it. The block's parameters and buffers are
+    explicit inputs of the Function and keep their names (a buffer that
+    ``functional_call`` swapped in, the engine's per-worker state, is a
+    batched tensor the Function must see); ``args`` may hold ``None`` and
+    tuples of tensors (a RoPE table). The recompute runs under the mesh
+    context of the forward (a strategy's groups)."""
+    names, params = zip(*block.named_parameters(),
+                        *block.named_buffers())
     ctx = mesh_mod.context()
     flat, spec = pytree.tree_flatten(args)
     where = [i for i, a in enumerate(flat) if isinstance(a, torch.Tensor)]

@@ -91,19 +91,19 @@ def apply_rope(x, angles):
 
 class Dense(nn.Module):
     """flax ``nn.Dense(dtype=...)`` counterpart: ``weight [out, in]`` and
-    ``bias`` in ``param_dtype`` (the model dtype unless given), the product
-    in the model dtype."""
+    ``bias`` (none with ``bias=False``) in ``param_dtype`` (the model dtype
+    unless given), the product in the model dtype."""
 
     def __init__(self, in_features: int, features: int, dtype, device,
-                 param_dtype=None):
+                 param_dtype=None, bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.parallel = None    # a Megatron role, set by DecoderBlock
         pdt = param_dtype or dtype
         self.weight = nn.Parameter(torch.empty(
             (features, in_features), dtype=pdt, device=device))
-        self.bias = nn.Parameter(torch.zeros(features, dtype=pdt,
-                                             device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            features, dtype=pdt, device=device)) if bias else None
 
     def forward(self, x):
         return parallel_linear(x, self.weight, self.bias, self.parallel,
@@ -1078,8 +1078,29 @@ def transformer_lm_spec(vocab=1024, maxlen=256, dim=128, heads=4, depth=2,
                        example=torch.zeros((1, maxlen), dtype=torch.int64))
     if not fused_ce:
         return spec
-    chunk = int(ce_chunk)
-    module_here = per_thread(module)
+    if tie_embeddings:
+        # the head IS the embedding: contract against its transpose
+        def head(params):
+            return params["embed.weight"].to(dtype).t(), None
+    else:
+        def head(params):
+            return (params["lm_head.weight"].to(dtype).t(),
+                    params["lm_head.bias"])
+    fused = fused_ce_loss(per_thread(module), dtype, head, ce_chunk)
+    return dataclasses.replace(
+        spec, fused_losses={"sparse_softmax_cross_entropy": fused})
+
+
+def fused_ce_loss(module_here, dtype, head, chunk: int):
+    """A spec's fused loss ``fused(params, state, x, y, training,
+    mask=None) -> (loss, state)``: the chunked cross-entropy of
+    ``ops/fused_ce.py`` over the module's hidden states (its forward with
+    ``return_hidden=True``, through ``functional_call`` on
+    ``module_here()``) in ``dtype`` and the head ``head(params) ->
+    (kernel [D, V] in dtype, bias [V] or None)``, ``chunk`` rows of logits
+    at a time. ``mask``: per-row validity ``[B]`` covers every token of
+    its row; ``[B, L]`` passes through."""
+    chunk = int(chunk)
 
     def fused(params, state, x, y, training, mask=None):
         h = torch.func.functional_call(module_here(), {**params, **state},
@@ -1087,25 +1108,17 @@ def transformer_lm_spec(vocab=1024, maxlen=256, dim=128, heads=4, depth=2,
         b_, l_, d_ = h.shape
         token_mask = None
         if mask is not None:
-            # per-row validity [B] covers every token of its row; [B, L]
-            # passes through
             mask = torch.as_tensor(mask, dtype=torch.float32,
                                    device=h.device)
             token_mask = (mask.repeat_interleave(l_) if mask.dim() == 1
                           else mask.reshape(b_ * l_))
-        if module.tie_embeddings:
-            # the head IS the embedding: contract against its transpose
-            kernel, bias = params["embed.weight"].to(module.dtype).t(), None
-        else:
-            kernel = params["lm_head.weight"].to(module.dtype).t()
-            bias = params["lm_head.bias"]
+        kernel, bias = head(params)
         loss = chunked_softmax_cross_entropy(
-            h.to(module.dtype).reshape(b_ * l_, d_), y.reshape(b_ * l_),
-            kernel, bias, mask=token_mask, chunk=chunk)
+            h.to(dtype).reshape(b_ * l_, d_), y.reshape(b_ * l_), kernel,
+            bias, mask=token_mask, chunk=chunk)
         return loss, state
 
-    return dataclasses.replace(
-        spec, fused_losses={"sparse_softmax_cross_entropy": fused})
+    return fused
 
 
 def quantize_lm(model: TransformerLM) -> TransformerLM:

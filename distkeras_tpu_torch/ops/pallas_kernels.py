@@ -64,8 +64,11 @@ def _bind(lib):
     lib.dk_adam_chunk.restype = i
 
 
-def _adam_cuda(gs, ms, vs, k):
-    """One launch of ``csrc/adam.cu`` over every leaf."""
+def _adam_cuda(gs, ms, vs, k, out=None):
+    """One launch of ``csrc/adam.cu`` over every leaf, into ``out``
+    (``(new_m, new_v, us)`` lists, which may be ``ms``, ``vs`` and ``gs``
+    themselves: the kernel reads an element's inputs before it writes its
+    outputs) or into new tensors."""
     dev = gs[0].device
     for g, m, v in zip(gs, ms, vs):
         if g.dtype not in _DTYPE_CODE:
@@ -81,9 +84,11 @@ def _adam_cuda(gs, ms, vs, k):
         if g.shape != m.shape or g.shape != v.shape:
             raise ValueError(f"gradient {tuple(g.shape)} and moments "
                              f"{tuple(m.shape)}/{tuple(v.shape)} differ")
-    new_m = [torch.empty_like(m) for m in ms]
-    new_v = [torch.empty_like(v) for v in vs]
-    us = [torch.empty_like(g) for g in gs]
+    if out is None:
+        out = ([torch.empty_like(m) for m in ms],
+               [torch.empty_like(v) for v in vs],
+               [torch.empty_like(g) for g in gs])
+    new_m, new_v, us = out
     table = _adam_table(gs, ms, vs, new_m, new_v, us)
     if table is not None:
         _adam_launch(table, k)
@@ -127,8 +132,10 @@ def _adam_launch(table, k):
 
 
 def fused_adam_step(gs, ms, vs, count: int, lr, b1=0.9, b2=0.999, eps=1e-8,
-                    impl: str = "kernel"):
-    """One Adam step over lists of leaves: ``(new_m, new_v, updates)``.
+                    impl: str = "kernel", out=None):
+    """One Adam step over lists of leaves: ``(new_m, new_v, updates)``,
+    written into ``out`` (three lists of tensors shaped as ``ms``, ``vs``
+    and ``gs``; they may be those leaves themselves) where given.
 
     ``count`` is the step number (1 on the first step). With
     ``impl="kernel"`` CUDA leaves go through one launch of the hand-written
@@ -143,11 +150,17 @@ def fused_adam_step(gs, ms, vs, count: int, lr, b1=0.9, b2=0.999, eps=1e-8,
         return [], [], []
     dev = gs[0].device
     if impl == "kernel" and dev.type == "cuda":
-        return _adam_cuda(gs, ms, vs, k)
+        return _adam_cuda(gs, ms, vs, k, out)
     if impl == "kernel" and dev.type != "cpu":
         raise ValueError(f"fused_adam runs on cpu or cuda tensors, got {dev}")
-    out = [_adam_plain(g, m, v, k) for g, m, v in zip(gs, ms, vs)]
-    return [o[0] for o in out], [o[1] for o in out], [o[2] for o in out]
+    res = [_adam_plain(g, m, v, k) for g, m, v in zip(gs, ms, vs)]
+    res = [o[0] for o in res], [o[1] for o in res], [o[2] for o in res]
+    if out is None:
+        return res
+    for dst, src in zip(out, res):
+        for d, x in zip(dst, src):
+            d.copy_(x)
+    return out
 
 
 fused_adam_step.launches = 0
@@ -166,19 +179,34 @@ def fused_adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         return {"count": 0, "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
 
-    def update(grads, state, params=None):
-        del params
+    def step(grads, state, into_grads: bool, own_state: bool):
         count = state["count"] + 1
         # autograd may hand back strided views (a transposed head's
         # gradient); the kernel walks contiguous leaves
         gs = [g.contiguous() for g in tree_leaves(grads)]
-        new_m, new_v, us = fused_adam_step(
-            gs, tree_leaves(state["mu"]), tree_leaves(state["nu"]), count,
-            lr, b1, b2, eps, impl=impl)
+        ms, vs = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        fresh = lambda leaves: [torch.empty_like(x) for x in leaves]
+        out = (ms if own_state else fresh(ms), vs if own_state else fresh(vs),
+               gs if into_grads else fresh(gs))
+        new_m, new_v, us = fused_adam_step(gs, ms, vs, count, lr, b1, b2,
+                                           eps, impl=impl, out=out)
         rebuild = lambda leaves: _unflatten(grads, iter(leaves))
         return rebuild(us), {"count": count, "mu": rebuild(new_m),
                              "nu": rebuild(new_v)}
 
+    def update(grads, state, params=None):
+        del params
+        return step(grads, state, False, False)
+
+    def update_into(grads, state, own_state: bool):
+        """``update`` for a caller that gives up ``grads`` (and, with
+        ``own_state``, ``state``'s moments): the updates are written over
+        the gradients and the new moments over the old, so that a step
+        allocates no new leaves (the collective engine within a window,
+        whose gradients and later moments nothing else holds)."""
+        return step(grads, state, True, own_state)
+
+    update.into = update_into
     return GradientTransformation(init, update)
 
 

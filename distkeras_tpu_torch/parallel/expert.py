@@ -16,6 +16,29 @@ differentiable ``all_to_all_single``, capacity counted a rank (the GShard
 convention), and the aux loss is the mean of the ranks'. Every replicated
 input (the tokens, the gate) enters through a conjugate operator, so its
 gradient comes back whole on every rank.
+
+Beside it, the LM's dropless token-choice layer (the port's own; the JAX
+package has none): :func:`route_sigmoid_topk` scores every expert with a
+sigmoid and picks ``top_k`` a token, and :func:`held_experts` computes
+the part of the layer's output that the experts held here give, for every
+token routed to them, whatever their number (no capacity, nothing
+dropped). It is told which experts it holds (``first`` and the count its
+weights carry): in an expert-parallel deployment every chip routes over
+all experts and computes its own experts' share, and this layer is that
+share without the exchange. The held (token, expert) pairs are sorted by
+expert on the device, their rows gathered, each expert's SwiGLU run over
+its own rows by the grouped products of ``ops/moe_gemm.py``, and the
+outputs weighted and summed back per token; no count reaches the host.
+Under ``torch.func.vmap`` over the engine's stacked workers the layer and
+its backward fold the worker axis into the expert groups: W workers'
+``E`` held experts are ``W · E`` groups of one launch.
+
+With ``observability.trace`` on, the layer records ``moe.route`` (the
+router, top-k, the sort and the gather), ``moe.experts`` (the grouped
+products and SwiGLU), ``moe.combine`` and, on the thread autograd runs it
+on, ``moe.backward``; :data:`LOAD` counts the pairs computed here and the
+load imbalance of the calls made on a thread that runs a window (see
+:class:`ExpertLoad`).
 """
 
 from __future__ import annotations
@@ -24,7 +47,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distkeras_tpu_torch.observability import trace as _trace
+from distkeras_tpu_torch.ops.moe_gemm import (
+    grouped_mm,
+    grouped_mm_dw,
+    grouped_mm_dx,
+    swiglu_weighted,
+    swiglu_weighted_grad,
+)
 from distkeras_tpu_torch.parallel import mesh as mesh_mod
+from distkeras_tpu_torch.utils import fold_vmapped as _fold
+from distkeras_tpu_torch.utils import unfold_vmapped as _unfold
 
 
 def init_moe_params(rng: np.random.Generator, d_model: int, d_hidden: int,
@@ -168,3 +201,212 @@ def moe_mlp(params, x, mesh, axis: str = "ep", top_k: int = 1,
              for k, v in params.items()}
     return moe_mlp_shard(local, x, g, top_k=top_k,
                          capacity_factor=capacity_factor)
+
+
+# -- the LM's dropless token-choice layer ----------------------------------------
+
+def route_sigmoid_topk(x, router_weight, expert_bias, top_k: int,
+                       route_scale: float):
+    """Sigmoid token-choice routing over every expert: ``s =
+    sigmoid(x · router_weightᵀ)`` in f32 (``router_weight [E, d]``), the
+    experts ``idx = topk(s + expert_bias)`` (the bias moves the choice
+    only), their weights ``s[idx]`` normalised to sum 1 (``+ 1e-20``) and
+    scaled by ``route_scale``. ``x [T, d]`` → ``(idx [T, top_k] int64,
+    w [T, top_k] f32)``; differentiable in ``x`` and the router through
+    ``w``."""
+    s = torch.sigmoid(x.to(torch.float32)
+                      @ router_weight.to(torch.float32).t())
+    idx = torch.topk(s + expert_bias, int(top_k), dim=-1).indices
+    w = torch.gather(s, -1, idx)
+    return idx, w / (w.sum(dim=-1, keepdim=True) + 1e-20) * route_scale
+
+
+class ExpertLoad:
+    """The held experts' load, counted while tracing is on. Each layer
+    call adds its groups' rows on the device; at the first call of the
+    next window (the engine's correlation id changes) the window's sums
+    are read to the host once and emitted as the tracer's counters
+    ``moe.pairs`` (pairs computed here a layer call, every worker's) and
+    ``moe.rows_max_over_mean`` (the largest group's rows over the mean
+    group's, averaged over the calls), and added to the totals
+    ``windows``, ``pairs`` and ``calls``."""
+
+    def __init__(self):
+        self.corr = None
+        self._sums = None       # device [pairs, max/mean] of the window
+        self._calls = 0
+        self.windows, self.pairs, self.calls = 0, 0.0, 0
+
+    def add(self, offsets) -> None:
+        corr = _trace.current_corr()
+        if corr != self.corr:
+            self.flush()
+            self.corr = corr
+        rows = (offsets[1:] - offsets[:-1]).to(torch.float32)
+        v = torch.stack([rows.sum(),
+                         rows.max() / rows.mean().clamp(min=1e-30)])
+        self._sums = v if self._sums is None else self._sums + v
+        self._calls += 1
+
+    def flush(self) -> None:
+        """Emit and total the pending window (one host read)."""
+        if self._sums is None:
+            return
+        pairs, ratio = self._sums.tolist()
+        n = self._calls
+        _trace.counter("moe.pairs", pairs / n)
+        _trace.counter("moe.rows_max_over_mean", ratio / n)
+        self.windows, self.pairs, self.calls = (
+            self.windows + 1, self.pairs + pairs, self.calls + n)
+        self._sums, self._calls = None, 0
+
+
+#: the process's expert-load counters (what the benchmark's readers read)
+LOAD = ExpertLoad()
+
+
+def _route(idx, first: int, held: int, workers: int):
+    """The held pairs sorted by (worker, expert), on the device: ``idx
+    [n, k]`` (``n`` tokens, worker after worker) → ``(ok [n·k] bool, order
+    [n·k]`` sorted position → pair, ``inv`` pair → sorted position, ``tok``
+    the sorted pairs' tokens, ``offsets`` int32 ``[workers·held + 1]``).
+    Pairs of experts held elsewhere sort last, in no group."""
+    n, k = idx.shape
+    local = idx - first
+    ok = ((local >= 0) & (local < held)).reshape(-1)
+    worker = torch.div(torch.arange(n, device=idx.device), n // workers,
+                       rounding_mode="floor")
+    groups = workers * held
+    key = torch.where(ok, (local + worker[:, None] * held).reshape(-1),
+                      groups)
+    skey, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        skey, torch.arange(groups + 1, device=idx.device,
+                           dtype=skey.dtype)).to(torch.int32)
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=idx.device))
+    tok = torch.div(order, k, rounding_mode="floor")
+    return ok, order, inv, tok, offsets
+
+
+def _held_forward(x, idx, w, w_gate_up, w_down, first, workers, load):
+    n, k = idx.shape
+    held = w_gate_up.shape[0] // workers
+    with _trace.span("moe.route"):
+        ok, order, inv, tok, offsets = _route(idx, first, held, workers)
+        xs = x.index_select(0, tok)
+        ws = torch.where(ok, w.reshape(-1), 0.0)[order]
+    if load is not None:
+        load.add(offsets)
+    with _trace.span("moe.experts"):
+        h = grouped_mm(xs, w_gate_up, offsets)
+        ys = grouped_mm(swiglu_weighted(h, ws, offsets), w_down, offsets)
+    with _trace.span("moe.combine"):
+        y = ys.index_select(0, inv).reshape(n, k, -1).sum(
+            dim=1, dtype=torch.float32)
+    return y, h
+
+
+def _held_backward(dy, x, idx, w, w_gate_up, w_down, h, first, workers):
+    n, k = idx.shape
+    held = w_gate_up.shape[0] // workers
+    ok, order, inv, tok, offsets = _route(idx, first, held, workers)
+    ws = torch.where(ok, w.reshape(-1), 0.0)[order]
+    dg = dy.to(x.dtype).index_select(0, tok)
+    dh, a_w, dws = swiglu_weighted_grad(
+        h, ws, grouped_mm_dx(dg, w_down, offsets), offsets)
+    d_down = grouped_mm_dw(a_w, dg, offsets)
+    d_gate_up = grouped_mm_dw(x.index_select(0, tok), dh, offsets)
+    dxs = grouped_mm_dx(dh, w_gate_up, offsets)
+    dx = dxs.index_select(0, inv).reshape(n, k, -1).sum(
+        dim=1, dtype=torch.float32).to(x.dtype)
+    return dx, dws[inv].reshape(n, k), d_gate_up, d_down
+
+
+def _fold_args(info, in_dims, args):
+    return [_fold(a, d, info.batch_size) if isinstance(a, torch.Tensor)
+            else a for a, d in zip(args, in_dims)]
+
+
+class _HeldExpertsGrad(torch.autograd.Function):
+    """The layer's backward as a Function, so that ``torch.func.vmap``
+    batches it through its rule (its own backward, a second derivative,
+    is not provided)."""
+
+    @staticmethod
+    def forward(dy, x, idx, w, w_gate_up, w_down, h, first, workers):
+        with _trace.span("moe.backward"):
+            return _held_backward(dy, x, idx, w, w_gate_up, w_down, h,
+                                  first, workers)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the expert layer has no second "
+                                  "derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        *tensors, first, workers = _fold_args(info, in_dims, args)
+        outs = _HeldExpertsGrad.apply(*tensors, first,
+                                      workers * info.batch_size)
+        return (tuple(_unfold(o, info.batch_size) for o in outs),
+                (0, 0, 0, 0))
+
+
+class _HeldExperts(torch.autograd.Function):
+    """``(y [n, d] f32, h)``: the held experts' weighted outputs a token,
+    and the gate|up product the backward reads (not differentiable).
+    Under ``vmap`` the worker axis folds into the tokens and the expert
+    groups; ``h`` then holds every worker's rows in the folded order, and
+    only the backward's rule, which folds it again, reads it."""
+
+    @staticmethod
+    def forward(x, idx, w, w_gate_up, w_down, first, workers, load):
+        return _held_forward(x, idx, w, w_gate_up, w_down, first, workers,
+                             load)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, idx, w, w_gate_up, w_down, first, workers, _ = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(x, idx, w, w_gate_up, w_down, output[1])
+        ctx.args = (first, workers)
+
+    @staticmethod
+    def backward(ctx, dy, _dh):
+        dx, dw, d_gate_up, d_down = _HeldExpertsGrad.apply(
+            dy, *ctx.saved_tensors, *ctx.args)
+        return dx, None, dw, d_gate_up, d_down, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        *tensors, first, workers, load = _fold_args(info, in_dims, args)
+        y, h = _HeldExperts.apply(*tensors, first, workers * info.batch_size,
+                                  load)
+        return (_unfold(y, info.batch_size), _unfold(h, info.batch_size)), \
+            (0, 0)
+
+
+def held_experts(x, idx, w, w_gate_up, w_down, first: int = 0):
+    """The part of a dropless token-choice layer's output that the experts
+    held here give: ``Σ_j w[t, j] · expert_{idx[t, j]}(x[t])`` over the
+    picks ``j`` whose expert is held, every expert a SwiGLU without bias,
+    ``down(silu(gate(x)) · up(x))``.
+
+    ``x [T, d]`` (the products' dtype), ``idx [T, k]`` global expert ids,
+    ``w [T, k]`` f32 gate weights, ``w_gate_up [E, 2F, d]`` (gate rows,
+    then up rows) and ``w_down [E, d, F]``, the experts ``first …
+    first + E - 1``. Returns ``[T, d]`` f32; differentiable in ``x``,
+    ``w`` and both weights, batchable by ``torch.func.vmap``. Dropless:
+    any number of a token's picks, and of all tokens, may land on one
+    expert, and an expert with none contributes zero."""
+    # counted on the thread that runs a window (its correlation id set),
+    # not in a rematerialised block's recompute on autograd's thread
+    count = _trace.enabled() and _trace.current_corr() is not None
+    y, _ = _HeldExperts.apply(x, idx, w, w_gate_up, w_down, int(first), 1,
+                              LOAD if count else None)
+    return y

@@ -244,6 +244,29 @@ class LocalSGDEngine:
         return _trace.span("engine.window",
                            args={"rows": int(rows), "tokens": int(tokens)})
 
+    def _step(self, k: int, grads, opt, workers):
+        """The optimizer's step ``k`` of a window and the parameter add.
+        The window's input state stays as it was (a caller may keep it);
+        what the window made itself is its own to overwrite: the
+        gradients always, the moments and the workers from the second
+        step on. An optimizer with an ``update.into`` (fused Adam) writes
+        its updates over the gradients and, from the second step on, its
+        moments over the old ones; from the second step on the updates
+        are added to the workers in place. No value changes, only where it
+        is stored: a 1B-parameter model's window would otherwise hold
+        three generations of workers and moments at once."""
+        into = getattr(self.optimizer.update, "into", None)
+        if into is not None:
+            updates, opt = into(grads, opt, own_state=k > 0)
+        else:
+            updates, opt = self.optimizer.update(grads, opt, workers)
+        if k > 0:
+            tree_map(lambda p, u: p.add_(u.to(p.dtype)), workers, updates)
+        else:
+            workers = tree_map(lambda p, u: p + u.to(p.dtype), workers,
+                               updates)
+        return workers, opt
+
     def _window_fn(self, state: TrainState, batch: tuple):
         """``window`` vmapped local steps + one merge → (state, mean loss)."""
         workers, nt, opt = state.workers, state.nt, state.opt_state
@@ -257,10 +280,8 @@ class LocalSGDEngine:
                         grads, (loss, nt) = self._worker_grads(
                             workers, nt, step_batch)
                     with _trace.span("engine.update"):
-                        updates, opt = self.optimizer.update(grads, opt,
-                                                             workers)
-                        workers = tree_map(lambda p, u: p + u.to(p.dtype),
-                                           workers, updates)
+                        workers, opt = self._step(k, grads, opt, workers)
+                    del grads
                     losses.append(loss)
             with _trace.span("engine.merge"):
                 center, workers = self.rule.merge(state.center, workers,

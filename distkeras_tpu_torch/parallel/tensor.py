@@ -494,13 +494,13 @@ def parallel_linear(x, weight, bias, role, dtype):
     """``F.linear`` in ``dtype`` with a Megatron ``role`` ("column",
     "row" or None) under the active tensor-parallel context."""
     g = mesh_mod.context().tp_group if role else None
+    b = None if bias is None else bias.to(dtype)
     if g is None:
-        return F.linear(x.to(dtype), weight.to(dtype), bias.to(dtype))
+        return F.linear(x.to(dtype), weight.to(dtype), b)
     if role == "column":
-        return F.linear(mesh_mod.copy_to(x, g).to(dtype), weight.to(dtype),
-                        bias.to(dtype))
+        return F.linear(mesh_mod.copy_to(x, g).to(dtype), weight.to(dtype), b)
     y = mesh_mod.reduce_from(F.linear(x.to(dtype), weight.to(dtype)), g)
-    return y + bias.to(dtype)
+    return y if b is None else y + b
 
 
 def tp_heads(heads: int, role) -> int:
